@@ -1,0 +1,51 @@
+"""Carry a JAX parameter tree across to the port.
+
+``params_from_jax`` turns the tree ``deepspeed_tpu``'s ``TransformerLM.init``
+produces (``models/transformer.py:283-312``: a nested dict of arrays, block
+parameters stacked on a leading layer axis, ``Linear`` kernels stored
+``[in, out]``) into a ``state_dict`` for the port's ``TransformerLM``:
+blocks unstacked into ``blocks.{l}.*``, kernels transposed to ``[out, in]``
+(the ``torch.nn.functional.linear`` layout), ``embedding``/``scale`` leaves
+renamed ``weight``. The tree's leaves must already be host arrays (for
+example after ``jax.device_get``); bf16 leaves keep their bits.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+# JAX leaf name -> port parameter name
+_LEAF = {"embedding": "weight", "scale": "weight", "kernel": "weight",
+         "bias": "bias"}
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no native bf16: move the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _leaf(name: str, a: torch.Tensor) -> torch.Tensor:
+    if name not in _LEAF:
+        raise KeyError(f"unknown JAX parameter leaf {name!r}")
+    return a.transpose(-1, -2).contiguous() if name == "kernel" else a
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``TransformerLM`` params -> the port's ``state_dict``."""
+    out: Dict[str, torch.Tensor] = {}
+    for top, sub in tree.items():
+        if top == "blocks":
+            for layer, leaves in sub.items():
+                for name, stacked in leaves.items():
+                    t = _tensor(stacked)
+                    for l in range(t.shape[0]):
+                        out[f"blocks.{l}.{layer}.{_LEAF[name]}"] = _leaf(name, t[l])
+        else:
+            for name, a in sub.items():
+                out[f"{top}.{_LEAF[name]}"] = _leaf(name, _tensor(a))
+    return out

@@ -1,0 +1,330 @@
+// Shared device code of the two paged-attention kernels
+// (ragged_paged_attention.cu, paged_decode.cu).
+//
+// One thread block computes one group of query rows (all rows of one atom,
+// or of one decode sequence, that read one kv head) against the keys of its
+// block table. The TPU kernels ran a sequential grid axis over pages with
+// the online-softmax state in VMEM scratch carried from one grid step to
+// the next; blocks on the GPU run in no order, so the key axis is a loop
+// inside the block and the state lives in the block's shared memory. The
+// loop walks TILES of up to kTileKeys keys (several pages), staged in
+// shared memory with cp.async and double-buffered, so the next tile's
+// loads are in flight while this one is computed:
+//
+//   for each tile of keys (pages j0 .. j0 + pages_per_tile - 1):
+//     start the next tile's K/V copies; wait for this tile's
+//     s[r][c] = q[r] . k[c]     one thread per (key, RC rows): each K
+//                               element read feeds RC rows; q is pre-scaled
+//     mask    : key < kv_len, and for the ragged wave key <= kv_len - q_len + t
+//     one warp per row: m_new = max(m, max_c s); p = exp(s - m_new);
+//                       rescale l and acc
+//     acc[r][d] += sum_c p[r][c] * v[c][d]   one thread per (2 columns,
+//                               RC rows), the sums in registers
+//   out[r] = acc[r] / l[r]   (l == 0 -> 0)
+//
+// The staged K/V rows are padded by kPad elements, so the 32 keys a warp
+// reads at one offset fall into distinct shared-memory banks. RC (rows a
+// thread carries) is 4 where the group has 4 or more rows, else 2 or 1,
+// chosen per block, so a decode row (g == 1) does no padded work.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dstt {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileKeys = 64;
+constexpr int kMaxRowChunk = 4;  // query rows one thread carries
+constexpr int kPad = 8;          // padding elements per staged K/V row
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// 8 consecutive elements of src as floats (16 or 32 bytes, aligned).
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* src, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// 2 consecutive elements as floats (4 or 8 bytes, aligned).
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* src) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+}
+__device__ __forceinline__ float2 load2(const float* src) {
+  return *reinterpret_cast<const float2*>(src);
+}
+
+// 16-byte global -> shared copy that bypasses registers (cp.async), and the
+// wait for all but the newest `n` committed groups of them.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// Mask values and softmax floor of the two TPU kernels.
+struct RaggedMask {  // pallas_flash MASK_VALUE / HALF_MASK, ragged_paged_attention.py:106-137
+  static constexpr bool kCausal = true;
+  static constexpr float kMask = -0.7f * 3.4028234663852886e38f;
+  static constexpr float kFloor = 0.5f * kMask;
+};
+struct DecodeMask {  // NEG_INF, pallas_paged_decode.py:54-93 (no floor)
+  static constexpr bool kCausal = false;
+  static constexpr float kMask = -2.3819763e38f;
+  static constexpr float kFloor = -3.4028234663852886e38f;
+};
+
+__host__ __device__ inline int tile_keys(int ps) {
+  return ps >= kTileKeys ? ps : (kTileKeys / ps) * ps;
+}
+
+__host__ __device__ inline int padded_rows(int rows) {
+  return (rows + kMaxRowChunk - 1) / kMaxRowChunk * kMaxRowChunk;
+}
+
+// fp32 part of the shared memory, rounded up to 16 bytes
+__host__ __device__ inline size_t smem_float_words(int rows, int ps, int D) {
+  const size_t rp = padded_rows(rows);
+  const size_t words = 2 * rp * D                // q, accumulator
+                       + rp * tile_keys(ps)      // scores / probabilities
+                       + 3 * rp;                 // max, denominator, rescale
+  return (words + 3) / 4 * 4;
+}
+
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(int rows, int ps, int D) {
+  return smem_float_words(rows, ps, D) * sizeof(float)
+         + 4 * (size_t)tile_keys(ps) * (D + kPad) * sizeof(T);  // K, V tiles, 2 buffers
+}
+
+// Attention of `rows = q_len * g` query rows (row r = t*g + gi is query
+// token t, head kvh*g + gi) against the keys of `table`, each thread
+// carrying RC rows. q and out point at the first token of the group; token
+// t, head h is at (t*H + h)*D. Requires D % 8 == 0 and 16-byte aligned rows.
+template <typename T, typename Mask, int RC>
+__device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
+                            const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+                            const int* __restrict__ table, int n_table, int H, int kvh,
+                            int g, int P, int ps, int D, int q_len, int kv_len,
+                            unsigned char* smem_raw) {
+  const int rows = q_len * g;
+  const int rp = (rows + RC - 1) / RC * RC;  // rows padded to whole chunks
+  const int n_rc = rp / RC;
+  const int TK = tile_keys(ps);
+  const int Dp = D + kPad;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* acc = qs + rp * D;
+  float* s = acc + rp * D;
+  float* m = s + rp * TK;
+  float* l = m + rp;
+  float* alpha = l + rp;
+  T* kv_tiles = reinterpret_cast<T*>(smem_raw + smem_float_words(rows, ps, D) * sizeof(float));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunks = D / 8;
+
+  for (int i = tid; i < rp * chunks; i += kThreads) {
+    const int r = i / chunks, c8 = (i - r * chunks) * 8;
+    if (r < rows) {
+      load8(q + (long)(r / g) * H * D + (long)(kvh * g + r % g) * D + c8, qs + r * D + c8);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qs[r * D + c8 + e] = 0.f;
+    }
+  }
+  for (int i = tid; i < rp * D; i += kThreads) acc[i] = 0.f;
+  for (int r = tid; r < rp; r += kThreads) {
+    m[r] = Mask::kMask;
+    l[r] = 0.f;
+  }
+
+  const int n_keys = min(kv_len, n_table * ps);
+  const long page_elems = (long)ps * D;
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+  const int vecs = D / V;
+  // stage the K and V rows of the tile starting at key k0 into buffer b
+  // (K at kv_tiles + b*2*TK*Dp, V right after it); all copies in flight at once
+  auto stage = [&](int k0, int b) {
+    T* kb = kv_tiles + (long)b * 2 * TK * Dp;
+    T* vb = kb + TK * Dp;
+    const int valid = min(TK, n_keys - k0);
+    for (int i = tid; i < valid * vecs; i += kThreads) {
+      const int c = i / vecs, e = (i - c * vecs) * V;
+      const int key = k0 + c;
+      int page = table[key / ps];
+      page = page < 0 ? 0 : (page >= P ? P - 1 : page);
+      const long src = ((long)kvh * P + page) * page_elems + (long)(key % ps) * D + e;
+      cp_async16(kb + c * Dp + e, k_pages + src);
+      cp_async16(vb + c * Dp + e, v_pages + src);
+    }
+    cp_async_commit();
+  };
+  if (n_keys > 0) stage(0, 0);
+  for (int k0 = 0, b = 0; k0 < n_keys; k0 += TK, b ^= 1) {
+    const int valid = min(TK, n_keys - k0);
+    // prefetch the next tile into the other buffer (its readers finished
+    // at the end of the previous step), then wait for this tile only
+    if (k0 + TK < n_keys) {
+      stage(k0 + TK, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks = kv_tiles + (long)b * 2 * TK * Dp;
+    const T* vs = ks + TK * Dp;
+
+    // scores: thread (key c, rows r0 .. r0+RC-1); neighbouring threads
+    // read neighbouring keys (distinct banks), q is a broadcast
+    for (int u = tid; u < TK * n_rc; u += kThreads) {
+      const int c = u % TK, r0 = (u / TK) * RC;
+      float dot[RC];
+#pragma unroll
+      for (int i = 0; i < RC; ++i) dot[i] = 0.f;
+      if (c < valid) {
+        const T* kr = ks + c * Dp;
+        const float* q0 = qs + r0 * D;
+        for (int e = 0; e < D; e += 8) {
+          float k8[8];
+          load8(kr + e, k8);
+#pragma unroll
+          for (int i = 0; i < RC; ++i) {
+            float q8[8];
+            load8(q0 + i * D + e, q8);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) dot[i] = fmaf(q8[j], k8[j], dot[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        const int r = r0 + i;
+        bool visible = c < valid;
+        if (Mask::kCausal) visible = visible && k0 + c <= kv_len - q_len + r / g;
+        s[r * TK + c] = visible ? dot[i] : Mask::kMask;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per row
+    for (int r = warp; r < rp; r += kWarps) {
+      float* sr = s + r * TK;
+      float mx = Mask::kMask;
+      for (int c = lane; c < valid; c += 32) mx = fmaxf(mx, sr[c]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = m[r];
+      const float m_next = fmaxf(m_prev, mx);
+      // the floor keeps fully masked rows at p == 0 (never inf - inf)
+      const float m_safe = fmaxf(m_next, Mask::kFloor);
+      float sum = 0.f;
+      for (int c = lane; c < valid; c += 32) {
+        const float p = expf(sr[c] - m_safe);
+        sr[c] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      __syncwarp();
+      if (lane == 0) {
+        const float a = expf(fmaxf(m_prev, Mask::kFloor) - m_safe);
+        l[r] = l[r] * a + sum;
+        m[r] = m_next;
+        alpha[r] = a;
+      }
+    }
+    __syncthreads();
+
+    // P.V: thread (columns d, d+1; rows r0 .. r0+RC-1), the 2*RC sums in
+    // registers, so each V element read feeds RC rows
+    const int half_d = D / 2;
+    for (int u = tid; u < half_d * n_rc; u += kThreads) {
+      const int d = (u % half_d) * 2, r0 = (u / half_d) * RC;
+      float o[RC][2];
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        const float a = alpha[r0 + i];
+        const float2 prev = *reinterpret_cast<const float2*>(acc + (r0 + i) * D + d);
+        o[i][0] = prev.x * a;
+        o[i][1] = prev.y * a;
+      }
+      for (int c = 0; c < valid; ++c) {
+        const float2 v = load2(vs + c * Dp + d);
+#pragma unroll
+        for (int i = 0; i < RC; ++i) {
+          const float p = s[(r0 + i) * TK + c];
+          o[i][0] = fmaf(p, v.x, o[i][0]);
+          o[i][1] = fmaf(p, v.y, o[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        *reinterpret_cast<float2*>(acc + (r0 + i) * D + d) = make_float2(o[i][0], o[i][1]);
+      }
+    }
+    __syncthreads();  // this buffer and s are free for the next step
+  }
+  __syncthreads();  // (no keys) the initial m / l / acc are visible to all
+
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    const float den = l[r] > 0.f ? l[r] : 1.f;
+    out[(long)(r / g) * H * D + (long)(kvh * g + r % g) * D + d] = from_float<T>(acc[i] / den);
+  }
+}
+
+// attend_rows with the widest row chunk the group fills.
+template <typename T, typename Mask>
+__device__ void attend_pages(const T* __restrict__ q, T* __restrict__ out,
+                             const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+                             const int* __restrict__ table, int n_table, int H, int kvh,
+                             int g, int P, int ps, int D, int q_len, int kv_len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = q_len * g;
+  if (rows >= 4) {
+    attend_rows<T, Mask, 4>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
+                            q_len, kv_len, smem_raw);
+  } else if (rows >= 2) {
+    attend_rows<T, Mask, 2>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
+                            q_len, kv_len, smem_raw);
+  } else {
+    attend_rows<T, Mask, 1>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
+                            q_len, kv_len, smem_raw);
+  }
+}
+
+// Opt in to the dynamic shared memory a launch needs beyond the 48 KB
+// default; returns the CUDA error of the attribute call.
+template <typename Kernel>
+inline cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace dstt

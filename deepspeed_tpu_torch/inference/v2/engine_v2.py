@@ -1,0 +1,277 @@
+"""Continuous-batching inference engine.
+
+Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` for one device:
+``put`` schedules new tokens for a set of UIDs and returns their
+next-token logits, ``query`` / ``can_schedule`` expose the KV budget to the
+scheduler, ``flush`` retires sequences, ``offload_sequence`` /
+``restore_sequence`` move a preempted sequence's KV to host memory and
+back, ``decode_burst`` fuses K decode steps.
+
+Every ``put`` runs as ragged waves: the host builder (``ragged/wave.py``)
+flattens each wave into one token stream plus atom descriptors, and the
+model runs one ``ragged_paged_attention`` launch per layer over it.
+Prompts longer than ``max_prefill_chunk`` take one wave per chunk.
+
+The engine runs on ``cuda`` unless given ``device="cpu"``; with neither it
+raises. Not ported (ROADMAP A5): the legacy two-class dispatch, the
+data-sharded pool, tensor parallelism, weight-only quantization and its
+cache, the slabbed host->device upload, ``build_hf_engine``, the module
+registry and the telemetry records.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...accelerator import DeviceLike, resolve_device
+from ...models.transformer import TransformerLM
+from .config_v2 import RaggedInferenceEngineConfig
+from .model import RaggedInferenceModel
+from .ragged.kv_cache import BlockedKVCache
+from .ragged.ragged_manager import DSStateManager
+from .ragged.ragged_wrapper import _next_bucket
+from .ragged.wave import WaveEntry, build_wave
+
+
+def _place_model(model: TransformerLM, params: Optional[Mapping[str, Any]],
+                 device: torch.device, seed: int) -> TransformerLM:
+    """Put the model's weights on ``device``: from ``params`` (a state dict,
+    e.g. ``convert.params_from_jax``) when given; else a meta-device model
+    is filled from a generator seeded with ``seed``; else the model's own
+    weights are moved."""
+    on_meta = any(p.is_meta for p in model.parameters())
+    if params is not None:
+        if on_meta:
+            model.to_empty(device=device)
+        else:
+            model.to(device)
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    elif on_meta:
+        model.materialize(device, seed)
+    else:
+        model.to(device)
+    return model.eval()
+
+
+class InferenceEngineV2:
+
+    def __init__(self, model: TransformerLM,
+                 config: Optional[RaggedInferenceEngineConfig] = None,
+                 params: Optional[Mapping[str, Any]] = None,
+                 device: DeviceLike = None, seed: int = 0):
+        self.config = config or RaggedInferenceEngineConfig()
+        self.device = resolve_device(device)
+        c = model.config
+        self.config.check_supported(c.dtype)
+        sm = self.config.state_manager
+        block_size = self.config.kv_block_size
+        max_ctx = min(sm.max_context, c.max_seq_len)
+        self.max_blocks_per_seq = -(-max_ctx // block_size)
+        num_blocks = self.config.num_kv_blocks
+        if num_blocks is None:
+            # enough for max_ragged_sequence_count sequences at half context
+            num_blocks = 1 + sm.max_ragged_sequence_count * max(
+                1, self.max_blocks_per_seq // 2)
+        self.kv_cache = BlockedKVCache(c.num_layers, c.kv_heads, c.head_dim,
+                                       num_blocks, block_size,
+                                       dtype=self.config.kv_cache_dtype,
+                                       device=self.device)
+        self.state_manager = DSStateManager(sm, self.kv_cache)
+        self.model = _place_model(model, params, self.device, seed)
+        self._model = RaggedInferenceModel(self.model, block_size,
+                                           self.max_blocks_per_seq,
+                                           self.config.ragged_block_q)
+
+    # -- scheduling queries -------------------------------------------------
+    def query(self, uid: int) -> Dict[str, int]:
+        seq = self.state_manager.get_sequence(uid)
+        return {
+            "seen_tokens": 0 if seq is None else seq.seen_tokens,
+            "cur_allocated_blocks": 0 if seq is None else seq.cur_allocated_blocks,
+            "free_blocks": self.state_manager.free_blocks,
+        }
+
+    @property
+    def max_context(self) -> int:
+        """Longest sequence the KV layout can hold."""
+        return self.max_blocks_per_seq * self.state_manager.block_size
+
+    def can_schedule(self, uids: Sequence[int], lengths: Sequence[int]) -> bool:
+        """Dry-run KV block budgeting for a batch."""
+        return self._plan_shards(uids, lengths) is not None
+
+    def _plan_shards(self, uids: Sequence[int],
+                     lengths: Sequence[int]) -> Optional[Dict[int, int]]:
+        """The placement rule ``can_schedule`` and ``put`` both evaluate,
+        in its one-shard form (the JAX engine's ``_plan_shards`` with a
+        single pool): the aggregate free-block check. Returns ``{uid: 0}``
+        or None if the batch does not fit."""
+        sm = self.config.state_manager
+        if len(uids) > sm.max_ragged_sequence_count:
+            return None
+        if sum(lengths) > sm.max_ragged_batch_size:
+            return None
+        free = self.state_manager.free_blocks
+        for uid, n in zip(uids, lengths):
+            seq = self.state_manager.get_sequence(uid)
+            seen = 0 if seq is None else seq.seen_tokens
+            have = 0 if seq is None else seq.cur_allocated_blocks
+            if seen + n > self.max_context:
+                # growing past the block table would overwrite live KV
+                return None
+            need = max(0, -(-(seen + n) // self.state_manager.block_size) - have)
+            if need > free:
+                return None
+            free -= need
+        return {uid: 0 for uid in uids}
+
+    def flush(self, uid: int) -> None:
+        self.state_manager.flush_sequence(uid)
+
+    # -- KV host offload / restore -----------------------------------------
+    def offload_sequence(self, uid: int) -> None:
+        self.state_manager.offload_sequence(uid)
+
+    def can_restore(self, uid: int, headroom: int = 0) -> bool:
+        return (self.state_manager.is_offloaded(uid)
+                and self.state_manager.can_restore(uid, headroom))
+
+    def is_offloaded(self, uid: int) -> bool:
+        return self.state_manager.is_offloaded(uid)
+
+    def restore_sequence(self, uid: int) -> None:
+        self.state_manager.restore_sequence(uid)
+
+    # -- forward ------------------------------------------------------------
+    def put(self, batch_uids: Sequence[int],
+            batch_tokens: Sequence[np.ndarray]) -> np.ndarray:
+        """Schedule new tokens for each UID; returns fp32 last-token logits
+        ``[len(uids), vocab]``. Mixed prefill chunks and decodes share each
+        wave; prompts longer than ``max_prefill_chunk`` take one extra wave
+        per extra chunk."""
+        if self._plan_shards(batch_uids, [len(t) for t in batch_tokens]) is None:
+            raise RuntimeError("batch does not fit KV/budget; call can_schedule first")
+        work: List[Tuple[int, np.ndarray]] = []
+        for uid, tokens in zip(batch_uids, batch_tokens):
+            tokens = np.asarray(tokens, np.int32)
+            seq = self.state_manager.get_or_create_sequence(uid)
+            self.state_manager.allocate_blocks(seq, len(tokens))
+            work.append((uid, tokens))
+
+        cap = self.config.max_prefill_chunk
+        out_logits: Dict[int, np.ndarray] = {}
+        offset = {uid: 0 for uid, _ in work}
+        while True:
+            wave = [(uid, toks[offset[uid]:offset[uid] + cap])
+                    for uid, toks in work if offset[uid] < len(toks)]
+            if not wave:
+                break
+            logits = self._run_wave(wave)
+            for i, (uid, chunk) in enumerate(wave):
+                offset[uid] += len(chunk)
+                out_logits[uid] = logits[i]
+        return np.stack([out_logits[u] for u in batch_uids])
+
+    def _device(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
+
+    def _run_wave(self, wave: List[Tuple[int, np.ndarray]]) -> np.ndarray:
+        """One ragged wave: [(uid, chunk)], any composition of decode
+        tokens and prefill chunks. Returns logits [len(wave), V]."""
+        sm = self.state_manager
+        entries = []
+        for uid, chunk in wave:
+            seq = sm.get_sequence(uid)
+            entries.append(WaveEntry(uid, chunk, seq.seen_tokens, list(seq.blocks)))
+        desc = build_wave(entries, block_q=self.config.ragged_block_q,
+                          block_size=sm.block_size)
+        i32 = torch.int32
+        logits = self._model.wave_forward(
+            self.kv_cache.k_pages, self.kv_cache.v_pages,
+            self._device(desc.tokens, i32), self._device(desc.positions, i32),
+            self._device(desc.write_idx, torch.int64),
+            self._device(desc.cu_q_lens, i32), self._device(desc.kv_lens, i32),
+            self._device(desc.page_indices, i32),
+            self._device(desc.last_rows, torch.int64))
+        for uid, chunk in wave:
+            sm.get_sequence(uid).post_forward(len(chunk))
+        logits = logits.cpu().numpy()
+        return np.stack([logits[desc.row_of_uid[uid]] for uid, _ in wave])
+
+    def can_burst(self, batch_uids: Sequence[int], num_steps: int) -> bool:
+        """Burst feasibility: ``len(uids)`` tokens per step against the
+        token budget, ``num_steps`` KV slots per sequence allocated up
+        front."""
+        sm = self.config.state_manager
+        n = len(batch_uids)
+        if n > sm.max_ragged_sequence_count or n > sm.max_ragged_batch_size:
+            return False
+        need = 0
+        for uid in batch_uids:
+            seq = self.state_manager.get_sequence(uid)
+            if seq is None or seq.seen_tokens == 0:
+                return False
+            if seq.seen_tokens + num_steps > self.max_context:
+                return False
+            total = -(-(seq.seen_tokens + num_steps)
+                      // self.state_manager.block_size)
+            need += max(0, total - seq.cur_allocated_blocks)
+        return need <= self.state_manager.free_blocks
+
+    def decode_burst(self, batch_uids: Sequence[int],
+                     last_tokens: Sequence[int], num_steps: int,
+                     temperatures: Optional[Sequence[float]] = None,
+                     seed: int = 0) -> np.ndarray:
+        """Generate ``num_steps`` tokens for every (already prefilled) UID
+        in one call with sampling on the device; returns ``[len(uids),
+        num_steps]``. Unlike the JAX engine, the batch is not padded to a
+        power-of-two bucket: eager PyTorch compiles nothing per shape."""
+        if not self.can_burst(batch_uids, num_steps):
+            raise RuntimeError("burst does not fit KV budget; call can_burst")
+        sm = self.state_manager
+        seqs = []
+        for uid in batch_uids:
+            seq = sm.get_sequence(uid)
+            sm.allocate_blocks(seq, num_steps)
+            seqs.append(seq)
+
+        B = len(batch_uids)
+        mp = self._bucket_blocks(batch_uids)
+        positions = np.zeros((B,), np.int32)
+        tables = np.zeros((B, mp), np.int32)
+        for i, seq in enumerate(seqs):
+            positions[i] = seq.seen_tokens
+            bt = seq.blocks[:mp]
+            tables[i, :len(bt)] = bt
+        temps = np.zeros((B,), np.float32) if temperatures is None \
+            else np.asarray(temperatures, np.float32)
+        toks = self._model.decode_burst(
+            self.kv_cache.k_pages, self.kv_cache.v_pages,
+            self._device(np.asarray(last_tokens, np.int32), torch.int32),
+            self._device(positions, torch.int32),
+            self._device(tables, torch.int32),
+            self._device(temps, torch.float32), num_steps,
+            generator=torch.Generator(device=self.device).manual_seed(seed))
+        for seq in seqs:
+            seq.post_forward(num_steps)
+        return toks.cpu().numpy()
+
+    def _bucket_blocks(self, uids) -> int:
+        need = max((len(self.state_manager.get_sequence(u).blocks) for u in uids),
+                   default=1)
+        return min(self.max_blocks_per_seq, _next_bucket(max(need, 1), lo=4))
+
+
+def build_engine(model: TransformerLM,
+                 config: Optional[RaggedInferenceEngineConfig] = None,
+                 params: Optional[Mapping[str, Any]] = None,
+                 device: DeviceLike = None, seed: int = 0) -> InferenceEngineV2:
+    """Engine from an in-memory model. ``params``: a state dict such as
+    ``convert.params_from_jax`` returns; without it a meta-device model is
+    filled from ``seed``. ``device``: ``cuda`` by default (raises without
+    a GPU); ``"cpu"`` runs the plain PyTorch path."""
+    return InferenceEngineV2(model, config=config, params=params,
+                             device=device, seed=seed)

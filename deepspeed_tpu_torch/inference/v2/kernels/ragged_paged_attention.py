@@ -1,0 +1,183 @@
+"""Ragged paged attention: ONE kernel launch for an arbitrary mixed wave.
+
+Counterpart of ``deepspeed_tpu/inference/v2/kernels/ragged_paged_attention.py``.
+A wave is any mix of prefill chunks and decode tokens, flattened by the
+host builder (``ragged/wave.py``) into a token stream ``q [N, H, D]`` split
+into atoms of at most ``block_q`` query tokens, described by
+
+- ``cu_q_lens [A+1]``: atom a owns flat rows ``cu_q_lens[a]:cu_q_lens[a+1]``
+  (zero-length atoms are padding);
+- ``kv_lens [A]``: the atom's visible context INCLUDING its own tokens;
+- ``page_indices [A, MP]``: the block table of the atom's sequence.
+
+Causality is bottom-right aligned per atom: query row t sits at absolute
+position ``kv_len - q_len + t``.
+
+Two versions of the same function:
+
+- ``ragged_paged_attention_reference``: plain PyTorch, the JAX XLA path
+  (scatter the stream into atom tiles, ``ragged_chunk_attention`` with
+  history ``kv_len - q_len``, gather back);
+- the CUDA kernel ``csrc/ragged_paged_attention.cu`` (the Pallas
+  ``_wave_kernel``'s counterpart), which reads the flat stream and the
+  pool directly.
+
+``ragged_paged_attention`` runs the plain version for tensors on the CPU
+and the kernel for tensors on a GPU; there is no other switch. The kernel
+takes q pre-scaled and cast back to q's dtype, as the Pallas call does
+(``_wave_call:273``); inside it, an atom's ``q_len x g`` query rows of one
+kv head are ordered ``row = t*g + gi``, the Pallas GQA fold. ``launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from .paged_attention import ragged_chunk_attention
+
+launches = 0
+
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _scatter_to_atoms(q: torch.Tensor, cu_q_lens: torch.Tensor, A: int,
+                      block_q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [N, H, D] flat wave stream -> ([A, block_q, H, D] atom tiles, dest).
+
+    Token i belongs to atom a = searchsorted(cu, i, right) - 1 at tile row
+    i - cu[a]. Rows that fall outside a tile (flat-stream padding beyond
+    the last atom) are dropped; their gathered output is garbage, as it is
+    in the JAX version, and is discarded by the caller."""
+    N = q.shape[0]
+    cu = cu_q_lens.long()
+    tok = torch.arange(N, device=q.device)
+    a_of = (torch.searchsorted(cu, tok, right=True) - 1).clamp(0, A - 1)
+    row = tok - cu[a_of]
+    dest = torch.where(row < block_q, a_of * block_q + row,
+                       torch.full_like(row, A * block_q))
+    flat = q.new_zeros((A * block_q + 1,) + tuple(q.shape[1:]))  # +1: drop row
+    flat[dest] = q
+    return flat[:A * block_q].reshape(A, block_q, *q.shape[1:]), dest
+
+
+def _gather_from_atoms(out_tiled: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """[A, bq, H, D] atom tiles -> [N, H, D] flat stream (pad rows clip)."""
+    A, bq = out_tiled.shape[:2]
+    flat = out_tiled.reshape(A * bq, *out_tiled.shape[2:])
+    return flat[dest.clamp(0, A * bq - 1)]
+
+
+def ragged_paged_attention_reference(q, k_pages, v_pages, kv_lens, page_indices,
+                                     cu_q_lens, scale: Optional[float] = None,
+                                     block_q: int = 8) -> torch.Tensor:
+    """Plain PyTorch version: same contract as ``ragged_paged_attention``."""
+    A = page_indices.shape[0]
+    q_lens = cu_q_lens[1:] - cu_q_lens[:-1]
+    q_tiled, dest = _scatter_to_atoms(q, cu_q_lens, A, block_q)
+    out = ragged_chunk_attention(q_tiled, k_pages, v_pages,
+                                 kv_lens.long() - q_lens.long(), page_indices,
+                                 scale=scale)
+    return _gather_from_atoms(out, dest)
+
+
+def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, kv_lens: torch.Tensor,
+                           page_indices: torch.Tensor, cu_q_lens: torch.Tensor,
+                           scale: Optional[float] = None,
+                           block_q: int = 8) -> torch.Tensor:
+    """One ragged wave of attention: q [N, H, D] against the blocked pool
+    ``k_pages`` / ``v_pages`` [kvH, P, ps, D]; returns [N, H, D].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise: there is no fallback)."""
+    N, H, D = q.shape
+    kvH = k_pages.shape[0]
+    if H % kvH:
+        raise ValueError(f"query heads {H} not a multiple of kv heads {kvH}")
+    if k_pages.dtype != q.dtype:
+        raise NotImplementedError(
+            f"a KV pool of {k_pages.dtype} under {q.dtype} queries (fp8 KV) "
+            f"is not ported (ROADMAP A5)")
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_reference(q, k_pages, v_pages, kv_lens,
+                                                page_indices, cu_q_lens,
+                                                scale, block_q)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"no ragged paged attention for {q.device}")
+    return _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens,
+                                        page_indices, cu_q_lens, scale,
+                                        block_q)
+
+
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in a built library, typed."""
+    fn = lib.dstt_ragged_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _kernel():
+    from . import _build
+    return bind(_build.load("ragged_paged_attention"))
+
+
+def check_kernel_args(q, k_pages, v_pages, descriptors) -> None:
+    """What both CUDA kernels accept: one CUDA device, bf16 or fp32, the
+    pool's dtype equal to q's, contiguous operands, int32 descriptors,
+    ``head_dim`` a multiple of 8 (16-byte vector loads)."""
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages), *descriptors):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(f"kernel dtype {q.dtype}; takes bf16 or fp32")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("k_pages / v_pages dtype must equal q's")
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
+                         f"{tuple(v_pages.shape)}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for name, t in descriptors:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32")
+    if q.shape[-1] % 8 or q.shape[-1] != k_pages.shape[-1]:
+        raise ValueError(f"head_dim {q.shape[-1]} must match the pool's "
+                         f"{k_pages.shape[-1]} and be a multiple of 8")
+
+
+def _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens, page_indices,
+                                 cu_q_lens, scale: float, block_q: int):
+    global launches
+    N, H, D = q.shape
+    kvH, P, ps, _ = k_pages.shape
+    A, MP = page_indices.shape
+    check_kernel_args(q, k_pages, v_pages, (
+        ("kv_lens", kv_lens), ("page_indices", page_indices),
+        ("cu_q_lens", cu_q_lens)))
+    if kv_lens.shape != (A,) or cu_q_lens.shape != (A + 1,):
+        raise ValueError(f"descriptors kv_lens {tuple(kv_lens.shape)} / "
+                         f"cu_q_lens {tuple(cu_q_lens.shape)} for {A} atoms")
+    q_scaled = (q * scale).to(q.dtype)
+    # rows past cu_q_lens[-1] (stream padding) belong to no atom: zeros
+    out = torch.zeros_like(q)
+    rc = _kernel()(q_scaled.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                   out.data_ptr(), cu_q_lens.data_ptr(), kv_lens.data_ptr(),
+                   page_indices.data_ptr(), A, H, kvH, P, ps, D, MP, block_q,
+                   int(q.dtype == torch.bfloat16),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    from ._build import launch_check
+    launch_check(rc, "ragged_paged_attention")
+    launches += 1
+    return out

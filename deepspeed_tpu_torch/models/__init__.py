@@ -1,0 +1,4 @@
+"""Model family of the port (counterpart of ``deepspeed_tpu/models``)."""
+
+from .llama import llama_config, llama_model  # noqa: F401
+from .transformer import TransformerConfig, TransformerLM  # noqa: F401

@@ -1,0 +1,244 @@
+"""Decoder-only transformer of the port (the Llama family and GPT-2-style
+learned-position models).
+
+Counterpart of ``deepspeed_tpu/models/transformer.py``. The JAX model is a
+stateless description whose block parameters are stacked on a leading
+layer axis and run under ``lax.scan``; here ``TransformerLM`` is an
+``nn.Module`` holding one ``Block`` per layer in an ``nn.ModuleList``. The
+per-block layer names (``ln_1``, ``q_proj`` ... ``down_proj``) are the JAX
+block's keys, so ``convert.params_from_jax`` maps one tree onto the other
+by name.
+
+A model is built on the ``meta`` device by default: it holds no storage
+until ``materialize`` (or the serving engine) places it on a device and
+fills it from a ``torch.Generator``.
+
+``forward`` is the plain full-sequence causal forward. Serving does not run
+it: tests and ``chip_smoke.py`` hold the serving path's logits against it.
+
+Configurations the port does not cover yet raise ``NotImplementedError``
+naming the ROADMAP item that will bring them: ALiBi, sliding windows, MoE
+and bidirectional encoders.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from ..nn import layers as L
+
+ACTIVATIONS = {
+    "gelu": L.gelu,  # tanh approximation
+    "gelu_exact": lambda x: torch.nn.functional.gelu(x),
+    "relu": torch.relu,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The port's copy of the JAX ``TransformerConfig`` fields that serving
+    reads (``deepspeed_tpu/models/transformer.py:85``)."""
+    vocab_size: int = 50257
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None   # None => MHA
+    hidden_size: int = 768
+    intermediate_size: Optional[int] = None  # None => 4*hidden
+    activation: str = "gelu"        # 'gelu' | 'gelu_exact' | 'relu' | 'silu_gated'
+    norm: str = "layernorm"          # 'layernorm' | 'rmsnorm'
+    norm_eps: float = 1e-5
+    position: str = "learned"        # 'learned' | 'rope' ('alibi': not ported)
+    position_offset: int = 0
+    rope_theta: float = 10000.0
+    rope_dim: Optional[int] = None   # partial rotary; None => head_dim
+    rope_style: str = "half"         # 'half' | 'interleaved'
+    attn_windows: Any = None         # sliding windows: not ported
+    attn_scale: Optional[float] = None  # None => 1/sqrt(head_dim)
+    linear_bias: Optional[bool] = None  # None => biases iff layernorm
+    attn_bias: Optional[bool] = None
+    attn_out_bias: Optional[bool] = None
+    lm_head_bias: bool = False
+    tie_embeddings: bool = True
+    causal: bool = True
+    moe: Any = None                  # mixture of experts: not ported
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def ffn_size(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+
+def check_supported(c: TransformerConfig) -> None:
+    """Raise for model features the port does not cover yet."""
+    if c.position == "alibi":
+        raise NotImplementedError(
+            "ALiBi positions are not ported (ROADMAP A5: ALiBi, windows, "
+            "fp8 KV and MoE serving)")
+    if c.attn_windows is not None:
+        raise NotImplementedError(
+            "sliding attention windows are not ported (ROADMAP A5: ALiBi, "
+            "windows, fp8 KV and MoE serving)")
+    if c.moe is not None:
+        raise NotImplementedError(
+            "MoE layers are not ported (ROADMAP A7: MoE; A5 for MoE serving)")
+    if not c.causal:
+        raise NotImplementedError(
+            "bidirectional encoders are not ported (ROADMAP A2: model "
+            "forward for training)")
+    if c.position not in ("rope", "learned"):
+        raise ValueError(f"unknown position style {c.position!r}")
+
+
+class Block(nn.Module):
+    """One pre-norm decoder block; attribute names match the JAX block's
+    parameter keys (``models/transformer.py:247-280``)."""
+
+    def __init__(self, c: TransformerConfig, device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=c.dtype)
+        norm = (lambda: L.RMSNorm(c.hidden_size, eps=c.norm_eps, **kw)) \
+            if c.norm == "rmsnorm" else \
+            (lambda: L.LayerNorm(c.hidden_size, eps=c.norm_eps, **kw))
+        use_bias = (c.linear_bias if c.linear_bias is not None
+                    else c.norm == "layernorm")
+        attn_bias = c.attn_bias if c.attn_bias is not None else use_bias
+        attn_out_bias = (c.attn_out_bias if c.attn_out_bias is not None
+                         else attn_bias)
+        h, kv_out = c.hidden_size, c.kv_heads * c.head_dim
+        self.ln_1 = norm()
+        self.q_proj = L.Linear(h, h, bias=attn_bias, **kw)
+        self.k_proj = L.Linear(h, kv_out, bias=attn_bias, **kw)
+        self.v_proj = L.Linear(h, kv_out, bias=attn_bias, **kw)
+        self.o_proj = L.Linear(h, h, bias=attn_out_bias, **kw)
+        self.ln_2 = norm()
+        self.gated = c.activation == "silu_gated"
+        if self.gated:
+            self.gate_proj = L.Linear(h, c.ffn_size, bias=False, **kw)
+            self.up_proj = L.Linear(h, c.ffn_size, bias=False, **kw)
+            self.down_proj = L.Linear(c.ffn_size, h, bias=False, **kw)
+        else:
+            self.act = ACTIVATIONS[c.activation]
+            self.fc_in = L.Linear(h, c.ffn_size, bias=use_bias, **kw)
+            self.fc_out = L.Linear(c.ffn_size, h, bias=use_bias, **kw)
+
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        """MLP over the PRE-NORMED input h."""
+        if self.gated:
+            return self.down_proj(L.silu(self.gate_proj(h)) * self.up_proj(h))
+        return self.fc_out(self.act(self.fc_in(h)))
+
+
+class TransformerLM(nn.Module):
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        check_supported(config)
+        c = self.config = config
+        device = torch.device("meta") if device is None else device
+        kw = dict(device=device, dtype=c.dtype)
+        self.wte = L.Embedding(c.vocab_size, c.hidden_size, **kw)
+        self.wpe = (L.Embedding(c.max_seq_len + c.position_offset,
+                                c.hidden_size, **kw)
+                    if c.position == "learned" else None)
+        self.blocks = nn.ModuleList(Block(c, device) for _ in range(c.num_layers))
+        self.ln_f = (L.RMSNorm(c.hidden_size, eps=c.norm_eps, **kw)
+                     if c.norm == "rmsnorm"
+                     else L.LayerNorm(c.hidden_size, eps=c.norm_eps, **kw))
+        self.lm_head = (None if c.tie_embeddings else
+                        L.Linear(c.hidden_size, c.vocab_size,
+                                 bias=c.lm_head_bias, **kw))
+
+    # -- weights -------------------------------------------------------------
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
+        """Fill every parameter in module order: normal(0, 0.02) for linear
+        and embedding weights, zero biases, unit norm scales (the JAX
+        layers' init distribution; the draws differ, as two generators do)."""
+        for m in self.modules():
+            if isinstance(m, (L.Linear, L.Embedding)):
+                m.reset_parameters(generator)
+            elif isinstance(m, (L.RMSNorm, L.LayerNorm)):
+                m.reset_parameters()
+
+    def materialize(self, device, seed: int = 0) -> "TransformerLM":
+        """Give a meta-device model storage on ``device`` and fill it from
+        ``torch.Generator(device).manual_seed(seed)``."""
+        device = torch.device(device)
+        self.to_empty(device=device)
+        self.init_weights(torch.Generator(device=device).manual_seed(seed))
+        return self
+
+    # -- pieces serving reads ------------------------------------------------
+    def rope(self, positions: torch.Tensor):
+        """The rotary tables of ``positions``, computed once per forward and
+        shared by every layer's ``rotate``."""
+        c = self.config
+        return L.rotary_tables(positions, min(c.rope_dim or c.head_dim, c.head_dim),
+                               c.rope_theta)
+
+    def rotate(self, x: torch.Tensor, rope) -> torch.Tensor:
+        """Rotary embedding by the tables ``rope``, possibly PARTIAL (only
+        the first ``rope_dim`` dims of each head rotate)."""
+        c = self.config
+        rd = c.rope_dim or c.head_dim
+        if rd >= c.head_dim:
+            return L.apply_rotary(x, *rope, c.rope_style)
+        rot = L.apply_rotary(x[..., :rd], *rope, c.rope_style)
+        return torch.cat([rot, x[..., rd:]], dim=-1)
+
+    def embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        x = self.wte(tokens)
+        if self.wpe is not None:
+            pos = positions.clamp(0, c.max_seq_len - 1) + c.position_offset
+            x = x + self.wpe(pos)
+        return x.to(c.dtype)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and LM head; fp32 logits."""
+        x = self.ln_f(x)
+        logits = self.wte.attend(x) if self.lm_head is None else self.lm_head(x)
+        return logits.float()
+
+    # -- plain reference forward ---------------------------------------------
+    @torch.no_grad()
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: ``input_ids [B, S]`` -> fp32 logits
+        ``[B, S, V]``. Attention is the plain chunk reference with no
+        history, one sequence at a time."""
+        from ..inference.v2.kernels.paged_attention import chunk_prefill_attention
+
+        c = self.config
+        B, S = input_ids.shape
+        positions = torch.arange(S, device=input_ids.device)[None, :].expand(B, S)
+        x = self.embed(input_ids, positions)
+        zero = torch.zeros((), dtype=torch.int64, device=input_ids.device)
+        rope = self.rope(positions) if c.position == "rope" else None
+        for blk in self.blocks:
+            h = blk.ln_1(x)
+            q = blk.q_proj(h).view(B, S, c.num_heads, c.head_dim)
+            k = blk.k_proj(h).view(B, S, c.kv_heads, c.head_dim)
+            v = blk.v_proj(h).view(B, S, c.kv_heads, c.head_dim)
+            if c.position == "rope":
+                q, k = self.rotate(q, rope), self.rotate(k, rope)
+            attn = torch.stack([
+                chunk_prefill_attention(q[b], k[b].transpose(0, 1),
+                                        v[b].transpose(0, 1), zero,
+                                        scale=c.attn_scale)
+                for b in range(B)])
+            x = x + blk.o_proj(attn.reshape(B, S, -1))
+            x = x + blk.mlp(blk.ln_2(x))
+        return self.head(x)

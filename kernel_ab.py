@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Interleaved A/B of two versions of the port's CUDA kernel sources on one GPU.
+
+    python3 kernel_ab.py A_CSRC_DIR B_CSRC_DIR [--rounds N]
+
+Builds both source directories' kernels with the package's own ``nvcc``
+flags (``deepspeed_tpu_torch/inference/v2/kernels/_build.py``), holds each
+version against the plain PyTorch versions in bf16 at every kernel case of
+``chip_smoke.py``, then times both at those cases in the order A, B, B, A
+(``--rounds`` times), one line per pass, so the two are compared on one
+card within one run. To compare a change with its parent, unpack the
+parent's ``deepspeed_tpu_torch/csrc`` with ``git archive`` into a directory
+that ``.gitignore`` lists and pass it as A. Exits non-zero without a GPU or
+when a version disagrees with the plain versions.
+"""
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("a", type=Path)
+    ap.add_argument("b", type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device; this script runs on a GPU", file=sys.stderr)
+        return 1
+    from deepspeed_tpu_torch.inference.v2.kernels import _build
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_decode_attention_reference
+    from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
+
+    versions = {}
+    for tag, csrc in (("A", args.a), ("B", args.b)):
+        csrc = csrc.resolve()
+        _build.build(csrc=csrc)
+        lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
+        versions[tag] = (rpa.bind(lib("ragged_paged_attention")),
+                         pdk.bind(lib("paged_decode")))
+        print(f"[ab] {tag} = {csrc}", flush=True)
+
+    def use(tag):
+        rpa._kernel = lambda: versions[tag][0]
+        pdk._kernel = lambda: versions[tag][1]
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    waves = {name: cs.wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
+                                cs.PAGE_SIZE, gen)[:2]
+             for name, (seqs, kvH, g, D) in cs.WAVE_CASES.items()}
+    decodes = {name: cs.decode_case(torch, ctxs, kvH, g, D, cs.PAGE_SIZE, gen)[0]
+               for name, (ctxs, kvH, g, D) in cs.DECODE_CASES.items()}
+    for tag in versions:
+        use(tag)
+        for name, (a, n) in waves.items():
+            want = rpa.ragged_paged_attention_reference(*a)
+            cs.check_close(f"{tag} ragged/{name}", rpa.ragged_paged_attention(*a)[:n],
+                           want[:n])
+        for name, a in decodes.items():
+            cs.check_close(f"{tag} decode/{name}", pdk.paged_gqa_decode(*a),
+                           paged_decode_attention_reference(*a))
+        print(f"[ab] {tag} agrees with the plain versions (bf16, {cs.BF16_TOL})",
+              flush=True)
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for tag in ["A", "B", "B", "A"] * args.rounds:
+        use(tag)
+        cells = [f"ragged/{name} {cs.device_ms(torch, lambda: rpa.ragged_paged_attention(*a), 20, flush)[0]:.4f}"
+                 for name, (a, _) in waves.items()]
+        cells += [f"decode/{name} {cs.device_ms(torch, lambda: pdk.paged_gqa_decode(*a), 20, flush)[0]:.4f}"
+                  for name, a in decodes.items()]
+        print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
+    print(cs.nvidia_smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Parity of the port's paged decode attention
+(``deepspeed_tpu_torch/inference/v2/kernels/paged_decode.py``) with the JAX
+Pallas ``paged_gqa_decode`` in interpret mode (as the JAX suite runs it on
+the CPU) and with the JAX plain ``_xla_paged_decode``. Same numpy inputs on
+both sides; fp32, tolerance 2e-5.
+
+On the CPU the port runs its plain version; ``chip_smoke.py`` holds the
+CUDA kernel to it on the GPU."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.inference.v2.kernels import paged_attention as tpa
+from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as tpd
+from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as trpa
+from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
+
+# the JAX kernels package re-exports functions under the modules' names
+jpa = importlib.import_module("deepspeed_tpu.inference.v2.kernels.paged_attention")
+jpd = importlib.import_module("deepspeed_tpu.inference.v2.kernels.pallas_paged_decode")
+
+PS, D, KVH = 4, 16, 2
+TOL = dict(rtol=2e-5, atol=2e-5)
+# contexts: inside one page, exactly one page, straddles, several pages
+CTXS = [1, 3, 4, 5, 9, 17, 30]
+
+
+def _inputs(ctxs, g, seed):
+    rng = np.random.default_rng(seed)
+    mp = max(-(-c // PS) for c in ctxs)
+    tables, nxt = np.zeros((len(ctxs), mp), np.int32), 1
+    for i, c in enumerate(ctxs):
+        nb = -(-c // PS)
+        tables[i, :nb] = np.arange(nxt, nxt + nb)
+        nxt += nb
+    k = rng.normal(size=(KVH, nxt + 1, PS, D)).astype(np.float32)
+    v = rng.normal(size=(KVH, nxt + 1, PS, D)).astype(np.float32)
+    q = rng.normal(size=(len(ctxs), KVH * g, D)).astype(np.float32)
+    return q, k, v, np.asarray(ctxs, np.int32), tables
+
+
+def _port(q, k, v, ctx, tables):
+    t = torch.from_numpy
+    return tpd.paged_gqa_decode(t(q), t(k), t(v), t(ctx), t(tables)).numpy()
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_plain_matches_jax_kernel(g):
+    q, k, v, ctx, tables = _inputs(CTXS, g, seed=g)
+    j = jnp.asarray
+    want = jpd.paged_gqa_decode(j(q), j(k), j(v), j(ctx), j(tables), interpret=True)
+    np.testing.assert_allclose(_port(q, k, v, ctx, tables), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_reference_matches_jax_plain(g):
+    q, k, v, ctx, tables = _inputs(CTXS, g, seed=10 + g)
+    j = jnp.asarray
+    want = jpa._xla_paged_decode(j(q), j(k), j(v), j(ctx), j(tables), 1 / D ** 0.5)
+    got = tpa.paged_decode_attention_reference(*map(torch.from_numpy,
+                                                    (q, k, v, ctx, tables)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_gather_pages_matches_jax():
+    _, k, _, _, tables = _inputs(CTXS, 1, seed=3)
+    got = tpa._gather_pages(torch.from_numpy(k), torch.from_numpy(tables))
+    want = jpa._gather_pages(jnp.asarray(k), jnp.asarray(tables))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_decode_rows_of_a_ragged_wave_match():
+    """A decode-only ragged wave and the paged decode give the same rows:
+    the two attention forms of the serving path agree."""
+    q, k, v, ctx, tables = _inputs(CTXS, 2, seed=4)
+    entries = [WaveEntry(i, np.zeros(1, np.int32), int(c) - 1,
+                         [int(b) for b in tables[i, :-(-int(c) // PS)]])
+               for i, c in enumerate(ctx)]
+    desc = build_wave(entries, block_q=8, block_size=PS)
+    qw = np.zeros((len(desc.tokens),) + q.shape[1:], np.float32)
+    qw[:len(ctx)] = q
+    t = torch.from_numpy
+    got = trpa.ragged_paged_attention(t(qw), t(k), t(v), t(desc.kv_lens),
+                                      t(desc.page_indices), t(desc.cu_q_lens))
+    np.testing.assert_allclose(got.numpy()[:len(ctx)], _port(q, k, v, ctx, tables),
+                               **TOL)
+
+
+def test_rejects_mismatched_heads():
+    q, k, v, ctx, tables = _inputs(CTXS, 2, seed=5)
+    with pytest.raises(ValueError, match="multiple"):
+        _port(q[:, :3], k, v, ctx, tables)
