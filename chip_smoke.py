@@ -6,26 +6,48 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. card: the device's name and ``nvidia-smi`` name / power limit;
-2. build: compile every kernel of the serving path from ``deepspeed_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) into ``build/``;
-3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
-   the card, bf16, at llama2-7b shapes (prefill, mixed and decode waves from
-   the port's own wave builder) and at GQA shapes, with its time, the plain
-   version's time and the card's lower bound for the same work;
-4. engine: llama2-7b at full width and depth, random bf16 weights from a
+2. build: compile every kernel of ``deepspeed_tpu_torch/csrc`` (the
+   ``op_builder`` registry: one ``nvcc`` per source, all at once) into
+   ``build/``;
+3. serving kernels vs plain: each paged-attention kernel against its plain
+   PyTorch version on the card, bf16 and fp32, at llama2-7b shapes
+   (prefill, mixed and decode waves from the port's own wave builder) and
+   at GQA shapes, with its time, the plain version's time and the card's
+   lower bound for the same work;
+4. training kernels vs plain (TF32 off for matmuls and cuDNN): flash
+   forward, dQ and dK/dV in bf16 and fp32 at the training shape
+   (tinyllama-1.1b: S 2048, 32 heads, 4 kv heads, head_dim 64), at the
+   llama2-7b shape (MHA, head_dim 128) and at small cases (negative
+   q_offset with fully masked rows, window, segment ids, ALiBi, Sq != Sk,
+   lengths off the tile); the fused Adam kernel on a 2048 x 5632 leaf and
+   on a fused bucket of lane-padded small leaves, adamw and lamb, fp32
+   moments and stochastically rounded bf16 ones, moments bitwise; each
+   with its time, bound, plain time and the time of PyTorch's own call for
+   the same function (``scaled_dot_product_attention``, fused AdamW), which
+   the port never calls;
+5. serving: llama2-7b at full width and depth, random bf16 weights from a
    seed, served through ``build_engine`` + ``generate`` (8 prompts, chunked
    prefill, mixed waves and decode bursts); the launch counters must show
    that the path ran through both kernels, every request must get its
    tokens, and one prompt's prefill logits must match the plain
    full-sequence ``TransformerLM.forward``; a second engine over the same
    weights with a small pool must preempt, offload to host memory and
-   restore, and still produce every token;
-5. profile: the same ``generate`` under ``torch.profiler``, device time by
-   kernel and the device's busy share.
+   restore, and still produce every token; the same ``generate`` under
+   ``torch.profiler``;
+6. training: tinyllama-1.1b at full width and depth, sequence 2048,
+   micro-batch 8, bf16 with fp32 master and moments, AdamW, clipping 1.0,
+   through ``deepspeed_tpu_torch.initialize`` + ``train_batch``: 2 warm-up
+   and 5 timed steps on one seeded batch (step time, tokens/s, MFU, peak
+   memory), the losses finite, the first near ln(32000) and falling; the
+   launch counters must show 44 flash forwards (remat reruns each block's
+   forward), 22 dQ, 22 dK/dV and one Adam launch per bucket a step; one
+   more step under ``torch.profiler``; then a 2-layer model of the same
+   width trained 3 steps through the kernels and 3 steps through their
+   plain versions from the same weights, the losses within 2e-2.
 
-The output ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line
-and the result line ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX or ``deepspeed_tpu``; needs one CUDA device.
+The output ends with a ``{"kernels": [...]}`` line (six kernels), the
+``nvidia-smi`` line and the result line ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or ``deepspeed_tpu``; needs one CUDA device.
 """
 
 import json
@@ -45,6 +67,7 @@ NUM_LAYERS = 32       # llama2-7b full depth
 # preemption run: 4 requests that end at 8 blocks each against a pool of 20
 PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_NEW_TOKENS, PREEMPT_BLOCKS = 4, 64, 64, 21
 SPIN_CYCLES = 400_000_000  # ~0.2 s of device spin behind each timing loop
+PLAIN_SPIN = 10 * SPIN_CYCLES  # the plain versions enqueue hundreds of ops a call
 PAGE_SIZE = 16
 # kernel cases at llama2-7b shapes (kvH 32, g 1, D 128) and GQA shapes
 WAVE_CASES = {
@@ -66,6 +89,36 @@ DECODE_CASES = {
 }
 MAIN_WAVE = "prefill-2x256"          # the shape of the engine run's first wave
 MAIN_DECODE = "decode-8-first-burst"  # the engine run's first burst step
+# flash-attention cases: (B, Sq, Sk, H, kvH, D, mask); fp32 runs B <= 2
+FLASH_CASES = {
+    "tinyllama-b8": (8, 2048, 2048, 32, 4, 64, {}),    # the training step's shape
+    "llama2-7b-mha": (1, 2048, 2048, 32, 32, 128, {}),
+    "neg-offset": (2, 256, 256, 8, 2, 64, {"q_offset": -100, "dlse": True}),
+    "window": (2, 300, 300, 8, 2, 64, {"window": 64}),
+    "segments": (2, 256, 256, 8, 4, 32, {"segments": True, "dlse": True}),
+    "alibi": (2, 256, 256, 8, 8, 128, {"alibi": True}),
+    "sq-ne-sk": (2, 100, 333, 8, 2, 64, {}),
+    "noncausal-ragged": (2, 77, 200, 4, 2, 64, {"causal": False}),
+}
+MAIN_FLASH = "tinyllama-b8"
+FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha")
+FLASH_GRAD_FP32_TOL = 1e-4   # fp32 sums over 2048 keys x 8 heads, two orders
+# Adam cases: (leaf sizes, mode, moment dtype); grads bf16, master fp32
+ADAM_CASES = {
+    "leaf-2048x5632-adamw-fp32": ([2048 * 5632], "adamw", "float32"),
+    "leaf-2048x5632-adamw-bf16sr": ([2048 * 5632], "adamw", "bfloat16"),
+    "leaf-2048x5632-lamb-fp32": ([2048 * 5632], "lamb", "float32"),
+    "bucket-adamw-bf16sr": ([2048, 300, 777, 524288, 5], "adamw", "bfloat16"),
+    "bucket-lamb-bf16sr": ([2048, 300, 777, 524288, 5], "lamb", "bfloat16"),
+    "bucket-adamw-fp32": ([2048, 300, 777, 524288, 5], "adamw", "float32"),
+}
+MAIN_ADAM = "leaf-2048x5632-adamw-fp32"
+MASTER_RTOL = 1e-6   # fp32 master: same IEEE ops on both sides
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 8, "bf16": {"enabled": True},
+                "gradient_clipping": 1.0,
+                "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}}}
+TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 2048, 2, 5
+PATH_LAYERS, PATH_STEPS, PATH_RTOL = 2, 3, 2e-2   # kernel vs plain training path
 
 
 def fail(msg):
@@ -78,7 +131,7 @@ def nvidia_smi():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def device_ms(torch, fn, iters, flush):
+def device_ms(torch, fn, iters, flush, spin=SPIN_CYCLES):
     """(device ms, host ms) per call of ``fn``, L2 flushed before each call.
 
     A spin kernel keeps the device busy while the host enqueues every
@@ -93,7 +146,7 @@ def device_ms(torch, fn, iters, flush):
     spin0, spin1 = ev(), ev()
     pairs = [(ev(), ev()) for _ in range(iters)]
     spin0.record()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     spin1.record()
     t0 = time.perf_counter()
     for start, end in pairs:
@@ -106,6 +159,24 @@ def device_ms(torch, fn, iters, flush):
     if host_ms >= spin0.elapsed_time(spin1):
         fail(f"timing: host enqueue {host_ms:.1f} ms outlasted the device spin")
     return (sum(s.elapsed_time(e) for s, e in pairs) / iters, host_ms / iters)
+
+
+def synced_ms(torch, fn, iters):
+    """ms per call of ``fn`` between events recorded around each call, the
+    device synchronized before each: for functions that make the host wait
+    (allocator calls of the plain flash versions), which ``device_ms``
+    cannot hide behind its spin; host stalls inside a call count."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def bound(nbytes, flops, dtype):
@@ -222,46 +293,240 @@ def profile_generate(torch, generate, engine, prompts, wall):
               f"{e.key[:90]}", flush=True)
 
 
-def main():
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on a GPU",
-              file=sys.stderr)
-        return 1
-    from deepspeed_tpu_torch.inference.v2 import (
-        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig,
-        build_engine, generate)
-    from deepspeed_tpu_torch.inference.v2.kernels import _build
+# ---------------------------------------------------------------------------
+# training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_case(torch, flash, B, Sq, Sk, H, kvH, D, mask, dtype, gen):
+    """Inputs, mask spec and the card's bound inputs of one flash case."""
+    dev = "cuda"
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, kvH, D), rnd(B, Sk, kvH, D), rnd(B, Sq, H, D)
+    seg = (torch.randint(0, 3, (B, Sk), generator=gen, device=dev).to(torch.int32)
+           if mask.get("segments") else None)
+    slopes = None
+    if mask.get("alibi"):
+        slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device=dev, dtype=torch.float32) / H)
+    spec = flash.mask_spec(q, k, causal=mask.get("causal", True), segment_ids=seg,
+                           q_segment_ids=None if seg is None else seg[:, :Sq],
+                           alibi_slopes=slopes, window=mask.get("window"),
+                           q_offset=mask.get("q_offset"))
+    dlse = (torch.randn(B, H, Sq, generator=gen, device=dev) if mask.get("dlse") else None)
+    # visible (query, key) pairs: the work the data needs
+    qp = torch.arange(Sq, device=dev)[:, None] + spec.q_offset
+    kp = torch.arange(Sk, device=dev)[None, :]
+    vis = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
+    if spec.causal:
+        vis = qp >= kp
+        if spec.window > 0:
+            vis = vis & (qp - kp < spec.window)
+    vis = vis[None].expand(B, Sq, Sk)
+    if seg is not None:
+        vis = vis & (spec.qseg[:, :, None] == spec.kseg[:, None, :])
+    pairs = int(vis.sum()) * H
+    return (q, k, v, do, dlse, spec), pairs
+
+
+def flash_bounds(B, Sq, Sk, H, kvH, D, pairs, isz):
+    """(bytes, flops) of forward, dQ and dK/dV: each input read once, each
+    output written once; 2 flops per multiply-add of the products the
+    visible pairs need (forward S, PV; dQ S, dP, dQ; dK/dV S, dP, dV, dK)."""
+    qn, kn, rows = B * Sq * H * D, B * Sk * kvH * D, B * H * Sq * 4
+    return {"flash_fwd": ((2 * qn + 2 * kn) * isz + rows, 4 * D * pairs),
+            "flash_dq": ((3 * qn + 2 * kn) * isz + 2 * rows, 6 * D * pairs),
+            "flash_dkv": ((2 * qn + 4 * kn) * isz + 2 * rows, 8 * D * pairs)}
+
+
+def flash_single_launchers(torch, flash, q, k, v, o, lse, do, spec):
+    """The dQ and the dK/dV kernel launched alone, for timing (no counts)."""
+    from deepspeed_tpu_torch.ops.op_builder.builder import launch_check
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    p = flash._params(q, k, v, spec)
+    p.o, p.dout, p.lse, p.di = o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr()
+    _, dq_fn, dkv_fn = flash._kernels()
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    keep = (di, dq, dk, dv)
+
+    def run_dq():
+        p.out0 = keep[1].data_ptr()
+        launch_check(dq_fn(p, bf16, stream), "flash_dq")
+
+    def run_dkv():
+        p.out0, p.out1 = keep[2].data_ptr(), keep[3].data_ptr()
+        launch_check(dkv_fn(p, bf16, stream), "flash_dkv")
+    return run_dq, run_dkv
+
+
+def flash_kernels_vs_plain(torch, flash, gen, flush):
+    """Every flash case in bf16 and fp32: forward (O, LSE) and backward
+    (dQ, dK, dV, from the plain forward's O and LSE) against the plain
+    versions; the timed cases also against ``scaled_dot_product_attention``.
+    Returns {kernel: row of the main case} and the max errors."""
+    import torch.nn.functional as F
+    rows, errs = {}, {"flash_fwd": [], "flash_dq": [], "flash_dkv": []}
+    for name, (B, Sq, Sk, H, kvH, D, mask) in FLASH_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            b = B if dtype == torch.bfloat16 else min(B, 2)
+            (q, k, v, do, dlse, spec), pairs = flash_case(torch, flash, b, Sq, Sk, H, kvH,
+                                                          D, mask, dtype, gen)
+            bf = dtype == torch.bfloat16
+            tol, gtol = (BF16_TOL, BF16_TOL) if bf else (FP32_TOL, FLASH_GRAD_FP32_TOL)
+            o, lse = flash.flash_fwd(q, k, v, spec)
+            o_ref, lse_ref = flash.flash_fwd_reference(q, k, v, spec=spec)
+            torch.cuda.synchronize()
+            tag = f"flash/{name} {str(dtype)[6:]}"
+            e_fwd = max(check_close(f"{tag} O", o, o_ref, tol),
+                        check_close(f"{tag} LSE", lse, lse_ref, tol))
+            if spec.q_offset < 0:
+                dead = -spec.q_offset
+                if bool(o[:, :dead].any()) or bool((lse[:, :, :dead] != flash.MASK_VALUE).any()):
+                    fail(f"{tag}: rows with no visible key must give O = 0, LSE = MASK_VALUE")
+            grads = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, spec)
+            want = flash.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, dlse, spec=spec)
+            torch.cuda.synchronize()
+            e_dq = check_close(f"{tag} dQ", grads[0], want[0], gtol)
+            e_dkv = max(check_close(f"{tag} dK", grads[1], want[1], gtol),
+                        check_close(f"{tag} dV", grads[2], want[2], gtol))
+            if bf:
+                errs["flash_fwd"].append(e_fwd)
+                errs["flash_dq"].append(e_dq)
+                errs["flash_dkv"].append(e_dkv)
+            print(f"[flash] {name} {str(dtype)[6:]} B{b} Sq{Sq} Sk{Sk} H{H} kvH{kvH} D{D} "
+                  f"{sorted(k_ for k_ in mask)}: max_abs_err fwd {e_fwd:.3e} dQ {e_dq:.3e} "
+                  f"dK/dV {e_dkv:.3e}", flush=True)
+            if bf and name in FLASH_TIMED:
+                run_dq, run_dkv = flash_single_launchers(torch, flash, q, k, v, o_ref,
+                                                         lse_ref, do, spec)
+                ms = {"flash_fwd": device_ms(torch, lambda: flash.flash_fwd(q, k, v, spec),
+                                             10, flush)[0],
+                      "flash_dq": device_ms(torch, run_dq, 10, flush)[0],
+                      "flash_dkv": device_ms(torch, run_dkv, 10, flush)[0]}
+                plain_fwd = synced_ms(torch, lambda: flash.flash_fwd_reference(
+                    q, k, v, spec=spec), 3)
+                plain_bwd = synced_ms(torch, lambda: flash.flash_bwd_reference(
+                    q, k, v, o_ref, lse_ref, do, None, spec=spec), 3)
+                qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                              for x in (q, k, v))
+                dot = do.transpose(1, 2).contiguous()
+                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=kvH != H)
+                lib_fwd = device_ms(torch, sdpa, 10, flush)[0]
+                lib_fb = device_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                                      dot), 10, flush)[0]
+                bnd = flash_bounds(b, Sq, Sk, H, kvH, D, pairs, q.element_size())
+                lib = {"flash_fwd": lib_fwd, "flash_dq": lib_fb - lib_fwd,
+                       "flash_dkv": lib_fb - lib_fwd}
+                plain = {"flash_fwd": plain_fwd, "flash_dq": plain_bwd, "flash_dkv": plain_bwd}
+                for kname in ms:
+                    b_ms, b_by = bound(*bnd[kname], dtype)
+                    row = dict(ms=ms[kname], plain_ms=plain[kname], bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib[kname])
+                    if name == MAIN_FLASH:
+                        rows[kname] = row
+                    print(f"[flash]   {name} {kname}: kernel_ms {ms[kname]:.4f} plain_ms "
+                          f"{plain[kname]:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+                          f"{lib[kname]:.4f} (bound / kernel {b_ms / ms[kname]:.1%})",
+                          flush=True)
+            del q, k, v, do, o, lse, o_ref, lse_ref, grads, want
+    print("[flash] plain_ms: events around each synchronized call of the plain "
+          "version; for dQ and dK/dV the plain backward, which computes "
+          "both; library_ms is scaled_dot_product_attention (is_causal, enable_gqa): "
+          "forward, and for dQ and dK/dV its backward (forward+backward less forward), "
+          "which also computes both", flush=True)
+    return rows, {k: max(v) for k, v in errs.items()}
+
+
+def adam_bucket(torch, sizes, m_dtype, gen):
+    """A flat bucket of leaves: one leaf as it is, several leaves each
+    zero-padded to a multiple of 128 elements (the optimizer's layout)."""
+    from deepspeed_tpu_torch.ops.adam.adam import lane_padded
+    segs = sizes if len(sizes) == 1 else [lane_padded(n) for n in sizes]
+    dev = "cuda"
+    parts = {"g": [], "p": [], "m": [], "v": []}
+    for n, seg in zip(sizes, segs):
+        vals = {"g": torch.randn(n, generator=gen, device=dev),
+                "p": torch.randn(n, generator=gen, device=dev) * 0.02,
+                "m": torch.randn(n, generator=gen, device=dev) * 1e-3,
+                "v": torch.rand(n, generator=gen, device=dev) * 1e-6}
+        for key, x in vals.items():
+            parts[key].append(torch.nn.functional.pad(x, (0, seg - n)))
+    cat = {key: torch.cat(xs) for key, xs in parts.items()}
+    return (cat["g"].to(torch.bfloat16), cat["p"], cat["m"].to(m_dtype),
+            cat["v"].to(m_dtype))
+
+
+def adam_kernel_vs_plain(torch, adam, gen, flush):
+    """Each Adam case: the kernel against the plain version on the same
+    bucket, moments bitwise (the SR bits included), master and cast within
+    MASTER_RTOL; the main case timed with torch's fused AdamW beside it."""
+    rows, errs = {}, []
+    step, lr, wd = 5, 3e-4, 0.1
+    gscale = torch.full((), 0.37, dtype=torch.float32, device="cuda")
+    bcd1, bcd2 = adam._bias_corrections(step, 0.9, 0.999)
+    for b_idx, (name, (sizes, mode, mdt)) in enumerate(ADAM_CASES.items()):
+        m_dtype = getattr(torch, mdt)
+        g, p, m, v = adam_bucket(torch, sizes, m_dtype, gen)
+        seeds = dict(seed_m=adam.sr_seed(step, 1, b_idx), seed_v=adam.sr_seed(step, 2, b_idx))
+        pdt = None if mode == "lamb" else torch.bfloat16
+        kernel = lambda: adam.adam_bucket_update(
+            g, p, m, v, step=step, lr=lr, weight_decay=wd, mode=mode, grad_scale=gscale,
+            m_dtype=m_dtype, v_dtype=m_dtype, param_dtype=pdt, **seeds)
+        plain = lambda: adam.adam_bucket_reference(
+            g, p, m, v, lr=lr, bcd1=bcd1, bcd2=bcd2, gscale=gscale, beta1=0.9, beta2=0.999,
+            eps=1e-8, weight_decay=wd, mode=mode, m_dtype=m_dtype, v_dtype=m_dtype,
+            param_dtype=pdt, sr=True, **seeds)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for i, part in ((2, "exp_avg"), (3, "exp_avg_sq")):
+            if not torch.equal(got[i].view(torch.int16) if m_dtype == torch.bfloat16
+                               else got[i], want[i].view(torch.int16)
+                               if m_dtype == torch.bfloat16 else want[i]):
+                fail(f"adam/{name}: {part} differs from the plain version")
+        err = (got[0] - want[0]).abs().max().item()
+        if bool(((got[0] - want[0]).abs() > MASTER_RTOL * want[0].abs()).any()):
+            fail(f"adam/{name}: master max |err| {err:.3e} beyond rtol {MASTER_RTOL}")
+        if pdt is not None and not torch.equal(got[1].float(), want[1].float()):
+            fail(f"adam/{name}: param cast differs from the plain version")
+        errs.append(err)
+        line = (f"[adam] {name}: {sum(sizes)} elements in {len(sizes)} leaves, moments "
+                f"bitwise, master max_abs_err {err:.3e} (bitwise "
+                f"{bool(torch.equal(got[0], want[0]))})")
+        if name == MAIN_ADAM:
+            n = g.numel()
+            nbytes = n * (2 + 4 + 4 + 4) + n * (4 + 4 + 4 + 2)
+            flops = 18 * n
+            ms = device_ms(torch, kernel, 20, flush)[0]
+            plain_ms = device_ms(torch, plain, 5, flush, PLAIN_SPIN)[0]
+            p32 = torch.nn.Parameter(p.clone())
+            p32.grad = g.float()
+            opt = torch.optim.AdamW([p32], lr=lr, weight_decay=wd, fused=True)
+            opt.step()   # creates its state
+            lib = device_ms(torch, opt.step, 20, flush)[0]
+            b_ms, b_by = bound(nbytes, flops, torch.float32)
+            rows = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib)
+            line += (f"\n[adam]   kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+                     f"{b_ms:.4f} ({b_by}) library_ms {lib:.4f} (torch.optim.AdamW "
+                     f"fused, fp32 grads) ({b_ms / ms:.1%} of bound)")
+            del opt, p32
+        print(line, flush=True)
+    return rows, max(errs)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def serving_kernels_vs_plain(torch, gen, flush):
     from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
     from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
     from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
         paged_decode_attention_reference
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
-    from deepspeed_tpu_torch.models import llama_model
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. card
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    print(f"[card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
-
-    # 2. build
-    t0 = time.perf_counter()
-    built = _build.build()
-    print(f"[build] {len(built)} kernel libraries in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
-
-    # 3. kernels vs plain
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = {}
     for name, (seqs, kvH, g, D) in WAVE_CASES.items():
         args, n, nbytes, flops = wave_case(torch, build_wave, WaveEntry, seqs,
@@ -307,9 +572,19 @@ def main():
               flush=True)
     print("[kernels] library_ms is null: no single PyTorch call computes "
           "attention over a paged (block-table) KV pool")
-    del flush
+    return rows, drows
 
-    # 4. engine: llama2-7b, full width and depth, random weights from a seed
+
+def serve(torch, np):
+    """llama2-7b served at full width and depth; returns the serving
+    kernels' launch counts over one ``generate``."""
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig,
+        build_engine, generate)
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.models import llama_model
+
     cfg = RaggedInferenceEngineConfig(
         num_kv_blocks=2049,
         state_manager=DeepSpeedTPStateManagerConfig(max_context=4096))
@@ -413,25 +688,241 @@ def main():
           f"memory, {len(restores)} restores, all tokens produced, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 5. where the time goes: the same generate under the profiler
+    # where the time goes: the same generate under the profiler
     profile_generate(torch, generate, engine, prompts, wall)
+    return launches
 
-    # 6. kernels line
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def train_engine(torch, num_layers=None):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama_model
+    kw = {} if num_layers is None else {"num_layers": num_layers}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=llama_model("tinyllama-1.1b", **kw),
+                                                config=TRAIN_CONFIG, seed=0)
+    return engine
+
+
+def training_flops(engine, tokens):
+    """6 * N * tokens (N without the input embedding, a lookup) plus the
+    causal attention: 4 * D * visible pairs a head and layer for the
+    forward, three times that for forward and backward."""
+    c = engine.model.config
+    n = sum(p.numel() for p in engine.params.values()) - c.vocab_size * c.hidden_size
+    B = tokens // TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * c.head_dim * pairs * c.num_heads * B * c.num_layers
+    return 6 * n * tokens + attn, n
+
+
+class plain_kernels:
+    """Route the flash and Adam wrappers to their plain versions on the card
+    for the kernel-vs-plain training comparison, and back afterwards."""
+
+    def __init__(self, flash, adam):
+        self.flash, self.adam = flash, adam
+
+    def __enter__(self):
+        flash, adam = self.flash, self.adam
+        self.saved = (flash._fwd_cuda, flash._bwd_cuda, adam._adam_cuda)
+
+        def adam_plain(grads, master, exp_avg, exp_avg_sq, outs, *, gscale, sr_m, sr_v, **kw):
+            p_out, cast_out, m_out, v_out = outs
+            res = adam.adam_bucket_reference(
+                grads, master, exp_avg, exp_avg_sq, gscale=1.0 if gscale is None else gscale,
+                m_dtype=m_out.dtype, v_dtype=v_out.dtype,
+                param_dtype=None if cast_out is None else cast_out.dtype, sr=True, **kw)
+            for dst, src in zip(outs, res):
+                if dst is not None:
+                    dst.copy_(src)
+        flash._fwd_cuda = lambda q, k, v, spec: flash.flash_fwd_reference(q, k, v, spec=spec)
+        flash._bwd_cuda = lambda q, k, v, o, lse, do, dlse, spec: flash.flash_bwd_reference(
+            q, k, v, o, lse, do, dlse, spec=spec)
+        adam._adam_cuda = adam_plain
+
+    def __exit__(self, *exc):
+        self.flash._fwd_cuda, self.flash._bwd_cuda, self.adam._adam_cuda = self.saved
+
+
+def zero_counts(flash, adam):
+    flash.launches.update(dict.fromkeys(flash.launches, 0))
+    adam.launches = 0
+
+
+def train(torch, np, flash, adam):
+    """tinyllama-1.1b trained at full width and depth; returns the training
+    kernels' launch counts over the timed steps."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    engine = train_engine(torch)
+    torch.cuda.synchronize()
+    c = engine.model.config
+    buckets = len(engine.opt_state["buckets"])
+    n_all = sum(p.numel() for p in engine.params.values())
+    print(f"[train] tinyllama-1.1b layers {c.num_layers} hidden {c.hidden_size} heads "
+          f"{c.num_heads}/{c.kv_heads} ffn {c.ffn_size} vocab {c.vocab_size}: {n_all} "
+          f"params bf16, fp32 master and moments in {buckets} buckets, built in "
+          f"{time.perf_counter() - t0:.2f} s; state "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(0)
+    B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    batch = {"input_ids": rng.integers(0, c.vocab_size, size=(B, TRAIN_SEQ))}
+    tokens = B * TRAIN_SEQ
+    losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        times.append(time.perf_counter() - t)
+    launches = dict(flash.launches, fused_adam=adam.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    flops, n = training_flops(engine, tokens)
+    mfu = flops / step_s / PEAK_FLOPS["torch.bfloat16"]
+    print(f"[train] losses {[round(x, 4) for x in losses]} (ln {c.vocab_size} = "
+          f"{np.log(c.vocab_size):.4f}); step ms {[round(x * 1e3, 1) for x in times]} mean "
+          f"{step_s * 1e3:.1f}; tokens/s {tokens / step_s:.0f}; MFU {mfu:.4f} "
+          f"({flops:.4e} flops a step: 6 x {n} non-embedding params x {tokens} tokens "
+          f"+ causal attention, at 989 TFLOP/s); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps {launches}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"training losses {losses}")
+    if abs(losses[0] - np.log(c.vocab_size)) > 0.5:
+        fail(f"first loss {losses[0]:.4f} not within 0.5 of ln({c.vocab_size})")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall on the repeated batch: {losses}")
+    want = {"flash_fwd": 2 * c.num_layers * TRAIN_STEPS, "flash_dq": c.num_layers * TRAIN_STEPS,
+            "flash_dkv": c.num_layers * TRAIN_STEPS, "fused_adam": buckets * TRAIN_STEPS}
+    if launches != want:
+        fail(f"training launches {launches} != {want}")
+
+    # where the time goes: one more step under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print("[train-profile] device time not measured: the profiler recorded no "
+              "CUDA kernels", flush=True)
+    else:
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"[train-profile] device busy {busy:.1f} ms of the unprofiled step's "
+              f"{step_s * 1e3:.1f} ms: busy share {busy / (step_s * 1e3):.3f}, idle share "
+              f"{1 - busy / (step_s * 1e3):.3f}", flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+            ms = e.self_device_time_total / 1e3
+            print(f"[train-profile]   {ms:9.2f} ms {ms / busy:6.1%} x{e.count:5d} "
+                  f"{e.key[:90]}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # the same width at 2 layers: 3 steps through the kernels, 3 through
+    # their plain versions, from the same weights
+    path = {}
+    for name in ("kernels", "plain"):
+        eng = train_engine(torch, PATH_LAYERS)
+        zero_counts(flash, adam)
+        if name == "plain":
+            with plain_kernels(flash, adam):
+                path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+            if any(flash.launches.values()) or adam.launches:
+                fail(f"the plain path launched kernels: {flash.launches}, adam {adam.launches}")
+        else:
+            path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+        del eng
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(path["kernels"], path["plain"])]
+    print(f"[train] {PATH_LAYERS} layers, same width, {PATH_STEPS} steps: kernels "
+          f"{path['kernels']} plain {path['plain']}, relative difference "
+          f"{max(rel):.3e} (limit {PATH_RTOL}, bf16)", flush=True)
+    if max(rel) > PATH_RTOL:
+        fail(f"kernel and plain training paths differ by {max(rel):.3e}")
+    return launches
+
+
+def main():
+    import gc
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a GPU",
+              file=sys.stderr)
+        return 1
+    from deepspeed_tpu_torch.ops.adam import adam
+    from deepspeed_tpu_torch.ops.op_builder import builder
+    from deepspeed_tpu_torch.ops.transformer import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. card
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"[card] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | TF32 off (matmul and cuDNN)", flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = builder.build()
+    print(f"[build] {len(built)} kernel libraries ({', '.join(builder.KERNELS)}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    # 3-4. kernels vs plain
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rows, drows = serving_kernels_vs_plain(torch, gen, flush)
+    frows, ferrs = flash_kernels_vs_plain(torch, flash, gen, flush)
+    arow, aerr = adam_kernel_vs_plain(torch, adam, gen, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. serving
+    launches = serve(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. training
+    launches.update(train(torch, np, flash, adam))
+
+    # 7. kernels line
     kernels = []
-    for name, route_src, replaces, row in (
-            ("ragged_paged_attention", "deepspeed_tpu_torch/csrc/ragged_paged_attention.cu",
-             "deepspeed_tpu/inference/v2/kernels/ragged_paged_attention.py:78",
-             rows[MAIN_WAVE]),
-            ("paged_decode", "deepspeed_tpu_torch/csrc/paged_decode.cu",
-             "deepspeed_tpu/inference/v2/kernels/pallas_paged_decode.py:54",
-             drows[MAIN_DECODE])):
-        errs = [r["max_abs_err"] for r in (rows if name.startswith("ragged")
-                                           else drows).values()]
-        kernels.append({"name": name, "route": "cuda", "source": route_src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(errs), "ms": row["ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": None})
+    for name, src, replaces, row, err in (
+            ("ragged_paged_attention", "ragged_paged_attention.cu",
+             "inference/v2/kernels/ragged_paged_attention.py:78", rows[MAIN_WAVE],
+             max(r["max_abs_err"] for r in rows.values())),
+            ("paged_decode", "paged_decode.cu",
+             "inference/v2/kernels/pallas_paged_decode.py:54", drows[MAIN_DECODE],
+             max(r["max_abs_err"] for r in drows.values())),
+            ("flash_fwd", "flash_fwd.cu", "ops/transformer/pallas_flash.py:144",
+             frows["flash_fwd"], ferrs["flash_fwd"]),
+            ("flash_dq", "flash_bwd.cu", "ops/transformer/pallas_flash.py:261",
+             frows["flash_dq"], ferrs["flash_dq"]),
+            ("flash_dkv", "flash_bwd.cu", "ops/transformer/pallas_flash.py:296",
+             frows["flash_dkv"], ferrs["flash_dkv"]),
+            ("fused_adam", "fused_adam.cu", "ops/adam/pallas_adam.py:152", arow, aerr)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"deepspeed_tpu_torch/csrc/{src}",
+                        "replaces": f"deepspeed_tpu/{replaces}", "launches": launches[name],
+                        "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,12 +2,60 @@
 
 The package mirrors ``deepspeed_tpu``'s module paths so every module has an
 obvious counterpart there. It imports ``torch`` and numpy only: nothing of
-JAX and nothing of ``deepspeed_tpu``. The slice ported so far is the
-ragged-wave serving path (``inference/v2``) with its two hand-written
-Hopper kernels (``csrc/``).
+JAX and nothing of ``deepspeed_tpu``. The slices ported so far are the
+ragged-wave serving path (``inference/v2``) and the single-device training
+step (``initialize`` + ``DeepSpeedEngine.train_batch``), with their
+hand-written Hopper kernels (``csrc/``).
+
+Front door (``deepspeed_tpu/__init__.py:67``):
+
+    engine, optimizer, dataloader, lr_scheduler = deepspeed_tpu_torch.initialize(
+        model=model, config=config_dict)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that argument they raise.
 """
 
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Optional
+
 from .accelerator import resolve_device  # noqa: F401
+from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError  # noqa: F401
+from .runtime.engine import DeepSpeedEngine  # noqa: F401
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, collate_fn=None,
+               config: Optional[Any] = None,
+               config_params: Optional[Dict[str, Any]] = None, seed: int = 42,
+               device=None):
+    """Build a ready-to-train engine; returns ``(engine, optimizer,
+    dataloader, lr_scheduler)`` as the JAX ``initialize`` does.
+
+    ``model`` is a ``TransformerLM`` (on the meta device it is given storage
+    and seeded weights); ``model_parameters`` an optional state_dict to
+    start from; ``config`` a dict, a JSON path or a ``DeepSpeedConfig``.
+    The optimizer and schedule come from the config: client optimizer and
+    scheduler objects are not taken."""
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if optimizer is not None or lr_scheduler is not None:
+        raise ValueError("configure 'optimizer' and 'scheduler' in the config; "
+                         "client optimizer / scheduler objects are not taken")
+    config = config if config is not None else config_params
+    if isinstance(config, str):
+        with open(config) as f:
+            config = json.load(f)
+    engine = DeepSpeedEngine(
+        model=model, config=config if isinstance(config, DeepSpeedConfig) else None,
+        config_dict=config if isinstance(config, dict) else None, seed=seed,
+        init_params=model_parameters, device=device)
+    dataloader = None
+    if training_data is not None:
+        import torch.utils.data
+        dataloader = torch.utils.data.DataLoader(
+            training_data, batch_size=engine.train_micro_batch_size_per_gpu,
+            collate_fn=collate_fn)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler

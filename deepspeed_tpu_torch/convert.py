@@ -8,6 +8,10 @@ blocks unstacked into ``blocks.{l}.*``, kernels transposed to ``[out, in]``
 (the ``torch.nn.functional.linear`` layout), ``embedding``/``scale`` leaves
 renamed ``weight``. The tree's leaves must already be host arrays (for
 example after ``jax.device_get``); bf16 leaves keep their bits.
+
+``opt_state_from_jax`` carries the JAX optimizer state (``step``, and the
+``master`` / ``exp_avg`` / ``exp_avg_sq`` trees, each shaped like the
+params) across the same way, for ``DeepSpeedEngine.load_opt_state``.
 """
 
 from __future__ import annotations
@@ -48,4 +52,14 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             for name, a in sub.items():
                 out[f"{top}.{_LEAF[name]}"] = _leaf(name, _tensor(a))
+    return out
+
+
+def opt_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX ``Optimizer`` state -> ``{"step": int, slot: {name: tensor}}``
+    in the port's parameter names and layouts."""
+    out: Dict[str, Any] = {"step": int(np.asarray(state["step"]))}
+    for slot, tree in state.items():
+        if slot != "step":
+            out[slot] = params_from_jax(tree)
     return out

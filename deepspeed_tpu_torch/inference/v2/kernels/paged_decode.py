@@ -62,8 +62,8 @@ def bind(lib: ctypes.CDLL):
 
 @functools.cache
 def _kernel():
-    from . import _build
-    return bind(_build.load("paged_decode"))
+    from ....ops.op_builder import builder
+    return bind(builder.load("paged_decode"))
 
 
 def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
@@ -85,7 +85,7 @@ def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
                    block_tables.data_ptr(), B, H, kvH, P, ps, D, mp,
                    int(q.dtype == torch.bfloat16),
                    torch.cuda.current_stream(q.device).cuda_stream)
-    from ._build import launch_check
+    from ....ops.op_builder.builder import launch_check
     launch_check(rc, "paged_gqa_decode")
     launches += 1
     return out

@@ -125,8 +125,8 @@ def bind(lib: ctypes.CDLL):
 
 @functools.cache
 def _kernel():
-    from . import _build
-    return bind(_build.load("ragged_paged_attention"))
+    from ....ops.op_builder import builder
+    return bind(builder.load("ragged_paged_attention"))
 
 
 def check_kernel_args(q, k_pages, v_pages, descriptors) -> None:
@@ -177,7 +177,7 @@ def _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens, page_indices,
                    page_indices.data_ptr(), A, H, kvH, P, ps, D, MP, block_q,
                    int(q.dtype == torch.bfloat16),
                    torch.cuda.current_stream(q.device).cuda_stream)
-    from ._build import launch_check
+    from ....ops.op_builder.builder import launch_check
     launch_check(rc, "ragged_paged_attention")
     launches += 1
     return out

@@ -16,6 +16,12 @@ fills it from a ``torch.Generator``.
 ``forward`` is the plain full-sequence causal forward. Serving does not run
 it: tests and ``chip_smoke.py`` hold the serving path's logits against it.
 
+The training half is ``apply`` (logits through the flash attention of
+``ops/transformer/attention.py``, each block under
+``torch.utils.checkpoint`` when ``remat``), ``derive_labels``,
+``head_loss`` and ``loss`` (``models/transformer.py:757-882``), with
+``masked_cross_entropy``.
+
 Configurations the port does not cover yet raise ``NotImplementedError``
 naming the ROADMAP item that will bring them: ALiBi, sliding windows, MoE
 and bidirectional encoders.
@@ -27,9 +33,11 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..nn import layers as L
+from ..ops.transformer.attention import flash_attention
 
 ACTIVATIONS = {
     "gelu": L.gelu,  # tanh approximation
@@ -67,6 +75,8 @@ class TransformerConfig:
     causal: bool = True
     moe: Any = None                  # mixture of experts: not ported
     dtype: torch.dtype = torch.float32
+    remat: bool = True               # recompute each block in the backward
+    remat_policy: str = "nothing_saveable"
 
     @property
     def kv_heads(self) -> int:
@@ -100,6 +110,25 @@ def check_supported(c: TransformerConfig) -> None:
             "forward for training)")
     if c.position not in ("rope", "learned"):
         raise ValueError(f"unknown position style {c.position!r}")
+    if c.remat and c.remat_policy not in ("full", "nothing_saveable"):
+        raise NotImplementedError(
+            f"remat policy {c.remat_policy!r} is not ported (ROADMAP A2: model "
+            f"forward for training); 'full'/'nothing_saveable' recompute each block")
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over positions where ``labels >= 0`` (-100 = HF
+    ignore). ``log_softmax`` and a gather: the same sum as the JAX one-hot
+    contraction, which exists there only for GSPMD's sake."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    mask = valid.float()
+    if extra_mask is not None:
+        mask = mask * extra_mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 class Block(nn.Module):
@@ -212,6 +241,75 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         logits = self.wte.attend(x) if self.lm_head is None else self.lm_head(x)
         return logits.float()
+
+    # -- training forward ----------------------------------------------------
+    def _block(self, blk: Block, x: torch.Tensor, rope, keep) -> torch.Tensor:
+        """One pre-norm block (``_block_fn``); ``keep`` gates it (PLD) or is
+        None."""
+        c = self.config
+        B, S, _ = x.shape
+        h = blk.ln_1(x)
+        q = blk.q_proj(h).view(B, S, c.num_heads, c.head_dim)
+        k = blk.k_proj(h).view(B, S, c.kv_heads, c.head_dim)
+        v = blk.v_proj(h).view(B, S, c.kv_heads, c.head_dim)
+        if rope is not None:
+            q, k = self.rotate(q, rope), self.rotate(k, rope)
+        attn = flash_attention(q, k, v, causal=c.causal, scale=c.attn_scale)
+        a = blk.o_proj(attn.reshape(B, S, c.num_heads * c.head_dim))
+        x = x + (a if keep is None else keep * a)
+        m = blk.mlp(blk.ln_2(x))
+        return x + (m if keep is None else keep * m)
+
+    def apply(self, input_ids: torch.Tensor,
+              layer_mask: Optional[torch.Tensor] = None,
+              token_type_ids: Optional[torch.Tensor] = None,
+              attention_mask: Optional[torch.Tensor] = None,
+              return_hidden: bool = False):
+        """``(logits [B, S, V] fp32, moe_aux_loss)``, differentiable
+        (``apply``). ``layer_mask`` [num_layers] gates each block;
+        ``return_hidden`` returns the final-normed hidden states instead of
+        the logits."""
+        if token_type_ids is not None or attention_mask is not None:
+            raise NotImplementedError(
+                "token types and padding masks are for encoders, not ported "
+                "(ROADMAP A2: model forward for training)")
+        c = self.config
+        S = input_ids.shape[1]
+        positions = torch.arange(S, device=input_ids.device)[None, :]
+        x = self.embed(input_ids, positions)
+        rope = self.rope(positions) if c.position == "rope" else None
+        for i, blk in enumerate(self.blocks):
+            keep = None if layer_mask is None else layer_mask[i].to(c.dtype)
+            if c.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(self._block, blk, x, rope, keep,
+                                                      use_reentrant=False)
+            else:
+                x = self._block(blk, x, rope, keep)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if return_hidden:
+            return self.ln_f(x), aux
+        return self.head(x), aux
+
+    def derive_labels(self, batch) -> torch.Tensor:
+        """Explicit labels, or the causal next-token shift (-100 = ignore)."""
+        labels = batch.get("labels")
+        if labels is not None:
+            return labels
+        ids = batch["input_ids"]
+        return torch.nn.functional.pad(ids[:, 1:], (0, 1), value=-100)
+
+    def head_loss(self, x: torch.Tensor, labels: torch.Tensor,
+                  extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Final norm + LM head + masked cross-entropy over the last block's
+        output."""
+        return masked_cross_entropy(self.head(x), labels, extra_mask=extra_mask)
+
+    def loss(self, batch) -> torch.Tensor:
+        """Next-token cross-entropy of ``batch`` (``input_ids [B, S]``,
+        optional ``labels``, ``loss_mask``, ``layer_mask``)."""
+        labels = self.derive_labels(batch)
+        logits, _ = self.apply(batch["input_ids"], layer_mask=batch.get("layer_mask"))
+        return masked_cross_entropy(logits, labels, extra_mask=batch.get("loss_mask"))
 
     # -- plain reference forward ---------------------------------------------
     @torch.no_grad()

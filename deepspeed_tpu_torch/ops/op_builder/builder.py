@@ -1,13 +1,15 @@
-"""Build the port's CUDA kernels from the sources in ``deepspeed_tpu_torch/csrc``
-and load them with ``ctypes``.
+"""Build registry of the port's CUDA kernels: compile the sources in
+``deepspeed_tpu_torch/csrc`` and load them with ``ctypes``.
 
-Each kernel source ``csrc/<name>.cu`` compiles on its own, with ``nvcc``,
-into a shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds): ``build/deepspeed_tpu_torch/lib<name>-<hash>.so`` at
-the root of the checkout. The hash covers every source in ``csrc`` and the
-compiler flags, so an edited source never loads a stale library. Builds
-happen at first use; ``build()`` compiles several sources at once, one
-``nvcc`` process each.
+Counterpart of ``deepspeed_tpu/ops/op_builder/builder.py``. ``KERNELS`` lists
+every kernel source; each ``csrc/<name>.cu`` compiles on its own, with
+``nvcc`` for ``sm_90a``, into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds):
+``build/deepspeed_tpu_torch/lib<name>-<hash>.so`` at the root of the
+checkout. The hash covers every source in ``csrc`` and the compiler flags,
+so an edited source never loads a stale library. Builds happen at first
+use; ``build()`` compiles several sources at once, one ``nvcc`` process
+each.
 
 Nothing here runs at import time, and nothing imports this module until a
 kernel is launched on a CUDA tensor: the CPU tests never touch it.
@@ -24,10 +26,11 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-PACKAGE_ROOT = Path(__file__).resolve().parents[3]
+PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT.parent / "build" / "deepspeed_tpu_torch"
-KERNELS = ("ragged_paged_attention", "paged_decode")
+KERNELS = ("ragged_paged_attention", "paged_decode", "flash_fwd", "flash_bwd",
+           "fused_adam")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

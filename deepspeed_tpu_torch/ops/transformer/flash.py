@@ -1,0 +1,399 @@
+"""Flash attention for training: forward with the row log-sum-exp, and the
+dQ and dK/dV backward, bound as a ``torch.autograd.Function``.
+
+Counterpart of ``deepspeed_tpu/ops/transformer/pallas_flash.py``. Same
+feature matrix: causal (bottom-right aligned through a runtime ``q_offset``,
+which may be negative), GQA-native (K/V stay at kv heads), sliding window,
+segment ids, ALiBi; fp32 softmax state with the finite ``MASK_VALUE``
+sentinel, so a row with no visible key gives O = 0 and LSE = ``MASK_VALUE``;
+a cotangent on the LSE folds into the backward's ``di`` term. Any ``Sq`` and
+``Sk``: the ragged edge is masked, not padded.
+
+- plain versions: ``flash_fwd_reference`` and ``flash_bwd_reference``, the
+  Pallas kernels' tile math in torch (key tiles of ``block_k``, online
+  softmax; ``p`` and ``ds`` cast to the input dtype before their products,
+  as the Pallas kernels cast them), run for tensors on the CPU;
+- kernels: ``csrc/flash_fwd.cu`` (``_fwd_kernel``'s counterpart) and
+  ``csrc/flash_bwd.cu`` (``_dq_kernel``, ``_dkv_kernel``), launched for
+  tensors on a GPU. ``launches`` counts launches per kernel.
+
+The autograd Function saves only tensors (q, k, v, o, lse and the mask
+inputs), so it is safe under ``torch.utils.checkpoint``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+HALF_MASK = MASK_VALUE * 0.5
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+KERNEL_HEAD_DIMS = (32, 64, 128)
+
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+class MaskSpec(NamedTuple):
+    """The mask of one call: ``window`` <= 0 is global; ``qseg``/``kseg``
+    int32 ``[B, Sq]``/``[B, Sk]`` or None; ``slopes`` fp32 ``[H]`` or None."""
+    causal: bool
+    scale: float
+    window: int
+    q_offset: int
+    qseg: Optional[torch.Tensor]
+    kseg: Optional[torch.Tensor]
+    slopes: Optional[torch.Tensor]
+
+
+def mask_spec(q, k, *, causal=True, scale=None, segment_ids=None,
+              q_segment_ids=None, alibi_slopes=None, window=None,
+              q_offset=None) -> MaskSpec:
+    """Check shapes and normalize the mask arguments (``_prepare``)."""
+    B, Sq, H, D = q.shape
+    Sk, kvH = k.shape[1], k.shape[2]
+    if H % kvH:
+        raise ValueError(f"query heads {H} not a multiple of kv heads {kvH}")
+    if window is not None and not causal:
+        raise ValueError("sliding window is causal-only")
+    dev = q.device
+    qseg = kseg = slopes = None
+    if segment_ids is not None:
+        seg = torch.as_tensor(segment_ids, device=dev)
+        kseg = seg.to(torch.int32).contiguous()
+        qs = seg if q_segment_ids is None else torch.as_tensor(q_segment_ids, device=dev)
+        qseg = qs.to(torch.int32).contiguous()
+    if alibi_slopes is not None:
+        # a positional schedule, not a parameter: no gradient by contract
+        slopes = torch.as_tensor(alibi_slopes, device=dev).detach().to(
+            torch.float32).reshape(H).contiguous()
+    return MaskSpec(
+        causal=bool(causal),
+        scale=float(scale) if scale is not None else 1.0 / (D ** 0.5),
+        window=int(window) if window is not None else 0,
+        q_offset=int(Sk - Sq if q_offset is None else q_offset),
+        qseg=qseg, kseg=kseg, slopes=slopes)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the Pallas tile math in torch)
+# ---------------------------------------------------------------------------
+
+
+def _fold(x: torch.Tensor, kvH: int) -> torch.Tensor:
+    """[B, S, H, D] -> fp32 [B, kvH, G, S, D] (head h = kvh * G + g)."""
+    B, S, H, D = x.shape
+    return x.float().reshape(B, S, kvH, H // kvH, D).permute(0, 2, 3, 1, 4)
+
+
+def _unfold(x: torch.Tensor) -> torch.Tensor:
+    B, kvH, G, S, D = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(B, S, kvH * G, D)
+
+
+def _tile_logits(spec: MaskSpec, qf, kt, k0: int) -> torch.Tensor:
+    """Masked, scaled fp32 logits of every query against keys
+    ``[k0, k0 + bk)`` (``_tile_logits``): qf [B, kvH, G, Sq, D], kt [B, kvH,
+    bk, D] -> [B, kvH, G, Sq, bk]."""
+    B, kvH, G, Sq, _ = qf.shape
+    bk = kt.shape[2]
+    dev = qf.device
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * spec.scale
+    q_pos = torch.arange(Sq, device=dev) + spec.q_offset
+    cols = torch.arange(k0, k0 + bk, device=dev)
+    if spec.slopes is not None:
+        rel = (cols[None, :] - q_pos[:, None]).float()
+        s = s + spec.slopes.reshape(1, kvH, G, 1, 1) * rel
+    mask = None
+    if spec.qseg is not None:
+        mask = (spec.qseg[:, :, None] == spec.kseg[:, None, k0:k0 + bk])[:, None, None]
+    if spec.causal:
+        cm = q_pos[:, None] >= cols[None, :]
+        if spec.window > 0:
+            cm = cm & ((q_pos[:, None] - cols[None, :]) < spec.window)
+        mask = cm if mask is None else mask & cm
+    if mask is not None:
+        s = torch.where(mask, s, MASK_VALUE)
+    return s
+
+
+def _spec_of(q, k, spec, kw) -> MaskSpec:
+    return spec if spec is not None else mask_spec(q, k, **kw)
+
+
+def flash_fwd_reference(q, k, v, *, spec: Optional[MaskSpec] = None,
+                        block_k: int = 128, **mask_kw):
+    """Plain forward: ``(out [B, Sq, H, D], lse [B, H, Sq] fp32)``. Online
+    softmax over key tiles of ``block_k`` (``_fwd_kernel``)."""
+    spec = _spec_of(q, k, spec, mask_kw)
+    B, Sq, H, D = q.shape
+    Sk, kvH = k.shape[1], k.shape[2]
+    G = H // kvH
+    qf = _fold(q, kvH)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.permute(0, 2, 1, 3)
+    m = torch.full((B, kvH, G, Sq, 1), MASK_VALUE, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, kvH, G, Sq, D), device=q.device)
+    for k0 in range(0, Sk, block_k):
+        s = _tile_logits(spec, qf, kf[:, :, k0:k0 + block_k], k0)
+        m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = m_next.clamp_min(HALF_MASK)
+        p = torch.exp(s - m_safe)
+        alpha = torch.exp(m.clamp_min(HALF_MASK) - m_safe)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        m = m_next
+        pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
+                          vf[:, :, k0:k0 + block_k].float())
+        acc = acc * alpha + pv
+    empty = l == 0.0
+    inv = torch.where(empty, 0.0, 1.0 / torch.where(empty, 1.0, l))
+    out = _unfold((acc * inv).to(q.dtype))
+    lse = torch.where(empty, MASK_VALUE,
+                      m.clamp_min(HALF_MASK) + torch.log(torch.where(empty, 1.0, l)))
+    return out, lse.reshape(B, H, Sq)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, dlse=None, *,
+                        spec: Optional[MaskSpec] = None, block_k: int = 128,
+                        **mask_kw):
+    """Plain backward: ``(dq, dk, dv)`` from the forward's ``o`` and
+    ``lse`` (``_dq_kernel`` and ``_dkv_kernel``; dK and dV summed over each
+    kv head's query heads). ``dlse`` is the cotangent on the LSE or None."""
+    spec = _spec_of(q, k, spec, mask_kw)
+    B, Sq, H, D = q.shape
+    Sk, kvH = k.shape[1], k.shape[2]
+    G = H // kvH
+    qf, dof = _fold(q, kvH), _fold(do, kvH)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    di = (do.float() * o.float()).sum(-1).permute(0, 2, 1)   # [B, H, Sq]
+    if dlse is not None:
+        di = di - dlse.float()
+    di = di.reshape(B, kvH, G, Sq, 1)
+    lse_b = lse.float().reshape(B, kvH, G, Sq, 1)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k0 in range(0, Sk, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = _tile_logits(spec, qf, kt, k0)
+        p = torch.where(lse_b > HALF_MASK, torch.exp(s - lse_b), 0.0)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vt)
+        ds = p * (dp - di) * spec.scale
+        dq += torch.einsum("bhgqk,bhkd->bhgqd", ds.to(k.dtype).float(), kt)
+        dk[:, :, k0:k0 + block_k] = torch.einsum(
+            "bhgqk,bhgqd->bhkd", ds.to(q.dtype).float(), qf)
+        dv[:, :, k0:k0 + block_k] = torch.einsum(
+            "bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), dof)
+    return (_unfold(dq).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+class FlashParams(ctypes.Structure):
+    """``flash::FlashParams`` of ``csrc/flash_common.cuh``, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "o", "dout", "lse", "di", "qseg", "kseg", "slopes",
+        "out0", "out1")]
+        + [(n, ctypes.c_longlong) for n in (
+            "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh", "v_sb", "v_ss", "v_sh")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "Sq", "Sk", "H", "kvH", "D", "causal", "window", "q_offset")]
+        + [("scale", ctypes.c_float)])
+
+
+def bind(fwd_lib: ctypes.CDLL, bwd_lib: ctypes.CDLL):
+    """The three C entry points of the built libraries, typed:
+    ``(fwd, dq, dkv)``."""
+    fns = (fwd_lib.dstt_flash_fwd, bwd_lib.dstt_flash_dq, bwd_lib.dstt_flash_dkv)
+    for fn in fns:
+        fn.argtypes = [FlashParams, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
+
+
+@functools.cache
+def _kernels():
+    from ..op_builder import builder
+    return bind(builder.load("flash_fwd"), builder.load("flash_bwd"))
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its rows can be read in place with 16-byte copies
+    (unit last stride, 16-byte aligned row strides and base), else a
+    contiguous copy."""
+    per16 = 16 // x.element_size()
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(s % per16 == 0 for s in x.stride()[:-1]))
+    return x if ok else x.contiguous()
+
+
+def _check(q, k, v):
+    if q.dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"flash kernel dtype {q.dtype}; takes bf16 or fp32")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is {q.dtype} "
+                             f"on {q.device}")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {q.shape[3]}; the kernels take "
+                                  f"{KERNEL_HEAD_DIMS}")
+
+
+def _params(q, k, v, spec: MaskSpec) -> FlashParams:
+    B, Sq, H, D = q.shape
+    Sk, kvH = k.shape[1], k.shape[2]
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    return FlashParams(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+        qseg=ptr(spec.qseg), kseg=ptr(spec.kseg), slopes=ptr(spec.slopes),
+        q_sb=q.stride(0), q_ss=q.stride(1), q_sh=q.stride(2),
+        k_sb=k.stride(0), k_ss=k.stride(1), k_sh=k.stride(2),
+        v_sb=v.stride(0), v_ss=v.stride(1), v_sh=v.stride(2),
+        B=B, Sq=Sq, Sk=Sk, H=H, kvH=kvH, D=D, causal=int(spec.causal),
+        window=spec.window, q_offset=spec.q_offset, scale=spec.scale)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd_cuda(q, k, v, spec: MaskSpec):
+    from ..op_builder.builder import launch_check
+    _check(q, k, v)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    B, Sq, H, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    p = _params(q, k, v, spec)
+    p.out0, p.out1 = out.data_ptr(), lse.data_ptr()
+    launch_check(_kernels()[0](p, int(q.dtype == torch.bfloat16), _stream(q)),
+                 "flash_fwd")
+    launches["flash_fwd"] += 1
+    return out, lse
+
+
+def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
+    from ..op_builder.builder import launch_check
+    _check(q, k, v)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    B, Sq, H, D = q.shape
+    Sk, kvH = k.shape[1], k.shape[2]
+    o = o.contiguous()
+    do = do.to(q.dtype).contiguous()
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        di = di - dlse.float()
+    di = di.contiguous()
+    lse = lse.float().contiguous()
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, kvH, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    p = _params(q, k, v, spec)
+    p.o, p.dout, p.lse, p.di = o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    _, dq_fn, dkv_fn = _kernels()
+    p.out0 = dq.data_ptr()
+    launch_check(dq_fn(p, is_bf16, _stream(q)), "flash_dq")
+    launches["flash_dq"] += 1
+    p.out0, p.out1 = dk.data_ptr(), dv.data_ptr()
+    launch_check(dkv_fn(p, is_bf16, _stream(q)), "flash_dkv")
+    launches["flash_dkv"] += 1
+    return dq, dk, dv
+
+
+def _on(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no flash attention for {t.device}")
+    return t.device.type
+
+
+def flash_fwd(q, k, v, spec: MaskSpec):
+    """The forward: the kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if _on(q) == "cpu":
+        return flash_fwd_reference(q, k, v, spec=spec)
+    return _fwd_cuda(q, k, v, spec)
+
+
+def flash_bwd(q, k, v, o, lse, do, dlse, spec: MaskSpec):
+    """The backward: the two kernels for CUDA tensors, the plain version for
+    CPU tensors."""
+    if _on(q) == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, dlse, spec=spec)
+    return _bwd_cuda(q, k, v, o, lse, do, dlse, spec)
+
+
+class _Flash(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, slopes, causal, scale, window, q_offset):
+        spec = MaskSpec(causal, scale, window, q_offset, qseg, kseg, slopes)
+        out, lse = flash_fwd(q, k, v, spec)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg, slopes)
+        ctx.static = (causal, scale, window, q_offset)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse, qseg, kseg, slopes = ctx.saved_tensors
+        spec = MaskSpec(*ctx.static, qseg, kseg, slopes)
+        if do is None:
+            do = torch.zeros_like(out)
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, dlse, spec)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention_with_lse(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, scale: Optional[float] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+        q_segment_ids: Optional[torch.Tensor] = None,
+        alibi_slopes=None, window=None, q_offset=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention returning ``(out [B, Sq, H, D], lse [B, H, Sq])``,
+    differentiable in q, k and v, including through ``lse``. ``lse`` is
+    fp32, ``MASK_VALUE`` on rows with no visible key."""
+    s = mask_spec(q, k, causal=causal, scale=scale, segment_ids=segment_ids,
+                  q_segment_ids=q_segment_ids, alibi_slopes=alibi_slopes,
+                  window=window, q_offset=q_offset)
+    return _Flash.apply(q, k, v, s.qseg, s.kseg, s.slopes, s.causal, s.scale,
+                        s.window, s.q_offset)
+
+
+def flash_attention_kernel(q, k, v, *, causal: bool = True,
+                           scale: Optional[float] = None, segment_ids=None,
+                           q_segment_ids=None, alibi_slopes=None, window=None,
+                           q_offset=None) -> torch.Tensor:
+    """Flash attention, ``[B, S, H, D]`` in and out."""
+    out, _ = flash_attention_with_lse(
+        q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+        q_segment_ids=q_segment_ids, alibi_slopes=alibi_slopes,
+        window=window, q_offset=q_offset)
+    return out
+
+
+def merge_partials(o_a, lse_a, o_b, lse_b):
+    """Exactly merge two partial attention results over disjoint key sets
+    (``o [B, S, H, D]``, ``lse [B, H, S]`` fp32 with the ``MASK_VALUE``
+    sentinel): the lse-weighted convex combination, NaN-free when a side
+    saw only masked keys."""
+    lse_m = torch.maximum(lse_a, lse_b)
+    ea = torch.exp(lse_a - lse_m)
+    eb = torch.exp(lse_b - lse_m)
+    lse_out = lse_m + torch.log(ea + eb)
+    wa = (ea / (ea + eb)).to(o_a.dtype)
+    wb = (eb / (ea + eb)).to(o_b.dtype)
+    expand = lambda w: w.transpose(1, 2)[..., None]
+    return o_a * expand(wa) + o_b * expand(wb), lse_out

@@ -1,0 +1,300 @@
+"""Single-device training engine of the port.
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``) on
+one GPU, stepping eagerly:
+
+- precision policy (``engine.py:97-150``): params in fp16 / bf16 / fp32 by
+  the config, fp32 gradient accumulation unless ``data_types.
+  grad_accum_dtype`` narrows it, fp32 master and moments unless the
+  ``data_types`` / ``fp16_master_weights_and_grads`` knobs narrow them;
+- ``train_batch`` (``:2848``): at ``gradient_accumulation_steps == 1`` the
+  fused step (``_train_step_fn``): one forward and backward, then the update
+  straight from the parameters' gradients, with no accumulation buffer; at
+  gas > 1 the split ``forward`` / ``backward`` / ``step`` path with an fp32
+  accumulation buffer;
+- the apply boundary (``_apply_from_grads``): the fp16 overflow check,
+  unscale and clip folded into one ``grad_scale`` device scalar that the
+  optimizer folds into each gradient's fp32 cast (the gradient norm is
+  taken over the gradients as they are, never pre-scaled), the skipped step
+  on overflow and the loss-scale update;
+- ``global_steps``, ``skipped_steps``, ``lr_scheduler``, ``optimizer``.
+
+A gradient in the parameter dtype (bf16) is handed to the optimizer
+kernel as it is: its cast to fp32 is exact and happens in the kernel's
+load, so the fp32 gradient tree of the JAX step never exists in memory.
+
+Not ported yet: checkpoints (ROADMAP A4), meshes of more than one device
+(A6), offload (A9), pipeline (A10); ``runtime/config.py`` raises for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..accelerator import resolve_device
+from .config import DeepSpeedConfig
+from .fp16.loss_scaler import (dynamic_loss_scale_state, has_overflow,
+                               static_loss_scale_state, update_scale)
+from .lr_schedules import build_lr_schedule
+from .optimizers import build_optimizer
+
+_NARROW = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "fp16": torch.float16, "float16": torch.float16,
+           None: None, "fp32": None, "float32": None}
+
+
+def _state_dtype(value, key: str):
+    if value not in _NARROW:
+        raise ValueError(f"data_types.{key} must be bf16/fp16/fp32, got {value!r}")
+    return _NARROW[value]
+
+
+class DeepSpeedEngine:
+
+    def __init__(self, model, config: Optional[DeepSpeedConfig] = None,
+                 config_dict: Optional[Dict[str, Any]] = None, seed: int = 42,
+                 init_params: Optional[Dict[str, torch.Tensor]] = None,
+                 device=None):
+        self.config = config = config or DeepSpeedConfig(config_dict or {})
+        self.device = resolve_device(device)
+        self.model = model
+
+        # -- precision policy ------------------------------------------------
+        if config.fp16.enabled:
+            self.param_dtype = torch.float16
+        elif config.bf16.enabled:
+            self.param_dtype = torch.bfloat16
+        else:
+            self.param_dtype = torch.float32
+        self.grad_dtype = _state_dtype(config.data_types_grad_accum_dtype,
+                                       "grad_accum_dtype") or torch.float32
+
+        # -- optimizer + schedule ---------------------------------------------
+        opt_dtypes = {}
+        if config.fp16_master_weights_and_grads:
+            opt_dtypes["master_dtype"] = self.param_dtype
+        mdt = _state_dtype(config.data_types_optimizer_moment_dtype, "optimizer_moment_dtype")
+        sqdt = _state_dtype(config.data_types_optimizer_moment_sq_dtype,
+                            "optimizer_moment_sq_dtype")
+        if mdt is not None:
+            opt_dtypes["moment_dtype"] = mdt
+        if sqdt is not None:
+            opt_dtypes["moment_sq_dtype"] = sqdt
+        self.optimizer = dataclasses.replace(build_optimizer(config.optimizer), **opt_dtypes)
+        self.lr_scheduler = build_lr_schedule(config.scheduler, self.optimizer.lr)
+
+        # -- parameters and state ---------------------------------------------
+        self._place_model(seed, init_params)
+        self.params = dict(model.named_parameters())
+        self.opt_state = self.optimizer.init({n: p.detach() for n, p in self.params.items()})
+        self.loss_scale_state = self._loss_scale_state()
+        self.grad_acc: Dict[str, torch.Tensor] = {}   # split path only, lazily
+
+        self.global_steps = 0
+        self.skipped_steps = 0
+        self.micro_steps = 0
+        self.gradient_accumulation_steps = config.gradient_accumulation_steps
+        self.train_micro_batch_size_per_gpu = config.train_micro_batch_size_per_gpu
+        self.train_batch_size = config.train_batch_size
+        self.gradient_clipping = config.gradient_clipping
+        self._last_grad_norm = None
+        self._cached_loss = None
+
+    def _place_model(self, seed: int, init_params) -> None:
+        """Give the model storage on the engine's device, its weights from
+        ``init_params`` (a state_dict) or from a seeded generator, in the
+        param dtype, trainable."""
+        model = self.model
+        on_meta = any(p.is_meta for p in model.parameters())
+        if on_meta:
+            model.to_empty(device=self.device)
+        else:
+            model.to(self.device)
+        if init_params is not None:
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in init_params.items()})
+        elif on_meta:
+            model.init_weights(torch.Generator(device=self.device).manual_seed(seed))
+        for p in model.parameters():
+            p.data = p.data.to(self.param_dtype)
+            p.requires_grad_(True)
+
+    def _loss_scale_state(self):
+        fp16 = self.config.fp16
+        if fp16.enabled and fp16.loss_scale == 0:
+            return dynamic_loss_scale_state(fp16.initial_scale_power, fp16.hysteresis)
+        return static_loss_scale_state(fp16.loss_scale if fp16.enabled else 1.0)
+
+    # -- data --------------------------------------------------------------
+    def _prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Check the token ids, as the JAX engine does, and move the batch
+        to the device."""
+        ids = batch.get("input_ids")
+        vocab = getattr(getattr(self.model, "config", None), "vocab_size", None)
+        if ids is not None and vocab is not None:
+            arr = np.asarray(ids.cpu() if torch.is_tensor(ids) else ids)
+            if int(arr.max()) >= vocab or int(arr.min()) < 0:
+                raise ValueError(f"input_ids out of range for vocab_size={vocab}: min id "
+                                 f"{int(arr.min())}, max id {int(arr.max())}")
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    # -- apply boundary ----------------------------------------------------------
+    def _scalar(self, x: float) -> torch.Tensor:
+        return torch.full((), x, dtype=torch.float32, device=self.device)
+
+    def _apply_from_grads(self, grads: Dict[str, torch.Tensor], lr: float):
+        """Unscale, clip, update, loss-scale bookkeeping. Returns
+        ``(overflow, gnorm)``; ``gnorm`` is a device scalar."""
+        scale = self.loss_scale_state["cur_scale"]
+        overflow = bool(has_overflow(grads.values())) if self.config.fp16.enabled else False
+        inv = self._scalar(0.0 if overflow else float(np.float32(1.0) / np.float32(scale)))
+        raw_norm = torch.sqrt(torch.stack([g.float().square().sum()
+                                           for g in grads.values()]).sum())
+        gnorm = self._scalar(0.0) if overflow else raw_norm * inv
+        factor = inv
+        if self.gradient_clipping > 0:
+            clip = torch.clamp(self._scalar(self.gradient_clipping) / (gnorm + 1e-6), max=1.0)
+            factor = inv * clip
+        if not overflow:
+            with torch.no_grad():
+                self.optimizer.update(grads, self.opt_state, lr, grad_scale=factor,
+                                      params_out=self.params)
+        fp16 = self.config.fp16
+        self.loss_scale_state = update_scale(
+            self.loss_scale_state, overflow, scale_window=fp16.loss_scale_window,
+            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis,
+            consecutive_hysteresis=fp16.consecutive_hysteresis)
+        return overflow, gnorm
+
+    def _grads(self) -> Dict[str, torch.Tensor]:
+        """The parameters' gradients at ``grad_dtype`` (a widening cast is
+        left to the optimizer kernel, where it is exact)."""
+        out = {}
+        for n, p in self.params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            if torch.finfo(g.dtype).bits > torch.finfo(self.grad_dtype).bits:
+                g = g.to(self.grad_dtype)
+            out[n] = g
+        return out
+
+    def _post_step(self, overflow: bool, gnorm) -> None:
+        self.global_steps += 1
+        if overflow:
+            # a skipped update does not consume the schedule
+            self.skipped_steps += 1
+        else:
+            self.lr_scheduler.step()
+        self._last_grad_norm = gnorm
+
+    def _zero_param_grads(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    # -- fused gas == 1 step --------------------------------------------------------
+    def _train_batch_fused(self, batch) -> torch.Tensor:
+        batch = self._prepare_batch(batch)
+        scale = self.loss_scale_state["cur_scale"]
+        loss = self.model.loss(batch)
+        (loss * scale).backward()
+        overflow, gnorm = self._apply_from_grads(self._grads(), self.lr_scheduler.get_lr())
+        self._zero_param_grads()
+        self.micro_steps += 1
+        self._post_step(overflow, gnorm)
+        return loss.detach()
+
+    # -- split path ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Loss of one micro-batch; its gradients (of the loss scaled by
+        ``loss_scale / gas``) are added to the fp32 accumulation buffer."""
+        batch = self._prepare_batch(batch)
+        if not self.grad_acc:
+            self.grad_acc = {n: torch.zeros(p.shape, dtype=self.grad_dtype, device=self.device)
+                             for n, p in self.params.items()}
+        scale = float(np.float32(self.loss_scale_state["cur_scale"])
+                      / np.float32(self.gradient_accumulation_steps))
+        loss = self.model.loss(batch)
+        (loss * scale).backward()
+        with torch.no_grad():
+            for n, p in self.params.items():
+                if p.grad is not None:
+                    self.grad_acc[n] += p.grad.to(self.grad_dtype)
+        self._zero_param_grads()
+        self._cached_loss = loss.detach()
+        return self._cached_loss
+
+    def backward(self, loss=None):
+        """Gradients were produced in ``forward``; this marks the micro-step
+        boundary."""
+        self.micro_steps += 1
+        return self._cached_loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self.micro_steps % self.gradient_accumulation_steps == 0
+
+    def step(self) -> None:
+        """Apply the optimizer at accumulation boundaries."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        overflow, gnorm = self._apply_from_grads(self.grad_acc, self.lr_scheduler.get_lr())
+        for g in self.grad_acc.values():
+            g.zero_()
+        self._post_step(overflow, gnorm)
+
+    def train_batch(self, data_iter_or_batch) -> torch.Tensor:
+        """One optimizer step: ``gradient_accumulation_steps`` micro-steps
+        and the update. A dict is replayed for every micro-step; an
+        iterator yields one batch per micro-step."""
+        gas = self.gradient_accumulation_steps
+        if isinstance(data_iter_or_batch, dict):
+            batches = [data_iter_or_batch] * gas
+        else:
+            batches = [next(data_iter_or_batch) for _ in range(gas)]
+        if gas == 1 and not self.grad_acc:
+            return self._train_batch_fused(batches[0])
+        losses = []
+        for batch in batches:
+            losses.append(self.forward(batch))
+            self.backward()
+        self.step()
+        return torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return self.model.loss(self._prepare_batch(batch))
+
+    # -- state and introspection ---------------------------------------------------
+    def load_opt_state(self, state: Dict[str, Any]) -> None:
+        """Copy an optimizer state (``step`` and per-parameter ``master`` /
+        moment tensors by name, e.g. from ``convert.opt_state_from_jax``)
+        into the engine's buffers."""
+        with torch.no_grad():
+            for key, leaves in state.items():
+                if key == "step":
+                    self.opt_state["step"] = int(leaves)
+                    continue
+                for n, t in leaves.items():
+                    self.opt_state[key][n].copy_(torch.as_tensor(t))
+
+    def get_lr(self):
+        return [self.lr_scheduler.get_lr()]
+
+    def get_global_grad_norm(self) -> float:
+        return float(self._last_grad_norm) if self._last_grad_norm is not None else 0.0
+
+    def loss_scale(self) -> float:
+        return float(self.loss_scale_state["cur_scale"])
+
+    def zero_optimization_stage(self) -> int:
+        return self.config.zero_stage
+
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        return {n: p.detach() for n, p in self.params.items()}
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError("checkpoints are not ported (ROADMAP A4)")
+
+    load_checkpoint = save_checkpoint

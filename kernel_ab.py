@@ -4,7 +4,7 @@
     python3 kernel_ab.py A_CSRC_DIR B_CSRC_DIR [--rounds N]
 
 Builds both source directories' kernels with the package's own ``nvcc``
-flags (``deepspeed_tpu_torch/inference/v2/kernels/_build.py``), holds each
+flags (``deepspeed_tpu_torch/ops/op_builder/builder.py``), holds each
 version against the plain PyTorch versions in bf16 at every kernel case of
 ``chip_smoke.py``, then times both at those cases in the order A, B, B, A
 (``--rounds`` times), one line per pass, so the two are compared on one
@@ -16,7 +16,6 @@ when a version disagrees with the plain versions.
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -33,7 +32,7 @@ def main():
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 1
-    from deepspeed_tpu_torch.inference.v2.kernels import _build
+    from deepspeed_tpu_torch.ops.op_builder import builder as _build
     from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
     from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
     from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
@@ -43,7 +42,7 @@ def main():
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
         csrc = csrc.resolve()
-        _build.build(csrc=csrc)
+        _build.build(("ragged_paged_attention", "paged_decode"), csrc=csrc)
         lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
         versions[tag] = (rpa.bind(lib("ragged_paged_attention")),
                          pdk.bind(lib("paged_decode")))

@@ -1,0 +1,208 @@
+"""Parity of the port's flash attention
+(``deepspeed_tpu_torch/ops/transformer/flash.py``, through
+``flash_attention_with_lse`` and its autograd Function) with the JAX Pallas
+kernel pair run in interpret mode, as the JAX suite runs it on the CPU
+(``flash_attention_with_lse(..., interpret=True)``), on the same numpy
+inputs: O, LSE and the gradients of q, k and v (through dO and a cotangent
+on the LSE) across every mask feature (causal, non-causal, window, segment
+ids, ALiBi, negative ``q_offset`` with fully masked rows, Sq != Sk), GQA
+g in {1, 2, 4} and head_dim in {32, 64}. Tolerances are the JAX suite's
+(``tests/unit/ops/test_pallas_flash.py:30-33``): fp32 at ``FP32_TOL`` /
+``GRAD_TOL``, bf16 at ``BF16_TOL`` / ``BF16_GRAD_TOL``.
+
+Lengths that are no multiple of the tile, which the Pallas kernel does not
+take, are held against the port's ``attention_reference``, itself held
+against the JAX ``_xla_attention``.
+
+On the CPU the port runs its plain versions; ``chip_smoke.py`` holds the
+CUDA kernels to them on the GPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from deepspeed_tpu.ops.transformer import pallas_flash as jflash
+from deepspeed_tpu.ops.transformer.attention import _xla_attention, alibi_slopes
+from deepspeed_tpu_torch.ops.transformer import attention as tattn
+from deepspeed_tpu_torch.ops.transformer import flash as tflash
+
+FP32_TOL = dict(rtol=2e-5, atol=5e-6)
+GRAD_TOL = dict(rtol=5e-5, atol=5e-6)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+BF16_GRAD_TOL = dict(rtol=6e-2, atol=6e-2)
+BLOCK = 32   # Pallas tiles at these small lengths
+
+
+@pytest.fixture(autouse=True)
+def _pallas_compiler_params(monkeypatch):
+    """The JAX kernel names ``pltpu.TPUCompilerParams``, which newer JAX
+    releases call ``pltpu.CompilerParams``; alias it for these tests so the
+    reference runs unchanged under the installed JAX."""
+    if not hasattr(pltpu, "TPUCompilerParams"):
+        monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                            raising=False)
+
+
+CASES = {
+    "causal": dict(causal=True),
+    "noncausal": dict(causal=False),
+    "window": dict(causal=True, window=24),
+    "segids": dict(causal=False, segids=True),
+    "segids_causal": dict(causal=True, segids=True),
+    "alibi": dict(causal=True, alibi=True),
+    "alibi_window": dict(causal=True, alibi=True, window=40),
+    "neg_offset": dict(causal=True, q_offset=-40),
+    "short_q": dict(causal=True, Sq=32),
+}
+
+
+def _inputs(case, g, D, seed, B=2, S=64, kvH=2):
+    rng = np.random.default_rng(seed)
+    Sq = case.get("Sq", S)
+    H = kvH * g
+    arr = lambda *shape: (rng.normal(size=shape) * 0.3).astype(np.float32)
+    x = dict(q=arr(B, Sq, H, D), k=arr(B, S, kvH, D), v=arr(B, S, kvH, D),
+             do=rng.normal(size=(B, Sq, H, D)).astype(np.float32),
+             dlse=rng.normal(size=(B, H, Sq)).astype(np.float32))
+    mask = dict(causal=case["causal"])
+    if case.get("segids"):
+        mask["segment_ids"] = rng.integers(0, 3, (B, S)).astype(np.int32)
+    if case.get("alibi"):
+        mask["alibi_slopes"] = alibi_slopes(H)
+    if "window" in case:
+        mask["window"] = case["window"]
+    if "q_offset" in case:
+        mask["q_offset"] = case["q_offset"]
+    return x, mask
+
+
+def _jax(x, mask, dtype):
+    kw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in mask.items()}
+    if "window" in kw:
+        kw["window"] = jnp.asarray(kw["window"], jnp.int32)
+    f = lambda q, k, v: jflash.flash_attention_with_lse(
+        q, k, v, block_q=BLOCK, block_k=BLOCK, interpret=True, **kw)
+    (o, lse), vjp = jax.vjp(f, *(jnp.asarray(x[n], dtype) for n in "qkv"))
+    grads = vjp((jnp.asarray(x["do"], dtype), jnp.asarray(x["dlse"])))
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    return [f32(o), f32(lse)] + [f32(d) for d in grads]
+
+
+def _port(x, mask, dtype):
+    q, k, v = (torch.tensor(x[n], dtype=dtype, requires_grad=True) for n in "qkv")
+    kw = {k_: (torch.from_numpy(v_) if isinstance(v_, np.ndarray) else v_)
+          for k_, v_ in mask.items()}
+    o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+    torch.autograd.backward([o, lse], [torch.tensor(x["do"], dtype=dtype),
+                                       torch.from_numpy(x["dlse"])])
+    f32 = lambda t: t.detach().float().numpy()
+    return [f32(o), f32(lse), f32(q.grad), f32(k.grad), f32(v.grad)]
+
+
+def _check(got, want, tol, grad_tol):
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a, b, err_msg=["o", "lse", "dq", "dk", "dv"][i],
+                                   **(tol if i < 2 else grad_tol))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fp32_feature_matrix(case):
+    x, mask = _inputs(CASES[case], g=2, D=32, seed=0)
+    _check(_port(x, mask, torch.float32), _jax(x, mask, jnp.float32), FP32_TOL, GRAD_TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("D", [32, 64])
+def test_fp32_gqa_groups_and_head_dims(g, D):
+    x, mask = _inputs(CASES["causal"], g=g, D=D, seed=1)
+    _check(_port(x, mask, torch.float32), _jax(x, mask, jnp.float32), FP32_TOL, GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "segids_causal", "alibi"])
+def test_bf16(case):
+    x, mask = _inputs(CASES[case], g=4, D=64, seed=2)
+    _check(_port(x, mask, torch.bfloat16), _jax(x, mask, jnp.bfloat16), BF16_TOL,
+           BF16_GRAD_TOL)
+
+
+def test_fully_masked_rows_give_zero_and_the_sentinel():
+    """q_offset -40: the first 40 query rows see no key. O is 0 there, LSE
+    the finite MASK_VALUE, and no gradient is NaN."""
+    x, mask = _inputs(CASES["neg_offset"], g=2, D=32, seed=3)
+    o, lse, dq, dk, dv = _port(x, mask, torch.float32)
+    assert np.all(o[:, :40] == 0.0)
+    assert np.all(lse[:, :, :40] == tflash.MASK_VALUE)
+    assert all(np.isfinite(a).all() for a in (o, lse, dq, dk, dv))
+    assert np.all(dq[:, :40] == 0.0)
+
+
+@pytest.mark.parametrize("S,Sk,case", [(50, 50, "causal"), (37, 70, "window"),
+                                       (45, 45, "segids_causal"), (70, 70, "alibi")])
+def test_ragged_lengths_against_the_attention_reference(S, Sk, case):
+    """Lengths that are no multiple of the tile: the output against the
+    whole-matrix reference, and the gradients against autograd through it."""
+    rng = np.random.default_rng(4)
+    B, kvH, g, D = 2, 2, 2, 32
+    q = torch.tensor(rng.normal(size=(B, S, kvH * g, D)) * 0.3, dtype=torch.float32,
+                     requires_grad=True)
+    k = torch.tensor(rng.normal(size=(B, Sk, kvH, D)) * 0.3, dtype=torch.float32,
+                     requires_grad=True)
+    v = torch.tensor(rng.normal(size=(B, Sk, kvH, D)) * 0.3, dtype=torch.float32,
+                     requires_grad=True)
+    seg = torch.from_numpy(rng.integers(0, 3, (B, Sk)).astype(np.int32)) \
+        if case == "segids_causal" else None
+    slopes = torch.from_numpy(alibi_slopes(kvH * g)) if case == "alibi" else None
+    window = 20 if case == "window" else None
+    do = torch.tensor(rng.normal(size=(B, S, kvH * g, D)), dtype=torch.float32)
+    want = tattn.attention_reference(q, k, v, True, None, seg, alibi=slopes, window=window)
+    want_grads = torch.autograd.grad(want, (q, k, v), do)
+    got = tflash.flash_attention_kernel(q, k, v, causal=True, segment_ids=seg,
+                                        alibi_slopes=slopes, window=window)
+    got_grads = torch.autograd.grad(got, (q, k, v), do)
+    torch.testing.assert_close(got, want, **FP32_TOL)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "segids_causal", "alibi", "short_q"])
+def test_attention_reference_matches_xla(case):
+    x, mask = _inputs(CASES[case], g=2, D=32, seed=5)
+    seg = mask.get("segment_ids")
+    sl = mask.get("alibi_slopes")
+    w = mask.get("window")
+    want = _xla_attention(*(jnp.asarray(x[n]) for n in "qkv"), mask["causal"], None,
+                          None if seg is None else jnp.asarray(seg),
+                          alibi=None if sl is None else jnp.asarray(sl),
+                          window=None if w is None else jnp.asarray(w, jnp.int32))
+    got = tattn.attention_reference(
+        *(torch.from_numpy(x[n]) for n in "qkv"), mask["causal"], None,
+        None if seg is None else torch.from_numpy(seg),
+        alibi=None if sl is None else torch.from_numpy(sl), window=w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+
+
+def test_merge_partials_matches_jax():
+    """Two disjoint key halves merged by their LSEs give the whole; one side
+    fully masked (the sentinel) stays NaN-free."""
+    x, mask = _inputs(CASES["noncausal"], g=2, D=32, seed=6)
+    q, k, v = (torch.from_numpy(x[n]) for n in "qkv")
+    oa, la = tflash.flash_fwd_reference(q, k[:, :32], v[:, :32], causal=False)
+    ob, lb = tflash.flash_fwd_reference(q, k[:, 32:], v[:, 32:], causal=True, q_offset=-64)
+    got = tflash.merge_partials(oa, la, ob, lb)
+    want = jflash.merge_partials(*(jnp.asarray(t.numpy()) for t in (oa, la, ob, lb)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **FP32_TOL)
+    np.testing.assert_allclose(got[0].numpy(), oa.numpy(), **FP32_TOL)
+
+
+def test_attention_entry_dispatches_to_flash():
+    x, _ = _inputs(CASES["causal"], g=2, D=32, seed=7)
+    q, k, v = (torch.from_numpy(x[n]) for n in "qkv")
+    before = dict(tflash.launches)
+    got = tattn.flash_attention(q, k, v, causal=True)
+    want, _ = tflash.flash_fwd_reference(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert tflash.launches == before   # the CPU path launches no kernel

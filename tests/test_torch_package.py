@@ -76,7 +76,8 @@ def test_build_engine_without_gpu_raises(monkeypatch):
 
 def test_kernel_build_is_not_imported_on_the_cpu_path():
     """The CPU path never loads the nvcc builder: a fresh interpreter that
-    serves a wave on the CPU has no ``_build`` module afterwards."""
+    serves a wave and takes a training step on the CPU has no
+    ``op_builder.builder`` module afterwards."""
     code = (
         "import sys, numpy as np, torch\n"
         "from deepspeed_tpu_torch.inference.v2 import build_engine, "
@@ -87,7 +88,11 @@ def test_kernel_build_is_not_imported_on_the_cpu_path():
         "eng = build_engine(llama_model('llama2-tiny', dtype=torch.float32), "
         "cfg, device='cpu')\n"
         "eng.put([1], [np.arange(5)])\n"
-        "mod = 'deepspeed_tpu_torch.inference.v2.kernels._build'\n"
+        "import deepspeed_tpu_torch as dst\n"
+        "t, *_ = dst.initialize(model=llama_model('llama2-tiny', dtype=torch.float32), "
+        "config={'train_micro_batch_size_per_gpu': 2}, device='cpu')\n"
+        "t.train_batch({'input_ids': np.arange(32).reshape(2, 16)})\n"
+        "mod = 'deepspeed_tpu_torch.ops.op_builder.builder'\n"
         "sys.exit(1 if mod in sys.modules else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -121,7 +126,7 @@ def test_kernel_ab_fails_without_gpu():
 def test_kernel_library_is_keyed_by_its_sources(tmp_path):
     """An edited kernel source gets a new library name, so a stale build is
     never loaded; an identical copy of the sources shares the library."""
-    from deepspeed_tpu_torch.inference.v2.kernels import _build
+    from deepspeed_tpu_torch.ops.op_builder import builder as _build
     copy = tmp_path / "csrc"
     shutil.copytree(PACKAGE / "csrc", copy)
     name = "ragged_paged_attention"
@@ -130,3 +135,4 @@ def test_kernel_library_is_keyed_by_its_sources(tmp_path):
         (copy / "paged_attention_common.cuh").read_text() + "\n")
     assert _build.library_path(name, copy) != _build.library_path(name)
     assert _build.library_path(name).parent == _build.BUILD_DIR
+    assert all((PACKAGE / "csrc" / f"{k}.cu").exists() for k in _build.KERNELS)
