@@ -24,7 +24,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    moments and stochastically rounded bf16 ones, moments bitwise; each
    with its time, bound, plain time and the time of PyTorch's own call for
    the same function (``scaled_dot_product_attention``, fused AdamW), which
-   the port never calls;
+   the port never calls; the fused Lion kernel on the same leaf and bucket,
+   with and without weight decay, moments, master and cast bitwise; the
+   weight-only-quantized matmul at the four llama2-7b shapes and the head,
+   1, 8 and 32 rows, bf16, and in fp32 at small shapes (86 groups, a ragged
+   N, groups longer than the staged chunk), two runs bit-identical, with a
+   sweep over the rows against the non-kernel form (dequantize, then
+   ``torch.matmul``) and the dense bf16 ``F.linear`` beside it as context;
 5. serving: llama2-7b at full width and depth, random bf16 weights from a
    seed, served through ``build_engine`` + ``generate`` (8 prompts, chunked
    prefill, mixed waves and decode bursts); the launch counters must show
@@ -34,7 +40,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights with a small pool must preempt, offload to host memory and
    restore, and still produce every token; the same ``generate`` under
    ``torch.profiler``;
-6. training: tinyllama-1.1b at full width and depth, sequence 2048,
+6. int8 weight-only-quantized serving: the same model, seed and requests
+   with ``quantization_mode="int8"``; every request must get its tokens,
+   the WOQ kernel must have run once per quantized linear in every decode
+   step and in every wave of at most ``WOQ_KERNEL_MAX_ROWS`` rows (the head
+   in every wave) beside the two attention kernels, the weights must take
+   about half the dense model's bytes, and a short prompt's logits through
+   the kernels must be as close to the fp32 plain forward of the same
+   integers as twice the plain bf16 path's own error; then packed int4 at
+   the same width and 2 layers: tokens come out through the non-kernel
+   form alone and the logits hold the same bound;
+7. training: tinyllama-1.1b at full width and depth, sequence 2048,
    micro-batch 8, bf16 with fp32 master and moments, AdamW, clipping 1.0,
    through ``deepspeed_tpu_torch.initialize`` + ``train_batch``: 2 warm-up
    and 5 timed steps on one seeded batch (step time, tokens/s, MFU, peak
@@ -43,9 +59,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward), 22 dQ, 22 dK/dV and one Adam launch per bucket a step; one
    more step under ``torch.profiler``; then a 2-layer model of the same
    width trained 3 steps through the kernels and 3 steps through their
-   plain versions from the same weights, the losses within 2e-2.
+   plain versions from the same weights, the losses within 2e-2;
+8. Lion training: the same model, batch and config with ``optimizer: Lion``
+   (lr 1e-4, betas 0.9 / 0.99, weight decay 0.1): 1 warm-up and 3 timed
+   steps, one Lion launch per bucket a step and no Adam launch, a profiled
+   step, and the 2-layer kernels-vs-plain comparison.
 
-The output ends with a ``{"kernels": [...]}`` line (six kernels), the
+The output ends with a ``{"kernels": [...]}`` line (eight kernels), the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or ``deepspeed_tpu``; needs one CUDA device.
 """
@@ -64,6 +84,7 @@ LOGIT_ERR_RATIO = 2.0  # serving vs plain-bf16 error, both against fp32
 PROMPT_LENS = (512, 384, 300, 200, 130, 77, 33, 17)
 NEW_TOKENS = 32
 NUM_LAYERS = 32       # llama2-7b full depth
+INT4_LAYERS = 2       # the packed-int4 check runs at full width, depth cut
 # preemption run: 4 requests that end at 8 blocks each against a pool of 20
 PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_NEW_TOKENS, PREEMPT_BLOCKS = 4, 64, 64, 21
 SPIN_CYCLES = 400_000_000  # ~0.2 s of device spin behind each timing loop
@@ -117,7 +138,33 @@ MASTER_RTOL = 1e-6   # fp32 master: same IEEE ops on both sides
 TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 8, "bf16": {"enabled": True},
                 "gradient_clipping": 1.0,
                 "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}}}
+LION_CONFIG = dict(TRAIN_CONFIG, optimizer={"type": "Lion", "params": {
+    "lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.1}})
 TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 2048, 2, 5
+LION_WARMUP, LION_STEPS = 1, 3
+# Lion cases: (leaf sizes, weight decay, moment dtype); grads bf16, master fp32
+LION_CASES = {
+    "leaf-2048x5632-wd-fp32": ([2048 * 5632], 0.1, "float32"),
+    "leaf-2048x5632-nowd-bf16sr": ([2048 * 5632], 0.0, "bfloat16"),
+    "bucket-wd-bf16sr": ([2048, 300, 777, 524288, 5], 0.1, "bfloat16"),
+    "bucket-nowd-fp32": ([2048, 300, 777, 524288, 5], 0.0, "float32"),
+}
+MAIN_LION = "leaf-2048x5632-wd-fp32"
+# WOQ matmul cases: (K, N, group size) of llama2-7b's quantized linears
+WOQ_CASES = {
+    "qkvo-4096x4096": (4096, 4096, 128),
+    "gate-up-4096x11008": (4096, 11008, 128),
+    "down-11008x4096": (11008, 4096, 128),
+    "head-4096x32000": (4096, 32000, 128),
+}
+WOQ_ROWS = (1, 8, 32)
+MAIN_WOQ, MAIN_WOQ_ROWS = "gate-up-4096x11008", 8   # a decode step of the 8 requests
+WOQ_SWEEP_ROWS = (1, 8, 16, 32, 64, 128)
+# fp32 cases: (M, K, N, group size): 86 groups, N off the column tile,
+# groups longer than the 128 rows staged at a time, one row, 13 rows
+WOQ_FP32_CASES = ((5, 1376, 200, 16), (3, 512, 384, 128), (2, 512, 132, 256),
+                  (1, 256, 128, 64), (13, 384, 260, 128))
+WOQ_FP32_RTOL = 1e-5   # of the largest |out|: fp32 sums of K terms in two orders
 PATH_LAYERS, PATH_STEPS, PATH_RTOL = 2, 3, 2e-2   # kernel vs plain training path
 
 
@@ -516,6 +563,128 @@ def adam_kernel_vs_plain(torch, adam, gen, flush):
     return rows, max(errs)
 
 
+def lion_kernel_vs_plain(torch, lion, adam, gen, flush):
+    """Each Lion case: the kernel against the plain version on the same
+    bucket: moment (the SR bits included), master and cast bitwise; the main
+    case timed. PyTorch has no Lion: no library time."""
+    rows, errs = {}, []
+    step, lr = 5, 1e-4
+    gscale = torch.full((), 0.37, dtype=torch.float32, device="cuda")
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    for b_idx, (name, (sizes, wd, mdt)) in enumerate(LION_CASES.items()):
+        m_dtype = getattr(torch, mdt)
+        g, p, m, _ = adam_bucket(torch, sizes, m_dtype, gen)
+        seed = adam.sr_seed(step, 1, b_idx)
+        kernel = lambda: lion.lion_bucket_update(
+            g, p, m, lr=lr, beta1=0.9, beta2=0.99, weight_decay=wd, grad_scale=gscale,
+            seed_m=seed, m_dtype=m_dtype, param_dtype=torch.bfloat16)
+        plain = lambda: lion.lion_bucket_reference(
+            g, p, m, lr=lr, gscale=gscale, beta1=0.9, beta2=0.99, weight_decay=wd,
+            seed_m=seed, m_dtype=m_dtype, param_dtype=torch.bfloat16, sr=True)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for i, part in ((0, "master"), (1, "param cast"), (2, "exp_avg")):
+            if not torch.equal(bits(got[i]), bits(want[i])):
+                fail(f"lion/{name}: {part} differs from the plain version")
+        moved = (got[0] - p).abs().max().item()
+        if not moved > 0:
+            fail(f"lion/{name}: the step moved nothing")
+        errs.append((got[0] - want[0]).abs().max().item())
+        line = (f"[lion] {name}: {sum(sizes)} elements in {len(sizes)} leaves, wd {wd}, "
+                f"master, cast and moment bitwise (largest step {moved:.3e})")
+        if name == MAIN_LION:
+            n = g.numel()
+            nbytes = n * (2 + 4 + 4) + n * (4 + 4 + 2)
+            ms = device_ms(torch, kernel, 20, flush)[0]
+            plain_ms = device_ms(torch, plain, 5, flush, PLAIN_SPIN)[0]
+            b_ms, b_by = bound(nbytes, 10 * n, torch.float32)
+            rows = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None)
+            line += (f"\n[lion]   kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+                     f"{b_ms:.4f} ({b_by}) library_ms null (PyTorch has no Lion) "
+                     f"({b_ms / ms:.1%} of bound)")
+        print(line, flush=True)
+    return rows, max(errs)
+
+
+def woq_inputs(torch, M, K, N, gs, dtype, gen):
+    """Random int8 weights in the ``quantize_kernel`` layout, scales of the
+    size a 0.02-normal kernel gives, and activations."""
+    G = K // gs
+    q = torch.randint(-127, 128, (G, gs, N), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    scale = (torch.rand(G, 1, N, generator=gen, device="cuda") + 0.5) * 5e-4
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    return x, q, scale
+
+
+def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
+    """The WOQ matmul kernel against its plain version: bf16 at the llama2-7b
+    shapes, fp32 at small ones, every case run twice for equal bits; times
+    at every bf16 case, and the row sweep against the non-kernel form."""
+    import torch.nn.functional as F
+    rows, errs = {}, []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, N, gs in WOQ_FP32_CASES:
+        x, q, scale = woq_inputs(torch, M, K, N, gs, torch.float32, gen)
+        got, again = woq.woq_matmul(x, q, scale), woq.woq_matmul(x, q, scale)
+        want = woq.woq_matmul_reference(x, q, scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, again):
+            fail(f"woq fp32 M{M} K{K} N{N} gs{gs}: two runs differ")
+        if not bool(got.isfinite().all()) or err > WOQ_FP32_RTOL * want.abs().max().item():
+            fail(f"woq fp32 M{M} K{K} N{N} gs{gs}: max |err| {err:.3e} beyond "
+                 f"{WOQ_FP32_RTOL} x max |ref| {want.abs().max().item():.3e}")
+        print(f"[woq] fp32 M{M} K{K} N{N} gs{gs} (G {K // gs}): max_abs_err {err:.3e} "
+              f"(max |ref| {want.abs().max().item():.3e}), two runs bit-identical",
+              flush=True)
+    for name, (K, N, gs) in WOQ_CASES.items():
+        for M in WOQ_ROWS:
+            x, q, scale = woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
+            got, again = woq.woq_matmul(x, q, scale), woq.woq_matmul(x, q, scale)
+            want = woq.woq_matmul_reference(x, q, scale)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+                fail(f"woq/{name} M{M}: two runs differ")
+            err = check_close(f"woq/{name} M{M}", got, want)
+            errs.append(err)
+            G = K // gs
+            nbytes = K * N + G * N * 4 + (M * K + M * N) * 2
+            b_ms, b_by = bound(nbytes, 2 * M * K * N, torch.bfloat16)
+            ms, host = device_ms(torch, lambda: woq.woq_matmul(x, q, scale), 20, flush)
+            plain_ms = device_ms(torch, lambda: woq.woq_matmul_reference(x, q, scale), 5,
+                                 flush)[0]
+            w = torch.randn(N, K, generator=gen, device="cuda").to(torch.bfloat16)
+            dense_ms, dense_host = device_ms(torch, lambda: F.linear(x, w), 20, flush)
+            del w
+            if (name, M) == (MAIN_WOQ, MAIN_WOQ_ROWS):
+                rows = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None)
+            mma, _, splits = woq.launch_plan(x, q, sms)
+            print(f"[woq] {name} M{M} {'tensor' if mma else 'CUDA'} cores, splits {splits}: "
+                  f"max_abs_err {err:.3e}, two runs bit-identical; kernel_ms {ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms null "
+                  f"dense_bf16_linear_ms {dense_ms:.4f} ({b_ms / ms:.1%} of bound) "
+                  f"wrapper_host_ms {host:.4f} (F.linear's {dense_host:.4f})",
+                  flush=True)
+    K, N, gs = WOQ_CASES[MAIN_WOQ]
+    for M in WOQ_SWEEP_ROWS:
+        x, q, scale = woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
+        qp = {"q": q, "scale": scale}
+        check_close(f"woq sweep M{M}", woq.woq_matmul(x, q, scale),
+                    quantization.dequant_matmul(x, qp))
+        k_ms = device_ms(torch, lambda: woq.woq_matmul(x, q, scale), 20, flush)[0]
+        n_ms = device_ms(torch, lambda: quantization.dequant_matmul(x, qp), 10, flush)[0]
+        print(f"[woq-sweep] {MAIN_WOQ} M{M}: kernel_ms {k_ms:.4f} non_kernel_ms "
+              f"{n_ms:.4f} (dequantize the leaf to bf16, then torch.matmul); "
+              f"WOQ_KERNEL_MAX_ROWS is {quantization.WOQ_KERNEL_MAX_ROWS}", flush=True)
+    print("[woq] library_ms is null: no single PyTorch call computes a groupwise-int8 "
+          "matmul; dense_bf16_linear_ms is F.linear on bf16 weights of the same "
+          "(M, K, N), context only", flush=True)
+    return rows, max(errs)
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -575,37 +744,42 @@ def serving_kernels_vs_plain(torch, gen, flush):
     return rows, drows
 
 
-def serve(torch, np):
-    """llama2-7b served at full width and depth; returns the serving
-    kernels' launch counts over one ``generate``."""
+def build_llama2_7b(torch, quantization_mode=None):
+    """llama2-7b at full width and depth from seed 0, with the serving
+    config of both serving phases."""
     from deepspeed_tpu_torch.inference.v2 import (
-        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig,
-        build_engine, generate)
-    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
-    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine)
     from deepspeed_tpu_torch.models import llama_model
-
     cfg = RaggedInferenceEngineConfig(
-        num_kv_blocks=2049,
+        num_kv_blocks=2049, quantization_mode=quantization_mode,
         state_manager=DeepSpeedTPStateManagerConfig(max_context=4096))
     t0 = time.perf_counter()
-    model = llama_model("llama2-7b", num_layers=NUM_LAYERS)
-    engine = build_engine(model, cfg, seed=0)
+    engine = build_engine(llama_model("llama2-7b", num_layers=NUM_LAYERS), cfg, seed=0)
     torch.cuda.synchronize()
     print(f"[engine] llama2-7b layers {NUM_LAYERS}/32 hidden 4096 bf16 on "
-          f"{engine.device}, {cfg.num_kv_blocks} KV blocks x {cfg.kv_block_size} "
-          f"({engine.kv_cache.mem_bytes() / 2**30:.2f} GiB), built in "
+          f"{engine.device}, linear {engine.linear_impl}, {cfg.num_kv_blocks} KV blocks x "
+          f"{cfg.kv_block_size} ({engine.kv_cache.mem_bytes() / 2**30:.2f} GiB), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return engine
+
+
+def timed_generate(torch, np, engine, counters):
+    """One ``generate`` of the 8 requests, every module of ``counters``
+    (``{name: module with a launches count}``) set to 0 just before and read
+    just after. Returns (prompts, wall s, wave token counts, burst steps,
+    launches); fails unless every request got its tokens and the two
+    attention kernels ran once a layer in every wave and burst step."""
+    from deepspeed_tpu_torch.inference.v2 import generate
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32000, size=n) for n in PROMPT_LENS]
     generate(engine, [prompts[-1]], max_new_tokens=2)       # warm-up
-    waves, burst_steps, wave_s, burst_s = [0], [0], [0.0], [0.0]
+    waves, burst_steps, wave_s, burst_s = [], [0], [0.0], [0.0]
     run_wave, run_burst = engine._run_wave, engine.decode_burst
 
     # both end in a copy of their result to the host, so the host clock
     # around them spans their device work
     def counted_wave(wave):
-        waves[0] += 1
+        waves.append(sum(len(chunk) for _, chunk in wave))
         t = time.perf_counter()
         out = run_wave(wave)
         wave_s[0] += time.perf_counter() - t
@@ -621,20 +795,20 @@ def serve(torch, np):
     engine._run_wave, engine.decode_burst = counted_wave, counted_burst
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rpa.launches = 0
-    pdk.launches = 0
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     reqs = generate(engine, prompts, max_new_tokens=NEW_TOKENS,
                     return_requests=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ragged_paged_attention": rpa.launches, "paged_decode": pdk.launches}
+    launches = {name: mod.launches for name, mod in counters.items()}
     engine._run_wave, engine.decode_burst = run_wave, run_burst
     n_tok = sum(len(r.generated) for r in reqs)
     ttft = [r.first_token_s - r.submit_s for r in reqs]
     print(f"[engine] generate: {len(reqs)} requests, prompts {list(PROMPT_LENS)}, "
           f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; waves "
-          f"{waves[0]}, burst steps {burst_steps[0]}; TTFT mean "
+          f"{len(waves)}, burst steps {burst_steps[0]}; TTFT mean "
           f"{sum(ttft) / len(ttft) * 1e3:.1f} ms max {max(ttft) * 1e3:.1f} ms; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {launches}", flush=True)
@@ -643,12 +817,32 @@ def serve(torch, np):
           f"{(wall - wave_s[0] - burst_s[0]) * 1e3:.1f} ms", flush=True)
     if any(len(r.generated) != NEW_TOKENS for r in reqs):
         fail(f"token counts {[len(r.generated) for r in reqs]} != {NEW_TOKENS}")
-    if launches["ragged_paged_attention"] != NUM_LAYERS * waves[0] or waves[0] == 0:
+    if launches["ragged_paged_attention"] != NUM_LAYERS * len(waves) or not waves:
         fail(f"ragged launches {launches['ragged_paged_attention']} != "
-             f"{NUM_LAYERS} x {waves[0]} waves")
+             f"{NUM_LAYERS} x {len(waves)} waves")
     if launches["paged_decode"] != NUM_LAYERS * burst_steps[0] or burst_steps[0] == 0:
         fail(f"decode launches {launches['paged_decode']} != "
              f"{NUM_LAYERS} x {burst_steps[0]} burst steps")
+    return prompts, wall, waves, burst_steps[0], launches
+
+
+def serve(torch, np):
+    """llama2-7b served at full width and depth; returns the serving
+    kernels' launch counts over one ``generate``, the weights' bytes and
+    the peak device memory of that ``generate``."""
+    from deepspeed_tpu_torch.inference.quantization import quantized_tree_bytes
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig,
+        build_engine, generate)
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.models import llama_model
+
+    engine = build_llama2_7b(torch)
+    prompts, wall, _, _, launches = timed_generate(
+        torch, np, engine, {"ragged_paged_attention": rpa, "paged_decode": pdk})
+    memory = {"weight_bytes": quantized_tree_bytes(engine.model),
+              "peak_bytes": torch.cuda.max_memory_allocated()}
 
     # prefill logits of one chunked prompt: the bf16 serving path and the
     # plain bf16 full-sequence forward, each against the plain forward of
@@ -690,7 +884,160 @@ def serve(torch, np):
 
     # where the time goes: the same generate under the profiler
     profile_generate(torch, generate, engine, prompts, wall)
+    return launches, memory
+
+
+class plain_serving_kernels:
+    """Route the WOQ matmul and the ragged attention wrappers to their
+    plain versions on the card, and back afterwards."""
+
+    def __init__(self, woq, rpa):
+        self.woq, self.rpa = woq, rpa
+
+    def __enter__(self):
+        woq, rpa = self.woq, self.rpa
+        self.saved = (woq._woq_cuda, rpa._ragged_paged_attention_cuda)
+        woq._woq_cuda = woq.woq_matmul_reference
+        rpa._ragged_paged_attention_cuda = rpa.ragged_paged_attention_reference
+
+    def __exit__(self, *exc):
+        self.woq._woq_cuda, self.rpa._ragged_paged_attention_cuda = self.saved
+
+
+def serve_woq(torch, np, woq, dense_memory):
+    """llama2-7b served from int8 weights at full width and depth; returns
+    the launch counts of the WOQ kernel and the two attention kernels over
+    one ``generate``."""
+    from deepspeed_tpu_torch.inference.quantization import quantization, quantized_tree_bytes
+    from deepspeed_tpu_torch.inference.v2 import generate
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import _next_bucket
+    from deepspeed_tpu_torch.models import llama_model
+    from deepspeed_tpu_torch.nn.layers import Linear
+
+    engine = build_llama2_7b(torch, quantization_mode="int8")
+    if engine.linear_impl != "woq_int8":
+        fail(f"the engine chose linear {engine.linear_impl}")
+    linears = [m for m in engine.model.modules() if isinstance(m, Linear)]
+    if any(m.q is None or m.q.dtype != torch.int8 or m.weight is not None for m in linears):
+        fail("a linear of the quantized engine still holds a dense weight")
+    prompts, wall, waves, burst_steps, launches = timed_generate(
+        torch, np, engine, {"woq_matmul": woq, "ragged_paged_attention": rpa,
+                            "paged_decode": pdk})
+    # the head runs the kernel in every wave (one row a request), the other
+    # linears when the wave's padded token count is within the kernel's rows
+    rows = quantization.WOQ_KERNEL_MAX_ROWS
+    small = sum(_next_bucket(n, lo=16) <= rows for n in waves)
+    want = len(linears) * burst_steps + len(waves) + (len(linears) - 1) * small
+    if launches["woq_matmul"] != want or not launches["woq_matmul"]:
+        fail(f"WOQ launches {launches['woq_matmul']} != {want} ({len(linears)} linears x "
+             f"{burst_steps} burst steps + {len(waves)} waves' heads + {small} small waves)")
+    weight_bytes = quantized_tree_bytes(engine.model)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[woq-engine] weights {weight_bytes / 2**30:.3f} GiB (dense "
+          f"{dense_memory['weight_bytes'] / 2**30:.3f} GiB, ratio "
+          f"{weight_bytes / dense_memory['weight_bytes']:.3f}); generate peak "
+          f"{peak / 2**30:.2f} GiB (dense {dense_memory['peak_bytes'] / 2**30:.2f} GiB); "
+          f"WOQ launches {launches['woq_matmul']} = {len(linears)} linears x {burst_steps} "
+          f"burst steps + {len(waves)} heads + {len(linears) - 1} x {small} waves of "
+          f"<= {rows} rows", flush=True)
+    if not 0.45 < weight_bytes / dense_memory["weight_bytes"] < 0.6:
+        fail(f"int8 weights take {weight_bytes} bytes against the dense {dense_memory}")
+
+    # logits of a short prompt (one wave of 16 rows: every linear through the
+    # WOQ kernel): the kernels, and the same engine through the plain
+    # versions, each against the plain fp32 forward over the same integers
+    prompt = prompts[-1][:13]
+    got = torch.from_numpy(engine.put([10_000], [prompt])[0])
+    engine.flush(10_000)
+    if woq.launches != want + len(linears):
+        fail(f"the logits wave launched {woq.launches - want} WOQ kernels, not {len(linears)}")
+    ids = torch.as_tensor(prompt, device="cuda")[None]
+    ref32 = llama_model("llama2-7b", num_layers=NUM_LAYERS, dtype=torch.float32)
+    ref_linears = [m for m in ref32.modules() if isinstance(m, Linear)]
+    for m in ref_linears:
+        m.weight = None
+    ref32.to_empty(device="cuda")
+    for m, src in zip(ref_linears, linears):
+        m.set_quantized(src.q, src.scale)   # the engine's own tensors, not copies
+    ref32.load_state_dict(engine.model.state_dict())
+    with plain_serving_kernels(woq, rpa):
+        plain = torch.from_numpy(engine.put([10_001], [prompt])[0])
+        engine.flush(10_001)
+        want32 = ref32(ids)[0, -1].cpu()
+    del ref32
+    if woq.launches != want + len(linears):
+        fail("the plain path launched the WOQ kernel")
+    rel = lambda a: ((a - want32).norm() / want32.norm()).item()
+    print(f"[woq-engine] logits ({len(prompt)} tokens, one wave) vs fp32 plain forward "
+          f"over the same int8 weights: kernels bf16 relative L2 {rel(got):.3e}, plain "
+          f"versions bf16 {rel(plain):.3e}, kernels vs plain "
+          f"{((got - plain).norm() / plain.norm()).item():.3e}; argmax kernels "
+          f"{int(got.argmax())} plain {int(plain.argmax())} fp32 {int(want32.argmax())}",
+          flush=True)
+    if not bool(got.isfinite().all()) or rel(got) > LOGIT_ERR_RATIO * rel(plain):
+        fail(f"WOQ serving logits relative L2 error {rel(got):.3e} > "
+             f"{LOGIT_ERR_RATIO} x the plain versions' {rel(plain):.3e}")
+    profile_generate(torch, generate, engine, prompts, wall)
+    del engine, linears
+    torch.cuda.empty_cache()
+    serve_int4(torch, np, woq)
     return launches
+
+
+def serve_int4(torch, np, woq):
+    """Packed int4 at llama2-7b's width, depth cut to INT4_LAYERS: every
+    linear takes the non-kernel form (unpack, dequantize, ``torch.matmul``)
+    at every row count, so the WOQ kernel must not launch; tokens must come
+    out and a prompt's logits must be as close to the fp32 plain forward of
+    the same integers as twice the plain bf16 forward's own error."""
+    from deepspeed_tpu_torch.inference.quantization import quantized_tree_bytes
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine, generate)
+    from deepspeed_tpu_torch.models import llama_model
+    from deepspeed_tpu_torch.nn.layers import Linear
+    cfg = RaggedInferenceEngineConfig(
+        num_kv_blocks=257, quantization_mode="int4",
+        state_manager=DeepSpeedTPStateManagerConfig(max_context=4096))
+    engine = build_engine(llama_model("llama2-7b", num_layers=INT4_LAYERS), cfg, seed=0)
+    linears = [m for m in engine.model.modules() if isinstance(m, Linear)]
+    if engine.linear_impl != "woq_int4" or any(m.q.dtype != torch.uint8 for m in linears):
+        fail(f"the int4 engine chose linear {engine.linear_impl}")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 32000, size=n) for n in (77, 17)]
+    woq.launches = 0
+    out = generate(engine, prompts, max_new_tokens=8)
+    if [len(o) for o in out] != [8, 8] or woq.launches:
+        fail(f"int4 generate: token counts {[len(o) for o in out]}, WOQ kernel launches "
+             f"{woq.launches} (packed int4 never takes the kernel)")
+    got = torch.from_numpy(engine.put([10_000], [prompts[0]])[0])
+    engine.flush(10_000)
+    ids = torch.as_tensor(prompts[0], device="cuda")[None]
+    plain = engine.model(ids)[0, -1].cpu()
+    ref32 = llama_model("llama2-7b", num_layers=INT4_LAYERS, dtype=torch.float32)
+    ref_linears = [m for m in ref32.modules() if isinstance(m, Linear)]
+    for m in ref_linears:
+        m.weight = None
+    ref32.to_empty(device="cuda")
+    for m, src in zip(ref_linears, linears):
+        m.set_quantized(src.q, src.scale)
+    ref32.load_state_dict(engine.model.state_dict())
+    want = ref32(ids)[0, -1].cpu()
+    rel = lambda a: ((a - want).norm() / want.norm()).item()
+    dense_bytes = 2 * sum(m.in_features * m.out_features for m in linears)
+    q_bytes = sum(m.q.numel() + 4 * m.scale.numel() for m in linears)
+    print(f"[woq-engine] int4, {INT4_LAYERS} layers at llama2-7b's width: 16 tokens served, "
+          f"no WOQ kernel launch; linears {q_bytes / 2**20:.1f} MiB packed against "
+          f"{dense_bytes / 2**20:.1f} MiB bf16 (ratio {q_bytes / dense_bytes:.3f}; model "
+          f"{quantized_tree_bytes(engine.model) / 2**30:.3f} GiB); logits ({len(prompts[0])} "
+          f"tokens) vs fp32 plain forward over the same nibbles: serving bf16 relative L2 "
+          f"{rel(got):.3e}, plain bf16 forward {rel(plain):.3e}", flush=True)
+    if not bool(got.isfinite().all()) or rel(got) > LOGIT_ERR_RATIO * rel(plain):
+        fail(f"int4 serving logits relative L2 error {rel(got):.3e} > {LOGIT_ERR_RATIO} x "
+             f"the plain bf16 forward's {rel(plain):.3e}")
+    if not 0.25 < q_bytes / dense_bytes < 0.3:
+        fail(f"packed int4 linears take {q_bytes} bytes against {dense_bytes} in bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -698,12 +1045,12 @@ def serve(torch, np):
 # ---------------------------------------------------------------------------
 
 
-def train_engine(torch, num_layers=None):
+def train_engine(torch, config, num_layers=None):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import llama_model
     kw = {} if num_layers is None else {"num_layers": num_layers}
     engine, *_ = deepspeed_tpu_torch.initialize(model=llama_model("tinyllama-1.1b", **kw),
-                                                config=TRAIN_CONFIG, seed=0)
+                                                config=config, seed=0)
     return engine
 
 
@@ -720,15 +1067,16 @@ def training_flops(engine, tokens):
 
 
 class plain_kernels:
-    """Route the flash and Adam wrappers to their plain versions on the card
-    for the kernel-vs-plain training comparison, and back afterwards."""
+    """Route the flash, Adam and Lion wrappers to their plain versions on
+    the card for the kernel-vs-plain training comparison, and back
+    afterwards."""
 
-    def __init__(self, flash, adam):
-        self.flash, self.adam = flash, adam
+    def __init__(self, flash, adam, lion):
+        self.flash, self.adam, self.lion = flash, adam, lion
 
     def __enter__(self):
-        flash, adam = self.flash, self.adam
-        self.saved = (flash._fwd_cuda, flash._bwd_cuda, adam._adam_cuda)
+        flash, adam, lion = self.flash, self.adam, self.lion
+        self.saved = (flash._fwd_cuda, flash._bwd_cuda, adam._adam_cuda, lion._lion_cuda)
 
         def adam_plain(grads, master, exp_avg, exp_avg_sq, outs, *, gscale, sr_m, sr_v, **kw):
             p_out, cast_out, m_out, v_out = outs
@@ -739,49 +1087,65 @@ class plain_kernels:
             for dst, src in zip(outs, res):
                 if dst is not None:
                     dst.copy_(src)
+        def lion_plain(grads, master, exp_avg, outs, *, gscale, sr_m, **kw):
+            p_out, cast_out, m_out = outs
+            res = lion.lion_bucket_reference(
+                grads, master, exp_avg, gscale=1.0 if gscale is None else gscale,
+                m_dtype=m_out.dtype,
+                param_dtype=None if cast_out is None else cast_out.dtype, sr=True, **kw)
+            for dst, src in zip(outs, res):
+                if dst is not None:
+                    dst.copy_(src)
         flash._fwd_cuda = lambda q, k, v, spec: flash.flash_fwd_reference(q, k, v, spec=spec)
         flash._bwd_cuda = lambda q, k, v, o, lse, do, dlse, spec: flash.flash_bwd_reference(
             q, k, v, o, lse, do, dlse, spec=spec)
         adam._adam_cuda = adam_plain
+        lion._lion_cuda = lion_plain
 
     def __exit__(self, *exc):
-        self.flash._fwd_cuda, self.flash._bwd_cuda, self.adam._adam_cuda = self.saved
+        (self.flash._fwd_cuda, self.flash._bwd_cuda, self.adam._adam_cuda,
+         self.lion._lion_cuda) = self.saved
 
 
-def zero_counts(flash, adam):
+def zero_counts(flash, adam, lion):
     flash.launches.update(dict.fromkeys(flash.launches, 0))
     adam.launches = 0
+    lion.launches = 0
 
 
-def train(torch, np, flash, adam):
-    """tinyllama-1.1b trained at full width and depth; returns the training
-    kernels' launch counts over the timed steps."""
+def train(torch, np, flash, adam, lion, config, warmup, steps):
+    """tinyllama-1.1b trained at full width and depth under ``config``
+    (AdamW or Lion); returns the training kernels' launch counts over the
+    timed steps."""
     from torch.profiler import ProfilerActivity, profile
+    opt_name = config["optimizer"]["type"].lower()
+    opt_kernel, other = (("fused_lion", "fused_adam") if opt_name == "lion"
+                         else ("fused_adam", "fused_lion"))
     t0 = time.perf_counter()
-    engine = train_engine(torch)
+    engine = train_engine(torch, config)
     torch.cuda.synchronize()
     c = engine.model.config
     buckets = len(engine.opt_state["buckets"])
     n_all = sum(p.numel() for p in engine.params.values())
     print(f"[train] tinyllama-1.1b layers {c.num_layers} hidden {c.hidden_size} heads "
           f"{c.num_heads}/{c.kv_heads} ffn {c.ffn_size} vocab {c.vocab_size}: {n_all} "
-          f"params bf16, fp32 master and moments in {buckets} buckets, built in "
+          f"params bf16, {opt_name}, fp32 master and moments in {buckets} buckets, built in "
           f"{time.perf_counter() - t0:.2f} s; state "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     rng = np.random.default_rng(0)
-    B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    B = config["train_micro_batch_size_per_gpu"]
     batch = {"input_ids": rng.integers(0, c.vocab_size, size=(B, TRAIN_SEQ))}
     tokens = B * TRAIN_SEQ
-    losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+    losses = [float(engine.train_batch(batch)) for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(flash, adam)
+    zero_counts(flash, adam, lion)
     times = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))
         times.append(time.perf_counter() - t)
-    launches = dict(flash.launches, fused_adam=adam.launches)
+    launches = dict(flash.launches, fused_adam=adam.launches, fused_lion=lion.launches)
     peak = torch.cuda.max_memory_allocated()
     step_s = sum(times) / len(times)
     flops, n = training_flops(engine, tokens)
@@ -791,7 +1155,7 @@ def train(torch, np, flash, adam):
           f"{step_s * 1e3:.1f}; tokens/s {tokens / step_s:.0f}; MFU {mfu:.4f} "
           f"({flops:.4e} flops a step: 6 x {n} non-embedding params x {tokens} tokens "
           f"+ causal attention, at 989 TFLOP/s); max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps {launches}",
+          f"{peak / 2**30:.2f} GiB; launches over {steps} steps {launches}",
           flush=True)
     if not all(np.isfinite(losses)):
         fail(f"training losses {losses}")
@@ -799,8 +1163,8 @@ def train(torch, np, flash, adam):
         fail(f"first loss {losses[0]:.4f} not within 0.5 of ln({c.vocab_size})")
     if not losses[-1] < losses[0]:
         fail(f"loss did not fall on the repeated batch: {losses}")
-    want = {"flash_fwd": 2 * c.num_layers * TRAIN_STEPS, "flash_dq": c.num_layers * TRAIN_STEPS,
-            "flash_dkv": c.num_layers * TRAIN_STEPS, "fused_adam": buckets * TRAIN_STEPS}
+    want = {"flash_fwd": 2 * c.num_layers * steps, "flash_dq": c.num_layers * steps,
+            "flash_dkv": c.num_layers * steps, opt_kernel: buckets * steps, other: 0}
     if launches != want:
         fail(f"training launches {launches} != {want}")
 
@@ -831,19 +1195,20 @@ def train(torch, np, flash, adam):
     # their plain versions, from the same weights
     path = {}
     for name in ("kernels", "plain"):
-        eng = train_engine(torch, PATH_LAYERS)
-        zero_counts(flash, adam)
+        eng = train_engine(torch, config, PATH_LAYERS)
+        zero_counts(flash, adam, lion)
         if name == "plain":
-            with plain_kernels(flash, adam):
+            with plain_kernels(flash, adam, lion):
                 path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
-            if any(flash.launches.values()) or adam.launches:
-                fail(f"the plain path launched kernels: {flash.launches}, adam {adam.launches}")
+            if any(flash.launches.values()) or adam.launches or lion.launches:
+                fail(f"the plain path launched kernels: {flash.launches}, adam "
+                     f"{adam.launches}, lion {lion.launches}")
         else:
             path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
         del eng
         torch.cuda.empty_cache()
     rel = [abs(a - b) / abs(b) for a, b in zip(path["kernels"], path["plain"])]
-    print(f"[train] {PATH_LAYERS} layers, same width, {PATH_STEPS} steps: kernels "
+    print(f"[train] {opt_name}, {PATH_LAYERS} layers, same width, {PATH_STEPS} steps: kernels "
           f"{path['kernels']} plain {path['plain']}, relative difference "
           f"{max(rel):.3e} (limit {PATH_RTOL}, bf16)", flush=True)
     if max(rel) > PATH_RTOL:
@@ -860,8 +1225,11 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 1
+    from deepspeed_tpu_torch.inference.quantization import quantization
     from deepspeed_tpu_torch.ops.adam import adam
+    from deepspeed_tpu_torch.ops.lion import lion
     from deepspeed_tpu_torch.ops.op_builder import builder
+    from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
     from deepspeed_tpu_torch.ops.transformer import flash
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -889,19 +1257,33 @@ def main():
     rows, drows = serving_kernels_vs_plain(torch, gen, flush)
     frows, ferrs = flash_kernels_vs_plain(torch, flash, gen, flush)
     arow, aerr = adam_kernel_vs_plain(torch, adam, gen, flush)
+    lrow, lerr = lion_kernel_vs_plain(torch, lion, adam, gen, flush)
+    wrow, werr = woq_kernel_vs_plain(torch, woq, quantization, gen, flush)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
 
     # 5. serving
-    launches = serve(torch, np)
+    launches, dense_memory = serve(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. training
-    launches.update(train(torch, np, flash, adam))
+    # 6. int8 weight-only-quantized serving
+    launches["woq_matmul"] = serve_woq(torch, np, woq, dense_memory)["woq_matmul"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 7. kernels line
+    # 7. training
+    adamw = train(torch, np, flash, adam, lion, TRAIN_CONFIG, TRAIN_WARMUP, TRAIN_STEPS)
+    launches.update({k: v for k, v in adamw.items() if k != "fused_lion"})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. Lion training
+    launches["fused_lion"] = train(torch, np, flash, adam, lion, LION_CONFIG, LION_WARMUP,
+                                   LION_STEPS)["fused_lion"]
+
+    # 9. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",
@@ -916,7 +1298,10 @@ def main():
              frows["flash_dq"], ferrs["flash_dq"]),
             ("flash_dkv", "flash_bwd.cu", "ops/transformer/pallas_flash.py:296",
              frows["flash_dkv"], ferrs["flash_dkv"]),
-            ("fused_adam", "fused_adam.cu", "ops/adam/pallas_adam.py:152", arow, aerr)):
+            ("fused_adam", "fused_adam.cu", "ops/adam/pallas_adam.py:152", arow, aerr),
+            ("fused_lion", "fused_lion.cu", "ops/lion/pallas_lion.py:22", lrow, lerr),
+            ("woq_matmul", "woq_matmul.cu", "ops/quantizer/pallas_woq_matmul.py:51", wrow,
+             werr)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"deepspeed_tpu_torch/csrc/{src}",
                         "replaces": f"deepspeed_tpu/{replaces}", "launches": launches[name],

@@ -3,8 +3,10 @@
 The package mirrors ``deepspeed_tpu``'s module paths so every module has an
 obvious counterpart there. It imports ``torch`` and numpy only: nothing of
 JAX and nothing of ``deepspeed_tpu``. The slices ported so far are the
-ragged-wave serving path (``inference/v2``) and the single-device training
-step (``initialize`` + ``DeepSpeedEngine.train_batch``), with their
+ragged-wave serving path (``inference/v2``), dense or from int8 / int4
+weight-only-quantized weights (``inference/quantization``), and the
+single-device training step (``initialize`` +
+``DeepSpeedEngine.train_batch``) with the Adam family or Lion, with their
 hand-written Hopper kernels (``csrc/``).
 
 Front door (``deepspeed_tpu/__init__.py:67``):

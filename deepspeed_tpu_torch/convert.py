@@ -7,11 +7,15 @@ parameters stacked on a leading layer axis, ``Linear`` kernels stored
 blocks unstacked into ``blocks.{l}.*``, kernels transposed to ``[out, in]``
 (the ``torch.nn.functional.linear`` layout), ``embedding``/``scale`` leaves
 renamed ``weight``. The tree's leaves must already be host arrays (for
-example after ``jax.device_get``); bf16 leaves keep their bits.
+example after ``jax.device_get``); bf16 leaves keep their bits. A
+weight-only-quantized subtree (``{"q", "scale"}`` in place of ``kernel``,
+from the JAX ``quantize_param_tree`` or ``host_quantize_kernel``) becomes
+``<layer>.q`` / ``<layer>.scale`` with the same bytes and no transpose: the
+port's quantized ``Linear`` keeps the JAX storage layout.
 
 ``opt_state_from_jax`` carries the JAX optimizer state (``step``, and the
 ``master`` / ``exp_avg`` / ``exp_avg_sq`` trees, each shaped like the
-params) across the same way, for ``DeepSpeedEngine.load_opt_state``.
+params; a Lion state has no ``exp_avg_sq``) across the same way, for ``DeepSpeedEngine.load_opt_state``.
 """
 
 from __future__ import annotations
@@ -34,9 +38,17 @@ def _tensor(a: Any) -> torch.Tensor:
 
 
 def _leaf(name: str, a: torch.Tensor) -> torch.Tensor:
+    return a.transpose(-1, -2).contiguous() if name == "kernel" else a
+
+
+def _port_name(name: str, leaves: Mapping[str, Any]) -> str:
+    """The port's name of a JAX leaf; inside a quantized subtree ``q`` and
+    ``scale`` keep theirs (elsewhere ``scale`` is a norm's weight)."""
+    if "q" in leaves and name in ("q", "scale"):
+        return name
     if name not in _LEAF:
         raise KeyError(f"unknown JAX parameter leaf {name!r}")
-    return a.transpose(-1, -2).contiguous() if name == "kernel" else a
+    return _LEAF[name]
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -48,10 +60,11 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 for name, stacked in leaves.items():
                     t = _tensor(stacked)
                     for l in range(t.shape[0]):
-                        out[f"blocks.{l}.{layer}.{_LEAF[name]}"] = _leaf(name, t[l])
+                        out[f"blocks.{l}.{layer}.{_port_name(name, leaves)}"] = \
+                            _leaf(name, t[l])
         else:
             for name, a in sub.items():
-                out[f"{top}.{_LEAF[name]}"] = _leaf(name, _tensor(a))
+                out[f"{top}.{_port_name(name, sub)}"] = _leaf(name, _tensor(a))
     return out
 
 

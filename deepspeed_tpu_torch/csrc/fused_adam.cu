@@ -34,10 +34,7 @@
 // below the ~295 flops a byte where the card turns compute-bound. Loads and
 // stores are coalesced 2- and 4-byte accesses; wider vector accesses are
 // later work.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "opt_common.cuh"
 
 // Everything a launch reads, passed by value.
 struct AdamParams {
@@ -61,49 +58,7 @@ struct AdamParams {
 
 namespace {
 
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Mode : int { kAdam = 0, kAdamW = 1, kLamb = 2 };
-
-__device__ __forceinline__ float load(const void* base, long long i, int dt) {
-  switch (dt) {
-    case kBF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
-    case kF16: return __half2float(static_cast<const __half*>(base)[i]);
-    default: return static_cast<const float*>(base)[i];
-  }
-}
-
-__device__ __forceinline__ unsigned int hash32(unsigned int x) {
-  x ^= x >> 17;
-  x *= 0xED5AD4BBu;
-  x ^= x >> 11;
-  x *= 0xAC4C1B51u;
-  x ^= x >> 15;
-  x *= 0x31848BABu;
-  x ^= x >> 14;
-  return x;
-}
-
-// Store x at dtype dt; bf16 with stochastic rounding when sr.
-__device__ __forceinline__ void store(void* base, long long i, int dt, float x, bool sr,
-                                      unsigned int seed) {
-  switch (dt) {
-    case kBF16: {
-      __nv_bfloat16 out;
-      if (sr) {
-        unsigned int bits = __float_as_uint(x);
-        const unsigned int noise = hash32(static_cast<unsigned int>(i) ^ seed);
-        bits = (bits + (noise & 0xFFFFu)) & 0xFFFF0000u;
-        out = __ushort_as_bfloat16(static_cast<unsigned short>(bits >> 16));
-      } else {
-        out = __float2bfloat16_rn(x);
-      }
-      static_cast<__nv_bfloat16*>(base)[i] = out;
-      break;
-    }
-    case kF16: static_cast<__half*>(base)[i] = __float2half_rn(x); break;
-    default: static_cast<float*>(base)[i] = x;
-  }
-}
 
 __global__ void __launch_bounds__(256) fused_adam_kernel(const AdamParams a) {
   const float gs = a.gscale != nullptr ? *a.gscale : 1.f;

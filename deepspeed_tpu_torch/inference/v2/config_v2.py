@@ -3,10 +3,12 @@
 
 The JAX config's ``wave_dispatch`` switch (the legacy two-class dispatch)
 is not carried over: the port has one dispatch, the ragged wave. Fields
-that select what the port does not cover yet (tensor parallelism,
-weight-only quantization, a data-sharded pool, an fp8 KV cache) are kept so
-that such a configuration raises ``NotImplementedError`` instead of being
-silently served another way (``check_supported``).
+that select what the port does not cover yet (tensor parallelism, a
+data-sharded pool, an fp8 KV cache) are kept so that such a configuration
+raises ``NotImplementedError`` instead of being silently served another way
+(``check_supported``). ``quantization_mode`` takes ``int8`` / ``wint8`` /
+``int4`` / ``wint4`` (``inference/quantization``); an unknown mode raises
+``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from ..quantization.quantization import QuantizationConfig
 
 _LATER = "(ROADMAP A5: serving features left out of slice 1)"
 
@@ -52,8 +56,7 @@ class RaggedInferenceEngineConfig:
     def check_supported(self, model_dtype: torch.dtype) -> None:
         if self.tensor_parallel_degree != 1:
             raise NotImplementedError(f"tensor_parallel_degree > 1 is not ported {_LATER}")
-        if self.quantization_mode is not None:
-            raise NotImplementedError(f"weight-only quantization is not ported {_LATER}")
+        QuantizationConfig.from_mode(self.quantization_mode)   # raises for an unknown mode
         if self.kv_pool_sharding == "data":
             raise NotImplementedError(f"a data-sharded KV pool is not ported {_LATER}")
         if self.kv_pool_sharding not in ("auto", "replicated"):

@@ -12,15 +12,24 @@ flattens each wave into one token stream plus atom descriptors, and the
 model runs one ``ragged_paged_attention`` launch per layer over it.
 Prompts longer than ``max_prefill_chunk`` take one wave per chunk.
 
+With ``quantization_mode`` set (int8 / int4) the targeted linears are
+served from quantized storage (``_place_quantized``): host weights are
+quantized on the host, leaf by leaf, and only the int payload and the scales
+are uploaded, so the device never holds the dense tree; a seeded model is
+quantized on the device one leaf at a time. ``linear_impl`` names the
+linear the engine chose (``dense`` / ``woq_int8`` / ``woq_int4``).
+
 The engine runs on ``cuda`` unless given ``device="cpu"``; with neither it
 raises. Not ported (ROADMAP A5): the legacy two-class dispatch, the
-data-sharded pool, tensor parallelism, weight-only quantization and its
-cache, the slabbed host->device upload, ``build_hf_engine``, the module
-registry and the telemetry records.
+data-sharded pool, tensor parallelism, the quantization cache on disk and
+``build_hf_engine``, the slabbed host->device upload, ``update_params``, the
+module registry and the telemetry records.
 """
 
 from __future__ import annotations
 
+import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,12 +37,19 @@ import torch
 
 from ...accelerator import DeviceLike, resolve_device
 from ...models.transformer import TransformerLM
+from ...nn.layers import Linear
+from ..quantization.quantization import QuantizationConfig, host_quantize_kernel
 from .config_v2 import RaggedInferenceEngineConfig
 from .model import RaggedInferenceModel
 from .ragged.kv_cache import BlockedKVCache
 from .ragged.ragged_manager import DSStateManager
 from .ragged.ragged_wrapper import _next_bucket
 from .ragged.wave import WaveEntry, build_wave
+
+logger = logging.getLogger(__name__)
+
+#: host threads that quantize leaves while earlier ones upload
+_QUANT_WORKERS = 4
 
 
 def _place_model(model: TransformerLM, params: Optional[Mapping[str, Any]],
@@ -53,6 +69,75 @@ def _place_model(model: TransformerLM, params: Optional[Mapping[str, Any]],
         model.materialize(device, seed)
     else:
         model.to(device)
+    return model.eval()
+
+
+def _host_tensor(a: Any) -> torch.Tensor:
+    return a.cpu() if torch.is_tensor(a) else torch.as_tensor(a)
+
+
+def _place_quantized(model: TransformerLM, params: Optional[Mapping[str, Any]],
+                     device: torch.device, seed: int,
+                     qcfg: QuantizationConfig) -> TransformerLM:
+    """``_place_model`` for weight-only quantization: every ``Linear`` whose
+    name is a target of ``qcfg`` ends up in its quantized form on ``device``.
+
+    With ``params`` (a host state dict): the targeted linears drop their
+    dense weight before the model is given storage, so the device never
+    holds the dense tree. A ``<layer>.q`` / ``<layer>.scale`` pair uploads
+    as it is; a dense ``<layer>.weight`` is quantized on the host in the
+    model dtype (``host_quantize_kernel``, bit for bit the device
+    quantizer), a few leaves ahead of the upload in a small thread pool, and
+    only its int payload and scales are uploaded. Without ``params`` the
+    model is materialized on the device (from ``seed`` when it is on the meta
+    device, the same weights the dense engine would draw) and quantized
+    there one leaf at a time, each dense leaf freed as its ``q`` replaces
+    it."""
+    targets = {name: m for name, m in model.named_modules()
+               if isinstance(m, Linear) and name.rpartition(".")[2] in qcfg.targets}
+    on_meta = any(p.is_meta for p in model.parameters())
+    if params is None:
+        if on_meta:
+            model.materialize(device, seed)
+        else:
+            model.to(device)
+        for lin in targets.values():
+            if lin.q is None:
+                lin.quantize_(qcfg)
+        return model.eval()
+
+    dtype = model.config.dtype
+    for lin in targets.values():
+        lin.weight = None
+    if on_meta:
+        model.to_empty(device=device)
+    else:
+        model.to(device)
+
+    def prepare(name: str):
+        if f"{name}.q" in params:
+            return _host_tensor(params[f"{name}.q"]), _host_tensor(params[f"{name}.scale"])
+        kernel = _host_tensor(params[f"{name}.weight"]).transpose(-1, -2)   # [in, out]
+        q, scale = host_quantize_kernel(kernel, qcfg, dtype)
+        return torch.from_numpy(q), torch.from_numpy(scale)
+
+    with ThreadPoolExecutor(max_workers=_QUANT_WORKERS) as pool:
+        names = list(targets)
+        ahead = 2 * _QUANT_WORKERS   # leaves prepared but not yet uploaded
+        futures = {n: pool.submit(prepare, n) for n in names[:ahead]}
+        for i, name in enumerate(names):
+            q, scale = futures.pop(name).result()
+            if i + ahead < len(names):
+                futures[names[i + ahead]] = pool.submit(prepare, names[i + ahead])
+            targets[name].set_quantized(q.to(device), scale.to(device))
+    placed = lambda k: (k.rpartition(".")[0] in targets
+                        and k.rpartition(".")[2] in ("weight", "q", "scale"))
+    rest = {k: torch.as_tensor(v) for k, v in params.items() if not placed(k)}
+    missing, unexpected = model.load_state_dict(rest, strict=False)
+    missing = [k for k in missing if not placed(k)]
+    if missing or unexpected:
+        raise KeyError(f"state dict does not fit the model: missing {missing}, "
+                       f"unexpected {list(unexpected)}")
     return model.eval()
 
 
@@ -80,7 +165,17 @@ class InferenceEngineV2:
                                        dtype=self.config.kv_cache_dtype,
                                        device=self.device)
         self.state_manager = DSStateManager(sm, self.kv_cache)
-        self.model = _place_model(model, params, self.device, seed)
+        self._qcfg = QuantizationConfig.from_mode(self.config.quantization_mode)
+        #: the linear this engine serves through (the module registry's
+        #: ``linear`` slot in the JAX engine)
+        self.linear_impl = "dense" if self._qcfg is None else f"woq_int{self._qcfg.bits}"
+        if self._qcfg is None:
+            self.model = _place_model(model, params, self.device, seed)
+        else:
+            self.model = _place_quantized(model, params, self.device, seed, self._qcfg)
+        logger.info("InferenceEngineV2: %d KV blocks x %d tokens (%.0f MiB), linear=%s",
+                    num_blocks, block_size, self.kv_cache.mem_bytes() / 2**20,
+                    self.linear_impl)
         self._model = RaggedInferenceModel(self.model, block_size,
                                            self.max_blocks_per_seq,
                                            self.config.ragged_block_q)

@@ -8,7 +8,9 @@ back to the input's dtype.
 
 Layout difference: the JAX ``Linear`` stores its kernel ``[in, out]``; the
 port's ``Linear.weight`` is ``[out, in]`` as ``torch.nn.functional.linear``
-takes it (``deepspeed_tpu_torch/convert.py`` transposes).
+takes it (``deepspeed_tpu_torch/convert.py`` transposes). A weight-only-
+quantized ``Linear`` keeps the JAX storage instead (``q [G, gs, out]``,
+``scale [G, 1, out]``, out contiguous), the layout the WOQ matmul reads.
 
 Every layer is built with explicit ``device`` and ``dtype``; on the ``meta``
 device it holds no storage until ``to_empty`` gives it some, and
@@ -28,7 +30,13 @@ INIT_SCALE = 0.02
 
 
 class Linear(nn.Module):
-    """Dense layer ``y = x @ weight.T + bias`` with ``weight [out, in]``."""
+    """Dense layer ``y = x @ weight.T + bias`` with ``weight [out, in]``.
+
+    In its weight-only-quantized form (``set_quantized`` / ``quantize_``)
+    the buffers ``q`` (int8, or uint8 for packed int4) and ``scale`` (fp32)
+    stand in place of ``weight``, and ``forward`` runs ``quantized_matmul``
+    (``inference/quantization``); the bias is added after, as in the JAX
+    layer."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None, dtype=None):
@@ -40,14 +48,41 @@ class Linear(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_features, device=device,
                                               dtype=dtype), requires_grad=False)
                      if bias else None)
+        self.register_buffer("q", None)
+        self.register_buffer("scale", None)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
-        self.weight.normal_(0.0, INIT_SCALE, generator=generator)
+        if self.weight is not None:
+            self.weight.normal_(0.0, INIT_SCALE, generator=generator)
         if self.bias is not None:
             self.bias.zero_()
 
+    def set_quantized(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Take a quantized kernel (the ``quantize_kernel`` layout) in place
+        of the dense weight, which is dropped."""
+        G, rows, d_out = q.shape
+        gs = 2 * rows if q.dtype == torch.uint8 else rows
+        if G * gs != self.in_features or d_out != self.out_features \
+                or tuple(scale.shape) != (G, 1, d_out):
+            raise ValueError(f"quantized kernel q {tuple(q.shape)} {q.dtype} / scale "
+                             f"{tuple(scale.shape)} does not fit a Linear of "
+                             f"{self.in_features} -> {self.out_features}")
+        self.weight = None
+        self.q, self.scale = q, scale
+
+    @torch.no_grad()
+    def quantize_(self, cfg) -> None:
+        """Quantize the dense weight where it lies and free it."""
+        from ..inference.quantization.quantization import quantize_kernel
+        qp = quantize_kernel(self.weight.detach().T, cfg)
+        self.set_quantized(qp["q"], qp["scale"])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(x.dtype) if self.bias is not None else None
+        if self.q is not None:
+            from ..inference.quantization.quantization import quantized_matmul
+            y = quantized_matmul(x, {"q": self.q, "scale": self.scale})
+            return y if bias is None else y + bias
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 

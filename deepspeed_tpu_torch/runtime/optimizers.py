@@ -4,10 +4,12 @@ Counterpart of ``deepspeed_tpu/runtime/optimizers.py``. ``Optimizer`` is
 the same frozen descriptor (name, lr, betas, eps, weight_decay, LAMB
 coefficients, momentum, stored precision of master / first / second
 moments); its state is a dict ``{"step": int, "master": {name: tensor},
-"exp_avg": {...}, "exp_avg_sq": {...}}`` keyed by parameter name.
+"exp_avg": {...}, "exp_avg_sq": {...}}`` keyed by parameter name (lion
+keeps one moment and has no ``exp_avg_sq``).
 
-adam, adamw and lamb step through the fused bucket kernel
-(``ops/adam/adam.py``; the JAX ``_update_fused`` path): parameters are
+adam, adamw and lamb step through the fused Adam bucket kernel
+(``ops/adam/adam.py``) and lion through the fused Lion bucket kernel
+(``ops/lion/lion.py``; the JAX ``_update_fused`` path): parameters are
 packed in order into flat buckets of at most ``1 << 20`` elements (a leaf at
 or above the cap stands alone), small leaves each padded to a multiple of
 128 elements. Unlike the JAX state, whose leaves are concatenated into a
@@ -15,7 +17,7 @@ bucket every step, the port's master and moments live in the flat bucket
 buffers themselves (each leaf a view), so the kernel updates them in place
 with no copy; only a fused bucket's gradients are gathered, and its param
 casts scattered, per step. sgd and adagrad are plain tensor code, as in
-JAX. lion and the 1-bit and mu variants raise, naming their ROADMAP item.
+JAX. The 1-bit and mu variants raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,15 +29,15 @@ import torch
 
 from ..ops.adam.adam import (_store, adam_bucket_update, lamb_trust_epilogue,
                              lane_padded, sr_seed)
+from ..ops.lion.lion import lion_bucket_update
 
 OptState = Dict[str, Any]
 
 #: fused-bucket cap in elements (the JAX ``_OPT_BUCKET_ELEMS``)
 _OPT_BUCKET_ELEMS = 1 << 20
 
-_FUSED = ("adam", "adamw", "lamb")
+_FUSED = ("adam", "adamw", "lamb", "lion")
 _NOT_PORTED = {
-    "lion": "ROADMAP B4 (the fused Lion kernel)",
     "onebit_adam": "ROADMAP A6 (1-bit optimizers need the distributed step)",
     "onebit_lamb": "ROADMAP A6 (1-bit optimizers need the distributed step)",
     "zero_one_adam": "ROADMAP A6 (1-bit optimizers need the distributed step)",
@@ -78,7 +80,7 @@ class _Bucket:
     offsets: List[int]
     master: torch.Tensor
     exp_avg: torch.Tensor
-    exp_avg_sq: torch.Tensor
+    exp_avg_sq: Optional[torch.Tensor] = None   # lion keeps one moment
     grad: Optional[torch.Tensor] = None   # fused buckets: gather buffer
     cast: Optional[torch.Tensor] = None   # fused buckets: param-cast buffer
 
@@ -130,7 +132,10 @@ class Optimizer:
         names = [n for n, p in params.items() if p.numel() > 0]
         sizes = [params[n].numel() for n in names]
         keys = [str(params[n].dtype) for n in names]
-        state["exp_avg"], state["exp_avg_sq"] = {}, {}
+        slots = ("exp_avg",) if self.name == "lion" else ("exp_avg", "exp_avg_sq")
+        slot_dtypes = {"exp_avg": sdt, "exp_avg_sq": sqdt}
+        for slot in slots:
+            state[slot] = {}
         state["buckets"] = []
         for idxs in _plan_opt_buckets(sizes, keys, bucket_elems):
             bn = [names[i] for i in idxs]
@@ -141,7 +146,8 @@ class Optimizer:
             total = sum(segs)
             dev = params[bn[0]].device
             flat = lambda dt: torch.zeros(total, dtype=dt, device=dev)
-            b = _Bucket(bn, bs, offs, flat(mdt), flat(sdt), flat(sqdt))
+            b = _Bucket(bn, bs, offs, flat(mdt),
+                        **{slot: flat(slot_dtypes[slot]) for slot in slots})
             if not single:
                 b.grad = flat(params[bn[0]].dtype)
                 b.cast = flat(params[bn[0]].dtype)
@@ -149,14 +155,15 @@ class Optimizer:
                 shape = params[n].shape
                 b.master[off:off + k].copy_(params[n].detach().reshape(-1))
                 state["master"][n] = b.master[off:off + k].view(shape)
-                state["exp_avg"][n] = b.exp_avg[off:off + k].view(shape)
-                state["exp_avg_sq"][n] = b.exp_avg_sq[off:off + k].view(shape)
+                for slot in slots:
+                    state[slot][n] = getattr(b, slot)[off:off + k].view(shape)
             state["buckets"].append(b)
         for n, p in params.items():   # zero-size leaves ride outside the buckets
             if p.numel() == 0:
                 state["master"][n] = p.detach().to(mdt).clone()
-                state["exp_avg"][n] = torch.zeros(p.shape, dtype=sdt, device=p.device)
-                state["exp_avg_sq"][n] = torch.zeros(p.shape, dtype=sqdt, device=p.device)
+                for slot in slots:
+                    state[slot][n] = torch.zeros(p.shape, dtype=slot_dtypes[slot],
+                                                 device=p.device)
         return state
 
     # -- step ----------------------------------------------------------------
@@ -177,8 +184,9 @@ class Optimizer:
         return state
 
     def _update_fused(self, grads, state, step, lr, grad_scale, params_out):
-        """One kernel launch per bucket; LAMB applies the per-leaf trust
-        ratio after the kernel (norms are per-leaf reductions)."""
+        """One kernel launch per bucket (the Lion kernel for lion, else the
+        Adam kernel); LAMB applies the per-leaf trust ratio after the kernel
+        (norms are per-leaf reductions)."""
         f32 = torch.float32
         lamb = self.name == "lamb"
         kmode = "lamb" if lamb else self.name
@@ -200,13 +208,20 @@ class Optimizer:
                     param_out = out.view(-1) if out.is_contiguous() else None
                 else:
                     param_out = b.cast if b.cast.dtype == pdt else None
-            pm, pc, _, _ = adam_bucket_update(
-                g, b.master, b.exp_avg, b.exp_avg_sq, step=step, lr=lr,
-                beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
-                weight_decay=self.weight_decay, mode=kmode, grad_scale=grad_scale,
-                seed_m=sr_seed(step, 1, b_idx), seed_v=sr_seed(step, 2, b_idx),
-                m_dtype=sdt, v_dtype=sqdt, param_dtype=None if lamb else pdt,
-                inplace=True, param_out=param_out)
+            if self.name == "lion":
+                pm, pc, _ = lion_bucket_update(
+                    g, b.master, b.exp_avg, lr=lr, beta1=self.betas[0],
+                    beta2=self.betas[1], weight_decay=self.weight_decay,
+                    grad_scale=grad_scale, seed_m=sr_seed(step, 1, b_idx),
+                    m_dtype=sdt, param_dtype=pdt, inplace=True, param_out=param_out)
+            else:
+                pm, pc, _, _ = adam_bucket_update(
+                    g, b.master, b.exp_avg, b.exp_avg_sq, step=step, lr=lr,
+                    beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+                    weight_decay=self.weight_decay, mode=kmode, grad_scale=grad_scale,
+                    seed_m=sr_seed(step, 1, b_idx), seed_v=sr_seed(step, 2, b_idx),
+                    m_dtype=sdt, v_dtype=sqdt, param_dtype=None if lamb else pdt,
+                    inplace=True, param_out=param_out)
             for n, k, off in zip(b.names, b.sizes, b.offsets):
                 if lamb:
                     leaf = state["master"][n]

@@ -8,7 +8,9 @@ flags (``deepspeed_tpu_torch/ops/op_builder/builder.py``), holds each
 version against the plain PyTorch versions in bf16 at every kernel case of
 ``chip_smoke.py``, then times both at those cases in the order A, B, B, A
 (``--rounds`` times), one line per pass, so the two are compared on one
-card within one run. To compare a change with its parent, unpack the
+card within one run. The weight-only-quantized matmul joins in (at the
+``WOQ_CASES`` x ``WOQ_ROWS`` of ``chip_smoke.py``) when both directories
+hold its source. To compare a change with its parent, unpack the
 parent's ``deepspeed_tpu_torch/csrc`` with ``git archive`` into a directory
 that ``.gitignore`` lists and pass it as A. Exits non-zero without a GPU or
 when a version disagrees with the plain versions.
@@ -38,19 +40,24 @@ def main():
     from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
         paged_decode_attention_reference
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
+    from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
 
+    has_woq = all((d / "woq_matmul.cu").exists() for d in (args.a, args.b))
+    names = ("ragged_paged_attention", "paged_decode") + (("woq_matmul",) if has_woq else ())
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
         csrc = csrc.resolve()
-        _build.build(("ragged_paged_attention", "paged_decode"), csrc=csrc)
+        _build.build(names, csrc=csrc)
         lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
         versions[tag] = (rpa.bind(lib("ragged_paged_attention")),
-                         pdk.bind(lib("paged_decode")))
+                         pdk.bind(lib("paged_decode")),
+                         woq.bind(lib("woq_matmul")) if has_woq else None)
         print(f"[ab] {tag} = {csrc}", flush=True)
 
     def use(tag):
         rpa._kernel = lambda: versions[tag][0]
         pdk._kernel = lambda: versions[tag][1]
+        woq._kernel = lambda: versions[tag][2]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     waves = {name: cs.wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
@@ -58,6 +65,8 @@ def main():
              for name, (seqs, kvH, g, D) in cs.WAVE_CASES.items()}
     decodes = {name: cs.decode_case(torch, ctxs, kvH, g, D, cs.PAGE_SIZE, gen)[0]
                for name, (ctxs, kvH, g, D) in cs.DECODE_CASES.items()}
+    woqs = {f"{name}-M{M}": cs.woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
+            for name, (K, N, gs) in cs.WOQ_CASES.items() for M in cs.WOQ_ROWS} if has_woq else {}
     for tag in versions:
         use(tag)
         for name, (a, n) in waves.items():
@@ -67,6 +76,9 @@ def main():
         for name, a in decodes.items():
             cs.check_close(f"{tag} decode/{name}", pdk.paged_gqa_decode(*a),
                            paged_decode_attention_reference(*a))
+        for name, a in woqs.items():
+            cs.check_close(f"{tag} woq/{name}", woq.woq_matmul(*a),
+                           woq.woq_matmul_reference(*a))
         print(f"[ab] {tag} agrees with the plain versions (bf16, {cs.BF16_TOL})",
               flush=True)
 
@@ -77,6 +89,8 @@ def main():
                  for name, (a, _) in waves.items()]
         cells += [f"decode/{name} {cs.device_ms(torch, lambda: pdk.paged_gqa_decode(*a), 20, flush)[0]:.4f}"
                   for name, a in decodes.items()]
+        cells += [f"woq/{name} {cs.device_ms(torch, lambda: woq.woq_matmul(*a), 20, flush)[0]:.4f}"
+                  for name, a in woqs.items()]
         print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
     print(cs.nvidia_smi())
     return 0

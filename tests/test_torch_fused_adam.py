@@ -199,7 +199,9 @@ def test_optimizer_buckets_match_pallas(name, moments):
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="B4"):
-        topt.Optimizer(name="lion")
+    with pytest.raises(NotImplementedError, match="A3"):
+        topt.Optimizer(name="muadamw")
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        topt.Optimizer(name="lion8bit")
     with pytest.raises(NotImplementedError, match="A6"):
         topt.build_optimizer(type("C", (), {"type": "OneBitAdam", "params": {}})())
