@@ -63,9 +63,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. Lion training: the same model, batch and config with ``optimizer: Lion``
    (lr 1e-4, betas 0.9 / 0.99, weight decay 0.1): 1 warm-up and 3 timed
    steps, one Lion launch per bucket a step and no Adam launch, a profiled
-   step, and the 2-layer kernels-vs-plain comparison.
+   step, and the 2-layer kernels-vs-plain comparison;
+9. Mixtral serving (``[moe-engine]``): mixtral-8x7b at full width (8
+   experts, top-2, FFN 14336), depth cut to 24 of 32 layers, random bf16
+   weights from a seed, the requests of phase 5 through ``build_engine`` +
+   ``generate``: every request gets its tokens; the MoE route, gather and
+   FFN ran once a layer in every wave and decode step, the split form's FFN
+   and combine in exactly the waves of more than
+   ``MOE_FUSED_COMBINE_MAX_TOKENS`` rows, both attention kernels once a
+   layer; tokens/s, TTFT, peak memory, weight bytes and a profile; then a
+   2-layer model of the same width: a prompt's logits through the kernels
+   within twice the plain bf16 path's error against the fp32 plain
+   dropless forward.
 
-The output ends with a ``{"kernels": [...]}`` line (eight kernels), the
+Phase 4 also holds the five MoE kernels (``[moe]``: route, dispatch gather,
+fused FFN + combine, split FFN, combine) against their plain versions: fp32
+at small shapes (top_k 1, gelu, dead experts, dropped choices, T off every
+tile size, a route over 3000 tokens), then bf16 at mixtral-8x7b's widths for
+T = 8, 256 and 512 (dropless, S = 8 T): route indices bitwise, gather
+byte-identical, FFN within 5e-2, combine and fused-vs-split bitwise; each
+timed with its bound, its plain version and ``index_select`` for the
+gather; ``torch.bmm`` over all slots as context; then the fused-vs-split
+sweep over T = 8 ... 4096 (``[moe-sweep]``) that sets
+``MOE_FUSED_COMBINE_MAX_TOKENS``.
+
+The output ends with a ``{"kernels": [...]}`` line (13 kernels), the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or ``deepspeed_tpu``; needs one CUDA device.
 """
@@ -166,6 +188,31 @@ WOQ_FP32_CASES = ((5, 1376, 200, 16), (3, 512, 384, 128), (2, 512, 132, 256),
                   (1, 256, 128, 64), (13, 384, 260, 128))
 WOQ_FP32_RTOL = 1e-5   # of the largest |out|: fp32 sums of K terms in two orders
 PATH_LAYERS, PATH_STEPS, PATH_RTOL = 2, 3, 2e-2   # kernel vs plain training path
+# MoE kernel cases at mixtral-8x7b's widths: E 8, top_k 2, H 4096, F 14336,
+# dropless (capacity T, S = 8 T slots): a decode step and two prefill waves
+MOE_E, MOE_K, MOE_H, MOE_F = 8, 2, 4096, 14336
+MOE_TOKENS = (8, 256, 512)
+MOE_DECODE_T, MOE_WAVE_T = 8, 512   # the kernels line: fused form at a decode step, split at a wave
+MOE_BF16_TOL = 5e-2   # atol = rtol, the JAX suite's MoE bound (test_pallas_moe.py:140-142)
+MOE_FP32_TOL = 1e-5
+MOE_W_ULPS = 4        # route weights: within 4 fp32 ulp when not bitwise (two exp builds)
+# fp32 cases, TF32 off: (T, E, H, F, top_k, activation, capacity factor or None
+# for dropless, dead expert or None)
+MOE_FP32_CASES = (
+    (37, 4, 64, 96, 1, "silu_gated", None, None),    # top_k 1; T off every tile
+    (45, 6, 72, 136, 2, "gelu", 1.25, None),         # capacity overflow: choices dropped
+    (33, 4, 64, 128, 2, "silu_gated", None, 2),      # a dead expert
+    (70, 8, 40, 200, 2, "silu_gated", 1.25, 0),      # expert 0 dead (slot 0 empty), drops
+    (3000, 8, 64, 64, 2, "silu_gated", 1.25, None),  # the route over 3 chunks of 1024 tokens
+)
+MOE_SWEEP_T = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+# two sweeps on one card moved split / fused at one T by up to 1.7% (PERF.md):
+# a lead under 2% counts as a tie
+MOE_SWEEP_MARGIN = 0.02
+# Mixtral serving: mixtral-8x7b at full width, depth cut to 24 of 32 layers
+# (65.4 GiB of bf16 weights; 32 layers would need 87 GiB); the logits check
+# at 2 layers of the same width, against an fp32 copy
+MIXTRAL_LAYERS, MIXTRAL_LOGIT_LAYERS = 24, 2
 
 
 def fail(msg):
@@ -686,6 +733,228 @@ def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
 
 
 # ---------------------------------------------------------------------------
+# mixture-of-experts kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def moe_weights(torch, E, H, F, activation, dtype, gen):
+    """Router and expert weights, normal(0, 0.02), in the port's layout."""
+    rnd = lambda *s: (torch.randn(*s, generator=gen, device="cuda") * 0.02).to(dtype)
+    w = {"gate": rnd(H, E), "wo": rnd(E, H, F)}
+    if activation == "silu_gated":
+        w["wi_gate"], w["wi_up"] = rnd(E, F, H), rnd(E, F, H)
+    else:
+        w["wi"] = rnd(E, F, H)
+    return w
+
+
+def moe_ffn_args(w, activation):
+    gated = activation == "silu_gated"
+    return (w["wi_gate"] if gated else w["wi"], w["wi_up"] if gated else None, w["wo"])
+
+
+def moe_route_vs_plain(torch, moe, logits, top_k, cap, tag):
+    """The route kernel against its plain version: src and slot_tk (picks,
+    positions and keep flags of the kept choices) and ce bitwise, the
+    weights bitwise or within MOE_W_ULPS ulp, me to MOE_FP32_TOL. Returns
+    the kernel's outputs, whether the weights were bitwise and their max
+    abs error."""
+    got = moe.moe_route(logits, top_k=top_k, capacity=cap)
+    want = moe.moe_route_reference(logits, top_k=top_k, capacity=cap)
+    torch.cuda.synchronize()
+    for i, name in ((0, "src"), (2, "slot_tk"), (5, "ce")):
+        if not torch.equal(got[i], want[i]):
+            d = (got[i] != want[i]).nonzero()[:4].flatten().tolist()
+            fail(f"moe_route {tag}: {name} differs from the plain version at {d}: "
+                 f"{got[i].flatten()[d].tolist()} != {want[i].flatten()[d].tolist()}")
+    err = 0.0
+    for i, name in ((1, "slot_w"), (3, "w_tk")):
+        d = (got[i] - want[i]).abs()
+        if bool((d > MOE_W_ULPS * 2.0 ** -23 * want[i].abs()).any()):
+            fail(f"moe_route {tag}: {name} beyond {MOE_W_ULPS} ulp (max |err| {d.max():.3e})")
+        err = max(err, d.max().item())
+    if bool(((got[4] - want[4]).abs() > MOE_FP32_TOL * want[4].abs()).any()):
+        fail(f"moe_route {tag}: me beyond rtol {MOE_FP32_TOL}")
+    bitwise = torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    return got, bitwise, err
+
+
+def moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, activation, tol, tag):
+    """Route, gather, fused FFN + combine, split FFN and combine of one case
+    against their plain versions, and fused against split bitwise. Returns
+    (route outputs, payload, errors by kernel, route weights bitwise)."""
+    T, H = tokens.shape
+    E = w["gate"].shape[1]
+    logits = (tokens @ w["gate"]).float()
+    (src, slot_w, slot_tk, w_tk, _, _), wbits, werr = moe_route_vs_plain(
+        torch, moe, logits, top_k, cap, tag)
+    payload = moe.moe_dispatch_gather(tokens, src)
+    want = tokens.index_select(0, (src.long() - 1).clamp_min(0))
+    torch.cuda.synchronize()
+    if not torch.equal(payload.view(torch.uint8), want.view(torch.uint8)):
+        fail(f"moe_dispatch_gather {tag}: payload not byte-identical to index_select")
+    p3 = payload.view(E, cap, H)
+    wg, wu, wo = moe_ffn_args(w, activation)
+    fused = moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=activation)
+    y = moe.moe_ffn(p3, wg, wu, wo, src, activation=activation)
+    y_plain = moe.moe_ffn_reference(p3, wg, wu, wo, src, activation=activation)
+    fused_plain = moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
+                                                activation=activation)
+    split = moe.moe_combine(y.view(E * cap, H), slot_tk, w_tk)
+    comb = moe.moe_combine(y_plain.view(E * cap, H), slot_tk, w_tk)
+    comb_plain = moe.moe_combine_reference(y_plain.view(E * cap, H), slot_tk, w_tk)
+    torch.cuda.synchronize()
+    empty = (src.view(E, cap) == 0)
+    if bool(y[empty].any()):
+        fail(f"moe_ffn {tag}: rows of empty slots are not zero")
+    errs = {"moe_route": werr, "moe_dispatch_gather": 0.0,
+            "moe_ffn_combine": check_close(f"moe_ffn_combine {tag}", fused, fused_plain, tol),
+            "moe_ffn": check_close(f"moe_ffn {tag}", y, y_plain, tol)}
+    if not torch.equal(comb, comb_plain):
+        fail(f"moe_combine {tag}: differs from the plain version on the same y")
+    errs["moe_combine"] = 0.0
+    if not torch.equal(fused, split):
+        fail(f"moe {tag}: fused and split outputs differ (max |d| "
+             f"{(fused - split).abs().max().item():.3e})")
+    return (src, slot_w, slot_tk, w_tk), payload, errs, wbits
+
+
+def moe_bounds(torch, src, E, cap, T, H, F, top_k, activation, isz):
+    """(bytes, flops) of each MoE kernel on these inputs: each input read
+    once, each output written once; the FFN counts the filled slots' flops
+    (6 H F a slot gated, 4 H F gelu) and the weights of the experts that
+    received a token."""
+    S = E * cap
+    filled = int((src > 0).sum())
+    live = int((src.view(E, cap)[:, 0] > 0).sum())
+    nmat = 3 if activation == "silu_gated" else 2
+    flops = filled * 2 * nmat * H * F
+    weights = live * nmat * H * F * isz
+    return {"moe_route": (T * E * 4 + S * 8 + T * top_k * 8 + E * 8, 0),
+            "moe_dispatch_gather": (T * H * isz + S * 4 + S * H * isz, 0),
+            "moe_ffn_combine": (weights + filled * H * isz + S * 8 + T * H * 4, flops),
+            "moe_ffn": (weights + filled * H * isz + S * 4 + S * H * 4, flops),
+            "moe_combine": (T * top_k * H * 4 + T * top_k * 8 + T * H * 4, 0)}
+
+
+def moe_kernels_vs_plain(torch, moe, gen, flush):
+    """The five MoE kernels against their plain versions: fp32 at small
+    shapes (TF32 off), then bf16 at mixtral-8x7b's widths for a decode step
+    and two prefill waves, timed; then the fused-vs-split sweep. Returns
+    {kernel: row} (fused-form kernels at the decode step, split-form ones at
+    the 512-token wave) and the max errors in bf16."""
+    from deepspeed_tpu_torch.moe.sharded_moe import capacity
+    for T, E, H, F, top_k, act, cf, dead in MOE_FP32_CASES:
+        w = moe_weights(torch, E, H, F, act, torch.float32, gen)
+        tokens = torch.randn(T, H, generator=gen, device="cuda")
+        if dead is not None:   # a constant feature that pushes one logit 100 below the rest
+            tokens[:, 0] = 1.0
+            w["gate"][0, dead] = -100.0
+        cap = capacity(T, E, cf if cf else float(E), 4 if cf else 1)
+        tag = f"fp32 T{T} E{E} H{H} F{F} k{top_k} {act} cap {cap}"
+        (src, *_), _, errs, wbits = moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, act,
+                                                      MOE_FP32_TOL, tag)
+        filled = int((src > 0).sum())
+        print(f"[moe] {tag}: slots filled {filled}/{E * cap} of {T * top_k} choices; route "
+              f"bitwise (weights {'bitwise' if wbits else 'within ulp'}), payload "
+              f"byte-identical, fused {errs['moe_ffn_combine']:.3e} split "
+              f"{errs['moe_ffn']:.3e} from plain, combine bitwise, fused == split bitwise",
+              flush=True)
+    rows, errs_all = {}, {}
+    E, H, F, k, act = MOE_E, MOE_H, MOE_F, MOE_K, "silu_gated"
+    w = moe_weights(torch, E, H, F, act, torch.bfloat16, gen)
+    wg, wu, wo = moe_ffn_args(w, act)
+    for T in MOE_TOKENS:
+        tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        cap = capacity(T, E, float(E), 1)
+        tag = f"bf16 T{T} cap {cap}"
+        (src, slot_w, slot_tk, w_tk), payload, errs, wbits = moe_case_vs_plain(
+            torch, moe, w, tokens, k, cap, act, MOE_BF16_TOL, tag)
+        for name, e in errs.items():
+            errs_all[name] = max(errs_all.get(name, 0.0), e)
+        logits = (tokens @ w["gate"]).float()
+        p3 = payload.view(E, cap, H)
+        y = moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H)
+        calls = {
+            "moe_route": (lambda: moe.moe_route(logits, top_k=k, capacity=cap),
+                          lambda: moe.moe_route_reference(logits, top_k=k, capacity=cap), None),
+            "moe_dispatch_gather": (
+                lambda: moe.moe_dispatch_gather(tokens, src),
+                lambda: moe.moe_dispatch_gather_reference(tokens, src),
+                lambda: tokens.index_select(0, (src.long() - 1).clamp_min(0))),
+            "moe_ffn_combine": (
+                lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act),
+                lambda: moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
+                                                      activation=act), None),
+            "moe_ffn": (lambda: moe.moe_ffn(p3, wg, wu, wo, src, activation=act),
+                        lambda: moe.moe_ffn_reference(p3, wg, wu, wo, src, activation=act),
+                        None),
+            "moe_combine": (lambda: moe.moe_combine(y, slot_tk, w_tk),
+                            lambda: moe.moe_combine_reference(y, slot_tk, w_tk), None)}
+        bnd = moe_bounds(torch, src, E, cap, T, H, F, k, act, 2)
+        filled = int((src > 0).sum())
+        print(f"[moe] {tag}: slots filled {filled}/{E * cap}, experts with a token "
+              f"{int((src.view(E, cap)[:, 0] > 0).sum())}; route bitwise (weights "
+              f"{'bitwise' if wbits else 'within ulp'}), payload byte-identical, max_abs_err "
+              f"fused {errs['moe_ffn_combine']:.3e} split {errs['moe_ffn']:.3e}, combine "
+              f"bitwise, fused == split bitwise", flush=True)
+        for name, (kern, plain, lib) in calls.items():
+            ms = device_ms(torch, kern, 10, flush)[0]
+            plain_ms = synced_ms(torch, plain, 3)
+            lib_ms = device_ms(torch, lib, 10, flush)[0] if lib is not None else None
+            b_ms, b_by = bound(*bnd[name], torch.bfloat16)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            fused_form = name in ("moe_route", "moe_dispatch_gather", "moe_ffn_combine")
+            if T == (MOE_DECODE_T if fused_form else MOE_WAVE_T):
+                rows[name] = row
+            print(f"[moe]   T{T} {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+                  f"{b_ms:.4f} ({b_by}) library_ms "
+                  f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                  f"({b_ms / ms:.1%} of bound)", flush=True)
+        mid = torch.empty(E, cap, F, dtype=torch.bfloat16, device="cuda")
+        bmm = (device_ms(torch, lambda: torch.bmm(p3, wg.mT), 10, flush)[0],
+               device_ms(torch, lambda: torch.bmm(p3, wu.mT), 10, flush)[0],
+               device_ms(torch, lambda: torch.bmm(mid, wo.mT), 10, flush)[0])
+        print(f"[moe]   T{T} context: torch.bmm over all {E * cap} slots, gate {bmm[0]:.4f} "
+              f"up {bmm[1]:.4f} down {bmm[2]:.4f} ms (sum {sum(bmm):.4f})", flush=True)
+        del mid, y, payload, p3
+    print("[moe] library_ms: index_select for the gather; no single PyTorch call computes "
+          "the route, the grouped FFN with its combine, or the slot-table combine", flush=True)
+    moe_sweep(torch, moe, w, gen, flush)
+    return rows, errs_all
+
+
+def moe_sweep(torch, moe, w, gen, flush):
+    """Fused FFN + combine against split FFN -> combine at mixtral widths,
+    T = 8 ... 4096 dropless tokens: the two forms' times, which set
+    MOE_FUSED_COMBINE_MAX_TOKENS, and their outputs bitwise."""
+    from deepspeed_tpu_torch.moe.sharded_moe import capacity
+    E, H, k, act = MOE_E, MOE_H, MOE_K, "silu_gated"
+    wg, wu, wo = moe_ffn_args(w, act)
+    ahead = []   # the T at which the fused form leads by more than MOE_SWEEP_MARGIN
+    for T in MOE_SWEEP_T:
+        tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        cap = capacity(T, E, float(E), 1)
+        src, slot_w, slot_tk, w_tk, _, _ = moe.moe_route((tokens @ w["gate"]).float(),
+                                                         top_k=k, capacity=cap)
+        p3 = moe.moe_dispatch_gather(tokens, src).view(E, cap, H)
+        fused = lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act)
+        split = lambda: moe.moe_combine(
+            moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H), slot_tk, w_tk)
+        if not torch.equal(fused(), split()):
+            fail(f"moe sweep T{T}: fused and split outputs differ")
+        f_ms, s_ms = device_ms(torch, fused, 5, flush)[0], device_ms(torch, split, 5, flush)[0]
+        if s_ms > f_ms * (1 + MOE_SWEEP_MARGIN):
+            ahead.append(T)
+        print(f"[moe-sweep] T{T}: fused_ms {f_ms:.4f} split_ms {s_ms:.4f} (split / fused "
+              f"{s_ms / f_ms:.3f}); MOE_FUSED_COMBINE_MAX_TOKENS is "
+              f"{moe.MOE_FUSED_COMBINE_MAX_TOKENS}", flush=True)
+    print(f"[moe-sweep] the fused form leads by more than {MOE_SWEEP_MARGIN:.0%} at T "
+          f"{ahead}; the rule (fused up to the largest such T) gives "
+          f"{max(ahead) if ahead else None}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -763,7 +1032,23 @@ def build_llama2_7b(torch, quantization_mode=None):
     return engine
 
 
-def timed_generate(torch, np, engine, counters):
+class DictCount:
+    """One entry of a module's ``launches`` dict, read and set to 0 as a
+    module's ``launches`` count is."""
+
+    def __init__(self, counts, key):
+        self.counts, self.key = counts, key
+
+    @property
+    def launches(self):
+        return self.counts[self.key]
+
+    @launches.setter
+    def launches(self, value):
+        self.counts[self.key] = value
+
+
+def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
     """One ``generate`` of the 8 requests, every module of ``counters``
     (``{name: module with a launches count}``) set to 0 just before and read
     just after. Returns (prompts, wall s, wave token counts, burst steps,
@@ -817,12 +1102,12 @@ def timed_generate(torch, np, engine, counters):
           f"{(wall - wave_s[0] - burst_s[0]) * 1e3:.1f} ms", flush=True)
     if any(len(r.generated) != NEW_TOKENS for r in reqs):
         fail(f"token counts {[len(r.generated) for r in reqs]} != {NEW_TOKENS}")
-    if launches["ragged_paged_attention"] != NUM_LAYERS * len(waves) or not waves:
+    if launches["ragged_paged_attention"] != num_layers * len(waves) or not waves:
         fail(f"ragged launches {launches['ragged_paged_attention']} != "
-             f"{NUM_LAYERS} x {len(waves)} waves")
-    if launches["paged_decode"] != NUM_LAYERS * burst_steps[0] or burst_steps[0] == 0:
+             f"{num_layers} x {len(waves)} waves")
+    if launches["paged_decode"] != num_layers * burst_steps[0] or burst_steps[0] == 0:
         fail(f"decode launches {launches['paged_decode']} != "
-             f"{NUM_LAYERS} x {burst_steps[0]} burst steps")
+             f"{num_layers} x {burst_steps[0]} burst steps")
     return prompts, wall, waves, burst_steps[0], launches
 
 
@@ -1040,6 +1325,128 @@ def serve_int4(torch, np, woq):
         fail(f"packed int4 linears take {q_bytes} bytes against {dense_bytes} in bf16")
 
 
+class plain_moe_kernels:
+    """Route the MoE wrappers to their plain versions on the card, and back
+    afterwards."""
+
+    def __init__(self, moe):
+        self.moe = moe
+
+    def __enter__(self):
+        moe = self.moe
+        self.saved = (moe._route_cuda, moe._gather_cuda, moe._ffn_cuda, moe._combine_cuda)
+        moe._route_cuda = lambda logits, top_k, capacity: moe.moe_route_reference(
+            logits, top_k=top_k, capacity=capacity)
+        moe._gather_cuda = moe.moe_dispatch_gather_reference
+
+        def ffn(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens, activation, fused):
+            if fused:
+                return moe.moe_ffn_combine_reference(payload, wi_gate, wi_up, wo, src, slot_w,
+                                                     n_tokens, activation=activation)
+            return moe.moe_ffn_reference(payload, wi_gate, wi_up, wo, src,
+                                         activation=activation)
+        moe._ffn_cuda = ffn
+        moe._combine_cuda = moe.moe_combine_reference
+
+    def __exit__(self, *exc):
+        (self.moe._route_cuda, self.moe._gather_cuda, self.moe._ffn_cuda,
+         self.moe._combine_cuda) = self.saved
+
+
+def build_mixtral(torch, num_layers):
+    """mixtral-8x7b at full width and ``num_layers`` deep from seed 0, with
+    the serving config of the dense phase."""
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine)
+    from deepspeed_tpu_torch.models import mixtral_model
+    cfg = RaggedInferenceEngineConfig(
+        num_kv_blocks=2049, state_manager=DeepSpeedTPStateManagerConfig(max_context=4096))
+    t0 = time.perf_counter()
+    engine = build_engine(mixtral_model("mixtral-8x7b", num_layers=num_layers), cfg, seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in engine.model.parameters())
+    print(f"[moe-engine] mixtral-8x7b layers {num_layers}/32 hidden 4096 experts 8 top-2 "
+          f"ffn 14336 bf16 on {engine.device}: {n} params, "
+          f"{sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 2**30:.2f} "
+          f"GiB; {cfg.num_kv_blocks} KV blocks x {cfg.kv_block_size} "
+          f"({engine.kv_cache.mem_bytes() / 2**30:.2f} GiB); built in "
+          f"{time.perf_counter() - t0:.2f} s; allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return engine
+
+
+def serve_mixtral(torch, np, moe):
+    """mixtral-8x7b served at full width, 24 layers: every request gets its
+    tokens through the MoE kernels and both attention kernels (route, gather
+    and the FFN once a layer in every wave and decode step, the split form's
+    FFN and combine in exactly the waves above MOE_FUSED_COMBINE_MAX_TOKENS);
+    then a 2-layer model's logits against an fp32 forward. Returns the MoE
+    launch counts over one ``generate``."""
+    import gc
+
+    from deepspeed_tpu_torch.inference.v2 import generate
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import _next_bucket
+    from deepspeed_tpu_torch.models import mixtral_model
+
+    engine = build_mixtral(torch, MIXTRAL_LAYERS)
+    weight_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    counters = {"ragged_paged_attention": rpa, "paged_decode": pdk,
+                **{k: DictCount(moe.launches, k) for k in moe.launches}}
+    prompts, wall, waves, burst_steps, launches = timed_generate(
+        torch, np, engine, counters, num_layers=MIXTRAL_LAYERS)
+    peak = torch.cuda.max_memory_allocated()
+    L, thr = MIXTRAL_LAYERS, moe.MOE_FUSED_COMBINE_MAX_TOKENS
+    rows = [_next_bucket(n, lo=16) for n in waves]   # a wave's MoE runs over its padded rows
+    big = sum(r > thr for r in rows)
+    steps = len(waves) + burst_steps
+    want = {"moe_route": L * steps, "moe_dispatch_gather": L * steps,
+            "moe_ffn_combine": L * (steps - big), "moe_ffn": L * big, "moe_combine": L * big}
+    moe_launches = {k: launches[k] for k in want}
+    print(f"[moe-engine] waves of {rows} padded rows (threshold {thr}: {big} split), "
+          f"{burst_steps} decode steps; MoE launches {moe_launches}; weights "
+          f"{weight_bytes / 2**30:.2f} GiB, generate peak {peak / 2**30:.2f} GiB", flush=True)
+    if moe_launches != want or not all(want.values()):
+        fail(f"MoE launches {moe_launches} != {want} (every kernel must run on this path)")
+    profile_generate(torch, generate, engine, prompts, wall)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # logits of one chunked prompt at 2 layers of the same width: the kernel
+    # path, and the plain versions in bf16, each against the plain dropless
+    # forward of the same weights in fp32
+    engine = build_mixtral(torch, MIXTRAL_LOGIT_LAYERS)
+    prompt = prompts[2]
+    got = torch.from_numpy(engine.put([10_000], [prompt])[0])
+    engine.flush(10_000)
+    ids = torch.as_tensor(prompt, device="cuda")[None]
+    before = dict(moe.launches)
+    with plain_moe_kernels(moe):
+        plain = engine.model(ids, dropless=True)[0, -1].cpu()
+        ref32 = mixtral_model("mixtral-8x7b", num_layers=MIXTRAL_LOGIT_LAYERS,
+                              dtype=torch.float32)
+        ref32.to_empty(device="cuda").load_state_dict(engine.model.state_dict())
+        want32 = ref32(ids, dropless=True)[0, -1].cpu()
+    del ref32, engine
+    if moe.launches != before:
+        fail("the plain MoE path launched a MoE kernel")
+    rel = lambda a: ((a - want32).norm() / want32.norm()).item()
+    print(f"[moe-engine] logits ({len(prompt)} tokens, 2 chunks, {MIXTRAL_LOGIT_LAYERS} "
+          f"layers) vs fp32 plain dropless forward: kernels bf16 relative L2 {rel(got):.3e} "
+          f"(max |err| {(got - want32).abs().max().item():.3e}), plain bf16 forward "
+          f"{rel(plain):.3e}, kernels vs plain {((got - plain).norm() / plain.norm()).item():.3e}; "
+          f"argmax kernels {int(got.argmax())} plain {int(plain.argmax())} fp32 "
+          f"{int(want32.argmax())}", flush=True)
+    if not bool(got.isfinite().all()) or rel(got) > LOGIT_ERR_RATIO * rel(plain):
+        fail(f"Mixtral logits relative L2 error {rel(got):.3e} > {LOGIT_ERR_RATIO} x the "
+             f"plain bf16 forward's {rel(plain):.3e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return moe_launches
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -1231,6 +1638,7 @@ def main():
     from deepspeed_tpu_torch.ops.op_builder import builder
     from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
     from deepspeed_tpu_torch.ops.transformer import flash
+    from deepspeed_tpu_torch.ops.transformer import moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1259,6 +1667,7 @@ def main():
     arow, aerr = adam_kernel_vs_plain(torch, adam, gen, flush)
     lrow, lerr = lion_kernel_vs_plain(torch, lion, adam, gen, flush)
     wrow, werr = woq_kernel_vs_plain(torch, woq, quantization, gen, flush)
+    mrows, merrs = moe_kernels_vs_plain(torch, moe, gen, flush)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -1282,8 +1691,13 @@ def main():
     # 8. Lion training
     launches["fused_lion"] = train(torch, np, flash, adam, lion, LION_CONFIG, LION_WARMUP,
                                    LION_STEPS)["fused_lion"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 9. kernels line
+    # 9. Mixtral serving
+    launches.update(serve_mixtral(torch, np, moe))
+
+    # 10. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",
@@ -1301,7 +1715,17 @@ def main():
             ("fused_adam", "fused_adam.cu", "ops/adam/pallas_adam.py:152", arow, aerr),
             ("fused_lion", "fused_lion.cu", "ops/lion/pallas_lion.py:22", lrow, lerr),
             ("woq_matmul", "woq_matmul.cu", "ops/quantizer/pallas_woq_matmul.py:51", wrow,
-             werr)):
+             werr),
+            ("moe_route", "moe_route.cu", "ops/transformer/pallas_moe.py:192",
+             mrows["moe_route"], merrs["moe_route"]),
+            ("moe_dispatch_gather", "moe_dispatch.cu", "ops/transformer/pallas_moe.py:284",
+             mrows["moe_dispatch_gather"], merrs["moe_dispatch_gather"]),
+            ("moe_ffn_combine", "moe_ffn.cu", "ops/transformer/pallas_moe.py:392",
+             mrows["moe_ffn_combine"], merrs["moe_ffn_combine"]),
+            ("moe_ffn", "moe_ffn.cu", "ops/transformer/pallas_moe.py:434",
+             mrows["moe_ffn"], merrs["moe_ffn"]),
+            ("moe_combine", "moe_dispatch.cu", "ops/transformer/pallas_moe.py:455",
+             mrows["moe_combine"], merrs["moe_combine"])):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"deepspeed_tpu_torch/csrc/{src}",
                         "replaces": f"deepspeed_tpu/{replaces}", "launches": launches[name],

@@ -3,8 +3,9 @@
 The package mirrors ``deepspeed_tpu``'s module paths so every module has an
 obvious counterpart there. It imports ``torch`` and numpy only: nothing of
 JAX and nothing of ``deepspeed_tpu``. The slices ported so far are the
-ragged-wave serving path (``inference/v2``), dense or from int8 / int4
-weight-only-quantized weights (``inference/quantization``), and the
+ragged-wave serving path (``inference/v2``), dense, from int8 / int4
+weight-only-quantized weights (``inference/quantization``) or through
+mixture-of-experts layers (``moe``, Mixtral), and the
 single-device training step (``initialize`` +
 ``DeepSpeedEngine.train_batch``) with the Adam family or Lion, with their
 hand-written Hopper kernels (``csrc/``).

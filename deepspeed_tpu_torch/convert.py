@@ -13,6 +13,13 @@ from the JAX ``quantize_param_tree`` or ``host_quantize_kernel``) becomes
 ``<layer>.q`` / ``<layer>.scale`` with the same bytes and no transpose: the
 port's quantized ``Linear`` keeps the JAX storage layout.
 
+A MoE block's leaves (``blocks.moe.{gate, wi_gate, wi_up, wi, wo}``, bare
+arrays stacked ``[L, ...]``) become ``blocks.{l}.moe.*`` under the same
+names. ``gate [H, E]`` keeps its layout; the expert weights are transposed
+in their last two axes into the ``[out, in]`` layout the grouped FFN kernel
+reads: ``wi_gate`` / ``wi_up`` / ``wi`` ``[E, H, F]`` -> ``[E, F, H]``, ``wo
+[E, F, H]`` -> ``[E, H, F]``.
+
 ``opt_state_from_jax`` carries the JAX optimizer state (``step``, and the
 ``master`` / ``exp_avg`` / ``exp_avg_sq`` trees, each shaped like the
 params; a Lion state has no ``exp_avg_sq``) across the same way, for ``DeepSpeedEngine.load_opt_state``.
@@ -28,6 +35,8 @@ import torch
 # JAX leaf name -> port parameter name
 _LEAF = {"embedding": "weight", "scale": "weight", "kernel": "weight",
          "bias": "bias"}
+# MoE leaves (bare arrays): name -> whether the last two axes transpose
+_MOE_LEAF = {"gate": False, "wi_gate": True, "wi_up": True, "wi": True, "wo": True}
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -57,6 +66,16 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for top, sub in tree.items():
         if top == "blocks":
             for layer, leaves in sub.items():
+                if layer == "moe":
+                    for name, stacked in leaves.items():
+                        if name not in _MOE_LEAF:
+                            raise KeyError(f"unknown JAX MoE leaf {name!r}")
+                        t = _tensor(stacked)
+                        if _MOE_LEAF[name]:
+                            t = t.transpose(-1, -2)
+                        for l in range(t.shape[0]):
+                            out[f"blocks.{l}.moe.{name}"] = t[l].contiguous()
+                    continue
                 for name, stacked in leaves.items():
                     t = _tensor(stacked)
                     for l in range(t.shape[0]):

@@ -1,0 +1,133 @@
+// The two row gathers of the mixture of experts, both driven by a slot table:
+//
+//   dispatch gather:  payload[s] = tokens[max(src[s] - 1, 0)]     cast to the wire dtype
+//   split combine:    out[t] = 0 + w_tk[t, 0] * y[slot_tk[t, 0]] + w_tk[t, 1] * y[slot_tk[t, 1]]
+//
+// Replaces two TPU kernels of deepspeed_tpu/ops/transformer/pallas_moe.py:
+// _gather_kernel (via moe_dispatch_gather; one scalar-prefetched grid step a
+// slot) and _combine_kernel (via moe_combine; grid (T, K) revisiting token
+// t's output block K times). Same functions. An empty slot (src 0) reads
+// token 0's row unmasked, as the Pallas kernel does with mask_pad=False: the
+// combine never reads it with a non-zero weight. The gather's bf16 cast is
+// __float2bfloat16_rn, the rounding of torch's .to(bfloat16), so the payload
+// is byte-identical to tokens.index_select(0, (src - 1).clamp_min(0)). The
+// combine adds its k terms in order from 0, each product rounded on its own
+// (__fmul_rn, __fadd_rn: no FMA), the plain version's sequence, bit for bit.
+//
+// Bound on an H100 SXM: bytes (no arithmetic to speak of). A block moves one
+// row (gather: one slot; combine: one token and 512 columns), 16 bytes a
+// thread where the row allows it, so reads and writes are full lines.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ int source_row(const int* src, int s, int T) {
+  const int t = src[s] - 1;
+  return t < 0 ? 0 : (t < T ? t : T - 1);
+}
+
+// Same dtype in and out, rows a multiple of 16 bytes: 16-byte copies.
+__global__ void __launch_bounds__(128) gather_copy_kernel(const uint4* tokens, const int* src,
+                                                          uint4* out, int T, int row16) {
+  const int s = blockIdx.x;
+  const uint4* in = tokens + (long long)source_row(src, s, T) * row16;
+  uint4* o = out + (long long)s * row16;
+  for (int i = threadIdx.x; i < row16; i += blockDim.x) o[i] = in[i];
+}
+
+template <typename In, typename Out>
+__device__ __forceinline__ Out convert(In v);
+template <> __device__ __forceinline__ float convert(float v) { return v; }
+template <> __device__ __forceinline__ bf16 convert(float v) { return __float2bfloat16_rn(v); }
+template <> __device__ __forceinline__ float convert(bf16 v) { return __bfloat162float(v); }
+template <> __device__ __forceinline__ bf16 convert(bf16 v) { return v; }
+
+// Any other case: element by element, with the cast.
+template <typename In, typename Out>
+__global__ void __launch_bounds__(128) gather_cast_kernel(const In* tokens, const int* src,
+                                                          Out* out, int T, int H) {
+  const int s = blockIdx.x;
+  const In* in = tokens + (long long)source_row(src, s, T) * H;
+  Out* o = out + (long long)s * H;
+  for (int i = threadIdx.x; i < H; i += blockDim.x) o[i] = convert<In, Out>(in[i]);
+}
+
+constexpr int kCombineThreads = 128;
+constexpr int kCombineCols = 4 * kCombineThreads;   // columns a block: 4 a thread
+
+// Grid (T, H / 512): token t's 512 columns, its K picks added in order.
+__global__ void __launch_bounds__(kCombineThreads) combine_kernel(
+    const float* y, const int* slot_tk, const float* w_tk, float* out, int K, int H, int S) {
+  const int t = blockIdx.x;
+  const int c = blockIdx.y * kCombineCols + 4 * threadIdx.x;
+  if (c >= H) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const bool vec = (H & 3) == 0;   // a thread's 4 columns are one 16-byte load
+  for (int k = 0; k < K; ++k) {
+    int s = slot_tk[(long long)t * K + k];
+    s = s < 0 ? 0 : (s < S ? s : S - 1);
+    const float w = w_tk[(long long)t * K + k];
+    const float* row = y + (long long)s * H + c;
+    float v[4];
+    if (vec) {
+      const float4 q = *reinterpret_cast<const float4*>(row);
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = c + i < H ? row[i] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(w, v[i]));
+  }
+  float* o = out + (long long)t * H + c;
+  if (vec) {
+    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < H) o[i] = acc[i];
+  }
+}
+
+}  // namespace
+
+// payload [S, H] (out_bf16 ? bf16 : fp32) = tokens [T, H] (in_bf16 ? bf16 :
+// fp32) at rows max(src - 1, 0); returns the cudaError_t.
+extern "C" int dstt_moe_gather(const void* tokens, const int* src, void* out, int S, int T,
+                               int H, int in_bf16, int out_bf16, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (S == 0 || H == 0) return cudaSuccess;
+  const int esize = in_bf16 ? 2 : 4;
+  if (in_bf16 == out_bf16 && ((long long)H * esize) % 16 == 0) {
+    gather_copy_kernel<<<S, 128, 0, stream>>>(static_cast<const uint4*>(tokens), src,
+                                              static_cast<uint4*>(out), T, H * esize / 16);
+  } else if (in_bf16 && out_bf16) {
+    gather_cast_kernel<bf16, bf16><<<S, 128, 0, stream>>>(
+        static_cast<const bf16*>(tokens), src, static_cast<bf16*>(out), T, H);
+  } else if (in_bf16) {
+    gather_cast_kernel<bf16, float><<<S, 128, 0, stream>>>(
+        static_cast<const bf16*>(tokens), src, static_cast<float*>(out), T, H);
+  } else if (out_bf16) {
+    gather_cast_kernel<float, bf16><<<S, 128, 0, stream>>>(
+        static_cast<const float*>(tokens), src, static_cast<bf16*>(out), T, H);
+  } else {
+    gather_cast_kernel<float, float><<<S, 128, 0, stream>>>(
+        static_cast<const float*>(tokens), src, static_cast<float*>(out), T, H);
+  }
+  return cudaGetLastError();
+}
+
+// out [T, H] fp32 = sum over k of w_tk[t, k] * y[slot_tk[t, k]], y [S, H]
+// fp32; returns the cudaError_t.
+extern "C" int dstt_moe_combine(const float* y, const int* slot_tk, const float* w_tk,
+                                float* out, int T, int K, int H, int S, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (T == 0 || H == 0) return cudaSuccess;
+  const dim3 grid(T, (H + kCombineCols - 1) / kCombineCols);
+  combine_kernel<<<grid, kCombineThreads, 0, stream>>>(y, slot_tk, w_tk, out, K, H, S);
+  return cudaGetLastError();
+}

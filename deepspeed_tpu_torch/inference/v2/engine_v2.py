@@ -19,6 +19,10 @@ are uploaded, so the device never holds the dense tree; a seeded model is
 quantized on the device one leaf at a time. ``linear_impl`` names the
 linear the engine chose (``dense`` / ``woq_int8`` / ``woq_int4``).
 
+A MoE model (``models/mixtral.py``) is placed and seeded the same way: a
+meta-device model gets its storage and its weights on the device, nothing
+twice.
+
 The engine runs on ``cuda`` unless given ``device="cpu"``; with neither it
 raises. Not ported (ROADMAP A5): the legacy two-class dispatch, the
 data-sharded pool, tensor parallelism, the quantization cache on disk and
@@ -166,6 +170,10 @@ class InferenceEngineV2:
                                        device=self.device)
         self.state_manager = DSStateManager(sm, self.kv_cache)
         self._qcfg = QuantizationConfig.from_mode(self.config.quantization_mode)
+        if self._qcfg is not None and c.moe is not None:
+            raise NotImplementedError(
+                "weight-only quantization of a MoE model is not ported (ROADMAP A5: "
+                "MoE under WOQ)")
         #: the linear this engine serves through (the module registry's
         #: ``linear`` slot in the JAX engine)
         self.linear_impl = "dense" if self._qcfg is None else f"woq_int{self._qcfg.bits}"

@@ -6,6 +6,12 @@ tokens) and ``decode_burst`` (K decode steps with sampling on the device).
 The JAX legacy two-class programs (``ragged_forward``, ``prefill_chunk``,
 ``decode``) are not ported (ROADMAP A5).
 
+A MoE model's layers route DROPLESS on every wave and decode step
+(``capacity_factor = E``, ``min_capacity = 1``: capacity = the token
+count, so generation does not depend on how requests are batched), as the
+JAX model's ``_moe_serve`` does (``model.py:83-96``), through the MoE
+kernels of ``ops/transformer/moe.py``.
+
 The KV pool is updated IN PLACE: each layer's new K/V rows are written
 with ``index_copy_`` into ``k_pages[l]`` / ``v_pages[l]`` of the
 preallocated pool, where the JAX program carries the pool functionally
@@ -60,7 +66,7 @@ class RaggedInferenceModel:
         return q, k, v
 
     def _mlp(self, block: Block, h: torch.Tensor) -> torch.Tensor:
-        return block.mlp(h)
+        return block.mlp(h, dropless=True)
 
     @staticmethod
     def _write_kv(pages: torch.Tensor, new: torch.Tensor,

@@ -22,9 +22,15 @@ The training half is ``apply`` (logits through the flash attention of
 ``head_loss`` and ``loss`` (``models/transformer.py:757-882``), with
 ``masked_cross_entropy``.
 
+A block of a ``moe`` configuration holds a ``MoE`` (``moe/layer.py``) in
+place of its MLP, in every layer, as the JAX block does
+(``models/transformer.py:259-275``); ``forward(..., dropless=True)`` routes
+it with capacity = the token count, the function the serving engine
+computes. Training through MoE layers is not ported: ``apply`` raises.
+
 Configurations the port does not cover yet raise ``NotImplementedError``
-naming the ROADMAP item that will bring them: ALiBi, sliding windows, MoE
-and bidirectional encoders.
+naming the ROADMAP item that will bring them: ALiBi, sliding windows,
+bidirectional encoders and MoE training.
 """
 
 from __future__ import annotations
@@ -36,14 +42,29 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..moe.layer import MoE
 from ..nn import layers as L
 from ..ops.transformer.attention import flash_attention
+
+MOE_TRAINING = ("training through MoE layers is not ported (ROADMAP A7: MoE training "
+                "through a reference-VJP autograd.Function, with A6 / A9 to fit a "
+                "mixtral-class model)")
 
 ACTIVATIONS = {
     "gelu": L.gelu,  # tanh approximation
     "gelu_exact": lambda x: torch.nn.functional.gelu(x),
     "relu": torch.relu,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The JAX ``MoEConfig`` (``deepspeed_tpu/models/transformer.py:75-81``)."""
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    min_capacity: int = 4
+    aux_loss_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +94,8 @@ class TransformerConfig:
     lm_head_bias: bool = False
     tie_embeddings: bool = True
     causal: bool = True
-    moe: Any = None                  # mixture of experts: not ported
+    moe: Optional[MoEConfig] = None  # every layer's MLP is a MoE when set
+    moe_layer_freq: int = 1          # kept as in JAX, whose model reads only 1
     dtype: torch.dtype = torch.float32
     remat: bool = True               # recompute each block in the backward
     remat_policy: str = "nothing_saveable"
@@ -101,9 +123,10 @@ def check_supported(c: TransformerConfig) -> None:
         raise NotImplementedError(
             "sliding attention windows are not ported (ROADMAP A5: ALiBi, "
             "windows, fp8 KV and MoE serving)")
-    if c.moe is not None:
+    if c.moe is not None and c.moe_layer_freq != 1:
         raise NotImplementedError(
-            "MoE layers are not ported (ROADMAP A7: MoE; A5 for MoE serving)")
+            f"moe_layer_freq {c.moe_layer_freq}: the JAX model makes every layer a "
+            f"MoE (ROADMAP A7: MoE top_k > 2, fp16 and other activations)")
     if not c.causal:
         raise NotImplementedError(
             "bidirectional encoders are not ported (ROADMAP A2: model "
@@ -154,7 +177,13 @@ class Block(nn.Module):
         self.o_proj = L.Linear(h, h, bias=attn_out_bias, **kw)
         self.ln_2 = norm()
         self.gated = c.activation == "silu_gated"
-        if self.gated:
+        self.moe = None
+        if c.moe is not None:
+            m = c.moe
+            self.moe = MoE(h, c.ffn_size, num_experts=m.num_experts, top_k=m.top_k,
+                           capacity_factor=m.capacity_factor, min_capacity=m.min_capacity,
+                           activation=c.activation, **kw)
+        elif self.gated:
             self.gate_proj = L.Linear(h, c.ffn_size, bias=False, **kw)
             self.up_proj = L.Linear(h, c.ffn_size, bias=False, **kw)
             self.down_proj = L.Linear(c.ffn_size, h, bias=False, **kw)
@@ -163,8 +192,11 @@ class Block(nn.Module):
             self.fc_in = L.Linear(h, c.ffn_size, bias=use_bias, **kw)
             self.fc_out = L.Linear(c.ffn_size, h, bias=use_bias, **kw)
 
-    def mlp(self, h: torch.Tensor) -> torch.Tensor:
-        """MLP over the PRE-NORMED input h."""
+    def mlp(self, h: torch.Tensor, dropless: bool = False) -> torch.Tensor:
+        """MLP over the PRE-NORMED input h; a MoE block's output without its
+        aux loss, routed dropless when asked (capacity = the token count)."""
+        if self.moe is not None:
+            return self.moe(h, dropless=dropless)[0]
         if self.gated:
             return self.down_proj(L.silu(self.gate_proj(h)) * self.up_proj(h))
         return self.fc_out(self.act(self.fc_in(h)))
@@ -197,7 +229,7 @@ class TransformerLM(nn.Module):
         and embedding weights, zero biases, unit norm scales (the JAX
         layers' init distribution; the draws differ, as two generators do)."""
         for m in self.modules():
-            if isinstance(m, (L.Linear, L.Embedding)):
+            if isinstance(m, (L.Linear, L.Embedding, MoE)):
                 m.reset_parameters(generator)
             elif isinstance(m, (L.RMSNorm, L.LayerNorm)):
                 m.reset_parameters()
@@ -274,6 +306,8 @@ class TransformerLM(nn.Module):
                 "token types and padding masks are for encoders, not ported "
                 "(ROADMAP A2: model forward for training)")
         c = self.config
+        if c.moe is not None:
+            raise NotImplementedError(MOE_TRAINING)
         S = input_ids.shape[1]
         positions = torch.arange(S, device=input_ids.device)[None, :]
         x = self.embed(input_ids, positions)
@@ -313,10 +347,13 @@ class TransformerLM(nn.Module):
 
     # -- plain reference forward ---------------------------------------------
     @torch.no_grad()
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, dropless: bool = False) -> torch.Tensor:
         """Full-sequence causal forward: ``input_ids [B, S]`` -> fp32 logits
         ``[B, S, V]``. Attention is the plain chunk reference with no
-        history, one sequence at a time."""
+        history, one sequence at a time. ``dropless`` routes MoE layers with
+        capacity = the token count (the serving engine's function); else with
+        the config's capacity factor, over all ``B * S`` tokens at once, as
+        the JAX ``apply``."""
         from ..inference.v2.kernels.paged_attention import chunk_prefill_attention
 
         c = self.config
@@ -338,5 +375,5 @@ class TransformerLM(nn.Module):
                                         scale=c.attn_scale)
                 for b in range(B)])
             x = x + blk.o_proj(attn.reshape(B, S, -1))
-            x = x + blk.mlp(blk.ln_2(x))
+            x = x + blk.mlp(blk.ln_2(x), dropless=dropless)
         return self.head(x)

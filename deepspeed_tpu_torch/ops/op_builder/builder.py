@@ -30,7 +30,8 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT.parent / "build" / "deepspeed_tpu_torch"
 KERNELS = ("ragged_paged_attention", "paged_decode", "flash_fwd", "flash_bwd",
-           "fused_adam", "fused_lion", "woq_matmul")
+           "fused_adam", "fused_lion", "woq_matmul", "moe_route", "moe_dispatch",
+           "moe_ffn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,0 +1,450 @@
+"""The mixture-of-experts route, dispatch gather and grouped expert FFN, with
+the combine fused into the FFN's epilogue or run on its own.
+
+Counterpart of ``deepspeed_tpu/ops/transformer/pallas_moe.py``. Five
+wrappers, each beside its plain version (run for tensors on the CPU) and
+its kernel (launched for tensors on a GPU; ``launches`` counts launches per
+wrapper):
+
+- ``moe_route`` (``moe_route_reference``; ``csrc/moe_route.cu``, the
+  counterpart of ``_route_kernel``): fp32 logits [T, E] -> ``src [E*C]``
+  int32 (token + 1, 0 = empty slot), ``slot_w [E*C]``, ``slot_tk [T, k]``
+  int32 (the slot of each kept choice, 0 where dropped), ``w_tk [T, k]``
+  (0 where dropped), ``me`` and ``ce [E]``;
+- ``moe_dispatch_gather`` (``csrc/moe_dispatch.cu``, ``_gather_kernel``):
+  ``tokens[max(src - 1, 0)]`` cast to the wire dtype, [T, H] -> [E*C, H];
+- ``moe_ffn_combine`` (``csrc/moe_ffn.cu``, ``_ffn_combine_kernel``): the
+  grouped gated FFN over the payload [E, C, H] with ``slot_w * y``
+  scattered into the token-major fp32 output [T, H];
+- ``moe_ffn`` (``csrc/moe_ffn.cu``, ``_ffn_kernel``): the same FFN storing
+  ``y [E, C, H]`` fp32;
+- ``moe_combine`` (``csrc/moe_dispatch.cu``, ``_combine_kernel``):
+  ``out[t] = sum_k w_tk[t, k] * y[slot_tk[t, k]]`` fp32, k in order from 0.
+
+``make_moe_forward`` composes them as the JAX function does: the router
+product ``tokens @ gate`` (a plain ``torch.matmul``, as XLA computes it
+there), the route, ``aux = sum(me * ce) * E``, the gather, then the fused
+FFN + combine for at most ``MOE_FUSED_COMBINE_MAX_TOKENS`` tokens and the
+split FFN -> combine above. The threshold is the port's own, set from the
+H100 sweep in ``chip_smoke.py`` (``PERF.md``); the JAX VMEM budgets
+(``_FUSED_OUT_BUDGET``, ``_ROUTE_BUDGET``, ``_FFN_BUDGET``) are TPU numbers
+and are not carried over. The capacity-chunked scan (``n_chunks``) exists
+for a live expert axis and waits for it (ROADMAP A6).
+
+Expert weights are in the ``[out, in]`` layout, the reduction axis
+contiguous as the FFN kernel reads it: ``wi_gate`` / ``wi_up`` / ``wi``
+``[E, F, H]`` and ``wo [E, H, F]`` (the JAX ``[E, H, F]`` / ``[E, F, H]``
+transposed in their last two axes; ``convert.params_from_jax`` does it).
+``gate`` is ``[H, E]`` as in JAX.
+
+Numerics: routes are bitwise the plain version (``moe/sharded_moe.py``).
+The FFN multiplies in fp32 (bf16 operands on the tensor cores) with the
+intermediate ``silu(g) * u`` rounded to the compute dtype before the down
+product; ``y``, the combine and the output before its final cast are
+fp32. Rows of ``y`` whose slot is empty are zeros in the kernel and in the
+plain version (the kernel skips empty capacity tiles; dropless serving
+fills ``k * T`` of the ``E * T`` slots). The fused and split forms give the
+same bits: each output element is 0 plus at most two products, added in
+either order.
+
+Not served, as the JAX kernel serves neither (``moe_kernel_supported``):
+top_k > 2, fp16 (whose pad rows the XLA path masks) and activations other
+than ``silu_gated`` and ``gelu``; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ...moe.sharded_moe import top_k_gating_indices
+from ...nn import layers as L
+
+ACTIVATIONS = ("silu_gated", "gelu")
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+MAX_EXPERTS = 64    # the route kernel's (csrc/moe_route.cu: kMaxE)
+#: tokens up to which the forward takes the fused FFN + combine; the split
+#: FFN -> combine above. Set from the H100 sweep of chip_smoke.py
+#: (``[moe-sweep]``, PERF.md): fused up to the largest swept token count at
+#: which it leads by more than 2% (256, 5.7% in two sweeps); at every other
+#: count swept, 8 to 4096, the two forms are within 2% of each other.
+MOE_FUSED_COMBINE_MAX_TOKENS = 256
+_LATER = "ROADMAP A7: MoE top_k > 2, fp16 and other activations"
+
+launches = {"moe_route": 0, "moe_dispatch_gather": 0, "moe_ffn_combine": 0,
+            "moe_ffn": 0, "moe_combine": 0}
+
+
+def check_supported(*, activation: str, dtype: torch.dtype, top_k: Optional[int] = None,
+                    num_experts: Optional[int] = None) -> None:
+    """Raise for what neither the JAX kernel nor the port serves."""
+    if top_k is not None and top_k not in (1, 2):
+        raise NotImplementedError(f"MoE top_k {top_k}: the route picks 1 or 2 ({_LATER})")
+    if activation not in ACTIVATIONS:
+        raise NotImplementedError(f"MoE activation {activation!r}: the expert FFN "
+                                  f"computes {ACTIVATIONS} ({_LATER})")
+    if dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"MoE in {dtype}: bf16 and fp32 only ({_LATER})")
+    if num_experts is not None and not (top_k or 1) <= num_experts <= MAX_EXPERTS:
+        raise NotImplementedError(f"MoE over {num_experts} experts with top_k {top_k}: "
+                                  f"the route takes top_k <= E <= {MAX_EXPERTS} ({_LATER})")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def moe_route_reference(logits: torch.Tensor, *, top_k: int, capacity: int):
+    """The route in torch: ``top_k_gating_indices`` and the inverse slot map
+    built from it."""
+    T, E = logits.shape
+    S = E * capacity
+    eidx, pos, keep, weight, _, me = top_k_gating_indices(logits, top_k, capacity)
+    ce = (F.one_hot(eidx[:, 0].long(), E).float().sum(dim=0)
+          / torch.full((), T, dtype=torch.float32, device=logits.device))
+    slot = eidx.long() * capacity + pos.long()
+    flat = torch.where(keep, slot, S).reshape(-1)            # dropped choices land past the end
+    tok = torch.arange(1, T + 1, dtype=torch.int32, device=logits.device)
+    src = torch.zeros(S + 1, dtype=torch.int32, device=logits.device)
+    src[flat] = tok.repeat_interleave(top_k)
+    slot_w = torch.zeros(S + 1, dtype=torch.float32, device=logits.device)
+    slot_w[flat] = weight.reshape(-1)
+    return (src[:S], slot_w[:S], torch.where(keep, slot, 0).int(), weight * keep, me, ce)
+
+
+def moe_dispatch_gather_reference(tokens: torch.Tensor, src: torch.Tensor,
+                                  wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    out = tokens.index_select(0, (src.long() - 1).clamp_min(0))
+    return out if wire_dtype is None else out.to(wire_dtype)
+
+
+def _mid(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: Optional[torch.Tensor],
+         activation: str) -> torch.Tensor:
+    """One expert's ``act(x @ wi_gate^T) [* (x @ wi_up^T)]`` in fp32."""
+    g = x @ wi_gate.float().T
+    if activation == "silu_gated":
+        return L.silu(g) * (x @ wi_up.float().T)
+    return L.gelu(g)
+
+
+def moe_ffn_reference(payload: torch.Tensor, wi_gate: torch.Tensor,
+                      wi_up: Optional[torch.Tensor], wo: torch.Tensor,
+                      src: torch.Tensor, *, activation: str) -> torch.Tensor:
+    """The grouped FFN in torch, one expert at a time: fp32 products, the
+    intermediate rounded to the payload's dtype, ``y [E, C, H]`` fp32 with
+    zeros in the rows of empty slots."""
+    E, C, H = payload.shape
+    y = torch.empty(E, C, H, dtype=torch.float32, device=payload.device)
+    for e in range(E):
+        mid = _mid(payload[e].float(), wi_gate[e],
+                   None if wi_up is None else wi_up[e], activation)
+        y[e] = mid.to(payload.dtype).float() @ wo[e].float().T
+    return torch.where((src.view(E, C) > 0)[..., None], y, 0.0)
+
+
+def moe_ffn_combine_reference(payload, wi_gate, wi_up, wo, src, slot_w,
+                              n_tokens: int, *, activation: str) -> torch.Tensor:
+    """``moe_ffn_reference`` and the scatter of ``slot_w * y`` into a zeroed
+    [n_tokens, H] fp32 output."""
+    E, C, H = payload.shape
+    y = moe_ffn_reference(payload, wi_gate, wi_up, wo, src,
+                          activation=activation).view(E * C, H)
+    out = torch.zeros(n_tokens, H, dtype=torch.float32, device=payload.device)
+    filled = src > 0
+    out.index_add_(0, src[filled].long() - 1, slot_w[filled, None] * y[filled])
+    return out
+
+
+def moe_combine_reference(y: torch.Tensor, slot_tk: torch.Tensor,
+                          w_tk: torch.Tensor) -> torch.Tensor:
+    """``out[t] = 0 + w_tk[t, 0] * y[slot_tk[t, 0]] + ...`` in fp32, k in order."""
+    T, K = slot_tk.shape
+    out = torch.zeros(T, y.shape[1], dtype=torch.float32, device=y.device)
+    for k in range(K):
+        out = out + w_tk[:, k, None] * y[slot_tk[:, k].long()]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+class MoeRouteParams(ctypes.Structure):
+    """``MoeRouteParams`` of ``csrc/moe_route.cu``, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("logits", "src", "slot_w", "slot_tk", "w_tk", "me", "ce")]
+                + [(n, ctypes.c_int) for n in ("T", "E", "K", "cap")])
+
+
+class MoeFfnParams(ctypes.Structure):
+    """``MoeFfnParams`` of ``csrc/moe_ffn.cu``, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("x", "w1", "w3", "w2", "mid", "src", "slot_w", "y", "out")]
+                + [(n, ctypes.c_int) for n in
+                   ("E", "C", "H", "F", "T", "gated", "bf16", "fused")])
+
+
+def bind_route(lib: ctypes.CDLL):
+    fn = lib.dstt_moe_route
+    fn.argtypes = [MoeRouteParams, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bind_dispatch(lib: ctypes.CDLL):
+    """``(gather, combine)`` of a ``moe_dispatch`` library."""
+    gather, combine = lib.dstt_moe_gather, lib.dstt_moe_combine
+    gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    gather.restype = combine.restype = ctypes.c_int
+    return gather, combine
+
+
+def bind_ffn(lib: ctypes.CDLL):
+    fn = lib.dstt_moe_ffn
+    fn.argtypes = [MoeFfnParams, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _route_kernel():
+    from ..op_builder import builder
+    return bind_route(builder.load("moe_route"))
+
+
+@functools.cache
+def _dispatch_kernels():
+    from ..op_builder import builder
+    return bind_dispatch(builder.load("moe_dispatch"))
+
+
+@functools.cache
+def _ffn_kernel():
+    from ..op_builder import builder
+    return bind_ffn(builder.load("moe_ffn"))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
+    if t.dtype != dtype or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: {t.dtype} on {t.device} (contiguous "
+                         f"{t.is_contiguous()}); the kernel takes contiguous {dtype} on {device}")
+
+
+def _route_cuda(logits: torch.Tensor, top_k: int, capacity: int):
+    from ..op_builder.builder import launch_check
+    T, E = logits.shape
+    dev = logits.device
+    _need("logits", logits, torch.float32, dev)
+    S = E * capacity
+    src = torch.empty(S, dtype=torch.int32, device=dev)
+    slot_w = torch.empty(S, dtype=torch.float32, device=dev)
+    slot_tk = torch.empty(T, top_k, dtype=torch.int32, device=dev)
+    w_tk = torch.empty(T, top_k, dtype=torch.float32, device=dev)
+    me = torch.empty(E, dtype=torch.float32, device=dev)
+    ce = torch.empty(E, dtype=torch.float32, device=dev)
+    p = MoeRouteParams(logits=logits.data_ptr(), src=src.data_ptr(), slot_w=slot_w.data_ptr(),
+                       slot_tk=slot_tk.data_ptr(), w_tk=w_tk.data_ptr(), me=me.data_ptr(),
+                       ce=ce.data_ptr(), T=T, E=E, K=top_k, cap=capacity)
+    launch_check(_route_kernel()(p, _stream(logits)), "moe_route")
+    launches["moe_route"] += 1
+    return src, slot_w, slot_tk, w_tk, me, ce
+
+
+def _gather_cuda(tokens: torch.Tensor, src: torch.Tensor, out_dtype: torch.dtype):
+    from ..op_builder.builder import launch_check
+    T, H = tokens.shape
+    _need("tokens", tokens, tokens.dtype, tokens.device)
+    _need("src", src, torch.int32, tokens.device)
+    out = torch.empty(src.numel(), H, dtype=out_dtype, device=tokens.device)
+    rc = _dispatch_kernels()[0](tokens.data_ptr(), src.data_ptr(), out.data_ptr(), src.numel(),
+                                T, H, int(tokens.dtype == torch.bfloat16),
+                                int(out_dtype == torch.bfloat16), _stream(tokens))
+    launch_check(rc, "moe_dispatch_gather")
+    launches["moe_dispatch_gather"] += 1
+    return out
+
+
+def _ffn_cuda(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens: int, activation: str,
+              fused: bool) -> torch.Tensor:
+    from ..op_builder.builder import launch_check
+    E, C, H = payload.shape
+    Fd = wi_gate.shape[1]
+    dev, dt = payload.device, payload.dtype
+    gated = activation == "silu_gated"
+    for name, t in (("payload", payload), ("wi_gate", wi_gate), ("wo", wo)) + (
+            (("wi_up", wi_up),) if gated else ()):
+        _need(name, t, dt, dev)
+    _need("src", src, torch.int32, dev)
+    if dt == torch.bfloat16 and (H % 8 or Fd % 8):
+        raise NotImplementedError(f"the bf16 expert FFN reads 16-byte chunks: H {H} and "
+                                  f"F {Fd} must be multiples of 8")
+    mid = torch.empty(E, C, Fd, dtype=dt, device=dev)
+    if fused:
+        _need("slot_w", slot_w, torch.float32, dev)
+        res = torch.zeros(n_tokens, H, dtype=torch.float32, device=dev)
+    else:
+        res = torch.empty(E, C, H, dtype=torch.float32, device=dev)
+    p = MoeFfnParams(x=payload.data_ptr(), w1=wi_gate.data_ptr(),
+                     w3=wi_up.data_ptr() if gated else None, w2=wo.data_ptr(),
+                     mid=mid.data_ptr(), src=src.data_ptr(),
+                     slot_w=slot_w.data_ptr() if fused else None,
+                     y=None if fused else res.data_ptr(), out=res.data_ptr() if fused else None,
+                     E=E, C=C, H=H, F=Fd, T=n_tokens, gated=int(gated),
+                     bf16=int(dt == torch.bfloat16), fused=int(fused))
+    name = "moe_ffn_combine" if fused else "moe_ffn"
+    launch_check(_ffn_kernel()(p, _stream(payload)), name)
+    launches[name] += 1
+    return res
+
+
+def _combine_cuda(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) -> torch.Tensor:
+    from ..op_builder.builder import launch_check
+    S, H = y.shape
+    T, K = slot_tk.shape
+    dev = y.device
+    _need("y", y, torch.float32, dev)
+    _need("slot_tk", slot_tk, torch.int32, dev)
+    _need("w_tk", w_tk, torch.float32, dev)
+    out = torch.empty(T, H, dtype=torch.float32, device=dev)
+    rc = _dispatch_kernels()[1](y.data_ptr(), slot_tk.data_ptr(), w_tk.data_ptr(),
+                                out.data_ptr(), T, K, H, S, _stream(y))
+    launch_check(rc, "moe_combine")
+    launches["moe_combine"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no MoE kernels for {t.device}")
+    return t.device.type
+
+
+def moe_route(logits: torch.Tensor, *, top_k: int, capacity: int):
+    """Fused gating: fp32 ``logits [T, E]`` -> ``(src [E*C] int32, slot_w
+    [E*C] fp32, slot_tk [T, k] int32, w_tk [T, k] fp32, me [E], ce [E])``.
+    ``aux = sum(me * ce) * E`` is left to the caller."""
+    T, E = logits.shape
+    if logits.dtype != torch.float32:
+        raise ValueError(f"the route takes fp32 logits, not {logits.dtype}")
+    if T < 1 or capacity < 1:
+        raise ValueError(f"route of {T} tokens at capacity {capacity}")
+    check_supported(top_k=top_k, activation=ACTIVATIONS[0], dtype=torch.float32,
+                    num_experts=E)
+    if _on(logits) == "cpu":
+        return moe_route_reference(logits, top_k=top_k, capacity=capacity)
+    return _route_cuda(logits, top_k, capacity)
+
+
+def moe_dispatch_gather(tokens: torch.Tensor, src: torch.Tensor, *,
+                        wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The capacity-slot gather with the wire cast: payload ``[E*C, H]`` in
+    ``wire_dtype`` (default: the tokens' dtype), byte-identical to
+    ``tokens.index_select(0, (src - 1).clamp_min(0)).to(wire_dtype)``."""
+    out_dtype = tokens.dtype if wire_dtype is None else wire_dtype
+    if tokens.dtype not in KERNEL_DTYPES or out_dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"gather from {tokens.dtype} to {out_dtype}: bf16 and fp32")
+    if _on(tokens) == "cpu":
+        return moe_dispatch_gather_reference(tokens, src, wire_dtype)
+    return _gather_cuda(tokens, src, out_dtype)
+
+
+def _check_ffn(payload, wi_gate, wi_up, wo, src, activation):
+    E, C, H = payload.shape
+    check_supported(activation=activation, dtype=payload.dtype)
+    Fd = wi_gate.shape[1]
+    want = {"wi_gate": (E, Fd, H), "wo": (E, H, Fd)}
+    if activation == "silu_gated":
+        if wi_up is None:
+            raise ValueError("silu_gated needs wi_up")
+        want["wi_up"] = (E, Fd, H)
+    for name, t in (("wi_gate", wi_gate), ("wi_up", wi_up), ("wo", wo)):
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} {tuple(t.shape)} != {want[name]} for payload "
+                             f"{tuple(payload.shape)} (the [E, out, in] layout)")
+    if src.numel() != E * C:
+        raise ValueError(f"src holds {src.numel()} slots, the payload {E} x {C}")
+
+
+def moe_ffn_combine(payload: torch.Tensor, wi_gate: torch.Tensor,
+                    wi_up: Optional[torch.Tensor], wo: torch.Tensor, src: torch.Tensor,
+                    slot_w: torch.Tensor, n_tokens: int, *, activation: str) -> torch.Tensor:
+    """Fused grouped FFN + combine scatter: payload ``[E, C, H]`` ->
+    token-major fp32 output ``[n_tokens, H]``."""
+    _check_ffn(payload, wi_gate, wi_up, wo, src, activation)
+    if _on(payload) == "cpu":
+        return moe_ffn_combine_reference(payload, wi_gate, wi_up, wo, src, slot_w,
+                                         n_tokens, activation=activation)
+    return _ffn_cuda(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens, activation, True)
+
+
+def moe_ffn(payload: torch.Tensor, wi_gate: torch.Tensor, wi_up: Optional[torch.Tensor],
+            wo: torch.Tensor, src: torch.Tensor, *, activation: str) -> torch.Tensor:
+    """The split form's grouped FFN: ``y [E, C, H]`` fp32, zeros in the rows
+    of empty slots (``src == 0``), which the kernel does not compute."""
+    _check_ffn(payload, wi_gate, wi_up, wo, src, activation)
+    if _on(payload) == "cpu":
+        return moe_ffn_reference(payload, wi_gate, wi_up, wo, src, activation=activation)
+    return _ffn_cuda(payload, wi_gate, wi_up, wo, src, None, 0, activation, False)
+
+
+def moe_combine(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) -> torch.Tensor:
+    """The split combine: ``y [S, H]`` fp32 and the token-major metadata ->
+    ``[T, H]`` fp32 (a dropped choice reads slot 0 with weight 0)."""
+    if _on(y) == "cpu":
+        return moe_combine_reference(y, slot_tk, w_tk)
+    return _combine_cuda(y, slot_tk, w_tk)
+
+
+# ---------------------------------------------------------------------------
+# the forward
+# ---------------------------------------------------------------------------
+
+
+def make_moe_forward(*, top_k: int, capacity: int, activation: str
+                     ) -> Callable[[Mapping[str, torch.Tensor], torch.Tensor],
+                                   Tuple[torch.Tensor, torch.Tensor]]:
+    """The kernel-path MoE forward ``(params, tokens [T, H]) -> (out [T, H]
+    in the tokens' dtype, aux fp32)`` for one capacity: the fused FFN +
+    combine up to ``MOE_FUSED_COMBINE_MAX_TOKENS`` tokens, the split form
+    above. No backward: training through MoE is not ported (ROADMAP A7)."""
+
+    def forward(params: Mapping[str, torch.Tensor], tokens: torch.Tensor):
+        check_supported(top_k=top_k, activation=activation, dtype=tokens.dtype)
+        T, H = tokens.shape
+        gate = params["gate"]
+        E = gate.shape[-1]
+        logits = tokens @ gate.to(tokens.dtype)
+        src, slot_w, slot_tk, w_tk, me, ce = moe_route(logits.float(), top_k=top_k,
+                                                       capacity=capacity)
+        aux = (me * ce).sum() * E
+        gated = activation == "silu_gated"
+        cast = lambda t: None if t is None else t.to(tokens.dtype)
+        wi_gate = cast(params["wi_gate"] if gated else params["wi"])
+        wi_up = cast(params["wi_up"]) if gated else None
+        wo = cast(params["wo"])
+        payload = moe_dispatch_gather(tokens, src).view(E, capacity, H)
+        if T <= MOE_FUSED_COMBINE_MAX_TOKENS:
+            out = moe_ffn_combine(payload, wi_gate, wi_up, wo, src, slot_w, T,
+                                  activation=activation)
+        else:
+            y = moe_ffn(payload, wi_gate, wi_up, wo, src, activation=activation)
+            out = moe_combine(y.view(E * capacity, H), slot_tk, w_tk)
+        return out.to(tokens.dtype), aux
+
+    return forward

@@ -25,6 +25,7 @@ load, so the fp32 gradient tree of the JAX step never exists in memory.
 
 Not ported yet: checkpoints (ROADMAP A4), meshes of more than one device
 (A6), offload (A9), pipeline (A10); ``runtime/config.py`` raises for them.
+A model with MoE layers raises here (ROADMAP A7: MoE training).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..models.transformer import MOE_TRAINING
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import (dynamic_loss_scale_state, has_overflow,
                                static_loss_scale_state, update_scale)
@@ -60,6 +62,8 @@ class DeepSpeedEngine:
                  init_params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None):
         self.config = config = config or DeepSpeedConfig(config_dict or {})
+        if getattr(model.config, "moe", None) is not None:
+            raise NotImplementedError(MOE_TRAINING)
         self.device = resolve_device(device)
         self.model = model
 

@@ -10,7 +10,10 @@ version against the plain PyTorch versions in bf16 at every kernel case of
 (``--rounds`` times), one line per pass, so the two are compared on one
 card within one run. The weight-only-quantized matmul joins in (at the
 ``WOQ_CASES`` x ``WOQ_ROWS`` of ``chip_smoke.py``) when both directories
-hold its source. To compare a change with its parent, unpack the
+hold its source, and so does the grouped expert FFN (``moe_ffn.cu``: both
+forms at mixtral-8x7b's widths, a decode step of T = 8 and a prefill wave
+of T = 512 dropless tokens, routed by the plain route on the card). To
+compare a change with its parent, unpack the
 parent's ``deepspeed_tpu_torch/csrc`` with ``git archive`` into a directory
 that ``.gitignore`` lists and pass it as A. Exits non-zero without a GPU or
 when a version disagrees with the plain versions.
@@ -41,9 +44,12 @@ def main():
         paged_decode_attention_reference
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
     from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
+    from deepspeed_tpu_torch.ops.transformer import moe
 
     has_woq = all((d / "woq_matmul.cu").exists() for d in (args.a, args.b))
-    names = ("ragged_paged_attention", "paged_decode") + (("woq_matmul",) if has_woq else ())
+    has_moe = all((d / "moe_ffn.cu").exists() for d in (args.a, args.b))
+    names = (("ragged_paged_attention", "paged_decode") + (("woq_matmul",) if has_woq else ())
+             + (("moe_ffn",) if has_moe else ()))
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
         csrc = csrc.resolve()
@@ -51,13 +57,15 @@ def main():
         lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
         versions[tag] = (rpa.bind(lib("ragged_paged_attention")),
                          pdk.bind(lib("paged_decode")),
-                         woq.bind(lib("woq_matmul")) if has_woq else None)
+                         woq.bind(lib("woq_matmul")) if has_woq else None,
+                         moe.bind_ffn(lib("moe_ffn")) if has_moe else None)
         print(f"[ab] {tag} = {csrc}", flush=True)
 
     def use(tag):
         rpa._kernel = lambda: versions[tag][0]
         pdk._kernel = lambda: versions[tag][1]
         woq._kernel = lambda: versions[tag][2]
+        moe._ffn_kernel = lambda: versions[tag][3]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     waves = {name: cs.wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
@@ -67,6 +75,21 @@ def main():
                for name, (ctxs, kvH, g, D) in cs.DECODE_CASES.items()}
     woqs = {f"{name}-M{M}": cs.woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
             for name, (K, N, gs) in cs.WOQ_CASES.items() for M in cs.WOQ_ROWS} if has_woq else {}
+    ffns = {}
+    if has_moe:
+        w = cs.moe_weights(torch, cs.MOE_E, cs.MOE_H, cs.MOE_F, "silu_gated", torch.bfloat16,
+                           gen)
+        wg, wu, wo = cs.moe_ffn_args(w, "silu_gated")
+        for T in (cs.MOE_DECODE_T, cs.MOE_WAVE_T):
+            tokens = torch.randn(T, cs.MOE_H, generator=gen, device="cuda").to(torch.bfloat16)
+            src, slot_w, *_ = moe.moe_route_reference((tokens @ w["gate"]).float(),
+                                                      top_k=cs.MOE_K, capacity=T)
+            p3 = moe.moe_dispatch_gather_reference(tokens, src).view(cs.MOE_E, T, cs.MOE_H)
+            ffns[f"T{T}"] = (p3, wg, wu, wo, src, slot_w, T)
+    fused = lambda p3, wg, wu, wo, src, slot_w, T: moe.moe_ffn_combine(
+        p3, wg, wu, wo, src, slot_w, T, activation="silu_gated")
+    split = lambda p3, wg, wu, wo, src, slot_w, T: moe.moe_ffn(
+        p3, wg, wu, wo, src, activation="silu_gated")
     for tag in versions:
         use(tag)
         for name, (a, n) in waves.items():
@@ -79,8 +102,16 @@ def main():
         for name, a in woqs.items():
             cs.check_close(f"{tag} woq/{name}", woq.woq_matmul(*a),
                            woq.woq_matmul_reference(*a))
-        print(f"[ab] {tag} agrees with the plain versions (bf16, {cs.BF16_TOL})",
-              flush=True)
+        for name, (p3, wg, wu, wo, src, slot_w, T) in ffns.items():
+            cs.check_close(f"{tag} moe_ffn_combine/{name}", fused(p3, wg, wu, wo, src, slot_w, T),
+                           moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
+                                                         activation="silu_gated"),
+                           cs.MOE_BF16_TOL)
+            cs.check_close(f"{tag} moe_ffn/{name}", split(p3, wg, wu, wo, src, slot_w, T),
+                           moe.moe_ffn_reference(p3, wg, wu, wo, src, activation="silu_gated"),
+                           cs.MOE_BF16_TOL)
+        print(f"[ab] {tag} agrees with the plain versions (bf16, {cs.BF16_TOL}; the "
+              f"grouped FFN {cs.MOE_BF16_TOL})", flush=True)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for tag in ["A", "B", "B", "A"] * args.rounds:
@@ -91,6 +122,9 @@ def main():
                   for name, a in decodes.items()]
         cells += [f"woq/{name} {cs.device_ms(torch, lambda: woq.woq_matmul(*a), 20, flush)[0]:.4f}"
                   for name, a in woqs.items()]
+        cells += [f"{form}/{name} {cs.device_ms(torch, lambda: fn(*a), 5, flush)[0]:.4f}"
+                  for name, a in ffns.items()
+                  for form, fn in (("moe_ffn_combine", fused), ("moe_ffn", split))]
         print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
     print(cs.nvidia_smi())
     return 0

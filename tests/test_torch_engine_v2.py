@@ -36,7 +36,7 @@ from deepspeed_tpu_torch.inference.v2 import (DeepSpeedTPStateManagerConfig,
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
 from deepspeed_tpu_torch.models import llama_model
-from deepspeed_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from deepspeed_tpu_torch.models.transformer import MoEConfig, TransformerConfig, TransformerLM
 
 V = 1024  # llama2-tiny vocabulary
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -251,8 +251,10 @@ def test_unported_engine_configs_raise(override):
 
 
 @pytest.mark.parametrize("override", [
-    dict(position="alibi"), dict(attn_windows=8), dict(moe=object())])
+    dict(position="alibi"), dict(attn_windows=8), dict(moe=MoEConfig(num_experts=4, top_k=3))])
 def test_unported_model_features_raise(override):
+    """MoE is served; a top-3 route is not (the JAX kernel
+    picks at most 2)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerLM(TransformerConfig(num_layers=1, hidden_size=32,
                                         num_heads=4, **override))
