@@ -64,7 +64,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (lr 1e-4, betas 0.9 / 0.99, weight decay 0.1): 1 warm-up and 3 timed
    steps, one Lion launch per bucket a step and no Adam launch, a profiled
    step, and the 2-layer kernels-vs-plain comparison;
-9. Mixtral serving (``[moe-engine]``): mixtral-8x7b at full width (8
+9. data-parallel ZeRO (``[zero]``): two ranks, processes of their own on
+   the one card (backend ``ZERO_BACKEND``, gloo: NCCL refuses two ranks on
+   one device), each through ``comm.init_distributed`` +
+   ``deepspeed_tpu_torch.initialize`` + ``train_batch``: tinyllama-1.1b at
+   full width and depth, S 2048, micro 4 a rank, bf16, AdamW, clipping 1.0,
+   ZeRO-3 with the ZeRO++ int8 wire (qwZ + qgZ) on the barrier schedule; 1
+   warm-up and 3 timed steps on one seeded global batch: losses finite, the
+   first near ln(32000), falling and equal on both ranks; a step's
+   quantizer launches equal to its int8 all-gathers plus int8 all-to-alls
+   in the collective ledger; every stage-3 shard gathered int8 and no
+   full-width gather but those of the persistent small leaves; each rank's
+   master and moments about half of phase 7's; step time, tokens/s, MFU,
+   peak memory per rank, the wire bytes by width and, over one more step,
+   the share of the step spent in collectives; then a 2-layer model of the
+   same width for 3 steps through the kernels, through their plain versions
+   (losses within 2e-2) and at full width without ZeRO++ (int8 losses
+   within the JAX suite's ZeRO++ tolerance, rtol = atol = 0.05). A rank
+   that fails or hangs past ``ZERO_TIMEOUT`` fails the run;
+10. Mixtral serving (``[moe-engine]``): mixtral-8x7b at full width (8
    experts, top-2, FFN 14336), depth cut to 24 of 32 layers, random bf16
    weights from a seed, the requests of phase 5 through ``build_engine`` +
    ``generate``: every request gets its tokens; the MoE route, gather and
@@ -76,18 +94,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within twice the plain bf16 path's error against the fp32 plain
    dropless forward.
 
-Phase 4 also holds the five MoE kernels (``[moe]``: route, dispatch gather,
-fused FFN + combine, split FFN, combine) against their plain versions: fp32
+Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
+plain version, q and scale byte-identical: fp32 and bf16 rows of the
+tinyllama-1.1b shards at world 2 and group 256 (an MLP shard's gather, the
+embedding shard's, an MLP gradient's reduce-scatter rows), group sizes 1,
+7, 100, 255 and 4096, zero rows, exact .5 ties and -0.0, each timed beside
+its bound and its plain version; and the six MoE kernels (``[moe]``: route,
+dispatch gather, int8 dispatch gather, fused FFN + combine, split FFN,
+combine) against their plain versions: fp32
 at small shapes (top_k 1, gelu, dead experts, dropped choices, T off every
 tile size, a route over 3000 tokens), then bf16 at mixtral-8x7b's widths for
 T = 8, 256 and 512 (dropless, S = 8 T): route indices bitwise, gather
-byte-identical, FFN within 5e-2, combine and fused-vs-split bitwise; each
+byte-identical, the int8 gather (mask_pad off and on) byte-identical to its
+plain version and to the quantizer kernel on the gathered rows, FFN within
+5e-2, combine and fused-vs-split bitwise; each
 timed with its bound, its plain version and ``index_select`` for the
 gather; ``torch.bmm`` over all slots as context; then the fused-vs-split
 sweep over T = 8 ... 4096 (``[moe-sweep]``) that sets
 ``MOE_FUSED_COMBINE_MAX_TOKENS``.
 
-The output ends with a ``{"kernels": [...]}`` line (13 kernels), the
+The output ends with a ``{"kernels": [...]}`` line (15 kernels), the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or ``deepspeed_tpu``; needs one CUDA device.
 """
@@ -209,6 +235,43 @@ MOE_SWEEP_T = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # two sweeps on one card moved split / fused at one T by up to 1.7% (PERF.md):
 # a lead under 2% counts as a tie
 MOE_SWEEP_MARGIN = 0.02
+# ZeRO++ wire quantizer cases: (groups, group size, dtype, values); the
+# tinyllama-1.1b shards at world 2 and group 256: the qwZ gather of an MLP
+# shard (gate_proj [5632, 2048] split on dim 0) and of the embedding shard,
+# the qgZ reduce-scatter of the MLP gradient ([2, chunk] rows); the short and
+# long group sizes; zero rows, exact .5 ties and -0.0
+QUANT_CASES = {
+    "mlp-shard-2816x2048-bf16": (2816 * 2048 // 256, 256, "bfloat16", "randn"),
+    "mlp-shard-2816x2048-fp32": (2816 * 2048 // 256, 256, "float32", "randn"),
+    "embed-shard-16000x2048-bf16": (16000 * 2048 // 256, 256, "bfloat16", "randn"),
+    "mlp-grad-rs-2x5767168-bf16": (2 * 5767168 // 256, 256, "bfloat16", "randn"),
+    "gs1-fp32": (4096, 1, "float32", "randn"),
+    "gs7-bf16": (3000, 7, "bfloat16", "randn"),
+    "gs100-fp32": (2000, 100, "float32", "randn"),
+    "gs255-bf16": (2000, 255, "bfloat16", "randn"),
+    "gs4096-fp32": (512, 4096, "float32", "randn"),
+    "gs4096-bf16": (512, 4096, "bfloat16", "randn"),
+    "edge-gs256-fp32": (64, 256, "float32", "edge"),
+    "edge-gs255-bf16": (64, 255, "bfloat16", "edge"),
+}
+MAIN_QUANT = "mlp-shard-2816x2048-bf16"
+# [zero]: two ranks on the one card train tinyllama-1.1b (full width and
+# depth, S 2048) with ZeRO-3 and the ZeRO++ int8 wire on the barrier
+# schedule, micro 4 a rank: the 8 x 2048 tokens a step of [train]. The
+# backend is named here: NCCL refuses two ranks on one device (found on the
+# card), so the ranks use gloo, which moves every CUDA tensor through host
+# memory; NCCL between separate cards waits for a machine with more than one
+# card
+ZERO_BACKEND = "gloo"
+ZERO_WORLD, ZERO_WARMUP, ZERO_STEPS = 2, 1, 3
+ZERO_TIMEOUT = 600     # seconds for the ranks: a hung rank fails the run
+ZERO_CONFIG = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
+               "gradient_clipping": 1.0,
+               "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+               "zero_optimization": {"stage": 3, "zero_quantized_weights": True,
+                                     "zero_quantized_gradients": True, "overlap_comm": False}}
+ZERO_PLAIN_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 3, "overlap_comm": False})
+ZERO_ZEROPP_TOL = 0.05   # rtol = atol: the JAX suite's ZeRO++ bound (test_zeropp.py:113)
 # Mixtral serving: mixtral-8x7b at full width, depth cut to 24 of 32 layers
 # (65.4 GiB of bf16 weights; 32 layers would need 87 GiB); the logits check
 # at 2 layers of the same width, against an fp32 copy
@@ -733,6 +796,67 @@ def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
 
 
 # ---------------------------------------------------------------------------
+# the ZeRO++ int8 wire quantizer against its plain version
+# ---------------------------------------------------------------------------
+
+
+def quant_inputs(torch, case, gen):
+    """The groups of one [quant] case, [G, gs] in the case's dtype."""
+    G, gs, dt, kind = case
+    x = torch.randn(G, gs, generator=gen, device="cuda") * 0.02
+    if kind == "edge":
+        # zero rows; rows whose scale is exactly 2**k (absmax 127 * 2**k) with
+        # exact .5 ties between the integers; -0.0
+        x[0::4] = 0.0
+        ties = (torch.arange(gs, device="cuda") % 254 - 127).float() + 0.5
+        for r in range(1, G, 4):
+            k = float(2.0 ** (r % 7 - 3))
+            x[r] = ties * k
+            x[r, 0] = 127.0 * k
+        x[2::4, ::3] = -0.0
+    return x.to(getattr(torch, dt))
+
+
+def quant_bounds(G, gs, isz):
+    """Bytes of one row-quantize: each input read once, q and scale written
+    once; ~3 operations an element (abs and max, divide, round and clip)."""
+    return G * gs * isz + G * gs + 4 * G, 3 * G * gs
+
+
+def quant_kernel_vs_plain(torch, quant, gen, flush):
+    """Each [quant] case: the kernel against the plain version on the same
+    groups, q and scale byte-identical; every case timed beside its bound
+    and the plain version. Returns the main case's row and the largest
+    difference from the plain version over every case, q and scale."""
+    row, err = None, 0.0
+    for name, case in QUANT_CASES.items():
+        G, gs, dt, _ = case
+        x = quant_inputs(torch, case, gen)
+        q, s = quant.quantize_rows_int8(x)
+        qp, sp = quant.quantize_rows_int8_reference(x)
+        torch.cuda.synchronize()
+        if not torch.equal(q, qp):
+            d = (q != qp).nonzero()[:4].tolist()
+            fail(f"quant {name}: q differs from the plain version at {d}")
+        if not torch.equal(s.view(torch.int32), sp.view(torch.int32)):
+            fail(f"quant {name}: scale differs from the plain version "
+                 f"({int((s != sp).sum())} rows)")
+        err = max(err, (q.int() - qp.int()).abs().max().item(), (s - sp).abs().max().item())
+        nbytes, ops = quant_bounds(G, gs, x.element_size())
+        ms = device_ms(torch, lambda: quant.quantize_rows_int8(x), 10, flush)[0]
+        plain_ms = synced_ms(torch, lambda: quant.quantize_rows_int8_reference(x), 3)
+        b_ms, b_by = bound(nbytes, ops, torch.float32)
+        print(f"[quant] {name}: groups {G} x {gs} {dt}, q and scale byte-identical; "
+              f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+              f"{nbytes} bytes) ({b_ms / ms:.1%} of bound)", flush=True)
+        if name == MAIN_QUANT:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print("[quant] library_ms: no single PyTorch call computes a groupwise absmax int8 "
+          "quantize (torch.quantize_per_channel takes the scales as given)", flush=True)
+    return row, err
+
+
+# ---------------------------------------------------------------------------
 # mixture-of-experts kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -807,16 +931,42 @@ def moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, activation, tol, tag):
     empty = (src.view(E, cap) == 0)
     if bool(y[empty].any()):
         fail(f"moe_ffn {tag}: rows of empty slots are not zero")
-    errs = {"moe_route": werr, "moe_dispatch_gather": 0.0,
+    errs = {"moe_route": werr,
+            "moe_dispatch_gather": (payload.float() - want.float()).abs().max().item(),
             "moe_ffn_combine": check_close(f"moe_ffn_combine {tag}", fused, fused_plain, tol),
             "moe_ffn": check_close(f"moe_ffn {tag}", y, y_plain, tol)}
     if not torch.equal(comb, comb_plain):
         fail(f"moe_combine {tag}: differs from the plain version on the same y")
-    errs["moe_combine"] = 0.0
+    errs["moe_combine"] = (comb - comb_plain).abs().max().item()
     if not torch.equal(fused, split):
         fail(f"moe {tag}: fused and split outputs differ (max |d| "
              f"{(fused - split).abs().max().item():.3e})")
     return (src, slot_w, slot_tk, w_tk), payload, errs, wbits
+
+
+def gather_int8_vs_plain(torch, moe, tokens, src, tag):
+    """The int8 dispatch gather, mask_pad off and on, against its plain
+    version and against the row-quantizer kernel on the gathered rows: q and
+    scale byte-identical to both. Returns the largest difference from the
+    plain version, q and scale."""
+    from deepspeed_tpu_torch.ops.quantizer import quant
+    err = 0.0
+    for mask in (False, True):
+        q, sc = moe.moe_dispatch_gather_int8(tokens, src, mask_pad=mask)
+        qp, sp = moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=mask)
+        rows = tokens.index_select(0, (src.long() - 1).clamp_min(0))
+        if mask:
+            rows = torch.where((src > 0)[:, None], rows, torch.zeros_like(rows))
+        q1, s1 = quant.quantize_rows_int8(rows)
+        torch.cuda.synchronize()
+        for other, what in (((qp, sp), "its plain version"),
+                            ((q1, s1), "quantize_rows_int8 of the gathered rows")):
+            if not (torch.equal(q, other[0])
+                    and torch.equal(sc.view(torch.int32), other[1].view(torch.int32))):
+                fail(f"moe_dispatch_gather_int8 {tag} mask_pad {mask}: q / scale differ "
+                     f"from {what}")
+        err = max(err, (q.int() - qp.int()).abs().max().item(), (sc - sp).abs().max().item())
+    return err
 
 
 def moe_bounds(torch, src, E, cap, T, H, F, top_k, activation, isz):
@@ -832,6 +982,7 @@ def moe_bounds(torch, src, E, cap, T, H, F, top_k, activation, isz):
     weights = live * nmat * H * F * isz
     return {"moe_route": (T * E * 4 + S * 8 + T * top_k * 8 + E * 8, 0),
             "moe_dispatch_gather": (T * H * isz + S * 4 + S * H * isz, 0),
+            "moe_dispatch_gather_int8": (T * H * isz + S * 4 + S * H + S * 4, 3 * S * H),
             "moe_ffn_combine": (weights + filled * H * isz + S * 8 + T * H * 4, flops),
             "moe_ffn": (weights + filled * H * isz + S * 4 + S * H * 4, flops),
             "moe_combine": (T * top_k * H * 4 + T * top_k * 8 + T * H * 4, 0)}
@@ -854,12 +1005,13 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         tag = f"fp32 T{T} E{E} H{H} F{F} k{top_k} {act} cap {cap}"
         (src, *_), _, errs, wbits = moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, act,
                                                       MOE_FP32_TOL, tag)
+        gather_int8_vs_plain(torch, moe, tokens, src, tag)
         filled = int((src > 0).sum())
         print(f"[moe] {tag}: slots filled {filled}/{E * cap} of {T * top_k} choices; route "
               f"bitwise (weights {'bitwise' if wbits else 'within ulp'}), payload "
               f"byte-identical, fused {errs['moe_ffn_combine']:.3e} split "
-              f"{errs['moe_ffn']:.3e} from plain, combine bitwise, fused == split bitwise",
-              flush=True)
+              f"{errs['moe_ffn']:.3e} from plain, combine bitwise, fused == split bitwise, "
+              f"int8 gather byte-identical (mask_pad off and on)", flush=True)
     rows, errs_all = {}, {}
     E, H, F, k, act = MOE_E, MOE_H, MOE_F, MOE_K, "silu_gated"
     w = moe_weights(torch, E, H, F, act, torch.bfloat16, gen)
@@ -870,6 +1022,7 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         tag = f"bf16 T{T} cap {cap}"
         (src, slot_w, slot_tk, w_tk), payload, errs, wbits = moe_case_vs_plain(
             torch, moe, w, tokens, k, cap, act, MOE_BF16_TOL, tag)
+        errs["moe_dispatch_gather_int8"] = gather_int8_vs_plain(torch, moe, tokens, src, tag)
         for name, e in errs.items():
             errs_all[name] = max(errs_all.get(name, 0.0), e)
         logits = (tokens @ w["gate"]).float()
@@ -881,6 +1034,10 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
             "moe_dispatch_gather": (
                 lambda: moe.moe_dispatch_gather(tokens, src),
                 lambda: moe.moe_dispatch_gather_reference(tokens, src),
+                lambda: tokens.index_select(0, (src.long() - 1).clamp_min(0))),
+            "moe_dispatch_gather_int8": (
+                lambda: moe.moe_dispatch_gather_int8(tokens, src, mask_pad=True),
+                lambda: moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=True),
                 lambda: tokens.index_select(0, (src.long() - 1).clamp_min(0))),
             "moe_ffn_combine": (
                 lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act),
@@ -897,13 +1054,15 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
               f"{int((src.view(E, cap)[:, 0] > 0).sum())}; route bitwise (weights "
               f"{'bitwise' if wbits else 'within ulp'}), payload byte-identical, max_abs_err "
               f"fused {errs['moe_ffn_combine']:.3e} split {errs['moe_ffn']:.3e}, combine "
-              f"bitwise, fused == split bitwise", flush=True)
+              f"bitwise, fused == split bitwise, int8 gather byte-identical to its plain version "
+              f"and to quantize_rows_int8 of the gathered rows", flush=True)
         for name, (kern, plain, lib) in calls.items():
             ms = device_ms(torch, kern, 10, flush)[0]
             plain_ms = synced_ms(torch, plain, 3)
             lib_ms = device_ms(torch, lib, 10, flush)[0] if lib is not None else None
             b_ms, b_by = bound(*bnd[name], torch.bfloat16)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            # the int8 gather has no path: its row is at the prefill wave, mask_pad on
             fused_form = name in ("moe_route", "moe_dispatch_gather", "moe_ffn_combine")
             if T == (MOE_DECODE_T if fused_form else MOE_WAVE_T):
                 rows[name] = row
@@ -918,8 +1077,9 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         print(f"[moe]   T{T} context: torch.bmm over all {E * cap} slots, gate {bmm[0]:.4f} "
               f"up {bmm[1]:.4f} down {bmm[2]:.4f} ms (sum {sum(bmm):.4f})", flush=True)
         del mid, y, payload, p3
-    print("[moe] library_ms: index_select for the gather; no single PyTorch call computes "
-          "the route, the grouped FFN with its combine, or the slot-table combine", flush=True)
+    print("[moe] library_ms: index_select for the gathers (for the int8 gather: context "
+          "only, it does not quantize); no single PyTorch call computes the route, the "
+          "grouped FFN with its combine, or the slot-table combine", flush=True)
     moe_sweep(torch, moe, w, gen, flush)
     return rows, errs_all
 
@@ -1381,7 +1541,8 @@ def serve_mixtral(torch, np, moe):
     and the FFN once a layer in every wave and decode step, the split form's
     FFN and combine in exactly the waves above MOE_FUSED_COMBINE_MAX_TOKENS);
     then a 2-layer model's logits against an fp32 forward. Returns the MoE
-    launch counts over one ``generate``."""
+    launch counts over one ``generate``, the int8 dispatch gather's among
+    them, which must be 0: no serving path quantizes its dispatch."""
     import gc
 
     from deepspeed_tpu_torch.inference.v2 import generate
@@ -1409,6 +1570,10 @@ def serve_mixtral(torch, np, moe):
           f"{weight_bytes / 2**30:.2f} GiB, generate peak {peak / 2**30:.2f} GiB", flush=True)
     if moe_launches != want or not all(want.values()):
         fail(f"MoE launches {moe_launches} != {want} (every kernel must run on this path)")
+    moe_launches["moe_dispatch_gather_int8"] = launches["moe_dispatch_gather_int8"]
+    if moe_launches["moe_dispatch_gather_int8"]:
+        fail(f"the int8 dispatch gather launched {moe_launches['moe_dispatch_gather_int8']} "
+             f"times in Mixtral serving, which has no int8 dispatch")
     profile_generate(torch, generate, engine, prompts, wall)
     del engine
     gc.collect()
@@ -1461,12 +1626,12 @@ def train_engine(torch, config, num_layers=None):
     return engine
 
 
-def training_flops(engine, tokens):
-    """6 * N * tokens (N without the input embedding, a lookup) plus the
-    causal attention: 4 * D * visible pairs a head and layer for the
-    forward, three times that for forward and backward."""
-    c = engine.model.config
-    n = sum(p.numel() for p in engine.params.values()) - c.vocab_size * c.hidden_size
+def training_flops(c, n_params, tokens):
+    """6 * N * tokens (N: the ``n_params`` of model config ``c`` without the
+    input embedding, a lookup) plus the causal attention: 4 * D * visible
+    pairs a head and layer for the forward, three times that for forward
+    and backward."""
+    n = n_params - c.vocab_size * c.hidden_size
     B = tokens // TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     attn = 3 * 4 * c.head_dim * pairs * c.num_heads * B * c.num_layers
@@ -1474,16 +1639,19 @@ def training_flops(engine, tokens):
 
 
 class plain_kernels:
-    """Route the flash, Adam and Lion wrappers to their plain versions on
-    the card for the kernel-vs-plain training comparison, and back
-    afterwards."""
+    """Route the flash, Adam and Lion wrappers (and the int8 row quantizer's
+    when ``quant`` is given) to their plain versions on the card for the
+    kernel-vs-plain training comparison, and back afterwards."""
 
-    def __init__(self, flash, adam, lion):
-        self.flash, self.adam, self.lion = flash, adam, lion
+    def __init__(self, flash, adam, lion, quant=None):
+        self.flash, self.adam, self.lion, self.quant = flash, adam, lion, quant
 
     def __enter__(self):
         flash, adam, lion = self.flash, self.adam, self.lion
         self.saved = (flash._fwd_cuda, flash._bwd_cuda, adam._adam_cuda, lion._lion_cuda)
+        if self.quant is not None:
+            self.saved_quant = self.quant._quant_cuda
+            self.quant._quant_cuda = self.quant.quantize_rows_int8_reference
 
         def adam_plain(grads, master, exp_avg, exp_avg_sq, outs, *, gscale, sr_m, sr_v, **kw):
             p_out, cast_out, m_out, v_out = outs
@@ -1512,6 +1680,8 @@ class plain_kernels:
     def __exit__(self, *exc):
         (self.flash._fwd_cuda, self.flash._bwd_cuda, self.adam._adam_cuda,
          self.lion._lion_cuda) = self.saved
+        if self.quant is not None:
+            self.quant._quant_cuda = self.saved_quant
 
 
 def zero_counts(flash, adam, lion):
@@ -1523,7 +1693,7 @@ def zero_counts(flash, adam, lion):
 def train(torch, np, flash, adam, lion, config, warmup, steps):
     """tinyllama-1.1b trained at full width and depth under ``config``
     (AdamW or Lion); returns the training kernels' launch counts over the
-    timed steps."""
+    timed steps and the bytes of the optimizer's master and moments."""
     from torch.profiler import ProfilerActivity, profile
     opt_name = config["optimizer"]["type"].lower()
     opt_kernel, other = (("fused_lion", "fused_adam") if opt_name == "lion"
@@ -1533,6 +1703,8 @@ def train(torch, np, flash, adam, lion, config, warmup, steps):
     torch.cuda.synchronize()
     c = engine.model.config
     buckets = len(engine.opt_state["buckets"])
+    opt_bytes = sum(t.numel() * t.element_size() for b in engine.opt_state["buckets"]
+                    for t in (b.master, b.exp_avg, b.exp_avg_sq) if t is not None)
     n_all = sum(p.numel() for p in engine.params.values())
     print(f"[train] tinyllama-1.1b layers {c.num_layers} hidden {c.hidden_size} heads "
           f"{c.num_heads}/{c.kv_heads} ffn {c.ffn_size} vocab {c.vocab_size}: {n_all} "
@@ -1555,7 +1727,7 @@ def train(torch, np, flash, adam, lion, config, warmup, steps):
     launches = dict(flash.launches, fused_adam=adam.launches, fused_lion=lion.launches)
     peak = torch.cuda.max_memory_allocated()
     step_s = sum(times) / len(times)
-    flops, n = training_flops(engine, tokens)
+    flops, n = training_flops(c, n_all, tokens)
     mfu = flops / step_s / PEAK_FLOPS["torch.bfloat16"]
     print(f"[train] losses {[round(x, 4) for x in losses]} (ln {c.vocab_size} = "
           f"{np.log(c.vocab_size):.4f}); step ms {[round(x * 1e3, 1) for x in times]} mean "
@@ -1620,7 +1792,270 @@ def train(torch, np, flash, adam, lion, config, warmup, steps):
           f"{max(rel):.3e} (limit {PATH_RTOL}, bf16)", flush=True)
     if max(rel) > PATH_RTOL:
         fail(f"kernel and plain training paths differ by {max(rel):.3e}")
-    return launches
+    return launches, opt_bytes
+
+
+# ---------------------------------------------------------------------------
+# data-parallel ZeRO-3 training with the ZeRO++ int8 wire, two ranks
+# ---------------------------------------------------------------------------
+
+
+def zero_steps(torch, engine, batch, steps, quant):
+    """``steps`` train_batch calls, each under its own collective ledger;
+    per step: loss, seconds, quant launches and the ledger's records."""
+    from deepspeed_tpu_torch.comm import comm as dist
+    out = []
+    for _ in range(steps):
+        ledger = dist.CollectiveLedger()
+        before = quant.launches
+        t = time.perf_counter()
+        with dist.record_into(ledger):
+            loss = float(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        out.append(dict(loss=loss, s=time.perf_counter() - t,
+                        quant=quant.launches - before, records=ledger.records))
+    return out
+
+
+def collective_share(torch, engine, batch):
+    """One more step with every collective of ``comm`` timed on the host
+    clock (the device synchronized before and after each): ``(seconds in
+    collectives, seconds of the step, collectives)``. On gloo a collective's
+    time includes the copies of its tensors to and from host memory."""
+    from deepspeed_tpu_torch.comm import comm as dist
+    names = ("all_gather", "all_to_all", "all_reduce", "reduce_scatter")
+    saved = {n: getattr(dist, n) for n in names}
+    acc = [0.0, 0]
+
+    def timed(fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[0] += time.perf_counter() - t
+            acc[1] += 1
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(saved[n]))
+    try:
+        t = time.perf_counter()
+        float(engine.train_batch(batch))
+        step = time.perf_counter() - t
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+    return acc[0], step, acc[1]
+
+
+def wire_summary(records):
+    """Launches and bytes of one step's records by (op, width)."""
+    out = {}
+    for r in records:
+        width = "int8" if r["wire_bytes"] < r["bytes"] else "full"
+        e = out.setdefault(f"{r['op']}/{width}", {"launches": 0, "bytes": 0, "wire_bytes": 0})
+        e["launches"] += r["count"]
+        e["bytes"] += r["bytes"] * r["count"]
+        e["wire_bytes"] += r["wire_bytes"] * r["count"]
+    return out
+
+
+def zero_rank(rank, init_method, results):
+    """One rank of the [zero] phase (a process of its own): tinyllama-1.1b
+    at full width and depth through ``initialize`` + ``train_batch`` under
+    ZERO_CONFIG, then the 2-layer kernels / plain / full-width runs. Puts
+    its measurements on ``results``."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.ops.adam import adam
+    from deepspeed_tpu_torch.ops.lion import lion
+    from deepspeed_tpu_torch.ops.quantizer import quant
+    from deepspeed_tpu_torch.ops.transformer import flash
+    dist.init_distributed(ZERO_BACKEND, rank=rank, world_size=ZERO_WORLD,
+                          init_method=init_method, timeout=ZERO_TIMEOUT)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    engine = train_engine(torch, ZERO_CONFIG)
+    torch.cuda.synchronize()
+    c = engine.model.config
+    opt_bytes = sum(t.numel() * t.element_size() for b in engine.opt_state["buckets"]
+                    for t in (b.master, b.exp_avg, b.exp_avg_sq))
+    n_params = sum(int(np.prod(s)) for s in engine.zero_plan.shapes.values())
+    rng = np.random.default_rng(0)
+    rows = ZERO_CONFIG["train_micro_batch_size_per_gpu"] * ZERO_WORLD
+    batch = {"input_ids": rng.integers(0, c.vocab_size, size=(rows, TRAIN_SEQ))}
+    warm = zero_steps(torch, engine, batch, ZERO_WARMUP, quant)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam, lion)
+    quant.launches = 0
+    timed = zero_steps(torch, engine, batch, ZERO_STEPS, quant)
+    res.update(
+        losses=[x["loss"] for x in warm + timed], step_s=[x["s"] for x in timed],
+        quant_per_step=[x["quant"] for x in timed],
+        launches=dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches),
+        peak=torch.cuda.max_memory_allocated())
+    comm_s, step_s, n_coll = collective_share(torch, engine, batch)
+    res.update(
+        comm_s=comm_s, comm_step_s=step_s, comm_launches=n_coll, opt_bytes=opt_bytes,
+        flops=training_flops(c, n_params, rows * TRAIN_SEQ)[0], vocab=c.vocab_size,
+        layers=c.num_layers,
+        buckets=len(engine.opt_state["buckets"]),
+        param_shards=len(engine.param_shards), refreshed=len(engine._cast_shards),
+        refresh_bytes=sum(t.numel() * t.element_size() for t in engine._cast_shards.values()),
+        wire=[wire_summary(x["records"]) for x in timed])
+    del engine
+    torch.cuda.empty_cache()
+    # 2 layers, same width: kernels, plain versions, full width (no ZeRO++)
+    path = {}
+    for name, cfg in (("kernels", ZERO_CONFIG), ("plain", ZERO_CONFIG),
+                      ("full-width", ZERO_PLAIN_CONFIG)):
+        eng = train_engine(torch, cfg, PATH_LAYERS)
+        zero_counts(flash, adam, lion)
+        quant.launches = 0
+        if name == "plain":
+            with plain_kernels(flash, adam, lion, quant):
+                path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+            if any(flash.launches.values()) or adam.launches or quant.launches:
+                raise RuntimeError(f"the plain path launched kernels: {flash.launches}, "
+                                   f"adam {adam.launches}, quant {quant.launches}")
+        else:
+            path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+        if name == "full-width" and quant.launches:
+            raise RuntimeError(f"the full-width run launched the quantizer {quant.launches} times")
+        del eng
+        torch.cuda.empty_cache()
+    res["path"] = path
+    results.put(res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_zero_ranks():
+    """Spawn ZERO_WORLD ranks of ``zero_rank`` and collect their results;
+    fails if a rank fails or the ranks outlast ZERO_TIMEOUT (the ranks are
+    then killed)."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://localhost:{free_port()}"
+    procs = [ctx.Process(target=zero_rank, args=(r, init, results)) for r in range(ZERO_WORLD)]
+    for p in procs:
+        p.start()
+    out, deadline = [], time.monotonic() + ZERO_TIMEOUT
+    try:
+        while len(out) < ZERO_WORLD:
+            try:
+                out.append(results.get(timeout=5))
+            except queue.Empty:
+                bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if bad:
+                    fail(f"[zero] a rank exited with {bad}")
+                if time.monotonic() > deadline:
+                    fail(f"[zero] the ranks did not finish within {ZERO_TIMEOUT} s")
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5))
+            if p.exitcode != 0:
+                fail(f"[zero] rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def train_zero(torch, np, single_opt_bytes):
+    """The [zero] phase: two ranks on one card train tinyllama-1.1b with
+    ZeRO-3 and the ZeRO++ int8 wire; checks and prints what they measured.
+    Returns the quantizer's launches over the timed steps, both ranks."""
+    print(f"[zero] backend {ZERO_BACKEND} (given; two ranks share cuda:0, so every "
+          f"collective crosses host memory on this card), world {ZERO_WORLD}, config "
+          f"{json.dumps(ZERO_CONFIG['zero_optimization'])}", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_zero_ranks()
+    r0 = ranks[0]
+    losses = r0["losses"]
+    print(f"[zero] ranks done in {time.perf_counter() - t0:.1f} s; backend reported "
+          f"{[r['backend'] for r in ranks]}", flush=True)
+    if any(r["losses"] != losses for r in ranks):
+        fail(f"[zero] losses differ between ranks: {[r['losses'] for r in ranks]}")
+    if not all(np.isfinite(losses)):
+        fail(f"[zero] losses {losses}")
+    if abs(losses[0] - np.log(r0["vocab"])) > 0.5:
+        fail(f"[zero] first loss {losses[0]:.4f} not within 0.5 of ln({r0['vocab']})")
+    if not losses[-1] < losses[0]:
+        fail(f"[zero] loss did not fall on the repeated batch: {losses}")
+    for r in ranks:
+        for i, (nq, wire) in enumerate(zip(r["quant_per_step"], r["wire"])):
+            n_int8 = sum(v["launches"] for k, v in wire.items() if k.endswith("/int8"))
+            full_gathers = wire.get("all_gather/full", {"launches": 0, "bytes": 0})
+            if nq != n_int8:
+                fail(f"[zero] rank {r['rank']} step {i}: {nq} quantizer launches, "
+                     f"{n_int8} int8 collectives")
+            if wire.get("all_gather/int8", {}).get("launches") != r["param_shards"]:
+                fail(f"[zero] rank {r['rank']} step {i}: int8 gathers {wire} for "
+                     f"{r['param_shards']} stage-3 shards")
+            if (full_gathers["launches"] != r["refreshed"]
+                    or full_gathers["bytes"] != r["refresh_bytes"]):
+                fail(f"[zero] rank {r['rank']} step {i}: a full-width all-gather of a "
+                     f"stage-3 shard: {full_gathers} beside {r['refreshed']} persistent "
+                     f"leaves of {r['refresh_bytes']} bytes")
+        ratio = r["opt_bytes"] / single_opt_bytes
+        if not 0.45 <= ratio <= 0.55:
+            fail(f"[zero] rank {r['rank']} master + moments {r['opt_bytes']} bytes, "
+                 f"{ratio:.3f} of the one-device engine's {single_opt_bytes}")
+    step_s = sum(r0["step_s"]) / len(r0["step_s"])
+    tokens = ZERO_CONFIG["train_micro_batch_size_per_gpu"] * ZERO_WORLD * TRAIN_SEQ
+    mfu = r0["flops"] / step_s / PEAK_FLOPS["torch.bfloat16"]
+    print(f"[zero] tinyllama-1.1b layers {r0['layers']}: losses {[round(x, 4) for x in losses]} "
+          f"(equal on both ranks); step ms {[round(x * 1e3, 1) for x in r0['step_s']]} mean "
+          f"{step_s * 1e3:.1f}; tokens/s {tokens / step_s:.0f} ({tokens} tokens a step over "
+          f"both ranks, on the one card); MFU {mfu:.4f}; max_memory_allocated per rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB; master + moments per rank "
+          f"{[round(r['opt_bytes'] / 2**30, 3) for r in ranks]} GiB vs one device "
+          f"{single_opt_bytes / 2**30:.3f} GiB; {r0['param_shards']} stage-3 shards, "
+          f"{r0['refreshed']} persistent leaves, {r0['buckets']} optimizer buckets", flush=True)
+    for r in ranks:
+        print(f"[zero] rank {r['rank']} where the time goes: one more step of "
+              f"{r['comm_step_s'] * 1e3:.1f} ms, {r['comm_launches']} collectives timed "
+              f"(device synchronized around each) {r['comm_s'] * 1e3:.1f} ms: share "
+              f"{r['comm_s'] / r['comm_step_s']:.3f}", flush=True)
+    for r in ranks:
+        print(f"[zero] rank {r['rank']} launches over {ZERO_STEPS} steps {r['launches']}; "
+              f"quantizer launches a step {r['quant_per_step']}; wire a step "
+              f"{json.dumps(r['wire'][-1])}", flush=True)
+        want = {"flash_fwd": 2 * r["layers"] * ZERO_STEPS, "flash_dq": r["layers"] * ZERO_STEPS,
+                "flash_dkv": r["layers"] * ZERO_STEPS, "fused_adam": r["buckets"] * ZERO_STEPS}
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            fail(f"[zero] rank {r['rank']} training launches {got} != {want}")
+        if r["launches"]["quant_rows"] == 0:
+            fail(f"[zero] rank {r['rank']}: the int8 path did not run")
+    path = r0["path"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(path["kernels"], path["plain"])]
+    print(f"[zero] {PATH_LAYERS} layers, same width, {PATH_STEPS} steps: kernels "
+          f"{path['kernels']} plain {path['plain']} (relative difference {max(rel):.3e}, "
+          f"limit {PATH_RTOL}); full width {path['full-width']} (int8 within rtol "
+          f"{ZERO_ZEROPP_TOL} atol {ZERO_ZEROPP_TOL} of it)", flush=True)
+    if max(rel) > PATH_RTOL:
+        fail(f"[zero] kernel and plain paths differ by {max(rel):.3e}")
+    if not np.allclose(path["kernels"], path["full-width"], rtol=ZERO_ZEROPP_TOL,
+                       atol=ZERO_ZEROPP_TOL):
+        fail(f"[zero] int8 wire losses {path['kernels']} beyond the ZeRO++ tolerance of the "
+             f"full-width {path['full-width']}")
+    return sum(r["launches"]["quant_rows"] for r in ranks)
 
 
 def main():
@@ -1636,6 +2071,7 @@ def main():
     from deepspeed_tpu_torch.ops.adam import adam
     from deepspeed_tpu_torch.ops.lion import lion
     from deepspeed_tpu_torch.ops.op_builder import builder
+    from deepspeed_tpu_torch.ops.quantizer import quant
     from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
     from deepspeed_tpu_torch.ops.transformer import flash
     from deepspeed_tpu_torch.ops.transformer import moe
@@ -1667,6 +2103,7 @@ def main():
     arow, aerr = adam_kernel_vs_plain(torch, adam, gen, flush)
     lrow, lerr = lion_kernel_vs_plain(torch, lion, adam, gen, flush)
     wrow, werr = woq_kernel_vs_plain(torch, woq, quantization, gen, flush)
+    qrow, qerr = quant_kernel_vs_plain(torch, quant, gen, flush)
     mrows, merrs = moe_kernels_vs_plain(torch, moe, gen, flush)
     del flush
     gc.collect()
@@ -1683,21 +2120,32 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. training
-    adamw = train(torch, np, flash, adam, lion, TRAIN_CONFIG, TRAIN_WARMUP, TRAIN_STEPS)
+    adamw, adamw_opt_bytes = train(torch, np, flash, adam, lion, TRAIN_CONFIG, TRAIN_WARMUP,
+                                   TRAIN_STEPS)
     launches.update({k: v for k, v in adamw.items() if k != "fused_lion"})
     gc.collect()
     torch.cuda.empty_cache()
 
     # 8. Lion training
     launches["fused_lion"] = train(torch, np, flash, adam, lion, LION_CONFIG, LION_WARMUP,
-                                   LION_STEPS)["fused_lion"]
+                                   LION_STEPS)[0]["fused_lion"]
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 9. Mixtral serving
-    launches.update(serve_mixtral(torch, np, moe))
+    # 9. data-parallel ZeRO-3 with the ZeRO++ int8 wire, two ranks
+    launches["quant_rows"] = train_zero(torch, np, adamw_opt_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 10. kernels line
+    # 10. Mixtral serving; its count of the int8 dispatch gather is the one
+    # in the kernels line (no path calls that kernel, as in the JAX package;
+    # its checks in [moe] do not count)
+    launches.update(serve_mixtral(torch, np, moe))
+    print(f"[kernels] moe_dispatch_gather_int8: {launches['moe_dispatch_gather_int8']} "
+          f"launches in Mixtral serving (no path calls it; the int8 expert exchange waits "
+          f"for a live expert axis); checked and timed in [moe]", flush=True)
+
+    # 11. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",
@@ -1725,7 +2173,10 @@ def main():
             ("moe_ffn", "moe_ffn.cu", "ops/transformer/pallas_moe.py:434",
              mrows["moe_ffn"], merrs["moe_ffn"]),
             ("moe_combine", "moe_dispatch.cu", "ops/transformer/pallas_moe.py:455",
-             mrows["moe_combine"], merrs["moe_combine"])):
+             mrows["moe_combine"], merrs["moe_combine"]),
+            ("quant_rows", "quant_rows.cu", "ops/quantizer/pallas_quant.py:55", qrow, qerr),
+            ("moe_dispatch_gather_int8", "moe_dispatch.cu", "ops/transformer/pallas_moe.py:292",
+             mrows["moe_dispatch_gather_int8"], merrs["moe_dispatch_gather_int8"])):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"deepspeed_tpu_torch/csrc/{src}",
                         "replaces": f"deepspeed_tpu/{replaces}", "launches": launches[name],

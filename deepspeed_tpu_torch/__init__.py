@@ -5,10 +5,12 @@ obvious counterpart there. It imports ``torch`` and numpy only: nothing of
 JAX and nothing of ``deepspeed_tpu``. The slices ported so far are the
 ragged-wave serving path (``inference/v2``), dense, from int8 / int4
 weight-only-quantized weights (``inference/quantization``) or through
-mixture-of-experts layers (``moe``, Mixtral), and the
+mixture-of-experts layers (``moe``, Mixtral), the
 single-device training step (``initialize`` +
-``DeepSpeedEngine.train_batch``) with the Adam family or Lion, with their
-hand-written Hopper kernels (``csrc/``).
+``DeepSpeedEngine.train_batch``) with the Adam family or Lion, and
+data-parallel training over ``torch.distributed`` with ZeRO stages 0-3 and
+the ZeRO++ int8 wire (``DataParallelEngine``: ``comm``, ``runtime/zero``),
+with their hand-written Hopper kernels (``csrc/``).
 
 Front door (``deepspeed_tpu/__init__.py:67``):
 
@@ -16,7 +18,10 @@ Front door (``deepspeed_tpu/__init__.py:67``):
         model=model, config=config_dict)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU and without that argument they raise.
+without a GPU and without that argument they raise. A world of more than
+one rank (``comm.init_distributed`` first, or ``dist_init_required=True``)
+gets the data-parallel engine; every rank calls ``initialize`` and
+``train_batch`` with the same global batch and trains on its own rows.
 """
 
 from __future__ import annotations
@@ -25,12 +30,14 @@ import json
 from typing import Any, Dict, Optional
 
 from .accelerator import resolve_device  # noqa: F401
+from .comm import comm
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError  # noqa: F401
-from .runtime.engine import DeepSpeedEngine  # noqa: F401
+from .runtime.engine import DataParallelEngine, DeepSpeedEngine  # noqa: F401
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
-               training_data=None, lr_scheduler=None, collate_fn=None,
+               training_data=None, lr_scheduler=None, distributed_port: int = 29500,
+               topology=None, dist_init_required: Optional[bool] = None, collate_fn=None,
                config: Optional[Any] = None,
                config_params: Optional[Dict[str, Any]] = None, seed: int = 42,
                device=None):
@@ -38,10 +45,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     dataloader, lr_scheduler)`` as the JAX ``initialize`` does.
 
     ``model`` is a ``TransformerLM`` (on the meta device it is given storage
-    and seeded weights); ``model_parameters`` an optional state_dict to
-    start from; ``config`` a dict, a JSON path or a ``DeepSpeedConfig``.
-    The optimizer and schedule come from the config: client optimizer and
-    scheduler objects are not taken."""
+    and seeded weights, the same on every rank); ``model_parameters`` an
+    optional state_dict of full weights to start from; ``config`` a dict, a
+    JSON path or a ``DeepSpeedConfig``. The optimizer and schedule come from
+    the config: client optimizer and scheduler objects are not taken.
+    ``dist_init_required=True`` joins the process group from torchrun's
+    variables (``comm.init_distributed``); ``topology`` (a
+    ``runtime.topology.MeshTopology``) defaults to the world. A world of
+    more than one rank builds a ``DataParallelEngine``."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     if optimizer is not None or lr_scheduler is not None:
@@ -51,14 +62,20 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if isinstance(config, str):
         with open(config) as f:
             config = json.load(f)
-    engine = DeepSpeedEngine(
-        model=model, config=config if isinstance(config, DeepSpeedConfig) else None,
-        config_dict=config if isinstance(config, dict) else None, seed=seed,
-        init_params=model_parameters, device=device)
+    if dist_init_required:
+        comm.init_distributed(distributed_port=distributed_port)
+    kw = dict(model=model, config=config if isinstance(config, DeepSpeedConfig) else None,
+              config_dict=config if isinstance(config, dict) else None, seed=seed,
+              init_params=model_parameters, device=device)
+    if comm.get_world_size() > 1:
+        engine = DataParallelEngine(topology=topology, **kw)
+    else:
+        engine = DeepSpeedEngine(**kw)
     dataloader = None
     if training_data is not None:
         import torch.utils.data
         dataloader = torch.utils.data.DataLoader(
-            training_data, batch_size=engine.train_micro_batch_size_per_gpu,
+            training_data,
+            batch_size=engine.train_micro_batch_size_per_gpu * comm.get_world_size(),
             collate_fn=collate_fn)
     return engine, engine.optimizer, dataloader, engine.lr_scheduler

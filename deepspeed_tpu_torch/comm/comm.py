@@ -1,0 +1,427 @@
+"""Communication frontend of the port: ``torch.distributed``, one process a
+rank.
+
+Counterpart of ``deepspeed_tpu/comm/comm.py``. There, collectives are
+``jax.lax`` primitives over named mesh axes inside ``shard_map``; here they
+are ``torch.distributed`` calls over a process group (``group=None`` is the
+world), called eagerly. The port's only live axis is ``data``: the world.
+
+- bootstrap: ``init_distributed`` (torchrun's ``RANK`` / ``WORLD_SIZE`` /
+  ``MASTER_ADDR`` / ``MASTER_PORT`` when no arguments are given; NCCL for
+  CUDA and gloo for the CPU unless a backend is named), ``is_initialized``,
+  ``get_rank``, ``get_world_size``, ``get_local_rank``, ``barrier``;
+- collectives returning new tensors, tiled along dim 0 as the JAX
+  ``tiled=True`` forms are: ``all_reduce``, ``all_gather``,
+  ``reduce_scatter``, ``all_to_all``, ``broadcast``. On a gloo group a CUDA
+  tensor is staged through host memory (what gloo does with CUDA tensors
+  anyway, made explicit so every op works on every gloo build). Without an
+  initialized process group the world is one rank and every collective is
+  the identity;
+- the transport planner (``TransportPlan``, ``resolve_transport``,
+  ``configure_transport``; JAX ``comm.py:63-252``, line for line) that picks
+  each launch's wire width (full / bf16 / int8 / fp8) from the tensor kind
+  and bucket bytes, and its algorithm (flat / hierarchical) from the live
+  axes. The JAX ``DSTPU_COMM_QUANT`` / ``DSTPU_COMM_HIER`` switches are not
+  carried over: ``comm_transport.enabled`` and ``.hierarchical`` do their
+  work. The hierarchical algorithm needs two live data axes (hpZ / MiCS,
+  ROADMAP A6), so on the port's one axis it never fires, and the engine's
+  config accepts ``hierarchical`` only at its default;
+- ``record_collective``, ``CollectiveLedger`` and ``record_into``
+  (``comm.py:352-445``): the engine records each launch with its logical and
+  wire bytes, and a ledger installed with ``record_into`` collects them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import enum
+import os
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as tdist
+
+from ..utils.groups import DATA_AXIS
+
+AxisNames = Union[str, Sequence[str]]
+
+
+class ReduceOp(enum.Enum):
+    SUM = "sum"
+    AVG = "avg"
+    MAX = "max"
+    MIN = "min"
+    PRODUCT = "product"
+
+
+# -- transport planner --------------------------------------------------------
+
+WIDTH_FULL = "full"
+WIDTH_BF16 = "bf16"
+WIDTH_INT8 = "int8"
+WIDTH_FP8 = "fp8"
+ALGO_FLAT = "flat"
+ALGO_HIERARCHICAL = "hierarchical"
+
+KIND_PARAM = "param"
+KIND_GRAD = "grad"
+KIND_ACTIVATION = "activation"
+
+_WIDTHS = (WIDTH_FULL, WIDTH_BF16, WIDTH_INT8, WIDTH_FP8)
+_KINDS = (KIND_PARAM, KIND_GRAD, KIND_ACTIVATION)
+
+#: process-global transport policy; the engine's ``comm_transport`` config
+#: block lands here through :func:`configure_transport`
+TRANSPORT_DEFAULTS = dict(
+    enabled=True,
+    grad_width=WIDTH_INT8,          # gradient reductions
+    activation_width=WIDTH_BF16,    # MoE dispatch / sequence all-to-all
+    permute_width=WIDTH_INT8,       # ring KV hops
+    hierarchical=True,
+    group_size=256,
+    min_bytes=1024,                 # buckets below this stay full width
+    error_feedback=False,
+)
+_TRANSPORT = dict(TRANSPORT_DEFAULTS)
+
+#: widths each collective op can move; an unsupported request degrades to
+#: the nearest supported width
+_OP_WIDTHS = {
+    "all_reduce": (WIDTH_FULL, WIDTH_INT8, WIDTH_FP8),
+    "reduce_scatter": (WIDTH_FULL, WIDTH_INT8, WIDTH_FP8),
+    "all_gather": (WIDTH_FULL, WIDTH_BF16, WIDTH_INT8, WIDTH_FP8),
+    "all_to_all": (WIDTH_FULL, WIDTH_BF16),
+    "ppermute": (WIDTH_FULL, WIDTH_BF16, WIDTH_INT8),
+}
+_WIDTH_FALLBACK = {
+    ("all_reduce", WIDTH_BF16): WIDTH_FULL,
+    ("reduce_scatter", WIDTH_BF16): WIDTH_FULL,
+    ("all_to_all", WIDTH_INT8): WIDTH_BF16,
+    ("all_to_all", WIDTH_FP8): WIDTH_BF16,
+    ("ppermute", WIDTH_FP8): WIDTH_INT8,
+}
+
+
+def configure_transport(**kwargs) -> None:
+    """Set the process-global transport policy. Unknown keys or widths
+    raise."""
+    for key, val in kwargs.items():
+        if key not in TRANSPORT_DEFAULTS:
+            raise ValueError(f"unknown comm_transport key {key!r} "
+                             f"(known: {', '.join(sorted(TRANSPORT_DEFAULTS))})")
+        if key.endswith("_width") and val not in _WIDTHS:
+            raise ValueError(f"comm_transport.{key}={val!r} not in {_WIDTHS}")
+        _TRANSPORT[key] = val
+
+
+def transport_config() -> dict:
+    return dict(_TRANSPORT)
+
+
+def reset_transport() -> None:
+    _TRANSPORT.clear()
+    _TRANSPORT.update(TRANSPORT_DEFAULTS)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportPlan:
+    """How one collective launch moves its bytes; ``inner`` / ``outer`` are
+    the hierarchical tiers, empty under the flat algorithm."""
+    width: str = WIDTH_FULL
+    algo: str = ALGO_FLAT
+    inner: Tuple[str, ...] = ()
+    outer: Tuple[str, ...] = ()
+    group_size: int = 256
+    error_feedback: bool = False
+
+    @property
+    def quantized(self) -> bool:
+        return self.width in (WIDTH_INT8, WIDTH_FP8)
+
+    def wire_bytes(self, n_elems: int, itemsize: int) -> int:
+        """Bytes on the wire for an ``n_elems`` payload of logical element
+        width ``itemsize``: sideband scales / zero points charged, the
+        hierarchical outer leg's full-width 1/n_inner shard added."""
+        groups = -(-n_elems // max(self.group_size, 1))
+        if self.width == WIDTH_INT8:
+            base = n_elems + groups * 8       # int8 payload + f32 scale/zero
+        elif self.width == WIDTH_FP8:
+            base = n_elems + groups * 4       # fp8 payload + f32 scale
+        elif self.width == WIDTH_BF16:
+            base = n_elems * min(2, itemsize)
+        else:
+            base = n_elems * itemsize
+        if self.algo == ALGO_HIERARCHICAL and self.inner:
+            ni = 1
+            for a in self.inner:
+                ni *= _transport_axis_size(a)
+            base += (n_elems // max(ni, 1)) * 4   # full-width outer leg
+        return int(base)
+
+
+FULL_FLAT_PLAN = TransportPlan()
+
+
+def _transport_axis_size(axis) -> int:
+    """The size of a mesh axis for planning: the world for ``data``, 1 for
+    every other axis (the port runs none of them)."""
+    return get_world_size() if axis == DATA_AXIS else 1
+
+
+def resolve_transport(kind: Optional[str], op: str, nbytes: int,
+                      axes: AxisNames, axis_sizes: Optional[dict] = None,
+                      requested: Optional[str] = None) -> TransportPlan:
+    """One launch's :class:`TransportPlan`.
+
+    ``kind`` is the tensor kind (``param`` / ``grad`` / ``activation``;
+    ``None`` is unclassified traffic, always full and flat); ``requested``
+    an explicit width (the ZeRO++ qwZ / qgZ knobs), which holds even with
+    ``comm_transport.enabled`` false, where the planner's defaults fall
+    back to full width. ``axis_sizes`` gives the axes' sizes; otherwise
+    they come from the world."""
+    if kind is None and requested is None:
+        return FULL_FLAT_PLAN
+    axes_t = (axes,) if isinstance(axes, str) else tuple(axes)
+    size_of = (axis_sizes.get if axis_sizes is not None
+               else lambda a, _=None: _transport_axis_size(a))
+    live = tuple(a for a in axes_t if (size_of(a, 1) or 1) > 1)
+
+    quant_defaults = _TRANSPORT["enabled"]
+    width = requested if requested in _WIDTHS else WIDTH_FULL
+    if (requested is None and kind in _KINDS and quant_defaults
+            and nbytes >= _TRANSPORT["min_bytes"]):
+        if kind == KIND_GRAD:
+            width = _TRANSPORT["grad_width"]
+        elif kind == KIND_ACTIVATION:
+            width = (_TRANSPORT["permute_width"] if op == "ppermute"
+                     else _TRANSPORT["activation_width"])
+        # KIND_PARAM stays full: the parameter all-gather's width is the
+        # user's qwZ contract (zero_quantized_weights -> requested="int8")
+    while width not in _OP_WIDTHS.get(op, (WIDTH_FULL,)):
+        width = _WIDTH_FALLBACK.get((op, width), WIDTH_FULL)
+
+    algo, inner, outer = ALGO_FLAT, (), ()
+    if (op in ("all_reduce", "reduce_scatter", "all_gather")
+            and quant_defaults and _TRANSPORT["hierarchical"]):
+        out_axes = tuple(a for a in live if a == DATA_AXIS)
+        in_axes = tuple(a for a in live if a != DATA_AXIS)
+        if out_axes and in_axes:
+            algo, inner, outer = ALGO_HIERARCHICAL, in_axes, out_axes
+    return TransportPlan(width=width, algo=algo, inner=inner, outer=outer,
+                         group_size=_TRANSPORT["group_size"],
+                         error_feedback=(bool(_TRANSPORT["error_feedback"])
+                                         and kind == KIND_GRAD))
+
+
+# -- collective records ---------------------------------------------------------
+
+_LEDGER = None   # set by record_into
+
+
+def record_collective(op_name: str, nbytes: int, axis: AxisNames,
+                      overlapped: Optional[bool] = None, count: int = 1,
+                      wire_bytes: Optional[int] = None) -> None:
+    """Record one collective launch: its logical bytes, the bytes that
+    travel (``wire_bytes``, default ``nbytes``) and its schedule class
+    (``overlapped=False``: on the critical path, as every launch of the
+    barrier schedule is). A no-op unless a ledger is installed."""
+    if _LEDGER is not None:
+        _LEDGER.append(op_name, int(nbytes), axis, overlapped=overlapped, count=count,
+                       wire_bytes=int(nbytes) if wire_bytes is None else int(wire_bytes))
+
+
+class CollectiveLedger:
+    """Collects ``record_collective`` calls as dicts."""
+
+    def __init__(self):
+        self.records = []
+
+    def append(self, op_name: str, nbytes: int, axis,
+               overlapped: Optional[bool] = None, count: int = 1,
+               wire_bytes: Optional[int] = None) -> None:
+        self.records.append({"op": op_name, "bytes": int(nbytes),
+                             "wire_bytes": int(nbytes if wire_bytes is None else wire_bytes),
+                             "axes": tuple(axis) if isinstance(axis, (tuple, list)) else (axis,),
+                             "overlapped": overlapped, "count": int(count)})
+
+    def split(self, wire: bool = True) -> dict:
+        """``{"overlapped_bytes", "exposed_bytes"}``, count-scaled, at wire
+        bytes unless ``wire=False``; untagged records excluded."""
+        key = "wire_bytes" if wire else "bytes"
+        out = {"overlapped_bytes": 0, "exposed_bytes": 0}
+        for r in self.records:
+            if r["overlapped"] is True:
+                out["overlapped_bytes"] += r[key] * r["count"]
+            elif r["overlapped"] is False:
+                out["exposed_bytes"] += r[key] * r["count"]
+        return out
+
+    def tail(self, n: int = 12) -> str:
+        return "\n".join(f"{r['op']} {r['bytes']} B axes={r['axes']} "
+                         f"overlapped={r['overlapped']} x{r['count']}"
+                         for r in self.records[-n:])
+
+
+@contextlib.contextmanager
+def record_into(ledger):
+    """Route ``record_collective`` into ``ledger`` for the duration."""
+    global _LEDGER
+    old = _LEDGER
+    _LEDGER = ledger
+    try:
+        yield ledger
+    finally:
+        _LEDGER = old
+
+
+# -- bootstrap and process queries ----------------------------------------------
+
+
+def init_distributed(dist_backend: Optional[str] = None, rank: int = -1, world_size: int = -1,
+                     init_method: Optional[str] = None, distributed_port: int = 29500,
+                     timeout: Optional[float] = None) -> None:
+    """Join the process group (reference ``comm.py:604``). ``rank`` /
+    ``world_size`` default to ``RANK`` / ``WORLD_SIZE``; ``init_method`` to
+    ``env://`` over ``MASTER_ADDR`` (localhost) and ``MASTER_PORT``
+    (``distributed_port``). The backend is ``dist_backend`` as given, else
+    NCCL when CUDA is available and gloo otherwise. ``timeout`` in seconds
+    bounds every collective. A no-op when already initialized."""
+    if tdist.is_initialized():
+        return
+    rank = int(os.environ.get("RANK", 0)) if rank < 0 else rank
+    world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size < 0 else world_size
+    if init_method is None:
+        os.environ.setdefault("MASTER_ADDR", "localhost")
+        os.environ.setdefault("MASTER_PORT", str(distributed_port))
+        init_method = "env://"
+    backend = dist_backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    tdist.init_process_group(backend, init_method=init_method, rank=rank,
+                             world_size=world_size, **kw)
+
+
+def is_initialized() -> bool:
+    return tdist.is_initialized()
+
+
+def get_rank(group=None) -> int:
+    return tdist.get_rank(group) if tdist.is_initialized() else 0
+
+
+def get_world_size(group=None) -> int:
+    return tdist.get_world_size(group) if tdist.is_initialized() else 1
+
+
+def get_local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", get_rank()))
+
+
+def get_backend(group=None) -> Optional[str]:
+    return str(tdist.get_backend(group)) if tdist.is_initialized() else None
+
+
+def barrier(group=None) -> None:
+    if tdist.is_initialized():
+        tdist.barrier(group)
+
+
+def destroy_process_group() -> None:
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+
+
+# -- collectives ------------------------------------------------------------------
+
+_TORCH_OPS = {ReduceOp.SUM: "SUM", ReduceOp.AVG: "SUM", ReduceOp.MAX: "MAX",
+              ReduceOp.MIN: "MIN", ReduceOp.PRODUCT: "PRODUCT"}
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """Whether ``t`` must go through host memory: a CUDA tensor on gloo."""
+    return t.is_cuda and get_backend(group) == "gloo"
+
+
+def _moved(group, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a data-movement collective sends it: contiguous, on the host
+    for a CUDA tensor on gloo, and fp8 as its bytes (which gloo moves; it
+    has no fp8 type)."""
+    src = t.detach().contiguous()
+    if _staged(group, t):
+        src = src.cpu()
+    return src.view(torch.uint8) if src.is_floating_point() and src.element_size() == 1 else src
+
+
+def _reduce_op(op) -> "tdist.ReduceOp":
+    op = ReduceOp(op) if not isinstance(op, ReduceOp) else op
+    return getattr(tdist.ReduceOp, _TORCH_OPS[op])
+
+
+def all_reduce(t: torch.Tensor, op=ReduceOp.SUM, group=None) -> torch.Tensor:
+    """The reduction of ``t`` over the group (a new tensor); ``AVG``
+    divides the sum by the group size."""
+    n = get_world_size(group)
+    if n == 1:
+        return t.clone()
+    out = t.detach().cpu() if _staged(group, t) else t.detach().clone()
+    tdist.all_reduce(out, op=_reduce_op(op), group=group)
+    out = out.to(t.device)
+    if ReduceOp(op) == ReduceOp.AVG:
+        out = out / n
+    return out
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every member's ``t`` concatenated along dim 0, in rank order."""
+    n = get_world_size(group)
+    if n == 1:
+        return t.clone()
+    src = _moved(group, t)
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    tdist.all_gather_into_tensor(out, src, group=group)
+    return out.view(t.dtype).to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, op=ReduceOp.SUM, group=None) -> torch.Tensor:
+    """Member r's rows ``[r * s0, (r + 1) * s0)`` of the reduction of
+    ``t [n * s0, ...]`` over the group."""
+    n = get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"reduce-scatter of leading dim {t.shape[0]} over {n} members")
+    if n == 1:
+        return t.clone()
+    src = t.detach().contiguous()
+    if _staged(group, t):
+        src = src.cpu()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    tdist.reduce_scatter_tensor(out, src, op=_reduce_op(op), group=group)
+    out = out.to(t.device)
+    if ReduceOp(op) == ReduceOp.AVG:
+        out = out / n
+    return out
+
+
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Split ``t`` along dim 0 into n equal blocks, send block j to member
+    j, and concatenate the blocks received in rank order."""
+    n = get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"all-to-all of leading dim {t.shape[0]} over {n} members")
+    if n == 1:
+        return t.clone()
+    src = _moved(group, t)
+    out = torch.empty_like(src)
+    tdist.all_to_all_single(out, src, group=group)
+    return out.view(t.dtype).to(t.device)
+
+
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Member ``src``'s ``t`` on every member (a new tensor)."""
+    if get_world_size(group) == 1:
+        return t.clone()
+    buf = _moved(group, t).clone()
+    tdist.broadcast(buf, src=src, group=group)
+    return buf.view(t.dtype).to(t.device)

@@ -1,12 +1,18 @@
-// The two row gathers of the mixture of experts, both driven by a slot table:
+// The row gathers of the mixture of experts, all driven by a slot table:
 //
-//   dispatch gather:  payload[s] = tokens[max(src[s] - 1, 0)]     cast to the wire dtype
-//   split combine:    out[t] = 0 + w_tk[t, 0] * y[slot_tk[t, 0]] + w_tk[t, 1] * y[slot_tk[t, 1]]
+//   dispatch gather:       payload[s] = tokens[max(src[s] - 1, 0)]    cast to the wire dtype
+//   int8 dispatch gather:  q[s], scale[s] = int8 row quantize of that row (zero where
+//                          src[s] == 0 when mask_pad)
+//   split combine:         out[t] = 0 + w_tk[t, 0] * y[slot_tk[t, 0]] + w_tk[t, 1] * y[slot_tk[t, 1]]
 //
-// Replaces two TPU kernels of deepspeed_tpu/ops/transformer/pallas_moe.py:
+// Replaces three TPU kernels of deepspeed_tpu/ops/transformer/pallas_moe.py:
 // _gather_kernel (via moe_dispatch_gather; one scalar-prefetched grid step a
-// slot) and _combine_kernel (via moe_combine; grid (T, K) revisiting token
-// t's output block K times). Same functions. An empty slot (src 0) reads
+// slot), _gather_int8_kernel (via moe_dispatch_gather_int8; the same grid)
+// and _combine_kernel (via moe_combine; grid (T, K) revisiting token t's
+// output block K times). Same functions. The int8 gather quantizes each
+// gathered row as one group with quant_common.cuh, the row arithmetic of
+// quant_rows.cu, one warp a slot: its output is byte-identical to
+// quantize_rows_int8 of the gathered rows. An empty slot (src 0) reads
 // token 0's row unmasked, as the Pallas kernel does with mask_pad=False: the
 // combine never reads it with a non-zero weight. The gather's bf16 cast is
 // __float2bfloat16_rn, the rounding of torch's .to(bfloat16), so the payload
@@ -16,10 +22,14 @@
 //
 // Bound on an H100 SXM: bytes (no arithmetic to speak of). A block moves one
 // row (gather: one slot; combine: one token and 512 columns), 16 bytes a
-// thread where the row allows it, so reads and writes are full lines.
+// thread where the row allows it, so reads and writes are full lines. The
+// int8 gather reads a row and writes a quarter (fp32) or half (bf16) of its
+// bytes plus a 4-byte scale.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quant_common.cuh"
 
 namespace {
 
@@ -54,6 +64,21 @@ __global__ void __launch_bounds__(128) gather_cast_kernel(const In* tokens, cons
   const In* in = tokens + (long long)source_row(src, s, T) * H;
   Out* o = out + (long long)s * H;
   for (int i = threadIdx.x; i < H; i += blockDim.x) o[i] = convert<In, Out>(in[i]);
+}
+
+constexpr int kGatherQuantThreads = 256;   // 8 slots a block, a warp each
+
+// A warp a slot: the routed row, masked to zeros for an empty slot when
+// mask_pad, quantized as one group of H.
+template <typename In>
+__global__ void __launch_bounds__(kGatherQuantThreads) gather_int8_kernel(
+    const In* tokens, const int* src, int8_t* q, float* scale, int S, int T, int H,
+    int mask_pad) {
+  const int s = blockIdx.x * (kGatherQuantThreads / 32) + (threadIdx.x >> 5);
+  if (s >= S) return;
+  const bool zero = mask_pad && src[s] <= 0;
+  quant::quantize_row_warp(tokens + (long long)source_row(src, s, T) * H, H, zero,
+                           q + (long long)s * H, scale + s, threadIdx.x & 31);
 }
 
 constexpr int kCombineThreads = 128;
@@ -117,6 +142,26 @@ extern "C" int dstt_moe_gather(const void* tokens, const int* src, void* out, in
   } else {
     gather_cast_kernel<float, float><<<S, 128, 0, stream>>>(
         static_cast<const float*>(tokens), src, static_cast<float*>(out), T, H);
+  }
+  return cudaGetLastError();
+}
+
+// q [S, H] int8 and scale [S] fp32: the rows tokens [T, H] (in_bf16 ? bf16 :
+// fp32) at max(src - 1, 0), zero where src == 0 when mask_pad, each quantized
+// as one symmetric int8 group; returns the cudaError_t.
+extern "C" int dstt_moe_gather_int8(const void* tokens, const int* src, int8_t* q, float* scale,
+                                    int S, int T, int H, int in_bf16, int mask_pad,
+                                    void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (S == 0 || H == 0) return cudaSuccess;
+  const int per = kGatherQuantThreads / 32;
+  const int blocks = (S + per - 1) / per;
+  if (in_bf16) {
+    gather_int8_kernel<bf16><<<blocks, kGatherQuantThreads, 0, stream>>>(
+        static_cast<const bf16*>(tokens), src, q, scale, S, T, H, mask_pad);
+  } else {
+    gather_int8_kernel<float><<<blocks, kGatherQuantThreads, 0, stream>>>(
+        static_cast<const float*>(tokens), src, q, scale, S, T, H, mask_pad);
   }
   return cudaGetLastError();
 }

@@ -31,7 +31,7 @@ CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT.parent / "build" / "deepspeed_tpu_torch"
 KERNELS = ("ragged_paged_attention", "paged_decode", "flash_fwd", "flash_bwd",
            "fused_adam", "fused_lion", "woq_matmul", "moe_route", "moe_dispatch",
-           "moe_ffn")
+           "moe_ffn", "quant_rows")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

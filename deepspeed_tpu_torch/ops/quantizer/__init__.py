@@ -1,3 +1,5 @@
-"""Quantized-weight kernels of the port (counterpart of
+"""Quantizer kernels of the port (counterpart of
 ``deepspeed_tpu/ops/quantizer``): ``woq_matmul``, the weight-only-quantized
-matmul."""
+matmul; ``quant``, the symmetric int8 row quantizer of the ZeRO++ wire; and
+``quantizer``, blockwise quantization and the quantized collectives built
+on it."""

@@ -1,0 +1,286 @@
+"""Block quantization and the quantized collectives of ZeRO++.
+
+Counterpart of ``deepspeed_tpu/ops/quantizer/quantizer.py``: symmetric and
+asymmetric blockwise int8 / int4 quantization (int4 packed two to a byte,
+last-axis two's-complement nibbles: the collective wire format), the
+scaled-fp8 wire (``torch.float8_e4m3fn``), and the collectives built on
+them over a ``torch.distributed`` group:
+
+- ``quantized_all_gather`` (qwZ: the int8 parameter all-gather);
+- ``quantized_reduce_scatter`` (qgZ: quantize each destination chunk,
+  all-to-all, dequantize, local sum);
+- ``fp8_all_gather``, ``fp8_reduce_scatter`` and ``quantized_all_reduce``
+  (reduce-scatter then all-gather, both on the low-precision wire).
+
+The layouts, the per-segment padding and the effective group size
+(``min(group_size, chunk)``, kept even for int4) are the JAX functions', so
+the same inputs put the same bytes on the wire. A symmetric int8 quantize
+runs the row-quantizer kernel (``ops/quantizer/quant.py``,
+``csrc/quant_rows.cu``) on CUDA tensors at any group size; int4,
+asymmetric and fp8 stay plain tensor code, as they stay XLA in the JAX
+package. Each divide by a constant is the multiply by its fp32 reciprocal
+that jitted XLA computes (``_recip``), so the port's wire matches the
+jitted JAX wire bit for bit.
+
+The axis argument of the JAX functions becomes ``group`` (a process group,
+``None`` for the world). ``ef_quantized_reduce_scatter`` and
+``quantize_with_feedback`` (error feedback, used only by the overlap
+schedule) and ``quantized_ppermute`` (ring attention) are not ported: ROADMAP
+A6 and A8.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...comm import comm as dist
+from .quant import KERNEL_DTYPES, quantize_rows_int8
+
+FP8_MAX = 448.0   # float8_e4m3fn's largest normal
+
+
+def _recip(q: float, device) -> torch.Tensor:
+    """fp32(1 / q) as a tensor: the multiply XLA compiles ``x / q`` into."""
+    return torch.full((), float(np.float32(1.0) / np.float32(q)), dtype=torch.float32,
+                      device=device)
+
+
+def _groups(x: torch.Tensor, group_size: int, keep_dtype: bool = False) -> torch.Tensor:
+    """``x`` flattened, zero-padded to a group multiple, ``[G, group_size]``;
+    fp32 unless ``keep_dtype`` (the int8 kernel widens bf16 itself)."""
+    flat = x.reshape(-1)
+    if not keep_dtype:
+        flat = flat.float()
+    pad = (-flat.numel()) % group_size
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, group_size)
+
+
+def gather_in_row_chunks(gather_one: Callable, x: torch.Tensor, n: int,
+                         n_chunks: int) -> torch.Tensor:
+    """Split a shard's leading dim into ``n_chunks`` launches of
+    ``gather_one`` (a tiled all-gather over ``n`` members) and interleave
+    the results back into the single-launch layout."""
+    if x.shape[0] % n_chunks:
+        raise ValueError(f"n_chunks={n_chunks} must divide the shard's "
+                         f"leading dim {x.shape[0]}")
+    ck = x.shape[0] // n_chunks
+    parts = [gather_one(x[c * ck:(c + 1) * ck]) for c in range(n_chunks)]
+    stacked = torch.stack([p.reshape((n, ck) + tuple(x.shape[1:])) for p in parts], dim=1)
+    return stacked.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def scatter_in_row_chunks(scatter_one: Callable, x: torch.Tensor, n: int,
+                          n_chunks: int) -> torch.Tensor:
+    """Split a reduce-scatter input ``[n*s0, ...]`` along the destination
+    rows into ``n_chunks`` launches of ``scatter_one``; the output layout
+    matches the single launch."""
+    s0 = x.shape[0] // n
+    if s0 % n_chunks:
+        raise ValueError(f"n_chunks={n_chunks} must divide the output's "
+                         f"leading dim {s0}")
+    ck = s0 // n_chunks
+    xr = x.reshape((n, s0) + tuple(x.shape[1:]))
+    parts = [scatter_one(xr[:, c * ck:(c + 1) * ck].reshape((n * ck,) + tuple(x.shape[1:])))
+             for c in range(n_chunks)]
+    return torch.cat(parts, dim=0)
+
+
+def quantize_blockwise(x: torch.Tensor, num_bits: int = 8, group_size: int = 256,
+                       symmetric: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(q, scale [G] fp32, zero [G] fp32)``: q int8 ``[G, group_size]``,
+    or for int4 uint8 ``[G, group_size // 2]`` (two nibbles a byte); the
+    zero point is all zeros when symmetric."""
+    assert num_bits in (4, 8)
+    if symmetric and num_bits == 8:
+        q, scale = quantize_rows_int8(_groups(x, group_size, keep_dtype=x.dtype in KERNEL_DTYPES))
+        return q, scale, torch.zeros_like(scale)
+    groups = _groups(x, group_size)
+    qmax = (1 << (num_bits - 1)) - 1
+    qmin = -qmax - 1
+    if symmetric:
+        scale = groups.abs().amax(dim=1, keepdim=True) * _recip(qmax, x.device)
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        zero = torch.zeros_like(scale)
+    else:
+        gmax = groups.amax(dim=1, keepdim=True)
+        gmin = groups.amin(dim=1, keepdim=True)
+        scale = (gmax - gmin) * _recip(qmax - qmin, x.device)
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        zero = qmin - gmin / scale
+    q = torch.clamp(torch.round(groups / scale + zero), qmin, qmax).to(torch.int8)
+    if num_bits == 4:
+        pairs = q.reshape(-1, group_size // 2, 2).to(torch.int16)
+        q = ((pairs[..., 0] & 0x0F) | ((pairs[..., 1] & 0x0F) << 4)).to(torch.uint8)
+    return q, scale[:, 0], zero[:, 0]
+
+
+def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                         num_bits: int = 8, group_size: int = 256,
+                         out_size: Optional[int] = None, out_shape=None,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    assert num_bits in (4, 8)
+    if num_bits == 4:
+        b = q.to(torch.int16)
+        lo, hi = b & 0x0F, (b >> 4) & 0x0F
+        lo = torch.where(lo >= 8, lo - 16, lo)
+        hi = torch.where(hi >= 8, hi - 16, hi)
+        vals = torch.stack([lo, hi], dim=-1).reshape(q.shape[0], -1)
+    else:
+        vals = q
+    out = ((vals.float() - zero[:, None]) * scale[:, None]).reshape(-1)
+    if out_size is not None:
+        out = out[:out_size]
+    if out_shape is not None:
+        out = out.reshape(out_shape)
+    return out.to(dtype)
+
+
+def quantize_blockwise_fp8(x: torch.Tensor, group_size: int = 256
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scaled fp8: each group scaled so its absmax lands on 448 and cast to
+    ``float8_e4m3fn``; ``(q [G, group_size], scale [G] fp32)``."""
+    groups = _groups(x, group_size)
+    scale = groups.abs().amax(dim=1, keepdim=True) * _recip(FP8_MAX, x.device)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return (groups / scale).to(torch.float8_e4m3fn), scale[:, 0]
+
+
+def dequantize_blockwise_fp8(q: torch.Tensor, scale: torch.Tensor,
+                             out_size: Optional[int] = None, out_shape=None,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    out = (q.float() * scale[:, None]).reshape(-1)
+    if out_size is not None:
+        out = out[:out_size]
+    if out_shape is not None:
+        out = out.reshape(out_shape)
+    return out.to(dtype)
+
+
+def _wire_group_size(n_elems: int, group_size: int, num_bits: int) -> int:
+    """The effective group size: never pad a small shard or chunk up to a
+    full group; int4 groups stay even."""
+    gs = max(1, min(group_size, n_elems))
+    if num_bits == 4:
+        gs = max(2, gs - gs % 2)
+    return gs
+
+
+def quantized_all_gather(x: torch.Tensor, group=None, num_bits: int = 8,
+                         group_size: int = 256, n_chunks: int = 1) -> torch.Tensor:
+    """qwZ all-gather: quantize the local shard, all-gather the payload and
+    its scales / zero points, dequantize; ``[n * x.shape[0], ...]`` in
+    ``x``'s dtype, each member's segment cut at its own group padding."""
+    n = dist.get_world_size(group)
+    if n_chunks > 1:
+        return gather_in_row_chunks(
+            lambda c: quantized_all_gather(c, group, num_bits, group_size), x, n, n_chunks)
+    gs = _wire_group_size(x.numel(), group_size, num_bits)
+    q, scale, zero = quantize_blockwise(x, num_bits, gs)
+    q_g = dist.all_gather(q, group=group)
+    side = dist.all_gather(torch.stack([scale, zero], dim=1), group=group)
+    out = dequantize_blockwise(q_g, side[:, 0].contiguous(), side[:, 1].contiguous(),
+                               num_bits, gs)
+    padded = -(-x.numel() // gs) * gs
+    out = out.reshape(n, padded)[:, :x.numel()]
+    return out.reshape((x.shape[0] * n,) + tuple(x.shape[1:])).to(x.dtype)
+
+
+def _scatter_wire(x: torch.Tensor, group, gs_req: int, num_bits: int, quantize, dequantize,
+                  out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The all-to-all reduce-scatter shared by the int and fp8 wires:
+    quantize each destination chunk (padded at its tail to a group
+    multiple), exchange, dequantize, sum over the sources in rank order."""
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"reduce-scatter of leading dim {x.shape[0]} over {n} members")
+    chunk = x.numel() // n
+    gs = _wire_group_size(chunk, gs_req, num_bits)
+    xr = x.reshape(n, chunk)
+    pad = (-chunk) % gs
+    if pad:
+        xr = torch.nn.functional.pad(xr, (0, pad))
+    q, side = quantize(xr, gs)
+    q_t = dist.all_to_all(q, group=group)
+    side_t = dist.all_to_all(side, group=group)
+    shard = dequantize(q_t, side_t, gs).reshape(n, chunk + pad)[:, :chunk]
+    out = shard[0]
+    for i in range(1, n):
+        out = out + shard[i]
+    return out.reshape((x.shape[0] // n,) + tuple(x.shape[1:])).to(out_dtype or x.dtype)
+
+
+def quantized_reduce_scatter(x: torch.Tensor, group=None, num_bits: int = 8,
+                             group_size: int = 256, n_chunks: int = 1,
+                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """qgZ reduce-scatter of ``x [n * s0, ...]`` over the group: member r
+    gets the sum of every member's rows ``[r * s0, (r + 1) * s0)``, in
+    ``out_dtype`` (default ``x``'s dtype). The payload travels int8 (or
+    int4) with per-group scales. A bf16 ``x`` is quantized as it is: the
+    result equals that of ``x.float()``, whose copy is never made."""
+    n = dist.get_world_size(group)
+    if n_chunks > 1:
+        return scatter_in_row_chunks(
+            lambda c: quantized_reduce_scatter(c, group, num_bits, group_size,
+                                               out_dtype=out_dtype), x, n, n_chunks)
+
+    def quantize(xr, gs):
+        q, scale, zero = quantize_blockwise(xr, num_bits, gs)
+        return q, torch.stack([scale, zero], dim=1)
+
+    def dequantize(q, side, gs):
+        return dequantize_blockwise(q, side[:, 0].contiguous(), side[:, 1].contiguous(),
+                                    num_bits, gs)
+
+    return _scatter_wire(x, group, group_size, num_bits, quantize, dequantize, out_dtype)
+
+
+def fp8_reduce_scatter(x: torch.Tensor, group=None, group_size: int = 256,
+                       n_chunks: int = 1) -> torch.Tensor:
+    """:func:`quantized_reduce_scatter` on the scaled-fp8 wire (one fp32
+    scale a group, no zero point)."""
+    n = dist.get_world_size(group)
+    if n_chunks > 1:
+        return scatter_in_row_chunks(
+            lambda c: fp8_reduce_scatter(c, group, group_size), x, n, n_chunks)
+    return _scatter_wire(x, group, group_size, 8, quantize_blockwise_fp8,
+                         lambda q, scale, gs: dequantize_blockwise_fp8(q, scale), None)
+
+
+def fp8_all_gather(x: torch.Tensor, group=None, group_size: int = 256,
+                   n_chunks: int = 1) -> torch.Tensor:
+    """:func:`quantized_all_gather` on the scaled-fp8 wire."""
+    n = dist.get_world_size(group)
+    if n_chunks > 1:
+        return gather_in_row_chunks(lambda c: fp8_all_gather(c, group, group_size),
+                                    x, n, n_chunks)
+    gs = max(1, min(group_size, x.numel()))
+    q, scale = quantize_blockwise_fp8(x, gs)
+    out = dequantize_blockwise_fp8(dist.all_gather(q, group=group),
+                                   dist.all_gather(scale, group=group))
+    padded = -(-x.numel() // gs) * gs
+    out = out.reshape(n, padded)[:, :x.numel()]
+    return out.reshape((x.shape[0] * n,) + tuple(x.shape[1:])).to(x.dtype)
+
+
+def quantized_all_reduce(x: torch.Tensor, group=None, num_bits: int = 8,
+                         group_size: int = 256, fp8: bool = False) -> torch.Tensor:
+    """All-reduce as a quantized reduce-scatter then a quantized all-gather
+    of the reduced shard (the JAX function's flat form; its ``outer``
+    hierarchical tier needs two live data axes: ROADMAP A6)."""
+    n = dist.get_world_size(group)
+    flat = x.float().reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    if fp8:
+        full = fp8_all_gather(fp8_reduce_scatter(flat, group, group_size), group, group_size)
+    else:
+        full = quantized_all_gather(quantized_reduce_scatter(flat, group, num_bits, group_size),
+                                    group, num_bits, group_size)
+    return full[:x.numel()].reshape(x.shape).to(x.dtype)

@@ -13,6 +13,13 @@ wrapper):
   (0 where dropped), ``me`` and ``ce [E]``;
 - ``moe_dispatch_gather`` (``csrc/moe_dispatch.cu``, ``_gather_kernel``):
   ``tokens[max(src - 1, 0)]`` cast to the wire dtype, [T, H] -> [E*C, H];
+- ``moe_dispatch_gather_int8`` (``csrc/moe_dispatch.cu``,
+  ``_gather_int8_kernel``): the same rows (zeroed for empty slots with
+  ``mask_pad``), each quantized as one symmetric int8 group: ``(q [E*C, H]
+  int8, scale [E*C] fp32)``, byte-identical to ``quantize_rows_int8`` of the
+  gathered rows (``ops/quantizer/quant.py``). No forward calls it: its path
+  is the int8 expert exchange, which waits for a live expert axis (ROADMAP
+  A6 / A7), as in the JAX package;
 - ``moe_ffn_combine`` (``csrc/moe_ffn.cu``, ``_ffn_combine_kernel``): the
   grouped gated FFN over the payload [E, C, H] with ``slot_w * y``
   scattered into the token-major fp32 output [T, H];
@@ -63,6 +70,7 @@ import torch.nn.functional as F
 
 from ...moe.sharded_moe import top_k_gating_indices
 from ...nn import layers as L
+from ..quantizer.quant import quantize_rows_int8_reference
 
 ACTIVATIONS = ("silu_gated", "gelu")
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -75,8 +83,8 @@ MAX_EXPERTS = 64    # the route kernel's (csrc/moe_route.cu: kMaxE)
 MOE_FUSED_COMBINE_MAX_TOKENS = 256
 _LATER = "ROADMAP A7: MoE top_k > 2, fp16 and other activations"
 
-launches = {"moe_route": 0, "moe_dispatch_gather": 0, "moe_ffn_combine": 0,
-            "moe_ffn": 0, "moe_combine": 0}
+launches = {"moe_route": 0, "moe_dispatch_gather": 0, "moe_dispatch_gather_int8": 0,
+            "moe_ffn_combine": 0, "moe_ffn": 0, "moe_combine": 0}
 
 
 def check_supported(*, activation: str, dtype: torch.dtype, top_k: Optional[int] = None,
@@ -121,6 +129,14 @@ def moe_dispatch_gather_reference(tokens: torch.Tensor, src: torch.Tensor,
                                   wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     out = tokens.index_select(0, (src.long() - 1).clamp_min(0))
     return out if wire_dtype is None else out.to(wire_dtype)
+
+
+def moe_dispatch_gather_int8_reference(tokens: torch.Tensor, src: torch.Tensor, *,
+                                       mask_pad: bool = False):
+    rows = tokens.index_select(0, (src.long() - 1).clamp_min(0))
+    if mask_pad:
+        rows = torch.where((src > 0)[:, None], rows, torch.zeros_like(rows))
+    return quantize_rows_int8_reference(rows)
 
 
 def _mid(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: Optional[torch.Tensor],
@@ -198,12 +214,14 @@ def bind_route(lib: ctypes.CDLL):
 
 
 def bind_dispatch(lib: ctypes.CDLL):
-    """``(gather, combine)`` of a ``moe_dispatch`` library."""
+    """``(gather, combine, gather_int8)`` of a ``moe_dispatch`` library."""
     gather, combine = lib.dstt_moe_gather, lib.dstt_moe_combine
+    gather_int8 = lib.dstt_moe_gather_int8
     gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    gather.restype = combine.restype = ctypes.c_int
-    return gather, combine
+    gather_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    gather.restype = combine.restype = gather_int8.restype = ctypes.c_int
+    return gather, combine, gather_int8
 
 
 def bind_ffn(lib: ctypes.CDLL):
@@ -273,6 +291,22 @@ def _gather_cuda(tokens: torch.Tensor, src: torch.Tensor, out_dtype: torch.dtype
     launch_check(rc, "moe_dispatch_gather")
     launches["moe_dispatch_gather"] += 1
     return out
+
+
+def _gather_int8_cuda(tokens: torch.Tensor, src: torch.Tensor, mask_pad: bool):
+    from ..op_builder.builder import launch_check
+    T, H = tokens.shape
+    _need("tokens", tokens, tokens.dtype, tokens.device)
+    _need("src", src, torch.int32, tokens.device)
+    S = src.numel()
+    q = torch.empty(S, H, dtype=torch.int8, device=tokens.device)
+    scale = torch.empty(S, dtype=torch.float32, device=tokens.device)
+    rc = _dispatch_kernels()[2](tokens.data_ptr(), src.data_ptr(), q.data_ptr(),
+                                scale.data_ptr(), S, T, H, int(tokens.dtype == torch.bfloat16),
+                                int(mask_pad), _stream(tokens))
+    launch_check(rc, "moe_dispatch_gather_int8")
+    launches["moe_dispatch_gather_int8"] += 1
+    return q, scale
 
 
 def _ffn_cuda(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens: int, activation: str,
@@ -362,6 +396,19 @@ def moe_dispatch_gather(tokens: torch.Tensor, src: torch.Tensor, *,
     if _on(tokens) == "cpu":
         return moe_dispatch_gather_reference(tokens, src, wire_dtype)
     return _gather_cuda(tokens, src, out_dtype)
+
+
+def moe_dispatch_gather_int8(tokens: torch.Tensor, src: torch.Tensor, *,
+                             mask_pad: bool = False):
+    """The capacity-slot gather fused with a per-row symmetric int8
+    quantize: ``(q [E*C, H] int8, scale [E*C] fp32)``, byte-identical to
+    ``quantize_rows_int8(tokens[max(src - 1, 0)])`` (rows of empty slots
+    zeroed first when ``mask_pad``)."""
+    if tokens.dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"int8 gather from {tokens.dtype}: bf16 and fp32")
+    if _on(tokens) == "cpu":
+        return moe_dispatch_gather_int8_reference(tokens, src, mask_pad=mask_pad)
+    return _gather_int8_cuda(tokens, src, mask_pad)
 
 
 def _check_ffn(payload, wi_gate, wi_up, wo, src, activation):

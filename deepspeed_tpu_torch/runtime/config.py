@@ -1,16 +1,24 @@
-"""Config of the single-device training engine.
+"""Config of the training engine.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``, reduced to the keys the
-single-device step reads: batch sizes (``train_batch_size =
-train_micro_batch_size_per_gpu * gradient_accumulation_steps`` on a world
-of one), ``optimizer``, ``scheduler``, ``bf16``, ``fp16`` (loss-scale
-fields), ``gradient_clipping``, ``data_types`` (``grad_accum_dtype``,
-``optimizer_moment_dtype``, ``optimizer_moment_sq_dtype``),
-``fp16_master_weights_and_grads`` and ``zero_optimization.stage``, which
-partitions nothing on one device, exactly as in JAX. Keys for features the
-port does not cover yet raise ``NotImplementedError`` naming their ROADMAP
-item; keys that only tune logging or what a world of one ignores are
-accepted.
+port's training step reads: batch sizes (``train_batch_size =
+train_micro_batch_size_per_gpu * gradient_accumulation_steps *
+data_parallel_size``, ``:293-326``), ``optimizer``, ``scheduler``,
+``bf16``, ``fp16`` (loss-scale fields), ``gradient_clipping``,
+``data_types`` (``grad_accum_dtype``, ``optimizer_moment_dtype``,
+``optimizer_moment_sq_dtype``), ``fp16_master_weights_and_grads``,
+``zero_optimization`` (``runtime/zero/config.py``: the stage and the ZeRO++
+knobs ``zero_quantized_weights`` / ``zero_quantized_gradients``),
+``comm_transport`` (the transport planner's policy, ``comm/comm.py``) and
+``topology`` with ``data`` equal to the world size. On a world of one,
+ZeRO partitions nothing, exactly as in JAX. Keys for features the port
+does not cover yet raise ``NotImplementedError`` naming their ROADMAP
+item: other topology axes, hpZ, MiCS, the layer-pipelined overlap schedule
+(``overlap_comm`` true with ZeRO++, or written true at stage 3), error
+feedback, offload, and the ``comm_transport`` keys of collectives the port
+does not run (``hierarchical``, ``activation_width``, ``permute_width``)
+set to other than their defaults; keys that only tune logging or what the port ignores
+are accepted.
 """
 
 from __future__ import annotations
@@ -18,6 +26,10 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Dict, Optional
+
+from ..comm import comm as dist
+from .topology import _UNPORTED_AXES
+from .zero.config import OVERLAP_SCHEDULE, DeepSpeedZeroConfig, validate_zeropp
 
 
 class DeepSpeedConfigError(Exception):
@@ -62,9 +74,6 @@ def _enabled(block) -> bool:
 _UNPORTED = {
     "pipeline": ("A10 (pipeline parallelism)",
                  lambda b: isinstance(b, dict) and b.get("stages", 1) > 1),
-    "topology": ("A6 (meshes of more than one device)",
-                 lambda b: any(v not in (1, -1) if k == "data" else v != 1
-                               for k, v in (b or {}).items())),
     "moe": ("A7 (mixture of experts)", lambda b: bool(b)),
     "hybrid_engine": ("A12 (hybrid engine)", _enabled),
     "elasticity": ("A12 (elastic training and resume)", _enabled),
@@ -77,15 +86,39 @@ _UNPORTED = {
     "progressive_layer_drop": ("A12 (progressive layer drop)", _enabled),
     "quantize_training": ("A12 (compression)", _enabled),
     "compression_training": ("A12 (compression)", lambda b: bool(b)),
-    "comm_transport": ("A6 (collectives)", lambda b: bool(b)),
     "checkpoint": ("A4 (checkpoints)", lambda b: bool(b)),
 }
 _ZERO_UNPORTED = {
     "offload_optimizer": "A9 (offload)",
     "offload_param": "A9 (offload)",
-    "zero_quantized_weights": "A6 (ZeRO++)",
-    "zero_quantized_gradients": "A6 (ZeRO++)",
-    "zero_hpz_partition_size": "A6 (ZeRO++)",
+    "zero_hpz_partition_size": "A6 (hpZ secondary partition)",
+    "mics_shard_size": "A6 (MiCS sub-group partitioning)",
+}
+
+
+def _zero_asks(key: str, val) -> bool:
+    if not val:
+        return False
+    if isinstance(val, dict):
+        return val.get("device", "cpu") != "none"
+    if key == "zero_hpz_partition_size":
+        return val > 1
+    if key == "mics_shard_size":
+        return val > 0
+    return True
+
+
+_ONE_BIT = ("onebit_adam", "onebitadam", "zero_one_adam", "zerooneadam", "onebit_lamb",
+            "onebitlamb")
+
+
+# transport keys that steer collectives the port does not run: only the
+# default is accepted
+_TRANSPORT_UNPORTED = {
+    "hierarchical": "A6 (the algorithm is chosen only where a second data axis is "
+                    "live, hpZ / MiCS)",
+    "activation_width": "A7 (the MoE expert all-to-all)",
+    "permute_width": "A8 (the ring-attention KV hops)",
 }
 
 
@@ -93,22 +126,41 @@ def _reject_unported(pd: Dict[str, Any]) -> None:
     for key, (item, asks) in _UNPORTED.items():
         if key in pd and asks(pd[key]):
             raise NotImplementedError(f"config key {key!r} is not ported: ROADMAP {item}")
+    for axis, size in (pd.get("topology") or {}).items():
+        if axis not in _UNPORTED_AXES and axis != "data":
+            raise DeepSpeedConfigError(f"unknown topology axis {axis!r}")
+        if axis != "data" and size != 1:
+            raise NotImplementedError(f"topology axis {axis!r} of size {size} is not "
+                                      f"ported: ROADMAP {_UNPORTED_AXES[axis]}")
+    transport = pd.get("comm_transport") or {}
+    if transport.get("error_feedback"):
+        raise NotImplementedError("comm_transport.error_feedback is not ported: ROADMAP "
+                                  "A6 (error feedback rides the overlap schedule, "
+                                  "`runtime/zero/overlap.py`)")
+    for key, item in _TRANSPORT_UNPORTED.items():
+        if key in transport and transport[key] != dist.TRANSPORT_DEFAULTS[key]:
+            raise NotImplementedError(f"comm_transport.{key}={transport[key]!r} is not "
+                                      f"ported: ROADMAP {item}")
     zero = pd.get("zero_optimization") or {}
     for key, item in _ZERO_UNPORTED.items():
-        val = zero.get(key)
-        if val and not (isinstance(val, dict) and val.get("device", "cpu") == "none") \
-                and not (key == "zero_hpz_partition_size" and val == 1):
+        if _zero_asks(key, zero.get(key)):
             raise NotImplementedError(
                 f"zero_optimization.{key} is not ported: ROADMAP {item}")
-    stage = zero.get("stage", 0)
-    if stage not in (0, 1, 2, 3):
-        raise DeepSpeedConfigError(f"zero_optimization.stage must be 0-3, got {stage}")
+    try:
+        zc = DeepSpeedZeroConfig.from_dict(zero)
+    except ValueError as e:
+        raise DeepSpeedConfigError(str(e)) from None
+    if zc.overlap_comm and (zc.zeropp or (zc.stage == 3 and zc.overlap_comm_explicit)):
+        raise NotImplementedError(
+            f"zero_optimization.overlap_comm true{' with ZeRO++' if zc.zeropp else ''} is "
+            f"not ported: ROADMAP {OVERLAP_SCHEDULE}; set overlap_comm false for the "
+            f"barrier schedule")
 
 
 class DeepSpeedConfig:
     """Parses the user dict or JSON path; exposes typed fields."""
 
-    def __init__(self, config: Any):
+    def __init__(self, config: Any, data_parallel_size: Optional[int] = None):
         if isinstance(config, str):
             with open(config) as f:
                 config = json.load(f)
@@ -129,39 +181,56 @@ class DeepSpeedConfig:
         self.data_types_optimizer_moment_dtype = data_types.get("optimizer_moment_dtype")
         self.data_types_optimizer_moment_sq_dtype = data_types.get("optimizer_moment_sq_dtype")
         self.fp16_master_weights_and_grads = bool(pd.get("fp16_master_weights_and_grads", False))
-        self.zero_stage: int = (pd.get("zero_optimization") or {}).get("stage", 0)
+        self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get("zero_optimization") or {})
+        self.zero_stage: int = self.zero_config.stage
+        try:
+            validate_zeropp(self.zero_config,
+                            one_bit=(self.optimizer is not None and self.optimizer.type.lower()
+                                     .replace("-", "_") in _ONE_BIT))
+        except ValueError as e:
+            raise DeepSpeedConfigError(str(e)) from None
+        self.comm_transport: Dict[str, Any] = dict(pd.get("comm_transport") or {})
+        self.topology: Dict[str, int] = dict(pd.get("topology") or {})
+        if data_parallel_size is None:
+            data_parallel_size = self.topology.get("data", -1)
+            if data_parallel_size == -1:
+                data_parallel_size = dist.get_world_size()
+        self.data_parallel_size = data_parallel_size
         self.train_micro_batch_size_per_gpu = pd.get("train_micro_batch_size_per_gpu")
         self.train_batch_size = pd.get("train_batch_size")
         self.gradient_accumulation_steps = pd.get("gradient_accumulation_steps")
         self._resolve_batch()
 
     def _resolve_batch(self) -> None:
-        """The JAX batch resolution on a data-parallel world of one."""
+        """The JAX batch resolution (``runtime/config.py:293-326``)."""
+        dp = self.data_parallel_size
         train = self.train_batch_size
         micro = self.train_micro_batch_size_per_gpu
         gas = self.gradient_accumulation_steps
         if train is not None and micro is not None and gas is not None:
-            if train != micro * gas:
+            if train != micro * gas * dp:
                 raise DeepSpeedConfigError(
                     f"train_batch_size ({train}) != micro_batch ({micro}) * "
-                    f"gradient_accumulation_steps ({gas}) * data_parallel_size (1)")
+                    f"gradient_accumulation_steps ({gas}) * data_parallel_size ({dp})")
         elif train is not None and micro is not None:
-            gas = train // micro
-            if gas * micro != train:
+            gas = train // (micro * dp)
+            if gas * micro * dp != train:
                 raise DeepSpeedConfigError(
-                    f"train_batch_size {train} not divisible by micro_batch*dp = {micro}")
+                    f"train_batch_size {train} not divisible by micro_batch*dp = {micro * dp}")
         elif train is not None and gas is not None:
-            micro = train // gas
-            if micro * gas != train:
+            micro = train // (gas * dp)
+            if micro * gas * dp != train:
                 raise DeepSpeedConfigError(
-                    f"train_batch_size {train} not divisible by gas*dp = {gas}")
+                    f"train_batch_size {train} not divisible by gas*dp = {gas * dp}")
         elif micro is not None:
             gas = gas or 1
-            train = micro * gas
+            train = micro * gas * dp
         elif train is not None:
-            micro, gas = train, 1
+            micro, gas = train // dp, 1
+            if micro * dp != train:
+                raise DeepSpeedConfigError(f"train_batch_size {train} not divisible by dp {dp}")
         else:
-            micro, gas, train = 1, 1, 1
+            micro, gas, train = 1, 1, dp
         self.train_batch_size = train
         self.train_micro_batch_size_per_gpu = micro
         self.gradient_accumulation_steps = gas

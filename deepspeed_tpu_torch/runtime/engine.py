@@ -1,4 +1,4 @@
-"""Single-device training engine of the port.
+"""Training engine of the port.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``) on
 one GPU, stepping eagerly:
@@ -23,9 +23,13 @@ A gradient in the parameter dtype (bf16) is handed to the optimizer
 kernel as it is: its cast to fp32 is exact and happens in the kernel's
 load, so the fp32 gradient tree of the JAX step never exists in memory.
 
-Not ported yet: checkpoints (ROADMAP A4), meshes of more than one device
-(A6), offload (A9), pipeline (A10); ``runtime/config.py`` raises for them.
-A model with MoE layers raises here (ROADMAP A7: MoE training).
+On a world of more than one rank, ``DataParallelEngine`` (below) runs the
+same step data-parallel with ZeRO stages 0-3 and the ZeRO++ int8 wire.
+
+Not ported yet: checkpoints (ROADMAP A4), the layer-pipelined overlap
+schedule, hpZ / MiCS and meshes with other axes (A6), offload (A9),
+pipeline (A10); ``runtime/config.py`` raises for them. A model with MoE
+layers raises here (ROADMAP A7: MoE training).
 """
 
 from __future__ import annotations
@@ -37,12 +41,18 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..comm import comm as dist
 from ..models.transformer import MOE_TRAINING
+from ..ops.quantizer.quantizer import (fp8_reduce_scatter, quantized_all_gather,
+                                       quantized_reduce_scatter)
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import (dynamic_loss_scale_state, has_overflow,
                                static_loss_scale_state, update_scale)
 from .lr_schedules import build_lr_schedule
 from .optimizers import build_optimizer
+from ..utils.groups import DATA_AXIS
+from .topology import MeshTopology
+from .zero.partition import ZeroPartitionPlan, shard_of
 
 _NARROW = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp16": torch.float16, "float16": torch.float16,
@@ -62,6 +72,9 @@ class DeepSpeedEngine:
                  init_params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None):
         self.config = config = config or DeepSpeedConfig(config_dict or {})
+        if config.data_parallel_size != dist.get_world_size():
+            raise ValueError(f"a data-parallel size of {config.data_parallel_size} needs as "
+                             f"many ranks; the world has {dist.get_world_size()}")
         if getattr(model.config, "moe", None) is not None:
             raise NotImplementedError(MOE_TRAINING)
         self.device = resolve_device(device)
@@ -92,11 +105,9 @@ class DeepSpeedEngine:
         self.lr_scheduler = build_lr_schedule(config.scheduler, self.optimizer.lr)
 
         # -- parameters and state ---------------------------------------------
-        self._place_model(seed, init_params)
-        self.params = dict(model.named_parameters())
-        self.opt_state = self.optimizer.init({n: p.detach() for n, p in self.params.items()})
-        self.loss_scale_state = self._loss_scale_state()
         self.grad_acc: Dict[str, torch.Tensor] = {}   # split path only, lazily
+        self._init_state(seed, init_params)
+        self.loss_scale_state = self._loss_scale_state()
 
         self.global_steps = 0
         self.skipped_steps = 0
@@ -107,6 +118,11 @@ class DeepSpeedEngine:
         self.gradient_clipping = config.gradient_clipping
         self._last_grad_norm = None
         self._cached_loss = None
+
+    def _init_state(self, seed: int, init_params) -> None:
+        self._place_model(seed, init_params)
+        self.params = dict(self.model.named_parameters())
+        self.opt_state = self.optimizer.init({n: p.detach() for n, p in self.params.items()})
 
     def _place_model(self, seed: int, init_params) -> None:
         """Give the model storage on the engine's device, its weights from
@@ -150,23 +166,30 @@ class DeepSpeedEngine:
     def _scalar(self, x: float) -> torch.Tensor:
         return torch.full((), x, dtype=torch.float32, device=self.device)
 
+    def _overflow(self, grads: Dict[str, torch.Tensor]) -> bool:
+        return bool(has_overflow(grads.values()))
+
+    def _grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return torch.sqrt(torch.stack([g.float().square().sum() for g in grads.values()]).sum())
+
+    def _update(self, grads: Dict[str, torch.Tensor], lr: float, factor) -> None:
+        self.optimizer.update(grads, self.opt_state, lr, grad_scale=factor,
+                              params_out=self.params)
+
     def _apply_from_grads(self, grads: Dict[str, torch.Tensor], lr: float):
         """Unscale, clip, update, loss-scale bookkeeping. Returns
         ``(overflow, gnorm)``; ``gnorm`` is a device scalar."""
         scale = self.loss_scale_state["cur_scale"]
-        overflow = bool(has_overflow(grads.values())) if self.config.fp16.enabled else False
+        overflow = self._overflow(grads) if self.config.fp16.enabled else False
         inv = self._scalar(0.0 if overflow else float(np.float32(1.0) / np.float32(scale)))
-        raw_norm = torch.sqrt(torch.stack([g.float().square().sum()
-                                           for g in grads.values()]).sum())
-        gnorm = self._scalar(0.0) if overflow else raw_norm * inv
+        gnorm = self._scalar(0.0) if overflow else self._grad_norm(grads) * inv
         factor = inv
         if self.gradient_clipping > 0:
             clip = torch.clamp(self._scalar(self.gradient_clipping) / (gnorm + 1e-6), max=1.0)
             factor = inv * clip
         if not overflow:
             with torch.no_grad():
-                self.optimizer.update(grads, self.opt_state, lr, grad_scale=factor,
-                                      params_out=self.params)
+                self._update(grads, lr, factor)
         fp16 = self.config.fp16
         self.loss_scale_state = update_scale(
             self.loss_scale_state, overflow, scale_window=fp16.loss_scale_window,
@@ -302,3 +325,230 @@ class DeepSpeedEngine:
         raise NotImplementedError("checkpoints are not ported (ROADMAP A4)")
 
     load_checkpoint = save_checkpoint
+
+
+class DataParallelEngine(DeepSpeedEngine):
+    """Data-parallel training over the ``torch.distributed`` world, ZeRO
+    stages 0-3 and the ZeRO++ int8 wire, on the barrier schedule.
+
+    Counterpart of the JAX engine's explicit micro step
+    (``_zeropp_micro_env:1319``, ``_build_zeropp_micro_barrier:1383``) and
+    its sharded apply step. The partition plan (``zero/partition.py``) gives
+    each leaf's shard dim for params, grads and optimizer state; each rank
+    holds its shard (rank r: slice r along that dim):
+
+    - stage 3: the param shards, at the param dtype, between steps (a leaf
+      below ``stage3_param_persistence_threshold`` stays whole);
+    - stage >= 1: the fp32 master and moments of its shard, bucketed and
+      stepped by the fused Adam / Lion kernels as on one device;
+    - stage >= 2: an fp32 gradient-accumulation shard.
+
+    A micro step (``forward``) gathers the full params at stage 3
+    (``quantized_all_gather`` at group 256 under qwZ, else a full-width
+    all-gather), runs the forward and backward on them, reduce-scatters each
+    leaf's gradient (``resolve_transport(KIND_GRAD, "reduce_scatter")``:
+    ``quantized_reduce_scatter`` at the plan's group size on the int8 wire,
+    else full width; a leaf with no shard dim is all-reduced), divides by
+    the world size, adds the result to the accumulation buffer and releases
+    the gathered params. Under ZeRO++ the gradients take the int8 wire by
+    the planner's default even when only qwZ is set, and leaves under
+    ``comm_transport.min_bytes`` stay full width; plain data parallelism
+    runs the same schedule at full width (``kind=None``), the function the
+    JAX package's declarative path computes. The loss is averaged over the
+    ranks.
+
+    The apply step (``step``) takes the global gradient norm (an all-reduce
+    of the local sums of squares), the fp16 overflow flag over all ranks
+    and the clip factor, updates the optimizer shards, and all-gathers at
+    full width every updated shard whose param is held whole (all of them
+    at stages 1-2; the persistent small leaves at stage 3), so every rank
+    again holds its params. Every launch is recorded with
+    ``comm.record_collective`` (logical and wire bytes, on the critical
+    path).
+
+    Without a ``device``, a rank runs on ``cuda:(local rank mod cards)``:
+    its own card under torchrun, the one card for every rank of a machine
+    with one.
+    """
+
+    def __init__(self, model, config: Optional[DeepSpeedConfig] = None,
+                 config_dict: Optional[Dict[str, Any]] = None, seed: int = 42,
+                 init_params: Optional[Dict[str, torch.Tensor]] = None, device=None,
+                 topology: Optional[MeshTopology] = None):
+        config = config or DeepSpeedConfig(config_dict or {})
+        self.topology = topology if topology is not None else MeshTopology(config.topology)
+        n = self.topology.data_parallel_size
+        if dist.get_world_size() != n or config.data_parallel_size != n:
+            raise ValueError(f"the topology's data axis ({n}), the config's data-parallel "
+                             f"size ({config.data_parallel_size}) and the world "
+                             f"({dist.get_world_size()}) must agree")
+        dist.reset_transport()
+        dist.configure_transport(**config.comm_transport)
+        if device is None and torch.cuda.is_available():
+            # a card a local rank; ranks beyond the cards share them
+            device = torch.device("cuda", dist.get_local_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        super().__init__(model, config=config, seed=seed, init_params=init_params,
+                         device=device)
+
+    # -- state -------------------------------------------------------------------
+    def _init_state(self, seed: int, init_params) -> None:
+        zc = self.config.zero_config
+        if self.optimizer.name == "lamb" and zc.stage >= 1:
+            raise NotImplementedError("LAMB over sharded optimizer state needs each leaf's "
+                                      "global norm: ROADMAP A6")
+        self.n_dp = n = self.topology.data_parallel_size
+        self.rank = r = self.topology.rank
+        self._place_model(seed, init_params)
+        self.params = dict(self.model.named_parameters())
+        self.zero_plan = ZeroPartitionPlan(zc, {k: p.shape for k, p in self.params.items()}, n)
+        self.param_dims = self.zero_plan.param_dims()
+        self.grad_dims = self.zero_plan.grad_dims()
+        self.opt_dims = self.zero_plan.optimizer_dims()
+        full = {k: p.detach() for k, p in self.params.items()}
+        self.opt_state = self.optimizer.init(
+            {k: shard_of(t, self.opt_dims[k], r, n) for k, t in full.items()})
+        self.param_shards = {k: shard_of(full[k], d, r, n)
+                             for k, d in self.param_dims.items() if d is not None}
+        # the param-dtype output of an optimizer shard whose param is held whole
+        self._cast_shards = {k: torch.empty_like(shard_of(full[k], d, r, n))
+                             for k, d in self.opt_dims.items()
+                             if d is not None and self.param_dims[k] is None}
+        self.grad_acc = {k: torch.zeros(shard_of(t, self.grad_dims[k], r, n).shape,
+                                        dtype=self.grad_dtype, device=self.device)
+                         for k, t in full.items()}
+        del full
+        self._release_params()
+
+    def _release_params(self) -> None:
+        """Drop the full copies of the stage-3 sharded params."""
+        for k in self.param_shards:
+            self.params[k].data = torch.empty(0, dtype=self.param_dtype, device=self.device)
+
+    def _gather_params(self) -> None:
+        """Rebuild the full params of the stage-3 sharded leaves
+        (``gather_full``)."""
+        zc = self.config.zero_config
+        for k, shard in self.param_shards.items():
+            d = self.param_dims[k]
+            nbytes = shard.numel() * shard.element_size()
+            tp = dist.resolve_transport(
+                dist.KIND_PARAM if zc.zeropp else None, "all_gather", nbytes, DATA_AXIS,
+                requested=dist.WIDTH_INT8 if zc.zero_quantized_weights else None)
+            dist.record_collective("all_gather", nbytes, DATA_AXIS, overlapped=False,
+                                   wire_bytes=tp.wire_bytes(shard.numel(), shard.element_size()))
+            xm = shard.movedim(d, 0)
+            g = quantized_all_gather(xm) if tp.width == dist.WIDTH_INT8 else dist.all_gather(xm)
+            self.params[k].data = g.movedim(0, d).contiguous()
+
+    def _scatter_grad(self, k: str, g: torch.Tensor) -> torch.Tensor:
+        """A leaf's gradient reduced over the ranks and divided by their
+        number: this rank's shard of it, or all of it for a leaf with no
+        grad shard dim."""
+        zc = self.config.zero_config
+        d, n = self.grad_dims[k], self.n_dp
+        if d is None:
+            dist.record_collective("all_reduce", g.numel() * g.element_size(), DATA_AXIS,
+                                   overlapped=False)
+            return dist.all_reduce(g) / n
+        tp = dist.resolve_transport(
+            dist.KIND_GRAD if zc.zeropp else None, "reduce_scatter", g.numel() * 4, DATA_AXIS,
+            requested=dist.WIDTH_INT8 if zc.zero_quantized_gradients else None)
+        dist.record_collective("all_to_all" if tp.quantized else "reduce_scatter",
+                               g.numel() * 4, DATA_AXIS, overlapped=False,
+                               wire_bytes=tp.wire_bytes(g.numel(), 4))
+        gm = g.movedim(d, 0)
+        if tp.width == dist.WIDTH_INT8:
+            res = quantized_reduce_scatter(gm, group_size=tp.group_size, out_dtype=torch.float32)
+        elif tp.width == dist.WIDTH_FP8:
+            res = fp8_reduce_scatter(gm.float(), group_size=tp.group_size)
+        else:
+            res = dist.reduce_scatter(gm.float())
+        return res.movedim(0, d) / n
+
+    # -- data --------------------------------------------------------------------
+    _REPLICATED_BATCH_KEYS = ("layer_mask",)   # per-layer inputs, not per row
+
+    def _prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch, on the device."""
+        rows = None
+        local = {}
+        for k, v in batch.items():
+            if k in self._REPLICATED_BATCH_KEYS:
+                local[k] = v
+                continue
+            rows = rows or self.topology.batch_rows(len(v))
+            local[k] = v[rows]
+        return super()._prepare_batch(local)
+
+    # -- micro step ---------------------------------------------------------------
+    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """One micro step over the global batch: this rank's rows forward and
+        backward on the gathered params, the gradients reduced into the
+        accumulation shards. Returns the loss averaged over the ranks."""
+        batch = self._prepare_batch(batch)
+        scale = float(np.float32(self.loss_scale_state["cur_scale"])
+                      / np.float32(self.gradient_accumulation_steps))
+        self._gather_params()
+        loss = self.model.loss(batch)
+        (loss * scale).backward()
+        with torch.no_grad():
+            for k, p in self.params.items():
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                self.grad_acc[k] += self._scatter_grad(k, g).to(self.grad_dtype)
+        self._zero_param_grads()
+        self._release_params()
+        self._cached_loss = dist.all_reduce(loss.detach().float(), dist.ReduceOp.AVG)
+        return self._cached_loss
+
+    # -- apply step ---------------------------------------------------------------
+    def _overflow(self, grads: Dict[str, torch.Tensor]) -> bool:
+        local = torch.tensor(float(super()._overflow(grads)), device=self.device)
+        return bool(dist.all_reduce(local, dist.ReduceOp.MAX) > 0)
+
+    def _grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm: each sharded leaf's local sum of squares summed
+        over the ranks, each whole leaf counted once."""
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sharded = [g.float().square().sum() for k, g in grads.items()
+                   if self.grad_dims[k] is not None]
+        whole = [g.float().square().sum() for k, g in grads.items()
+                 if self.grad_dims[k] is None]
+        local = torch.stack(sharded).sum() if sharded else zero
+        return torch.sqrt(dist.all_reduce(local) + (torch.stack(whole).sum() if whole else zero))
+
+    def _update(self, grads: Dict[str, torch.Tensor], lr: float, factor) -> None:
+        n, r = self.n_dp, self.rank
+        shard_grads, params_out = {}, {}
+        for k, g in grads.items():
+            od = self.opt_dims[k]
+            shard_grads[k] = g if od is None or self.grad_dims[k] is not None \
+                else shard_of(g, od, r, n)
+            params_out[k] = (self.params[k] if od is None else
+                             self.param_shards.get(k, self._cast_shards.get(k)))
+        self.optimizer.update(shard_grads, self.opt_state, lr, grad_scale=factor,
+                              params_out=params_out)
+        for k, shard in self._cast_shards.items():
+            d = self.opt_dims[k]
+            dist.record_collective("all_gather", shard.numel() * shard.element_size(),
+                                   DATA_AXIS, overlapped=False)
+            self.params[k].data.copy_(dist.all_gather(shard.movedim(d, 0)).movedim(0, d))
+
+    # -- state and introspection ---------------------------------------------------
+    @torch.no_grad()
+    def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+        batch = self._prepare_batch(batch)
+        self._gather_params()
+        loss = self.model.loss(batch)
+        self._release_params()
+        return dist.all_reduce(loss.float(), dist.ReduceOp.AVG)
+
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The full params on every rank (stage-3 shards gathered at full
+        width)."""
+        out = {}
+        for k, p in self.params.items():
+            d = self.param_dims[k]
+            out[k] = (p.detach() if d is None else
+                      dist.all_gather(self.param_shards[k].movedim(d, 0)).movedim(0, d))
+        return out

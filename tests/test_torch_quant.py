@@ -1,0 +1,200 @@
+"""The port's ZeRO++ wire quantizer and int8 dispatch gather against the JAX
+package, on the CPU (the wrappers run their plain versions there).
+
+Contract: bit for bit. The JAX side is jitted, as every JAX wire path runs:
+XLA compiles a divide by a constant into a multiply by its fp32 reciprocal
+and keeps ``x / scale`` a true divide, and the port computes exactly that
+(``quant.INV_QMAX_INT8``, ``quantizer._recip``). Checked against:
+
+- ``jax.jit(quantize_blockwise)``: symmetric int8 (fp32 and bf16 inputs,
+  group sizes 1 ... 4096, zero rows, exact .5 ties, -0.0), int4 and
+  asymmetric int8 / int4, the dequantizers, fp8 (``float8_e4m3fn``);
+- the Pallas kernel ``quantize_rows_int8`` in interpret mode, jitted, with
+  ``DSTPU_QUANT_KERNEL=pallas`` (through ``quantize_blockwise`` too);
+- ``moe_dispatch_gather_int8``'s Pallas kernel in interpret mode, mask_pad
+  off and on, and against ``quantize_rows_int8`` of the gathered rows.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.quantizer import quantizer as jq
+from deepspeed_tpu.ops.quantizer.pallas_quant import quantize_rows_int8 as jax_rows
+from deepspeed_tpu.ops.transformer import pallas_moe as jpm
+from deepspeed_tpu_torch.ops.quantizer import quant, quantizer as tq
+from deepspeed_tpu_torch.ops.transformer import moe
+
+GROUP_SIZES = (1, 7, 100, 255, 256, 4096)
+
+
+def _rows(seed, G, gs, kind="randn"):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((G, gs)) * rng.choice([1e-3, 0.02, 3.0], size=(G, 1))
+         ).astype(np.float32)
+    if kind == "edge":
+        x[0::4] = 0.0
+        ties = (np.arange(gs) % 254 - 127).astype(np.float32) + 0.5
+        for r in range(1, G, 4):
+            k = np.float32(2.0 ** (r % 7 - 3))
+            x[r] = ties * k
+            x[r, 0] = 127 * k   # absmax 127 * 2**k: the scale is exactly 2**k
+        x[2::4, ::3] = -0.0
+    return x
+
+
+def _to_torch(a, dtype):
+    t = torch.from_numpy(a)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _to_jax(a, dtype):
+    return jnp.asarray(a, dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+
+
+def _equal(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    got = got.numpy() if got.dtype not in (torch.float8_e4m3fn, torch.bfloat16) \
+        else got.view(torch.uint8 if got.dtype == torch.float8_e4m3fn else torch.int16).numpy()
+    if want.dtype.name in ("float8_e4m3fn", "bfloat16"):
+        want = want.view(np.uint8 if want.dtype.name == "float8_e4m3fn" else np.int16)
+    assert got.dtype.itemsize == want.dtype.itemsize and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(f"u{got.dtype.itemsize}"),
+                                  want.view(f"u{want.dtype.itemsize}"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gs", GROUP_SIZES)
+@pytest.mark.parametrize("kind", ["randn", "edge"])
+def test_int8_rows_bitwise_against_the_jitted_jax_wire(gs, dtype, kind):
+    x = _rows(gs, 64, gs, kind)
+    q, s = quant.quantize_rows_int8(_to_torch(x, dtype))
+    jf = jax.jit(lambda a: jq.quantize_blockwise(a, 8, gs))
+    wq, ws, wz = jf(_to_jax(x, dtype))
+    _equal(q, wq)
+    _equal(s, ws)
+    # the same through the port's quantize_blockwise (flattened, no padding)
+    tq_, ts, tz = tq.quantize_blockwise(_to_torch(x, dtype), 8, gs)
+    _equal(tq_, wq)
+    _equal(ts, ws)
+    _equal(tz, wz)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gs", [128, 256, 384])
+def test_int8_rows_bitwise_against_the_pallas_kernel(monkeypatch, gs, dtype):
+    """The Pallas kernel (interpret mode, jitted) on the groups, directly and
+    through ``quantize_blockwise`` with the kernel forced (lane-aligned
+    group sizes only, its ``quant_kernel_enabled`` rule)."""
+    monkeypatch.setenv("DSTPU_QUANT_KERNEL", "pallas")
+    x = _rows(gs + 1, 70, gs, "edge")
+    q, s = quant.quantize_rows_int8(_to_torch(x, dtype))
+    wq, ws = jax.jit(lambda a: jax_rows(a, interpret=True))(_to_jax(x, dtype))
+    _equal(q, wq)
+    _equal(s, ws)
+    bq, bs, _ = jax.jit(lambda a: jq.quantize_blockwise(a, 8, gs))(_to_jax(x, dtype))
+    _equal(q, bq)
+    _equal(s, bs)
+
+
+@pytest.mark.parametrize("num_bits,symmetric", [(4, True), (4, False), (8, False)])
+@pytest.mark.parametrize("gs", [2, 16, 256])
+def test_blockwise_int4_and_asymmetric_bitwise(num_bits, symmetric, gs):
+    x = _rows(7 * gs + num_bits, 1, 40 * gs + 6).reshape(-1)   # pads the last group
+    q, s, z = tq.quantize_blockwise(torch.from_numpy(x), num_bits, gs, symmetric)
+    jf = jax.jit(lambda a: jq.quantize_blockwise(a, num_bits, gs, symmetric))
+    wq, ws, wz = jf(jnp.asarray(x))
+    _equal(q, wq)
+    _equal(s, ws)
+    _equal(z, wz)
+    out = tq.dequantize_blockwise(q, s, z, num_bits, gs, out_size=x.size)
+    want = jax.jit(lambda a, b, c: jq.dequantize_blockwise(a, b, c, num_bits, gs,
+                                                           out_size=x.size))(wq, ws, wz)
+    _equal(out, want)
+
+
+@pytest.mark.parametrize("gs", [7, 256])
+def test_fp8_wire_bitwise(gs):
+    x = _rows(gs, 1, 30 * gs + 5).reshape(5, -1)
+    q, s = tq.quantize_blockwise_fp8(torch.from_numpy(x), gs)
+    wq, ws = jax.jit(lambda a: jq.quantize_blockwise_fp8(a, gs))(jnp.asarray(x))
+    _equal(q, wq)
+    _equal(s, ws)
+    out = tq.dequantize_blockwise_fp8(q, s, out_size=x.size, out_shape=x.shape)
+    want = jax.jit(lambda a, b: jq.dequantize_blockwise_fp8(a, b, out_size=x.size,
+                                                            out_shape=x.shape))(wq, ws)
+    _equal(out, want)
+
+
+def test_int8_dequantize_bitwise_and_bf16_out():
+    x = _rows(3, 8, 256)
+    q, s, z = tq.quantize_blockwise(torch.from_numpy(x), 8, 256)
+    got = tq.dequantize_blockwise(q, s, z, 8, 256, out_shape=x.shape, dtype=torch.bfloat16)
+    want = jax.jit(lambda a, b, c: jq.dequantize_blockwise(
+        a, b, c, 8, 256, out_shape=x.shape, dtype=jnp.bfloat16))(
+        jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), jnp.asarray(z.numpy()))
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_pad", [False, True])
+def test_int8_dispatch_gather_against_the_pallas_kernel(dtype, mask_pad):
+    rng = np.random.default_rng(4)
+    T, H, S = 13, 96, 40
+    tokens = (rng.standard_normal((T, H)) * 0.5).astype(np.float32)
+    tokens[3] = 0.0
+    src = rng.integers(0, T + 1, size=S).astype(np.int32)
+    src[:3] = (0, 4, 0)   # empty slots, and one reading the all-zero row
+    q, s = moe.moe_dispatch_gather_int8(_to_torch(tokens, dtype), torch.from_numpy(src),
+                                        mask_pad=mask_pad)
+
+    @jax.jit
+    def jax_side(tk, sr):
+        kq, ks = jpm.moe_dispatch_gather_int8(tk, sr, mask_pad=mask_pad, interpret=True)
+        rows = tk[jnp.maximum(sr - 1, 0)]
+        if mask_pad:
+            rows = jnp.where((sr > 0)[:, None], rows, 0)
+        rq, rs = jax_rows(rows, interpret=True)
+        return kq, ks, rq, rs
+
+    kq, ks, rq, rs = jax_side(_to_jax(tokens, dtype), jnp.asarray(src))
+    _equal(q, kq)
+    _equal(s, ks)
+    _equal(q, rq)
+    _equal(s, rs)
+    if mask_pad:
+        assert not q[src == 0].any() and bool((s[src == 0] == 1).all())
+
+
+def test_quantizer_wrapper_checks():
+    with pytest.raises(ValueError, match="group_size"):
+        quant.quantize_rows_int8(torch.zeros(4))
+    before = quant.launches
+    quant.quantize_rows_int8(torch.ones(2, 3))
+    assert quant.launches == before   # the CPU takes the plain version
+    with pytest.raises(NotImplementedError, match="bf16 and fp32"):
+        moe.moe_dispatch_gather_int8(torch.zeros(2, 4, dtype=torch.float16),
+                                     torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 4])
+def test_row_chunk_layouts_match_jax(n_chunks):
+    """The chunked gather / scatter layouts, with a stand-in collective over
+    n = 3 members (member m's data is the shard plus 100 m)."""
+    n = 3
+    x = np.arange(8 * 5, dtype=np.float32).reshape(8, 5)
+    t_gather = lambda c: torch.cat([c + 100 * m for m in range(n)])
+    j_gather = lambda c: jnp.concatenate([c + 100 * m for m in range(n)])
+    got = tq.gather_in_row_chunks(t_gather, torch.from_numpy(x), n, n_chunks)
+    want = jq.gather_in_row_chunks(j_gather, jnp.asarray(x), n, n_chunks)
+    _equal(got, want)
+    y = np.arange(n * 4 * 3, dtype=np.float32).reshape(n * 4, 3)
+    if 4 % n_chunks:
+        return
+    t_scatter = lambda c: c.reshape(n, -1, 3).sum(0)
+    j_scatter = lambda c: c.reshape(n, -1, 3).sum(0)
+    got = tq.scatter_in_row_chunks(t_scatter, torch.from_numpy(y), n, n_chunks)
+    want = jq.scatter_in_row_chunks(j_scatter, jnp.asarray(y), n, n_chunks)
+    _equal(got, want)
