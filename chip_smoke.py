@@ -168,6 +168,13 @@ FLASH_CASES = {
     "alibi": (2, 256, 256, 8, 8, 128, {"alibi": True}),
     "sq-ne-sk": (2, 100, 333, 8, 2, 64, {}),
     "noncausal-ragged": (2, 77, 200, 4, 2, 64, {"causal": False}),
+    # lengths about the backward's 64-row tiles and 128-key blocks
+    "s127-g8": (2, 127, 127, 16, 2, 64, {}),
+    "s129-g8": (2, 129, 129, 16, 2, 64, {}),
+    "s191-g8": (2, 191, 191, 16, 2, 64, {}),
+    "s129-g4-d128-dlse": (2, 129, 129, 8, 2, 128, {"dlse": True}),
+    # a window wide enough for whole tiles to lie inside it (interior tiles)
+    "window-interior": (1, 1024, 1024, 16, 2, 64, {"window": 512}),
 }
 MAIN_FLASH = "tinyllama-b8"
 FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha")
@@ -496,9 +503,12 @@ def flash_bounds(B, Sq, Sk, H, kvH, D, pairs, isz):
 
 
 def flash_single_launchers(torch, flash, q, k, v, o, lse, do, spec):
-    """The dQ and the dK/dV kernel launched alone, for timing (no counts)."""
+    """The dQ and the dK/dV kernel launched alone, for timing (no counts).
+    The dQ launch writes di, which the dK/dV launch reads: it runs once
+    here, so the dK/dV launch reads the di of these inputs."""
     from deepspeed_tpu_torch.ops.op_builder.builder import launch_check
-    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    B, Sq, H, _ = q.shape
+    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     p = flash._params(q, k, v, spec)
     p.o, p.dout, p.lse, p.di = o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr()
@@ -514,6 +524,7 @@ def flash_single_launchers(torch, flash, q, k, v, o, lse, do, spec):
     def run_dkv():
         p.out0, p.out1 = keep[2].data_ptr(), keep[3].data_ptr()
         launch_check(dkv_fn(p, bf16, stream), "flash_dkv")
+    run_dq()
     return run_dq, run_dkv
 
 
@@ -544,6 +555,13 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
             grads = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, spec)
             want = flash.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, dlse, spec=spec)
             torch.cuda.synchronize()
+            if name == MAIN_FLASH and bf:
+                again = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, spec)
+                if not all(bool(torch.equal(a, b_)) for a, b_ in zip(grads, again)):
+                    fail(f"{tag}: two runs of the backward gave different dQ, dK or dV bits")
+                print(f"[flash] {name} bf16: two runs of the backward give the same dQ, dK "
+                      f"and dV bits", flush=True)
+                del again
             e_dq = check_close(f"{tag} dQ", grads[0], want[0], gtol)
             e_dkv = max(check_close(f"{tag} dK", grads[1], want[1], gtol),
                         check_close(f"{tag} dV", grads[2], want[2], gtol))
@@ -561,6 +579,9 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
                                              10, flush)[0],
                       "flash_dq": device_ms(torch, run_dq, 10, flush)[0],
                       "flash_dkv": device_ms(torch, run_dkv, 10, flush)[0]}
+                # the whole backward as a caller runs it: di and both launches
+                bwd_ms = device_ms(torch, lambda: flash.flash_bwd(
+                    q, k, v, o_ref, lse_ref, do, None, spec), 10, flush)[0]
                 plain_fwd = synced_ms(torch, lambda: flash.flash_fwd_reference(
                     q, k, v, spec=spec), 3)
                 plain_bwd = synced_ms(torch, lambda: flash.flash_bwd_reference(
@@ -573,6 +594,9 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
                 lib_fwd = device_ms(torch, sdpa, 10, flush)[0]
                 lib_fb = device_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
                                                                       dot), 10, flush)[0]
+                print(f"[flash]   {name} whole backward (flash_bwd: di, dQ, dK/dV): "
+                      f"{bwd_ms:.4f} ms; scaled_dot_product_attention backward "
+                      f"{lib_fb - lib_fwd:.4f} ms", flush=True)
                 bnd = flash_bounds(b, Sq, Sk, H, kvH, D, pairs, q.element_size())
                 lib = {"flash_fwd": lib_fwd, "flash_dq": lib_fb - lib_fwd,
                        "flash_dkv": lib_fb - lib_fwd}

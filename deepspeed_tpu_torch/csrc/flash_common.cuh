@@ -38,7 +38,9 @@ struct FlashParams {
   const void* o;        // backward: the forward's output (contiguous)
   const void* dout;     // backward: dL/dO (contiguous)
   const float* lse;     // [B, H, Sq]
-  const float* di;      // backward: rowsum(dO * O) - dLSE, [B, H, Sq]
+  const float* dlse;    // backward: the cotangent on the LSE, [B, H, Sq], or null
+  float* di;            // backward: rowsum(dO * O) - dLSE, [B, H, Sq]; the dQ
+                        // launch writes it, the dK/dV launch reads it
   const int* qseg;      // [B, Sq] or null
   const int* kseg;      // [B, Sk] or null
   const float* slopes;  // [H] ALiBi slopes or null
@@ -242,7 +244,8 @@ __device__ __forceinline__ void mma_pv(float (&c)[NT][4], const float (&p)[KN / 
 
 // Scaled logit of query position qi against key kj, with ALiBi, or kMask
 // where the key is out of range or masked (causal on q_offset + qi, window,
-// segment ids).
+// segment ids). flash_bwd.cu edge_p applies the same rules in the log2
+// domain: change both together.
 __device__ __forceinline__ float masked_logit(const FlashParams& p, float dot, int qi, int kj,
                                               float slope, int qseg, int kseg) {
   float s = dot * p.scale;
@@ -264,6 +267,15 @@ __device__ __forceinline__ bool tile_runs(const FlashParams& p, int q0, int nq, 
   bool run = p.q_offset + q0 + nq - 1 >= k0;
   if (p.window > 0) run = run && (p.q_offset + q0) - (k0 + nk - 1) < p.window;
   return run;
+}
+
+// Whether a (rows x cols) score tile needs no mask: no segment ids or
+// ALiBi in the call, no ragged edge, every key visible to every row.
+__device__ __forceinline__ bool interior(const FlashParams& p, int q0, int nq, int k0, int nk) {
+  if (p.qseg != nullptr || p.slopes != nullptr || q0 + nq > p.Sq || k0 + nk > p.Sk) return false;
+  if (!p.causal) return true;
+  const int first = p.q_offset + q0, last = first + nq - 1;
+  return first >= k0 + nk - 1 && (p.window <= 0 || last - k0 < p.window);
 }
 
 template <typename Kernel>

@@ -94,6 +94,9 @@ class TransformerConfig:
     lm_head_bias: bool = False
     tie_embeddings: bool = True
     causal: bool = True
+    parallel_block: bool = False     # falcon/phi parallel blocks: not ported
+    parallel_norms: bool = False     # a norm per parallel branch: not ported
+    norm_style: str = "pre"          # 'pre' ('post': not ported)
     moe: Optional[MoEConfig] = None  # every layer's MLP is a MoE when set
     moe_layer_freq: int = 1          # kept as in JAX, whose model reads only 1
     dtype: torch.dtype = torch.float32
@@ -131,6 +134,15 @@ def check_supported(c: TransformerConfig) -> None:
         raise NotImplementedError(
             "bidirectional encoders are not ported (ROADMAP A2: model "
             "forward for training)")
+    if c.parallel_block or c.parallel_norms:
+        raise NotImplementedError(
+            f"parallel blocks (parallel_block={c.parallel_block}, parallel_norms="
+            f"{c.parallel_norms}) are not ported (ROADMAP A2: model forward for "
+            f"training)")
+    if c.norm_style != "pre":
+        raise NotImplementedError(
+            f"norm_style {c.norm_style!r} is not ported (ROADMAP A2: model forward "
+            f"for training); the port's blocks are pre-norm")
     if c.position not in ("rope", "learned"):
         raise ValueError(f"unknown position style {c.position!r}")
     if c.remat and c.remat_policy not in ("full", "nothing_saveable"):

@@ -201,7 +201,7 @@ def flash_bwd_reference(q, k, v, o, lse, do, dlse=None, *,
 class FlashParams(ctypes.Structure):
     """``flash::FlashParams`` of ``csrc/flash_common.cuh``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "q", "k", "v", "o", "dout", "lse", "di", "qseg", "kseg", "slopes",
+        "q", "k", "v", "o", "dout", "lse", "dlse", "di", "qseg", "kseg", "slopes",
         "out0", "out1")]
         + [(n, ctypes.c_longlong) for n in (
             "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh", "v_sb", "v_ss", "v_sh")]
@@ -228,11 +228,11 @@ def _kernels():
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when its rows can be read in place with 16-byte copies
-    (unit last stride, 16-byte aligned row strides and base), else a
-    contiguous copy."""
+    and TMA (unit last stride, positive 16-byte aligned row strides, an
+    aligned base), else a contiguous copy."""
     per16 = 16 // x.element_size()
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(s % per16 == 0 for s in x.stride()[:-1]))
+          and all(s > 0 and s % per16 == 0 for s in x.stride()[:-1]))
     return x if ok else x.contiguous()
 
 
@@ -284,23 +284,24 @@ def _fwd_cuda(q, k, v, spec: MaskSpec):
 
 
 def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
+    """The two backward launches. The dQ kernel computes ``di`` (rowsum(dO *
+    O) - dLSE) into an fp32 buffer that the dK/dV kernel reads."""
     from ..op_builder.builder import launch_check
     _check(q, k, v)
     q, k, v = _rows(q), _rows(k), _rows(v)
     B, Sq, H, D = q.shape
     Sk, kvH = k.shape[1], k.shape[2]
-    o = o.contiguous()
-    do = do.to(q.dtype).contiguous()
-    di = (do.float() * o.float()).sum(-1).transpose(1, 2)
-    if dlse is not None:
-        di = di - dlse.float()
-    di = di.contiguous()
+    o = _rows(o.contiguous())
+    do = _rows(do.to(q.dtype).contiguous())
     lse = lse.float().contiguous()
+    dlse = dlse.float().contiguous() if dlse is not None else None
+    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, kvH, D), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     p = _params(q, k, v, spec)
     p.o, p.dout, p.lse, p.di = o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr()
+    p.dlse = dlse.data_ptr() if dlse is not None else None
     is_bf16 = int(q.dtype == torch.bfloat16)
     _, dq_fn, dkv_fn = _kernels()
     p.out0 = dq.data_ptr()

@@ -133,6 +133,22 @@ def test_gpt2_style_model_matches_jax():
                                np.asarray(jeng.put([1, 2], prompts)), **TOL)
 
 
+@pytest.mark.parametrize("field,value", [("parallel_block", True),
+                                         ("parallel_norms", True),
+                                         ("norm_style", "post")])
+def test_block_layouts_outside_the_port_raise(field, value):
+    """A JAX config with a block layout the port does not build (falcon/phi
+    parallel blocks, post-norm), copied field by field as above, makes the
+    port raise instead of building a pre-norm sequential model."""
+    jcfg = dataclasses.replace(jax_gpt2("gpt2-tiny", max_seq_len=64).config,
+                               **{field: value})
+    names = {f.name for f in dataclasses.fields(TransformerConfig)} - {"dtype"}
+    cfg = TransformerConfig(**{n: getattr(jcfg, n) for n in names}, dtype=torch.float32)
+    assert getattr(cfg, field) == value
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        TransformerLM(cfg)
+
+
 def test_generate_greedy_tokens_identical(engines):
     """Default config: chunked prefill, mixed waves, then decode bursts."""
     jeng, peng, _ = engines

@@ -17,6 +17,10 @@ against the JAX ``_xla_attention``.
 On the CPU the port runs its plain versions; ``chip_smoke.py`` holds the
 CUDA kernels to them on the GPU."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,12 +83,19 @@ def _inputs(case, g, D, seed, B=2, S=64, kvH=2):
     return x, mask
 
 
+def _tile(n):
+    """``BLOCK``, or at a length it does not divide the largest divisor up
+    to 128 (the Pallas kernel takes no ragged tile)."""
+    return BLOCK if n % BLOCK == 0 else max(d for d in range(1, 129) if n % d == 0)
+
+
 def _jax(x, mask, dtype):
     kw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in mask.items()}
     if "window" in kw:
         kw["window"] = jnp.asarray(kw["window"], jnp.int32)
+    bq, bk = _tile(x["q"].shape[1]), _tile(x["k"].shape[1])
     f = lambda q, k, v: jflash.flash_attention_with_lse(
-        q, k, v, block_q=BLOCK, block_k=BLOCK, interpret=True, **kw)
+        q, k, v, block_q=bq, block_k=bk, interpret=True, **kw)
     (o, lse), vjp = jax.vjp(f, *(jnp.asarray(x[n], dtype) for n in "qkv"))
     grads = vjp((jnp.asarray(x["do"], dtype), jnp.asarray(x["dlse"])))
     f32 = lambda a: np.asarray(a.astype(jnp.float32))
@@ -114,10 +125,18 @@ def test_fp32_feature_matrix(case):
     _check(_port(x, mask, torch.float32), _jax(x, mask, jnp.float32), FP32_TOL, GRAD_TOL)
 
 
-@pytest.mark.parametrize("g", [1, 2, 4])
-@pytest.mark.parametrize("D", [32, 64])
-def test_fp32_gqa_groups_and_head_dims(g, D):
-    x, mask = _inputs(CASES["causal"], g=g, D=D, seed=1)
+# (g, D, S): GQA groups and head dims at S 64, then lengths on both sides of
+# the CUDA kernels' 64-row tiles and 128-key blocks at the training
+# step's group (g 8, D 64) and at MHA with D 128
+GQA_CASES = ([pytest.param(g, D, 64, id=f"{D}-{g}") for D in (32, 64) for g in (1, 2, 4)]
+             + [pytest.param(g, D, S, id=f"g{g}-D{D}-S{S}") for g, D in ((8, 64), (1, 128))
+                for S in (63, 64, 65, 127, 128, 129)])
+
+
+@pytest.mark.parametrize("g,D,S", GQA_CASES)
+def test_fp32_gqa_groups_and_head_dims(g, D, S):
+    """O, LSE and the gradients (through dO and a cotangent on the LSE)."""
+    x, mask = _inputs(CASES["causal"], g=g, D=D, seed=1, S=S)
     _check(_port(x, mask, torch.float32), _jax(x, mask, jnp.float32), FP32_TOL, GRAD_TOL)
 
 
@@ -126,6 +145,32 @@ def test_bf16(case):
     x, mask = _inputs(CASES[case], g=4, D=64, seed=2)
     _check(_port(x, mask, torch.bfloat16), _jax(x, mask, jnp.bfloat16), BF16_TOL,
            BF16_GRAD_TOL)
+
+
+def _c_fields(path):
+    """(name, ctypes type) of every member of ``struct FlashParams``."""
+    body = re.search(r"struct FlashParams \{(.*?)\};", path.read_text(), re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    ctype = {"void*": ctypes.c_void_p, "float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
+             "long long": ctypes.c_longlong, "int": ctypes.c_int, "float": ctypes.c_float}
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        m = re.fullmatch(r"(?:const\s+)?(void\s*\*|float\s*\*|int\s*\*|long long|int|float)"
+                         r"\s*(\w+(?:\s*,\s*\w+)*)", " ".join(decl.split()))
+        assert m, f"unparsed member {decl!r}"
+        fields += [(n.strip(), ctype[m.group(1).replace(" ", "")
+                                     if "*" in m.group(1) else m.group(1)])
+                   for n in m.group(2).split(",")]
+    return fields
+
+
+def test_flash_params_match_the_c_struct():
+    """The ctypes mirror has the C struct's members, in order, with
+    matching types: a mismatch would shift every field a launch reads."""
+    src = Path(tflash.__file__).resolve().parents[2] / "csrc" / "flash_common.cuh"
+    want = _c_fields(src)
+    assert [n for n, _ in want][:8] == ["q", "k", "v", "o", "dout", "lse", "dlse", "di"]
+    assert [(n, t) for n, t in tflash.FlashParams._fields_] == want
 
 
 def test_fully_masked_rows_give_zero_and_the_sentinel():
