@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. card: the device's name and ``nvidia-smi`` name / power limit;
 2. build: compile every kernel of ``deepspeed_tpu_torch/csrc`` (the
    ``op_builder`` registry: one ``nvcc`` per source, all at once) into
-   ``build/``;
+   ``build/``, and print ptxas's register and spill lines and every note
+   that it serialized a kernel's ``wgmma`` pipeline;
 3. serving kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, bf16 and fp32, at llama2-7b shapes
    (prefill, mixed and decode waves from the port's own wave builder) and
@@ -31,6 +32,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    N, groups longer than the staged chunk), two runs bit-identical, with a
    sweep over the rows against the non-kernel form (dequantize, then
    ``torch.matmul``) and the dense bf16 ``F.linear`` beside it as context;
+   at the training shape two runs of the bf16 flash forward, and two of
+   its backward, give the same bits;
 5. serving: llama2-7b at full width and depth, random bf16 weights from a
    seed, served through ``build_engine`` + ``generate`` (8 prompts, chunked
    prefill, mixed waves and decode bursts); the launch counters must show
@@ -168,11 +171,15 @@ FLASH_CASES = {
     "alibi": (2, 256, 256, 8, 8, 128, {"alibi": True}),
     "sq-ne-sk": (2, 100, 333, 8, 2, 64, {}),
     "noncausal-ragged": (2, 77, 200, 4, 2, 64, {"causal": False}),
-    # lengths about the backward's 64-row tiles and 128-key blocks
+    # lengths about the 64-row tiles and 128-key blocks of both passes and
+    # the forward's 192-row blocks (three 64-row warpgroups)
     "s127-g8": (2, 127, 127, 16, 2, 64, {}),
     "s129-g8": (2, 129, 129, 16, 2, 64, {}),
     "s191-g8": (2, 191, 191, 16, 2, 64, {}),
+    "s193-g8": (2, 193, 193, 16, 2, 64, {}),
     "s129-g4-d128-dlse": (2, 129, 129, 8, 2, 128, {"dlse": True}),
+    "s191-mha-d128": (1, 191, 191, 8, 8, 128, {}),
+    "s193-mha-d128": (1, 193, 193, 8, 8, 128, {}),
     # a window wide enough for whole tiles to lie inside it (interior tiles)
     "window-interior": (1, 1024, 1024, 16, 2, 64, {"window": 512}),
 }
@@ -556,11 +563,14 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
             want = flash.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, dlse, spec=spec)
             torch.cuda.synchronize()
             if name == MAIN_FLASH and bf:
+                again = flash.flash_fwd(q, k, v, spec)
+                if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+                    fail(f"{tag}: two runs of the forward gave different O or LSE bits")
                 again = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, spec)
                 if not all(bool(torch.equal(a, b_)) for a, b_ in zip(grads, again)):
                     fail(f"{tag}: two runs of the backward gave different dQ, dK or dV bits")
-                print(f"[flash] {name} bf16: two runs of the backward give the same dQ, dK "
-                      f"and dV bits", flush=True)
+                print(f"[flash] {name} bf16: two runs of the forward give the same O and LSE "
+                      f"bits, two of the backward the same dQ, dK and dV bits", flush=True)
                 del again
             e_dq = check_close(f"{tag} dQ", grads[0], want[0], gtol)
             e_dkv = max(check_close(f"{tag} dK", grads[1], want[1], gtol),
@@ -2116,7 +2126,9 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            # register use, spills, and ptxas's notes that it serialized a
+            # kernel's wgmma pipeline ("(C75xx) Potential Performance Loss")
+            if any(w in line for w in ("registers", "spill", "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}")
 
     # 3-4. kernels vs plain

@@ -56,9 +56,9 @@
 // aligned base: the wrapper (flash.py _rows) passes a contiguous copy of
 // any q, k or v that is not.
 //
-// fp32 inputs keep the CUDA-core kernels (the same two launches, the
-// forward's tile products of flash_common.cuh); they serve the fp32
-// correctness cases only.
+// fp32 inputs keep the CUDA-core kernels (the same two launches, the tile
+// products of flash_common.cuh); they serve the fp32 correctness cases
+// only.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -70,10 +70,9 @@ using namespace flash;
 
 constexpr int kConsumers = 2;                    // consumer warpgroups a block
 constexpr int kThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
-// registers a thread at launch (__launch_bounds__(kThreads, 1)) and after
-// setmaxnreg: the producer warpgroup hands its share to the consumers
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
+// registers a consumer thread gets from setmaxnreg (kProducerRegs left to
+// the producer warpgroup)
+constexpr int kConsumerRegs = 240;
 
 // Tile shapes, chosen by sweeps at the training and llama2-7b shapes
 // (kernel_ab.py: a copy of this directory with one of them edited against
@@ -82,23 +81,6 @@ constexpr int kDqKeys64 = 128;   // keys a dQ step at head_dim <= 64 (64 at 128)
 constexpr int kDqHeads = 2;      // heads a dQ block at even GQA groups (else 1)
 constexpr int kDkvRows128 = 32;  // query rows a dK/dV step at head_dim 128 (64 below)
 constexpr int kDkvStages = 3;    // Q/dO tiles in flight (K/V tiles in flight for dQ: 2)
-
-template <int D>
-struct Tile {
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle = bytes of a region row
-  static constexpr int E = SW / 2;               // columns of a region
-  static constexpr int NR = D / E;               // regions
-};
-
-__device__ __forceinline__ char* align1024(unsigned char* p) {
-  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // sum of the products of eight bf16 pairs, in order
 __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
@@ -114,21 +96,11 @@ __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
   return s;
 }
 
-// fp32 accumulator columns 16k .. 16k + 15 as the bf16 A operand of the
-// next product (wgmma's register layout of A is the accumulator's).
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int k = 0; k < N / 16; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[k][j] = pack_f32(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
-}
-
 // P (scaled by log2 e: exp2) of one score of an edge tile: 0 where the key
 // is masked or out of range, or the row sees no key at all. The rules are
-// masked_logit's (flash_common.cuh), written out here: every form that
-// calls a shared rule made ptxas branch on each score and cost the
-// training-shape backward 5-7% (PERF.md).
+// masked_logit's (flash_common.cuh) and flash_fwd.cu edge_x's, written out
+// here: every form that calls a shared rule made ptxas branch on each score
+// and cost the training-shape backward 5-7% (PERF.md).
 __device__ __forceinline__ float edge_p(const FlashParams& p, float dot, float scale2, float lse2,
                                         bool live, int qi, int kj, int h, int b) {
   bool ok = live && qi < p.Sq && kj < p.Sk;
@@ -141,7 +113,7 @@ __device__ __forceinline__ float edge_p(const FlashParams& p, float dot, float s
   }
   float x = dot * scale2 - lse2;
   if (p.slopes != nullptr) x += p.slopes[h] * kLog2e * static_cast<float>(kj - qpos);
-  return ok ? ex2(x) : 0.f;
+  return ok ? hopper::ex2(x) : 0.f;
 }
 
 // dQ and di. One block: HB heads of one kv group x BQ = 64 * 2 / HB query
@@ -502,7 +474,7 @@ template <int D>
 __global__ void __launch_bounds__(256)
 flash_dq_kernel(const FlashParams p, int HB, int BQ) {
   using T = float;
-  constexpr int LD = D + Traits<T>::kPad;
+  constexpr int LD = D + kPad;
   constexpr int NT = kBK / 8;
   constexpr int DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -539,10 +511,10 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
   const T* dout = static_cast<const T*>(p.dout);
   const int valid_q = min(BQ, p.Sq - q0);
   for (int hh = 0; hh < HB; ++hh) {
-    stage_rows<T, D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
-                     p.q_ss, BQ, valid_q, tid, nthreads);
-    stage_rows<T, D>(sdO + hh * BQ * LD, LD, dout + (((long long)b * p.Sq + q0) * p.H + h0 + hh) * D,
-                     (long long)p.H * D, BQ, valid_q, tid, nthreads);
+    stage_rows<D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
+                  p.q_ss, BQ, valid_q, tid, nthreads);
+    stage_rows<D>(sdO + hh * BQ * LD, LD, dout + (((long long)b * p.Sq + q0) * p.H + h0 + hh) * D,
+                  (long long)p.H * D, BQ, valid_q, tid, nthreads);
   }
   cp_async_commit();
 
@@ -558,10 +530,10 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
   auto stage = [&](int jt) {
     const int k0 = jt * kBK;
     const int valid = min(kBK, p.Sk - k0);
-    stage_rows<T, D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
-                     valid, tid, nthreads);
-    stage_rows<T, D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
-                     valid, tid, nthreads);
+    stage_rows<D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
+                  valid, tid, nthreads);
+    stage_rows<D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
+                  valid, tid, nthreads);
     if (p.kseg != nullptr)
       for (int c = tid; c < kBK; c += nthreads)
         sKseg[c] = k0 + c < p.Sk ? p.kseg[(long long)b * p.Sk + k0 + c] : 0;
@@ -584,7 +556,7 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
     float acc = 0.f;
     if (in) {
       const long long at = (((long long)b * p.Sq + i) * p.H + h) * D;
-      for (int c = t; c < D; c += 4) acc += to_float(dout[at + c]) * to_float(o[at + c]);
+      for (int c = t; c < D; c += 4) acc += dout[at + c] * o[at + c];
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -647,7 +619,7 @@ template <int D, int BQ2>
 __global__ void __launch_bounds__(128)
 flash_dkv_kernel(const FlashParams p) {
   using T = float;
-  constexpr int LD = D + Traits<T>::kPad;
+  constexpr int LD = D + kPad;
   constexpr int NT = BQ2 / 8;  // score tiles of 8 query rows
   constexpr int DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -673,9 +645,9 @@ flash_dkv_kernel(const FlashParams p) {
   const T* v = static_cast<const T*>(p.v);
   const T* dout = static_cast<const T*>(p.dout);
   const int valid_k = min(kBK, p.Sk - k0);
-  stage_rows<T, D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
+  stage_rows<D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
                    valid_k, tid, nthreads);
-  stage_rows<T, D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
+  stage_rows<D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
                    valid_k, tid, nthreads);
   cp_async_commit();
 
@@ -692,10 +664,10 @@ flash_dkv_kernel(const FlashParams p) {
     const int q0 = (it_lo + idx - gi * per_head) * BQ2;
     const int h = kvh * G + gi;
     const int valid = min(BQ2, p.Sq - q0);
-    stage_rows<T, D>(sQ, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ2,
-                     valid, tid, nthreads);
-    stage_rows<T, D>(sdO, LD, dout + (((long long)b * p.Sq + q0) * p.H + h) * D,
-                     (long long)p.H * D, BQ2, valid, tid, nthreads);
+    stage_rows<D>(sQ, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ2,
+                  valid, tid, nthreads);
+    stage_rows<D>(sdO, LD, dout + (((long long)b * p.Sq + q0) * p.H + h) * D,
+                  (long long)p.H * D, BQ2, valid, tid, nthreads);
     for (int c = tid; c < BQ2; c += nthreads) {
       const int i = q0 + c;
       const bool in = i < p.Sq;
@@ -819,9 +791,9 @@ cudaError_t launch_dkv_bf16(const FlashParams& p, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_dq_fp32(const FlashParams& p, cudaStream_t stream) {
-  constexpr int LD = D + Traits<float>::kPad;
+  constexpr int LD = D + kPad;
   int HB, BQ;
-  pick_rows(p.H / p.kvH, Traits<float>::kMaxWarps, &HB, &BQ);
+  pick_rows(p.H / p.kvH, kMaxWarps, &HB, &BQ);
   const int warps = HB * BQ / 16;
   const size_t smem = sizeof(float) * (2 * (size_t)HB * BQ * LD + 2 * kBK * LD) +
                       sizeof(int) * kBK + sizeof(float) * warps * 16 * (kBK + 4);
@@ -835,7 +807,7 @@ cudaError_t launch_dq_fp32(const FlashParams& p, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_dkv_fp32(const FlashParams& p, cudaStream_t stream) {
   constexpr int BQ2 = D > 64 ? 32 : 64;  // query rows a step: bounds the registers
-  constexpr int LD = D + Traits<float>::kPad;
+  constexpr int LD = D + kPad;
   const size_t smem = sizeof(float) * (2 * (size_t)kBK * LD + 2 * BQ2 * LD) +
                       sizeof(float) * 3 * BQ2 + sizeof(float) * 4 * 16 * (BQ2 + 4);
   cudaError_t err = reserve_smem(flash_dkv_kernel<D, BQ2>, smem);

@@ -6,43 +6,370 @@
 // O = softmax(mask(scale * Q K^T + alibi)) V per query head, with fp32
 // online softmax, GQA-native (K/V stay at kv heads), causal on a runtime
 // q_offset (bottom-right alignment, may be negative), sliding window,
-// segment ids and ALiBi; a row with no visible key gives O = 0 and
+// segment ids and ALiBi; p is cast to v's dtype before P V; the LSE is in
+// natural-log units, and a row with no visible key gives O = 0 and
 // LSE = MASK_VALUE.
 //
-// Design. The Pallas grid (b*kvH, g, q tile, k tile) ran its key axis in
-// order with (m, l, acc) in VMEM scratch. Here one block takes (batch, kv
-// head, HB heads of its group, BQ query positions) and loops over the key
-// tiles itself; (m, l, acc) stay in registers and nothing crosses blocks.
-// The block's HB * BQ rows (HB * BQ / 16 warps of 16 rows) share each K/V
-// tile, so a tile is read once per group as in the Pallas [B*kvH, G, Sq, D]
-// fold. Q, K and V are read in place through their [B, S, H, D] strides;
-// tiles of 64 keys are staged with cp.async (two in flight for bf16), the
-// ragged edge zero-filled and masked, so any Sq and Sk work. Q K^T and P V
-// run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; p
-// is cast to bf16 before P V as the Pallas kernel casts it to v's dtype);
-// fp32 inputs take the same code with the products on the CUDA cores.
-// Key tiles that no row of the block can see are never visited
-// (_should_run). Blocks start with the last query tiles, which see the most
-// keys under a causal mask.
-//
 // Bound on an H100 SXM: operations. Causal attention at the training shape
-// (S 2048, D 64) does 4 * D flops per visible (query, key) pair on 2 bytes
-// per element of traffic; the tensor-core rate (989 TFLOP/s bf16) is the
-// limit. What this simple design leaves: mma.sync rather than wgmma, no TMA,
-// fragments reloaded from shared memory every tile, and with BQ = 16 rows
-// per head at GQA g = 8 each block redoes the causal diagonal tile's masked
-// work. Measured against the bound in PERF.md.
+// (S 2048, D 64) does 4 * D flops per visible (query, key) pair on bytes
+// each block reads once, so the tensor cores (989 TFLOP/s bf16) set the
+// bound; at D 64 the softmax's work per score (an exp2 on the
+// special-function unit, a max, a sum, a conversion) costs about as much
+// time as the products, so the design keeps it short and runs it beside
+// other warpgroups' products. What it does (bf16, the training dtype):
+//
+// - wgmma fed by TMA. A block is three consumer warpgroups, 64 query rows
+//   of one head each, and one producer warpgroup, of which one thread
+//   issues TMA copies (hopper.cuh): each consumer's Q tile once, then the
+//   K and V tiles of 128 keys the rows can see, into a ring of two
+//   128-byte-swizzled stages with full and empty mbarriers. setmaxnreg
+//   leaves the producer 24 registers and gives the consumers 160. Blocks
+//   start with the last query tiles, which see the most keys; a
+//   warpgroup skips the tiles its rows cannot see.
+// - S = Q K^T reads both operands K-major from shared memory; O += P V
+//   takes P from registers (the fp32 scores cast to bf16, as the Pallas
+//   kernel casts p to v's dtype) and V MN-major through wgmma's transpose
+//   bit, so V is never transposed by hand.
+// - Softmax in registers in the log2 domain: one FMA gives
+//   s * scale * log2 e - m, then ex2.approx; the row max and sum reduce over
+//   the row's four lanes. The MASK_VALUE / HALF_MASK sentinels stand in the
+//   log2 domain unscaled (a masked score is set to MASK_VALUE after the
+//   scale, never scaled by log2 e, which would overflow), so a row with no
+//   visible key keeps l = 0. LSE = (m + log2 l) * ln 2 at the end.
+// - A mask only where one applies. Each (64-row, 128-key) tile is
+//   classified first (flash_common.cuh interior): an interior tile takes
+//   no mask; an edge tile of a call without segment ids or ALiBi (the
+//   training step's) masks each row to its visible key range, two compares
+//   and a select a score; other calls take the rules of edge_x.
+// - Each warpgroup waits for each of its products before it touches their
+//   registers; the overlap of softmax and products comes from the three
+//   warpgroups. Issuing the next tile's S with this tile's P V (the
+//   softmax under a product), ping-pong of the warpgroups on named
+//   barriers, two consumers, 64-key tiles, three stages, two heads a
+//   block sharing K/V, a producer warp and a persistent grid all measured
+//   slower (PERF.md): the first two made ptxas serialize the wgmmas when
+//   a product is issued in one branch and waited for in another (C7518),
+//   or spill when the registers ran short (C7512).
+// - No atomics and a fixed order: every run gives the same bits.
+//
+// TMA reads rows whose strides are multiples of 16 bytes from a 16-byte
+// aligned base: the wrapper (flash.py _rows) passes a contiguous copy of
+// any q, k or v that is not.
+//
+// fp32 inputs keep the CUDA-core kernel (the tile products of
+// flash_common.cuh); it serves the fp32 correctness cases only.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(256)
-flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
-  constexpr int LD = D + Traits<T>::kPad;
-  constexpr int STAGES = Traits<T>::kStages;
+// ---- bf16: wgmma fed by TMA ----------------------------------------------------
+
+// The block and tile shapes, chosen by sweeps at the training and
+// llama2-7b shapes (kernel_ab.py: a copy of this directory with one of
+// them edited against this one; PERF.md).
+constexpr int kFwdConsumers = 3;  // consumer warpgroups a block: 64 query rows each
+constexpr int kFwdKeys = 128;     // keys a step
+constexpr int kFwdStages = 2;     // K/V tiles in flight
+constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);  // and a producer warpgroup
+// registers a consumer thread gets from setmaxnreg: all of the SM's 65536
+// but the producer's, in multiples of 8. At head_dim 128 ptxas spills
+// ~120 bytes a thread within them; two consumers (240 registers, no spill)
+// measured slower there all the same (PERF.md).
+constexpr int kFwdConsumerRegs = 160;
+static_assert(128 * (kFwdConsumers * kFwdConsumerRegs + kProducerRegs) <= 65536,
+              "register file");
+
+// Scaled log2-domain logit (ALiBi included) of query position qi against
+// key kj of an edge tile of a call with segment ids or ALiBi, or kMask
+// where the key is out of range or masked. The rules are masked_logit's
+// (flash_common.cuh) and flash_bwd.cu edge_p's, written out here as
+// edge_p writes them: every form of edge_p that called a shared rule made
+// ptxas branch on each score and cost the backward 5-7% (PERF.md).
+// Calls with neither take softmax's key-range form of the same rules.
+__device__ __forceinline__ float edge_x(const FlashParams& p, float dot, float scale2,
+                                        float slope2, int qi, int kj, int b) {
+  bool ok = qi < p.Sq && kj < p.Sk;
+  const int qpos = qi + p.q_offset;
+  if (ok && p.qseg != nullptr)
+    ok = p.qseg[(long long)b * p.Sq + qi] == p.kseg[(long long)b * p.Sk + kj];
+  if (p.causal) {
+    ok = ok && qpos >= kj;
+    if (p.window > 0) ok = ok && qpos - kj < p.window;
+  }
+  float x = dot * scale2;
+  if (p.slopes != nullptr) x += slope2 * static_cast<float>(kj - qpos);
+  return ok ? x : kMask;
+}
+
+// S = Q K^T of one 64-row x BK-key tile, both operands K-major in shared
+// memory; one commit group.
+template <int D, int BK>
+__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], const char* q_t, const char* k_t) {
+  using namespace hopper;
+  constexpr int SW = Tile<D>::SW;
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    const uint64_t dq = desc_k<SW>(q_t, 64, 0, j), dk = desc_k<SW>(k_t, BK, 0, j);
+    if (j == 0) mma_ss0<BK>(sc, dq, dk);
+    else mma_ss<BK>(sc, dq, dk);
+  }
+  wg_commit();
+}
+
+// O += P V, P in registers, V MN-major in shared memory; one commit group.
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&a)[BK / 16][4],
+                                         const char* v_t) {
+  using namespace hopper;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) mma_rs_mn<D>(o, a[kk], desc_mn<Tile<D>::SW>(v_t, BK, kk));
+  wg_commit();
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// The online softmax of one tile, in the log2 domain: the raw dots in sc
+// become p = 2^(x - m) in place (x the scaled, masked logit); the rows'
+// max m, sum l (this lane's columns) and the factor alpha for O follow.
+// Rows 16 warp + g (+ 8) of the warpgroup's 64 from r0, keys from k0.
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2], const FlashParams& p, int r0, int k0,
+                                        int b, float scale2, float slope2) {
+  using hopper::ex2;
+  const int lane = threadIdx.x % 32, row = 16 * ((threadIdx.x / 32) % 4) + lane / 4,
+            t = lane % 4;
+  float mx[2];
+  const bool inner = interior(p, r0, 64, k0, BK);
+  if (inner) {  // every score visible: the extreme raw dot, scaled
+    constexpr float kBig = 3.4028234663852886e38f;
+    float ext[2];
+    if (scale2 >= 0.f) {
+      ext[0] = ext[1] = -kBig;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) ext[(e >> 1) & 1] = fmaxf(ext[(e >> 1) & 1], sc[e]);
+    } else {
+      ext[0] = ext[1] = kBig;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) ext[(e >> 1) & 1] = fminf(ext[(e >> 1) & 1], sc[e]);
+    }
+    mx[0] = ext[0] * scale2;
+    mx[1] = ext[1] * scale2;
+  } else if (p.qseg == nullptr && p.slopes == nullptr) {
+    // causal, window and the ragged edges only: each row sees the keys
+    // [lo, hi), so a score costs two compares and a select
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + row + 8 * r, qpos = qi + p.q_offset;
+      hi[r] = qi >= p.Sq ? 0 : p.causal ? min(p.Sk, qpos + 1) : p.Sk;
+      lo[r] = p.causal && p.window > 0 ? qpos - p.window + 1 : 0;
+      // against the thread's column offset
+      hi[r] -= k0 + 2 * t;
+      lo[r] -= k0 + 2 * t;
+    }
+    mx[0] = mx[1] = kMask;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1, c = 8 * (e >> 2) + (e & 1);
+      sc[e] = c >= lo[r] && c < hi[r] ? sc[e] * scale2 : kMask;
+      mx[r] = fmaxf(mx[r], sc[e]);
+    }
+  } else {
+    mx[0] = mx[1] = kMask;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      const int qi = r0 + row + 8 * r, kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      sc[e] = edge_x(p, sc[e], scale2, slope2, qi, kj, b);
+      mx[r] = fmaxf(mx[r], sc[e]);
+    }
+  }
+  float m_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_next = fmaxf(m[r], mx[r]);
+    m_safe[r] = fmaxf(m_next, kHalfMask);
+    alpha[r] = ex2(fmaxf(m[r], kHalfMask) - m_safe[r]);
+    m[r] = m_next;
+  }
+  float rs[2] = {0.f, 0.f};
+  if (inner) {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      sc[e] = ex2(fmaf(sc[e], scale2, -m_safe[r]));
+      rs[r] += sc[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      sc[e] = ex2(sc[e] - m_safe[r]);
+      rs[r] += sc[e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+}
+
+// One block: BQ = 64 * NC query rows of one head; consumer warpgroup w
+// owns rows 64 w .. 64 w + 63 (its Q tile loaded once), the producer
+// streams the K/V tiles the rows can see.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+          const __grid_constant__ CUtensorMap mv, const FlashParams p) {
+  using namespace hopper;
+  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR;
+  constexpr int NC = kFwdConsumers, BK = kFwdKeys, ST = kFwdStages;
+  constexpr int QT = 64 * D * 2, KT = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  char* sQ = align1024(smem_raw);
+  char* sK = sQ + NC * QT;
+  char* sV = sK + ST * KT;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + ST * KT);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+
+  constexpr int BQ = 64 * NC;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H, kvh = h / (p.H / p.kvH);
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * BQ;  // longest rows first
+
+  int k_lo = 0, k_hi = p.Sk;
+  if (p.causal) {
+    k_hi = min(p.Sk, p.q_offset + q0 + BQ);
+    if (p.window > 0) k_lo = max(0, p.q_offset + q0 - p.window + 1);
+  }
+  const int jt_lo = k_lo / BK;
+  const int n_tiles = k_hi > 0 ? max(0, (k_hi + BK - 1) / BK - jt_lo) : 0;
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4 * NC);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {  // producer: one thread issues every copy
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == NC * 128) {
+      bar_expect(bar_q, NC * QT);
+      for (int w = 0; w < NC; ++w)
+        for (int rg = 0; rg < NR; ++rg)
+          tma_load4(sQ + w * QT + rg * 64 * SW, &mq, bar_q, rg * E, h, q0 + 64 * w, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST, n = it / ST;
+        if (n > 0) bar_wait(&empty[s], (n - 1) & 1);
+        bar_expect(&full[s], 2 * KT);
+        const int k0 = (jt_lo + it) * BK;
+        for (int rg = 0; rg < NR; ++rg) {
+          tma_load4(sK + s * KT + rg * BK * SW, &mk, &full[s], rg * E, kvh, k0, b);
+          tma_load4(sV + s * KT + rg * BK * SW, &mv, &full[s], rg * E, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  regs_inc<kFwdConsumerRegs>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * wg;
+  const char* q_t = sQ + wg * QT;
+  const float scale2 = p.scale * kLog2e;
+  const float slope2 = p.slopes != nullptr ? p.slopes[h] * kLog2e : 0.f;
+  // this warpgroup's tiles [t_lo, t_hi) of the block's n_tiles: the ones
+  // its rows see, a contiguous range
+  int t_lo = 0, t_hi = n_tiles;
+  while (t_lo < t_hi && !tile_runs(p, r0, 64, (jt_lo + t_lo) * BK, BK)) ++t_lo;
+  while (t_hi > t_lo && !tile_runs(p, r0, 64, (jt_lo + t_hi - 1) * BK, BK)) --t_hi;
+
+  // softmax state of the thread's rows 16 warp + g (+ 8), in log2 units
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  bar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST;
+    bar_wait(&full[s], (it / ST) & 1);
+    if (it >= t_lo && it < t_hi) {
+      float sc[BK / 2];
+      issue_s<D, BK>(sc, q_t, sK + s * KT);
+      wg_wait<0>();
+      hold(sc);
+      softmax<BK>(sc, m, l, alpha, p, r0, (jt_lo + it) * BK, b, scale2, slope2);
+      uint32_t a[BK / 16][4];
+      to_a<BK>(a, sc);
+      rescale<D>(o, alpha);
+      issue_pv<D, BK>(o, a, sV + s * KT);
+      wg_wait<0>();
+      hold(o);
+      hold(a);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);
+  }
+
+  bf16* out = static_cast<bf16*>(p.out0);
+  float* lse = static_cast<float*>(p.out1);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int i = r0 + 16 * warp + g + 8 * r;
+    if (i >= p.Sq) continue;
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+    bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(row + 8 * n + 2 * t, o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    if (t == 0)
+      lse[((long long)b * p.H + h) * p.Sq + i] =
+          l[r] == 0.f ? kMask : (fmaxf(m[r], kHalfMask) + log2f(l[r])) * kLn2;
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const FlashParams& p, cudaStream_t stream) {
+  constexpr int SW = Tile<D>::SW, NC = kFwdConsumers, BK = kFwdKeys, ST = kFwdStages;
+  CUtensorMap mq, mk = {}, mv = {};
+  if (!hopper::map_rows<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      (p.Sk > 0 &&
+       (!hopper::map_rows<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BK) ||
+        !hopper::map_rows<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BK))))
+    return cudaErrorInvalidValue;
+  const size_t smem = 1024 + (size_t)(NC * 64 + 2 * ST * BK) * D * 2 + (1 + 2 * ST) * 8;
+  cudaError_t err = reserve_smem(fwd_wgmma<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.Sq + 64 * NC - 1) / (64 * NC));
+  fwd_wgmma<D><<<grid, kFwdThreads, smem, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+// ---- fp32: the CUDA-core kernel ------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(128)
+fwd_fp32(const FlashParams p, int HB, int BQ) {
+  constexpr int LD = D + kPad;
   constexpr int NT = kBK / 8;  // score tiles of 8 keys
   constexpr int DT = D / 8;    // output tiles of 8 columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -66,19 +393,19 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
   const int h = h0 + hl;
   const int rows = HB * BQ;
 
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + rows * LD;                       // [STAGES][kBK][LD]
-  T* sV = sK + STAGES * kBK * LD;               // [STAGES][kBK][LD]
-  int* sKseg = reinterpret_cast<int*>(sV + STAGES * kBK * LD);  // [STAGES][kBK]
-  float* scratch = reinterpret_cast<float*>(sKseg + STAGES * kBK) + warp * 16 * (kBK + 4);
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + rows * LD;  // [kBK][LD]
+  float* sV = sK + kBK * LD;   // [kBK][LD]
+  int* sKseg = reinterpret_cast<int*>(sV + kBK * LD);  // [kBK]
+  float* scratch = reinterpret_cast<float*>(sKseg + kBK) + warp * 16 * (kBK + 4);
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
   const int valid_q = min(BQ, p.Sq - q0);
   for (int hh = 0; hh < HB; ++hh)
-    stage_rows<T, D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
-                     p.q_ss, BQ, valid_q, tid, nthreads);
+    stage_rows<D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
+                  p.q_ss, BQ, valid_q, tid, nthreads);
   cp_async_commit();
 
   // key tiles the block can see
@@ -91,16 +418,16 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
   const int jt_hi = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
   const int n_tiles = max(0, jt_hi - jt_lo);
 
-  auto stage = [&](int jt, int buf) {
+  auto stage = [&](int jt) {
     const int k0 = jt * kBK;
     const int valid = min(kBK, p.Sk - k0);
-    stage_rows<T, D>(sK + buf * kBK * LD, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh,
-                     p.k_ss, kBK, valid, tid, nthreads);
-    stage_rows<T, D>(sV + buf * kBK * LD, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh,
-                     p.v_ss, kBK, valid, tid, nthreads);
+    stage_rows<D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
+                  valid, tid, nthreads);
+    stage_rows<D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
+                  valid, tid, nthreads);
     if (p.kseg != nullptr)
       for (int c = tid; c < kBK; c += nthreads)
-        sKseg[buf * kBK + c] = k0 + c < p.Sk ? p.kseg[(long long)b * p.Sk + k0 + c] : 0;
+        sKseg[c] = k0 + c < p.Sk ? p.kseg[(long long)b * p.Sk + k0 + c] : 0;
     cp_async_commit();
   };
 
@@ -118,16 +445,10 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
   for (int n = 0; n < DT; ++n)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const T* qw = sQ + (hl * BQ + rb * 16) * LD;
-  if (n_tiles > 0) stage(jt_lo, 0);
+  const float* qw = sQ + (hl * BQ + rb * 16) * LD;
+  if (n_tiles > 0) stage(jt_lo);
   for (int it = 0; it < n_tiles; ++it) {
-    const int buf = STAGES == 2 ? (it & 1) : 0;
-    if (STAGES == 2 && it + 1 < n_tiles) {
-      stage(jt_lo + it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
     const int k0 = (jt_lo + it) * kBK;
 
@@ -135,7 +456,7 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_nt<NT, D>(s, qw, LD, sK + buf * kBK * LD, LD);
+    mma_nt<NT, D>(s, qw, LD, sK, LD);
 
     float mx[2] = {kMask, kMask};
 #pragma unroll
@@ -143,7 +464,7 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, c = n * 8 + 2 * t + (e & 1);
-        const int ks = p.kseg != nullptr ? sKseg[buf * kBK + c] : 0;
+        const int ks = p.kseg != nullptr ? sKseg[c] : 0;
         s[n][e] = masked_logit(p, s[n][e], i0 + 8 * r, k0 + c, slope, qseg[r], ks);
         mx[r] = fmaxf(mx[r], s[n][e]);
       }
@@ -171,13 +492,13 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
     for (int n = 0; n < DT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    mma_pv<kBK, DT>(acc, s, sV + buf * kBK * LD, LD, scratch);
-    __syncthreads();  // this buffer is free for the next stage
-    if (STAGES == 1 && it + 1 < n_tiles) stage(jt_lo + it + 1, 0);
+    mma_pv<kBK, DT>(acc, s, sV, LD, scratch);
+    __syncthreads();  // the tile is free for the next stage
+    if (it + 1 < n_tiles) stage(jt_lo + it + 1);
   }
   cp_async_wait<0>();
 
-  T* o = static_cast<T*>(p.out0);
+  float* o = static_cast<float*>(p.out0);
   float* lse = static_cast<float*>(p.out1);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -186,7 +507,7 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
     const int i = i0 + 8 * r;
     if (i >= p.Sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    T* orow = o + (((long long)b * p.Sq + i) * p.H + h) * D;
+    float* orow = o + (((long long)b * p.Sq + i) * p.H + h) * D;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
       store2(orow + n * 8 + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
@@ -196,29 +517,26 @@ flash_fwd_kernel(const FlashParams p, int HB, int BQ) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
-  constexpr int LD = D + Traits<T>::kPad;
-  constexpr int STAGES = Traits<T>::kStages;
+template <int D>
+cudaError_t launch_fp32(const FlashParams& p, cudaStream_t stream) {
+  constexpr int LD = D + kPad;
   int HB, BQ;
-  pick_rows(p.H / p.kvH, Traits<T>::kMaxWarps, &HB, &BQ);
+  pick_rows(p.H / p.kvH, kMaxWarps, &HB, &BQ);
   const int warps = HB * BQ / 16;
-  const size_t smem = sizeof(T) * ((size_t)HB * BQ * LD + 2 * STAGES * kBK * LD) +
-                      sizeof(int) * STAGES * kBK +
-                      (sizeof(T) == 4 ? sizeof(float) * warps * 16 * (kBK + 4) : 0);
-  cudaError_t err = reserve_smem(flash_fwd_kernel<T, D>, smem);
+  const size_t smem = sizeof(float) * ((size_t)HB * BQ * LD + 2 * kBK * LD) +
+                      sizeof(int) * kBK + sizeof(float) * warps * 16 * (kBK + 4);
+  cudaError_t err = reserve_smem(fwd_fp32<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB));
-  flash_fwd_kernel<T, D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
+  fwd_fp32<D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const FlashParams& p, cudaStream_t s) {
+cudaError_t dispatch(const FlashParams& p, bool bf16_in, cudaStream_t s) {
   switch (p.D) {
-    case 32: return launch<T, 32>(p, s);
-    case 64: return launch<T, 64>(p, s);
-    case 128: return launch<T, 128>(p, s);
+    case 32: return bf16_in ? launch_bf16<32>(p, s) : launch_fp32<32>(p, s);
+    case 64: return bf16_in ? launch_bf16<64>(p, s) : launch_fp32<64>(p, s);
+    case 128: return bf16_in ? launch_bf16<128>(p, s) : launch_fp32<128>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -230,6 +548,5 @@ cudaError_t dispatch(const FlashParams& p, cudaStream_t s) {
 // Returns the cudaError_t of the launch.
 extern "C" int dstt_flash_fwd(flash::FlashParams p, int is_bf16, void* stream) {
   if (p.B == 0 || p.Sq == 0) return cudaSuccess;
-  auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<flash::bf16>(p, s) : dispatch<float>(p, s);
+  return dispatch(p, is_bf16 != 0, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 // Hopper building blocks of the port's kernels (sm_90a): mbarriers, TMA
 // tile loads into swizzled shared memory, warpgroup matrix products
 // (wgmma) and the register budget of warp-specialised blocks. Used by
-// flash_bwd.cu.
+// flash_fwd.cu and flash_bwd.cu.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns, loaded by TMA
 // with a 128-byte swizzle (64-byte for D = 32), is stored as D / E regions
@@ -13,9 +13,9 @@
 // ways:
 //   K-major (rows = M or N, columns = the reduced dimension): A of
 //     S = Q K^T and B of it, one 32-byte column step per k16;
-//   MN-major (rows = the reduced dimension, columns = N): B of dQ = dS K,
-//     dV = P^T dO and dK = dS^T Q, the transpose bit of wgmma set, one
-//     16-row step per k16.
+//   MN-major (rows = the reduced dimension, columns = N): B of O += P V,
+//     dQ = dS K, dV = P^T dO and dK = dS^T Q, the transpose bit of wgmma
+//     set, one 16-row step per k16.
 #pragma once
 
 #include <cuda.h>
@@ -27,6 +27,18 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p: where a swizzled tile starts.
+__device__ __forceinline__ char* align1024(unsigned char* p) {
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// 2^x on the special-function unit (flushes denormals; 2^-large is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- mbarriers ------------------------------------------------------------
@@ -118,6 +130,20 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// fp32 accumulator columns 16k .. 16k + 15 as the bf16 A operand of the
+// next product (wgmma's register layout of A is the accumulator's),
+// rounded to nearest.
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
+      a[k][j] = *reinterpret_cast<const uint32_t*>(&v);
+    }
 }
 
 template <int SW>

@@ -15,10 +15,14 @@ forms at mixtral-8x7b's widths, a decode step of T = 8 and a prefill wave
 of T = 512 dropless tokens, routed by the plain route on the card), and so
 does flash attention (``flash_bwd.cu``: the whole backward through
 ``flash.flash_bwd``, di and both launches, and the forward, at the
-``FLASH_TIMED`` shapes; a version whose ``FlashParams`` has no ``dlse``
-computes di in PyTorch before its launches, as its wrapper did, and the
-two versions' forwards must give the same bits). ``--only`` names the
-groups to run (``paged``, ``woq``, ``moe_ffn``, ``flash``). A tile-shape
+``FLASH_TIMED`` shapes; each version is held to the plain versions, and
+when both directories hold the same forward source, ``flash_fwd.cu`` and
+the headers it includes (``FLASH_FWD_SOURCES``), the two forwards must
+also give the same bits), and so does the fused Adam kernel
+(``fused_adam.cu``: ``MAIN_ADAM``, moments bitwise against the plain
+version, timed beside ``torch.optim.AdamW(fused=True)`` on the same leaf
+with fp32 gradients in every pass). ``--only`` names the groups to run
+(``paged``, ``woq``, ``moe_ffn``, ``flash``, ``adam``). A tile-shape
 sweep point is a copy of ``csrc`` with one constant edited, passed as B
 against the unedited ``csrc`` as A. To compare a change with its parent,
 unpack the parent's ``deepspeed_tpu_torch/csrc`` with ``git archive`` into
@@ -34,74 +38,24 @@ from pathlib import Path
 import chip_smoke as cs
 
 
-def flash_version(flash, csrc, lib):
-    """(forward, backward) of the flash kernels built from ``csrc``, called
-    as ``flash.flash_fwd`` / ``flash.flash_bwd`` are. A version whose
-    ``FlashParams`` has no ``dlse`` member gets the struct it was built
-    with and its wrapper's di: rowsum(dO * O) - dLSE in PyTorch before the
-    two launches."""
-    fwd_lib, bwd_lib = lib("flash_fwd"), lib("flash_bwd")
-    header = (csrc / "flash_common.cuh").read_text()
-    if "dlse;" in header[header.index("struct FlashParams"):]:
-        fns = flash.bind(fwd_lib, bwd_lib)
+def flash_version(flash, lib):
+    """(forward, backward) of the flash kernels built from one source
+    directory, called as ``flash.flash_fwd`` / ``flash.flash_bwd`` are."""
+    fns = flash.bind(lib("flash_fwd"), lib("flash_bwd"))
 
-        def with_fns(fn):
-            def call(*args):
-                saved = flash._kernels
-                flash._kernels = lambda: fns
-                try:
-                    return fn(*args)
-                finally:
-                    flash._kernels = saved
-            return call
-        return with_fns(flash._fwd_cuda), with_fns(flash._bwd_cuda)
+    def with_fns(fn):
+        def call(*args):
+            saved = flash._kernels
+            flash._kernels = lambda: fns
+            try:
+                return fn(*args)
+            finally:
+                flash._kernels = saved
+        return call
+    return with_fns(flash._fwd_cuda), with_fns(flash._bwd_cuda)
 
-    import torch
-    from deepspeed_tpu_torch.ops.op_builder.builder import launch_check
 
-    class Params(ctypes.Structure):
-        _fields_ = [f for f in flash.FlashParams._fields_ if f[0] != "dlse"]
-    fwd_fn, dq_fn, dkv_fn = (fwd_lib.dstt_flash_fwd, bwd_lib.dstt_flash_dq,
-                             bwd_lib.dstt_flash_dkv)
-    for fn in (fwd_fn, dq_fn, dkv_fn):
-        fn.argtypes = [Params, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-
-    def params(q, k, v, spec):
-        base = flash._params(q, k, v, spec)
-        return Params(**{n: getattr(base, n) for n, _ in Params._fields_})
-
-    def fwd(q, k, v, spec):
-        q, k, v = flash._rows(q), flash._rows(k), flash._rows(v)
-        B, Sq, H, D = q.shape
-        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        p = params(q, k, v, spec)
-        p.out0, p.out1 = out.data_ptr(), lse.data_ptr()
-        launch_check(fwd_fn(p, int(q.dtype == torch.bfloat16), flash._stream(q)), "flash_fwd")
-        return out, lse
-
-    def bwd(q, k, v, o, lse, do, dlse, spec):
-        q, k, v = flash._rows(q), flash._rows(k), flash._rows(v)
-        o = o.contiguous()
-        do = do.to(q.dtype).contiguous()
-        di = (do.float() * o.float()).sum(-1).transpose(1, 2)
-        if dlse is not None:
-            di = di - dlse.float()
-        di = di.contiguous()
-        lse = lse.float().contiguous()
-        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        dv = torch.empty_like(dk)
-        p = params(q, k, v, spec)
-        p.o, p.dout, p.lse, p.di = o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr()
-        bf16 = int(q.dtype == torch.bfloat16)
-        p.out0 = dq.data_ptr()
-        launch_check(dq_fn(p, bf16, flash._stream(q)), "flash_dq")
-        p.out0, p.out1 = dk.data_ptr(), dv.data_ptr()
-        launch_check(dkv_fn(p, bf16, flash._stream(q)), "flash_dkv")
-        return dq, dk, dv
-    return fwd, bwd
+FLASH_FWD_SOURCES = ("flash_fwd.cu", "flash_common.cuh", "hopper.cuh")
 
 
 def main():
@@ -109,8 +63,8 @@ def main():
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--only", default="paged,woq,moe_ffn,flash",
-                    help="comma-separated groups: paged, woq, moe_ffn, flash")
+    ap.add_argument("--only", default="paged,woq,moe_ffn,flash,adam",
+                    help="comma-separated groups: paged, woq, moe_ffn, flash, adam")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -123,6 +77,7 @@ def main():
     from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
         paged_decode_attention_reference
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
+    from deepspeed_tpu_torch.ops.adam import adam
     from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
     from deepspeed_tpu_torch.ops.transformer import moe
 
@@ -133,9 +88,13 @@ def main():
     has_woq = "woq" in only and both("woq_matmul.cu")
     has_moe = "moe_ffn" in only and both("moe_ffn.cu")
     has_flash = "flash" in only and both("flash_bwd.cu")
+    has_adam = "adam" in only and both("fused_adam.cu")
+    same_fwd = all((args.a / f).read_bytes() == (args.b / f).read_bytes()
+                   for f in FLASH_FWD_SOURCES) if has_flash else False
     names = ((("ragged_paged_attention", "paged_decode") if has_paged else ())
              + (("woq_matmul",) if has_woq else ()) + (("moe_ffn",) if has_moe else ())
-             + (("flash_fwd", "flash_bwd") if has_flash else ()))
+             + (("flash_fwd", "flash_bwd") if has_flash else ())
+             + (("fused_adam",) if has_adam else ()))
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
         csrc = csrc.resolve()
@@ -145,7 +104,8 @@ def main():
                          pdk.bind(lib("paged_decode")) if has_paged else None,
                          woq.bind(lib("woq_matmul")) if has_woq else None,
                          moe.bind_ffn(lib("moe_ffn")) if has_moe else None,
-                         flash_version(flash, csrc, lib) if has_flash else None)
+                         flash_version(flash, lib) if has_flash else None,
+                         adam.bind(lib("fused_adam")) if has_adam else None)
         print(f"[ab] {tag} = {csrc}", flush=True)
 
     def use(tag):
@@ -153,6 +113,7 @@ def main():
         pdk._kernel = lambda: versions[tag][1]
         woq._kernel = lambda: versions[tag][2]
         moe._ffn_kernel = lambda: versions[tag][3]
+        adam._kernel = lambda: versions[tag][5]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     waves = {name: cs.wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
@@ -181,6 +142,26 @@ def main():
                                                       top_k=cs.MOE_K, capacity=T)
             p3 = moe.moe_dispatch_gather_reference(tokens, src).view(cs.MOE_E, T, cs.MOE_H)
             ffns[f"T{T}"] = (p3, wg, wu, wo, src, slot_w, T)
+    adam_fns = {}
+    if has_adam:
+        sizes, mode, mdt = cs.ADAM_CASES[cs.MAIN_ADAM]
+        m_dtype = getattr(torch, mdt)
+        bucket = cs.adam_bucket(torch, sizes, m_dtype, gen)   # grads, master, moments
+        gscale = torch.full((), 0.37, dtype=torch.float32, device="cuda")
+        bcd1, bcd2 = adam._bias_corrections(5, 0.9, 0.999)
+        kw = dict(lr=3e-4, weight_decay=0.1, mode=mode, m_dtype=m_dtype, v_dtype=m_dtype,
+                  param_dtype=torch.bfloat16, seed_m=adam.sr_seed(5, 1, 0),
+                  seed_v=adam.sr_seed(5, 2, 0))
+        adam_fns["kernel"] = lambda: adam.adam_bucket_update(*bucket, step=5,
+                                                             grad_scale=gscale, **kw)
+        adam_fns["plain"] = lambda: adam.adam_bucket_reference(
+            *bucket, bcd1=bcd1, bcd2=bcd2, gscale=gscale, beta1=0.9, beta2=0.999, eps=1e-8,
+            sr=True, **kw)
+        p32 = torch.nn.Parameter(bucket[1].clone())
+        p32.grad = bucket[0].float()
+        opt = torch.optim.AdamW([p32], lr=3e-4, weight_decay=0.1, fused=True)
+        opt.step()   # creates its state
+        adam_fns["library"] = opt.step
     fused = lambda p3, wg, wu, wo, src, slot_w, T: moe.moe_ffn_combine(
         p3, wg, wu, wo, src, slot_w, T, activation="silu_gated")
     split = lambda p3, wg, wu, wo, src, slot_w, T: moe.moe_ffn(
@@ -215,10 +196,14 @@ def main():
                                                                          spec=spec)),
                                      ("O", "LSE", "dQ", "dK", "dV")):
                 cs.check_close(f"{tag} flash/{name} {what}", x, want)
-            if tag == "B" and not all(bool(torch.equal(x, y))
-                                      for x, y in zip(fwd_out[name], flash_a[name])):
+            if same_fwd and tag == "B" and not all(bool(torch.equal(x, y)) for x, y in
+                                                   zip(fwd_out[name], flash_a[name])):
                 cs.fail(f"flash/{name}: the forwards of A and B give different bits")
         flash_a = fwd_out
+        if has_adam:
+            got, want = adam_fns["kernel"](), adam_fns["plain"]()
+            if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
+                cs.fail(f"{tag} adam/{cs.MAIN_ADAM}: moments differ from the plain version")
         print(f"[ab] {tag} agrees with the plain versions (bf16, {cs.BF16_TOL}; the "
               f"grouped FFN {cs.MOE_BF16_TOL})", flush=True)
 
@@ -238,6 +223,9 @@ def main():
             fwd, bwd = versions[tag][4]
             cells += [f"flash_bwd/{name} {cs.device_ms(torch, lambda: bwd(q, k, v, o, lse, do, None, spec), 10, flush)[0]:.4f}",
                       f"flash_fwd/{name} {cs.device_ms(torch, lambda: fwd(q, k, v, spec), 10, flush)[0]:.4f}"]
+        if has_adam:
+            cells += [f"adam/{name} {cs.device_ms(torch, adam_fns[name], 20, flush)[0]:.4f}"
+                      for name in ("kernel", "library")]
         print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
     print(cs.nvidia_smi())
     return 0

@@ -126,11 +126,13 @@ def test_fp32_feature_matrix(case):
 
 
 # (g, D, S): GQA groups and head dims at S 64, then lengths on both sides of
-# the CUDA kernels' 64-row tiles and 128-key blocks at the training
-# step's group (g 8, D 64) and at MHA with D 128
+# the CUDA kernels' 64-row tiles and 128-key blocks and of the forward's
+# 192-row blocks at the training step's group (g 8, D 64) and at MHA with
+# D 128 (190 and 194, not 191 and 193: the Pallas reference takes no
+# ragged tile, and a prime length would leave it tiles of one row)
 GQA_CASES = ([pytest.param(g, D, 64, id=f"{D}-{g}") for D in (32, 64) for g in (1, 2, 4)]
              + [pytest.param(g, D, S, id=f"g{g}-D{D}-S{S}") for g, D in ((8, 64), (1, 128))
-                for S in (63, 64, 65, 127, 128, 129)])
+                for S in (63, 64, 65, 127, 128, 129, 190, 192, 194)])
 
 
 @pytest.mark.parametrize("g,D,S", GQA_CASES)
