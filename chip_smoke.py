@@ -28,10 +28,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the port never calls; the fused Lion kernel on the same leaf and bucket,
    with and without weight decay, moments, master and cast bitwise; the
    weight-only-quantized matmul at the four llama2-7b shapes and the head,
-   1, 8 and 32 rows, bf16, and in fp32 at small shapes (86 groups, a ragged
-   N, groups longer than the staged chunk), two runs bit-identical, with a
-   sweep over the rows against the non-kernel form (dequantize, then
-   ``torch.matmul``) and the dense bf16 ``F.linear`` beside it as context;
+   1, 8 and 32 rows, bf16 (also timed after a clean L2 flush), and in fp32
+   at small shapes (86 groups, a ragged N, groups longer than the staged
+   chunk), two runs bit-identical, with a sweep over the rows against the
+   non-kernel form (dequantize, then ``torch.matmul``) and the dense bf16
+   ``F.linear`` beside it as context, then bf16 edge cases of the
+   tensor-core kernel (1 to 64 rows, groups of 64 and 256, N off its
+   256-column tile);
    at the training shape two runs of the bf16 flash forward, and two of
    its backward, give the same bits;
 5. serving: llama2-7b at full width and depth, random bf16 weights from a
@@ -110,11 +113,13 @@ tile size, a route over 3000 tokens), then bf16 at mixtral-8x7b's widths for
 T = 8, 256 and 512 (dropless, S = 8 T): route indices bitwise, gather
 byte-identical, the int8 gather (mask_pad off and on) byte-identical to its
 plain version and to the quantizer kernel on the gathered rows, FFN within
-5e-2, combine and fused-vs-split bitwise; each
+5e-2 and twice bit-identical, combine and fused-vs-split bitwise; each
 timed with its bound, its plain version and ``index_select`` for the
 gather; ``torch.bmm`` over all slots as context; then the fused-vs-split
 sweep over T = 8 ... 4096 (``[moe-sweep]``) that sets
-``MOE_FUSED_COMBINE_MAX_TOKENS``.
+``MOE_FUSED_COMBINE_MAX_TOKENS``; then edge cases of the FFN's wave form
+(T 17, 300 and 4096, a dead expert, capacity factor 1.0, small gelu and
+top-1 shapes off its tiles).
 
 The output ends with a ``{"kernels": [...]}`` line (15 kernels), the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device": {...}}``.
@@ -227,6 +232,11 @@ WOQ_SWEEP_ROWS = (1, 8, 16, 32, 64, 128)
 WOQ_FP32_CASES = ((5, 1376, 200, 16), (3, 512, 384, 128), (2, 512, 132, 256),
                   (1, 256, 128, 64), (13, 384, 260, 128))
 WOQ_FP32_RTOL = 1e-5   # of the largest |out|: fp32 sums of K terms in two orders
+# bf16 edge cases of the tensor-core kernel, (M, K, N, group size): one row,
+# rows off its 8/16/32/64-row forms, 64 rows, groups of 64 and 256, and an N
+# that is a multiple of 16 but not of its 256-column tile
+WOQ_EDGE_CASES = ((1, 4096, 4112, 64), (13, 4096, 11008, 64), (33, 4096, 4112, 256),
+                  (64, 11008, 4096, 128), (64, 4096, 11024, 256), (1, 11008, 4096, 256))
 PATH_LAYERS, PATH_STEPS, PATH_RTOL = 2, 3, 2e-2   # kernel vs plain training path
 # MoE kernel cases at mixtral-8x7b's widths: E 8, top_k 2, H 4096, F 14336,
 # dropless (capacity T, S = 8 T slots): a decode step and two prefill waves
@@ -244,6 +254,19 @@ MOE_FP32_CASES = (
     (33, 4, 64, 128, 2, "silu_gated", None, 2),      # a dead expert
     (70, 8, 40, 200, 2, "silu_gated", 1.25, 0),      # expert 0 dead (slot 0 empty), drops
     (3000, 8, 64, 64, 2, "silu_gated", 1.25, None),  # the route over 3 chunks of 1024 tokens
+)
+# bf16 edge cases at mixtral-8x7b's widths, (T, capacity factor or None for
+# dropless, dead expert or None): the first capacity of the wave form, a
+# split-form wave, many row tiles an expert, a dead expert, and capacity
+# factor 1.0, which drops choices
+MOE_EDGE_CASES = ((17, None, None), (300, None, None), (4096, None, None), (512, None, 3),
+                  (512, 1.0, None))
+# bf16 cases of the wave form at small widths, off its tiles (H and F off
+# 64 and 128, T off 64), as MOE_FP32_CASES
+MOE_BF16_SMALL_CASES = (
+    (40, 4, 136, 200, 2, "gelu", None, None),
+    (37, 4, 64, 96, 1, "silu_gated", None, None),
+    (150, 8, 72, 136, 2, "silu_gated", 1.25, 0),
 )
 MOE_SWEEP_T = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # two sweeps on one card moved split / fused at one T by up to 1.7% (PERF.md):
@@ -302,15 +325,20 @@ def nvidia_smi():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def device_ms(torch, fn, iters, flush, spin=SPIN_CYCLES):
-    """(device ms, host ms) per call of ``fn``, L2 flushed before each call.
+def device_ms(torch, fn, iters, flush, spin=SPIN_CYCLES, clean=False):
+    """(device ms, host ms) per call of ``fn``, L2 flushed before each call:
+    by writing the 64 MB ``flush`` buffer, which leaves the L2 full of
+    dirty lines that the call's own reads evict to HBM (every timed row), or
+    with ``clean`` by reading it (clean lines: a streaming kernel's reads
+    then have HBM to themselves).
 
     A spin kernel keeps the device busy while the host enqueues every
     (flush, event, fn, event) group, so each event pair brackets the
     device time of ``fn`` alone and none of the host time it takes to
     launch it; that host time is returned separately. Fails if the host
     outran the spin (the device would have idled between events)."""
-    flush.zero_()   # first launches load their modules: keep them out
+    wipe = (lambda: flush.view(torch.int64).sum()) if clean else flush.zero_
+    wipe()   # first launches load their modules: keep them out
     fn()
     torch.cuda.synchronize()
     ev = lambda: torch.cuda.Event(enable_timing=True)
@@ -321,7 +349,7 @@ def device_ms(torch, fn, iters, flush, spin=SPIN_CYCLES):
     spin1.record()
     t0 = time.perf_counter()
     for start, end in pairs:
-        flush.zero_()
+        wipe()
         start.record()
         fn()
         end.record()
@@ -797,6 +825,8 @@ def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
             nbytes = K * N + G * N * 4 + (M * K + M * N) * 2
             b_ms, b_by = bound(nbytes, 2 * M * K * N, torch.bfloat16)
             ms, host = device_ms(torch, lambda: woq.woq_matmul(x, q, scale), 20, flush)
+            clean_ms = device_ms(torch, lambda: woq.woq_matmul(x, q, scale), 20, flush,
+                                 clean=True)[0]
             plain_ms = device_ms(torch, lambda: woq.woq_matmul_reference(x, q, scale), 5,
                                  flush)[0]
             w = torch.randn(N, K, generator=gen, device="cuda").to(torch.bfloat16)
@@ -809,7 +839,8 @@ def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
             print(f"[woq] {name} M{M} {'tensor' if mma else 'CUDA'} cores, splits {splits}: "
                   f"max_abs_err {err:.3e}, two runs bit-identical; kernel_ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms null "
-                  f"dense_bf16_linear_ms {dense_ms:.4f} ({b_ms / ms:.1%} of bound) "
+                  f"dense_bf16_linear_ms {dense_ms:.4f} ({b_ms / ms:.1%} of bound; after a "
+                  f"clean L2 flush kernel_ms {clean_ms:.4f}, {b_ms / clean_ms:.1%}) "
                   f"wrapper_host_ms {host:.4f} (F.linear's {dense_host:.4f})",
                   flush=True)
     K, N, gs = WOQ_CASES[MAIN_WOQ]
@@ -823,6 +854,20 @@ def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
         print(f"[woq-sweep] {MAIN_WOQ} M{M}: kernel_ms {k_ms:.4f} non_kernel_ms "
               f"{n_ms:.4f} (dequantize the leaf to bf16, then torch.matmul); "
               f"WOQ_KERNEL_MAX_ROWS is {quantization.WOQ_KERNEL_MAX_ROWS}", flush=True)
+    for M, K, N, gs in WOQ_EDGE_CASES:
+        x, q, scale = woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
+        got, again = woq.woq_matmul(x, q, scale), woq.woq_matmul(x, q, scale)
+        want = woq.woq_matmul_reference(x, q, scale)
+        torch.cuda.synchronize()
+        tag = f"woq edge M{M} K{K} N{N} gs{gs}"
+        if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+            fail(f"{tag}: two runs differ")
+        errs.append(check_close(tag, got, want))
+        mma, per, splits = woq.launch_plan(x, q, sms)
+        if not mma:
+            fail(f"{tag}: not on the tensor cores")
+        print(f"[woq] {tag}: tensor cores, {splits} splits of {per} groups, max_abs_err "
+              f"{errs[-1]:.3e}, two runs bit-identical", flush=True)
     print("[woq] library_ms is null: no single PyTorch call computes a groupwise-int8 "
           "matmul; dense_bf16_linear_ms is F.linear on bf16 weights of the same "
           "(M, K, N), context only", flush=True)
@@ -939,7 +984,8 @@ def moe_route_vs_plain(torch, moe, logits, top_k, cap, tag):
 
 def moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, activation, tol, tag):
     """Route, gather, fused FFN + combine, split FFN and combine of one case
-    against their plain versions, and fused against split bitwise. Returns
+    against their plain versions, each FFN form run twice for equal bits,
+    and fused against split bitwise. Returns
     (route outputs, payload, errors by kernel, route weights bitwise)."""
     T, H = tokens.shape
     E = w["gate"].shape[1]
@@ -958,10 +1004,15 @@ def moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, activation, tol, tag):
     y_plain = moe.moe_ffn_reference(p3, wg, wu, wo, src, activation=activation)
     fused_plain = moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
                                                 activation=activation)
+    fused_again = moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=activation)
+    y_again = moe.moe_ffn(p3, wg, wu, wo, src, activation=activation)
     split = moe.moe_combine(y.view(E * cap, H), slot_tk, w_tk)
     comb = moe.moe_combine(y_plain.view(E * cap, H), slot_tk, w_tk)
     comb_plain = moe.moe_combine_reference(y_plain.view(E * cap, H), slot_tk, w_tk)
     torch.cuda.synchronize()
+    if not (torch.equal(fused, fused_again) and torch.equal(y, y_again)):
+        fail(f"moe_ffn {tag}: two runs differ")
+    del fused_again, y_again
     empty = (src.view(E, cap) == 0)
     if bool(y[empty].any()):
         fail(f"moe_ffn {tag}: rows of empty slots are not zero")
@@ -1115,6 +1166,44 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
           "only, it does not quantize); no single PyTorch call computes the route, the "
           "grouped FFN with its combine, or the slot-table combine", flush=True)
     moe_sweep(torch, moe, w, gen, flush)
+    for T, cf, dead in MOE_EDGE_CASES:
+        tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        wt = w
+        if dead is not None:   # a constant feature that pushes one logit 100 below the rest
+            tokens[:, 0] = 1.0
+            wt = dict(w, gate=w["gate"].clone())
+            wt["gate"][0, dead] = -100.0
+        cap = capacity(T, E, cf if cf else float(E), 4 if cf else 1)
+        tag = f"bf16 T{T} cap {cap}" + (f" cf {cf}" if cf else "") + (
+            f" dead expert {dead}" if dead is not None else "")
+        (src, *_), _, errs, _ = moe_case_vs_plain(torch, moe, wt, tokens, k, cap, act,
+                                                  MOE_BF16_TOL, tag)
+        for name in ("moe_ffn_combine", "moe_ffn"):
+            errs_all[name] = max(errs_all.get(name, 0.0), errs[name])
+        filled = int((src > 0).sum())
+        rows_e = moe.expert_rows(src, E, cap).tolist()
+        if dead is not None and rows_e[dead]:
+            fail(f"moe {tag}: the dead expert received {rows_e[dead]} slots")
+        print(f"[moe] {tag}: slots filled {filled}/{E * cap} of {T * k} choices, rows an "
+              f"expert {rows_e}; max_abs_err fused {errs['moe_ffn_combine']:.3e} split "
+              f"{errs['moe_ffn']:.3e}, two runs bit-identical, fused == split bitwise",
+              flush=True)
+        del tokens, src
+    for T, E, H, F, top_k, act, cf, dead in MOE_BF16_SMALL_CASES:
+        w = moe_weights(torch, E, H, F, act, torch.bfloat16, gen)
+        tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        if dead is not None:
+            tokens[:, 0] = 1.0
+            w["gate"][0, dead] = -100.0
+        cap = capacity(T, E, cf if cf else float(E), 4 if cf else 1)
+        tag = f"bf16 T{T} E{E} H{H} F{F} k{top_k} {act} cap {cap}"
+        if cap <= moe.DECODE_MAX_SLOTS:
+            fail(f"moe {tag}: not a case of the wave form")
+        (src, *_), _, errs, _ = moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, act,
+                                                  MOE_BF16_TOL, tag)
+        print(f"[moe] {tag}: slots filled {int((src > 0).sum())}/{E * cap}; fused "
+              f"{errs['moe_ffn_combine']:.3e} split {errs['moe_ffn']:.3e} from plain, "
+              f"two runs bit-identical, fused == split bitwise", flush=True)
     return rows, errs_all
 
 
@@ -1604,6 +1693,10 @@ def serve_mixtral(torch, np, moe):
           f"{weight_bytes / 2**30:.2f} GiB, generate peak {peak / 2**30:.2f} GiB", flush=True)
     if moe_launches != want or not all(want.values()):
         fail(f"MoE launches {moe_launches} != {want} (every kernel must run on this path)")
+    wave = L * sum(r > moe.DECODE_MAX_SLOTS for r in rows)   # dropless: C = the padded rows
+    print(f"[moe-engine] FFN calls by tile form: decode form (at most {moe.DECODE_MAX_SLOTS} "
+          f"slots an expert, moe_gemm_tc) {L * steps - wave}, wave form (moe_wave) {wave}: "
+          f"fused {wave - L * big}, split {L * big}", flush=True)
     moe_launches["moe_dispatch_gather_int8"] = launches["moe_dispatch_gather_int8"]
     if moe_launches["moe_dispatch_gather_int8"]:
         fail(f"the int8 dispatch gather launched {moe_launches['moe_dispatch_gather_int8']} "

@@ -1,7 +1,7 @@
 // Hopper building blocks of the port's kernels (sm_90a): mbarriers, TMA
 // tile loads into swizzled shared memory, warpgroup matrix products
 // (wgmma) and the register budget of warp-specialised blocks. Used by
-// flash_fwd.cu and flash_bwd.cu.
+// flash_fwd.cu, flash_bwd.cu, woq_matmul.cu and moe_ffn.cu.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns, loaded by TMA
 // with a 128-byte swizzle (64-byte for D = 32), is stored as D / E regions
@@ -92,6 +92,15 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uin
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// TMA: the box at coordinates (c0 innermost, c1) of a 2-d tensor map.
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 // 4-byte asynchronous copy; ok false writes zero.
@@ -203,6 +212,12 @@ __device__ void mma_ss0(float (&d)[N / 2], uint64_t da, uint64_t db);
 // d[8k+3]; a[2] = d[8k+4], d[8k+5]; a[3] = d[8k+6], d[8k+7]), B MN-major.
 template <int N>
 __device__ void mma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+// D[64 x N] += A[64 x 16] . B[16 x N], A in registers as for mma_rs_mn
+// (thread (g, q) of warp w: a[0] row 16w + g, k 2q and 2q + 1; a[1] row
+// 16w + g + 8, the same k; a[2] and a[3] the same rows at k 2q + 8 and
+// 2q + 9), B K-major in shared memory.
+template <int N>
+__device__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
 
 template <>
 __device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t da, uint64_t db) {
@@ -282,6 +297,43 @@ __device__ __forceinline__ void mma_ss0<128>(float (&d)[64], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(0));
 }
 
+template <>
+__device__ __forceinline__ void mma_rs<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
 // ---- warp specialisation ----------------------------------------------------
 
 template <int R>
@@ -335,6 +387,25 @@ inline bool map_rows(CUtensorMap* map, const void* base, int B, int S, int H, in
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<SW>::kTma,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Map of a 2-d [rows, cols] tensor of `esize`-byte elements (row stride
+// `ld` elements, unit stride along cols; base and ld * esize multiples of
+// 16 bytes) whose box is box_rows x box_cols elements: with a 128-byte
+// swizzle, box_cols * esize = 128, a swizzled region. Rows and columns out
+// of range read as zero.
+inline bool map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
+                   long long rows, long long cols, long long ld, int box_cols, int box_rows,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * esize)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

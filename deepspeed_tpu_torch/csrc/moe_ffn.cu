@@ -22,29 +22,41 @@
 // down product, which is the numerics of the XLA reference path
 // (moe_reference_forward); in fp32 it stays fp32.
 //
-// Bound on an H100 SXM: at decode (8 tokens, 16 picks over 8 experts) the
-// bytes of the experts' weights, 3 * H * F * 2 bytes an expert; at a prefill
-// wave of 512 tokens the operations, 6 * H * F a filled slot. Design:
-// - bf16 on the tensor cores (mma.sync m16n8k16, fp32 sums), a 4-stage
-//   cp.async ring of 64-wide K tiles, ldmatrix from rows padded to 144 bytes
-//   (no bank conflicts). A block owns BM rows of one expert and 128 staged
-//   weight rows: 128 output columns, or 64 columns of w1 and the same 64 of
-//   w3 when gated, so silu(g) * u is formed in registers. BM is 16 for
-//   decode-sized capacities, 64 above.
-// - Dropless serving fills k * T of the E * T slots, and an expert's slots
-//   fill from position 0: a tile whose first slot is empty is empty, and its
-//   block returns at once (the split form writes its rows of y as zeros,
-//   since the combine reads slot 0 with weight 0 for a dropped choice). So
-//   the work is that of the filled slots, not E / k times more.
+// Bound on an H100 SXM: the bytes of the experts' weights, 3 * H * F * 2
+// bytes an expert that received a token, at a decode step (8 tokens, 16
+// picks over 8 experts) and at a prefill wave of 512 tokens (~128 filled
+// slots an expert: 2 * 128 operations a weight's 2 bytes, under the 295 at
+// which the tensor cores bound); the operations, 6 * H * F a filled slot,
+// from about 1024 tokens up. Two forms:
+// - Decode (C <= 16, moe_gemm_tc<16, 1>): bf16 on the tensor cores
+//   (mma.sync m16n8k16, fp32 sums), a 4-stage cp.async ring of 64-wide K
+//   tiles, ldmatrix from rows padded to 144 bytes (no bank conflicts). A
+//   block owns 16 slot rows of one expert and 128 staged weight rows: 128
+//   output columns, or 64 columns of w1 and the same 64 of w3 when gated,
+//   so silu(g) * u is formed in registers. Dropless serving fills k * T of
+//   the E * T slots, and an expert's slots fill from position 0: a tile
+//   whose first slot is empty is empty, and its block returns at once (the
+//   split form writes its rows of y as zeros, since the combine reads slot
+//   0 with weight 0 for a dropped choice).
+// - Wave (C > 16, moe_wave): wgmma fed by TMA (hopper.cuh). A block owns
+//   one expert and the same 128 weight rows, and walks every row tile that
+//   holds the expert's filled slots (rows[e], from the wrapper) under one
+//   stream of those weight rows: each weight byte leaves HBM once a pass
+//   for up to 256 filled slots an expert, and no block is launched for an
+//   empty row tile. One producer thread issues the TMA copies of 64-wide K
+//   steps of the weight rows (K-major B, as the [out, in] weights lie) and
+//   of the row tiles (K-major A) into a 4-stage ring of 128-byte-swizzled
+//   tiles; two consumer warpgroups each multiply 64 of the weight rows
+//   (gated: w1 and w3 of 32 columns, so silu(g) * u stays in registers)
+//   against up to four 64-row tiles (wgmma m64n64k16, fp32 sums). The
+//   producer's other warps write the split form's zero rows meanwhile.
 // - The fused epilogue adds slot_w * y into out with atomicAdd. With top_k
 //   <= 2 each output element receives at most two products on a zeroed
 //   row, 0 + a + b == 0 + b + a in fp32: the result has the same bits on
 //   every run and equals the split form's 0 + w0 * y0 + w1 * y1. The
 //   product is rounded on its own (__fmul_rn), never contracted into an FMA.
 // - fp32 runs on the CUDA cores (32 x 64 tiles, 8 sums a thread).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 // Everything a launch reads, passed by value.
 struct MoeFfnParams {
@@ -61,6 +73,7 @@ struct MoeFfnParams {
   int gated;             // 1: silu(x w1) * (x w3); 0: gelu(x w1) (tanh form)
   int bf16;              // x, the weights and mid are bf16 (else fp32)
   int fused;             // 1: scatter slot_w * y into out; 0: store y
+  const int* rows;       // [E] the wave form: slots [0, rows[e]) hold every filled slot of e
 };
 
 namespace {
@@ -305,6 +318,220 @@ cudaError_t launch_tc_act(const MoeFfnParams& p, cudaStream_t stream) {
   return launch_tc<BM, WARPS_M, PASS, false>(p, stream);
 }
 
+// ---- bf16 wave form: wgmma fed by TMA ---------------------------------------------
+
+// A block owns one expert and kWaveBRows weight rows: 128 output columns,
+// or 64 columns of w1 and the same 64 of w3 when gated. For each chunk of
+// up to kWaveChunk filled slot rows it streams its weight rows' whole K
+// once, so at a prefill wave (dropless, ~k T / E filled slots an expert)
+// each weight byte leaves HBM once a pass.
+constexpr int kWaveK = 64;                              // K a stage: one 128-byte swizzled region
+constexpr int kWaveRowTiles = 4;                        // 64-row tiles of slots a chunk
+constexpr int kWaveChunk = 64 * kWaveRowTiles;          // slot rows under one weight stream
+constexpr int kWaveBRows = 128;                         // weight rows a block, 64 a consumer
+constexpr int kWaveStages = 4;
+constexpr int kWaveConsumers = 2;
+constexpr int kWaveThreads = 128 * (kWaveConsumers + 1);   // and a producer warpgroup
+constexpr int kWaveATile = 64 * kWaveK * 2;             // one 64-row tile of A, 8 KB
+constexpr int kWaveABytes = kWaveRowTiles * kWaveATile;
+constexpr int kWaveBBytes = kWaveBRows * kWaveK * 2;
+constexpr int kWaveStage = kWaveABytes + kWaveBBytes;   // 48 KB
+constexpr int kWaveSmem = 1024 + kWaveStages * kWaveStage + 2 * kWaveStages * 8;
+constexpr int kWaveProducerRegs = 40, kWaveConsumerRegs = 232;
+static_assert(128 * (kWaveConsumers * kWaveConsumerRegs + kWaveProducerRegs) <= 65536,
+              "register file");
+
+// One chunk of NRT row tiles of the slots, on consumer warpgroup `wg`: its
+// 64 of the block's weight rows against every row tile, over all of K,
+// then the epilogue. Returns the ring position after the chunk. Row tile r
+// of the chunk is slot rows row0 + 64 r ..; accumulator element 4i + 2h + c
+// of acc[r] is slot row row0 + 64 r + 16 warp + g + 8h, B row 8i + 2q + c
+// of the warpgroup's 64.
+template <int NRT, int PASS, bool GATED>
+__device__ __forceinline__ int wave_chunk(const MoeFfnParams& p, const char* sbase,
+                                          uint64_t* full, uint64_t* empty, int it, int ktiles,
+                                          int e, int n0, int row0, int wg) {
+  using namespace hopper;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  float acc[NRT][32];
+#pragma unroll
+  for (int r = 0; r < NRT; ++r)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[r][i] = 0.f;
+  for (int kt = 0; kt < ktiles; ++kt, ++it) {
+    const int s = it % kWaveStages;
+    bar_wait(&full[s], (it / kWaveStages) & 1);
+    const char* st = sbase + s * kWaveStage;
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < kWaveK / 16; ++j) {
+      const uint64_t db = desc_k<128>(st + kWaveABytes, kWaveBRows, 64 * wg, j);
+#pragma unroll
+      for (int r = 0; r < NRT; ++r) mma_ss<64>(acc[r], desc_k<128>(st, kWaveChunk, 64 * r, j), db);
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int r = 0; r < NRT; ++r) hold(acc[r]);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);
+  }
+
+  const int N = PASS == 1 ? p.F : p.H;
+#pragma unroll
+  for (int r = 0; r < NRT; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 64 * r + 16 * warp + g + 8 * h;
+      if (row >= p.C) continue;   // the rows past the expert's slots belong to the next one
+      if constexpr (PASS == 1 && GATED) {
+        // B rows 0..31 are w1's, 32..63 w3's, of the same 32 output columns
+        bf16* mrow = static_cast<bf16*>(p.mid) + ((long long)e * p.C + row) * p.F;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = n0 + 32 * wg + 8 * i + 2 * q;
+          if (col >= N) continue;   // N even: col + 1 < N
+          *reinterpret_cast<__nv_bfloat162*>(mrow + col) = __floats2bfloat162_rn(
+              mid_value(true, acc[r][4 * i + 2 * h], acc[r][4 * (i + 4) + 2 * h]),
+              mid_value(true, acc[r][4 * i + 2 * h + 1], acc[r][4 * (i + 4) + 2 * h + 1]));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = n0 + 64 * wg + 8 * i + 2 * q;
+          if (col >= N) continue;
+          if constexpr (PASS == 1) {
+            bf16* mrow = static_cast<bf16*>(p.mid) + ((long long)e * p.C + row) * p.F;
+            *reinterpret_cast<__nv_bfloat162*>(mrow + col) =
+                __floats2bfloat162_rn(mid_value(false, acc[r][4 * i + 2 * h], 0.f),
+                                      mid_value(false, acc[r][4 * i + 2 * h + 1], 0.f));
+          } else {
+            out_pair(p, e, row, col, acc[r][4 * i + 2 * h], acc[r][4 * i + 2 * h + 1]);
+          }
+        }
+      }
+    }
+  return it;
+}
+
+// PASS 1: A = x [E * C, H] rows of slots, B = w1 (and w3) [E * F, H] rows ->
+// mid. PASS 2: A = mid [E * C, F], B = w2 [E * H, F] -> y or out. The block
+// is (column tile, expert); p.rows[e] bounds the expert's filled slots, so
+// the block walks ceil(rows / 64) row tiles and no empty one. Staged B
+// rows: gated, w1 rows n0 .. n0 + 31, w3's same rows, w1 n0 + 32 .. + 63,
+// w3's same, so consumer warpgroup c's 64 rows (64 c ..) are w1 and w3 of
+// the 32 columns n0 + 32 c ..; otherwise rows n0 .. n0 + 127 in order.
+template <int PASS, bool GATED>
+__global__ void __launch_bounds__(kWaveThreads, 1)
+moe_wave(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb1,
+         const __grid_constant__ CUtensorMap mb3, const MoeFfnParams p) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  char* sbase = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sbase + kWaveStages * kWaveStage);
+  uint64_t* empty = full + kWaveStages;
+  constexpr int out_cols = GATED ? kWaveBRows / 2 : kWaveBRows;
+  const int e = blockIdx.y, n0 = blockIdx.x * out_cols;
+  const int K = PASS == 1 ? p.H : p.F, N = PASS == 1 ? p.F : p.H;
+  const int tiles = (p.rows[e] + 63) / 64;   // row tiles holding the expert's filled slots
+  const int chunks = (tiles + kWaveRowTiles - 1) / kWaveRowTiles;
+  const int ktiles = (K + kWaveK - 1) / kWaveK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWaveStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4 * kWaveConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kWaveConsumers) {
+    regs_dec<kWaveProducerRegs>();
+    const int pt = threadIdx.x - 128 * kWaveConsumers;
+    if (pt == 0) {   // one thread issues every copy
+      int it = 0;
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int nrt = min(kWaveRowTiles, tiles - kWaveRowTiles * ch);
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % kWaveStages, n = it / kWaveStages;
+          if (n > 0) bar_wait(&empty[s], (n - 1) & 1);
+          char* st = sbase + s * kWaveStage;
+          bar_expect(&full[s], nrt * kWaveATile + kWaveBBytes);
+          const int k0 = kt * kWaveK;
+          for (int r = 0; r < nrt; ++r)
+            tma_load2(st + r * kWaveATile, &ma, &full[s], k0, e * p.C + kWaveChunk * ch + 64 * r);
+          for (int j = 0; j < kWaveBRows / 32; ++j) {
+            const CUtensorMap* mb = GATED && (j & 1) ? &mb3 : &mb1;
+            const int row = n0 + (GATED ? 32 * (j >> 1) : 32 * j);
+            tma_load2(st + kWaveABytes + j * 32 * 128, mb, &full[s], k0, e * N + row);
+          }
+        }
+      }
+    } else if (PASS == 2 && !p.fused && pt >= 32) {
+      // the split form's rows past the walked tiles are empty slots: zeros,
+      // written by the producer's other warps beside the products
+      const int r0 = min(p.C, 64 * tiles), quads = min(out_cols, N - n0) / 4;
+      for (int i = pt - 32; i < (p.C - r0) * quads; i += 128 - 32) {
+        const int row = r0 + i / quads, col = n0 + 4 * (i % quads);
+        *reinterpret_cast<float4*>(p.y + ((long long)e * p.C + row) * p.H + col) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+
+  regs_inc<kWaveConsumerRegs>();
+  int it = 0;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int nrt = min(kWaveRowTiles, tiles - kWaveRowTiles * ch);
+    const int row0 = kWaveChunk * ch;
+    // each count of row tiles its own straight-line products (no product
+    // issued in one branch and waited for in another)
+    switch (nrt) {
+      case 4: it = wave_chunk<4, PASS, GATED>(p, sbase, full, empty, it, ktiles, e, n0, row0, wg); break;
+      case 3: it = wave_chunk<3, PASS, GATED>(p, sbase, full, empty, it, ktiles, e, n0, row0, wg); break;
+      case 2: it = wave_chunk<2, PASS, GATED>(p, sbase, full, empty, it, ktiles, e, n0, row0, wg); break;
+      default: it = wave_chunk<1, PASS, GATED>(p, sbase, full, empty, it, ktiles, e, n0, row0, wg);
+    }
+  }
+}
+
+template <int PASS, bool GATED>
+cudaError_t launch_wave(const MoeFfnParams& p, cudaStream_t stream) {
+  const int K = PASS == 1 ? p.H : p.F, N = PASS == 1 ? p.F : p.H;
+  const void* A = PASS == 1 ? p.x : p.mid;
+  const void* B1 = PASS == 1 ? p.w1 : p.w2;
+  const void* B3 = GATED ? p.w3 : B1;
+  CUtensorMap ma, mb1, mb3;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hopper::map_2d(&ma, A, bf, 2, (long long)p.E * p.C, K, K, kWaveK, 64, sw) ||
+      !hopper::map_2d(&mb1, B1, bf, 2, (long long)p.E * N, K, K, kWaveK, 32, sw) ||
+      !hopper::map_2d(&mb3, B3, bf, 2, (long long)p.E * N, K, K, kWaveK, 32, sw))
+    return cudaErrorInvalidValue;
+  static bool raised = false;   // more than 48 KB of shared memory is opt-in, once a kernel
+  if (!raised) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        moe_wave<PASS, GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWaveSmem);
+    if (rc != cudaSuccess) return rc;
+    raised = true;
+  }
+  constexpr int out_cols = GATED ? kWaveBRows / 2 : kWaveBRows;
+  const dim3 grid((N + out_cols - 1) / out_cols, p.E);
+  moe_wave<PASS, GATED><<<grid, kWaveThreads, kWaveSmem, stream>>>(ma, mb1, mb3, p);
+  return cudaGetLastError();
+}
+
+template <int PASS>
+cudaError_t launch_wave_act(const MoeFfnParams& p, cudaStream_t stream) {
+  if constexpr (PASS == 1) {
+    if (p.gated) return launch_wave<PASS, true>(p, stream);
+  }
+  return launch_wave<PASS, false>(p, stream);
+}
+
 // ---- fp32: CUDA cores -------------------------------------------------------------
 
 constexpr int kFBM = 32;   // rows a block
@@ -401,15 +628,16 @@ cudaError_t launch_f32(const MoeFfnParams& p, cudaStream_t stream) {
 template <int PASS>
 cudaError_t launch_pass(const MoeFfnParams& p, cudaStream_t stream) {
   if (!p.bf16) return launch_f32<PASS>(p, stream);
-  return p.C <= 16 ? launch_tc_act<16, 1, PASS>(p, stream)
-                   : launch_tc_act<64, 2, PASS>(p, stream);
+  return p.C <= 16 ? launch_tc_act<16, 1, PASS>(p, stream) : launch_wave_act<PASS>(p, stream);
 }
 
 }  // namespace
 
 // The grouped FFN with its epilogue; returns the cudaError_t. The caller has
-// checked the shapes (bf16: H % 8 == 0 and F % 8 == 0), allocated mid and y
-// (split) and zeroed out (fused).
+// checked the shapes (bf16: H % 8 == 0 and F % 8 == 0; above 16 slots an
+// expert x, mid and the weights 16-byte aligned), allocated mid and y
+// (split), zeroed out (fused) and, in bf16 above 16 slots an expert, given
+// rows.
 extern "C" int dstt_moe_ffn(MoeFfnParams p, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (p.E == 0 || p.C == 0 || p.H == 0) return cudaSuccess;

@@ -17,33 +17,44 @@
 // bytes dominate (2 * M operations a byte), so both kernels here are built
 // around reading q once, in order, in full 128-byte lines, and around what
 // the Pallas kernel could lean on and a GPU cannot: a sequential group axis
-// with its accumulator in VMEM. Blocks run in no order, and N / 128 column
-// tiles alone do not fill 132 SMs, so K is split across blocks: each writes
-// an fp32 partial [split, M, N], and a second small kernel adds the splits
-// in index order and casts. No atomics: two runs give the same bits. With
-// one split the block casts and writes the output itself.
+// with its accumulator in VMEM. Blocks run in no order, and the column
+// tiles alone do not fill 132 SMs, so K is split across blocks, each
+// writing an fp32 partial [split, M, N]. No float atomics: two runs give
+// the same bits. With one split the block casts and writes the output
+// itself.
 //
-// woq_mma_kernel (bf16 x, up to 64 rows, gs and N multiples of 16): the
-// tensor cores. On the CUDA cores every weight costs M fused multiply-adds,
-// which at 8 rows already take as long as the memory stream; mma.sync
-// m16n8k16 takes the rows for free.
-// - A block owns 256 columns and a range of groups. Tiles of 64 rows of q
-//   (16 KB, 256 contiguous bytes a row: wider rows measured faster than 128)
-//   and the matching 64 columns of x go to shared memory with cp.async, 4
-//   stages deep, so ~48 KB of weights are in flight a block whatever the
-//   threads are doing.
-// - A warp owns a slab of 32 of the columns over all of the block's rows, so
-//   no sum crosses warps. x is the A operand (rows padded with zeros to 16),
-//   q the B operand: thread (g, t) of a warp reads four 32-bit words of q
-//   (rows 2t, 2t+1, 2t+8, 2t+9 of a 16-row step, columns 4g..4g+3 of the
-//   slab) and byte j of each feeds n-tile j, so n-tile j holds the slab's
-//   columns 4n + j and one word load serves four mma. Rows are padded by 16
-//   bytes in shared memory, which spreads both operands' loads over all
-//   banks.
+// woq_tc_kernel (bf16 x, up to 64 rows, gs and N multiples of 16): the
+// tensor cores, fed by TMA. On the CUDA cores every weight costs M fused
+// multiply-adds, which at 8 rows already take as long as the memory
+// stream.
+// - A block owns 256 weight columns, two slabs of 128, and is one SM's
+//   worth (1 block an SM, by shared memory): a consumer warpgroup a slab
+//   and a producer warp. One thread of the producer
+//   issues TMA copies of 128 rows of q (two 16 KB boxes of the [K, N] int8
+//   view) and the matching 128 columns of x (the rows of x padded to NP =
+//   8, 16, 32 or 64 by TMA's zero fill) into a ring of 128-byte-swizzled
+//   stages (kTcMaxStages), with full and empty mbarriers: the weight
+//   stream waits on no thread's address arithmetic and on no block-wide
+//   barrier.
+// - Swap-AB: the weight columns are the products' M and the rows of x their
+//   N, so 8 rows of x cost an 8-wide product, not a 16-row tile padded
+//   with zeros. A thread reads 32-bit words of q from the swizzled tile
+//   without bank conflicts; byte 2j + h of a word is row g + 8h of the
+//   warp's 16 rows of 64-row tile j, so one word load feeds both of the
+//   warpgroup's tiles (the column permutation is undone in the epilogue).
 // - int8 -> bf16 without the conversion unit: the byte, biased by 128, is
 //   placed in the mantissa of 2^23 (prmt) and 2^23 + 128 subtracted, two
 //   such floats packed into a bf16 pair; exact.
-// - A warp scales its partial accumulator at the end of every group.
+// - The products are wgmma m64nNPk16 with A from registers and x^T from
+//   the swizzled tile (or mma.sync m16n8k16 with the same fragments:
+//   kWoqWgmma, a sweep point). The block's scales come first, in one TMA
+//   copy into shared memory (a load from HBM under the weight stream takes
+//   longer than a group's products), and a group's partial product is
+//   scaled when the group ends.
+// - Split-K is reduced in the same launch: each block writes its partial,
+//   and the last block of a column tile to finish (a counter a column
+//   tile, which it resets) adds the splits in split order and casts. No
+//   second launch, and the same bits whichever block is last.
 //
 // woq_matmul_kernel (fp32 x, and the shapes the other does not take): the
 // CUDA cores, fp32 FMA on exact int8 -> fp32 conversions. A block owns 128
@@ -52,9 +63,8 @@
 // columns (one 32-bit load a row, 8 rows in flight), x sits in shared memory
 // as fp32 transposed to [row][m] for broadcast 128-bit loads, and row tiles
 // are the fastest grid axis so blocks sharing a tile of q find it in L2.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Its splits are added by a second small kernel (woq_reduce_kernel).
+#include "hopper.cuh"
 
 // Everything a launch reads, passed by value.
 struct WoqParams {
@@ -63,6 +73,7 @@ struct WoqParams {
   const float* scale;   // [G, N]
   void* out;            // [M, N], x's dtype
   float* partial;       // [splits, M, N], or null when splits == 1
+  int* counters;        // tensor cores, splits > 1: a zeroed counter a column tile
   int M, K, N, G, gs;
   int groups_per_split, splits;
   int bf16;             // x and out are bf16 (else fp32)
@@ -206,33 +217,50 @@ __global__ void __launch_bounds__(kThreads, 2) woq_matmul_kernel(const WoqParams
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTileRows = 64;           // rows of q a stage
-constexpr int kStages = 4;
-constexpr int kMmaCols = 32 * kWarps;   // output columns a block: a 32-column slab a warp
-constexpr int kChunks = kMmaCols / 16;  // 16-byte copies a staged row of q
-constexpr int kQLd = kMmaCols + 16;     // bytes between staged rows of q
-constexpr int kXLd = kTileRows + 8;     // bf16 between staged rows of x
-constexpr int kQBytes = kTileRows * kQLd;
+// The products' instruction, a sweep point (kernel_ab.py: a copy of this
+// directory with it flipped against this one): wgmma with the converted
+// weights as A from registers, or mma.sync m16n8k16 with the same
+// fragments. Both read x from the same swizzled tile and give the
+// accumulator the same layout.
+constexpr bool kWoqWgmma = true;
+constexpr int kTcCols = 256;                        // output columns a block: two slabs of 128
+constexpr int kTcRows = 128;                        // rows of q (of K) a stage
+constexpr int kQRegion = kTcRows * 128;             // a 128-column slab of a q stage
+constexpr int kSmemMax = 232448;                    // shared memory a block may use
+constexpr int kTcMaxStages = 3;                     // a sweep point, as kWoqWgmma
+constexpr int kTcMaxGroups = 64;                    // groups a split (woq_matmul.py)
 
-// 16-byte global -> shared copy; src_ok false writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool src_ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = src_ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
-}
+constexpr int kTcThreads = 128 * 2 + 32;            // a consumer warpgroup a slab, a producer warp
 
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+// NP: rows of x padded to the products' N (8, 16, 32 or 64). Shared memory:
+// the block's scales [groups a split, kTcCols] fp32, then the ring of
+// stages, then the barriers.
+template <int NP>
+struct TcShape {
+  static constexpr int kXBytes = NP * 256;          // two 64-column regions of NP rows
+  static constexpr int kStage = 2 * kQRegion + kXBytes;
+  __host__ __device__ static constexpr int scale_bytes(int per) {
+    return (per * kTcCols * 4 + 1023) & ~1023;
+  }
+  __host__ __device__ static constexpr int stages(int per) {
+    return (kSmemMax - 1024 - 256 - scale_bytes(per)) / kStage > kTcMaxStages
+               ? kTcMaxStages
+               : (kSmemMax - 1024 - 256 - scale_bytes(per)) / kStage;
+  }
+  __host__ __device__ static constexpr int smem(int per) {
+    return 1024 + scale_bytes(per) + stages(per) * kStage + (2 * stages(per) + 1) * 8 + 16;
+  }
+};
+static_assert(TcShape<64>::stages(kTcMaxGroups) >= 2, "a ring of two stages at the most groups");
+
+[[maybe_unused]] __device__ __forceinline__ void mma16816(float& c0, float& c1, float& c2,
+                                                          float& c3, const uint32_t (&a)[4],
+                                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Byte j of w (an int8 biased by 128) as a float, exactly.
@@ -240,151 +268,266 @@ template <int j>
 __device__ __forceinline__ float biased_byte(uint32_t w) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + j)) - 8388736.f;
 }
-// Byte j of lo and of hi as a bf16 pair, lo in the low half.
+// Byte j of lo and of hi as a bf16 pair, lo in the low half: the floats are
+// integers of at most 8 significant bits, so their top halves are exact
+// bf16 values and a byte permute packs them.
 template <int j>
 __device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(biased_byte<j>(lo), biased_byte<j>(hi));
-  return *reinterpret_cast<const uint32_t*>(&v);
+  return __byte_perm(__float_as_uint(biased_byte<j>(lo)), __float_as_uint(biased_byte<j>(hi)),
+                     0x7632);
 }
 
-template <int MT>   // 16-row tiles of x
-__global__ void __launch_bounds__(kThreads, MT <= 2 ? 2 : 1) woq_mma_kernel(const WoqParams a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kXBytes = 16 * MT * kXLd * 2;
-  constexpr int kStage = kQBytes + kXBytes;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.y * kMmaCols;
-  const int split = blockIdx.z;
+// The 32-bit word at byte `c` (a multiple of 4) of row r of a 128-byte
+// swizzled region.
+__device__ __forceinline__ uint32_t ld_swz(const char* region, int r, int c) {
+  return *reinterpret_cast<const uint32_t*>(region + hopper::swizzled<128>(r, c >> 4) + (c & 15));
+}
+
+// part += the 16-row step kk of a stage: A from the converted weights (a[j]
+// for the two 64-row tiles of the warpgroup), B = x^T from the stage's x
+// tile (rows of x as N, K-major). wgmma is issued here and completed by
+// tc_finish; mma.sync completes here.
+template <int NP>
+__device__ __forceinline__ void tc_issue(float (&part)[2][NP / 2], uint32_t (&a)[2][4],
+                                         const char* xs, int kk, int g, int t) {
+  using namespace hopper;
+  if constexpr (kWoqWgmma) {
+    const uint64_t db = desc_k<128>(xs, NP, 0, kk);
+    wg_fence();
+    mma_rs<NP>(part[0], a[0], db);
+    mma_rs<NP>(part[1], a[1], db);
+    wg_commit();
+  } else {
+    // column k of the stage's x tile: region k / 64, byte 2 (k % 64) of the row
+    const char* xr = xs + (kk >> 2) * NP * 128;
+    const int c = (kk & 3) * 32 + 4 * t;
+#pragma unroll
+    for (int i = 0; i < NP / 8; ++i) {
+      const uint32_t b0 = ld_swz(xr, 8 * i + g, c), b1 = ld_swz(xr, 8 * i + g, c + 16);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma16816(part[j][4 * i], part[j][4 * i + 1], part[j][4 * i + 2], part[j][4 * i + 3],
+                 a[j], b0, b1);
+    }
+  }
+}
+template <int NP>
+__device__ __forceinline__ void tc_finish(float (&part)[2][NP / 2], uint32_t (&a)[2][4]) {
+  using namespace hopper;
+  if constexpr (kWoqWgmma) {
+    wg_wait<0>();
+    hold(part[0]);
+    hold(part[1]);
+    hold(a);
+  }
+}
+
+// The weight columns are wgmma's M and the rows of x its N (swap-AB):
+// out^T = q^T x^T. A block owns kTcCols columns and the groups [g0, g1) of
+// one split. Warp w of a consumer warpgroup of slab c owns the 32 columns
+// 128 c + 32 w .. + 31; its thread (g, t) reads 32-bit words of q (four
+// neighbouring columns 4g .. 4g + 3) at rows 2t, 2t + 1, 2t + 8, 2t + 9 of a
+// 16-row step, and byte 2j + h of each word is row g + 8h of the warp's 16
+// rows of 64-row tile j. So one word load feeds both tiles, and the
+// thread's accumulator rows are its own four columns.
+template <int NP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+woq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mx,
+              const __grid_constant__ CUtensorMap ms, const WoqParams a) {
+  using namespace hopper;
+  using Sh = TcShape<NP>;
+  const int ST = Sh::stages(a.groups_per_split);
+  extern __shared__ unsigned char smem_raw[];
+  const float* scales = reinterpret_cast<const float*>(align1024(smem_raw));
+  char* sbase = align1024(smem_raw) + Sh::scale_bytes(a.groups_per_split);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sbase + ST * Sh::kStage);
+  uint64_t* empty = full + ST;
+  uint64_t* bar_scales = empty + ST;
+  int* last = reinterpret_cast<int*>(bar_scales + 1);
+
+  const int col0 = blockIdx.x * kTcCols;
+  const int split = blockIdx.y;
   const int g0 = split * a.groups_per_split;
   const int g1 = min(a.G, g0 + a.groups_per_split);
-  const int tiles_per_group = (a.gs + kTileRows - 1) / kTileRows;
-  const int tiles = (g1 - g0) * tiles_per_group;
-  const bf16* x = static_cast<const bf16*>(a.x);
+  const int k_begin = g0 * a.gs, k_end = g1 * a.gs;
+  const int tiles = (k_end - k_begin + kTcRows - 1) / kTcRows;
 
-  // tile u of this block: its group, first row in the group, rows (16 | rows)
-  auto tile_at = [&](int u, int& grp, int& r0, int& rows) {
-    grp = g0 + u / tiles_per_group;
-    r0 = (u % tiles_per_group) * kTileRows;
-    rows = min(kTileRows, a.gs - r0);
-  };
-  auto issue = [&](int u) {
-    if (u < tiles) {
-      int grp, r0, rows;
-      tile_at(u, grp, r0, rows);
-      unsigned char* qs = smem + (u % kStages) * kStage;
-      bf16* xs = reinterpret_cast<bf16*>(qs + kQBytes);
-      const long long k0 = (long long)grp * a.gs + r0;
-      for (int i = tid; i < rows * kChunks; i += kThreads) {
-        const int r = i / kChunks, c = (i % kChunks) * 16;
-        const bool ok = col0 + c < a.N;   // 16 | N: a chunk is in or out as a whole
-        cp_async16(qs + r * kQLd + c, ok ? a.q + (k0 + r) * a.N + col0 + c : a.q, ok);
-      }
-      for (int i = tid; i < 16 * MT * (rows >> 3); i += kThreads) {
-        const int m = i / (rows >> 3), c = (i % (rows >> 3)) * 8;
-        const bool ok = m < a.M;          // rows of x past M read as zeros
-        cp_async16(xs + m * kXLd + c, ok ? x + (long long)m * a.K + k0 + c : x, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 8);   // the consumers' warps
+    }
+    bar_init(bar_scales, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;   // consumers: wg is the slab
+  const int warp = (threadIdx.x / 32) % 4, g = lane / 4, t = lane % 4;
+  const int cb = col0 + 128 * wg + 32 * warp + 4 * g;   // the thread's four columns
+  float total[2][NP / 2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) total[j][i] = 0.f;
+
+  if (wg == 2) {   // producer warp: one thread issues every copy
+    if (lane == 0) {
+      // the block's scales first: they are needed at the end of its first group
+      bar_expect(bar_scales, a.groups_per_split * kTcCols * 4);
+      tma_load2(const_cast<float*>(scales), &ms, bar_scales, col0, g0);
+      for (int u = 0; u < tiles; ++u) {
+        const int s = u % ST, n = u / ST;
+        if (n > 0) bar_wait(&empty[s], (n - 1) & 1);
+        char* st = sbase + s * Sh::kStage;
+        bar_expect(&full[s], Sh::kStage);
+        const int k0 = k_begin + u * kTcRows;
+        for (int c = 0; c < 2; ++c) tma_load2(st + c * kQRegion, &mq, &full[s], col0 + 128 * c, k0);
+        for (int h = 0; h < 2; ++h)
+          tma_load2(st + 2 * kQRegion + h * NP * 128, &mx, &full[s], k0 + 64 * h, 0);
       }
     }
-    cp_async_commit();   // an empty group past the end keeps the count uniform
-  };
-
-  float total[MT][4][4], part[MT][4][4];
+    __syncwarp();
+  } else {
+    float part[2][NP / 2];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int i = 0; i < NP / 2; ++i) part[j][i] = 0.f;
+    const int group_steps = a.gs / 16;
+    int step = 0;     // 16-row steps done of the group under way (blocks start on a group)
+    int grp = 0;      // the group under way, from the block's first
+    bar_wait(bar_scales, 0);
+    for (int u = 0; u < tiles; ++u) {
+      const int s = u % ST;
+      bar_wait(&full[s], (u / ST) & 1);
+      const char* st = sbase + s * Sh::kStage;
+      const char* qs = st + wg * kQRegion;
+      const char* xs = st + 2 * kQRegion;
+      const int k0 = k_begin + u * kTcRows;
+      const int steps = min(kTcRows, k_end - k0) / 16;
+      // the four words of q of a step: rows 2t, 2t + 1, 2t + 8, 2t + 9 of
+      // its 16, the thread's four columns, unbiased by 128
+      uint32_t w[4];
+      auto words = [&](int kk) {
+        const int r = 16 * kk + 2 * t, c = 32 * warp + 4 * g;
+        w[0] = ld_swz(qs, r, c) ^ 0x80808080u;
+        w[1] = ld_swz(qs, r + 1, c) ^ 0x80808080u;
+        w[2] = ld_swz(qs, r + 8, c) ^ 0x80808080u;
+        w[3] = ld_swz(qs, r + 9, c) ^ 0x80808080u;
+      };
+      words(0);
+#pragma unroll   // every stage but a split's last has all its steps: known offsets
+      for (int kk = 0; kk < kTcRows / 16; ++kk) {
+        if (kk == steps) break;
+        uint32_t af[2][4] = {{bf16_pair<0>(w[0], w[1]), bf16_pair<1>(w[0], w[1]),
+                              bf16_pair<0>(w[2], w[3]), bf16_pair<1>(w[2], w[3])},
+                             {bf16_pair<2>(w[0], w[1]), bf16_pair<3>(w[0], w[1]),
+                              bf16_pair<2>(w[2], w[3]), bf16_pair<3>(w[2], w[3])}};
+        tc_issue<NP>(part, af, xs, kk, g, t);
+        if (kk + 1 < steps) words(kk + 1);   // the next step's loads under the products
+        tc_finish<NP>(part, af);
+        if (++step == group_steps) {   // the group is complete: scale its partial product
+          const float4 sc =
+              *reinterpret_cast<const float4*>(scales + grp * kTcCols + (cb - col0));
+          const float sv[4] = {sc.x, sc.y, sc.z, sc.w};
+          step = 0;
+          ++grp;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) total[i][j][e] = part[i][j][e] = 0.f;
-
-  for (int u = 0; u < kStages - 1; ++u) issue(u);
-  for (int u = 0; u < tiles; ++u) {
-    cp_async_wait<kStages - 2>();   // tile u has landed
-    __syncthreads();                // for every thread; and tile u - 1 is consumed
-    issue(u + kStages - 1);         // into the buffer of tile u - 1
-    int grp, r0, rows;
-    tile_at(u, grp, r0, rows);
-    const unsigned char* qs = smem + (u % kStages) * kStage;
-    const bf16* xs = reinterpret_cast<const bf16*>(qs + kQBytes);
-    for (int kk = 0; kk < rows; kk += 16) {
-      const unsigned char* qp = qs + (kk + 2 * t) * kQLd + warp * 32 + 4 * g;
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(qp) ^ 0x80808080u;
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(qp + kQLd) ^ 0x80808080u;
-      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(qp + 8 * kQLd) ^ 0x80808080u;
-      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(qp + 9 * kQLd) ^ 0x80808080u;
-      const uint32_t b0[4] = {bf16_pair<0>(w0, w1), bf16_pair<1>(w0, w1), bf16_pair<2>(w0, w1),
-                              bf16_pair<3>(w0, w1)};
-      const uint32_t b1[4] = {bf16_pair<0>(w2, w3), bf16_pair<1>(w2, w3), bf16_pair<2>(w2, w3),
-                              bf16_pair<3>(w2, w3)};
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const bf16* xa = xs + (i * 16 + g) * kXLd + kk + 2 * t;
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xa);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xa + 8 * kXLd);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xa + 8);
-        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(xa + 8 * kXLd + 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma16816(part[i][j], a0, a1, a2, a3, b0[j], b1[j]);
+            for (int i = 0; i < NP / 2; ++i) {
+              // rows g (elements 0, 1 of four) are column 2j, rows g + 8 column 2j + 1
+              total[j][i] = fmaf(part[j][i], sv[2 * j + ((i >> 1) & 1)], total[j][i]);
+              part[j][i] = 0.f;
+            }
+        }
       }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
     }
-    if (r0 + rows == a.gs) {   // the group is complete: scale its partial product
-      // n-tile j holds columns 4n + j of the slab: c0/c2 are column 8t + j, c1/c3 8t + 4 + j
-      const int cb = col0 + warp * 32 + 8 * t;
-      float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
-      if (cb < a.N) {
-        const float4* sp = reinterpret_cast<const float4*>(a.scale + (long long)grp * a.N + cb);
-        const float4 s0 = sp[0], s1 = sp[1];
-        lo[0] = s0.x, lo[1] = s0.y, lo[2] = s0.z, lo[3] = s0.w;
-        hi[0] = s1.x, hi[1] = s1.y, hi[2] = s1.z, hi[3] = s1.w;
-      }
+
+    // element 4i + 2r + h of tile j: column cb + 2j + r, row of x 8i + 2t + h
+    if (cb < a.N) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < NP / 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          total[i][j][0] = fmaf(part[i][j][0], lo[j], total[i][j][0]);
-          total[i][j][1] = fmaf(part[i][j][1], hi[j], total[i][j][1]);
-          total[i][j][2] = fmaf(part[i][j][2], lo[j], total[i][j][2]);
-          total[i][j][3] = fmaf(part[i][j][3], hi[j], total[i][j][3]);
-          part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+        for (int h = 0; h < 2; ++h) {
+          const int m = 8 * i + 2 * t + h;
+          if (m >= a.M) continue;
+          const float v0 = total[0][4 * i + h], v1 = total[0][4 * i + 2 + h];
+          const float v2 = total[1][4 * i + h], v3 = total[1][4 * i + 2 + h];
+          if (a.splits == 1) {
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1);
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(v2, v3);
+            uint2 pk;
+            pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+            pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+            *reinterpret_cast<uint2*>(static_cast<bf16*>(a.out) + (long long)m * a.N + cb) = pk;
+          } else {
+            *reinterpret_cast<float4*>(a.partial + ((long long)split * a.M + m) * a.N + cb) =
+                make_float4(v0, v1, v2, v3);
+          }
         }
     }
   }
+  if (a.splits == 1) return;
 
-  const int cb = col0 + warp * 32 + 8 * t;
-  if (cb >= a.N) return;
+  // The last block of the column tile to finish adds the splits' partials
+  // in split order and casts once: the same bits whichever block is last.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(&a.counters[blockIdx.x], 1) == a.splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const int quads = min(kTcCols, a.N - col0) / 4;   // 16 | N: whole quads
+  const long long mn = (long long)a.M * a.N;
+  constexpr int kBatch = 8;   // partials loaded at once, then added in split order
+  for (int i = threadIdx.x; i < a.M * quads; i += kTcThreads) {
+    const int m = i / quads, c = col0 + 4 * (i % quads);
+    const float* src = a.partial + (long long)m * a.N + c;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < a.splits; s0 += kBatch) {
+      float4 v[kBatch];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+      for (int j = 0; j < kBatch; ++j)
+        if (s0 + j < a.splits) v[j] = __ldcg(reinterpret_cast<const float4*>(src + (s0 + j) * mn));
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {   // rows g and g + 8 of the tile
-      const int m = i * 16 + g + 8 * h;
-      if (m >= a.M) continue;
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = total[i][j][2 * h], v[4 + j] = total[i][j][2 * h + 1];
-      if (a.splits == 1) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) store_out(a, (long long)m * a.N + cb + e, v[e]);
-      } else {
-        float4* dst =
-            reinterpret_cast<float4*>(a.partial + ((long long)split * a.M + m) * a.N + cb);
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-      }
+      for (int j = 0; j < kBatch; ++j)
+        if (s0 + j < a.splits) sum.x += v[j].x, sum.y += v[j].y, sum.z += v[j].z, sum.w += v[j].w;
     }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
+    uint2 pk;
+    pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+    pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(a.out) + (long long)m * a.N + c) = pk;
+  }
+  if (threadIdx.x == 0) a.counters[blockIdx.x] = 0;   // ready for the next launch
 }
 
-template <int MT>
-cudaError_t launch_mma(const WoqParams& a, cudaStream_t stream) {
-  constexpr int bytes = kStages * (kQBytes + 16 * MT * kXLd * 2);
+template <int NP>
+cudaError_t launch_tc(const WoqParams& a, cudaStream_t stream) {
+  using Sh = TcShape<NP>;
+  if (a.groups_per_split > kTcMaxGroups) return cudaErrorInvalidValue;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap mq, mx, ms;
+  if (!hopper::map_2d(&mq, a.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.K, a.N, a.N, 128, kTcRows,
+                      sw) ||
+      !hopper::map_2d(&mx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.M, a.K, a.K, 64, NP, sw) ||
+      !hopper::map_2d(&ms, a.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.G, a.N, a.N, kTcCols,
+                      a.groups_per_split, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
   static bool raised = false;   // more than 48 KB of shared memory is opt-in, once a kernel
   if (!raised) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        woq_mma_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        woq_tc_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (rc != cudaSuccess) return rc;
     raised = true;
   }
-  const dim3 grid(1, (a.N + kMmaCols - 1) / kMmaCols, a.splits);
-  woq_mma_kernel<MT><<<grid, kThreads, bytes, stream>>>(a);
+  const dim3 grid((a.N + kTcCols - 1) / kTcCols, a.splits);
+  woq_tc_kernel<NP><<<grid, kTcThreads, Sh::smem(a.groups_per_split), stream>>>(mq, mx, ms, a);
   return cudaGetLastError();
 }
 
@@ -410,16 +553,19 @@ cudaError_t launch(const WoqParams& a, cudaStream_t stream) {
 
 // out = woq(x, q, scale); returns the cudaError_t. The caller has checked
 // the shapes (K == G * gs, N % 4 == 0, splits * groups_per_split >= G; with
-// mma: bf16, M <= 64, gs % 16 == 0, N % 16 == 0) and allocated partial when
-// splits > 1.
+// mma: bf16, M <= 64, gs % 16 == 0, N % 16 == 0, x and q 16-byte aligned),
+// allocated partial when splits > 1, and with mma given counters, zeroed.
 extern "C" int dstt_woq_matmul(WoqParams a, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (a.M == 0 || a.N == 0) return cudaSuccess;
-  cudaError_t rc;
   if (a.mma) {
-    rc = a.M <= 16 ? launch_mma<1>(a, stream)
-                   : (a.M <= 32 ? launch_mma<2>(a, stream) : launch_mma<4>(a, stream));
-  } else if (a.M > 4) {
+    return a.M <= 8    ? launch_tc<8>(a, stream)
+           : a.M <= 16 ? launch_tc<16>(a, stream)
+           : a.M <= 32 ? launch_tc<32>(a, stream)
+                       : launch_tc<64>(a, stream);
+  }
+  cudaError_t rc;
+  if (a.M > 4) {
     rc = launch<8>(a, stream);
   } else if (a.M > 2) {
     rc = launch<4>(a, stream);

@@ -18,25 +18,32 @@ fp32 with one cast at the end.
 Unlike the Pallas kernel, M needs no padding and N need not be a multiple
 of 128 (a multiple of 4, for the kernel's 32-bit loads). The source holds
 two kernels: bf16 activations of up to 64 rows, with the group size and N
-multiples of 16, run on the tensor cores (``tensor_core_shape``); fp32
-activations and every other shape run on the CUDA cores. Both split K
-across blocks to fill the card and add the splits in a fixed order
-(``plan_splits``): two runs give the same bits.
+multiples of 16, run on the tensor cores (``tensor_core_shape``), fed by
+TMA; fp32 activations and every other shape run on the CUDA cores. Both
+split K across blocks to fill the card (``plan_tc_splits``,
+``plan_splits``) and add the splits in a fixed order: the tensor-core
+kernel in the same launch (the last block of a column tile, found by a
+counter a column tile that the wrapper keeps zeroed, ``_tile_counters``),
+the CUDA-core kernel in a second one. Two runs give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 _COLS = 128        # output columns a block (csrc/woq_matmul.cu: kCols)
 _ROW_TILE = 8      # rows of x a block of the CUDA-core kernel (the largest MT)
 _MMA_MAX_ROWS = 64  # rows of x a block of the tensor-core kernel
-_MMA_COLS = 256    # output columns a block of the tensor-core kernel (kMmaCols)
-_BLOCKS_PER_SM = 2  # blocks an SM holds at once (the kernels' launch bounds; one at 33-64 rows)
+_MMA_COLS = 256    # output columns a block of the tensor-core kernel (kTcCols)
+_BLOCKS_PER_SM = 2  # blocks of the CUDA-core kernel an SM holds at once (its launch bounds)
+#: a block's start (barriers, the first copies' round trip) in units of the
+#: time it takes to stream one group of its weights, for the tensor-core plan
+_TC_START_GROUPS = 1.0
+_TC_MAX_GROUPS = 64  # groups a split of the tensor-core kernel: its scales in shared memory
 
 launches = 0
 
@@ -73,15 +80,14 @@ def tensor_core_shape(x: torch.Tensor, q: torch.Tensor) -> bool:
 
 
 @functools.lru_cache(maxsize=None)   # a model has a handful of (shape, rows) pairs
-def plan_splits(M: int, N: int, G: int, sms: int, row_tile: int = _ROW_TILE,
-                cols: int = _COLS) -> Tuple[int, int]:
-    """``(groups_per_split, splits)``: how the kernel cuts K across blocks.
-    A block covers ``cols`` columns, ``row_tile`` rows and
+def plan_splits(M: int, N: int, G: int, sms: int) -> Tuple[int, int]:
+    """``(groups_per_split, splits)``: how the CUDA-core kernel cuts K
+    across blocks. A block covers ``_COLS`` columns, ``_ROW_TILE`` rows and
     ``groups_per_split`` groups, and ``2 * sms`` blocks run at once; the plan
     minimizes the groups a block walks times the waves of blocks, a split
-    costing about half a group's time for its partial sums. Ties go to fewer
-    splits."""
-    tiles = -(-N // cols) * -(-M // row_tile)
+    costing about half a group's time for its partial sums (added by a
+    second launch). Ties go to fewer splits."""
+    tiles = -(-N // _COLS) * -(-M // _ROW_TILE)
     slots = _BLOCKS_PER_SM * sms
     best = None
     for want in range(1, G + 1):
@@ -94,17 +100,38 @@ def plan_splits(M: int, N: int, G: int, sms: int, row_tile: int = _ROW_TILE,
     return best[1], best[2]
 
 
+@functools.lru_cache(maxsize=None)
+def plan_tc_splits(N: int, G: int, sms: int) -> Tuple[int, int]:
+    """``(groups_per_split, splits)`` of the tensor-core kernel. A block
+    covers ``_MMA_COLS`` columns and all rows of x, one block runs on an SM
+    at a time (its shared memory), and the weight stream of a block costs
+    its groups plus ``_TC_START_GROUPS``: the plan minimizes the waves of
+    blocks times that. The splits are added in the same launch, so a split
+    costs no pass of its own. A split holds at most ``_TC_MAX_GROUPS``
+    groups (their scales sit in shared memory). Ties go to fewer splits."""
+    tiles = -(-N // _MMA_COLS)
+    best = None
+    for want in range(-(-G // _TC_MAX_GROUPS), G + 1):
+        per = -(-G // want)
+        splits = -(-G // per)
+        cost = -(-tiles * splits // sms) * (per + _TC_START_GROUPS)
+        if best is None or cost < best[0]:
+            best = (cost, per, splits)
+    return best[1], best[2]
+
+
 def launch_plan(x: torch.Tensor, q: torch.Tensor, sms: int) -> Tuple[bool, int, int]:
     """``(tensor cores, groups_per_split, splits)`` of one call."""
     G, _, N = q.shape
-    mma = tensor_core_shape(x, q)
-    tile = (_MMA_MAX_ROWS, _MMA_COLS) if mma else (_ROW_TILE, _COLS)
-    return (mma, *plan_splits(x.shape[0], N, G, sms, *tile))
+    if tensor_core_shape(x, q):
+        return (True, *plan_tc_splits(N, G, sms))
+    return (False, *plan_splits(x.shape[0], N, G, sms))
 
 
 class WoqParams(ctypes.Structure):
     """``WoqParams`` of ``csrc/woq_matmul.cu``, field for field."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "q", "scale", "out", "partial")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "q", "scale", "out", "partial",
+                                                 "counters")]
                 + [(n, ctypes.c_int) for n in (
                     "M", "K", "N", "G", "gs", "groups_per_split", "splits", "bf16", "mma")])
 
@@ -127,6 +154,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the tensor-core kernel's counters a column tile, per (device, stream): each
+# launch leaves them zero (the last block of a tile resets its counter), so
+# they are zeroed once; launches on one stream run in order
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index or 0, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = _counters[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+    return c
+
+
 def _woq_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     from ..op_builder.builder import launch_check
     global launches
@@ -141,15 +182,22 @@ def _woq_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
             raise ValueError(f"{name} on {t.device} (contiguous {t.is_contiguous()}); "
                              f"x on {dev}")
     mma, per, splits = launch_plan(x, q, _sm_count(dev.index or 0))
+    if mma and any(t.data_ptr() % 16 for t in (x, q, scale)):
+        raise ValueError("the tensor-core WOQ kernel reads x, q and scale through TMA: each "
+                         "must start on a 16-byte boundary")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     partial = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
+    counters = (_tile_counters(dev, stream, -(-N // _MMA_COLS))
+                if mma and splits > 1 else None)
     a = WoqParams(x=x.data_ptr(), q=q.data_ptr(), scale=scale.data_ptr(),
                   out=out.data_ptr(),
                   partial=partial.data_ptr() if partial is not None else None,
+                  counters=counters.data_ptr() if counters is not None else None,
                   M=M, K=K, N=N, G=G, gs=gs, groups_per_split=per, splits=splits,
                   bf16=int(x.dtype == torch.bfloat16), mma=int(mma))
-    launch_check(_kernel()(a, torch.cuda.current_stream(dev).cuda_stream), "woq_matmul")
+    launch_check(_kernel()(a, stream), "woq_matmul")
     launches += 1
     return out
 

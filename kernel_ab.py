@@ -25,13 +25,22 @@ with fp32 gradients in every pass). ``--only`` names the groups to run
 (``paged``, ``woq``, ``moe_ffn``, ``flash``, ``adam``). A tile-shape
 sweep point is a copy of ``csrc`` with one constant edited, passed as B
 against the unedited ``csrc`` as A. To compare a change with its parent,
-unpack the parent's ``deepspeed_tpu_torch/csrc`` with ``git archive`` into
-a directory that ``.gitignore`` lists and pass it as A. Exits non-zero without a GPU or
-when a version disagrees with the plain versions.
+unpack the parent's ``deepspeed_tpu_torch`` with ``git archive`` into a
+directory that ``.gitignore`` lists and pass its ``csrc`` as A: the WOQ and
+grouped-FFN kernels are then driven through the wrappers of the tree that
+holds each ``csrc`` (``ops/quantizer/woq_matmul.py``,
+``ops/transformer/moe.py``), since a redesign may change what a wrapper
+passes its kernel; a ``csrc`` alone is driven through the checkout's.
+The SASS of every kernel that both builds hold is compared first, names
+and whitespace aside (``cuobjdump``), so a change that leaves a kernel
+alone shows as identical code. Exits non-zero without a GPU or when a
+version disagrees with the plain versions.
 """
 
 import argparse
 import ctypes
+import importlib
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -56,6 +65,38 @@ def flash_version(flash, lib):
 
 
 FLASH_FWD_SOURCES = ("flash_fwd.cu", "flash_common.cuh", "hopper.cuh")
+
+
+def sass(build, lib):
+    """``{kernel name: SASS lines}`` of a built library (``cuobjdump`` beside
+    ``nvcc``), with the per-build namespace hash and the listing's spacing
+    taken out."""
+    import re
+    import subprocess
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1)), [])
+        elif cur is not None:
+            cur.append(" ".join(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split()))
+    return funcs
+
+
+def wrapper(csrc, rel, name, tag):
+    """The wrapper module ``name`` of the version at ``csrc``: loaded from
+    the file ``rel`` of the package tree around ``csrc`` when that tree has
+    one, else the checkout's own module."""
+    path = csrc.parent / rel
+    if not path.exists():
+        return importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location(f"{name}_ab_{tag}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main():
@@ -100,19 +141,34 @@ def main():
         csrc = csrc.resolve()
         _build.build(names, csrc=csrc)
         lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
+        woq_v = moe_v = None
+        if has_woq:
+            woq_v = wrapper(csrc, "ops/quantizer/woq_matmul.py", woq.__name__, tag)
+            woq_v._kernel = (lambda f: lambda: f)(woq_v.bind(lib("woq_matmul")))
+        if has_moe:
+            moe_v = wrapper(csrc, "ops/transformer/moe.py", moe.__name__, tag)
+            moe_v._ffn_kernel = (lambda f: lambda: f)(moe_v.bind_ffn(lib("moe_ffn")))
         versions[tag] = (rpa.bind(lib("ragged_paged_attention")) if has_paged else None,
                          pdk.bind(lib("paged_decode")) if has_paged else None,
-                         woq.bind(lib("woq_matmul")) if has_woq else None,
-                         moe.bind_ffn(lib("moe_ffn")) if has_moe else None,
+                         woq_v, moe_v,
                          flash_version(flash, lib) if has_flash else None,
                          adam.bind(lib("fused_adam")) if has_adam else None)
-        print(f"[ab] {tag} = {csrc}", flush=True)
+        print(f"[ab] {tag} = {csrc} (WOQ and FFN wrappers: "
+              f"{woq_v.__file__ if woq_v else '-'}, {moe_v.__file__ if moe_v else '-'})",
+              flush=True)
+
+    cur = {}   # the WOQ and FFN wrapper modules of the version in use
+    for lib_name in names:   # kernels that both builds hold
+        fa, fb = (sass(_build, _build.library_path(lib_name, c.resolve()))
+                  for c in (args.a, args.b))
+        for name in sorted(set(fa) & set(fb)):
+            print(f"[ab] {lib_name} SASS {name[:80]}: "
+                  f"{'identical' if fa[name] == fb[name] else 'differs'} in A and B", flush=True)
 
     def use(tag):
         rpa._kernel = lambda: versions[tag][0]
         pdk._kernel = lambda: versions[tag][1]
-        woq._kernel = lambda: versions[tag][2]
-        moe._ffn_kernel = lambda: versions[tag][3]
+        cur["woq"], cur["moe"] = versions[tag][2], versions[tag][3]
         adam._kernel = lambda: versions[tag][5]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -162,9 +218,9 @@ def main():
         opt = torch.optim.AdamW([p32], lr=3e-4, weight_decay=0.1, fused=True)
         opt.step()   # creates its state
         adam_fns["library"] = opt.step
-    fused = lambda p3, wg, wu, wo, src, slot_w, T: moe.moe_ffn_combine(
+    fused = lambda p3, wg, wu, wo, src, slot_w, T: cur["moe"].moe_ffn_combine(
         p3, wg, wu, wo, src, slot_w, T, activation="silu_gated")
-    split = lambda p3, wg, wu, wo, src, slot_w, T: moe.moe_ffn(
+    split = lambda p3, wg, wu, wo, src, slot_w, T: cur["moe"].moe_ffn(
         p3, wg, wu, wo, src, activation="silu_gated")
     flash_a = {}
     for tag in versions:
@@ -177,8 +233,10 @@ def main():
             cs.check_close(f"{tag} decode/{name}", pdk.paged_gqa_decode(*a),
                            paged_decode_attention_reference(*a))
         for name, a in woqs.items():
-            cs.check_close(f"{tag} woq/{name}", woq.woq_matmul(*a),
-                           woq.woq_matmul_reference(*a))
+            got, again = cur["woq"].woq_matmul(*a), cur["woq"].woq_matmul(*a)
+            cs.check_close(f"{tag} woq/{name}", got, woq.woq_matmul_reference(*a))
+            if not torch.equal(got, again):
+                cs.fail(f"{tag} woq/{name}: two runs differ")
         for name, (p3, wg, wu, wo, src, slot_w, T) in ffns.items():
             cs.check_close(f"{tag} moe_ffn_combine/{name}", fused(p3, wg, wu, wo, src, slot_w, T),
                            moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
@@ -214,7 +272,7 @@ def main():
                  for name, (a, _) in waves.items()]
         cells += [f"decode/{name} {cs.device_ms(torch, lambda: pdk.paged_gqa_decode(*a), 20, flush)[0]:.4f}"
                   for name, a in decodes.items()]
-        cells += [f"woq/{name} {cs.device_ms(torch, lambda: woq.woq_matmul(*a), 20, flush)[0]:.4f}"
+        cells += [f"woq/{name} {cs.device_ms(torch, lambda: cur['woq'].woq_matmul(*a), 20, flush)[0]:.4f}"
                   for name, a in woqs.items()]
         cells += [f"{form}/{name} {cs.device_ms(torch, lambda: fn(*a), 5, flush)[0]:.4f}"
                   for name, a in ffns.items()

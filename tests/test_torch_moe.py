@@ -139,6 +139,37 @@ def test_route_dead_experts_and_overflow():
     assert (got[0][:8] > 0).all() and not (got[0][8:] > 0).any()
 
 
+@pytest.mark.parametrize("t,e,cf,dead", [(40, 4, None, None), (300, 8, None, None),
+                                         (257, 8, None, 3), (300, 8, 1.0, None),
+                                         (100, 6, 1.25, 0), (1030, 8, None, 5)])
+def test_wave_tiles_name_every_filled_tile_once(t, e, cf, dead):
+    """The FFN kernel's wave form walks, for each expert and column tile, the
+    row tiles of ``WAVE_ROW_TILE`` slots below ``expert_rows``: that names
+    every (expert, row tile, column tile) holding a filled slot once and no
+    empty one, with a dead expert, capacity-dropped routes, and more than
+    the 256 rows one weight stream covers."""
+    logits = _logits(seed=7, t=t, e=e)
+    if dead is not None:
+        logits[:, dead] = -100.0
+    cap = capacity(t, e, cf if cf else float(e), 4 if cf else 1)
+    src = moe.moe_route(torch.from_numpy(logits), top_k=2, capacity=cap)[0]
+    rows = moe.expert_rows(src, e, cap)
+    assert rows.dtype == torch.int32 and rows.shape == (e,)
+    tile, col_tiles = moe.WAVE_ROW_TILE, 3
+    walked = [(x, r, c) for x in range(e) for r in range(-(-int(rows[x]) // tile))
+              for c in range(col_tiles)]
+    slots = src.view(e, cap) > 0
+    filled = {(x, r, c) for x in range(e) for r in range(-(-cap // tile))
+              for c in range(col_tiles) if bool(slots[x, r * tile:(r + 1) * tile].any())}
+    assert len(walked) == len(set(walked)) and set(walked) == filled
+    assert int(slots.sum()) == int(rows.sum())   # the route fills each expert from slot 0
+    if dead is not None:
+        assert int(rows[dead]) == 0
+    if cf is not None:
+        assert int(slots.sum()) < 2 * t          # choices were dropped
+    assert cap > moe.DECODE_MAX_SLOTS             # the kernel takes its wave form here
+
+
 def test_route_ties_pick_the_lowest_index():
     """Equal logits give equal gates: the lowest index wins, on both sides."""
     logits = np.zeros((T, E), np.float32)

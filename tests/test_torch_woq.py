@@ -227,14 +227,39 @@ def test_woq_matmul_rejects_what_the_kernel_does_not_take():
         twoq.woq_matmul(x[None], q, s)
 
 
-@pytest.mark.parametrize("m,n,g", [(1, 4096, 32), (8, 11008, 32), (8, 4096, 86),
-                                   (32, 32000, 32), (5, 200, 86), (1, 128, 1)])
+# the llama2-7b widths of chip_smoke.py's WOQ_CASES (N, groups of 128), an N
+# off the tensor-core kernel's 256-column tile, and groups of 64 and 256
+_WOQ_WIDTHS = [(4096, 32), (11008, 32), (4096, 86), (32000, 32), (4112, 32), (11008, 64),
+               (4096, 16), (65536, 172)]
+
+
+_PLAN_CASES = [(1, 4096, 32), (8, 11008, 32), (8, 4096, 86), (32, 32000, 32), (5, 200, 86),
+               (1, 128, 1)]
+
+
+@pytest.mark.parametrize("m,n,g", _PLAN_CASES + [(m, n, g) for m in (1, 8, 13, 16, 32, 33, 64)
+                                                 for n, g in _WOQ_WIDTHS])
 def test_split_plan_covers_every_group_once(m, n, g):
-    per, splits = twoq.plan_splits(m, n, g, 132)
-    assert per * splits >= g > per * (splits - 1) and splits >= 1
-    tiles = -(-n // 128) * -(-m // 8)
-    if tiles >= 2 * 132:
+    # the CUDA-core plan (fp32 x) and the launch plan of bf16 x, whose rows
+    # up to 64 take the tensor-core plan: split s walks the groups
+    # [s * per, min(G, (s + 1) * per)); together they name each group once
+    x = torch.empty(m, g * 128, dtype=torch.bfloat16, device="meta")
+    q = torch.empty(g, 128, n, dtype=torch.int8, device="meta")
+    plans = {"cuda cores": twoq.plan_splits(m, n, g, 132),
+             "launch": twoq.launch_plan(x, q, 132)[1:]}
+    for what, (per, splits) in plans.items():
+        walked = [gi for s in range(splits) for gi in range(s * per, min(g, (s + 1) * per))]
+        assert sorted(walked) == list(range(g)), what
+        assert all(s * per < g for s in range(splits)), what   # no split is empty
+    per, splits = plans["cuda cores"]
+    if (m, n, g) in _PLAN_CASES and -(-n // 128) * -(-m // 8) >= 2 * 132:
         assert splits == 1     # the column tiles alone fill the card
+    mma, per, splits = twoq.launch_plan(x, q, 132)
+    assert mma == (n % 16 == 0)
+    assert not mma or per <= twoq._TC_MAX_GROUPS   # the split's scales fit shared memory
+    tiles = -(-n // 256)
+    if mma and tiles <= 132:
+        assert tiles * splits <= 132   # one wave of the one-block-an-SM kernel
 
 
 def test_tensor_core_kernel_takes_bf16_decode_shapes_only():
@@ -246,9 +271,16 @@ def test_tensor_core_kernel_takes_bf16_decode_shapes_only():
     assert not twoq.tensor_core_shape(x(8, torch.float32), q(128, 4096))     # the tight check
     assert not twoq.tensor_core_shape(x(8, torch.bfloat16), q(8, 4096))      # no 16-row step
     assert not twoq.tensor_core_shape(x(8, torch.bfloat16), q(128, 200))     # rows of q off 16 B
-    # one block takes all 64 rows there, so more of K is split off than at 8 rows a block
-    assert twoq.plan_splits(32, 4096, 32, 132, 64) == twoq.plan_splits(8, 4096, 32, 132)
-    assert twoq.plan_splits(32, 4096, 32, 132, 64) != twoq.plan_splits(32, 4096, 32, 132)
+    # one block takes all 64 rows and 256 columns, one block an SM: the tensor-core
+    # plan does not depend on the rows, and fills the card in one wave of blocks
+    for m in (1, 8, 33, 64):
+        assert twoq.launch_plan(x(m, torch.bfloat16), q(128, 4096), 132) == (True, 1, 2)
+    assert twoq.plan_tc_splits(4096, 32, 132) == (4, 8)      # qkvo: 16 tiles x 8 splits
+    assert twoq.plan_tc_splits(11008, 32, 132) == (11, 3)    # gate/up: 43 x 3
+    assert twoq.plan_tc_splits(4096, 86, 132) == (11, 8)     # down: 86 groups in 8 splits
+    assert twoq.plan_tc_splits(32000, 32, 132) == (32, 1)    # the head: 125 tiles
+    # the CUDA-core plan counts 8-row tiles: 32 rows split K less than 8
+    assert twoq.plan_splits(32, 4096, 32, 132) != twoq.plan_splits(8, 4096, 32, 132)
 
 
 # ---------------------------------------------------------------------------
