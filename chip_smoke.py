@@ -30,11 +30,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weight-only-quantized matmul at the four llama2-7b shapes and the head,
    1, 8 and 32 rows, bf16 (also timed after a clean L2 flush), and in fp32
    at small shapes (86 groups, a ragged N, groups longer than the staged
-   chunk), two runs bit-identical, with a sweep over the rows against the
-   non-kernel form (dequantize, then ``torch.matmul``) and the dense bf16
+   chunk), two runs bit-identical, with a sweep over the rows timed against
+   the non-kernel form (dequantize, then ``torch.matmul``; each form held
+   to the plain version at its own tolerance) and the dense bf16
    ``F.linear`` beside it as context, then bf16 edge cases of the
    tensor-core kernel (1 to 64 rows, groups of 64 and 256, N off its
-   256-column tile);
+   256-column tile) on a generator of their own;
    at the training shape two runs of the bf16 flash forward, and two of
    its backward, give the same bits;
 5. serving: llama2-7b at full width and depth, random bf16 weights from a
@@ -237,6 +238,14 @@ WOQ_FP32_RTOL = 1e-5   # of the largest |out|: fp32 sums of K terms in two order
 # that is a multiple of 16 but not of its 256-column tile
 WOQ_EDGE_CASES = ((1, 4096, 4112, 64), (13, 4096, 11008, 64), (33, 4096, 4112, 256),
                   (64, 11008, 4096, 128), (64, 4096, 11024, 256), (1, 11008, 4096, 256))
+# the non-kernel form of the row sweep (dequantize to bf16, one torch.matmul
+# with a bf16 result) against the plain version's exact sum: atol = rtol,
+# looser than the kernel's BF16_TOL because each weight is rounded to bf16
+# before cuBLAS's product ([woq-sweep] prints both forms' errors)
+WOQ_NON_KERNEL_TOL = 5e-2
+# the edge cases of the WOQ and MoE kernels draw from a generator of their
+# own, so the cases before and after them see the draws they always saw
+EDGE_SEED = 2
 PATH_LAYERS, PATH_STEPS, PATH_RTOL = 2, 3, 2e-2   # kernel vs plain training path
 # MoE kernel cases at mixtral-8x7b's widths: E 8, top_k 2, H 4096, F 14336,
 # dropless (capacity T, S = 8 T slots): a decode step and two prefill waves
@@ -268,6 +277,9 @@ MOE_BF16_SMALL_CASES = (
     (37, 4, 64, 96, 1, "silu_gated", None, None),
     (150, 8, 72, 136, 2, "silu_gated", 1.25, 0),
 )
+# the FFN kernel's decode form serves up to 16 slots an expert, its wave
+# form more (csrc/moe_ffn.cu launch_pass): read here only to count each
+MOE_DECODE_FORM_SLOTS = 16
 MOE_SWEEP_T = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # two sweeps on one card moved split / fused at one T by up to 1.7% (PERF.md):
 # a lead under 2% counts as a tie
@@ -847,15 +859,20 @@ def woq_kernel_vs_plain(torch, woq, quantization, gen, flush):
     for M in WOQ_SWEEP_ROWS:
         x, q, scale = woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
         qp = {"q": q, "scale": scale}
-        check_close(f"woq sweep M{M}", woq.woq_matmul(x, q, scale),
-                    quantization.dequant_matmul(x, qp))
+        want = woq.woq_matmul_reference(x, q, scale)
+        k_err = check_close(f"woq sweep M{M}", woq.woq_matmul(x, q, scale), want)
+        n_err = check_close(f"woq sweep M{M} non-kernel form",
+                            quantization.dequant_matmul(x, qp), want, WOQ_NON_KERNEL_TOL)
         k_ms = device_ms(torch, lambda: woq.woq_matmul(x, q, scale), 20, flush)[0]
         n_ms = device_ms(torch, lambda: quantization.dequant_matmul(x, qp), 10, flush)[0]
         print(f"[woq-sweep] {MAIN_WOQ} M{M}: kernel_ms {k_ms:.4f} non_kernel_ms "
-              f"{n_ms:.4f} (dequantize the leaf to bf16, then torch.matmul); "
-              f"WOQ_KERNEL_MAX_ROWS is {quantization.WOQ_KERNEL_MAX_ROWS}", flush=True)
+              f"{n_ms:.4f} (dequantize the leaf to bf16, then torch.matmul); max_abs_err "
+              f"from the plain version: kernel {k_err:.3e} (tol {BF16_TOL}), non-kernel "
+              f"{n_err:.3e} (tol {WOQ_NON_KERNEL_TOL}); WOQ_KERNEL_MAX_ROWS is "
+              f"{quantization.WOQ_KERNEL_MAX_ROWS}", flush=True)
+    edge = torch.Generator(device="cuda").manual_seed(EDGE_SEED)   # gen's draws stay as they were
     for M, K, N, gs in WOQ_EDGE_CASES:
-        x, q, scale = woq_inputs(torch, M, K, N, gs, torch.bfloat16, gen)
+        x, q, scale = woq_inputs(torch, M, K, N, gs, torch.bfloat16, edge)
         got, again = woq.woq_matmul(x, q, scale), woq.woq_matmul(x, q, scale)
         want = woq.woq_matmul_reference(x, q, scale)
         torch.cuda.synchronize()
@@ -1166,8 +1183,9 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
           "only, it does not quantize); no single PyTorch call computes the route, the "
           "grouped FFN with its combine, or the slot-table combine", flush=True)
     moe_sweep(torch, moe, w, gen, flush)
+    edge = torch.Generator(device="cuda").manual_seed(EDGE_SEED)   # gen's draws stay as they were
     for T, cf, dead in MOE_EDGE_CASES:
-        tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        tokens = torch.randn(T, H, generator=edge, device="cuda").to(torch.bfloat16)
         wt = w
         if dead is not None:   # a constant feature that pushes one logit 100 below the rest
             tokens[:, 0] = 1.0
@@ -1181,23 +1199,23 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         for name in ("moe_ffn_combine", "moe_ffn"):
             errs_all[name] = max(errs_all.get(name, 0.0), errs[name])
         filled = int((src > 0).sum())
-        rows_e = moe.expert_rows(src, E, cap).tolist()
-        if dead is not None and rows_e[dead]:
-            fail(f"moe {tag}: the dead expert received {rows_e[dead]} slots")
-        print(f"[moe] {tag}: slots filled {filled}/{E * cap} of {T * k} choices, rows an "
-              f"expert {rows_e}; max_abs_err fused {errs['moe_ffn_combine']:.3e} split "
-              f"{errs['moe_ffn']:.3e}, two runs bit-identical, fused == split bitwise",
-              flush=True)
+        per_expert = (src.view(E, cap) > 0).sum(dim=1).tolist()
+        if dead is not None and per_expert[dead]:
+            fail(f"moe {tag}: the dead expert received {per_expert[dead]} slots")
+        print(f"[moe] {tag}: slots filled {filled}/{E * cap} of {T * k} choices, filled "
+              f"slots an expert {per_expert}; max_abs_err fused "
+              f"{errs['moe_ffn_combine']:.3e} split {errs['moe_ffn']:.3e}, two runs "
+              f"bit-identical, fused == split bitwise", flush=True)
         del tokens, src
     for T, E, H, F, top_k, act, cf, dead in MOE_BF16_SMALL_CASES:
-        w = moe_weights(torch, E, H, F, act, torch.bfloat16, gen)
-        tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        w = moe_weights(torch, E, H, F, act, torch.bfloat16, edge)
+        tokens = torch.randn(T, H, generator=edge, device="cuda").to(torch.bfloat16)
         if dead is not None:
             tokens[:, 0] = 1.0
             w["gate"][0, dead] = -100.0
         cap = capacity(T, E, cf if cf else float(E), 4 if cf else 1)
         tag = f"bf16 T{T} E{E} H{H} F{F} k{top_k} {act} cap {cap}"
-        if cap <= moe.DECODE_MAX_SLOTS:
+        if cap <= MOE_DECODE_FORM_SLOTS:
             fail(f"moe {tag}: not a case of the wave form")
         (src, *_), _, errs, _ = moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, act,
                                                   MOE_BF16_TOL, tag)
@@ -1693,8 +1711,8 @@ def serve_mixtral(torch, np, moe):
           f"{weight_bytes / 2**30:.2f} GiB, generate peak {peak / 2**30:.2f} GiB", flush=True)
     if moe_launches != want or not all(want.values()):
         fail(f"MoE launches {moe_launches} != {want} (every kernel must run on this path)")
-    wave = L * sum(r > moe.DECODE_MAX_SLOTS for r in rows)   # dropless: C = the padded rows
-    print(f"[moe-engine] FFN calls by tile form: decode form (at most {moe.DECODE_MAX_SLOTS} "
+    wave = L * sum(r > MOE_DECODE_FORM_SLOTS for r in rows)   # dropless: C = the padded rows
+    print(f"[moe-engine] FFN calls by tile form: decode form (at most {MOE_DECODE_FORM_SLOTS} "
           f"slots an expert, moe_gemm_tc) {L * steps - wave}, wave form (moe_wave) {wave}: "
           f"fused {wave - L * big}, split {L * big}", flush=True)
     moe_launches["moe_dispatch_gather_int8"] = launches["moe_dispatch_gather_int8"]

@@ -28,7 +28,7 @@
 // slots an expert: 2 * 128 operations a weight's 2 bytes, under the 295 at
 // which the tensor cores bound); the operations, 6 * H * F a filled slot,
 // from about 1024 tokens up. Two forms:
-// - Decode (C <= 16, moe_gemm_tc<16, 1>): bf16 on the tensor cores
+// - Decode (C <= 16, moe_gemm_tc): bf16 on the tensor cores
 //   (mma.sync m16n8k16, fp32 sums), a 4-stage cp.async ring of 64-wide K
 //   tiles, ldmatrix from rows padded to 144 bytes (no bank conflicts). A
 //   block owns 16 slot rows of one expert and 128 staged weight rows: 128
@@ -40,8 +40,8 @@
 //   0 with weight 0 for a dropped choice).
 // - Wave (C > 16, moe_wave): wgmma fed by TMA (hopper.cuh). A block owns
 //   one expert and the same 128 weight rows, and walks every row tile that
-//   holds the expert's filled slots (rows[e], from the wrapper) under one
-//   stream of those weight rows: each weight byte leaves HBM once a pass
+//   holds the expert's filled slots (counted from src at the block's start)
+//   under one stream of those weight rows: each weight byte leaves HBM once a pass
 //   for up to 256 filled slots an expert, and no block is launched for an
 //   empty row tile. One producer thread issues the TMA copies of 64-wide K
 //   steps of the weight rows (K-major B, as the [out, in] weights lie) and
@@ -73,7 +73,6 @@ struct MoeFfnParams {
   int gated;             // 1: silu(x w1) * (x w3); 0: gelu(x w1) (tanh form)
   int bf16;              // x, the weights and mid are bf16 (else fp32)
   int fused;             // 1: scatter slot_w * y into out; 0: store y
-  const int* rows;       // [E] the wave form: slots [0, rows[e]) hold every filled slot of e
 };
 
 namespace {
@@ -154,15 +153,12 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int BM, int WARPS_M>
-struct TcShape {
-  static constexpr int kWarpsN = 8 / WARPS_M;
-  static constexpr int kWM = BM / WARPS_M;               // rows a warp
-  static constexpr int kMT = kWM / 16;                   // 16-row mma tiles a warp
-  static constexpr int kNT = kBRows / kWarpsN / 8;       // 8-column mma tiles a warp
-  static constexpr int kStageElems = (BM + kBRows) * kLd;
-  static constexpr int kSmemBytes = kStages * kStageElems * 2;
-};
+// The decode form's tile: 16 slot rows, each of the 8 warps 16 of the 128
+// staged weight rows.
+constexpr int kBM = 16;                              // slot rows a block
+constexpr int kNT = kBRows / 8 / 8;                  // 8-column mma tiles a warp
+constexpr int kStageElems = (kBM + kBRows) * kLd;
+constexpr int kTcSmem = kStages * kStageElems * 2;
 
 // PASS 1: A = x [C, H] of the expert, B = w1 (and w3) rows -> mid.
 // PASS 2: A = mid [C, F], B = w2 rows -> y or out.
@@ -171,23 +167,21 @@ struct TcShape {
 // covers staged rows brow(j); GATED, tile j < kNT / 2 is w1 and tile
 // j + kNT / 2 is w3 of the same columns. Every index into the fragment
 // arrays is known at compile time, so they stay in registers.
-template <int BM, int WARPS_M, int PASS, bool GATED>
+template <int PASS, bool GATED>
 __global__ void __launch_bounds__(kThreads, 2) moe_gemm_tc(const MoeFfnParams p) {
-  using Sh = TcShape<BM, WARPS_M>;
-  constexpr int MT = Sh::kMT, NT = Sh::kNT;
+  constexpr int NT = kNT;
   constexpr bool gated = GATED;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int e = blockIdx.z, m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / Sh::kWarpsN, wn = warp % Sh::kWarpsN;
+  const int e = blockIdx.z, m0 = blockIdx.y * kBM;
+  const int tid = threadIdx.x, wn = tid >> 5, lane = tid & 31;
   constexpr int out_cols = gated ? kBRows / 2 : kBRows;
   const int n0 = blockIdx.x * out_cols;
   const int K = PASS == 1 ? p.H : p.F;
   const int N = PASS == 1 ? p.F : p.H;
 
   if (p.src[(long long)e * p.C + m0] == 0) {   // slots fill from 0: the tile is empty
-    if (PASS == 2 && !p.fused) zero_y_tile(p, e, m0, BM, n0, out_cols);
+    if (PASS == 2 && !p.fused) zero_y_tile(p, e, m0, kBM, n0, out_cols);
     return;
   }
   const bf16* A = static_cast<const bf16*>(PASS == 1 ? p.x : p.mid) + (long long)e * p.C * K;
@@ -197,10 +191,10 @@ __global__ void __launch_bounds__(kThreads, 2) moe_gemm_tc(const MoeFfnParams p)
 
   auto issue = [&](int kt) {
     if (kt < ktiles) {
-      bf16* As = smem + (kt % kStages) * Sh::kStageElems;
-      bf16* Bs = As + BM * kLd;
+      bf16* As = smem + (kt % kStages) * kStageElems;
+      bf16* Bs = As + kBM * kLd;
       const int k0 = kt * kBK;
-      for (int i = tid; i < BM * (kBK / 8); i += kThreads) {
+      for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
         const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
         const bool ok = m0 + r < p.C && k0 + c < K;   // K % 8 == 0: a chunk is in or out
         cp_async16(As + r * kLd + c, ok ? A + (long long)(m0 + r) * K + k0 + c : A, ok);
@@ -224,27 +218,23 @@ __global__ void __launch_bounds__(kThreads, 2) moe_gemm_tc(const MoeFfnParams p)
     }
   };
 
-  float acc[MT][NT][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
   for (int s = 0; s < kStages - 1; ++s) issue(s);
   for (int kt = 0; kt < ktiles; ++kt) {
     cp_async_wait<kStages - 2>();   // tile kt has landed
     __syncthreads();                // for every thread; and tile kt - 1 is consumed
     issue(kt + kStages - 1);        // into the buffer of tile kt - 1
-    const bf16* As = smem + (kt % kStages) * Sh::kStageElems;
-    const bf16* Bs = As + BM * kLd;
+    const bf16* As = smem + (kt % kStages) * kStageElems;
+    const bf16* Bs = As + kBM * kLd;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(a[i], As + (wm * Sh::kWM + i * 16 + (lane & 15)) * kLd + kk + (lane >> 4) * 8);
+      uint32_t a[4];
+      ldmatrix_x4(a, As + (lane & 15) * kLd + kk + (lane >> 4) * 8);
       uint32_t b[NT][2];
 #pragma unroll
       for (int q = 0; q < NT / 2; ++q) {
@@ -255,67 +245,61 @@ __global__ void __launch_bounds__(kThreads, 2) moe_gemm_tc(const MoeFfnParams p)
         b[t0][0] = r[0], b[t0][1] = r[1], b[t1][0] = r[2], b[t1][1] = r[3];
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
+      for (int j = 0; j < NT; ++j) mma16816(acc[j], a, b[j][0], b[j][1]);
     }
   }
 
   // c0, c1: row g, columns 2t, 2t + 1 of the n-tile; c2, c3: row g + 8
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + g + 8 * h;
+    if (row >= p.C) continue;
+    if constexpr (PASS == 1) {
+      bf16* mrow = static_cast<bf16*>(p.mid) + ((long long)e * p.C + row) * p.F;
+      constexpr int tiles = gated ? NT / 2 : NT;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * Sh::kWM + i * 16 + g + 8 * h;
-      if (row >= p.C) continue;
-      if constexpr (PASS == 1) {
-        bf16* mrow = static_cast<bf16*>(p.mid) + ((long long)e * p.C + row) * p.F;
-        constexpr int tiles = gated ? NT / 2 : NT;
+      for (int j = 0; j < tiles; ++j) {
+        const int col = n0 + brow(j) + 2 * t4;   // gated: w1 row == output column
+        if (col >= N) continue;
+        constexpr int du = gated ? NT / 2 : 0;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(
+            mid_value(gated, acc[j][2 * h], acc[j + du][2 * h]),
+            mid_value(gated, acc[j][2 * h + 1], acc[j + du][2 * h + 1]));
+        *reinterpret_cast<__nv_bfloat162*>(mrow + col) = v;   // N even: col + 1 < N
+      }
+    } else {
 #pragma unroll
-        for (int j = 0; j < tiles; ++j) {
-          const int col = n0 + brow(j) + 2 * t4;   // gated: w1 row == output column
-          if (col >= N) continue;
-          constexpr int du = gated ? NT / 2 : 0;
-          const __nv_bfloat162 v = __floats2bfloat162_rn(
-              mid_value(gated, acc[i][j][2 * h], acc[i][j + du][2 * h]),
-              mid_value(gated, acc[i][j][2 * h + 1], acc[i][j + du][2 * h + 1]));
-          *reinterpret_cast<__nv_bfloat162*>(mrow + col) = v;   // N even: col + 1 < N
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = n0 + brow(j) + 2 * t4;
-          if (col < N) out_pair(p, e, row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + brow(j) + 2 * t4;
+        if (col < N) out_pair(p, e, row, col, acc[j][2 * h], acc[j][2 * h + 1]);
       }
     }
+  }
 }
 
-template <int BM, int WARPS_M, int PASS, bool GATED>
+template <int PASS, bool GATED>
 cudaError_t launch_tc(const MoeFfnParams& p, cudaStream_t stream) {
-  constexpr int bytes = TcShape<BM, WARPS_M>::kSmemBytes;
   static bool raised = false;   // more than 48 KB of shared memory is opt-in, once a kernel
   if (!raised) {
-    const cudaError_t rc = cudaFuncSetAttribute(moe_gemm_tc<BM, WARPS_M, PASS, GATED>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                bytes);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        moe_gemm_tc<PASS, GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
     if (rc != cudaSuccess) return rc;
     raised = true;
   }
   constexpr int out_cols = GATED ? kBRows / 2 : kBRows;
   const int N = PASS == 1 ? p.F : p.H;
-  const dim3 grid((N + out_cols - 1) / out_cols, (p.C + BM - 1) / BM, p.E);
-  moe_gemm_tc<BM, WARPS_M, PASS, GATED><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid((N + out_cols - 1) / out_cols, (p.C + kBM - 1) / kBM, p.E);
+  moe_gemm_tc<PASS, GATED><<<grid, kThreads, kTcSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int BM, int WARPS_M, int PASS>
+template <int PASS>
 cudaError_t launch_tc_act(const MoeFfnParams& p, cudaStream_t stream) {
   if constexpr (PASS == 1) {
-    if (p.gated) return launch_tc<BM, WARPS_M, PASS, true>(p, stream);
+    if (p.gated) return launch_tc<PASS, true>(p, stream);
   }
-  return launch_tc<BM, WARPS_M, PASS, false>(p, stream);
+  return launch_tc<PASS, false>(p, stream);
 }
 
 // ---- bf16 wave form: wgmma fed by TMA ---------------------------------------------
@@ -416,9 +400,10 @@ __device__ __forceinline__ int wave_chunk(const MoeFfnParams& p, const char* sba
 
 // PASS 1: A = x [E * C, H] rows of slots, B = w1 (and w3) [E * F, H] rows ->
 // mid. PASS 2: A = mid [E * C, F], B = w2 [E * H, F] -> y or out. The block
-// is (column tile, expert); p.rows[e] bounds the expert's filled slots, so
-// the block walks ceil(rows / 64) row tiles and no empty one. Staged B
-// rows: gated, w1 rows n0 .. n0 + 31, w3's same rows, w1 n0 + 32 .. + 63,
+// is (column tile, expert). It first finds one past the expert's last
+// filled slot in src (slots fill from 0, so every slot below it is filled)
+// and walks the row tiles below it: every filled tile, and no empty one.
+// Staged B rows: gated, w1 rows n0 .. n0 + 31, w3's same rows, w1 n0 + 32 .. + 63,
 // w3's same, so consumer warpgroup c's 64 rows (64 c ..) are w1 and w3 of
 // the 32 columns n0 + 32 c ..; otherwise rows n0 .. n0 + 127 in order.
 template <int PASS, bool GATED>
@@ -433,10 +418,14 @@ moe_wave(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtenso
   constexpr int out_cols = GATED ? kWaveBRows / 2 : kWaveBRows;
   const int e = blockIdx.y, n0 = blockIdx.x * out_cols;
   const int K = PASS == 1 ? p.H : p.F, N = PASS == 1 ? p.F : p.H;
-  const int tiles = (p.rows[e] + 63) / 64;   // row tiles holding the expert's filled slots
-  const int chunks = (tiles + kWaveRowTiles - 1) / kWaveRowTiles;
   const int ktiles = (K + kWaveK - 1) / kWaveK;
 
+  __shared__ int warp_rows[kWaveThreads / 32];
+  int rows = 0;   // one past the last filled slot of the expert that the thread reads
+  for (int r = threadIdx.x; r < p.C; r += kWaveThreads)
+    if (p.src[(long long)e * p.C + r] > 0) rows = r + 1;
+  rows = __reduce_max_sync(0xffffffffu, rows);
+  if (threadIdx.x % 32 == 0) warp_rows[threadIdx.x / 32] = rows;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWaveStages; ++s) {
       bar_init(&full[s], 1);
@@ -445,6 +434,9 @@ moe_wave(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtenso
     bar_init_fence();
   }
   __syncthreads();
+  for (int w = 0; w < kWaveThreads / 32; ++w) rows = max(rows, warp_rows[w]);
+  const int tiles = (rows + 63) / 64;   // row tiles holding the expert's filled slots
+  const int chunks = (tiles + kWaveRowTiles - 1) / kWaveRowTiles;
 
   const int wg = threadIdx.x / 128;
   if (wg == kWaveConsumers) {
@@ -628,16 +620,14 @@ cudaError_t launch_f32(const MoeFfnParams& p, cudaStream_t stream) {
 template <int PASS>
 cudaError_t launch_pass(const MoeFfnParams& p, cudaStream_t stream) {
   if (!p.bf16) return launch_f32<PASS>(p, stream);
-  return p.C <= 16 ? launch_tc_act<16, 1, PASS>(p, stream) : launch_wave_act<PASS>(p, stream);
+  return p.C <= kBM ? launch_tc_act<PASS>(p, stream) : launch_wave_act<PASS>(p, stream);
 }
 
 }  // namespace
 
 // The grouped FFN with its epilogue; returns the cudaError_t. The caller has
-// checked the shapes (bf16: H % 8 == 0 and F % 8 == 0; above 16 slots an
-// expert x, mid and the weights 16-byte aligned), allocated mid and y
-// (split), zeroed out (fused) and, in bf16 above 16 slots an expert, given
-// rows.
+// checked the shapes (bf16: H % 8 == 0 and F % 8 == 0, x and the weights
+// 16-byte aligned), allocated mid and y (split) and zeroed out (fused).
 extern "C" int dstt_moe_ffn(MoeFfnParams p, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (p.E == 0 || p.C == 0 || p.H == 0) return cudaSuccess;

@@ -46,8 +46,7 @@
 //   placed in the mantissa of 2^23 (prmt) and 2^23 + 128 subtracted, two
 //   such floats packed into a bf16 pair; exact.
 // - The products are wgmma m64nNPk16 with A from registers and x^T from
-//   the swizzled tile (or mma.sync m16n8k16 with the same fragments:
-//   kWoqWgmma, a sweep point). The block's scales come first, in one TMA
+//   the swizzled tile. The block's scales come first, in one TMA
 //   copy into shared memory (a load from HBM under the weight stream takes
 //   longer than a group's products), and a group's partial product is
 //   scaled when the group ends.
@@ -217,17 +216,11 @@ __global__ void __launch_bounds__(kThreads, 2) woq_matmul_kernel(const WoqParams
 
 typedef __nv_bfloat16 bf16;
 
-// The products' instruction, a sweep point (kernel_ab.py: a copy of this
-// directory with it flipped against this one): wgmma with the converted
-// weights as A from registers, or mma.sync m16n8k16 with the same
-// fragments. Both read x from the same swizzled tile and give the
-// accumulator the same layout.
-constexpr bool kWoqWgmma = true;
 constexpr int kTcCols = 256;                        // output columns a block: two slabs of 128
 constexpr int kTcRows = 128;                        // rows of q (of K) a stage
 constexpr int kQRegion = kTcRows * 128;             // a 128-column slab of a q stage
 constexpr int kSmemMax = 232448;                    // shared memory a block may use
-constexpr int kTcMaxStages = 3;                     // a sweep point, as kWoqWgmma
+constexpr int kTcMaxStages = 3;                     // a sweep point (kernel_ab.py)
 constexpr int kTcMaxGroups = 64;                    // groups a split (woq_matmul.py)
 
 constexpr int kTcThreads = 128 * 2 + 32;            // a consumer warpgroup a slab, a producer warp
@@ -253,16 +246,6 @@ struct TcShape {
 };
 static_assert(TcShape<64>::stages(kTcMaxGroups) >= 2, "a ring of two stages at the most groups");
 
-[[maybe_unused]] __device__ __forceinline__ void mma16816(float& c0, float& c1, float& c2,
-                                                          float& c3, const uint32_t (&a)[4],
-                                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Byte j of w (an int8 biased by 128) as a float, exactly.
 template <int j>
 __device__ __forceinline__ float biased_byte(uint32_t w) {
@@ -285,41 +268,24 @@ __device__ __forceinline__ uint32_t ld_swz(const char* region, int r, int c) {
 
 // part += the 16-row step kk of a stage: A from the converted weights (a[j]
 // for the two 64-row tiles of the warpgroup), B = x^T from the stage's x
-// tile (rows of x as N, K-major). wgmma is issued here and completed by
-// tc_finish; mma.sync completes here.
+// tile (rows of x as N, K-major). Issued here, completed by tc_finish.
 template <int NP>
 __device__ __forceinline__ void tc_issue(float (&part)[2][NP / 2], uint32_t (&a)[2][4],
-                                         const char* xs, int kk, int g, int t) {
+                                         const char* xs, int kk) {
   using namespace hopper;
-  if constexpr (kWoqWgmma) {
-    const uint64_t db = desc_k<128>(xs, NP, 0, kk);
-    wg_fence();
-    mma_rs<NP>(part[0], a[0], db);
-    mma_rs<NP>(part[1], a[1], db);
-    wg_commit();
-  } else {
-    // column k of the stage's x tile: region k / 64, byte 2 (k % 64) of the row
-    const char* xr = xs + (kk >> 2) * NP * 128;
-    const int c = (kk & 3) * 32 + 4 * t;
-#pragma unroll
-    for (int i = 0; i < NP / 8; ++i) {
-      const uint32_t b0 = ld_swz(xr, 8 * i + g, c), b1 = ld_swz(xr, 8 * i + g, c + 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        mma16816(part[j][4 * i], part[j][4 * i + 1], part[j][4 * i + 2], part[j][4 * i + 3],
-                 a[j], b0, b1);
-    }
-  }
+  const uint64_t db = desc_k<128>(xs, NP, 0, kk);
+  wg_fence();
+  mma_rs<NP>(part[0], a[0], db);
+  mma_rs<NP>(part[1], a[1], db);
+  wg_commit();
 }
 template <int NP>
 __device__ __forceinline__ void tc_finish(float (&part)[2][NP / 2], uint32_t (&a)[2][4]) {
   using namespace hopper;
-  if constexpr (kWoqWgmma) {
-    wg_wait<0>();
-    hold(part[0]);
-    hold(part[1]);
-    hold(a);
-  }
+  wg_wait<0>();
+  hold(part[0]);
+  hold(part[1]);
+  hold(a);
 }
 
 // The weight columns are wgmma's M and the rows of x its N (swap-AB):
@@ -424,7 +390,7 @@ woq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CU
                               bf16_pair<0>(w[2], w[3]), bf16_pair<1>(w[2], w[3])},
                              {bf16_pair<2>(w[0], w[1]), bf16_pair<3>(w[0], w[1]),
                               bf16_pair<2>(w[2], w[3]), bf16_pair<3>(w[2], w[3])}};
-        tc_issue<NP>(part, af, xs, kk, g, t);
+        tc_issue<NP>(part, af, xs, kk);
         if (kk + 1 < steps) words(kk + 1);   // the next step's loads under the products
         tc_finish<NP>(part, af);
         if (++step == group_steps) {   // the group is complete: scale its partial product

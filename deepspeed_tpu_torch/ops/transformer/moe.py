@@ -52,10 +52,9 @@ fp32. Rows of ``y`` whose slot is empty are zeros in the kernel and in the
 plain version (the kernel skips empty capacity tiles; dropless serving
 fills ``k * T`` of the ``E * T`` slots). The fused and split forms give the
 same bits: each output element is 0 plus at most two products, added in
-either order. Above ``DECODE_MAX_SLOTS`` slots an expert, bf16 takes the
-kernel's wave form, which walks, for each expert, the row tiles below
-``expert_rows`` (every filled slot lies there) under one stream of each
-block's weight rows.
+either order. Above 16 slots an expert, bf16 takes the kernel's wave form,
+which counts each expert's filled slots in ``src`` and walks the row tiles
+that hold them under one stream of each block's weight rows.
 
 Not served, as the JAX kernel serves neither (``moe_kernel_supported``):
 top_k > 2, fp16 (whose pad rows the XLA path masks) and activations other
@@ -85,10 +84,6 @@ MAX_EXPERTS = 64    # the route kernel's (csrc/moe_route.cu: kMaxE)
 #: count swept, 8 to 4096, the two forms are within 2% of each other.
 MOE_FUSED_COMBINE_MAX_TOKENS = 256
 _LATER = "ROADMAP A7: MoE top_k > 2, fp16 and other activations"
-#: slots an expert up to which bf16 takes the kernel's decode form
-#: (``csrc/moe_ffn.cu`` ``launch_pass``); above, the wave form
-DECODE_MAX_SLOTS = 16
-WAVE_ROW_TILE = 64   # slot rows a tile of the wave form (csrc/moe_ffn.cu)
 
 launches = {"moe_route": 0, "moe_dispatch_gather": 0, "moe_dispatch_gather_int8": 0,
             "moe_ffn_combine": 0, "moe_ffn": 0, "moe_combine": 0}
@@ -183,16 +178,6 @@ def moe_ffn_combine_reference(payload, wi_gate, wi_up, wo, src, slot_w,
     return out
 
 
-def expert_rows(src: torch.Tensor, E: int, C: int) -> torch.Tensor:
-    """``rows [E]`` int32: one past the last filled slot of each expert (0
-    for an expert without one), so slots ``[0, rows[e])`` hold every filled
-    slot of expert ``e``. The wave form of the FFN kernel walks the row
-    tiles of ``WAVE_ROW_TILE`` slots below it; the route fills an expert's
-    slots from 0, so ``rows`` is its count of filled slots."""
-    pos = torch.arange(1, C + 1, dtype=torch.int32, device=src.device)
-    return torch.where(src.view(E, C) > 0, pos, 0).amax(dim=1)
-
-
 def moe_combine_reference(y: torch.Tensor, slot_tk: torch.Tensor,
                           w_tk: torch.Tensor) -> torch.Tensor:
     """``out[t] = 0 + w_tk[t, 0] * y[slot_tk[t, 0]] + ...`` in fp32, k in order."""
@@ -220,8 +205,7 @@ class MoeFfnParams(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("x", "w1", "w3", "w2", "mid", "src", "slot_w", "y", "out")]
                 + [(n, ctypes.c_int) for n in
-                   ("E", "C", "H", "F", "T", "gated", "bf16", "fused")]
-                + [("rows", ctypes.c_void_p)])
+                   ("E", "C", "H", "F", "T", "gated", "bf16", "fused")])
 
 
 def bind_route(lib: ctypes.CDLL):
@@ -339,16 +323,14 @@ def _ffn_cuda(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens: int, activatio
     for name, t in operands:
         _need(name, t, dt, dev)
     _need("src", src, torch.int32, dev)
-    if dt == torch.bfloat16 and (H % 8 or Fd % 8):
-        raise NotImplementedError(f"the bf16 expert FFN reads 16-byte chunks: H {H} and "
-                                  f"F {Fd} must be multiples of 8")
-    rows = None
-    if dt == torch.bfloat16 and C > DECODE_MAX_SLOTS:   # the wave form: TMA reads these
+    if dt == torch.bfloat16:
+        if H % 8 or Fd % 8:
+            raise NotImplementedError(f"the bf16 expert FFN reads 16-byte chunks: H {H} and "
+                                      f"F {Fd} must be multiples of 8")
         for name, t in operands:
             if t.data_ptr() % 16:
-                raise ValueError(f"{name}: the wave form reads it through TMA, which needs "
-                                 f"a 16-byte aligned start")
-        rows = expert_rows(src, E, C)
+                raise ValueError(f"{name}: the bf16 expert FFN reads it in 16-byte chunks "
+                                 f"(cp.async, TMA), which need a 16-byte aligned start")
     mid = torch.empty(E, C, Fd, dtype=dt, device=dev)
     if fused:
         _need("slot_w", slot_w, torch.float32, dev)
@@ -360,7 +342,6 @@ def _ffn_cuda(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens: int, activatio
                      mid=mid.data_ptr(), src=src.data_ptr(),
                      slot_w=slot_w.data_ptr() if fused else None,
                      y=None if fused else res.data_ptr(), out=res.data_ptr() if fused else None,
-                     rows=rows.data_ptr() if rows is not None else None,
                      E=E, C=C, H=H, F=Fd, T=n_tokens, gated=int(gated),
                      bf16=int(dt == torch.bfloat16), fused=int(fused))
     name = "moe_ffn_combine" if fused else "moe_ffn"

@@ -33,7 +33,8 @@ holds each ``csrc`` (``ops/quantizer/woq_matmul.py``,
 passes its kernel; a ``csrc`` alone is driven through the checkout's.
 The SASS of every kernel that both builds hold is compared first, names
 and whitespace aside (``cuobjdump``), so a change that leaves a kernel
-alone shows as identical code. Exits non-zero without a GPU or when a
+alone shows as identical code; a kernel of A that B names otherwise is
+matched to a B kernel with the same code, if one has it. Exits non-zero without a GPU or when a
 version disagrees with the plain versions.
 """
 
@@ -164,6 +165,10 @@ def main():
         for name in sorted(set(fa) & set(fb)):
             print(f"[ab] {lib_name} SASS {name[:80]}: "
                   f"{'identical' if fa[name] == fb[name] else 'differs'} in A and B", flush=True)
+        for name in sorted(set(fa) - set(fb)):   # renamed, e.g. a template parameter gone
+            same = [n for n in sorted(set(fb) - set(fa)) if fb[n] == fa[name]]
+            print(f"[ab] {lib_name} SASS {name[:80]}: only in A"
+                  + (f"; identical to B's {same[0][:80]}" if same else ""), flush=True)
 
     def use(tag):
         rpa._kernel = lambda: versions[tag][0]

@@ -143,22 +143,24 @@ def test_route_dead_experts_and_overflow():
                                          (257, 8, None, 3), (300, 8, 1.0, None),
                                          (100, 6, 1.25, 0), (1030, 8, None, 5)])
 def test_wave_tiles_name_every_filled_tile_once(t, e, cf, dead):
-    """The FFN kernel's wave form walks, for each expert and column tile, the
-    row tiles of ``WAVE_ROW_TILE`` slots below ``expert_rows``: that names
-    every (expert, row tile, column tile) holding a filled slot once and no
-    empty one, with a dead expert, capacity-dropped routes, and more than
-    the 256 rows one weight stream covers."""
+    """The FFN kernel's wave form (``csrc/moe_ffn.cu`` ``moe_wave``, above 16
+    slots an expert) has each (column tile, expert) block find one past the
+    expert's last filled slot in ``src`` and walk the 64-slot row tiles
+    below it. On the route's ``src`` that names every (expert, row tile,
+    column tile) holding a filled slot once and no empty one, with a dead
+    expert, capacity-dropped routes, and more than the 256 rows one weight
+    stream covers."""
     logits = _logits(seed=7, t=t, e=e)
     if dead is not None:
         logits[:, dead] = -100.0
     cap = capacity(t, e, cf if cf else float(e), 4 if cf else 1)
     src = moe.moe_route(torch.from_numpy(logits), top_k=2, capacity=cap)[0]
-    rows = moe.expert_rows(src, e, cap)
-    assert rows.dtype == torch.int32 and rows.shape == (e,)
-    tile, col_tiles = moe.WAVE_ROW_TILE, 3
+    slots = src.view(e, cap) > 0
+    pos = torch.arange(1, cap + 1)
+    rows = torch.where(slots, pos, 0).amax(dim=1)   # the kernel's count, block by block
+    tile, col_tiles = 64, 3
     walked = [(x, r, c) for x in range(e) for r in range(-(-int(rows[x]) // tile))
               for c in range(col_tiles)]
-    slots = src.view(e, cap) > 0
     filled = {(x, r, c) for x in range(e) for r in range(-(-cap // tile))
               for c in range(col_tiles) if bool(slots[x, r * tile:(r + 1) * tile].any())}
     assert len(walked) == len(set(walked)) and set(walked) == filled
@@ -167,7 +169,7 @@ def test_wave_tiles_name_every_filled_tile_once(t, e, cf, dead):
         assert int(rows[dead]) == 0
     if cf is not None:
         assert int(slots.sum()) < 2 * t          # choices were dropped
-    assert cap > moe.DECODE_MAX_SLOTS             # the kernel takes its wave form here
+    assert cap > 16                               # the kernel takes its wave form here
 
 
 def test_route_ties_pick_the_lowest_index():
