@@ -13,8 +13,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. serving kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, bf16 and fp32, at llama2-7b shapes
    (prefill, mixed and decode waves from the port's own wave builder) and
-   at GQA shapes, with its time, the plain version's time and the card's
-   lower bound for the same work;
+   at GQA shapes, with shuffled block tables, chunks about the 64-row
+   query tile's edges, a 40-sequence decode wave, a page size the
+   tensor-core wave kernel does not take, decode contexts of 1 to 4133
+   keys; two runs bit-identical, the wave's padding rows zero; with its
+   time, the plain version's time and the card's lower bound for the same
+   work, and at the main shapes the time after a clean L2 flush and, as
+   context, ``scaled_dot_product_attention`` over the same K/V gathered
+   into contiguous tensors;
 4. training kernels vs plain (TF32 off for matmuls and cuDNN): flash
    forward, dQ and dK/dV in bf16 and fp32 at the training shape
    (tinyllama-1.1b: S 2048, 32 heads, 4 kv heads, head_dim 64), at the
@@ -41,7 +47,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. serving: llama2-7b at full width and depth, random bf16 weights from a
    seed, served through ``build_engine`` + ``generate`` (8 prompts, chunked
    prefill, mixed waves and decode bursts); the launch counters must show
-   that the path ran through both kernels, every request must get its
+   that the path ran through both kernels (every ragged launch in the
+   tensor-core form), every request must get its
    tokens, and one prompt's prefill logits must match the plain
    full-sequence ``TransformerLM.forward``; a second engine over the same
    weights with a small pool must preempt, offload to host memory and
@@ -147,9 +154,12 @@ PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_NEW_TOKENS, PREEMPT_BLOCKS = 4, 64, 64
 SPIN_CYCLES = 400_000_000  # ~0.2 s of device spin behind each timing loop
 PLAIN_SPIN = 10 * SPIN_CYCLES  # the plain versions enqueue hundreds of ops a call
 PAGE_SIZE = 16
-# kernel cases at llama2-7b shapes (kvH 32, g 1, D 128) and GQA shapes
+# kernel cases at llama2-7b shapes (kvH 32, g 1, D 128) and GQA shapes; an
+# optional last element {"shuffle": True} draws each sequence's pages from a
+# seeded permutation of the pool (else consecutive pages), {"ps": n} sets
+# another page size
 WAVE_CASES = {
-    # name: (seqs [(q_len, seen)], kvH, g, D)
+    # name: (seqs [(q_len, seen)], kvH, g, D[, options])
     "prefill-2x256": ([(256, 0), (256, 0)], 32, 1, 128),
     "prefill-chunked": ([(256, 256), (44, 256), (256, 0)], 32, 1, 128),
     "mixed": ([(1, 543), (1, 416), (1, 331), (256, 256), (77, 0), (5, 11)], 32, 1, 128),
@@ -157,13 +167,27 @@ WAVE_CASES = {
     "straddle": ([(6, 3), (5, 4), (9, 0), (1, 7), (20, 13)], 32, 1, 128),
     "gqa-g4-d128": ([(1, 543), (256, 256), (77, 0), (6, 3)], 8, 4, 128),
     "gqa-g8-d64": ([(1, 543), (256, 256), (77, 0), (6, 3)], 4, 8, 64),
+    # shuffled block tables; chunks about the 64-row query tile's edges
+    # (64 / g tokens: 64 at g 1, 16 at g 4); a wave of 40 decode atoms of
+    # different sequences; a page size the tensor-core kernel does not take
+    "shuffled": ([(256, 0), (1, 543), (77, 0), (44, 256), (1, 17)], 32, 1, 128,
+                 {"shuffle": True}),
+    "tile-edges-g1": ([(63, 0), (64, 0), (65, 17), (129, 64)], 32, 1, 128, {"shuffle": True}),
+    "tile-edges-g4": ([(15, 0), (16, 3), (17, 0), (33, 16)], 8, 4, 128, {"shuffle": True}),
+    "decode-40": ([(1, 17 + 29 * i) for i in range(40)], 32, 1, 128, {"shuffle": True}),
+    "page-8-cuda-cores": ([(256, 0), (1, 300), (20, 5)], 32, 1, 128, {"ps": 8}),
 }
 DECODE_CASES = {
-    # name: (context lengths, kvH, g, D)
+    # name: (context lengths, kvH, g, D[, options])
     "decode-8-first-burst": ([513, 385, 301, 201, 131, 78, 34, 18], 32, 1, 128),
     "decode-8-straddle": ([1, 15, 16, 17, 33, 100, 257, 1000], 32, 1, 128),
     "gqa-g4-d128": ([513, 385, 301, 201, 131, 78, 34, 18], 8, 4, 128),
     "gqa-g8-d64": ([513, 385, 301, 201, 131, 78, 34, 18], 4, 8, 64),
+    # shuffled block tables; a context of 4096+ keys beside short ones (the
+    # split count and the balance), contexts of 1, 16 and 17
+    "shuffled": ([513, 385, 301, 201, 131, 78, 34, 18], 32, 1, 128, {"shuffle": True}),
+    "long-4133": ([4133, 1, 16, 17, 513, 64, 65, 2000], 32, 1, 128, {"shuffle": True}),
+    "gqa-g4-long": ([4133, 1, 16, 17], 8, 4, 128, {"shuffle": True}),
 }
 MAIN_WAVE = "prefill-2x256"          # the shape of the engine run's first wave
 MAIN_DECODE = "decode-8-first-burst"  # the engine run's first burst step
@@ -409,18 +433,29 @@ def as_fp32(args):
     return tuple(a.float() if a.is_floating_point() else a for a in args)
 
 
-def wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D, ps, gen):
+def page_lists(torch, counts, shuffle, seed=0):
+    """Disjoint pages of the pool for sequences of ``counts`` pages, page 0
+    left out (the null block): consecutive, or with ``shuffle`` drawn from a
+    seeded permutation. Returns (lists, pages in the pool)."""
+    total = sum(counts)
+    order = (torch.randperm(total, generator=torch.Generator().manual_seed(seed)) + 1
+             if shuffle else torch.arange(1, total + 1)).tolist()
+    lists, at = [], 0
+    for n in counts:
+        lists.append(order[at:at + n])
+        at += n
+    return lists, total + 2
+
+
+def wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D, ps, gen, shuffle=False):
     """Inputs of one ragged wave: seqs [(q_len, seen)], disjoint pages per
     sequence, descriptors from the port's wave builder."""
-    entries, nxt = [], 1
-    for uid, (q_len, seen) in enumerate(seqs):
-        nb = -(-(seen + q_len) // ps)
-        entries.append(WaveEntry(uid, [0] * q_len, seen, list(range(nxt, nxt + nb))))
-        nxt += nb
+    tables, P = page_lists(torch, [-(-(seen + q_len) // ps) for q_len, seen in seqs], shuffle)
+    entries = [WaveEntry(uid, [0] * q_len, seen, tables[uid])
+               for uid, (q_len, seen) in enumerate(seqs)]
     desc = build_wave(entries, block_q=8, block_size=ps)
     dev, bf16 = "cuda", torch.bfloat16
     H = kvH * g
-    P = nxt + 1
     k = torch.randn(kvH, P, ps, D, generator=gen, device=dev).to(bf16)
     v = torch.randn(kvH, P, ps, D, generator=gen, device=dev).to(bf16)
     q = torch.randn(len(desc.tokens), H, D, generator=gen, device=dev).to(bf16)
@@ -435,17 +470,14 @@ def wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D, ps, gen):
     return args, n, nbytes, flops
 
 
-def decode_case(torch, ctxs, kvH, g, D, ps, gen):
+def decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle=False):
     dev, bf16 = "cuda", torch.bfloat16
     mp = max(-(-c // ps) for c in ctxs)
-    tables, nxt = [], 1
-    for c in ctxs:
-        nb = -(-c // ps)
-        tables.append(list(range(nxt, nxt + nb)) + [0] * (mp - nb))
-        nxt += nb
+    lists, P = page_lists(torch, [-(-c // ps) for c in ctxs], shuffle)
+    tables = [pages + [0] * (mp - len(pages)) for pages in lists]
     H = kvH * g
-    k = torch.randn(kvH, nxt, ps, D, generator=gen, device=dev).to(bf16)
-    v = torch.randn(kvH, nxt, ps, D, generator=gen, device=dev).to(bf16)
+    k = torch.randn(kvH, P, ps, D, generator=gen, device=dev).to(bf16)
+    v = torch.randn(kvH, P, ps, D, generator=gen, device=dev).to(bf16)
     q = torch.randn(len(ctxs), H, D, generator=gen, device=dev).to(bf16)
     ctx = torch.tensor(ctxs, dtype=torch.int32, device=dev)
     tab = torch.tensor(tables, dtype=torch.int32, device=dev)
@@ -453,6 +485,37 @@ def decode_case(torch, ctxs, kvH, g, D, ps, gen):
         + 4 * (len(ctxs) + len(ctxs) * mp)
     flops = 4 * sum(ctxs) * H * D
     return (q, k, v, ctx, tab), nbytes, flops
+
+
+def case_options(case):
+    """(seqs or contexts, kvH, g, D, page size, shuffle) of a WAVE_CASES or
+    DECODE_CASES entry."""
+    first, kvH, g, D, *opt = case
+    opt = opt[0] if opt else {}
+    return first, kvH, g, D, opt.get("ps", PAGE_SIZE), opt.get("shuffle", False)
+
+
+def sdpa_context_ms(torch, flush, q, k_pages, v_pages, tables, q_lens, ctxs):
+    """Device ms of one ``scaled_dot_product_attention`` over the same
+    attention with the K/V pages gathered into contiguous [B, kvH, C, D]
+    tensors first (the gather not timed): causal from the bottom right for
+    a wave of B equal fresh chunks (q [B * T, H, D]), a key mask by context
+    for a decode batch (q [B, H, D]). A context time, not the same
+    function: it needs its K/V contiguous."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import _gather_pages
+    B, T = len(ctxs), q_lens[0]
+    C = max(ctxs)
+    k = _gather_pages(k_pages, tables)[:, :, :C].contiguous()
+    v = _gather_pages(v_pages, tables)[:, :, :C].contiguous()
+    qs = q[:B * T].view(B, T, q.shape[1], q.shape[2]).transpose(1, 2).contiguous()
+    if T > 1:
+        fn = lambda: F.scaled_dot_product_attention(qs, k, v, is_causal=True)
+    else:
+        mask = (torch.arange(C, device=q.device)[None, :] <
+                torch.as_tensor(ctxs, device=q.device)[:, None])[:, None, None, :]
+        fn = lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask)
+    return device_ms(torch, fn, 20, flush)[0]
 
 
 def preemption_smoke(torch, build_engine, generate, config, model, seed=2):
@@ -498,7 +561,10 @@ def profile_generate(torch, generate, engine, prompts, wall):
           f"generate's {wall * 1e3:.1f} ms wall: busy share "
           f"{busy_ms / (wall * 1e3):.3f}, idle share "
           f"{1 - busy_ms / (wall * 1e3):.3f}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the twelve longest, and the two paged-attention kernels wherever they rank
+    paged = ("wave_wgmma", "ragged_wave_kernel", "decode_split")
+    for e in ranked[:12] + [e for e in ranked[12:] if any(n in e.key for n in paged)]:
         ms = e.self_device_time_total / 1e3
         print(f"[profile]   {ms:9.2f} ms {ms / busy_ms:6.1%} x{e.count:6d} "
               f"{e.key[:90]}", flush=True)
@@ -1267,13 +1333,20 @@ def serving_kernels_vs_plain(torch, gen, flush):
         paged_decode_attention_reference
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
     rows = {}
-    for name, (seqs, kvH, g, D) in WAVE_CASES.items():
-        args, n, nbytes, flops = wave_case(torch, build_wave, WaveEntry, seqs,
-                                           kvH, g, D, PAGE_SIZE, gen)
-        got = rpa.ragged_paged_attention(*args)
+    for name, case in WAVE_CASES.items():
+        seqs, kvH, g, D, ps, shuffle = case_options(case)
+        args, n, nbytes, flops = wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
+                                           ps, gen, shuffle)
+        before = dict(rpa.form_launches)
+        got, again = rpa.ragged_paged_attention(*args), rpa.ragged_paged_attention(*args)
+        form = [f for f, c in rpa.form_launches.items() if c > before[f]]
         want = rpa.ragged_paged_attention_reference(*args)
         torch.cuda.synchronize()
         err = check_close(f"ragged/{name}", got[:n], want[:n])
+        if not torch.equal(got, again):
+            fail(f"ragged/{name}: two runs differ")
+        if bool(got[n:].ne(0).any()):
+            fail(f"ragged/{name}: stream padding rows are not zero")
         f32 = as_fp32(args)
         err32 = check_close(f"ragged/{name} fp32", rpa.ragged_paged_attention(*f32)[:n],
                             rpa.ragged_paged_attention_reference(*f32)[:n], FP32_TOL)
@@ -1283,18 +1356,30 @@ def serving_kernels_vs_plain(torch, gen, flush):
         b_ms, b_by = bound(nbytes, flops, args[0].dtype)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                           bound_by=b_by)
-        print(f"[ragged] {name}: tokens {n} max_abs_err {err:.3e} (fp32 "
-              f"{err32:.3e}) kernel_ms {ms:.4f} "
-              f"plain_ms {plain:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms null "
-              f"wrapper_host_ms {host:.4f}",
-              flush=True)
+        context = ""
+        if name == MAIN_WAVE:
+            first_atoms = [sum(-(-q // 8) for q, _ in seqs[:i]) for i in range(len(seqs))]
+            cms = sdpa_context_ms(torch, flush, args[0], args[1], args[2],
+                                  args[4][first_atoms], [q for q, _ in seqs],
+                                  [q + s_ for q, s_ in seqs])
+            clean = device_ms(torch, lambda: rpa.ragged_paged_attention(*args), 20, flush,
+                              clean=True)[0]
+            context = (f" after a clean L2 flush {clean:.4f} ms; context: SDPA over the "
+                       f"gathered K/V {cms:.4f} ms (gather not timed)")
+        print(f"[ragged] {name}: tokens {n} ({'/'.join(form)}) max_abs_err {err:.3e} (fp32 "
+              f"{err32:.3e}), two runs bit-identical; kernel_ms {ms:.4f} "
+              f"plain_ms {plain:.4f} bound_ms {b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}% "
+              f"of it) library_ms null wrapper_host_ms {host:.4f}{context}", flush=True)
     drows = {}
-    for name, (ctxs, kvH, g, D) in DECODE_CASES.items():
-        args, nbytes, flops = decode_case(torch, ctxs, kvH, g, D, PAGE_SIZE, gen)
-        got = pdk.paged_gqa_decode(*args)
+    for name, case in DECODE_CASES.items():
+        ctxs, kvH, g, D, ps, shuffle = case_options(case)
+        args, nbytes, flops = decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle)
+        got, again = pdk.paged_gqa_decode(*args), pdk.paged_gqa_decode(*args)
         want = paged_decode_attention_reference(*args)
         torch.cuda.synchronize()
         err = check_close(f"decode/{name}", got, want)
+        if not torch.equal(got, again):
+            fail(f"decode/{name}: two runs differ")
         f32 = as_fp32(args)
         err32 = check_close(f"decode/{name} fp32", pdk.paged_gqa_decode(*f32),
                             paged_decode_attention_reference(*f32), FP32_TOL)
@@ -1304,13 +1389,22 @@ def serving_kernels_vs_plain(torch, gen, flush):
         b_ms, b_by = bound(nbytes, flops, args[0].dtype)
         drows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by)
-        print(f"[decode] {name}: max_abs_err {err:.3e} (fp32 {err32:.3e}) "
-              f"kernel_ms {ms:.4f} "
-              f"plain_ms {plain:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms null "
-              f"wrapper_host_ms {host:.4f}",
-              flush=True)
+        context = ""
+        if name == MAIN_DECODE:
+            cms = sdpa_context_ms(torch, flush, args[0], args[1], args[2], args[4],
+                                  [1] * len(ctxs), ctxs)
+            clean = device_ms(torch, lambda: pdk.paged_gqa_decode(*args), 20, flush,
+                              clean=True)[0]
+            context = (f" after a clean L2 flush {clean:.4f} ms; context: SDPA over the "
+                       f"gathered K/V {cms:.4f} ms (gather not timed)")
+        print(f"[decode] {name}: max_abs_err {err:.3e} (fp32 {err32:.3e}), two runs "
+              f"bit-identical; splits {pdk.max_splits(args[4].shape[1], ps)} "
+              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+              f"{100 * b_ms / ms:.1f}% of it) library_ms null wrapper_host_ms "
+              f"{host:.4f}{context}", flush=True)
     print("[kernels] library_ms is null: no single PyTorch call computes "
-          "attention over a paged (block-table) KV pool")
+          "attention over a paged (block-table) KV pool; the SDPA context times "
+          "need the K/V gathered into contiguous tensors first")
     return rows, drows
 
 
@@ -1353,8 +1447,9 @@ def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
     """One ``generate`` of the 8 requests, every module of ``counters``
     (``{name: module with a launches count}``) set to 0 just before and read
     just after. Returns (prompts, wall s, wave token counts, burst steps,
-    launches); fails unless every request got its tokens and the two
-    attention kernels ran once a layer in every wave and burst step."""
+    launches); fails unless every request got its tokens, the two
+    attention kernels ran once a layer in every wave and burst step, and
+    every ragged launch took the tensor-core form (bf16, pages of 16)."""
     from deepspeed_tpu_torch.inference.v2 import generate
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32000, size=n) for n in PROMPT_LENS]
@@ -1383,12 +1478,15 @@ def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
     torch.cuda.reset_peak_memory_stats()
     for mod in counters.values():
         mod.launches = 0
+    rpa = counters["ragged_paged_attention"]
+    rpa.form_launches.update({form: 0 for form in rpa.form_launches})
     t0 = time.perf_counter()
     reqs = generate(engine, prompts, max_new_tokens=NEW_TOKENS,
                     return_requests=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    forms = dict(rpa.form_launches)
     engine._run_wave, engine.decode_burst = run_wave, run_burst
     n_tok = sum(len(r.generated) for r in reqs)
     ttft = [r.first_token_s - r.submit_s for r in reqs]
@@ -1397,7 +1495,7 @@ def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
           f"{len(waves)}, burst steps {burst_steps[0]}; TTFT mean "
           f"{sum(ttft) / len(ttft) * 1e3:.1f} ms max {max(ttft) * 1e3:.1f} ms; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; ragged launches by form {forms}", flush=True)
     print(f"[engine] host clock: waves {wave_s[0] * 1e3:.1f} ms, bursts "
           f"{burst_s[0] * 1e3:.1f} ms, scheduler and the rest "
           f"{(wall - wave_s[0] - burst_s[0]) * 1e3:.1f} ms", flush=True)
@@ -1406,6 +1504,9 @@ def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
     if launches["ragged_paged_attention"] != num_layers * len(waves) or not waves:
         fail(f"ragged launches {launches['ragged_paged_attention']} != "
              f"{num_layers} x {len(waves)} waves")
+    if forms["tensor_cores"] != launches["ragged_paged_attention"]:
+        fail(f"ragged launches by form {forms}: the serving waves (bf16, pages of "
+             f"{PAGE_SIZE}) must all take the tensor-core kernel")
     if launches["paged_decode"] != num_layers * burst_steps[0] or burst_steps[0] == 0:
         fail(f"decode launches {launches['paged_decode']} != "
              f"{num_layers} x {burst_steps[0]} burst steps")

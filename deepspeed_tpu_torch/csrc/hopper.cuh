@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's kernels (sm_90a): mbarriers, TMA
 // tile loads into swizzled shared memory, warpgroup matrix products
 // (wgmma) and the register budget of warp-specialised blocks. Used by
-// flash_fwd.cu, flash_bwd.cu, woq_matmul.cu and moe_ffn.cu.
+// flash_fwd.cu, flash_bwd.cu, woq_matmul.cu, moe_ffn.cu and
+// ragged_paged_attention.cu.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns, loaded by TMA
 // with a 128-byte swizzle (64-byte for D = 32), is stored as D / E regions
@@ -102,6 +103,17 @@ __device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map, uin
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+// Make this thread's ordinary stores to shared memory visible to the
+// asynchronous proxy (wgmma operands, TMA), before the barrier that
+// publishes them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1-15; 0 is __syncthreads) among `threads` threads of the
+// block, a multiple of 32: one warpgroup's barrier.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 // 4-byte asynchronous copy; ok false writes zero.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {

@@ -1,21 +1,26 @@
 // Shared device code of the two paged-attention kernels
-// (ragged_paged_attention.cu, paged_decode.cu).
+// (ragged_paged_attention.cu, paged_decode.cu): vector loads, the masks of
+// the TPU kernels, the query scaling both kernels fold in, and the
+// CUDA-core form of the ragged wave (attend_rows) that serves what the
+// tensor-core wave kernel does not take (fp32, page sizes its tiles do not
+// hold, head_dim other than 64 / 128, GQA groups above 64 rows).
 //
-// One thread block computes one group of query rows (all rows of one atom,
-// or of one decode sequence, that read one kv head) against the keys of its
-// block table. The TPU kernels ran a sequential grid axis over pages with
-// the online-softmax state in VMEM scratch carried from one grid step to
-// the next; blocks on the GPU run in no order, so the key axis is a loop
-// inside the block and the state lives in the block's shared memory. The
-// loop walks TILES of up to kTileKeys keys (several pages), staged in
-// shared memory with cp.async and double-buffered, so the next tile's
-// loads are in flight while this one is computed:
+// attend_rows: one thread block computes one group of query rows (the rows
+// of one atom that read one kv head) against the keys of its block table.
+// The TPU kernels ran a sequential grid axis over pages with the
+// online-softmax state in VMEM scratch carried from one grid step to the
+// next; blocks on the GPU run in no order, so the key axis is a loop inside
+// the block and the state lives in the block's shared memory. The loop
+// walks TILES of up to kTileKeys keys (several pages), staged in shared
+// memory with cp.async and double-buffered, so the next tile's loads are
+// in flight while this one is computed:
 //
 //   for each tile of keys (pages j0 .. j0 + pages_per_tile - 1):
 //     start the next tile's K/V copies; wait for this tile's
 //     s[r][c] = q[r] . k[c]     one thread per (key, RC rows): each K
-//                               element read feeds RC rows; q is pre-scaled
-//     mask    : key < kv_len, and for the ragged wave key <= kv_len - q_len + t
+//                               element read feeds RC rows; q is scaled
+//                               and rounded to T as it is staged
+//     mask    : key < kv_len and key <= kv_len - q_len + t
 //     one warp per row: m_new = max(m, max_c s); p = exp(s - m_new);
 //                       rescale l and acc
 //     acc[r][d] += sum_c p[r][c] * v[c][d]   one thread per (2 columns,
@@ -25,7 +30,7 @@
 // The staged K/V rows are padded by kPad elements, so the 32 keys a warp
 // reads at one offset fall into distinct shared-memory banks. RC (rows a
 // thread carries) is 4 where the group has 4 or more rows, else 2 or 1,
-// chosen per block, so a decode row (g == 1) does no padded work.
+// chosen per block.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -87,17 +92,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
 }
 
-// Mask values and softmax floor of the two TPU kernels.
-struct RaggedMask {  // pallas_flash MASK_VALUE / HALF_MASK, ragged_paged_attention.py:106-137
-  static constexpr bool kCausal = true;
-  static constexpr float kMask = -0.7f * 3.4028234663852886e38f;
-  static constexpr float kFloor = 0.5f * kMask;
-};
-struct DecodeMask {  // NEG_INF, pallas_paged_decode.py:54-93 (no floor)
-  static constexpr bool kCausal = false;
-  static constexpr float kMask = -2.3819763e38f;
-  static constexpr float kFloor = -3.4028234663852886e38f;
-};
+// Mask value and softmax floor of the ragged wave: pallas_flash MASK_VALUE
+// and HALF_MASK (ragged_paged_attention.py:106-137).
+constexpr float kMask = -0.7f * 3.4028234663852886e38f;
+constexpr float kFloor = 0.5f * kMask;
+
+// q as the TPU kernels take it: scaled, then rounded to its own type
+// (bf16(float(q) * scale), the bits of torch's (q * scale).to(q.dtype)).
+template <typename T>
+__device__ __forceinline__ float scale_round(float x, float scale) {
+  return to_float(from_float<T>(x * scale));
+}
 
 __host__ __device__ inline int tile_keys(int ps) {
   return ps >= kTileKeys ? ps : (kTileKeys / ps) * ps;
@@ -122,16 +127,17 @@ __host__ __device__ inline size_t smem_bytes(int rows, int ps, int D) {
          + 4 * (size_t)tile_keys(ps) * (D + kPad) * sizeof(T);  // K, V tiles, 2 buffers
 }
 
-// Attention of `rows = q_len * g` query rows (row r = t*g + gi is query
-// token t, head kvh*g + gi) against the keys of `table`, each thread
-// carrying RC rows. q and out point at the first token of the group; token
-// t, head h is at (t*H + h)*D. Requires D % 8 == 0 and 16-byte aligned rows.
-template <typename T, typename Mask, int RC>
+// Causal attention of `rows = q_len * g` query rows (row r = t*g + gi is
+// query token t at position kv_len - q_len + t, head kvh*g + gi) against
+// the keys of `table`, each thread carrying RC rows. q (unscaled) and out
+// point at the first token of the group; token t, head h is at
+// (t*H + h)*D. Requires D % 8 == 0 and 16-byte aligned rows.
+template <typename T, int RC>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             const T* __restrict__ k_pages, const T* __restrict__ v_pages,
                             const int* __restrict__ table, int n_table, int H, int kvh,
                             int g, int P, int ps, int D, int q_len, int kv_len,
-                            unsigned char* smem_raw) {
+                            float scale, unsigned char* smem_raw) {
   const int rows = q_len * g;
   const int rp = (rows + RC - 1) / RC * RC;  // rows padded to whole chunks
   const int n_rc = rp / RC;
@@ -150,7 +156,10 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   for (int i = tid; i < rp * chunks; i += kThreads) {
     const int r = i / chunks, c8 = (i - r * chunks) * 8;
     if (r < rows) {
-      load8(q + (long)(r / g) * H * D + (long)(kvh * g + r % g) * D + c8, qs + r * D + c8);
+      float* dst = qs + r * D + c8;
+      load8(q + (long)(r / g) * H * D + (long)(kvh * g + r % g) * D + c8, dst);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = scale_round<T>(dst[e], scale);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qs[r * D + c8 + e] = 0.f;
@@ -158,7 +167,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   }
   for (int i = tid; i < rp * D; i += kThreads) acc[i] = 0.f;
   for (int r = tid; r < rp; r += kThreads) {
-    m[r] = Mask::kMask;
+    m[r] = kMask;
     l[r] = 0.f;
   }
 
@@ -224,8 +233,8 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       for (int i = 0; i < RC; ++i) {
         const int r = r0 + i;
         bool visible = c < valid;
-        if (Mask::kCausal) visible = visible && k0 + c <= kv_len - q_len + r / g;
-        s[r * TK + c] = visible ? dot[i] : Mask::kMask;
+        visible = visible && k0 + c <= kv_len - q_len + r / g;
+        s[r * TK + c] = visible ? dot[i] : kMask;
       }
     }
     __syncthreads();
@@ -233,7 +242,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     // online softmax: one warp per row
     for (int r = warp; r < rp; r += kWarps) {
       float* sr = s + r * TK;
-      float mx = Mask::kMask;
+      float mx = kMask;
       for (int c = lane; c < valid; c += 32) mx = fmaxf(mx, sr[c]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -241,7 +250,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       const float m_prev = m[r];
       const float m_next = fmaxf(m_prev, mx);
       // the floor keeps fully masked rows at p == 0 (never inf - inf)
-      const float m_safe = fmaxf(m_next, Mask::kFloor);
+      const float m_safe = fmaxf(m_next, kFloor);
       float sum = 0.f;
       for (int c = lane; c < valid; c += 32) {
         const float p = expf(sr[c] - m_safe);
@@ -253,7 +262,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
       __syncwarp();
       if (lane == 0) {
-        const float a = expf(fmaxf(m_prev, Mask::kFloor) - m_safe);
+        const float a = expf(fmaxf(m_prev, kFloor) - m_safe);
         l[r] = l[r] * a + sum;
         m[r] = m_next;
         alpha[r] = a;
@@ -300,22 +309,23 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
 }
 
 // attend_rows with the widest row chunk the group fills.
-template <typename T, typename Mask>
+template <typename T>
 __device__ void attend_pages(const T* __restrict__ q, T* __restrict__ out,
                              const T* __restrict__ k_pages, const T* __restrict__ v_pages,
                              const int* __restrict__ table, int n_table, int H, int kvh,
-                             int g, int P, int ps, int D, int q_len, int kv_len) {
+                             int g, int P, int ps, int D, int q_len, int kv_len,
+                             float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = q_len * g;
   if (rows >= 4) {
-    attend_rows<T, Mask, 4>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
-                            q_len, kv_len, smem_raw);
+    attend_rows<T, 4>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D, q_len,
+                      kv_len, scale, smem_raw);
   } else if (rows >= 2) {
-    attend_rows<T, Mask, 2>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
-                            q_len, kv_len, smem_raw);
+    attend_rows<T, 2>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D, q_len,
+                      kv_len, scale, smem_raw);
   } else {
-    attend_rows<T, Mask, 1>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
-                            q_len, kv_len, smem_raw);
+    attend_rows<T, 1>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D, q_len,
+                      kv_len, scale, smem_raw);
   }
 }
 

@@ -8,15 +8,23 @@ Counterpart of ``deepspeed_tpu/inference/v2/kernels/pallas_paged_decode.py``
 - plain version: ``paged_decode_attention_reference`` (the JAX
   ``_xla_paged_decode``), run for tensors on the CPU;
 - kernel: ``csrc/paged_decode.cu`` (the Pallas ``_decode_kernel``'s
-  counterpart), launched for tensors on a GPU, with q pre-scaled and cast
-  back to q's dtype as the Pallas call does. ``launches`` counts launches.
+  counterpart), launched for tensors on a GPU. It scales q and rounds it
+  back to q's dtype itself, as the Pallas call's caller does, so a call is
+  one launch. ``launches`` counts launches.
+
+The kernel splits each context over its keys (``split_plan``): units of
+``SPLIT_UNIT`` keys, at most ``max_splits(mp, ps)`` splits a sequence,
+each a block; the last block of a (sequence, kv head, row group) merges
+the splits' partials in split order in the same launch. The partials and
+the blocks' counters live in buffers this module keeps per device and
+stream (``_scratch``); every launch leaves the counters zero.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,6 +32,36 @@ from .paged_attention import paged_decode_attention_reference
 from .ragged_paged_attention import check_kernel_args
 
 launches = 0
+
+SPLIT_UNIT = 128  # keys a split unit (csrc/paged_decode.cu kUnit)
+MAX_SPLITS = 16   # splits a sequence at most
+
+
+def max_splits(mp: int, ps: int) -> int:
+    """Splits a sequence at most, from the block table's width alone (the
+    host knows it without a sync): one per unit of the widest context the
+    table holds, at most ``MAX_SPLITS``."""
+    return max(1, min(MAX_SPLITS, -(-mp * ps // SPLIT_UNIT)))
+
+
+def split_plan(context_len: int, mp: int, ps: int) -> List[Tuple[int, int]]:
+    """The key ranges ``[lo, hi)`` the kernel's splits take for one context,
+    in split order (``csrc/paged_decode.cu`` ``plan``): the
+    ``min(context_len, mp * ps)`` keys in units of ``SPLIT_UNIT``, cut into
+    at most ``max_splits(mp, ps)`` runs of whole units; no keys is one empty
+    split."""
+    n_keys = min(max(context_len, 0), mp * ps)
+    units = max(1, -(-n_keys // SPLIT_UNIT))
+    per = -(-units // min(max_splits(mp, ps), units))
+    n = -(-units // per)
+    return [(s * per * SPLIT_UNIT, min((s + 1) * per * SPLIT_UNIT, n_keys))
+            for s in range(n)]
+
+
+def row_group(g: int) -> int:
+    """Query rows of one kv head a block takes (the kernel's GR): the whole
+    GQA group up to 8 rows, else groups of 8."""
+    return 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
 
 
 def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -55,7 +93,8 @@ def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
 def bind(lib: ctypes.CDLL):
     """The kernel's C entry point in a built library, typed."""
     fn = lib.dstt_paged_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                 ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -64,6 +103,24 @@ def bind(lib: ctypes.CDLL):
 def _kernel():
     from ....ops.op_builder import builder
     return bind(builder.load("paged_decode"))
+
+
+# the split partials and counters, per (device, stream): every launch leaves
+# the counters zero (the last block of a cell resets its counter), so they
+# are zeroed once; launches on one stream run in order
+_buffers: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(dev: torch.device, stream: int, n_partial: int,
+             n_cells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index or 0, stream)
+    part, cnt = _buffers.get(key, (None, None))
+    if part is None or part.numel() < n_partial:
+        part = torch.empty(max(n_partial, 1 << 16), dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_cells:
+        cnt = torch.zeros(max(n_cells, 1024), dtype=torch.int32, device=dev)
+    _buffers[key] = (part, cnt)
+    return part, cnt
 
 
 def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
@@ -78,13 +135,21 @@ def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
         raise ValueError(f"context_lens {tuple(context_lens.shape)} / "
                          f"block_tables {tuple(block_tables.shape)} for {B} "
                          f"sequences")
-    q_scaled = (q * scale).to(q.dtype)
+    if D * q.element_size() > 512:
+        raise NotImplementedError(
+            f"head_dim {D} in {q.dtype}: the decode kernel takes rows of at "
+            f"most 512 bytes (ROADMAP A5)")
+    gr = row_group(H // kvH)
+    cells = B * kvH * -(-(H // kvH) // gr)
+    splits = max_splits(mp, ps)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = _scratch(q.device, stream, cells * splits * gr * (D + 2), cells)
     out = torch.empty_like(q)
-    rc = _kernel()(q_scaled.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    rc = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                    out.data_ptr(), context_lens.data_ptr(),
-                   block_tables.data_ptr(), B, H, kvH, P, ps, D, mp,
-                   int(q.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+                   block_tables.data_ptr(), part.data_ptr(), counters.data_ptr(),
+                   B, H, kvH, P, ps, D, mp, splits, gr, scale,
+                   int(q.dtype == torch.bfloat16), stream)
     from ....ops.op_builder.builder import launch_check
     launch_check(rc, "paged_gqa_decode")
     launches += 1

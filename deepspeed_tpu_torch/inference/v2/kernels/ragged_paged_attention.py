@@ -18,29 +18,43 @@ Two versions of the same function:
 - ``ragged_paged_attention_reference``: plain PyTorch, the JAX XLA path
   (scatter the stream into atom tiles, ``ragged_chunk_attention`` with
   history ``kv_len - q_len``, gather back);
-- the CUDA kernel ``csrc/ragged_paged_attention.cu`` (the Pallas
-  ``_wave_kernel``'s counterpart), which reads the flat stream and the
-  pool directly.
+- the CUDA kernels of ``csrc/ragged_paged_attention.cu`` (the Pallas
+  ``_wave_kernel``'s counterparts), which read the flat stream and the
+  pool directly, scale q themselves (``bf16(float(q) * scale)``, the bits
+  of ``(q * scale).to(q.dtype)``, as the Pallas call's caller scales it)
+  and zero the stream's padding rows: one launch a call.
 
 ``ragged_paged_attention`` runs the plain version for tensors on the CPU
-and the kernel for tensors on a GPU; there is no other switch. The kernel
-takes q pre-scaled and cast back to q's dtype, as the Pallas call does
-(``_wave_call:273``); inside it, an atom's ``q_len x g`` query rows of one
-kv head are ordered ``row = t*g + gi``, the Pallas GQA fold. ``launches``
-counts kernel launches.
+and a kernel for tensors on a GPU; there is no other switch. Which kernel
+follows from the operands alone (``tensor_core_form``):
+
+- the tensor-core form (``wgmma`` fed by TMA) for bf16 at head_dim 64 or
+  128, GQA groups of at most 64 query rows, and page sizes 16, 32 or a
+  multiple of 64 (the engine's 16 among them): one block a 64-row query
+  tile of consecutive atoms of one sequence (``wave_tiles``), one K/V
+  stream a tile;
+- the CUDA-core form for everything else (fp32, other page sizes or
+  widths): one block an atom and kv head; inside it, an atom's
+  ``q_len x g`` query rows of one kv head are ordered ``row = t*g + gi``,
+  the Pallas GQA fold.
+
+``launches`` counts kernel launches, ``form_launches`` each form's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from .paged_attention import ragged_chunk_attention
 
 launches = 0
+form_launches = {"tensor_cores": 0, "cuda_cores": 0}
+
+TILE_ROWS = 64   # query rows of a tensor-core tile
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -115,12 +129,68 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                         block_q)
 
 
+def tensor_core_form(dtype: torch.dtype, g: int, D: int, ps: int) -> bool:
+    """Whether a wave takes the tensor-core kernel: bf16, head_dim 64 or
+    128, at most ``TILE_ROWS`` query heads a kv head, and pages of 16 or 32
+    tokens or a multiple of 64 (whole pages or whole steps of 64 keys in
+    the kernel's K/V tiles)."""
+    return (dtype == torch.bfloat16 and D in (64, 128) and g <= TILE_ROWS
+            and ps % 16 == 0 and (64 % ps == 0 or ps % 64 == 0))
+
+
+def wave_tiles(cu_q_lens, kv_lens, page_indices, g: int,
+               ps: int) -> List[Tuple[int, int, int, int]]:
+    """The query tiles of the tensor-core kernel, in stream order, as
+    ``(first row, tokens, position of the first row, atom whose table the
+    tile reads)``: the kernel's rule (``csrc/ragged_paged_attention.cu``:
+    the tile list of ``wave_wgmma``, ``begin_tiles``, ``tile_at``) in plain
+    Python.
+
+    Atom a continues atom a - 1 when both hold rows, ``kv_lens[a] - q_len[a]
+    == kv_lens[a - 1]`` and their tables agree on atom a - 1's pages; such a
+    run of atoms is one causal stretch of one sequence. A tile begins at a
+    run's first row and at every row whose position is a multiple of
+    ``TILE_ROWS // g``, and ends where the next one begins (the last at
+    ``cu_q_lens[A]``); it reads the table of the atom of its last row."""
+    cu = [int(x) for x in cu_q_lens]
+    kv = [int(x) for x in kv_lens]
+    A, MP = len(kv), page_indices.shape[1]
+    tt = TILE_ROWS // g
+    starts = []   # (first row, atom)
+    for a in range(A):
+        ql = cu[a + 1] - cu[a]
+        if ql <= 0:
+            continue
+        p0 = kv[a] - ql
+        cont = False
+        if a > 0 and cu[a] - cu[a - 1] > 0 and p0 == kv[a - 1]:
+            npg = min(MP, -(-max(kv[a - 1], 0) // ps))
+            cont = bool((page_indices[a - 1][:npg] == page_indices[a][:npg]).all())
+        if not cont and p0 % tt:
+            starts.append((cu[a], a))
+        starts += [(cu[a] + pos - p0, a) for pos in range(p0 + (-p0) % tt, p0 + ql, tt)]
+    tiles = []
+    for k, (row0, a0) in enumerate(starts):
+        row1 = starts[k + 1][0] if k + 1 < len(starts) else cu[A]
+        a1 = a0
+        while a1 + 1 < A and cu[a1 + 1] <= row1 - 1:
+            a1 += 1
+        tiles.append((row0, row1 - row0, kv[a0] - (cu[a0 + 1] - cu[a0]) + row0 - cu[a0], a1))
+    return tiles
+
+
 def bind(lib: ctypes.CDLL):
-    """The kernel's C entry point in a built library, typed."""
-    fn = lib.dstt_ragged_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The kernels' C entry points in a built library, typed: the
+    CUDA-core form and the tensor-core form."""
+    cuda_cores = lib.dstt_ragged_paged_attention
+    cuda_cores.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    cuda_cores.restype = ctypes.c_int
+    tensor_cores = lib.dstt_ragged_paged_attention_tc
+    tensor_cores.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                             + [ctypes.c_float, ctypes.c_void_p])
+    tensor_cores.restype = ctypes.c_int
+    return cuda_cores, tensor_cores
 
 
 @functools.cache
@@ -169,15 +239,22 @@ def _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens, page_indices,
     if kv_lens.shape != (A,) or cu_q_lens.shape != (A + 1,):
         raise ValueError(f"descriptors kv_lens {tuple(kv_lens.shape)} / "
                          f"cu_q_lens {tuple(cu_q_lens.shape)} for {A} atoms")
-    q_scaled = (q * scale).to(q.dtype)
-    # rows past cu_q_lens[-1] (stream padding) belong to no atom: zeros
-    out = torch.zeros_like(q)
-    rc = _kernel()(q_scaled.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                   out.data_ptr(), cu_q_lens.data_ptr(), kv_lens.data_ptr(),
-                   page_indices.data_ptr(), A, H, kvH, P, ps, D, MP, block_q,
-                   int(q.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+            cu_q_lens.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr())
+    cuda_cores, tensor_cores = _kernel()
+    if tensor_core_form(q.dtype, H // kvH, D, ps):
+        if kvH * P * ps >= 2 ** 31:
+            raise NotImplementedError(f"a KV pool of {kvH * P * ps} rows (ROADMAP A5)")
+        rc = tensor_cores(*ptrs, N, A, H, kvH, P, ps, D, MP, scale, stream)
+        form = "tensor_cores"
+    else:
+        rc = cuda_cores(*ptrs, N, A, H, kvH, P, ps, D, MP, block_q, scale,
+                        int(q.dtype == torch.bfloat16), stream)
+        form = "cuda_cores"
     from ....ops.op_builder.builder import launch_check
     launch_check(rc, "ragged_paged_attention")
     launches += 1
+    form_launches[form] += 1
     return out

@@ -8,7 +8,12 @@ flags (``deepspeed_tpu_torch/ops/op_builder/builder.py``), holds each
 version against the plain PyTorch versions in bf16 at every kernel case of
 ``chip_smoke.py``, then times both at those cases in the order A, B, B, A
 (``--rounds`` times), one line per pass, so the two are compared on one
-card within one run. The weight-only-quantized matmul joins in (at the
+card within one run. The paged-attention group (``paged``: the ragged
+wave at every ``WAVE_CASES`` case, paged decode at every ``DECODE_CASES``
+case) drives each version through the wrappers of the tree that holds its
+``csrc`` (``inference/v2/kernels/ragged_paged_attention.py``,
+``paged_decode.py``), since a redesign changes what a wrapper passes its
+kernel. The weight-only-quantized matmul joins in (at the
 ``WOQ_CASES`` x ``WOQ_ROWS`` of ``chip_smoke.py``) when both directories
 hold its source, and so does the grouped expert FFN (``moe_ffn.cu``: both
 forms at mixtral-8x7b's widths, a decode step of T = 8 and a prefill wave
@@ -26,11 +31,12 @@ with fp32 gradients in every pass). ``--only`` names the groups to run
 sweep point is a copy of ``csrc`` with one constant edited, passed as B
 against the unedited ``csrc`` as A. To compare a change with its parent,
 unpack the parent's ``deepspeed_tpu_torch`` with ``git archive`` into a
-directory that ``.gitignore`` lists and pass its ``csrc`` as A: the WOQ and
-grouped-FFN kernels are then driven through the wrappers of the tree that
-holds each ``csrc`` (``ops/quantizer/woq_matmul.py``,
-``ops/transformer/moe.py``), since a redesign may change what a wrapper
-passes its kernel; a ``csrc`` alone is driven through the checkout's.
+directory that ``.gitignore`` lists and pass its ``csrc`` as A: the paged,
+WOQ and grouped-FFN kernels are then driven through the wrappers of the
+tree that holds each ``csrc`` (the two paged-attention modules,
+``ops/quantizer/woq_matmul.py``, ``ops/transformer/moe.py``); a ``csrc``
+alone is driven through the checkout's. ``--rounds 0`` builds, compares
+the SASS and checks both versions without timing them.
 The SASS of every kernel that both builds hold is compared first, names
 and whitespace aside (``cuobjdump``), so a change that leaves a kernel
 alone shows as identical code; a kernel of A that B names otherwise is
@@ -142,23 +148,27 @@ def main():
         csrc = csrc.resolve()
         _build.build(names, csrc=csrc)
         lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
-        woq_v = moe_v = None
+        woq_v = moe_v = rpa_v = pdk_v = None
+        if has_paged:
+            rpa_v = wrapper(csrc, "inference/v2/kernels/ragged_paged_attention.py",
+                            rpa.__name__, tag)
+            rpa_v._kernel = (lambda f: lambda: f)(rpa_v.bind(lib("ragged_paged_attention")))
+            pdk_v = wrapper(csrc, "inference/v2/kernels/paged_decode.py", pdk.__name__, tag)
+            pdk_v._kernel = (lambda f: lambda: f)(pdk_v.bind(lib("paged_decode")))
         if has_woq:
             woq_v = wrapper(csrc, "ops/quantizer/woq_matmul.py", woq.__name__, tag)
             woq_v._kernel = (lambda f: lambda: f)(woq_v.bind(lib("woq_matmul")))
         if has_moe:
             moe_v = wrapper(csrc, "ops/transformer/moe.py", moe.__name__, tag)
             moe_v._ffn_kernel = (lambda f: lambda: f)(moe_v.bind_ffn(lib("moe_ffn")))
-        versions[tag] = (rpa.bind(lib("ragged_paged_attention")) if has_paged else None,
-                         pdk.bind(lib("paged_decode")) if has_paged else None,
-                         woq_v, moe_v,
+        versions[tag] = (rpa_v, pdk_v, woq_v, moe_v,
                          flash_version(flash, lib) if has_flash else None,
                          adam.bind(lib("fused_adam")) if has_adam else None)
-        print(f"[ab] {tag} = {csrc} (WOQ and FFN wrappers: "
-              f"{woq_v.__file__ if woq_v else '-'}, {moe_v.__file__ if moe_v else '-'})",
+        print(f"[ab] {tag} = {csrc} (wrappers: "
+              + ", ".join(m.__file__ if m else "-" for m in (rpa_v, pdk_v, woq_v, moe_v)) + ")",
               flush=True)
 
-    cur = {}   # the WOQ and FFN wrapper modules of the version in use
+    cur = {}   # the wrapper modules of the version in use
     for lib_name in names:   # kernels that both builds hold
         fa, fb = (sass(_build, _build.library_path(lib_name, c.resolve()))
                   for c in (args.a, args.b))
@@ -171,17 +181,16 @@ def main():
                   + (f"; identical to B's {same[0][:80]}" if same else ""), flush=True)
 
     def use(tag):
-        rpa._kernel = lambda: versions[tag][0]
-        pdk._kernel = lambda: versions[tag][1]
-        cur["woq"], cur["moe"] = versions[tag][2], versions[tag][3]
+        cur["rpa"], cur["pdk"], cur["woq"], cur["moe"] = versions[tag][:4]
         adam._kernel = lambda: versions[tag][5]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    waves = {name: cs.wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
-                                cs.PAGE_SIZE, gen)[:2]
-             for name, (seqs, kvH, g, D) in cs.WAVE_CASES.items()} if has_paged else {}
-    decodes = {name: cs.decode_case(torch, ctxs, kvH, g, D, cs.PAGE_SIZE, gen)[0]
-               for name, (ctxs, kvH, g, D) in cs.DECODE_CASES.items()} if has_paged else {}
+    waves = {name: cs.wave_case(torch, build_wave, WaveEntry, *cs.case_options(case)[:5], gen,
+                                cs.case_options(case)[5])[:2]
+             for name, case in cs.WAVE_CASES.items()} if has_paged else {}
+    decodes = {name: cs.decode_case(torch, *cs.case_options(case)[:5], gen,
+                                    cs.case_options(case)[5])[0]
+               for name, case in cs.DECODE_CASES.items()} if has_paged else {}
     flashes = {}
     if has_flash:
         for name in cs.FLASH_TIMED:
@@ -232,10 +241,10 @@ def main():
         use(tag)
         for name, (a, n) in waves.items():
             want = rpa.ragged_paged_attention_reference(*a)
-            cs.check_close(f"{tag} ragged/{name}", rpa.ragged_paged_attention(*a)[:n],
+            cs.check_close(f"{tag} ragged/{name}", cur["rpa"].ragged_paged_attention(*a)[:n],
                            want[:n])
         for name, a in decodes.items():
-            cs.check_close(f"{tag} decode/{name}", pdk.paged_gqa_decode(*a),
+            cs.check_close(f"{tag} decode/{name}", cur["pdk"].paged_gqa_decode(*a),
                            paged_decode_attention_reference(*a))
         for name, a in woqs.items():
             got, again = cur["woq"].woq_matmul(*a), cur["woq"].woq_matmul(*a)
@@ -273,9 +282,9 @@ def main():
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for tag in ["A", "B", "B", "A"] * args.rounds:
         use(tag)
-        cells = [f"ragged/{name} {cs.device_ms(torch, lambda: rpa.ragged_paged_attention(*a), 20, flush)[0]:.4f}"
+        cells = [f"ragged/{name} {cs.device_ms(torch, lambda: cur['rpa'].ragged_paged_attention(*a), 20, flush)[0]:.4f}"
                  for name, (a, _) in waves.items()]
-        cells += [f"decode/{name} {cs.device_ms(torch, lambda: pdk.paged_gqa_decode(*a), 20, flush)[0]:.4f}"
+        cells += [f"decode/{name} {cs.device_ms(torch, lambda: cur['pdk'].paged_gqa_decode(*a), 20, flush)[0]:.4f}"
                   for name, a in decodes.items()]
         cells += [f"woq/{name} {cs.device_ms(torch, lambda: cur['woq'].woq_matmul(*a), 20, flush)[0]:.4f}"
                   for name, a in woqs.items()]

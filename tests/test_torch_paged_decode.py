@@ -94,3 +94,53 @@ def test_rejects_mismatched_heads():
     q, k, v, ctx, tables = _inputs(CTXS, 2, seed=5)
     with pytest.raises(ValueError, match="multiple"):
         _port(q[:, :3], k, v, ctx, tables)
+
+
+def _inputs_shuffled(ctxs, g, seed):
+    """As ``_inputs``, each sequence's pages drawn from a seeded
+    permutation of the pool (not consecutive)."""
+    rng = np.random.default_rng(seed)
+    counts = [-(-c // PS) for c in ctxs]
+    order = rng.permutation(sum(counts)) + 1
+    tables, at = np.zeros((len(ctxs), max(counts)), np.int32), 0
+    for i, n in enumerate(counts):
+        tables[i, :n] = order[at:at + n]
+        at += n
+    k = rng.normal(size=(KVH, at + 2, PS, D)).astype(np.float32)
+    v = rng.normal(size=(KVH, at + 2, PS, D)).astype(np.float32)
+    q = rng.normal(size=(len(ctxs), KVH * g, D)).astype(np.float32)
+    return q, k, v, np.asarray(ctxs, np.int32), tables
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_shuffled_tables_match_jax_kernel(g):
+    """Pages scattered over the pool: the port's plain version against the
+    Pallas kernel in interpret mode, fp32, 2e-5."""
+    q, k, v, ctx, tables = _inputs_shuffled(CTXS + [40, 1, 16, 17], g, seed=20 + g)
+    j = jnp.asarray
+    want = jpd.paged_gqa_decode(j(q), j(k), j(v), j(ctx), j(tables), interpret=True)
+    np.testing.assert_allclose(_port(q, k, v, ctx, tables), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ctx", [0, 1, 16, 17, 127, 128, 129, 513, 2048, 4133, 65537])
+@pytest.mark.parametrize("mp", [1, 8, 33, 300, 5000])
+def test_split_plan_covers_each_context_once(ctx, mp):
+    """The decode kernel's split plan (``split_plan``, the mirror of
+    ``csrc/paged_decode.cu`` ``plan``): its splits cover the keys the table
+    holds, min(ctx, mp * ps), once and in order, at most ``max_splits``
+    of them, each a whole number of ``SPLIT_UNIT`` units but the last."""
+    ps = 16
+    plan = tpd.split_plan(ctx, mp, ps)
+    n_keys = min(ctx, mp * ps)
+    assert 1 <= len(plan) <= tpd.max_splits(mp, ps) <= tpd.MAX_SPLITS
+    assert plan[0][0] == 0 and plan[-1][1] == n_keys
+    for (lo, hi), (lo2, _) in zip(plan, plan[1:]):
+        assert hi == lo2 and hi > lo and (hi - lo) % tpd.SPLIT_UNIT == 0
+    assert len({hi - lo for lo, hi in plan[:-1]}) <= 1
+
+
+@pytest.mark.parametrize("g,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (16, 8)])
+def test_row_group(g, want):
+    """Query rows of one kv head a decode block takes: the GQA group up to
+    8 rows, else groups of 8."""
+    assert tpd.row_group(g) == want

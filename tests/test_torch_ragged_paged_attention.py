@@ -153,3 +153,104 @@ def test_narrow_kv_store_is_not_ported():
             torch.from_numpy(v).to(torch.bfloat16),
             torch.from_numpy(desc.kv_lens), torch.from_numpy(desc.page_indices),
             torch.from_numpy(desc.cu_q_lens), block_q=BQ)
+
+
+# ---- shuffled block tables and the tensor-core kernel's tile rule ----------
+
+
+def _entries_shuffled(mod, seqs, seed):
+    """As ``_entries``, each sequence's pages drawn from a seeded
+    permutation of the pool (not consecutive)."""
+    counts = [-(-(seen + q_len) // PS) for q_len, seen in seqs]
+    order = np.random.default_rng(seed).permutation(sum(counts)) + 1
+    out, at = [], 0
+    for uid, ((q_len, seen), nb) in enumerate(zip(seqs, counts)):
+        toks = np.arange(q_len, dtype=np.int32) + 100 * uid
+        out.append(mod.WaveEntry(uid, toks, seen, [int(p) for p in order[at:at + nb]]))
+        at += nb
+    return out, at + 1
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("wave", sorted(WAVES))
+def test_shuffled_tables_match_jax_kernel(wave, g):
+    """Pages of each sequence scattered over the pool: the port's plain
+    version against the Pallas kernel in interpret mode, fp32, 2e-5."""
+    seed = sorted(WAVES).index(wave) * 10 + g + 100
+    entries, n_pages = _entries_shuffled(twave, WAVES[wave], seed)
+    desc = twave.build_wave(entries, block_q=BQ, block_size=PS)
+    rng = np.random.default_rng(seed)
+    P = n_pages + 2
+    k = rng.normal(size=(KVH, P, PS, D)).astype(np.float32)
+    v = rng.normal(size=(KVH, P, PS, D)).astype(np.float32)
+    q = rng.normal(size=(len(desc.tokens), KVH * g, D)).astype(np.float32)
+    n = desc.n_tokens
+    np.testing.assert_allclose(_port(q, k, v, desc)[:n],
+                               _jax_pallas(q, k, v, desc)[:n], **TOL)
+
+
+# waves about the 64-row tile's edges (64 / g tokens a tile), decode atoms
+# of many sequences, and histories ending mid-page, at the engine's atoms
+# of 8 tokens and pages of 16
+TILE_WAVES = {
+    "prefill-2x256": [(256, 0), (256, 0)],
+    "tile-edges": [(63, 0), (64, 0), (65, 17), (129, 64), (15, 0), (16, 3), (17, 0)],
+    "mixed": [(1, 543), (1, 416), (256, 256), (77, 0), (5, 11), (44, 256)],
+    "decode-40": [(1, 17 + 29 * i) for i in range(40)],
+}
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("wave", sorted(TILE_WAVES))
+def test_wave_tiles_cover_the_wave(wave, g):
+    """The tensor-core kernel's tile rule (``wave_tiles``) on the port's
+    wave builder's descriptors: every stream row of an atom lands in
+    exactly one tile, no tile crosses sequences or holds more than 64 query
+    rows, padding atoms and padding rows fall in no tile, and each tile's
+    first row sits at its sequence's position and reads its sequence's
+    table."""
+    entries, _ = _entries_shuffled(twave, TILE_WAVES[wave], seed=g)
+    desc = twave.build_wave(entries, block_q=8, block_size=16)
+    tiles = trpa.wave_tiles(desc.cu_q_lens, desc.kv_lens, desc.page_indices, g, 16)
+    # stream row -> (entry, position)
+    owner, pos = [], []
+    for e in entries:
+        owner += [e.uid] * len(e.tokens)
+        pos += list(range(e.seen, e.seen + len(e.tokens)))
+    hits = np.zeros(len(desc.tokens), np.int32)
+    for row0, n_tok, pos0, atom in tiles:
+        assert 1 <= n_tok and n_tok * g <= trpa.TILE_ROWS
+        rows = range(row0, row0 + n_tok)
+        hits[row0:row0 + n_tok] += 1
+        uids = {owner[r] for r in rows}
+        assert len(uids) == 1, (row0, n_tok, uids)
+        assert pos0 == pos[row0]
+        assert desc.cu_q_lens[atom] < desc.cu_q_lens[atom + 1]       # not padding
+        e = entries[uids.pop()]
+        np.testing.assert_array_equal(desc.page_indices[atom, :len(e.blocks)], e.blocks)
+    np.testing.assert_array_equal(hits[:desc.n_tokens], 1)
+    np.testing.assert_array_equal(hits[desc.n_tokens:], 0)
+
+
+def test_wave_tiles_merge_atoms_of_one_chunk():
+    """A 256-token chunk is 32 atoms of 8 tokens; at g 1 it is 4 tiles of
+    64, one K/V stream each, not one a atom; a chunk whose history ends
+    mid-tile starts with a shorter tile."""
+    entries, _ = _entries_shuffled(twave, [(256, 0), (100, 30)], seed=0)
+    desc = twave.build_wave(entries, block_q=8, block_size=16)
+    tiles = trpa.wave_tiles(desc.cu_q_lens, desc.kv_lens, desc.page_indices, 1, 16)
+    assert [(r, n, p) for r, n, p, _ in tiles] == [
+        (0, 64, 0), (64, 64, 64), (128, 64, 128), (192, 64, 192),
+        (256, 34, 30), (290, 64, 64), (354, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype,g,D,ps,want", [
+    (torch.bfloat16, 1, 128, 16, True), (torch.bfloat16, 8, 64, 32, True),
+    (torch.bfloat16, 4, 128, 128, True), (torch.bfloat16, 64, 64, 64, True),
+    (torch.float32, 1, 128, 16, False), (torch.bfloat16, 1, 128, 8, False),
+    (torch.bfloat16, 1, 96, 16, False), (torch.bfloat16, 128, 64, 16, False),
+    (torch.bfloat16, 1, 128, 48, False)])
+def test_tensor_core_form_rule(dtype, g, D, ps, want):
+    """Which kernel a wave takes on the card: bf16 at head_dim 64 / 128, at
+    most 64 query rows a kv head, pages of 16, 32 or a multiple of 64."""
+    assert trpa.tensor_core_form(dtype, g, D, ps) is want
