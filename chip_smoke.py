@@ -103,7 +103,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    FFN ran once a layer in every wave and decode step, the split form's FFN
    and combine in exactly the waves of more than
    ``MOE_FUSED_COMBINE_MAX_TOKENS`` rows, both attention kernels once a
-   layer; tokens/s, TTFT, peak memory, weight bytes and a profile; then a
+   layer; tokens/s, TTFT, peak memory, weight bytes and a profile (its
+   launch count; the route and gather rows wherever they rank); then a
    2-layer model of the same width: a prompt's logits through the kernels
    within twice the plain bf16 path's error against the fp32 plain
    dropless forward.
@@ -127,7 +128,15 @@ gather; ``torch.bmm`` over all slots as context; then the fused-vs-split
 sweep over T = 8 ... 4096 (``[moe-sweep]``) that sets
 ``MOE_FUSED_COMBINE_MAX_TOKENS``; then edge cases of the FFN's wave form
 (T 17, 300 and 4096, a dead expert, capacity factor 1.0, small gelu and
-top-1 shapes off its tiles).
+top-1 shapes off its tiles); then the route's edge cases (T 1, 32, 33, 1024
+and 1025, E 4, 8 and 40, top-1 and top-2, dropped choices, dead experts),
+from fp32 logits and from their bf16 rounding (the route of bf16 logits
+bitwise the route of their fp32 cast). The bf16 cases route the bf16
+router product, as the forward does; every route and gather runs twice for
+equal bits. Beside the route and gather rows: an empty kernel's time under
+the same timing (the launch floor), route -> gather timed as one call, the
+gather after a clean L2 flush, and the device operations of one MoE
+forward call at T 8 as serving builds it (no aux) and asked for aux.
 
 The output ends with a ``{"kernels": [...]}`` line (15 kernels), the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device": {...}}``.
@@ -300,6 +309,17 @@ MOE_BF16_SMALL_CASES = (
     (40, 4, 136, 200, 2, "gelu", None, None),
     (37, 4, 64, 96, 1, "silu_gated", None, None),
     (150, 8, 72, 136, 2, "silu_gated", 1.25, 0),
+)
+# route edge cases, (T, E, top_k, capacity factor or None for dropless,
+# dead expert or None), fp32 logits and their bf16 rounding: both forms of the
+# kernel (one warp up to 32 tokens, a block above, chunks of 1024 tokens),
+# Mixtral's E 8, the generic form's E 4 and 40, dropped choices and dead
+# experts
+MOE_ROUTE_EDGE_CASES = (
+    (1, 8, 2, None, None), (1, 40, 1, None, None), (32, 8, 2, 1.25, 3), (32, 4, 1, 1.0, None),
+    (33, 8, 2, None, None), (33, 40, 2, 1.25, None), (1024, 8, 2, 1.0, None),
+    (1024, 4, 1, None, 2), (1025, 8, 2, None, 5), (1025, 40, 1, None, None),
+    (1025, 40, 2, 1.0, 7),
 )
 # the FFN kernel's decode form serves up to 16 slots an expert, its wave
 # form more (csrc/moe_ffn.cu launch_pass): read here only to count each
@@ -540,6 +560,19 @@ def preemption_smoke(torch, build_engine, generate, config, model, seed=2):
     return offloads, restores
 
 
+def device_ops(torch, fn):
+    """Kernels and memsets one call of ``fn`` puts on the device, as the
+    profiler records them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def profile_generate(torch, generate, engine, prompts, wall):
     """Device time by kernel over one more ``generate`` of the same
     prompts, and the device's busy share of the unprofiled run's wall
@@ -561,10 +594,13 @@ def profile_generate(torch, generate, engine, prompts, wall):
           f"generate's {wall * 1e3:.1f} ms wall: busy share "
           f"{busy_ms / (wall * 1e3):.3f}, idle share "
           f"{1 - busy_ms / (wall * 1e3):.3f}", flush=True)
+    print(f"[profile] {sum(e.count for e in kernels)} launches", flush=True)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    # the twelve longest, and the two paged-attention kernels wherever they rank
-    paged = ("wave_wgmma", "ragged_wave_kernel", "decode_split")
-    for e in ranked[:12] + [e for e in ranked[12:] if any(n in e.key for n in paged)]:
+    # the twelve longest, and the paged-attention and MoE route and gather
+    # kernels wherever they rank
+    always = ("wave_wgmma", "ragged_wave_kernel", "decode_split", "moe_route_",
+              "moe_gather_kernel")
+    for e in ranked[:12] + [e for e in ranked[12:] if any(n in e.key for n in always)]:
         ms = e.self_device_time_total / 1e3
         print(f"[profile]   {ms:9.2f} ms {ms / busy_ms:6.1%} x{e.count:6d} "
               f"{e.key[:90]}", flush=True)
@@ -1040,14 +1076,18 @@ def moe_ffn_args(w, activation):
 
 
 def moe_route_vs_plain(torch, moe, logits, top_k, cap, tag):
-    """The route kernel against its plain version: src and slot_tk (picks,
-    positions and keep flags of the kept choices) and ce bitwise, the
-    weights bitwise or within MOE_W_ULPS ulp, me to MOE_FP32_TOL. Returns
-    the kernel's outputs, whether the weights were bitwise and their max
-    abs error."""
+    """The route kernel against its plain version (bf16 logits: the plain
+    route of their fp32 cast): src and slot_tk (picks, positions and keep
+    flags of the kept choices) and ce bitwise, the weights bitwise or within
+    MOE_W_ULPS ulp, me to MOE_FP32_TOL; a second run bit-identical. Returns
+    the kernel's outputs, whether the weights were bitwise and their max abs
+    error."""
     got = moe.moe_route(logits, top_k=top_k, capacity=cap)
-    want = moe.moe_route_reference(logits, top_k=top_k, capacity=cap)
+    again = moe.moe_route(logits, top_k=top_k, capacity=cap)
+    want = moe.moe_route_reference(logits.float(), top_k=top_k, capacity=cap)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"moe_route {tag}: two runs differ")
     for i, name in ((0, "src"), (2, "slot_tk"), (5, "ce")):
         if not torch.equal(got[i], want[i]):
             d = (got[i] != want[i]).nonzero()[:4].flatten().tolist()
@@ -1072,14 +1112,18 @@ def moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, activation, tol, tag):
     (route outputs, payload, errors by kernel, route weights bitwise)."""
     T, H = tokens.shape
     E = w["gate"].shape[1]
-    logits = (tokens @ w["gate"]).float()
+    logits = tokens @ w["gate"]   # bf16 for bf16 tokens, as the forward routes them
     (src, slot_w, slot_tk, w_tk, _, _), wbits, werr = moe_route_vs_plain(
         torch, moe, logits, top_k, cap, tag)
     payload = moe.moe_dispatch_gather(tokens, src)
+    again = moe.moe_dispatch_gather(tokens, src)
     want = tokens.index_select(0, (src.long() - 1).clamp_min(0))
     torch.cuda.synchronize()
     if not torch.equal(payload.view(torch.uint8), want.view(torch.uint8)):
         fail(f"moe_dispatch_gather {tag}: payload not byte-identical to index_select")
+    if not torch.equal(payload.view(torch.uint8), again.view(torch.uint8)):
+        fail(f"moe_dispatch_gather {tag}: two runs differ")
+    del again
     p3 = payload.view(E, cap, H)
     wg, wu, wo = moe_ffn_args(w, activation)
     fused = moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=activation)
@@ -1148,7 +1192,7 @@ def moe_bounds(torch, src, E, cap, T, H, F, top_k, activation, isz):
     nmat = 3 if activation == "silu_gated" else 2
     flops = filled * 2 * nmat * H * F
     weights = live * nmat * H * F * isz
-    return {"moe_route": (T * E * 4 + S * 8 + T * top_k * 8 + E * 8, 0),
+    return {"moe_route": (T * E * isz + S * 8 + T * top_k * 8 + E * 8, 0),
             "moe_dispatch_gather": (T * H * isz + S * 4 + S * H * isz, 0),
             "moe_dispatch_gather_int8": (T * H * isz + S * 4 + S * H + S * 4, 3 * S * H),
             "moe_ffn_combine": (weights + filled * H * isz + S * 8 + T * H * 4, flops),
@@ -1184,6 +1228,9 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
     E, H, F, k, act = MOE_E, MOE_H, MOE_F, MOE_K, "silu_gated"
     w = moe_weights(torch, E, H, F, act, torch.bfloat16, gen)
     wg, wu, wo = moe_ffn_args(w, act)
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0), 10, flush)[0]
+    print(f"[moe] launch floor: an empty kernel (torch.cuda._sleep(0)) takes {floor_ms:.4f} ms "
+          f"between device_ms's events", flush=True)
     for T in MOE_TOKENS:
         tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
         cap = capacity(T, E, float(E), 1)
@@ -1193,7 +1240,7 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         errs["moe_dispatch_gather_int8"] = gather_int8_vs_plain(torch, moe, tokens, src, tag)
         for name, e in errs.items():
             errs_all[name] = max(errs_all.get(name, 0.0), e)
-        logits = (tokens @ w["gate"]).float()
+        logits = tokens @ w["gate"]
         p3 = payload.view(E, cap, H)
         y = moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H)
         calls = {
@@ -1217,6 +1264,15 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
             "moe_combine": (lambda: moe.moe_combine(y, slot_tk, w_tk),
                             lambda: moe.moe_combine_reference(y, slot_tk, w_tk), None)}
         bnd = moe_bounds(torch, src, E, cap, T, H, F, k, act, 2)
+        if T == MOE_DECODE_T:
+            # counted before any profiled phase: in this process, after the
+            # serving profiles, the profiler records no short window
+            ops = {aux: device_ops(torch, lambda: moe.make_moe_forward(
+                top_k=k, capacity=cap, activation=act, with_aux=aux)(w, tokens))
+                for aux in (False, True)}
+            print(f"[moe] eager launches a MoE forward call at T {T}: {ops[False]} as serving "
+                  f"builds it (bf16 router logits to the route, no aux), {ops[True]} asked for "
+                  f"aux", flush=True)
         filled = int((src > 0).sum())
         print(f"[moe] {tag}: slots filled {filled}/{E * cap}, experts with a token "
               f"{int((src.view(E, cap)[:, 0] > 0).sum())}; route bitwise (weights "
@@ -1224,8 +1280,9 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
               f"fused {errs['moe_ffn_combine']:.3e} split {errs['moe_ffn']:.3e}, combine "
               f"bitwise, fused == split bitwise, int8 gather byte-identical to its plain version "
               f"and to quantize_rows_int8 of the gathered rows", flush=True)
+        times = {}
         for name, (kern, plain, lib) in calls.items():
-            ms = device_ms(torch, kern, 10, flush)[0]
+            ms = times[name] = device_ms(torch, kern, 10, flush)[0]
             plain_ms = synced_ms(torch, plain, 3)
             lib_ms = device_ms(torch, lib, 10, flush)[0] if lib is not None else None
             b_ms, b_by = bound(*bnd[name], torch.bfloat16)
@@ -1234,10 +1291,19 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
             fused_form = name in ("moe_route", "moe_dispatch_gather", "moe_ffn_combine")
             if T == (MOE_DECODE_T if fused_form else MOE_WAVE_T):
                 rows[name] = row
+            floor = (f"; launch floor {floor_ms:.4f}"
+                     if name in ("moe_route", "moe_dispatch_gather") else "")
             print(f"[moe]   T{T} {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
                   f"{b_ms:.4f} ({b_by}) library_ms "
                   f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-                  f"({b_ms / ms:.1%} of bound)", flush=True)
+                  f"({b_ms / ms:.1%} of bound){floor}", flush=True)
+        pair_ms = device_ms(torch, lambda: moe.moe_dispatch_gather(
+            tokens, moe.moe_route(logits, top_k=k, capacity=cap)[0]), 10, flush)[0]
+        clean_ms = device_ms(torch, calls["moe_dispatch_gather"][0], 10, flush, clean=True)[0]
+        print(f"[moe]   T{T} route -> gather as one call: {pair_ms:.4f} ms (alone: route "
+              f"{times['moe_route']:.4f} + gather {times['moe_dispatch_gather']:.4f} = "
+              f"{times['moe_route'] + times['moe_dispatch_gather']:.4f}); gather after a clean "
+              f"L2 flush {clean_ms:.4f}", flush=True)
         mid = torch.empty(E, cap, F, dtype=torch.bfloat16, device="cuda")
         bmm = (device_ms(torch, lambda: torch.bmm(p3, wg.mT), 10, flush)[0],
                device_ms(torch, lambda: torch.bmm(p3, wu.mT), 10, flush)[0],
@@ -1288,6 +1354,27 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         print(f"[moe] {tag}: slots filled {int((src > 0).sum())}/{E * cap}; fused "
               f"{errs['moe_ffn_combine']:.3e} split {errs['moe_ffn']:.3e} from plain, "
               f"two runs bit-identical, fused == split bitwise", flush=True)
+    for T, E, top_k, cf, dead in MOE_ROUTE_EDGE_CASES:
+        logits = torch.randn(T, E, generator=edge, device="cuda")
+        if dead is not None:
+            logits[:, dead] = -100.0
+        cap = capacity(T, E, cf if cf else float(E), 4 if cf else 1)
+        tag = (f"route T{T} E{E} k{top_k} cap {cap}" + (f" cf {cf}" if cf else "")
+               + (f" dead expert {dead}" if dead is not None else ""))
+        (src, *_), wbits, _ = moe_route_vs_plain(torch, moe, logits, top_k, cap, tag)
+        bf = logits.to(torch.bfloat16)
+        got, bbits, _ = moe_route_vs_plain(torch, moe, bf, top_k, cap, tag + " bf16")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, moe.moe_route(bf.float(), top_k=top_k, capacity=cap))):
+            fail(f"moe_route {tag}: the route of bf16 logits differs from the route of "
+                 f"their fp32 cast")
+        per_expert = (src.view(E, cap) > 0).sum(dim=1).tolist()
+        if dead is not None and per_expert[dead]:
+            fail(f"moe_route {tag}: the dead expert received {per_expert[dead]} slots")
+        print(f"[moe] {tag}: slots filled {sum(per_expert)} of {T * top_k} choices; fp32 and "
+              f"bf16 logits bitwise the plain route (weights "
+              f"{'bitwise' if wbits and bbits else 'within ulp'}), two runs bit-identical, "
+              f"bf16 route == route of the fp32 cast", flush=True)
     return rows, errs_all
 
 
@@ -1302,8 +1389,8 @@ def moe_sweep(torch, moe, w, gen, flush):
     for T in MOE_SWEEP_T:
         tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
         cap = capacity(T, E, float(E), 1)
-        src, slot_w, slot_tk, w_tk, _, _ = moe.moe_route((tokens @ w["gate"]).float(),
-                                                         top_k=k, capacity=cap)
+        src, slot_w, slot_tk, w_tk, _, _ = moe.moe_route(tokens @ w["gate"], top_k=k,
+                                                         capacity=cap)
         p3 = moe.moe_dispatch_gather(tokens, src).view(E, cap, H)
         fused = lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act)
         split = lambda: moe.moe_combine(

@@ -20,8 +20,14 @@
 // combine adds its k terms in order from 0, each product rounded on its own
 // (__fmul_rn, __fadd_rn: no FMA), the plain version's sequence, bit for bit.
 //
-// Bound on an H100 SXM: bytes (no arithmetic to speak of). A block moves one
-// row (gather: one slot; combine: one token and 512 columns), 16 bytes a
+// Bound on an H100 SXM: bytes (no arithmetic to speak of), and at decode
+// sizes the launch and two dependent loads (a slot's src entry, then its
+// row). The dispatch gather's grid is sized to the card, not to the slots:
+// a warp copies up to 32 slots strided by the number of warps, loads their
+// src entries at once and keeps two whole rows' 16-byte loads in flight (16
+// a lane and row at H 4096 in bf16) before storing them; it waits for the
+// route by programmatic dependent launch, so its launch overlaps the
+// route's. The combine moves one token and 512 columns a block, 16 bytes a
 // thread where the row allows it, so reads and writes are full lines. The
 // int8 gather reads a row and writes a quarter (fp32) or half (bf16) of its
 // bytes plus a 4-byte scale.
@@ -40,30 +46,84 @@ __device__ __forceinline__ int source_row(const int* src, int s, int T) {
   return t < 0 ? 0 : (t < T ? t : T - 1);
 }
 
-// Same dtype in and out, rows a multiple of 16 bytes: 16-byte copies.
-__global__ void __launch_bounds__(128) gather_copy_kernel(const uint4* tokens, const int* src,
-                                                          uint4* out, int T, int row16) {
-  const int s = blockIdx.x;
-  const uint4* in = tokens + (long long)source_row(src, s, T) * row16;
-  uint4* o = out + (long long)s * row16;
-  for (int i = threadIdx.x; i < row16; i += blockDim.x) o[i] = in[i];
-}
-
 template <typename In, typename Out>
 __device__ __forceinline__ Out convert(In v);
+template <> __device__ __forceinline__ uint4 convert(uint4 v) { return v; }
 template <> __device__ __forceinline__ float convert(float v) { return v; }
 template <> __device__ __forceinline__ bf16 convert(float v) { return __float2bfloat16_rn(v); }
 template <> __device__ __forceinline__ float convert(bf16 v) { return __bfloat162float(v); }
 template <> __device__ __forceinline__ bf16 convert(bf16 v) { return v; }
 
-// Any other case: element by element, with the cast.
+constexpr int kGatherThreads = 64;      // 2 warps a block: the few rows of a decode step
+                                        // spread over many SMs
+constexpr int kGatherUnroll = 16;       // loads in flight a lane and row: a 4096-wide bf16
+                                        // row a warp
+constexpr int kGatherRows = 2;          // rows a warp loads before it stores them
+constexpr int kGatherWarpsPerSm = 64;   // the grid: at most this many warps an SM
+// Programmatic dependent launch: the gather's blocks start while the kernel
+// before it (the route) finishes, and wait for it before reading src.
+constexpr bool kGatherPdl = true;
+
+// Warp w of W copies slots w, w + W, ... (at most 32: their src entries in
+// one load), so the warps' stores at any moment fill one stretch of the
+// payload. kGatherRows rows at a time it issues all their loads
+// (kGatherUnroll a lane and row) before their stores. Plain stores: the FFN
+// reads the payload next, from L2. `n` elements a row: 16-byte units for
+// the copy, values for a cast.
 template <typename In, typename Out>
-__global__ void __launch_bounds__(128) gather_cast_kernel(const In* tokens, const int* src,
-                                                          Out* out, int T, int H) {
-  const int s = blockIdx.x;
-  const In* in = tokens + (long long)source_row(src, s, T) * H;
-  Out* o = out + (long long)s * H;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) o[i] = convert<In, Out>(in[i]);
+__global__ void __launch_bounds__(kGatherThreads)
+    moe_gather_kernel(const In* __restrict__ tokens, const int* __restrict__ src,
+                      Out* __restrict__ out, int S, int T, int n) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * kGatherThreads + threadIdx.x) / 32;
+  const int W = gridDim.x * (kGatherThreads / 32);
+  if (warp >= S) return;
+  const int m = (S - 1 - warp) / W + 1;
+  const int mine = lane < m ? source_row(src, warp + lane * W, T) : 0;
+  for (int j = 0; j < m; j += kGatherRows) {
+    for (int i0 = lane; i0 < n; i0 += 32 * kGatherUnroll) {
+      In v[kGatherRows][kGatherUnroll];
+#pragma unroll
+      for (int r = 0; r < kGatherRows; ++r) {
+        if (j + r >= m) break;
+        const In* in = tokens + (long long)__shfl_sync(0xffffffffu, mine, j + r) * n;
+#pragma unroll
+        for (int u = 0; u < kGatherUnroll; ++u)
+          if (i0 + 32 * u < n) v[r][u] = in[i0 + 32 * u];
+      }
+#pragma unroll
+      for (int r = 0; r < kGatherRows; ++r) {
+        if (j + r >= m) break;
+        Out* o = out + (long long)(warp + (j + r) * W) * n;
+#pragma unroll
+        for (int u = 0; u < kGatherUnroll; ++u)
+          if (i0 + 32 * u < n) o[i0 + 32 * u] = convert<In, Out>(v[r][u]);
+      }
+    }
+  }
+}
+
+template <typename In, typename Out>
+int launch_gather(const In* tokens, const int* src, Out* out, int S, int T, int n,
+                  cudaStream_t stream) {
+  static int sms = 0;
+  if (!sms) {
+    int dev;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  // a warp a slot up to the cap, then up to 32 slots a warp
+  const int warps_max = sms * kGatherWarpsPerSm;
+  const int run = min(32, (S + warps_max - 1) / warps_max);
+  const int per_block = kGatherThreads / 32;
+  const int blocks = ((S + run - 1) / run + per_block - 1) / per_block;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  const cudaLaunchConfig_t cfg = {dim3(blocks), dim3(kGatherThreads), 0, stream, &attr,
+                                  kGatherPdl ? 1u : 0u};
+  return cudaLaunchKernelEx(&cfg, moe_gather_kernel<In, Out>, tokens, src, out, S, T, n);
 }
 
 constexpr int kGatherQuantThreads = 256;   // 8 slots a block, a warp each
@@ -127,23 +187,20 @@ extern "C" int dstt_moe_gather(const void* tokens, const int* src, void* out, in
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (S == 0 || H == 0) return cudaSuccess;
   const int esize = in_bf16 ? 2 : 4;
-  if (in_bf16 == out_bf16 && ((long long)H * esize) % 16 == 0) {
-    gather_copy_kernel<<<S, 128, 0, stream>>>(static_cast<const uint4*>(tokens), src,
-                                              static_cast<uint4*>(out), T, H * esize / 16);
-  } else if (in_bf16 && out_bf16) {
-    gather_cast_kernel<bf16, bf16><<<S, 128, 0, stream>>>(
-        static_cast<const bf16*>(tokens), src, static_cast<bf16*>(out), T, H);
-  } else if (in_bf16) {
-    gather_cast_kernel<bf16, float><<<S, 128, 0, stream>>>(
-        static_cast<const bf16*>(tokens), src, static_cast<float*>(out), T, H);
-  } else if (out_bf16) {
-    gather_cast_kernel<float, bf16><<<S, 128, 0, stream>>>(
-        static_cast<const float*>(tokens), src, static_cast<bf16*>(out), T, H);
-  } else {
-    gather_cast_kernel<float, float><<<S, 128, 0, stream>>>(
-        static_cast<const float*>(tokens), src, static_cast<float*>(out), T, H);
-  }
-  return cudaGetLastError();
+  if (in_bf16 == out_bf16 && ((long long)H * esize) % 16 == 0)
+    return launch_gather(static_cast<const uint4*>(tokens), src, static_cast<uint4*>(out), S, T,
+                         H * esize / 16, stream);
+  if (in_bf16 && out_bf16)
+    return launch_gather(static_cast<const bf16*>(tokens), src, static_cast<bf16*>(out), S, T, H,
+                         stream);
+  if (in_bf16)
+    return launch_gather(static_cast<const bf16*>(tokens), src, static_cast<float*>(out), S, T,
+                         H, stream);
+  if (out_bf16)
+    return launch_gather(static_cast<const float*>(tokens), src, static_cast<bf16*>(out), S, T,
+                         H, stream);
+  return launch_gather(static_cast<const float*>(tokens), src, static_cast<float*>(out), S, T, H,
+                       stream);
 }
 
 // q [S, H] int8 and scale [S] fp32: the rows tokens [T, H] (in_bf16 ? bf16 :

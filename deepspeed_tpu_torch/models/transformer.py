@@ -206,9 +206,10 @@ class Block(nn.Module):
 
     def mlp(self, h: torch.Tensor, dropless: bool = False) -> torch.Tensor:
         """MLP over the PRE-NORMED input h; a MoE block's output without its
-        aux loss, routed dropless when asked (capacity = the token count)."""
+        aux loss (not computed), routed dropless when asked (capacity = the
+        token count)."""
         if self.moe is not None:
-            return self.moe(h, dropless=dropless)[0]
+            return self.moe(h, dropless=dropless, with_aux=False)[0]
         if self.gated:
             return self.down_proj(L.silu(self.gate_proj(h)) * self.up_proj(h))
         return self.fc_out(self.act(self.fc_in(h)))

@@ -101,12 +101,13 @@ class MoE(nn.Module):
             return _capacity(n_tokens, self.num_experts, float(self.num_experts), 1)
         return _capacity(n_tokens, self.num_experts, self.capacity_factor, self.min_capacity)
 
-    def forward(self, x: torch.Tensor, dropless: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``x [..., H]`` -> ``(out [..., H], aux)``."""
+    def forward(self, x: torch.Tensor, dropless: bool = False, with_aux: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``x [..., H]`` -> ``(out [..., H], aux)``; aux None when not
+        asked for (``with_aux=False`` saves its launches)."""
         tokens = x.reshape(-1, self.hidden_size)
         fwd = moe_ops.make_moe_forward(top_k=self.top_k,
                                        capacity=self.capacity(tokens.shape[0], dropless),
-                                       activation=self.activation)
+                                       activation=self.activation, with_aux=with_aux)
         out, aux = fwd(dict(self.named_parameters()), tokens)
         return out.reshape(x.shape), aux

@@ -7,7 +7,8 @@ its kernel (launched for tensors on a GPU; ``launches`` counts launches per
 wrapper):
 
 - ``moe_route`` (``moe_route_reference``; ``csrc/moe_route.cu``, the
-  counterpart of ``_route_kernel``): fp32 logits [T, E] -> ``src [E*C]``
+  counterpart of ``_route_kernel``): fp32 or bf16 logits [T, E] (bf16 cast
+  to fp32 in the kernel, as the JAX kernel's body casts) -> ``src [E*C]``
   int32 (token + 1, 0 = empty slot), ``slot_w [E*C]``, ``slot_tk [T, k]``
   int32 (the slot of each kept choice, 0 where dropped), ``w_tk [T, k]``
   (0 where dropped), ``me`` and ``ce [E]``;
@@ -30,7 +31,8 @@ wrapper):
 
 ``make_moe_forward`` composes them as the JAX function does: the router
 product ``tokens @ gate`` (a plain ``torch.matmul``, as XLA computes it
-there), the route, ``aux = sum(me * ce) * E``, the gather, then the fused
+there) fed to the route uncast, ``aux = sum(me * ce) * E`` when the caller
+asks for it (serving does not), the gather, then the fused
 FFN + combine for at most ``MOE_FUSED_COMBINE_MAX_TOKENS`` tokens and the
 split FFN -> combine above. The threshold is the port's own, set from the
 H100 sweep in ``chip_smoke.py`` (``PERF.md``); the JAX VMEM budgets
@@ -197,7 +199,7 @@ class MoeRouteParams(ctypes.Structure):
     """``MoeRouteParams`` of ``csrc/moe_route.cu``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("logits", "src", "slot_w", "slot_tk", "w_tk", "me", "ce")]
-                + [(n, ctypes.c_int) for n in ("T", "E", "K", "cap")])
+                + [(n, ctypes.c_int) for n in ("T", "E", "K", "cap", "bf16")])
 
 
 class MoeFfnParams(ctypes.Structure):
@@ -265,7 +267,7 @@ def _route_cuda(logits: torch.Tensor, top_k: int, capacity: int):
     from ..op_builder.builder import launch_check
     T, E = logits.shape
     dev = logits.device
-    _need("logits", logits, torch.float32, dev)
+    _need("logits", logits, logits.dtype, dev)
     S = E * capacity
     src = torch.empty(S, dtype=torch.int32, device=dev)
     slot_w = torch.empty(S, dtype=torch.float32, device=dev)
@@ -275,7 +277,8 @@ def _route_cuda(logits: torch.Tensor, top_k: int, capacity: int):
     ce = torch.empty(E, dtype=torch.float32, device=dev)
     p = MoeRouteParams(logits=logits.data_ptr(), src=src.data_ptr(), slot_w=slot_w.data_ptr(),
                        slot_tk=slot_tk.data_ptr(), w_tk=w_tk.data_ptr(), me=me.data_ptr(),
-                       ce=ce.data_ptr(), T=T, E=E, K=top_k, cap=capacity)
+                       ce=ce.data_ptr(), T=T, E=E, K=top_k, cap=capacity,
+                       bf16=int(logits.dtype == torch.bfloat16))
     launch_check(_route_kernel()(p, _stream(logits)), "moe_route")
     launches["moe_route"] += 1
     return src, slot_w, slot_tk, w_tk, me, ce
@@ -378,18 +381,19 @@ def _on(t: torch.Tensor) -> str:
 
 
 def moe_route(logits: torch.Tensor, *, top_k: int, capacity: int):
-    """Fused gating: fp32 ``logits [T, E]`` -> ``(src [E*C] int32, slot_w
-    [E*C] fp32, slot_tk [T, k] int32, w_tk [T, k] fp32, me [E], ce [E])``.
-    ``aux = sum(me * ce) * E`` is left to the caller."""
+    """Fused gating: fp32 or bf16 ``logits [T, E]`` -> ``(src [E*C] int32,
+    slot_w [E*C] fp32, slot_tk [T, k] int32, w_tk [T, k] fp32, me [E], ce
+    [E])``, the route of ``logits.float()`` (the cast is exact). ``aux =
+    sum(me * ce) * E`` is left to the caller."""
     T, E = logits.shape
-    if logits.dtype != torch.float32:
-        raise ValueError(f"the route takes fp32 logits, not {logits.dtype}")
+    if logits.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the route takes fp32 or bf16 logits, not {logits.dtype}")
     if T < 1 or capacity < 1:
         raise ValueError(f"route of {T} tokens at capacity {capacity}")
     check_supported(top_k=top_k, activation=ACTIVATIONS[0], dtype=torch.float32,
                     num_experts=E)
     if _on(logits) == "cpu":
-        return moe_route_reference(logits, top_k=top_k, capacity=capacity)
+        return moe_route_reference(logits.float(), top_k=top_k, capacity=capacity)
     return _route_cuda(logits, top_k, capacity)
 
 
@@ -471,13 +475,15 @@ def moe_combine(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) -> t
 # ---------------------------------------------------------------------------
 
 
-def make_moe_forward(*, top_k: int, capacity: int, activation: str
+def make_moe_forward(*, top_k: int, capacity: int, activation: str, with_aux: bool = True
                      ) -> Callable[[Mapping[str, torch.Tensor], torch.Tensor],
-                                   Tuple[torch.Tensor, torch.Tensor]]:
+                                   Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """The kernel-path MoE forward ``(params, tokens [T, H]) -> (out [T, H]
     in the tokens' dtype, aux fp32)`` for one capacity: the fused FFN +
     combine up to ``MOE_FUSED_COMBINE_MAX_TOKENS`` tokens, the split form
-    above. No backward: training through MoE is not ported (ROADMAP A7)."""
+    above. ``aux`` costs three launches: a caller that drops it (serving)
+    asks for none with ``with_aux=False`` and gets None. No backward:
+    training through MoE is not ported (ROADMAP A7)."""
 
     def forward(params: Mapping[str, torch.Tensor], tokens: torch.Tensor):
         check_supported(top_k=top_k, activation=activation, dtype=tokens.dtype)
@@ -485,9 +491,8 @@ def make_moe_forward(*, top_k: int, capacity: int, activation: str
         gate = params["gate"]
         E = gate.shape[-1]
         logits = tokens @ gate.to(tokens.dtype)
-        src, slot_w, slot_tk, w_tk, me, ce = moe_route(logits.float(), top_k=top_k,
-                                                       capacity=capacity)
-        aux = (me * ce).sum() * E
+        src, slot_w, slot_tk, w_tk, me, ce = moe_route(logits, top_k=top_k, capacity=capacity)
+        aux = (me * ce).sum() * E if with_aux else None
         gated = activation == "silu_gated"
         cast = lambda t: None if t is None else t.to(tokens.dtype)
         wi_gate = cast(params["wi_gate"] if gated else params["wi"])

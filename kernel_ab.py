@@ -26,8 +26,18 @@ the headers it includes (``FLASH_FWD_SOURCES``), the two forwards must
 also give the same bits), and so does the fused Adam kernel
 (``fused_adam.cu``: ``MAIN_ADAM``, moments bitwise against the plain
 version, timed beside ``torch.optim.AdamW(fused=True)`` on the same leaf
-with fp32 gradients in every pass). ``--only`` names the groups to run
-(``paged``, ``woq``, ``moe_ffn``, ``flash``, ``adam``). A tile-shape
+with fp32 gradients in every pass), and so do the MoE route and dispatch
+gather (``moe_route``: both need ``moe_route.cu`` and ``moe_dispatch.cu``;
+mixtral-8x7b's E 8, top-2, H 4096 in bf16, dropless, T 8, 256, 512 and
+4096: the route of fp32 logits in both versions, of bf16 logits where the
+version takes them, the gather, and route -> gather as one call fed what
+each version's forward feeds it, also after the router product; each
+version's route bitwise its plain version, weights within
+``MOE_W_ULPS``, its payload byte-identical to ``index_select``, both
+bit-identical on a second run; and the device operations of one call of
+each version's MoE forward at T 8, as serving builds it). ``--only``
+names the groups to run (``paged``, ``woq``,
+``moe_ffn``, ``flash``, ``adam``, ``moe_route``). A tile-shape
 sweep point is a copy of ``csrc`` with one constant edited, passed as B
 against the unedited ``csrc`` as A. To compare a change with its parent,
 unpack the parent's ``deepspeed_tpu_torch`` with ``git archive`` into a
@@ -48,6 +58,7 @@ import argparse
 import ctypes
 import importlib
 import importlib.util
+import inspect
 import sys
 from pathlib import Path
 
@@ -106,13 +117,22 @@ def wrapper(csrc, rel, name, tag):
     return mod
 
 
+ROUTE_TOKENS = (8, 256, 512, 4096)   # the moe_route group: dropless, capacity T
+
+
+def takes_bf16_logits(moe_v):
+    """Whether a version's route takes bf16 logits (its params carry the
+    flag)."""
+    return "bf16" in dict(moe_v.MoeRouteParams._fields_)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--only", default="paged,woq,moe_ffn,flash,adam",
-                    help="comma-separated groups: paged, woq, moe_ffn, flash, adam")
+    ap.add_argument("--only", default="paged,woq,moe_ffn,flash,adam,moe_route",
+                    help="comma-separated groups: paged, woq, moe_ffn, flash, adam, moe_route")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -137,12 +157,15 @@ def main():
     has_moe = "moe_ffn" in only and both("moe_ffn.cu")
     has_flash = "flash" in only and both("flash_bwd.cu")
     has_adam = "adam" in only and both("fused_adam.cu")
+    has_route = "moe_route" in only and both("moe_route.cu") and both("moe_dispatch.cu")
     same_fwd = all((args.a / f).read_bytes() == (args.b / f).read_bytes()
                    for f in FLASH_FWD_SOURCES) if has_flash else False
     names = ((("ragged_paged_attention", "paged_decode") if has_paged else ())
              + (("woq_matmul",) if has_woq else ()) + (("moe_ffn",) if has_moe else ())
              + (("flash_fwd", "flash_bwd") if has_flash else ())
-             + (("fused_adam",) if has_adam else ()))
+             + (("fused_adam",) if has_adam else ())
+             + (("moe_route", "moe_dispatch") + (() if has_moe else ("moe_ffn",))
+                if has_route else ()))
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
         csrc = csrc.resolve()
@@ -158,9 +181,13 @@ def main():
         if has_woq:
             woq_v = wrapper(csrc, "ops/quantizer/woq_matmul.py", woq.__name__, tag)
             woq_v._kernel = (lambda f: lambda: f)(woq_v.bind(lib("woq_matmul")))
-        if has_moe:
+        if has_moe or has_route:
             moe_v = wrapper(csrc, "ops/transformer/moe.py", moe.__name__, tag)
             moe_v._ffn_kernel = (lambda f: lambda: f)(moe_v.bind_ffn(lib("moe_ffn")))
+        if has_route:
+            moe_v._route_kernel = (lambda f: lambda: f)(moe_v.bind_route(lib("moe_route")))
+            moe_v._dispatch_kernels = (lambda f: lambda: f)(
+                moe_v.bind_dispatch(lib("moe_dispatch")))
         versions[tag] = (rpa_v, pdk_v, woq_v, moe_v,
                          flash_version(flash, lib) if has_flash else None,
                          adam.bind(lib("fused_adam")) if has_adam else None)
@@ -232,6 +259,49 @@ def main():
         opt = torch.optim.AdamW([p32], lr=3e-4, weight_decay=0.1, fused=True)
         opt.step()   # creates its state
         adam_fns["library"] = opt.step
+    routes = {}   # T -> (tokens, bf16 logits, src of the plain route)
+    if has_route:
+        w = cs.moe_weights(torch, cs.MOE_E, cs.MOE_H, cs.MOE_F, "silu_gated", torch.bfloat16,
+                           gen)
+        gate = w["gate"]
+        for T in ROUTE_TOKENS:
+            tokens = torch.randn(T, cs.MOE_H, generator=gen, device="cuda").to(torch.bfloat16)
+            logits = tokens @ gate
+            src = moe.moe_route_reference(logits.float(), top_k=cs.MOE_K, capacity=T)[0]
+            routes[T] = (tokens, logits, src)
+        for tag in versions:
+            mv = versions[tag][3]
+            bf16_in = takes_bf16_logits(mv)
+            fwd = mv.make_moe_forward(top_k=cs.MOE_K, capacity=cs.MOE_DECODE_T,
+                                      activation="silu_gated",
+                                      **({"with_aux": False} if "with_aux" in inspect.signature(
+                                          mv.make_moe_forward).parameters else {}))
+            x = routes[cs.MOE_DECODE_T][0]
+            print(f"[ab] {tag} MoE forward at T {cs.MOE_DECODE_T} as serving builds it: "
+                  f"{cs.device_ops(torch, lambda: fwd(w, x))} device operations a call "
+                  f"(router logits {'bf16' if bf16_in else 'cast to fp32'})", flush=True)
+
+    def route_cells():
+        mv = cur["moe"]
+        bf16_in = takes_bf16_logits(mv)
+        timed = lambda name, fn: f"{name} {cs.device_ms(torch, fn, 20, flush)[0]:.4f}"
+        route = lambda lg, T: mv.moe_route(lg, top_k=cs.MOE_K, capacity=T)
+        cells = []
+        for T, (tokens, logits, src) in routes.items():
+            f32 = logits.float()
+            cells.append(timed(f"route/T{T}", lambda: route(f32, T)))
+            if bf16_in:
+                cells.append(timed(f"route_bf16/T{T}", lambda: route(logits, T)))
+            cells.append(timed(f"gather/T{T}", lambda: mv.moe_dispatch_gather(tokens, src)))
+            # as the forward calls them: a version without bf16 routes casts first
+            cells.append(timed(f"pair/T{T}", lambda: mv.moe_dispatch_gather(
+                tokens, route(logits if bf16_in else logits.float(), T)[0])))
+            # and after the router product, which the route follows in the forward
+            chain = lambda: mv.moe_dispatch_gather(tokens, route(
+                tokens @ gate if bf16_in else (tokens @ gate).float(), T)[0])
+            cells.append(timed(f"chain/T{T}", chain))
+        return cells
+
     fused = lambda p3, wg, wu, wo, src, slot_w, T: cur["moe"].moe_ffn_combine(
         p3, wg, wu, wo, src, slot_w, T, activation="silu_gated")
     split = lambda p3, wg, wu, wo, src, slot_w, T: cur["moe"].moe_ffn(
@@ -272,6 +342,16 @@ def main():
                                                    zip(fwd_out[name], flash_a[name])):
                 cs.fail(f"flash/{name}: the forwards of A and B give different bits")
         flash_a = fwd_out
+        for T, (tokens, logits, src) in routes.items():
+            for lg in (logits.float(),) + ((logits,) if takes_bf16_logits(cur["moe"]) else ()):
+                cs.moe_route_vs_plain(torch, cur["moe"], lg, cs.MOE_K, T,
+                                      f"{tag} T{T} {str(lg.dtype)[6:]} logits")
+            got = cur["moe"].moe_dispatch_gather(tokens, src)
+            again = cur["moe"].moe_dispatch_gather(tokens, src)
+            want = tokens.index_select(0, (src.long() - 1).clamp_min(0))
+            if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+                    and torch.equal(got.view(torch.int16), again.view(torch.int16))):
+                cs.fail(f"{tag} gather T{T}: not byte-identical to index_select on two runs")
         if has_adam:
             got, want = adam_fns["kernel"](), adam_fns["plain"]()
             if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
@@ -298,6 +378,7 @@ def main():
         if has_adam:
             cells += [f"adam/{name} {cs.device_ms(torch, adam_fns[name], 20, flush)[0]:.4f}"
                       for name in ("kernel", "library")]
+        cells += route_cells() if has_route else []
         print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
     print(cs.nvidia_smi())
     return 0

@@ -14,6 +14,8 @@ attention and MoE kernels), the same numpy prompts on both sides.
 - ``generate`` greedy tokens identical to the JAX engine's, through
   chunked prefill, mixed waves and decode bursts, and with single-token
   decode steps;
+- serving builds its MoE forwards without aux; asked for it, the layers'
+  aux adds up to the JAX ``apply``'s;
 - a seeded meta-device model is placed and served;
 - MoE training and MoE under weight-only quantization raise, naming their
   ROADMAP items.
@@ -195,6 +197,28 @@ def test_serving_runs_through_the_moe_wrappers(engines):
         moe_ops.make_moe_forward = orig
     peng.flush(90)
     assert calls == [(16, 16)] * 2   # one 16-row padded wave, 2 layers, dropless
+
+
+def test_serving_asks_for_no_aux_and_the_asked_aux_matches_jax_apply(engines, monkeypatch):
+    """``Block.mlp`` (serving and the plain forward) builds its MoE forward
+    without aux, which the JAX serving program drops as dead code; built
+    with aux, the layers' aux adds up to the JAX ``apply``'s over the same
+    tokens (capacity factor 1.25)."""
+    jeng, peng, _ = engines
+    ids = np.stack(_prompts(2, (24, 24)))
+    _, want = jax.jit(jeng.model.apply)(jeng.params, jnp.asarray(ids))
+    asked, auxes = [], []
+    orig = moe_ops.make_moe_forward
+
+    def with_aux_recorded(with_aux=True, **kw):
+        asked.append(with_aux)
+        fwd = orig(with_aux=True, **kw)
+        return lambda p, x: (auxes.append(fwd(p, x)[1]), fwd(p, x))[1]
+
+    monkeypatch.setattr(moe_ops, "make_moe_forward", with_aux_recorded)
+    peng.model(torch.from_numpy(ids))
+    assert asked == [False, False]
+    np.testing.assert_allclose(float(sum(auxes)), float(want), rtol=1e-5)
 
 
 def test_seeded_meta_model_is_placed_and_serves():

@@ -11,7 +11,9 @@ kernels to these plain versions on the GPU.
   ``W_ULPS`` fp32 ulp (XLA's CPU ``exp`` and torch's may differ by an ulp);
   ``me`` and ``aux`` to 1e-5 relative (sums over the tokens in other
   orders); top_k 1 and 2, tight capacities that drop choices, dead experts,
-  ties;
+  ties, bf16 logits (routed as their fp32 cast), and the token counts
+  where the CUDA route changes form (1, 32, 33, 1025);
+- the MoE module without aux (serving): the same output, no aux;
 - the dispatch gather byte-identical, with and without the wire cast;
 - the grouped FFN with its fused combine, the split FFN and the combine
   against the Pallas kernels, and the whole forward against
@@ -200,6 +202,32 @@ def test_route_bf16_router_product_ties():
     _assert_route_equal(*_route_both(logits, 2, 12))
 
 
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_route_bf16_logits_match_pallas_kernel(top_k):
+    """bf16 logits go to the route uncast (the kernel casts them as it loads
+    them, as the JAX kernel's body does): the route of the bf16 tensor is
+    the route of its fp32 cast, and matches the Pallas kernel fed the same
+    bf16 array."""
+    logits = jnp.asarray(_logits(seed=3), jnp.bfloat16)
+    bf = torch.from_numpy(np.array(logits.astype(jnp.float32))).to(torch.bfloat16)
+    got = moe.moe_route(bf, top_k=top_k, capacity=10)
+    for g, w in zip(got, moe.moe_route(bf.float(), top_k=top_k, capacity=10)):
+        assert torch.equal(g, w)
+    want = pm.moe_route(logits, top_k=top_k, capacity=10, interpret=True)
+    _assert_route_equal([g.numpy() for g in got], [np.asarray(w) for w in want])
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+@pytest.mark.parametrize("t", [1, 32, 33, 1025])
+def test_route_matches_pallas_kernel_where_the_forms_change(t, top_k):
+    """Token counts where the CUDA route changes hands: one warp up to 32
+    tokens, one block above, chunks of 1024 tokens past 1024; capacities
+    from the training rule (factor 1.25, at least 4), which drop choices
+    at the larger counts."""
+    cap = capacity(t, E, 1.25, 4)
+    _assert_route_equal(*_route_both(_logits(seed=4, t=t), top_k, cap))
+
+
 # ---------------------------------------------------------------------------
 # dispatch gather
 # ---------------------------------------------------------------------------
@@ -372,6 +400,23 @@ def test_module_matches_jax_layer(activation, dropless):
     np.testing.assert_allclose(float(aux), float(aux_w), rtol=1e-5)
 
 
+def test_module_without_aux_gives_the_same_output(monkeypatch):
+    """``with_aux=False`` (serving's ``Block.mlp``) builds the forward
+    without aux and returns the same output bits and no aux."""
+    m = MoE(H, F, num_experts=E, top_k=2)
+    m.load_state_dict(_port_params(_np_params(seed=14)))
+    x = torch.from_numpy(_tokens(seed=15))
+    asked = []
+    orig = moe.make_moe_forward
+    monkeypatch.setattr(moe, "make_moe_forward",
+                        lambda **kw: (asked.append(kw["with_aux"]), orig(**kw))[1])
+    out, aux = m(x)
+    out_none, none = m(x, with_aux=False)
+    assert asked == [True, False]
+    assert none is None and aux.dtype == torch.float32 and aux.ndim == 0
+    assert torch.equal(out, out_none)
+
+
 def test_module_init_is_normal_and_seeded():
     m = MoE(64, 96, num_experts=4, top_k=2, device="meta")
     m.to_empty(device="cpu")
@@ -408,7 +453,7 @@ def test_wrappers_raise_on_unsupported_inputs():
     x = torch.zeros(4, H, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="float16"):
         moe.moe_dispatch_gather(x, torch.zeros(8, dtype=torch.int32))
-    with pytest.raises(ValueError, match="fp32 logits"):
-        moe.moe_route(torch.zeros(4, E, dtype=torch.bfloat16), top_k=2, capacity=4)
+    with pytest.raises(ValueError, match="fp32 or bf16 logits"):
+        moe.moe_route(torch.zeros(4, E, dtype=torch.float16), top_k=2, capacity=4)
     with pytest.raises(NotImplementedError, match="top_k 3"):
         moe.moe_route(torch.zeros(4, E), top_k=3, capacity=4)
