@@ -91,7 +91,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    full-width gather but those of the persistent small leaves; each rank's
    master and moments about half of phase 7's; step time, tokens/s, MFU,
    peak memory per rank, the wire bytes by width and, over one more step,
-   the share of the step spent in collectives; then a 2-layer model of the
+   the share of the step spent in collectives, and over one more step rank
+   0's row quantizer under ``torch.profiler`` (its device ms and launches,
+   their bytes bound, rows a launch as a histogram); then a 2-layer model of the
    same width for 3 steps through the kernels, through their plain versions
    (losses within 2e-2) and at full width without ZeRO++ (int8 losses
    within the JAX suite's ZeRO++ tolerance, rtol = atol = 0.05). A rank
@@ -113,8 +115,10 @@ Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
 plain version, q and scale byte-identical: fp32 and bf16 rows of the
 tinyllama-1.1b shards at world 2 and group 256 (an MLP shard's gather, the
 embedding shard's, an MLP gradient's reduce-scatter rows), group sizes 1,
-7, 100, 255 and 4096, zero rows, exact .5 ties and -0.0, each timed beside
-its bound and its plain version; and the six MoE kernels (``[moe]``: route,
+7, 100, 255 and 4096, zero rows, exact .5 ties, -0.0 and subnormal inputs,
+each timed beside its bound and its plain version (the main case also
+after a clean L2 flush), then 10^8 (x, scale) pairs at and near the
+half-integers of x / scale (the divide sweep); and the six MoE kernels (``[moe]``: route,
 dispatch gather, int8 dispatch gather, fused FFN + combine, split FFN,
 combine) against their plain versions: fp32
 at small shapes (top_k 1, gelu, dead experts, dropped choices, T off every
@@ -123,8 +127,11 @@ T = 8, 256 and 512 (dropless, S = 8 T): route indices bitwise, gather
 byte-identical, the int8 gather (mask_pad off and on) byte-identical to its
 plain version and to the quantizer kernel on the gathered rows, FFN within
 5e-2 and twice bit-identical, combine and fused-vs-split bitwise; each
-timed with its bound, its plain version and ``index_select`` for the
-gather; ``torch.bmm`` over all slots as context; then the fused-vs-split
+timed with its bound, its plain version, ``index_select`` for the
+gather and ``F.embedding_bag`` (mode sum, the route's weights as
+per-sample weights) for the combine; ``torch.bmm`` over all slots as
+context; the split FFN -> combine as one call at T 512; the combine alone
+at T 4096 (bitwise, timed beside ``F.embedding_bag``); then the fused-vs-split
 sweep over T = 8 ... 4096 (``[moe-sweep]``) that sets
 ``MOE_FUSED_COMBINE_MAX_TOKENS``; then edge cases of the FFN's wave form
 (T 17, 300 and 4096, a dead expert, capacity factor 1.0, small gelu and
@@ -285,6 +292,7 @@ PATH_LAYERS, PATH_STEPS, PATH_RTOL = 2, 3, 2e-2   # kernel vs plain training pat
 MOE_E, MOE_K, MOE_H, MOE_F = 8, 2, 4096, 14336
 MOE_TOKENS = (8, 256, 512)
 MOE_DECODE_T, MOE_WAVE_T = 8, 512   # the kernels line: fused form at a decode step, split at a wave
+MOE_COMBINE_WIDE_T = 4096   # the combine alone at the sweep's largest wave (201 MB moved)
 MOE_BF16_TOL = 5e-2   # atol = rtol, the JAX suite's MoE bound (test_pallas_moe.py:140-142)
 MOE_FP32_TOL = 1e-5
 MOE_W_ULPS = 4        # route weights: within 4 fp32 ulp when not bitwise (two exp builds)
@@ -332,7 +340,7 @@ MOE_SWEEP_MARGIN = 0.02
 # tinyllama-1.1b shards at world 2 and group 256: the qwZ gather of an MLP
 # shard (gate_proj [5632, 2048] split on dim 0) and of the embedding shard,
 # the qgZ reduce-scatter of the MLP gradient ([2, chunk] rows); the short and
-# long group sizes; zero rows, exact .5 ties and -0.0
+# long group sizes; zero rows, exact .5 ties, -0.0 and subnormal inputs
 QUANT_CASES = {
     "mlp-shard-2816x2048-bf16": (2816 * 2048 // 256, 256, "bfloat16", "randn"),
     "mlp-shard-2816x2048-fp32": (2816 * 2048 // 256, 256, "float32", "randn"),
@@ -348,6 +356,10 @@ QUANT_CASES = {
     "edge-gs255-bf16": (64, 255, "bfloat16", "edge"),
 }
 MAIN_QUANT = "mlp-shard-2816x2048-bf16"
+# the divide sweep: (x, scale) pairs through the row kernel's quantize (a
+# multiply by the scale's reciprocal; the divide near half-integers) against
+# the plain version's correctly rounded divide
+QUANT_SWEEP_PAIRS, QUANT_SWEEP_ROWS = 10 ** 8, 65536
 # [zero]: two ranks on the one card train tinyllama-1.1b (full width and
 # depth, S 2048) with ZeRO-3 and the ZeRO++ int8 wire on the barrier
 # schedule, micro 4 a rank: the 8 x 2048 tokens a step of [train]. The
@@ -599,7 +611,7 @@ def profile_generate(torch, generate, engine, prompts, wall):
     # the twelve longest, and the paged-attention and MoE route and gather
     # kernels wherever they rank
     always = ("wave_wgmma", "ragged_wave_kernel", "decode_split", "moe_route_",
-              "moe_gather_kernel")
+              "moe_gather_kernel", "combine_kernel")
     for e in ranked[:12] + [e for e in ranked[12:] if any(n in e.key for n in always)]:
         ms = e.self_device_time_total / 1e3
         print(f"[profile]   {ms:9.2f} ms {ms / busy_ms:6.1%} x{e.count:6d} "
@@ -1012,7 +1024,44 @@ def quant_inputs(torch, case, gen):
             x[r] = ties * k
             x[r, 0] = 127.0 * k
         x[2::4, ::3] = -0.0
+        # subnormal inputs: rows of them (the scale underflows and its
+        # reciprocal overflows), and subnormal values in rows of normal ones
+        x[3::8] *= 1e-38
+        x[7::8, ::5] *= 1e-38
     return x.to(getattr(torch, dt))
+
+
+def quant_divide_sweep(torch, quant):
+    """QUANT_SWEEP_PAIRS or more (x, scale) pairs through the row kernel
+    against the plain version, q and scale bitwise: fp32 rows of 256 whose
+    scales span 2^-60 ... 2^60 (the first value of a row pins its absmax at
+    127 scales), half the values at or within 1e-4 of a half-integer of x /
+    scale, half anywhere between. Returns (pairs, pairs within 2^-12 of a
+    half-integer, where the kernel divides)."""
+    gen = torch.Generator(device="cuda").manual_seed(EDGE_SEED + 2)   # the phase's own draws
+    rows, gs = QUANT_SWEEP_ROWS, 256
+    eps = torch.tensor([0.0, 1e-7, -1e-7, 3e-6, -3e-6, 2e-5, -2e-5, 1e-4], device="cuda",
+                       dtype=torch.float64)
+    done = near = 0
+    while done < QUANT_SWEEP_PAIRS:
+        s = torch.exp2(torch.rand(rows, 1, generator=gen, device="cuda", dtype=torch.float64)
+                       * 120 - 60)
+        k = torch.randint(-127, 127, (rows, gs), generator=gen, device="cuda").double()
+        tie = torch.rand(rows, gs, generator=gen, device="cuda") < 0.5
+        pick = eps[torch.randint(0, len(eps), (rows, gs), generator=gen, device="cuda")]
+        off = torch.rand(rows, gs, generator=gen, device="cuda", dtype=torch.float64)
+        x = ((k + torch.where(tie, 0.5 + pick, off)) * s).float()
+        x[:, 0] = (127 * s[:, 0]).float() * torch.where(tie[:, 0], 1.0, -1.0)
+        q, sc = quant.quantize_rows_int8(x)
+        qp, sp = quant.quantize_rows_int8_reference(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qp) and torch.equal(sc.view(torch.int32), sp.view(torch.int32))):
+            bad = (q != qp).nonzero()[:4].tolist()
+            fail(f"quant divide sweep: the kernel differs from the plain version at {bad}")
+        z = x.double() / sp.double()[:, None]
+        near += int(((z - z.floor() - 0.5).abs() < 2.0 ** -12).sum())
+        done += rows * gs
+    return done, near
 
 
 def quant_bounds(G, gs, isz):
@@ -1044,11 +1093,22 @@ def quant_kernel_vs_plain(torch, quant, gen, flush):
         ms = device_ms(torch, lambda: quant.quantize_rows_int8(x), 10, flush)[0]
         plain_ms = synced_ms(torch, lambda: quant.quantize_rows_int8_reference(x), 3)
         b_ms, b_by = bound(nbytes, ops, torch.float32)
-        print(f"[quant] {name}: groups {G} x {gs} {dt}, q and scale byte-identical; "
+        isz = x.element_size()
+        plan = quant.plan_rows(G, gs, isz, (gs * isz) % 16 == 0 and x.data_ptr() % 16 == 0,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"[quant] {name}: groups {G} x {gs} {dt} (plan {plan}), q and scale byte-identical; "
               f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, "
               f"{nbytes} bytes) ({b_ms / ms:.1%} of bound)", flush=True)
         if name == MAIN_QUANT:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            clean_ms = device_ms(torch, lambda: quant.quantize_rows_int8(x), 10, flush,
+                                 clean=True)[0]
+            print(f"[quant] {name}: after a clean L2 flush kernel_ms {clean_ms:.4f} "
+                  f"({b_ms / clean_ms:.1%} of bound)", flush=True)
+    pairs, near = quant_divide_sweep(torch, quant)
+    print(f"[quant] divide sweep: {pairs} (x, scale) pairs, scales 2^-60 ... 2^60, {near} of them "
+          f"within 2^-12 of a half-integer of x / scale (the kernel divides there): q and scale "
+          f"bitwise the plain version's correctly rounded divide", flush=True)
     print("[quant] library_ms: no single PyTorch call computes a groupwise absmax int8 "
           "quantize (torch.quantize_per_channel takes the scales as given)", flush=True)
     return row, err
@@ -1243,6 +1303,9 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         logits = tokens @ w["gate"]
         p3 = payload.view(E, cap, H)
         y = moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H)
+        slot_l = slot_tk.long()
+        bag = lambda: torch.nn.functional.embedding_bag(slot_l, y, per_sample_weights=w_tk,
+                                                        mode="sum")
         calls = {
             "moe_route": (lambda: moe.moe_route(logits, top_k=k, capacity=cap),
                           lambda: moe.moe_route_reference(logits, top_k=k, capacity=cap), None),
@@ -1262,7 +1325,7 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
                         lambda: moe.moe_ffn_reference(p3, wg, wu, wo, src, activation=act),
                         None),
             "moe_combine": (lambda: moe.moe_combine(y, slot_tk, w_tk),
-                            lambda: moe.moe_combine_reference(y, slot_tk, w_tk), None)}
+                            lambda: moe.moe_combine_reference(y, slot_tk, w_tk), bag)}
         bnd = moe_bounds(torch, src, E, cap, T, H, F, k, act, 2)
         if T == MOE_DECODE_T:
             # counted before any profiled phase: in this process, after the
@@ -1304,6 +1367,19 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
               f"{times['moe_route']:.4f} + gather {times['moe_dispatch_gather']:.4f} = "
               f"{times['moe_route'] + times['moe_dispatch_gather']:.4f}); gather after a clean "
               f"L2 flush {clean_ms:.4f}", flush=True)
+        bag_err = (bag() - moe.moe_combine(y, slot_tk, w_tk)).abs().max().item()
+        print(f"[moe]   T{T} F.embedding_bag against the combine: max_abs_diff {bag_err:.3e} "
+              f"(it fuses each multiply and add; the combine rounds them apart)", flush=True)
+        if T == MOE_WAVE_T:
+            clean_ms = device_ms(torch, calls["moe_combine"][0], 10, flush, clean=True)[0]
+            print(f"[moe]   T{T} moe_combine after a clean L2 flush: {clean_ms:.4f} ms", flush=True)
+            pair_ms = device_ms(torch, lambda: moe.moe_combine(
+                moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H), slot_tk,
+                w_tk), 10, flush)[0]
+            print(f"[moe]   T{T} split FFN -> combine as one call: {pair_ms:.4f} ms (alone: FFN "
+                  f"{times['moe_ffn']:.4f} + combine {times['moe_combine']:.4f} = "
+                  f"{times['moe_ffn'] + times['moe_combine']:.4f}; the combine waits for the "
+                  f"FFN by programmatic dependent launch)", flush=True)
         mid = torch.empty(E, cap, F, dtype=torch.bfloat16, device="cuda")
         bmm = (device_ms(torch, lambda: torch.bmm(p3, wg.mT), 10, flush)[0],
                device_ms(torch, lambda: torch.bmm(p3, wu.mT), 10, flush)[0],
@@ -1311,9 +1387,11 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         print(f"[moe]   T{T} context: torch.bmm over all {E * cap} slots, gate {bmm[0]:.4f} "
               f"up {bmm[1]:.4f} down {bmm[2]:.4f} ms (sum {sum(bmm):.4f})", flush=True)
         del mid, y, payload, p3
+    combine_wide(torch, moe, flush)
     print("[moe] library_ms: index_select for the gathers (for the int8 gather: context "
-          "only, it does not quantize); no single PyTorch call computes the route, the "
-          "grouped FFN with its combine, or the slot-table combine", flush=True)
+          "only, it does not quantize), F.embedding_bag (mode sum, per-sample weights) for the "
+          "slot-table combine; no single PyTorch call computes the route or the grouped FFN "
+          "with its combine", flush=True)
     moe_sweep(torch, moe, w, gen, flush)
     edge = torch.Generator(device="cuda").manual_seed(EDGE_SEED)   # gen's draws stay as they were
     for T, cf, dead in MOE_EDGE_CASES:
@@ -1376,6 +1454,33 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
               f"{'bitwise' if wbits and bbits else 'within ulp'}), two runs bit-identical, "
               f"bf16 route == route of the fp32 cast", flush=True)
     return rows, errs_all
+
+
+def combine_wide(torch, moe, flush):
+    """The split combine alone at MOE_COMBINE_WIDE_T tokens (H 4096, top-2,
+    dropless, S = 8 T; routed by the route kernel from seeded logits, y
+    seeded): bitwise its plain version, timed beside F.embedding_bag and its
+    bound."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(EDGE_SEED + 1)   # gen's draws stay as they were
+    T, E, H, k = MOE_COMBINE_WIDE_T, MOE_E, MOE_H, MOE_K
+    logits = torch.randn(T, E, generator=g, device="cuda")
+    src, _, slot_tk, w_tk, _, _ = moe.moe_route(logits, top_k=k, capacity=T)
+    y = torch.randn(E * T, H, generator=g, device="cuda")
+    got = moe.moe_combine(y, slot_tk, w_tk)
+    want = moe.moe_combine_reference(y, slot_tk, w_tk)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"moe_combine T{T}: not bitwise its plain version")
+    slot_l = slot_tk.long()
+    bag = lambda: F.embedding_bag(slot_l, y, per_sample_weights=w_tk, mode="sum")
+    ms = device_ms(torch, lambda: moe.moe_combine(y, slot_tk, w_tk), 10, flush)[0]
+    plain_ms = synced_ms(torch, lambda: moe.moe_combine_reference(y, slot_tk, w_tk), 3)
+    lib_ms = device_ms(torch, bag, 10, flush)[0]
+    b_ms, b_by = bound(*moe_bounds(torch, src, E, T, T, H, 0, k, "silu_gated", 2)["moe_combine"],
+                       torch.float32)
+    print(f"[moe]   T{T} moe_combine (bitwise): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms:.4f} (F.embedding_bag) "
+          f"({b_ms / ms:.1%} of bound)", flush=True)
 
 
 def moe_sweep(torch, moe, w, gen, flush):
@@ -2183,6 +2288,43 @@ def collective_share(torch, engine, batch):
     return acc[0], step, acc[1]
 
 
+def quant_step_profile(torch, engine, batch, quant, profiled):
+    """One more step with every row-quantizer call recorded: calls, rows a
+    call (a histogram by powers of two), the calls' summed bytes bound and,
+    where ``profiled``, the quantizer kernels' device ms and launches from
+    ``torch.profiler`` (kernels whose name holds ``quant_rows``)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+    calls = []
+    launch = quant._quant_cuda
+
+    def recorded(groups):
+        calls.append((groups.shape[0], groups.shape[1], groups.element_size()))
+        return launch(groups)
+
+    quant._quant_cuda = recorded
+    try:
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                float(engine.train_batch(batch))
+                torch.cuda.synchronize()
+        else:
+            float(engine.train_batch(batch))
+    finally:
+        quant._quant_cuda = launch
+    hist = Counter(1 << (G.bit_length() - 1) for G, _, _ in calls)
+    out = {"calls": len(calls), "rows": dict(sorted(hist.items())),
+           "bound_ms": sum(bound(*quant_bounds(G, gs, isz), torch.float32)[0]
+                           for G, gs, isz in calls)}
+    if profiled:
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "quant_rows" in e.key]
+        out["device_ms"] = sum(e.self_device_time_total for e in ev) / 1e3 if ev else None
+        out["launches"] = sum(e.count for e in ev)
+    return out
+
+
 def wire_summary(records):
     """Launches and bytes of one step's records by (op, width)."""
     out = {}
@@ -2232,6 +2374,7 @@ def zero_rank(rank, init_method, results):
         launches=dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches),
         peak=torch.cuda.max_memory_allocated())
     comm_s, step_s, n_coll = collective_share(torch, engine, batch)
+    res["quant_profile"] = quant_step_profile(torch, engine, batch, quant, rank == 0)
     res.update(
         comm_s=comm_s, comm_step_s=step_s, comm_launches=n_coll, opt_bytes=opt_bytes,
         flops=training_flops(c, n_params, rows * TRAIN_SEQ)[0], vocab=c.vocab_size,
@@ -2365,6 +2508,15 @@ def train_zero(torch, np, single_opt_bytes):
               f"{r['comm_step_s'] * 1e3:.1f} ms, {r['comm_launches']} collectives timed "
               f"(device synchronized around each) {r['comm_s'] * 1e3:.1f} ms: share "
               f"{r['comm_s'] / r['comm_step_s']:.3f}", flush=True)
+    qp = r0["quant_profile"]
+    if qp["device_ms"] is None:
+        print(f"[zero] rank 0 row quantizer in one more step: {qp['calls']} calls; device ms not "
+              f"measured (the profiler recorded no quant_rows kernel)", flush=True)
+    else:
+        print(f"[zero] rank 0 row quantizer in one more step, profiled: {qp['calls']} calls, "
+              f"{qp['launches']} kernel launches, device {qp['device_ms']:.4f} ms, bound "
+              f"{qp['bound_ms']:.4f} ms, lost {qp['device_ms'] - qp['bound_ms']:.4f} ms a step "
+              f"and rank; rows a call (power-of-two floor: calls) {qp['rows']}", flush=True)
     for r in ranks:
         print(f"[zero] rank {r['rank']} launches over {ZERO_STEPS} steps {r['launches']}; "
               f"quantizer launches a step {r['quant_per_step']}; wire a step "

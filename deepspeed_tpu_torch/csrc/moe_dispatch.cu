@@ -27,13 +27,25 @@
 // src entries at once and keeps two whole rows' 16-byte loads in flight (16
 // a lane and row at H 4096 in bf16) before storing them; it waits for the
 // route by programmatic dependent launch, so its launch overlaps the
-// route's. The combine moves one token and 512 columns a block, 16 bytes a
-// thread where the row allows it, so reads and writes are full lines. The
-// int8 gather reads a row and writes a quarter (fp32) or half (bf16) of its
-// bytes plus a 4-byte scale.
+// route's. The int8 gather reads a row and writes a quarter (fp32) or half
+// (bf16) of its bytes plus a 4-byte scale.
+//
+// The combine moves T * K rows of y in and T rows out: at a 512-token
+// Mixtral wave (K 2, H 4096) 25.2 MB, 0.0075 ms at 3.35 TB/s. Its launch
+// plan (ops/transformer/moe.py plan_combine) gives a token's row to a group
+// of L threads (all 256 of a block at H 4096), CH 16-byte units a thread and
+// pick, and sizes the grid to the card, groups walking the tokens. K is a
+// template parameter: a thread loads its token's K slot indices and weights,
+// then all K * CH row loads (8 in flight at H 4096, K 2), and only then adds
+// them in order; the next token's indices are loaded while this one's rows
+// are in flight. The combine waits for the FFN before it by programmatic
+// dependent launch (kCombinePdl), so its blocks are resident when the FFN's
+// last blocks finish.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "quant_common.cuh"
 
@@ -141,40 +153,107 @@ __global__ void __launch_bounds__(kGatherQuantThreads) gather_int8_kernel(
                            q + (long long)s * H, scale + s, threadIdx.x & 31);
 }
 
-constexpr int kCombineThreads = 128;
-constexpr int kCombineCols = 4 * kCombineThreads;   // columns a block: 4 a thread
+constexpr int kCombineThreads = 256;
+constexpr int kCombineUnits = 4;        // 16-byte units a thread and pick at most
+constexpr int kCombineBlocksPerSm = 4;  // the launch bound: <= 64 registers a thread
+constexpr bool kCombinePdl = true;
 
-// Grid (T, H / 512): token t's 512 columns, its K picks added in order.
-__global__ void __launch_bounds__(kCombineThreads) combine_kernel(
-    const float* y, const int* slot_tk, const float* w_tk, float* out, int K, int H, int S) {
-  const int t = blockIdx.x;
-  const int c = blockIdx.y * kCombineCols + 4 * threadIdx.x;
-  if (c >= H) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const bool vec = (H & 3) == 0;   // a thread's 4 columns are one 16-byte load
+// Token t's K picks: slot indices clamped into [0, S), and weights.
+template <int K>
+__device__ __forceinline__ void combine_picks(const int* slot_tk, const float* w_tk, long long t,
+                                              int S, int (&s)[K], float (&w)[K]) {
+#pragma unroll
   for (int k = 0; k < K; ++k) {
-    int s = slot_tk[(long long)t * K + k];
-    s = s < 0 ? 0 : (s < S ? s : S - 1);
-    const float w = w_tk[(long long)t * K + k];
-    const float* row = y + (long long)s * H + c;
-    float v[4];
-    if (vec) {
-      const float4 q = *reinterpret_cast<const float4*>(row);
-      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = c + i < H ? row[i] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(w, v[i]));
+    const int v = slot_tk[t * K + k];
+    s[k] = v < 0 ? 0 : (v < S ? v : S - 1);
+    w[k] = w_tk[t * K + k];
   }
-  float* o = out + (long long)t * H + c;
-  if (vec) {
-    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
+}
+
+// 0 + w[0] * v[0] + w[1] * v[1] ..., each product and sum rounded on its own
+template <int K>
+__device__ __forceinline__ float combine_sum(const float (&w)[K], const float (&v)[K]) {
+  float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (c + i < H) o[i] = acc[i];
+  for (int k = 0; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(w[k], v[k]));
+  return acc;
+}
+template <int K>
+__device__ __forceinline__ float4 combine_sum(const float (&w)[K], const float4 (&v)[K]) {
+  float x[K], y[K], z[K], u[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = v[k].x, y[k] = v[k].y, z[k] = v[k].z, u[k] = v[k].w;
+  return make_float4(combine_sum<K>(w, x), combine_sum<K>(w, y), combine_sum<K>(w, z),
+                     combine_sum<K>(w, u));
+}
+
+// Work item i is token i / tiles and its column tile i % tiles (a tile is L *
+// CH units: the whole row at H 4096). A group of L = 1 << lg2l threads takes
+// an item at a time, thread j the units j, j + L, ... of the tile; the
+// groups walk the items.
+template <int K, bool VEC, int CH>
+__global__ void __launch_bounds__(kCombineThreads, kCombineBlocksPerSm) combine_kernel(
+    const float* __restrict__ y, const int* __restrict__ slot_tk,
+    const float* __restrict__ w_tk, float* __restrict__ out, int T, int H, int S, int lg2l) {
+  typedef typename std::conditional<VEC, float4, float>::type Unit;
+  constexpr int V = VEC ? 4 : 1;
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // y is the FFN's output
+  const int L = 1 << lg2l;
+  const int n = H / V;
+  const int span = L * CH;
+  const int tiles = (n + span - 1) / span;
+  const long long items = (long long)T * tiles;
+  const int per_block = kCombineThreads >> lg2l;
+  const long long step = (long long)gridDim.x * per_block;
+  const int j = threadIdx.x & (L - 1);
+  long long i = (long long)blockIdx.x * per_block + (threadIdx.x >> lg2l);
+  int s[K];
+  float w[K];
+  if (i < items) combine_picks<K>(slot_tk, w_tk, i / tiles, S, s, w);
+  for (; i < items; i += step) {
+    const long long t = i / tiles;
+    const int u0 = (int)(i - t * tiles) * span + j;
+    Unit v[CH][K];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int u = u0 + c * L;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (u < n) v[c][k] = reinterpret_cast<const Unit*>(y + (long long)s[k] * H)[u];
+    }
+    float wk[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) wk[k] = w[k];
+    if (i + step < items) combine_picks<K>(slot_tk, w_tk, (i + step) / tiles, S, s, w);
+    Unit* o = reinterpret_cast<Unit*>(out + t * H);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int u = u0 + c * L;
+      if (u < n) o[u] = combine_sum<K>(wk, v[c]);
+    }
+  }
+}
+
+template <int K, bool VEC>
+int launch_combine(const float* y, const int* slot_tk, const float* w_tk, float* out, int T,
+                   int H, int S, int lg2l, int units, int blocks, cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  const cudaLaunchConfig_t cfg = {dim3(blocks), dim3(kCombineThreads), 0, stream, &attr,
+                                  kCombinePdl ? 1u : 0u};
+  switch (units) {
+    case 1:
+      return cudaLaunchKernelEx(&cfg, combine_kernel<K, VEC, 1>, y, slot_tk, w_tk, out, T, H, S,
+                                lg2l);
+    case 2:
+      return cudaLaunchKernelEx(&cfg, combine_kernel<K, VEC, 2>, y, slot_tk, w_tk, out, T, H, S,
+                                lg2l);
+    case 4:
+      return cudaLaunchKernelEx(&cfg, combine_kernel<K, VEC, 4>, y, slot_tk, w_tk, out, T, H, S,
+                                lg2l);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -224,12 +303,28 @@ extern "C" int dstt_moe_gather_int8(const void* tokens, const int* src, int8_t* 
 }
 
 // out [T, H] fp32 = sum over k of w_tk[t, k] * y[slot_tk[t, k]], y [S, H]
-// fp32; returns the cudaError_t.
+// fp32, K 1 or 2, by the plan of ops/transformer/moe.py plan_combine (1 <<
+// lg2l threads a token, `units` units a thread and pick, 16-byte units when
+// vec, `blocks` blocks); returns the cudaError_t (cudaErrorInvalidValue for
+// what the kernel does not take).
 extern "C" int dstt_moe_combine(const float* y, const int* slot_tk, const float* w_tk,
-                                float* out, int T, int K, int H, int S, void* stream_) {
+                                float* out, int T, int K, int H, int S, int vec, int lg2l,
+                                int units, int blocks, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (T == 0 || H == 0) return cudaSuccess;
-  const dim3 grid(T, (H + kCombineCols - 1) / kCombineCols);
-  combine_kernel<<<grid, kCombineThreads, 0, stream>>>(y, slot_tk, w_tk, out, K, H, S);
-  return cudaGetLastError();
+  if (S < 1 || blocks < 1 || lg2l < 0 || lg2l > 8) return cudaErrorInvalidValue;
+  if (vec && ((H & 3) || (reinterpret_cast<uintptr_t>(y) & 15) ||
+              (reinterpret_cast<uintptr_t>(out) & 15)))
+    return cudaErrorInvalidValue;
+  if (K == 1)
+    return vec ? launch_combine<1, true>(y, slot_tk, w_tk, out, T, H, S, lg2l, units, blocks,
+                                         stream)
+               : launch_combine<1, false>(y, slot_tk, w_tk, out, T, H, S, lg2l, units, blocks,
+                                          stream);
+  if (K == 2)
+    return vec ? launch_combine<2, true>(y, slot_tk, w_tk, out, T, H, S, lg2l, units, blocks,
+                                         stream)
+               : launch_combine<2, false>(y, slot_tk, w_tk, out, T, H, S, lg2l, units, blocks,
+                                          stream);
+  return cudaErrorInvalidValue;
 }

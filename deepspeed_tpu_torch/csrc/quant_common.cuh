@@ -20,9 +20,10 @@
 // A row is read in its own dtype (fp32 or bf16) and widened in registers: the
 // fp32 copy of a bf16 row never exists in memory. Rows whose length and
 // address allow it are read 16 bytes a lane and their int8 written 4 or 8
-// bytes a lane; any other row element by element. The row is read twice
-// (absmax, then quantize); the second read comes from L1 / L2 for the row
-// lengths the wire uses (256 elements: 512 or 1024 bytes).
+// bytes a lane; any other row element by element. quantize_row_warp reads
+// its row twice (absmax, then quantize): the int8 dispatch gather's rows,
+// and in quant_rows.cu only rows longer than its other forms hold (those
+// forms read a row once and quantize it with one multiply a value).
 #pragma once
 
 #include <cuda_bf16.h>

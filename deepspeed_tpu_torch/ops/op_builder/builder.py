@@ -18,6 +18,7 @@ kernel is launched on a CUDA tensor: the CPU tests never touch it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -95,6 +96,14 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the launch plans
+    size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_check(rc: int, what: str) -> None:

@@ -9,7 +9,9 @@ clip(round_half_even(x / scale), -128, 127)``.
   tensors on the CPU;
 - kernel: ``csrc/quant_rows.cu`` (``_quant_rows_kernel``'s counterpart),
   launched for tensors on a GPU, any group size; ``launches`` counts
-  launches.
+  launches. ``plan_rows`` is its launch plan: which of the kernel's three
+  forms takes a row length (a warp's lanes, a block, or a warp a long row),
+  how a row spreads over lanes, and a grid sized to the card.
 
 The two roundings are those of the jitted JAX wire: XLA compiles the
 divide by the constant 127 into a multiply by its fp32 reciprocal and keeps
@@ -35,7 +37,43 @@ import torch
 INV_QMAX_INT8 = float(np.float32(1.0) / np.float32(127.0))
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
+#: ``csrc/quant_rows.cu``: threads a block; values or 16-byte units a lane
+#: (lanes form) or a thread (block form) holds; blocks an SM (8 blocks of 256
+#: threads fill one)
+THREADS, UNITS, BLOCKS_PER_SM = 256, 8, 8
+FORMS = ("lanes", "block", "warp")
+
 launches = 0
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n (1 for n <= 1)."""
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)   # the wire has a handful of (G, gs) pairs
+def plan_rows(G: int, gs: int, itemsize: int, vec: bool, sms: int) -> Tuple[str, int, int, int]:
+    """``(form, lanes, units, blocks)`` of the row kernel for ``G`` rows of
+    ``gs`` values of ``itemsize`` bytes, read in 16-byte units when ``vec``
+    (else value by value), on a card of ``sms`` SMs.
+
+    A row of ``n <= 32 * UNITS`` units takes the ``lanes`` form: ``lanes``
+    (a power of two up to 32) share it, ``units`` a lane, and a warp takes
+    ``32 // lanes`` rows at a time. Up to ``THREADS * UNITS`` units a row
+    takes the ``block`` form (all ``THREADS`` threads of a block, ``units``
+    a thread); longer rows the ``warp`` form (a warp a row). ``blocks``
+    covers every row once or fills the card (``BLOCKS_PER_SM`` an SM),
+    whichever is fewer: the warps walk the rows."""
+    n = gs * itemsize // 16 if vec else gs
+    warps = THREADS // 32
+    if n <= 32 * UNITS:
+        lanes = min(32, _pow2(n))
+        form, units, want = "lanes", _pow2(-(-n // lanes)), -(-G // (32 // lanes * warps))
+    elif n <= THREADS * UNITS:
+        form, lanes, units, want = "block", THREADS, _pow2(-(-n // THREADS)), G
+    else:
+        form, lanes, units, want = "warp", 32, 0, -(-G // warps)
+    return form, lanes, units, max(1, min(want, BLOCKS_PER_SM * sms))
 
 
 def quantize_rows_int8_reference(groups: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,8 +88,8 @@ def quantize_rows_int8_reference(groups: torch.Tensor) -> Tuple[torch.Tensor, to
 
 def bind(lib: ctypes.CDLL):
     fn = lib.dstt_quant_rows
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -64,16 +102,21 @@ def _kernel():
 
 def _quant_cuda(groups: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    from ..op_builder.builder import launch_check
+    from ..op_builder.builder import launch_check, sm_count
     if groups.dtype not in KERNEL_DTYPES or not groups.is_contiguous():
         raise ValueError(f"quantize_rows_int8: {groups.dtype} (contiguous "
                          f"{groups.is_contiguous()}); the kernel takes contiguous fp32 or bf16")
     G, gs = groups.shape
-    q = torch.empty(G, gs, dtype=torch.int8, device=groups.device)
-    scale = torch.empty(G, dtype=torch.float32, device=groups.device)
+    dev = groups.device
+    isz = groups.element_size()
+    vec = (gs * isz) % 16 == 0 and groups.data_ptr() % 16 == 0
+    form, lanes, units, blocks = plan_rows(G, gs, isz, vec, sm_count(dev.index or 0))
+    q = torch.empty(G, gs, dtype=torch.int8, device=dev)
+    scale = torch.empty(G, dtype=torch.float32, device=dev)
     rc = _kernel()(groups.data_ptr(), q.data_ptr(), scale.data_ptr(), G, gs,
-                   int(groups.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(groups.device).cuda_stream)
+                   int(groups.dtype == torch.bfloat16), FORMS.index(form), int(vec),
+                   lanes.bit_length() - 1, units, blocks,
+                   torch.cuda.current_stream(dev).cuda_stream)
     launch_check(rc, "quantize_rows_int8")
     launches += 1
     return q, scale

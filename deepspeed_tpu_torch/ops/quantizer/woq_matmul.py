@@ -149,11 +149,6 @@ def _kernel():
     return bind(builder.load("woq_matmul"))
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # the tensor-core kernel's counters a column tile, per (device, stream): each
 # launch leaves them zero (the last block of a tile resets its counter), so
 # they are zeroed once; launches on one stream run in order
@@ -169,7 +164,7 @@ def _tile_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _woq_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    from ..op_builder.builder import launch_check
+    from ..op_builder.builder import launch_check, sm_count
     global launches
     M, K = x.shape
     G, gs, N = q.shape
@@ -181,7 +176,7 @@ def _woq_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} on {t.device} (contiguous {t.is_contiguous()}); "
                              f"x on {dev}")
-    mma, per, splits = launch_plan(x, q, _sm_count(dev.index or 0))
+    mma, per, splits = launch_plan(x, q, sm_count(dev.index or 0))
     if mma and any(t.data_ptr() % 16 for t in (x, q, scale)):
         raise ValueError("the tensor-core WOQ kernel reads x, q and scale through TMA: each "
                          "must start on a 16-byte boundary")

@@ -27,7 +27,10 @@ wrapper):
 - ``moe_ffn`` (``csrc/moe_ffn.cu``, ``_ffn_kernel``): the same FFN storing
   ``y [E, C, H]`` fp32;
 - ``moe_combine`` (``csrc/moe_dispatch.cu``, ``_combine_kernel``):
-  ``out[t] = sum_k w_tk[t, k] * y[slot_tk[t, k]]`` fp32, k in order from 0.
+  ``out[t] = sum_k w_tk[t, k] * y[slot_tk[t, k]]`` fp32, k in order from 0,
+  for top_k 1 or 2 (a template parameter of the kernel); ``plan_combine``
+  is its launch plan (threads a token, units a thread, a grid sized to the
+  card).
 
 ``make_moe_forward`` composes them as the JAX function does: the router
 product ``tokens @ gate`` (a plain ``torch.matmul``, as XLA computes it
@@ -74,7 +77,7 @@ import torch.nn.functional as F
 
 from ...moe.sharded_moe import top_k_gating_indices
 from ...nn import layers as L
-from ..quantizer.quant import quantize_rows_int8_reference
+from ..quantizer.quant import _pow2, quantize_rows_int8_reference
 
 ACTIVATIONS = ("silu_gated", "gelu")
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -86,6 +89,10 @@ MAX_EXPERTS = 64    # the route kernel's (csrc/moe_route.cu: kMaxE)
 #: count swept, 8 to 4096, the two forms are within 2% of each other.
 MOE_FUSED_COMBINE_MAX_TOKENS = 256
 _LATER = "ROADMAP A7: MoE top_k > 2, fp16 and other activations"
+
+#: ``csrc/moe_dispatch.cu``: the combine's threads a block, 16-byte units a
+#: thread and pick at most, blocks an SM its launch bound keeps resident
+COMBINE_THREADS, COMBINE_UNITS, COMBINE_BLOCKS_PER_SM = 256, 4, 4
 
 launches = {"moe_route": 0, "moe_dispatch_gather": 0, "moe_dispatch_gather_int8": 0,
             "moe_ffn_combine": 0, "moe_ffn": 0, "moe_combine": 0}
@@ -195,6 +202,24 @@ def moe_combine_reference(y: torch.Tensor, slot_tk: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def plan_combine(T: int, H: int, vec: bool, sms: int) -> Tuple[int, int, int]:
+    """``(lanes, units, blocks)`` of the combine kernel for ``T`` tokens of
+    ``H`` columns, read in 16-byte units when ``vec`` (else value by value),
+    on a card of ``sms`` SMs: ``lanes`` threads (a power of two up to
+    ``COMBINE_THREADS``) share a token's row, ``units`` units a thread and
+    pick (at most ``COMBINE_UNITS``; a row longer than ``lanes * units``
+    units is walked in tiles of that many), and ``blocks`` covers every
+    (token, tile) once or fills the card (``COMBINE_BLOCKS_PER_SM`` an SM),
+    whichever is fewer: the groups walk the tokens."""
+    n = H // 4 if vec else H
+    units = min(COMBINE_UNITS, _pow2(-(-n // COMBINE_THREADS)))
+    lanes = min(COMBINE_THREADS, _pow2(-(-n // units)))
+    items = T * -(-n // (lanes * units))
+    want = -(-items // (COMBINE_THREADS // lanes))
+    return lanes, units, max(1, min(want, COMBINE_BLOCKS_PER_SM * sms))
+
+
 class MoeRouteParams(ctypes.Structure):
     """``MoeRouteParams`` of ``csrc/moe_route.cu``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
@@ -222,7 +247,7 @@ def bind_dispatch(lib: ctypes.CDLL):
     gather, combine = lib.dstt_moe_gather, lib.dstt_moe_combine
     gather_int8 = lib.dstt_moe_gather_int8
     gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     gather_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     gather.restype = combine.restype = gather_int8.restype = ctypes.c_int
     return gather, combine, gather_int8
@@ -354,7 +379,7 @@ def _ffn_cuda(payload, wi_gate, wi_up, wo, src, slot_w, n_tokens: int, activatio
 
 
 def _combine_cuda(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) -> torch.Tensor:
-    from ..op_builder.builder import launch_check
+    from ..op_builder.builder import launch_check, sm_count
     S, H = y.shape
     T, K = slot_tk.shape
     dev = y.device
@@ -362,8 +387,11 @@ def _combine_cuda(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) ->
     _need("slot_tk", slot_tk, torch.int32, dev)
     _need("w_tk", w_tk, torch.float32, dev)
     out = torch.empty(T, H, dtype=torch.float32, device=dev)
+    vec = H % 4 == 0 and y.data_ptr() % 16 == 0
+    lanes, units, blocks = plan_combine(T, H, vec, sm_count(dev.index or 0))
     rc = _dispatch_kernels()[1](y.data_ptr(), slot_tk.data_ptr(), w_tk.data_ptr(),
-                                out.data_ptr(), T, K, H, S, _stream(y))
+                                out.data_ptr(), T, K, H, S, int(vec), lanes.bit_length() - 1,
+                                units, blocks, _stream(y))
     launch_check(rc, "moe_combine")
     launches["moe_combine"] += 1
     return out
@@ -464,7 +492,9 @@ def moe_ffn(payload: torch.Tensor, wi_gate: torch.Tensor, wi_up: Optional[torch.
 
 def moe_combine(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) -> torch.Tensor:
     """The split combine: ``y [S, H]`` fp32 and the token-major metadata ->
-    ``[T, H]`` fp32 (a dropped choice reads slot 0 with weight 0)."""
+    ``[T, H]`` fp32 (a dropped choice reads slot 0 with weight 0); top_k
+    1 or 2, as the route picks."""
+    check_supported(top_k=slot_tk.shape[1], activation=ACTIVATIONS[0], dtype=torch.float32)
     if _on(y) == "cpu":
         return moe_combine_reference(y, slot_tk, w_tk)
     return _combine_cuda(y, slot_tk, w_tk)

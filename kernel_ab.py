@@ -35,16 +35,30 @@ each version's forward feeds it, also after the router product; each
 version's route bitwise its plain version, weights within
 ``MOE_W_ULPS``, its payload byte-identical to ``index_select``, both
 bit-identical on a second run; and the device operations of one call of
-each version's MoE forward at T 8, as serving builds it). ``--only``
+each version's MoE forward at T 8, as serving builds it), and so does the
+ZeRO++ wire quantizer (``quant``: ``quant_rows.cu`` at every
+``QUANT_CASES`` case, each version's q and scale byte-identical to the
+plain version, an elementwise ``x.to(torch.int8)`` of the large cases timed
+beside it as context (the same bytes, scales aside); ``moe_dispatch.cu`` is
+built too, so the SASS comparison
+shows the int8 dispatch gather, which shares the row arithmetic), and so
+does the split combine (``moe_combine``: ``moe_dispatch.cu`` at T 512 and
+4096, H 4096, top-2, dropless, routed by the plain route on the card, y
+seeded, each version bitwise its plain version, timed beside
+``F.embedding_bag`` (mode sum, per-sample weights) in every pass; when both
+hold ``moe_ffn.cu`` also the split FFN -> combine as one call at T 512,
+which shows the combine's programmatic dependent launch). ``--only``
 names the groups to run (``paged``, ``woq``,
-``moe_ffn``, ``flash``, ``adam``, ``moe_route``). A tile-shape
+``moe_ffn``, ``flash``, ``adam``, ``moe_route``, ``quant``,
+``moe_combine``). A tile-shape
 sweep point is a copy of ``csrc`` with one constant edited, passed as B
 against the unedited ``csrc`` as A. To compare a change with its parent,
 unpack the parent's ``deepspeed_tpu_torch`` with ``git archive`` into a
 directory that ``.gitignore`` lists and pass its ``csrc`` as A: the paged,
 WOQ and grouped-FFN kernels are then driven through the wrappers of the
 tree that holds each ``csrc`` (the two paged-attention modules,
-``ops/quantizer/woq_matmul.py``, ``ops/transformer/moe.py``); a ``csrc``
+``ops/quantizer/woq_matmul.py``, ``ops/quantizer/quant.py``,
+``ops/transformer/moe.py``); a ``csrc``
 alone is driven through the checkout's. ``--rounds 0`` builds, compares
 the SASS and checks both versions without timing them.
 The SASS of every kernel that both builds hold is compared first, names
@@ -118,6 +132,7 @@ def wrapper(csrc, rel, name, tag):
 
 
 ROUTE_TOKENS = (8, 256, 512, 4096)   # the moe_route group: dropless, capacity T
+COMBINE_TOKENS = (512, 4096)         # the moe_combine group: dropless, capacity T
 
 
 def takes_bf16_logits(moe_v):
@@ -131,8 +146,9 @@ def main():
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--only", default="paged,woq,moe_ffn,flash,adam,moe_route",
-                    help="comma-separated groups: paged, woq, moe_ffn, flash, adam, moe_route")
+    ap.add_argument("--only", default="paged,woq,moe_ffn,flash,adam,moe_route,quant,moe_combine",
+                    help="comma-separated groups: paged, woq, moe_ffn, flash, adam, moe_route, "
+                         "quant, moe_combine")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -146,6 +162,7 @@ def main():
         paged_decode_attention_reference
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
     from deepspeed_tpu_torch.ops.adam import adam
+    from deepspeed_tpu_torch.ops.quantizer import quant
     from deepspeed_tpu_torch.ops.quantizer import woq_matmul as woq
     from deepspeed_tpu_torch.ops.transformer import moe
 
@@ -158,20 +175,25 @@ def main():
     has_flash = "flash" in only and both("flash_bwd.cu")
     has_adam = "adam" in only and both("fused_adam.cu")
     has_route = "moe_route" in only and both("moe_route.cu") and both("moe_dispatch.cu")
+    has_quant = "quant" in only and both("quant_rows.cu")
+    has_combine = "moe_combine" in only and both("moe_dispatch.cu")
+    has_pair = has_combine and both("moe_ffn.cu")
     same_fwd = all((args.a / f).read_bytes() == (args.b / f).read_bytes()
                    for f in FLASH_FWD_SOURCES) if has_flash else False
     names = ((("ragged_paged_attention", "paged_decode") if has_paged else ())
              + (("woq_matmul",) if has_woq else ()) + (("moe_ffn",) if has_moe else ())
              + (("flash_fwd", "flash_bwd") if has_flash else ())
              + (("fused_adam",) if has_adam else ())
-             + (("moe_route", "moe_dispatch") + (() if has_moe else ("moe_ffn",))
-                if has_route else ()))
+             + (("moe_route", "moe_dispatch", "moe_ffn") if has_route else ())
+             + (("quant_rows", "moe_dispatch") if has_quant else ())
+             + ((("moe_dispatch",) + (("moe_ffn",) if has_pair else ())) if has_combine else ()))
+    names = tuple(dict.fromkeys(names))   # each library once
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
         csrc = csrc.resolve()
         _build.build(names, csrc=csrc)
         lib = lambda name: ctypes.CDLL(str(_build.library_path(name, csrc)))
-        woq_v = moe_v = rpa_v = pdk_v = None
+        woq_v = moe_v = rpa_v = pdk_v = quant_v = None
         if has_paged:
             rpa_v = wrapper(csrc, "inference/v2/kernels/ragged_paged_attention.py",
                             rpa.__name__, tag)
@@ -181,19 +203,24 @@ def main():
         if has_woq:
             woq_v = wrapper(csrc, "ops/quantizer/woq_matmul.py", woq.__name__, tag)
             woq_v._kernel = (lambda f: lambda: f)(woq_v.bind(lib("woq_matmul")))
-        if has_moe or has_route:
+        if has_moe or has_route or has_combine:
             moe_v = wrapper(csrc, "ops/transformer/moe.py", moe.__name__, tag)
+        if has_moe or has_route or has_pair:
             moe_v._ffn_kernel = (lambda f: lambda: f)(moe_v.bind_ffn(lib("moe_ffn")))
         if has_route:
             moe_v._route_kernel = (lambda f: lambda: f)(moe_v.bind_route(lib("moe_route")))
+        if has_route or has_combine:
             moe_v._dispatch_kernels = (lambda f: lambda: f)(
                 moe_v.bind_dispatch(lib("moe_dispatch")))
+        if has_quant:
+            quant_v = wrapper(csrc, "ops/quantizer/quant.py", quant.__name__, tag)
+            quant_v._kernel = (lambda f: lambda: f)(quant_v.bind(lib("quant_rows")))
         versions[tag] = (rpa_v, pdk_v, woq_v, moe_v,
                          flash_version(flash, lib) if has_flash else None,
-                         adam.bind(lib("fused_adam")) if has_adam else None)
+                         adam.bind(lib("fused_adam")) if has_adam else None, quant_v)
         print(f"[ab] {tag} = {csrc} (wrappers: "
-              + ", ".join(m.__file__ if m else "-" for m in (rpa_v, pdk_v, woq_v, moe_v)) + ")",
-              flush=True)
+              + ", ".join(m.__file__ if m else "-"
+                          for m in (rpa_v, pdk_v, woq_v, moe_v, quant_v)) + ")", flush=True)
 
     cur = {}   # the wrapper modules of the version in use
     for lib_name in names:   # kernels that both builds hold
@@ -201,7 +228,9 @@ def main():
                   for c in (args.a, args.b))
         for name in sorted(set(fa) & set(fb)):
             print(f"[ab] {lib_name} SASS {name[:80]}: "
-                  f"{'identical' if fa[name] == fb[name] else 'differs'} in A and B", flush=True)
+                  + ("identical in A and B" if fa[name] == fb[name] else
+                     f"differs in A and B ({len(fa[name])} and {len(fb[name])} lines)"),
+                  flush=True)
         for name in sorted(set(fa) - set(fb)):   # renamed, e.g. a template parameter gone
             same = [n for n in sorted(set(fb) - set(fa)) if fb[n] == fa[name]]
             print(f"[ab] {lib_name} SASS {name[:80]}: only in A"
@@ -209,6 +238,7 @@ def main():
 
     def use(tag):
         cur["rpa"], cur["pdk"], cur["woq"], cur["moe"] = versions[tag][:4]
+        cur["quant"] = versions[tag][6]
         adam._kernel = lambda: versions[tag][5]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -281,6 +311,45 @@ def main():
                   f"{cs.device_ops(torch, lambda: fwd(w, x))} device operations a call "
                   f"(router logits {'bf16' if bf16_in else 'cast to fp32'})", flush=True)
 
+    # drawn after every other group's inputs, so theirs stay as they were
+    quants = {name: cs.quant_inputs(torch, case, gen)
+              for name, case in cs.QUANT_CASES.items()} if has_quant else {}
+    combines = {}   # T -> (y, slot_tk, w_tk, its int64 slot table)
+    pair = None     # the split FFN's inputs at T 512 and its route's slot table
+    if has_combine:
+        gate = (torch.randn(cs.MOE_H, cs.MOE_E, generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        for T in COMBINE_TOKENS:
+            tokens = torch.randn(T, cs.MOE_H, generator=gen, device="cuda").to(torch.bfloat16)
+            _, _, slot_tk, w_tk, _, _ = moe.moe_route_reference((tokens @ gate).float(),
+                                                                top_k=cs.MOE_K, capacity=T)
+            y = torch.randn(cs.MOE_E * T, cs.MOE_H, generator=gen, device="cuda")
+            combines[T] = (y, slot_tk, w_tk, slot_tk.long())
+        if has_pair:
+            w = cs.moe_weights(torch, cs.MOE_E, cs.MOE_H, cs.MOE_F, "silu_gated",
+                               torch.bfloat16, gen)
+            T = cs.MOE_WAVE_T
+            tokens = torch.randn(T, cs.MOE_H, generator=gen, device="cuda").to(torch.bfloat16)
+            src, _, slot_tk, w_tk, _, _ = moe.moe_route_reference(
+                (tokens @ w["gate"]).float(), top_k=cs.MOE_K, capacity=T)
+            p3 = moe.moe_dispatch_gather_reference(tokens, src).view(cs.MOE_E, T, cs.MOE_H)
+            pair = (p3, *cs.moe_ffn_args(w, "silu_gated"), src, slot_tk, w_tk)
+
+    def pair_call():
+        p3, wg, wu, wo, src, slot_tk, w_tk = pair
+        y = cur["moe"].moe_ffn(p3, wg, wu, wo, src, activation="silu_gated")
+        return cur["moe"].moe_combine(y.view(-1, cs.MOE_H), slot_tk, w_tk)
+
+    def combine_cells():
+        bag = torch.nn.functional.embedding_bag
+        cells = []
+        for T, (y, slot_tk, w_tk, slot_l) in combines.items():
+            cells.append(f"combine/T{T} {cs.device_ms(torch, lambda: cur['moe'].moe_combine(y, slot_tk, w_tk), 20, flush)[0]:.4f}")
+            cells.append(f"embedding_bag/T{T} {cs.device_ms(torch, lambda: bag(slot_l, y, per_sample_weights=w_tk, mode='sum'), 20, flush)[0]:.4f}")
+        if pair is not None:
+            cells.append(f"ffn_combine/T{cs.MOE_WAVE_T} {cs.device_ms(torch, pair_call, 10, flush)[0]:.4f}")
+        return cells
+
     def route_cells():
         mv = cur["moe"]
         bf16_in = takes_bf16_logits(mv)
@@ -352,6 +421,22 @@ def main():
             if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
                     and torch.equal(got.view(torch.int16), again.view(torch.int16))):
                 cs.fail(f"{tag} gather T{T}: not byte-identical to index_select on two runs")
+        for name, x in quants.items():
+            q, sc = cur["quant"].quantize_rows_int8(x)
+            qp, sp = quant.quantize_rows_int8_reference(x)
+            if not (torch.equal(q, qp) and torch.equal(sc.view(torch.int32), sp.view(torch.int32))):
+                cs.fail(f"{tag} quant/{name}: q / scale differ from the plain version")
+        for T, (y, slot_tk, w_tk, _) in combines.items():
+            got = cur["moe"].moe_combine(y, slot_tk, w_tk)
+            want = moe.moe_combine_reference(y, slot_tk, w_tk)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                cs.fail(f"{tag} combine/T{T}: not bitwise its plain version")
+        if pair is not None:
+            p3, wg, wu, wo, src, slot_tk, w_tk = pair
+            y = moe.moe_ffn_reference(p3, wg, wu, wo, src, activation="silu_gated")
+            cs.check_close(f"{tag} ffn_combine/T{cs.MOE_WAVE_T}", pair_call(),
+                           moe.moe_combine_reference(y.view(-1, cs.MOE_H), slot_tk, w_tk),
+                           cs.MOE_BF16_TOL)
         if has_adam:
             got, want = adam_fns["kernel"](), adam_fns["plain"]()
             if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
@@ -379,6 +464,12 @@ def main():
             cells += [f"adam/{name} {cs.device_ms(torch, adam_fns[name], 20, flush)[0]:.4f}"
                       for name in ("kernel", "library")]
         cells += route_cells() if has_route else []
+        cells += [f"quant/{name} {cs.device_ms(torch, lambda: cur['quant'].quantize_rows_int8(x), 20, flush)[0]:.4f}"
+                  for name, x in quants.items()]
+        # context: an elementwise cast moves the same bytes (scales aside)
+        cells += [f"int8_cast/{name} {cs.device_ms(torch, lambda: x.to(torch.int8), 20, flush)[0]:.4f}"
+                  for name, x in quants.items() if x.numel() >= 1 << 22]
+        cells += combine_cells()
         print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
     print(cs.nvidia_smi())
     return 0

@@ -23,6 +23,11 @@ kernels to these plain versions on the GPU.
   kernel computes them from token 0's row; nothing reads them with a
   non-zero weight);
 - the fused and split forms bit-identical;
+- the combine's plain version against the Pallas combine at top_k 1 and 2,
+  with dropped choices (slot 0, weight 0) and more than 256 tokens (the
+  split form's waves), and its kernel's launch plan (``plan_combine``) at T
+  8 to 4096: every unit of a row held by exactly one thread of its token's
+  group, no block without a token;
 - what is not served raises ``NotImplementedError``.
 """
 
@@ -428,6 +433,61 @@ def test_module_init_is_normal_and_seeded():
         "gate": (64, 4), "wi_gate": (4, 96, 64), "wi_up": (4, 96, 64), "wo": (4, 64, 96)}
     std = torch.cat([v.flatten() for v in first.values()]).std().item()
     assert abs(std - 0.02) < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the split combine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_combine_with_dropped_choices_matches_pallas(top_k):
+    """300 tokens (above the fused form's 256), a third of the choices
+    dropped as the route drops them: slot 0, weight 0. One product a term on
+    the port's side; XLA may contract the Pallas body's multiply-add, so to
+    an ulp of the sum, as the split test above."""
+    rng = np.random.default_rng(top_k)
+    t, s, h = 300, 640, 64
+    y = rng.standard_normal((s, h)).astype(np.float32)
+    slot_tk = rng.permutation(s)[:t * top_k].reshape(t, top_k).astype(np.int32)
+    w_tk = rng.random((t, top_k)).astype(np.float32)
+    slot_tk[::3, -1] = 0
+    w_tk[::3, -1] = 0.0
+    want = pm.moe_combine(jnp.asarray(y), jnp.asarray(slot_tk), jnp.asarray(w_tk), interpret=True)
+    got = moe.moe_combine(torch.from_numpy(y), torch.from_numpy(slot_tk), torch.from_numpy(w_tk))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7, rtol=1e-6)
+    # the rows of dropped choices add 0 * y[0]: each token is its kept terms
+    kept = sum(w_tk[:, k, None] * y[slot_tk[:, k]] for k in range(top_k - 1))
+    last = np.where(w_tk[:, -1:] != 0, w_tk[:, -1:] * y[slot_tk[:, -1]], 0.0)
+    np.testing.assert_allclose(got.numpy(), kept + last, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("h", [4096, 14336, 72, 40, 7])
+@pytest.mark.parametrize("t", [8, 16, 32, 64, 128, 256, 257, 512, 1024, 2048, 4096])
+def test_combine_plan_holds_every_unit_once(t, h, sms):
+    for vec in (True, False) if h % 4 == 0 else (False,):
+        lanes, units, blocks = moe.plan_combine(t, h, vec, sms)
+        n = h // 4 if vec else h
+        assert lanes & (lanes - 1) == 0 and lanes <= moe.COMBINE_THREADS
+        assert units in (1, 2, 4) and units <= moe.COMBINE_UNITS
+        span = lanes * units
+        tiles = -(-n // span)
+        held = sorted(u for u in (tile * span + j + c * lanes for tile in range(tiles)
+                                  for j in range(lanes) for c in range(units)) if u < n)
+        assert held == list(range(n))
+        assert lanes == 1 or tiles > 1 or (lanes // 2) * units < n
+        groups = moe.COMBINE_THREADS // lanes
+        assert 1 <= blocks <= moe.COMBINE_BLOCKS_PER_SM * sms
+        assert (blocks - 1) * groups < t * tiles        # every block has a token
+    if h == 4096 and sms == 132:   # Mixtral: a block a token, 4 units a thread and pick
+        assert moe.plan_combine(t, h, True, sms) == (256, 4, min(t, 528))
+
+
+def test_combine_takes_top_k_1_or_2():
+    y = torch.zeros(8, H)
+    with pytest.raises(NotImplementedError, match="top_k 3"):
+        moe.moe_combine(y, torch.zeros(4, 3, dtype=torch.int32), torch.zeros(4, 3))
 
 
 # ---------------------------------------------------------------------------

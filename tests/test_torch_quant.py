@@ -13,7 +13,16 @@ and keeps ``x / scale`` a true divide, and the port computes exactly that
   ``DSTPU_QUANT_KERNEL=pallas`` (through ``quantize_blockwise`` too);
 - ``moe_dispatch_gather_int8``'s Pallas kernel in interpret mode, mask_pad
   off and on, and against ``quantize_rows_int8`` of the gathered rows.
+
+The row kernel's launch plan (``quant.plan_rows``) is pure arithmetic over
+the shape and the SM count, checked here at every ``[quant]`` case of
+``chip_smoke.py``: each unit of a row is held by exactly one lane or
+thread, a lane holds at most ``UNITS`` units at once, and the grid neither
+exceeds the resident blocks nor holds a block with no row.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +37,10 @@ from deepspeed_tpu_torch.ops.quantizer import quant, quantizer as tq
 from deepspeed_tpu_torch.ops.transformer import moe
 
 GROUP_SIZES = (1, 7, 100, 255, 256, 4096)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 def _rows(seed, G, gs, kind="randn"):
@@ -198,3 +211,86 @@ def test_row_chunk_layouts_match_jax(n_chunks):
     got = tq.scatter_in_row_chunks(t_scatter, torch.from_numpy(y), n, n_chunks)
     want = jq.scatter_in_row_chunks(j_scatter, jnp.asarray(y), n, n_chunks)
     _equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_rows_keep_subnormal_inputs(dtype):
+    """Subnormal inputs, as ``chip_smoke.py``'s edge rows hold them (the
+    kernel is held to this plain version there): a row of them, whose scale
+    underflows to a subnormal, and subnormal values in rows of normal ones;
+    against numpy's IEEE fp32 arithmetic, bitwise. The jitted JAX wire is
+    not the yardstick here: XLA's CPU backend flushes subnormals to zero
+    (a row of them gets scale 1 and q 0 there), the port keeps them."""
+    x = _rows(11, 16, 256)
+    x[3::8] *= np.float32(1e-40)
+    x[7::8, ::5] *= np.float32(1e-40)
+    t = _to_torch(x, dtype)
+    xf = t.float().numpy()
+    assert (np.abs(xf[3::8]) < np.finfo(np.float32).tiny).all()
+    q, s = quant.quantize_rows_int8(t)
+    amax = np.abs(xf).max(axis=1)
+    want_s = amax * np.float32(quant.INV_QMAX_INT8)
+    want_s = np.where(want_s == 0, np.float32(1), want_s).astype(np.float32)
+    want_q = np.clip(np.rint(xf / want_s[:, None]), -128, 127).astype(np.int8)
+    _equal(s, want_s)
+    _equal(q, want_q)
+    assert q[3::8].any()   # the subnormal rows quantize to their own scale
+
+
+def _units_held(lanes: int, units: int, n: int):
+    """The unit indices of one row that lanes 0 .. lanes-1 hold (units
+    j, j + lanes, ... a lane), in the order the kernel loads them."""
+    return sorted(j + c * lanes for j in range(lanes) for c in range(units)
+                  if j + c * lanes < n)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("case", sorted(chip_smoke.QUANT_CASES))
+def test_row_plan_holds_every_unit_once(case, vec, sms):
+    G, gs, dt, _ = chip_smoke.QUANT_CASES[case]
+    isz = 2 if dt == "bfloat16" else 4
+    vec = vec and (gs * isz) % 16 == 0   # the wrapper's rule: whole 16-byte units a row
+    form, lanes, units, blocks = quant.plan_rows(G, gs, isz, vec, sms)
+    n = gs * isz // 16 if vec else gs
+    warps = quant.THREADS // 32
+    assert 1 <= blocks <= quant.BLOCKS_PER_SM * sms
+    if form == "lanes":
+        assert n <= 32 * quant.UNITS and lanes & (lanes - 1) == 0 and lanes <= 32
+        assert units <= quant.UNITS and _units_held(lanes, units, n) == list(range(n))
+        assert lanes == 1 or (lanes // 2) * units < n   # no lane group wider than the row needs
+        assert (blocks - 1) * (32 // lanes) * warps < G   # every block has a row
+    elif form == "block":
+        assert lanes == quant.THREADS and 32 * quant.UNITS < n <= quant.THREADS * quant.UNITS
+        assert units <= quant.UNITS and _units_held(lanes, units, n) == list(range(n))
+        assert blocks <= G
+    else:
+        assert form == "warp" and n > quant.THREADS * quant.UNITS
+        assert (blocks - 1) * warps < G
+
+
+@pytest.mark.parametrize("case,plan", [
+    # (form, lanes, units, blocks); the wire's main case: a row of 512 bytes
+    # a warp at a time, one 16-byte unit a lane; 8 blocks on each of 132 SMs
+    ("mlp-shard-2816x2048-bf16", ("lanes", 32, 1, 1056)),
+    ("mlp-shard-2816x2048-fp32", ("lanes", 32, 2, 1056)),
+    ("embed-shard-16000x2048-bf16", ("lanes", 32, 1, 1056)),
+    ("gs100-fp32", ("lanes", 32, 1, 250)),   # 400-byte rows: 25 units
+    ("edge-gs256-fp32", ("lanes", 32, 2, 8)),
+    ("gs1-fp32", ("lanes", 1, 1, 16)),       # a row a lane
+    ("gs7-bf16", ("lanes", 8, 1, 94)),       # 4 rows a pass, lanes of 8
+    ("gs255-bf16", ("lanes", 32, 8, 250)),   # 510-byte rows: value by value
+    ("gs4096-bf16", ("block", 256, 2, 512)),
+    ("gs4096-fp32", ("block", 256, 4, 512)),
+])
+def test_row_plan_at_the_wire_cases(case, plan):
+    G, gs, dt, _ = chip_smoke.QUANT_CASES[case]
+    isz = 2 if dt == "bfloat16" else 4
+    assert quant.plan_rows(G, gs, isz, (gs * isz) % 16 == 0, 132) == plan
+
+
+def test_row_plan_takes_long_rows_to_the_warp_form():
+    # 32 KB of 16-byte units is the block form's most; past it, a warp a row
+    assert quant.plan_rows(10, 8192, 4, True, 132)[:3] == ("block", 256, 8)
+    assert quant.plan_rows(10, 8196, 4, True, 132)[0] == "warp"
+    assert quant.plan_rows(10, 2049, 4, False, 132)[0] == "warp"
