@@ -293,6 +293,19 @@ MOE_E, MOE_K, MOE_H, MOE_F = 8, 2, 4096, 14336
 MOE_TOKENS = (8, 256, 512)
 MOE_DECODE_T, MOE_WAVE_T = 8, 512   # the kernels line: fused form at a decode step, split at a wave
 MOE_COMBINE_WIDE_T = 4096   # the combine alone at the sweep's largest wave (201 MB moved)
+# the int8 dispatch gather beyond MOE_TOKENS, its own generator: timed at
+# mixtral's H 4096, top-2, dropless, mask_pad on: (T, dtype); then checked
+# at edge cases (T, H, dtype, layout), layout "routed" (the route of seeded
+# logits), "empty" (every slot empty) or "offset" (the tokens start 2 or 4
+# bytes past a 16-byte boundary): rows off the 16-byte unit (H 4100, value by
+# value, a warp a row), unaligned rows, rows past the block form (H 16392, a
+# warp a row, read twice), the lanes form's short rows (H 1, 7, 96)
+MOE_GATHER_INT8_TIMED = ((4096, "bfloat16"), (512, "float32"))
+MOE_GATHER_INT8_EDGE = ((8, 4100, "bfloat16", "routed"), (8, 4096, "bfloat16", "offset"),
+                        (8, 16392, "bfloat16", "routed"), (8, 4096, "bfloat16", "empty"),
+                        (37, 1, "float32", "routed"), (37, 7, "bfloat16", "routed"),
+                        (37, 96, "bfloat16", "routed"), (45, 96, "float32", "offset"),
+                        (300, 4100, "float32", "routed"))
 MOE_BF16_TOL = 5e-2   # atol = rtol, the JAX suite's MoE bound (test_pallas_moe.py:140-142)
 MOE_FP32_TOL = 1e-5
 MOE_W_ULPS = 4        # route weights: within 4 fp32 ulp when not bitwise (two exp builds)
@@ -1219,19 +1232,20 @@ def moe_case_vs_plain(torch, moe, w, tokens, top_k, cap, activation, tol, tag):
 def gather_int8_vs_plain(torch, moe, tokens, src, tag):
     """The int8 dispatch gather, mask_pad off and on, against its plain
     version and against the row-quantizer kernel on the gathered rows: q and
-    scale byte-identical to both. Returns the largest difference from the
-    plain version, q and scale."""
+    scale byte-identical to both and to a second run. Returns the largest
+    difference from the plain version, q and scale."""
     from deepspeed_tpu_torch.ops.quantizer import quant
     err = 0.0
     for mask in (False, True):
         q, sc = moe.moe_dispatch_gather_int8(tokens, src, mask_pad=mask)
+        q2, s2 = moe.moe_dispatch_gather_int8(tokens, src, mask_pad=mask)
         qp, sp = moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=mask)
         rows = tokens.index_select(0, (src.long() - 1).clamp_min(0))
         if mask:
             rows = torch.where((src > 0)[:, None], rows, torch.zeros_like(rows))
         q1, s1 = quant.quantize_rows_int8(rows)
         torch.cuda.synchronize()
-        for other, what in (((qp, sp), "its plain version"),
+        for other, what in (((q2, s2), "a second run"), ((qp, sp), "its plain version"),
                             ((q1, s1), "quantize_rows_int8 of the gathered rows")):
             if not (torch.equal(q, other[0])
                     and torch.equal(sc.view(torch.int32), other[1].view(torch.int32))):
@@ -1316,7 +1330,7 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
             "moe_dispatch_gather_int8": (
                 lambda: moe.moe_dispatch_gather_int8(tokens, src, mask_pad=True),
                 lambda: moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=True),
-                lambda: tokens.index_select(0, (src.long() - 1).clamp_min(0))),
+                None),
             "moe_ffn_combine": (
                 lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act),
                 lambda: moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
@@ -1360,6 +1374,8 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
                   f"{b_ms:.4f} ({b_by}) library_ms "
                   f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                   f"({b_ms / ms:.1%} of bound){floor}", flush=True)
+        gather_int8_times(torch, moe, tokens, src, f"T{T}", bnd["moe_dispatch_gather_int8"],
+                          times["moe_dispatch_gather_int8"], flush)
         pair_ms = device_ms(torch, lambda: moe.moe_dispatch_gather(
             tokens, moe.moe_route(logits, top_k=k, capacity=cap)[0]), 10, flush)[0]
         clean_ms = device_ms(torch, calls["moe_dispatch_gather"][0], 10, flush, clean=True)[0]
@@ -1388,10 +1404,12 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
               f"up {bmm[1]:.4f} down {bmm[2]:.4f} ms (sum {sum(bmm):.4f})", flush=True)
         del mid, y, payload, p3
     combine_wide(torch, moe, flush)
-    print("[moe] library_ms: index_select for the gathers (for the int8 gather: context "
-          "only, it does not quantize), F.embedding_bag (mode sum, per-sample weights) for the "
-          "slot-table combine; no single PyTorch call computes the route or the grouped FFN "
-          "with its combine", flush=True)
+    errs_all["moe_dispatch_gather_int8"] = max(errs_all["moe_dispatch_gather_int8"],
+                                               gather_int8_wide(torch, moe, flush))
+    print("[moe] library_ms: index_select for the dispatch gather, F.embedding_bag (mode sum, "
+          "per-sample weights) for the slot-table combine; no single PyTorch call computes the "
+          "route, the int8 gather (index_select of the same slots is timed beside it as "
+          "context: it does not quantize) or the grouped FFN with its combine", flush=True)
     moe_sweep(torch, moe, w, gen, flush)
     edge = torch.Generator(device="cuda").manual_seed(EDGE_SEED)   # gen's draws stay as they were
     for T, cf, dead in MOE_EDGE_CASES:
@@ -1454,6 +1472,65 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
               f"{'bitwise' if wbits and bbits else 'within ulp'}), two runs bit-identical, "
               f"bf16 route == route of the fp32 cast", flush=True)
     return rows, errs_all
+
+
+def gather_int8_times(torch, moe, tokens, src, tag, bnd, ms, flush):
+    """The int8 gather's time (``ms``, under the write flush) beside its
+    time after a clean flush, its bound and index_select of the same slots
+    (context: it does not quantize), mask_pad on."""
+    clean_ms = device_ms(torch, lambda: moe.moe_dispatch_gather_int8(tokens, src, mask_pad=True),
+                         10, flush, clean=True)[0]
+    idx = (src.long() - 1).clamp_min(0)
+    sel_ms = device_ms(torch, lambda: tokens.index_select(0, idx), 10, flush)[0]
+    b_ms, b_by = bound(*bnd, torch.float32)
+    print(f"[moe]   {tag} moe_dispatch_gather_int8 {str(tokens.dtype)[6:]}: kernel_ms {ms:.4f} "
+          f"({b_ms / ms:.1%} of bound), after a clean L2 flush {clean_ms:.4f} "
+          f"({b_ms / clean_ms:.1%}); bound_ms {b_ms:.4f} ({b_by}, {bnd[0]} bytes); "
+          f"index_select of the same slots {sel_ms:.4f} (context)", flush=True)
+
+
+def gather_int8_wide(torch, moe, flush):
+    """The int8 dispatch gather past MOE_TOKENS, from a generator of its own:
+    MOE_GATHER_INT8_TIMED (mixtral widths, top-2, dropless), checked and
+    timed, then MOE_GATHER_INT8_EDGE, checked: q and scale byte-identical to
+    the plain version, to quantize_rows_int8 of the gathered rows and to a
+    second run, mask_pad off and on. Returns the largest difference from the
+    plain version."""
+    g = torch.Generator(device="cuda").manual_seed(EDGE_SEED + 3)   # gen's draws stay as they were
+    E, k, err = MOE_E, MOE_K, 0.0
+    cases = [(T, MOE_H, dt, "routed", True) for T, dt in MOE_GATHER_INT8_TIMED]
+    cases += [(T, H, dt, layout, False) for T, H, dt, layout in MOE_GATHER_INT8_EDGE]
+    for T, H, dt, layout, timed in cases:
+        dtype = getattr(torch, dt)
+        buf = torch.randn(T * H + 1, generator=g, device="cuda").to(dtype)
+        tokens = buf[1:].view(T, H) if layout == "offset" else buf[:T * H].view(T, H)
+        tokens[T // 2] = 0.0   # a token row of zeros: scale 1 in every slot that reads it
+        src = moe.moe_route(torch.randn(T, E, generator=g, device="cuda"), top_k=k,
+                            capacity=T)[0]
+        if layout == "empty":
+            src = torch.zeros_like(src)
+        tag = f"T{T} H{H} {dt} {layout}"
+        err = max(err, gather_int8_vs_plain(torch, moe, tokens, src, tag))
+        isz = tokens.element_size()
+        vec = (H * isz) % 16 == 0 and tokens.data_ptr() % 16 == 0
+        plan = moe.plan_gather_int8(src.numel(), H, isz, vec,
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"[moe] int8 gather {tag}: slots filled {int((src > 0).sum())}/{src.numel()} "
+              f"(plan {plan}), q and scale byte-identical to its plain version, to "
+              f"quantize_rows_int8 of the gathered rows and to a second run, mask_pad off and on",
+              flush=True)
+        if timed:
+            ms = device_ms(torch, lambda: moe.moe_dispatch_gather_int8(tokens, src, mask_pad=True),
+                           10, flush)[0]
+            plain_ms = synced_ms(torch, lambda: moe.moe_dispatch_gather_int8_reference(
+                tokens, src, mask_pad=True), 3)
+            bnd = moe_bounds(torch, src, E, T, T, H, 0, k, "silu_gated", isz)
+            print(f"[moe]   T{T} {dt} moe_dispatch_gather_int8: plain_ms {plain_ms:.4f}",
+                  flush=True)
+            gather_int8_times(torch, moe, tokens, src, f"T{T}",
+                              bnd["moe_dispatch_gather_int8"], ms, flush)
+        del buf, tokens, src
+    return err
 
 
 def combine_wide(torch, moe, flush):
@@ -2292,7 +2369,9 @@ def quant_step_profile(torch, engine, batch, quant, profiled):
     """One more step with every row-quantizer call recorded: calls, rows a
     call (a histogram by powers of two), the calls' summed bytes bound and,
     where ``profiled``, the quantizer kernels' device ms and launches from
-    ``torch.profiler`` (kernels whose name holds ``quant_rows``)."""
+    ``torch.profiler`` (kernels whose name holds ``GroupRows``: the row forms
+    of ``csrc/quant_common.cuh`` over the wire's groups, not the int8 gather's
+    ``SlotRows``)."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -2319,7 +2398,7 @@ def quant_step_profile(torch, engine, batch, quant, profiled):
                            for G, gs, isz in calls)}
     if profiled:
         ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "quant_rows" in e.key]
+              if e.device_type == torch.autograd.DeviceType.CUDA and "GroupRows" in e.key]
         out["device_ms"] = sum(e.self_device_time_total for e in ev) / 1e3 if ev else None
         out["launches"] = sum(e.count for e in ev)
     return out
@@ -2511,7 +2590,7 @@ def train_zero(torch, np, single_opt_bytes):
     qp = r0["quant_profile"]
     if qp["device_ms"] is None:
         print(f"[zero] rank 0 row quantizer in one more step: {qp['calls']} calls; device ms not "
-              f"measured (the profiler recorded no quant_rows kernel)", flush=True)
+              f"measured (the profiler recorded no GroupRows kernel)", flush=True)
     else:
         print(f"[zero] rank 0 row quantizer in one more step, profiled: {qp['calls']} calls, "
               f"{qp['launches']} kernel launches, device {qp['device_ms']:.4f} ms, bound "

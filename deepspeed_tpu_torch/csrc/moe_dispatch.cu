@@ -10,8 +10,8 @@
 // slot), _gather_int8_kernel (via moe_dispatch_gather_int8; the same grid)
 // and _combine_kernel (via moe_combine; grid (T, K) revisiting token t's
 // output block K times). Same functions. The int8 gather quantizes each
-// gathered row as one group with quant_common.cuh, the row arithmetic of
-// quant_rows.cu, one warp a slot: its output is byte-identical to
+// gathered row as one group with quant_common.cuh's row forms, those of the
+// wire quantizer (quant_rows.cu): its output is byte-identical to
 // quantize_rows_int8 of the gathered rows. An empty slot (src 0) reads
 // token 0's row unmasked, as the Pallas kernel does with mask_pad=False: the
 // combine never reads it with a non-zero weight. The gather's bf16 cast is
@@ -27,8 +27,24 @@
 // src entries at once and keeps two whole rows' 16-byte loads in flight (16
 // a lane and row at H 4096 in bf16) before storing them; it waits for the
 // route by programmatic dependent launch, so its launch overlaps the
-// route's. The int8 gather reads a row and writes a quarter (fp32) or half
-// (bf16) of its bytes plus a 4-byte scale.
+// route's.
+//
+// The int8 gather reads a routed row and writes a quarter (fp32) or half
+// (bf16) of its bytes plus a 4-byte scale; with mask_pad an empty slot reads
+// nothing and writes its int8 zeros and a scale of 1. At a 512-token Mixtral
+// wave (top-2, dropless: 4096 slots of H 4096, 1024 of them filled) that is
+// 4.2 MB of tokens read and 16.8 MB of int8 written, 12.6 MB of it zero rows:
+// 0.0063 ms at 3.35 TB/s. So the rows are read once, into registers, and
+// quantized by one multiply a value; zero rows cost their 16-byte stores and
+// nothing else; and the grid is sized to the card (the launch plan,
+// ops/transformer/moe.py plan_gather_int8, is the wire quantizer's; the
+// launcher cuts it to the blocks the card holds at once): at H 4096 a block
+// holds a slot's row (2 or 4 units a thread), walks the slots in rotated
+// rounds of the grid, so that an expert's run of filled slots spreads over
+// the blocks, and loads its next slot's row, and the src entry of the one
+// after, before it reduces the row it holds. Plain loads (no evict-first):
+// a token's row is read by its top_k slots, the later reads from L2. No
+// programmatic dependent launch: no kernel precedes this one on any path.
 //
 // The combine moves T * K rows of y in and T rows out: at a 512-token
 // Mixtral wave (K 2, H 4096) 25.2 MB, 0.0075 ms at 3.35 TB/s. Its launch
@@ -53,9 +69,12 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ int source_row(const int* src, int s, int T) {
-  const int t = src[s] - 1;
+__device__ __forceinline__ int clamp_token(int t, int T) {
   return t < 0 ? 0 : (t < T ? t : T - 1);
+}
+
+__device__ __forceinline__ int source_row(const int* src, int s, int T) {
+  return clamp_token(src[s] - 1, T);
 }
 
 template <typename In, typename Out>
@@ -138,19 +157,34 @@ int launch_gather(const In* tokens, const int* src, Out* out, int S, int T, int 
   return cudaLaunchKernelEx(&cfg, moe_gather_kernel<In, Out>, tokens, src, out, S, T, n);
 }
 
-constexpr int kGatherQuantThreads = 256;   // 8 slots a block, a warp each
+// Slot s of the int8 gather, for quant_common.cuh's row forms: its key is
+// src[s]; its row is tokens[max(src[s] - 1, 0)], or a row of zeros where
+// src[s] == 0 when mask_pad.
+template <typename T>
+struct SlotRows {
+  typedef T Elem;
+  typedef int Key;
+  static constexpr bool kZeroRows = true;
+  static constexpr bool kEvictFirst = false;
+  const T* tokens;
+  const int* src;
+  int n_tokens, H, mask_pad;
+  __device__ __forceinline__ Key key(long long s) const { return __ldg(src + s); }
+  __device__ __forceinline__ const T* row(Key v, long long) const {
+    if (mask_pad && v <= 0) return nullptr;
+    return tokens + (long long)clamp_token(v - 1, n_tokens) * H;
+  }
+};
 
-// A warp a slot: the routed row, masked to zeros for an empty slot when
-// mask_pad, quantized as one group of H.
-template <typename In>
-__global__ void __launch_bounds__(kGatherQuantThreads) gather_int8_kernel(
-    const In* tokens, const int* src, int8_t* q, float* scale, int S, int T, int H,
-    int mask_pad) {
-  const int s = blockIdx.x * (kGatherQuantThreads / 32) + (threadIdx.x >> 5);
-  if (s >= S) return;
-  const bool zero = mask_pad && src[s] <= 0;
-  quant::quantize_row_warp(tokens + (long long)source_row(src, s, T) * H, H, zero,
-                           q + (long long)s * H, scale + s, threadIdx.x & 31);
+template <typename T>
+int launch_gather_int8(const T* tokens, const int* src, int8_t* q, float* scale, int S, int T_,
+                       int H, int mask_pad, int form, int vec, int lg2p, int units, int blocks,
+                       cudaStream_t stream) {
+  if (vec && ((reinterpret_cast<uintptr_t>(tokens) & 15) || (H * sizeof(T)) % 16 ||
+              (reinterpret_cast<uintptr_t>(q) & 15)))
+    return cudaErrorInvalidValue;
+  return quant::launch_rows(SlotRows<T>{tokens, src, T_, H, mask_pad}, q, scale, S, H, form, vec,
+                            lg2p, units, blocks, stream);
 }
 
 constexpr int kCombineThreads = 256;
@@ -284,22 +318,21 @@ extern "C" int dstt_moe_gather(const void* tokens, const int* src, void* out, in
 
 // q [S, H] int8 and scale [S] fp32: the rows tokens [T, H] (in_bf16 ? bf16 :
 // fp32) at max(src - 1, 0), zero where src == 0 when mask_pad, each quantized
-// as one symmetric int8 group; returns the cudaError_t.
+// as one symmetric int8 group, by the plan of ops/transformer/moe.py
+// plan_gather_int8 (quant_common.cuh launch_rows: form, vec, lg2p, units,
+// blocks); returns the cudaError_t (cudaErrorInvalidValue for a plan the
+// forms do not take).
 extern "C" int dstt_moe_gather_int8(const void* tokens, const int* src, int8_t* q, float* scale,
-                                    int S, int T, int H, int in_bf16, int mask_pad,
-                                    void* stream_) {
+                                    int S, int T, int H, int in_bf16, int mask_pad, int form,
+                                    int vec, int lg2p, int units, int blocks, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (S == 0 || H == 0) return cudaSuccess;
-  const int per = kGatherQuantThreads / 32;
-  const int blocks = (S + per - 1) / per;
-  if (in_bf16) {
-    gather_int8_kernel<bf16><<<blocks, kGatherQuantThreads, 0, stream>>>(
-        static_cast<const bf16*>(tokens), src, q, scale, S, T, H, mask_pad);
-  } else {
-    gather_int8_kernel<float><<<blocks, kGatherQuantThreads, 0, stream>>>(
-        static_cast<const float*>(tokens), src, q, scale, S, T, H, mask_pad);
-  }
-  return cudaGetLastError();
+  if (T < 1) return cudaErrorInvalidValue;
+  if (in_bf16)
+    return launch_gather_int8(static_cast<const bf16*>(tokens), src, q, scale, S, T, H, mask_pad,
+                              form, vec, lg2p, units, blocks, stream);
+  return launch_gather_int8(static_cast<const float*>(tokens), src, q, scale, S, T, H, mask_pad,
+                            form, vec, lg2p, units, blocks, stream);
 }
 
 // out [T, H] fp32 = sum over k of w_tk[t, k] * y[slot_tk[t, k]], y [S, H]

@@ -63,7 +63,9 @@ def plan_rows(G: int, gs: int, itemsize: int, vec: bool, sms: int) -> Tuple[str,
     takes the ``block`` form (all ``THREADS`` threads of a block, ``units``
     a thread); longer rows the ``warp`` form (a warp a row). ``blocks``
     covers every row once or fills the card (``BLOCKS_PER_SM`` an SM),
-    whichever is fewer: the warps walk the rows."""
+    whichever is fewer: the warps walk the rows. The launcher
+    (``csrc/quant_common.cuh``) takes no more blocks than the kernel's
+    occupancy lets the card hold at once."""
     n = gs * itemsize // 16 if vec else gs
     warps = THREADS // 32
     if n <= 32 * UNITS:

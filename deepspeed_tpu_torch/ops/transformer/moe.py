@@ -18,9 +18,10 @@ wrapper):
   ``_gather_int8_kernel``): the same rows (zeroed for empty slots with
   ``mask_pad``), each quantized as one symmetric int8 group: ``(q [E*C, H]
   int8, scale [E*C] fp32)``, byte-identical to ``quantize_rows_int8`` of the
-  gathered rows (``ops/quantizer/quant.py``). No forward calls it: its path
-  is the int8 expert exchange, which waits for a live expert axis (ROADMAP
-  A6 / A7), as in the JAX package;
+  gathered rows (``ops/quantizer/quant.py``); ``plan_gather_int8`` is its
+  launch plan (the wire quantizer's row forms, whose code it shares). No
+  forward calls it: its path is the int8 expert exchange, which waits for a
+  live expert axis (ROADMAP A6 / A7), as in the JAX package;
 - ``moe_ffn_combine`` (``csrc/moe_ffn.cu``, ``_ffn_combine_kernel``): the
   grouped gated FFN over the payload [E, C, H] with ``slot_w * y``
   scattered into the token-major fp32 output [T, H];
@@ -77,7 +78,7 @@ import torch.nn.functional as F
 
 from ...moe.sharded_moe import top_k_gating_indices
 from ...nn import layers as L
-from ..quantizer.quant import _pow2, quantize_rows_int8_reference
+from ..quantizer.quant import FORMS, _pow2, plan_rows, quantize_rows_int8_reference
 
 ACTIVATIONS = ("silu_gated", "gelu")
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -220,6 +221,19 @@ def plan_combine(T: int, H: int, vec: bool, sms: int) -> Tuple[int, int, int]:
     return lanes, units, max(1, min(want, COMBINE_BLOCKS_PER_SM * sms))
 
 
+def plan_gather_int8(S: int, H: int, itemsize: int, vec: bool, sms: int
+                     ) -> Tuple[str, int, int, int]:
+    """``(form, lanes, units, blocks)`` of the int8 dispatch gather for ``S``
+    slots of rows of ``H`` values of ``itemsize`` bytes, read in 16-byte units
+    when ``vec`` (else value by value), on a card of ``sms`` SMs. The gather
+    runs the wire quantizer's row forms (``csrc/quant_common.cuh``) over its
+    slots, so its plan is ``quant.plan_rows`` of ``S`` rows of ``H``: at
+    Mixtral's H 4096 the ``block`` form (a block a slot's row, 2 bf16 or 4 fp32
+    units a thread), ``min(S, 8 * sms)`` blocks walking the slots, which the
+    launcher cuts to the blocks the card holds at once."""
+    return plan_rows(S, H, itemsize, vec, sms)
+
+
 class MoeRouteParams(ctypes.Structure):
     """``MoeRouteParams`` of ``csrc/moe_route.cu``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
@@ -248,7 +262,7 @@ def bind_dispatch(lib: ctypes.CDLL):
     gather_int8 = lib.dstt_moe_gather_int8
     gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    gather_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    gather_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     gather.restype = combine.restype = gather_int8.restype = ctypes.c_int
     return gather, combine, gather_int8
 
@@ -324,16 +338,21 @@ def _gather_cuda(tokens: torch.Tensor, src: torch.Tensor, out_dtype: torch.dtype
 
 
 def _gather_int8_cuda(tokens: torch.Tensor, src: torch.Tensor, mask_pad: bool):
-    from ..op_builder.builder import launch_check
+    from ..op_builder.builder import launch_check, sm_count
     T, H = tokens.shape
-    _need("tokens", tokens, tokens.dtype, tokens.device)
-    _need("src", src, torch.int32, tokens.device)
+    dev = tokens.device
+    _need("tokens", tokens, tokens.dtype, dev)
+    _need("src", src, torch.int32, dev)
     S = src.numel()
-    q = torch.empty(S, H, dtype=torch.int8, device=tokens.device)
-    scale = torch.empty(S, dtype=torch.float32, device=tokens.device)
+    isz = tokens.element_size()
+    vec = (H * isz) % 16 == 0 and tokens.data_ptr() % 16 == 0
+    form, lanes, units, blocks = plan_gather_int8(S, H, isz, vec, sm_count(dev.index or 0))
+    q = torch.empty(S, H, dtype=torch.int8, device=dev)
+    scale = torch.empty(S, dtype=torch.float32, device=dev)
     rc = _dispatch_kernels()[2](tokens.data_ptr(), src.data_ptr(), q.data_ptr(),
                                 scale.data_ptr(), S, T, H, int(tokens.dtype == torch.bfloat16),
-                                int(mask_pad), _stream(tokens))
+                                int(mask_pad), FORMS.index(form), int(vec),
+                                lanes.bit_length() - 1, units, blocks, _stream(tokens))
     launch_check(rc, "moe_dispatch_gather_int8")
     launches["moe_dispatch_gather_int8"] += 1
     return q, scale

@@ -47,10 +47,16 @@ does the split combine (``moe_combine``: ``moe_dispatch.cu`` at T 512 and
 seeded, each version bitwise its plain version, timed beside
 ``F.embedding_bag`` (mode sum, per-sample weights) in every pass; when both
 hold ``moe_ffn.cu`` also the split FFN -> combine as one call at T 512,
-which shows the combine's programmatic dependent launch). ``--only``
-names the groups to run (``paged``, ``woq``,
+which shows the combine's programmatic dependent launch), and so does the
+int8 dispatch gather (``gather_int8``: ``moe_dispatch.cu`` and
+``quant_rows.cu`` at ``GATHER_INT8_CASES``, mixtral-8x7b's H 4096, top-2,
+dropless, routed by the plain route on the card, mask_pad on; each version's
+q and scale byte-identical to its plain version, to its own
+``quantize_rows_int8`` of the gathered rows and to a second run, mask_pad off
+and on; ``index_select`` of the same slots timed beside it in every pass, as
+context). ``--only`` names the groups to run (``paged``, ``woq``,
 ``moe_ffn``, ``flash``, ``adam``, ``moe_route``, ``quant``,
-``moe_combine``). A tile-shape
+``moe_combine``, ``gather_int8``). A tile-shape
 sweep point is a copy of ``csrc`` with one constant edited, passed as B
 against the unedited ``csrc`` as A. To compare a change with its parent,
 unpack the parent's ``deepspeed_tpu_torch`` with ``git archive`` into a
@@ -133,6 +139,9 @@ def wrapper(csrc, rel, name, tag):
 
 ROUTE_TOKENS = (8, 256, 512, 4096)   # the moe_route group: dropless, capacity T
 COMBINE_TOKENS = (512, 4096)         # the moe_combine group: dropless, capacity T
+# the gather_int8 group: (T, token dtype), dropless, capacity T
+GATHER_INT8_CASES = ((8, "bfloat16"), (256, "bfloat16"), (512, "bfloat16"),
+                     (4096, "bfloat16"), (512, "float32"))
 
 
 def takes_bf16_logits(moe_v):
@@ -146,9 +155,10 @@ def main():
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--only", default="paged,woq,moe_ffn,flash,adam,moe_route,quant,moe_combine",
+    ap.add_argument("--only",
+                    default="paged,woq,moe_ffn,flash,adam,moe_route,quant,moe_combine,gather_int8",
                     help="comma-separated groups: paged, woq, moe_ffn, flash, adam, moe_route, "
-                         "quant, moe_combine")
+                         "quant, moe_combine, gather_int8")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -178,6 +188,7 @@ def main():
     has_quant = "quant" in only and both("quant_rows.cu")
     has_combine = "moe_combine" in only and both("moe_dispatch.cu")
     has_pair = has_combine and both("moe_ffn.cu")
+    has_g8 = "gather_int8" in only and both("moe_dispatch.cu") and both("quant_rows.cu")
     same_fwd = all((args.a / f).read_bytes() == (args.b / f).read_bytes()
                    for f in FLASH_FWD_SOURCES) if has_flash else False
     names = ((("ragged_paged_attention", "paged_decode") if has_paged else ())
@@ -186,7 +197,8 @@ def main():
              + (("fused_adam",) if has_adam else ())
              + (("moe_route", "moe_dispatch", "moe_ffn") if has_route else ())
              + (("quant_rows", "moe_dispatch") if has_quant else ())
-             + ((("moe_dispatch",) + (("moe_ffn",) if has_pair else ())) if has_combine else ()))
+             + ((("moe_dispatch",) + (("moe_ffn",) if has_pair else ())) if has_combine else ())
+             + (("moe_dispatch", "quant_rows") if has_g8 else ()))
     names = tuple(dict.fromkeys(names))   # each library once
     versions = {}
     for tag, csrc in (("A", args.a), ("B", args.b)):
@@ -203,16 +215,16 @@ def main():
         if has_woq:
             woq_v = wrapper(csrc, "ops/quantizer/woq_matmul.py", woq.__name__, tag)
             woq_v._kernel = (lambda f: lambda: f)(woq_v.bind(lib("woq_matmul")))
-        if has_moe or has_route or has_combine:
+        if has_moe or has_route or has_combine or has_g8:
             moe_v = wrapper(csrc, "ops/transformer/moe.py", moe.__name__, tag)
         if has_moe or has_route or has_pair:
             moe_v._ffn_kernel = (lambda f: lambda: f)(moe_v.bind_ffn(lib("moe_ffn")))
         if has_route:
             moe_v._route_kernel = (lambda f: lambda: f)(moe_v.bind_route(lib("moe_route")))
-        if has_route or has_combine:
+        if has_route or has_combine or has_g8:
             moe_v._dispatch_kernels = (lambda f: lambda: f)(
                 moe_v.bind_dispatch(lib("moe_dispatch")))
-        if has_quant:
+        if has_quant or has_g8:
             quant_v = wrapper(csrc, "ops/quantizer/quant.py", quant.__name__, tag)
             quant_v._kernel = (lambda f: lambda: f)(quant_v.bind(lib("quant_rows")))
         versions[tag] = (rpa_v, pdk_v, woq_v, moe_v,
@@ -335,6 +347,14 @@ def main():
             p3 = moe.moe_dispatch_gather_reference(tokens, src).view(cs.MOE_E, T, cs.MOE_H)
             pair = (p3, *cs.moe_ffn_args(w, "silu_gated"), src, slot_tk, w_tk)
 
+    gathers8 = {}   # case name -> (tokens, src, its int64 row indices)
+    if has_g8:
+        gate = torch.randn(cs.MOE_H, cs.MOE_E, generator=gen, device="cuda") * 0.02
+        for T, dt in GATHER_INT8_CASES:
+            tokens = torch.randn(T, cs.MOE_H, generator=gen, device="cuda").to(getattr(torch, dt))
+            src = moe.moe_route_reference(tokens.float() @ gate, top_k=cs.MOE_K, capacity=T)[0]
+            gathers8[f"T{T}-{dt}"] = (tokens, src, (src.long() - 1).clamp_min(0))
+
     def pair_call():
         p3, wg, wu, wo, src, slot_tk, w_tk = pair
         y = cur["moe"].moe_ffn(p3, wg, wu, wo, src, activation="silu_gated")
@@ -437,6 +457,23 @@ def main():
             cs.check_close(f"{tag} ffn_combine/T{cs.MOE_WAVE_T}", pair_call(),
                            moe.moe_combine_reference(y.view(-1, cs.MOE_H), slot_tk, w_tk),
                            cs.MOE_BF16_TOL)
+        for name, (tokens, src, _) in gathers8.items():
+            for mask in (False, True):
+                q, sc = cur["moe"].moe_dispatch_gather_int8(tokens, src, mask_pad=mask)
+                q2, s2 = cur["moe"].moe_dispatch_gather_int8(tokens, src, mask_pad=mask)
+                rows = moe.moe_dispatch_gather_reference(tokens, src)
+                if mask:
+                    rows = torch.where((src > 0)[:, None], rows, torch.zeros_like(rows))
+                for want_q, want_s, what in (
+                        (q2, s2, "a second run"),
+                        (*moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=mask),
+                         "the plain version"),
+                        (*cur["quant"].quantize_rows_int8(rows),
+                         "quantize_rows_int8 of the gathered rows")):
+                    if not (torch.equal(q, want_q)
+                            and torch.equal(sc.view(torch.int32), want_s.view(torch.int32))):
+                        cs.fail(f"{tag} gather_int8/{name} mask_pad {mask}: q / scale differ "
+                                f"from {what}")
         if has_adam:
             got, want = adam_fns["kernel"](), adam_fns["plain"]()
             if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
@@ -470,6 +507,9 @@ def main():
         cells += [f"int8_cast/{name} {cs.device_ms(torch, lambda: x.to(torch.int8), 20, flush)[0]:.4f}"
                   for name, x in quants.items() if x.numel() >= 1 << 22]
         cells += combine_cells()
+        for name, (tokens, src, idx) in gathers8.items():
+            cells.append(f"gather_int8/{name} {cs.device_ms(torch, lambda: cur['moe'].moe_dispatch_gather_int8(tokens, src, mask_pad=True), 20, flush)[0]:.4f}")
+            cells.append(f"index_select/{name} {cs.device_ms(torch, lambda: tokens.index_select(0, idx), 20, flush)[0]:.4f}")
         print(f"[ab] {tag} ms: " + " | ".join(cells), flush=True)
     print(cs.nvidia_smi())
     return 0

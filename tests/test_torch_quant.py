@@ -12,13 +12,20 @@ and keeps ``x / scale`` a true divide, and the port computes exactly that
 - the Pallas kernel ``quantize_rows_int8`` in interpret mode, jitted, with
   ``DSTPU_QUANT_KERNEL=pallas`` (through ``quantize_blockwise`` too);
 - ``moe_dispatch_gather_int8``'s Pallas kernel in interpret mode, mask_pad
-  off and on, and against ``quantize_rows_int8`` of the gathered rows.
+  off and on, at a row of the lanes form, at Mixtral's H 4096 (the block
+  form) and over a table of empty slots, and against ``quantize_rows_int8`` of
+  the gathered rows.
 
 The row kernel's launch plan (``quant.plan_rows``) is pure arithmetic over
 the shape and the SM count, checked here at every ``[quant]`` case of
 ``chip_smoke.py``: each unit of a row is held by exactly one lane or
 thread, a lane holds at most ``UNITS`` units at once, and the grid neither
-exceeds the resident blocks nor holds a block with no row.
+exceeds the resident blocks nor holds a block with no row. The int8
+dispatch gather runs the same row forms over its slots; its plan
+(``moe.plan_gather_int8``) is checked at every int8 gather case of
+``chip_smoke.py``'s ``[moe]``: each slot is taken by exactly one walker (a
+lane group, a block or a warp), each unit of its row by one lane or thread,
+and no block is left with no slot.
 """
 
 import importlib.util
@@ -151,17 +158,15 @@ def test_int8_dequantize_bitwise_and_bf16_out():
     _equal(got, want)
 
 
+# (T, H, S, every slot empty): a row of 96 (the lanes form), mixtral's H
+# 4096 (the block form) over a few slots, and a table of empty slots
+GATHER_INT8_CASES = ((13, 96, 40, False), (5, 4096, 6, False), (4, 96, 24, True))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mask_pad", [False, True])
 def test_int8_dispatch_gather_against_the_pallas_kernel(dtype, mask_pad):
     rng = np.random.default_rng(4)
-    T, H, S = 13, 96, 40
-    tokens = (rng.standard_normal((T, H)) * 0.5).astype(np.float32)
-    tokens[3] = 0.0
-    src = rng.integers(0, T + 1, size=S).astype(np.int32)
-    src[:3] = (0, 4, 0)   # empty slots, and one reading the all-zero row
-    q, s = moe.moe_dispatch_gather_int8(_to_torch(tokens, dtype), torch.from_numpy(src),
-                                        mask_pad=mask_pad)
 
     @jax.jit
     def jax_side(tk, sr):
@@ -172,13 +177,24 @@ def test_int8_dispatch_gather_against_the_pallas_kernel(dtype, mask_pad):
         rq, rs = jax_rows(rows, interpret=True)
         return kq, ks, rq, rs
 
-    kq, ks, rq, rs = jax_side(_to_jax(tokens, dtype), jnp.asarray(src))
-    _equal(q, kq)
-    _equal(s, ks)
-    _equal(q, rq)
-    _equal(s, rs)
-    if mask_pad:
-        assert not q[src == 0].any() and bool((s[src == 0] == 1).all())
+    for T, H, S, empty in GATHER_INT8_CASES:
+        tokens = (rng.standard_normal((T, H)) * 0.5).astype(np.float32)
+        tokens[3] = 0.0
+        src = rng.integers(0, T + 1, size=S).astype(np.int32)
+        src[:3] = (0, 4, 0)   # empty slots, and one reading the all-zero row
+        if empty:
+            src[:] = 0
+        q, s = moe.moe_dispatch_gather_int8(_to_torch(tokens, dtype), torch.from_numpy(src),
+                                            mask_pad=mask_pad)
+        kq, ks, rq, rs = jax_side(_to_jax(tokens, dtype), jnp.asarray(src))
+        _equal(q, kq)
+        _equal(s, ks)
+        _equal(q, rq)
+        _equal(s, rs)
+        if mask_pad:
+            assert not q[src == 0].any() and bool((s[src == 0] == 1).all())
+        if empty and not mask_pad:   # every slot reads token 0's row
+            assert bool((q == q[0]).all())
 
 
 def test_quantizer_wrapper_checks():
@@ -294,3 +310,78 @@ def test_row_plan_takes_long_rows_to_the_warp_form():
     assert quant.plan_rows(10, 8192, 4, True, 132)[:3] == ("block", 256, 8)
     assert quant.plan_rows(10, 8196, 4, True, 132)[0] == "warp"
     assert quant.plan_rows(10, 2049, 4, False, 132)[0] == "warp"
+
+
+def _gather_int8_shapes():
+    """(tag, S, H) of every int8 gather case of ``chip_smoke.py``'s ``[moe]``:
+    mixtral's H 4096 at T 8 ... 4096 (dropless: S = E * T), the fp32 small
+    cases, the edge cases (H 1, 7, 96, 4100, 16392)."""
+    from deepspeed_tpu_torch.moe import capacity
+    cs = chip_smoke
+    out = [(f"T{t}-H{cs.MOE_H}", cs.MOE_E * t, cs.MOE_H)
+           for t in cs.MOE_TOKENS + tuple(t for t, _ in cs.MOE_GATHER_INT8_TIMED)]
+    for t, e, h, _, _, _, cf, _ in cs.MOE_FP32_CASES:
+        out.append((f"fp32-T{t}-E{e}-H{h}", e * capacity(t, e, cf if cf else float(e),
+                                                         4 if cf else 1), h))
+    out += [(f"edge-T{t}-H{h}-{layout}", cs.MOE_E * t, h)
+            for t, h, _, layout in cs.MOE_GATHER_INT8_EDGE]
+    return dict.fromkeys(out)   # each shape once, in order
+
+
+def _walkers(form, lanes, blocks, S):
+    """The slots each walker of a plan takes, in the kernel's order, and the
+    block each walker belongs to: a lane group of a warp (``lanes``), a
+    block (``block``) or a warp (``warp``)."""
+    warps = quant.THREADS // 32
+    if form == "lanes":
+        per_pass = 32 // lanes
+        stride = blocks * warps * per_pass
+        starts = [(w * per_pass + k, w // warps) for w in range(blocks * warps)
+                  for k in range(per_pass)]
+    elif form == "block":
+        stride, starts = blocks, [(b, b) for b in range(blocks)]
+    else:
+        stride = blocks * warps
+        starts = [(w, w // warps) for w in range(blocks * warps)]
+    return [(np.arange(start, S, stride), block) for start, block in starts]
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", list(_gather_int8_shapes()), ids=lambda shape: shape[0])
+def test_gather_int8_plan_takes_every_slot_once(shape, itemsize, vec, sms):
+    _, S, H = shape
+    vec = vec and (H * itemsize) % 16 == 0   # the wrapper's rule: whole 16-byte units a row
+    form, lanes, units, blocks = moe.plan_gather_int8(S, H, itemsize, vec, sms)
+    n = H * itemsize // 16 if vec else H
+    assert 1 <= blocks <= quant.BLOCKS_PER_SM * sms
+    walkers = _walkers(form, lanes, blocks, S)
+    taken = np.concatenate([slots for slots, _ in walkers])
+    np.testing.assert_array_equal(np.bincount(taken, minlength=S), np.ones(S, np.int64))
+    busy = {block for slots, block in walkers if len(slots)}
+    assert busy == set(range(blocks))   # no block is left with no slot
+    if form == "lanes":
+        assert n <= 32 * quant.UNITS and lanes & (lanes - 1) == 0 and lanes <= 32
+        assert units <= quant.UNITS and _units_held(lanes, units, n) == list(range(n))
+    elif form == "block":
+        assert lanes == quant.THREADS and 32 * quant.UNITS < n <= quant.THREADS * quant.UNITS
+        assert units <= quant.UNITS and _units_held(lanes, units, n) == list(range(n))
+    else:
+        assert form == "warp" and n > quant.THREADS * quant.UNITS and units == 0
+
+
+@pytest.mark.parametrize("S,H,itemsize,vec,plan", [
+    # (form, lanes, units, blocks) on 132 SMs; Mixtral's H 4096: a block a
+    # slot's row, 2 bf16 or 4 fp32 units a thread, the grid at 8 blocks an SM
+    (64, 4096, 2, True, ("block", 256, 2, 64)),         # T 8
+    (2048, 4096, 2, True, ("block", 256, 2, 1056)),     # T 256
+    (4096, 4096, 2, True, ("block", 256, 2, 1056)),     # T 512
+    (32768, 4096, 2, True, ("block", 256, 2, 1056)),    # T 4096
+    (4096, 4096, 4, True, ("block", 256, 4, 1056)),     # T 512, fp32 tokens
+    (64, 4100, 2, False, ("warp", 32, 0, 8)),           # rows off the 16-byte unit
+    (64, 4096, 2, False, ("warp", 32, 0, 8)),           # rows that start unaligned
+    (296, 96, 2, True, ("lanes", 16, 1, 19)),           # 12 units: two slots a warp
+])
+def test_gather_int8_plan_at_the_moe_cases(S, H, itemsize, vec, plan):
+    assert moe.plan_gather_int8(S, H, itemsize, vec, 132) == plan
