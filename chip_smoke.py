@@ -46,13 +46,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its backward, give the same bits;
 5. serving: llama2-7b at full width and depth, random bf16 weights from a
    seed, served through ``build_engine`` + ``generate`` (8 prompts, chunked
-   prefill, mixed waves and decode bursts); the launch counters must show
-   that the path ran through both kernels (every ragged launch in the
-   tensor-core form), every request must get its
-   tokens, and one prompt's prefill logits must match the plain
+   prefill, mixed waves and decode bursts, each burst K replays of a
+   captured decode step), twice: cold (the decode graphs are captured
+   inside it) and warm; in both the launch counters (a burst's through the
+   graphs' replay accounting) must show that the path ran through both
+   kernels (every ragged launch in the tensor-core form) and every request
+   must get its tokens; ``[decode-graph]``: a 16-step burst of 8 prefilled
+   sequences through the engine's graphs, cold and warm, must give the
+   eager burst's tokens and KV pages byte for byte, sampled rows the same
+   tokens for one seed and others for another (host ms a step of each, and
+   device ms a step of the replays at batch buckets 1 to 16);
+   ``[engine-sweep]``: ``decode_burst`` 8 / 16 / 32 at 128 new tokens;
+   one prompt's prefill logits must match the plain
    full-sequence ``TransformerLM.forward``; a second engine over the same
    weights with a small pool must preempt, offload to host memory and
-   restore, and still produce every token; the same ``generate`` under
+   restore, and still produce every token; the warm ``generate`` under
    ``torch.profiler``;
 6. int8 weight-only-quantized serving: the same model, seed and requests
    with ``quantization_mode="int8"``; every request must get its tokens,
@@ -61,9 +69,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in every wave) beside the two attention kernels, the weights must take
    about half the dense model's bytes, and a short prompt's logits through
    the kernels must be as close to the fp32 plain forward of the same
-   integers as twice the plain bf16 path's own error; then packed int4 at
-   the same width and 2 layers: tokens come out through the non-kernel
-   form alone and the logits hold the same bound;
+   integers as twice the plain bf16 path's own error; ``[decode-graph]``
+   as in phase 5; then packed int4 at the same width and 2 layers: tokens
+   come out through the non-kernel form alone, its bursts through captured
+   graphs, and the logits hold the same bound;
 7. training: tinyllama-1.1b at full width and depth, sequence 2048,
    micro-batch 8, bf16 with fp32 master and moments, AdamW, clipping 1.0,
    through ``deepspeed_tpu_torch.initialize`` + ``train_batch``: 2 warm-up
@@ -105,7 +114,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    FFN ran once a layer in every wave and decode step, the split form's FFN
    and combine in exactly the waves of more than
    ``MOE_FUSED_COMBINE_MAX_TOKENS`` rows, both attention kernels once a
-   layer; tokens/s, TTFT, peak memory, weight bytes and a profile (its
+   layer (cold and warm, as in phase 5); ``[decode-graph]`` as in phase
+   5, and the edges of a captured route -> dispatch gather by type (the
+   gather's programmatic launch kept as a programmatic edge); tokens/s, TTFT, peak memory, weight bytes and a profile (its
    launch count; the route and gather rows wherever they rank); then a
    2-layer model of the same width: a prompt's logits through the kernels
    within twice the plain bf16 path's error against the fp32 plain
@@ -165,6 +176,16 @@ PROMPT_LENS = (512, 384, 300, 200, 130, 77, 33, 17)
 NEW_TOKENS = 32
 NUM_LAYERS = 32       # llama2-7b full depth
 INT4_LAYERS = 2       # the packed-int4 check runs at full width, depth cut
+# [decode-graph]: one prefilled batch of 8 (block tables of 8 blocks, a key
+# no generate uses), a K-step burst eagerly and through the engine's graphs;
+# device ms a step of the replays at these batch buckets
+DECODE_GRAPH_PROMPTS = (100, 90, 80, 70, 60, 50, 40, 30)
+DECODE_GRAPH_K = 16
+DECODE_GRAPH_BATCHES = (1, 2, 4, 8, 16)
+DECODE_GRAPH_SAMPLED_ROWS, DECODE_GRAPH_TEMP = (1, 4, 6), 0.8
+# [engine-sweep]: decode_burst K, each twice (order 8 16 32 32 16 8), over the
+# requests of [engine] with more new tokens, so that bursts of 32 happen
+BURST_SWEEP, BURST_SWEEP_NEW_TOKENS = (8, 16, 32), 128
 # preemption run: 4 requests that end at 8 blocks each against a pool of 20
 PREEMPT_REQUESTS, PREEMPT_PROMPT, PREEMPT_NEW_TOKENS, PREEMPT_BLOCKS = 4, 64, 64, 21
 SPIN_CYCLES = 400_000_000  # ~0.2 s of device spin behind each timing loop
@@ -1713,73 +1734,278 @@ class DictCount:
 
 
 def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
-    """One ``generate`` of the 8 requests, every module of ``counters``
-    (``{name: module with a launches count}``) set to 0 just before and read
-    just after. Returns (prompts, wall s, wave token counts, burst steps,
-    launches); fails unless every request got its tokens, the two
-    attention kernels ran once a layer in every wave and burst step, and
-    every ragged launch took the tensor-core form (bf16, pages of 16)."""
+    """Two ``generate`` runs of the 8 requests: cold (the engine's decode
+    graphs are captured inside it) and warm, every module of ``counters``
+    (``{name: module with a launches count}``) set to 0 just before each
+    and read just after. Fails unless, in both, every request got its
+    tokens, the two attention kernels ran once a layer in every wave and
+    burst step (the burst's launches counted through the graphs' replay
+    accounting), and every ragged launch took the tensor-core form (bf16,
+    pages of 16). Returns the warm run's (prompts, wall s, wave token
+    counts, burst steps, launches)."""
     from deepspeed_tpu_torch.inference.v2 import generate
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32000, size=n) for n in PROMPT_LENS]
-    generate(engine, [prompts[-1]], max_new_tokens=2)       # warm-up
-    waves, burst_steps, wave_s, burst_s = [], [0], [0.0], [0.0]
+    generate(engine, [prompts[-1]], max_new_tokens=2)       # warm-up: no burst
     run_wave, run_burst = engine._run_wave, engine.decode_burst
-
-    # both end in a copy of their result to the host, so the host clock
-    # around them spans their device work
-    def counted_wave(wave):
-        waves.append(sum(len(chunk) for _, chunk in wave))
-        t = time.perf_counter()
-        out = run_wave(wave)
-        wave_s[0] += time.perf_counter() - t
-        return out
-
-    def counted_burst(uids, last, k, **kw):
-        burst_steps[0] += k
-        t = time.perf_counter()
-        out = run_burst(uids, last, k, **kw)
-        burst_s[0] += time.perf_counter() - t
-        return out
-
-    engine._run_wave, engine.decode_burst = counted_wave, counted_burst
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
+    graphs = engine.decode_graphs
     rpa = counters["ragged_paged_attention"]
-    rpa.form_launches.update({form: 0 for form in rpa.form_launches})
-    t0 = time.perf_counter()
-    reqs = generate(engine, prompts, max_new_tokens=NEW_TOKENS,
-                    return_requests=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in counters.items()}
-    forms = dict(rpa.form_launches)
-    engine._run_wave, engine.decode_burst = run_wave, run_burst
-    n_tok = sum(len(r.generated) for r in reqs)
-    ttft = [r.first_token_s - r.submit_s for r in reqs]
-    print(f"[engine] generate: {len(reqs)} requests, prompts {list(PROMPT_LENS)}, "
-          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; waves "
-          f"{len(waves)}, burst steps {burst_steps[0]}; TTFT mean "
-          f"{sum(ttft) / len(ttft) * 1e3:.1f} ms max {max(ttft) * 1e3:.1f} ms; "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches {launches}; ragged launches by form {forms}", flush=True)
-    print(f"[engine] host clock: waves {wave_s[0] * 1e3:.1f} ms, bursts "
-          f"{burst_s[0] * 1e3:.1f} ms, scheduler and the rest "
-          f"{(wall - wave_s[0] - burst_s[0]) * 1e3:.1f} ms", flush=True)
-    if any(len(r.generated) != NEW_TOKENS for r in reqs):
-        fail(f"token counts {[len(r.generated) for r in reqs]} != {NEW_TOKENS}")
-    if launches["ragged_paged_attention"] != num_layers * len(waves) or not waves:
-        fail(f"ragged launches {launches['ragged_paged_attention']} != "
-             f"{num_layers} x {len(waves)} waves")
-    if forms["tensor_cores"] != launches["ragged_paged_attention"]:
-        fail(f"ragged launches by form {forms}: the serving waves (bf16, pages of "
-             f"{PAGE_SIZE}) must all take the tensor-core kernel")
-    if launches["paged_decode"] != num_layers * burst_steps[0] or burst_steps[0] == 0:
-        fail(f"decode launches {launches['paged_decode']} != "
-             f"{num_layers} x {burst_steps[0]} burst steps")
+    for run in ("cold", "warm"):
+        waves, burst_steps, wave_s, burst_s = [], [0], [0.0], [0.0]
+
+        # both end in a copy of their result to the host, so the host clock
+        # around them spans their device work
+        def counted_wave(wave):
+            waves.append(sum(len(chunk) for _, chunk in wave))
+            t = time.perf_counter()
+            out = run_wave(wave)
+            wave_s[0] += time.perf_counter() - t
+            return out
+
+        def counted_burst(uids, last, k, **kw):
+            burst_steps[0] += k
+            t = time.perf_counter()
+            out = run_burst(uids, last, k, **kw)
+            burst_s[0] += time.perf_counter() - t
+            return out
+
+        engine._run_wave, engine.decode_burst = counted_wave, counted_burst
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in counters.values():
+            mod.launches = 0
+        rpa.form_launches.update({form: 0 for form in rpa.form_launches})
+        captures, capture_s, replays = graphs.captures, graphs.capture_s, graphs.replays
+        t0 = time.perf_counter()
+        reqs = generate(engine, prompts, max_new_tokens=NEW_TOKENS,
+                        return_requests=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        forms = dict(rpa.form_launches)
+        engine._run_wave, engine.decode_burst = run_wave, run_burst
+        captures, capture_s = graphs.captures - captures, graphs.capture_s - capture_s
+        n_tok = sum(len(r.generated) for r in reqs)
+        ttft = [r.first_token_s - r.submit_s for r in reqs]
+        print(f"[engine] {run} generate: {len(reqs)} requests, prompts {list(PROMPT_LENS)}, "
+              f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; waves "
+              f"{len(waves)}, burst steps {burst_steps[0]}; TTFT mean "
+              f"{sum(ttft) / len(ttft) * 1e3:.1f} ms max {max(ttft) * 1e3:.1f} ms; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {launches}; ragged launches by form {forms}", flush=True)
+        print(f"[engine] {run} host clock: waves {wave_s[0] * 1e3:.1f} ms, bursts "
+              f"{burst_s[0] * 1e3:.1f} ms ({burst_s[0] * 1e3 / max(burst_steps[0], 1):.2f} ms "
+              f"a step; decode graph captures {captures} taking {capture_s * 1e3:.1f} ms, "
+              f"replays {graphs.replays - replays}), scheduler and the rest "
+              f"{(wall - wave_s[0] - burst_s[0]) * 1e3:.1f} ms", flush=True)
+        if any(len(r.generated) != NEW_TOKENS for r in reqs):
+            fail(f"token counts {[len(r.generated) for r in reqs]} != {NEW_TOKENS}")
+        if launches["ragged_paged_attention"] != num_layers * len(waves) or not waves:
+            fail(f"ragged launches {launches['ragged_paged_attention']} != "
+                 f"{num_layers} x {len(waves)} waves")
+        if forms["tensor_cores"] != launches["ragged_paged_attention"]:
+            fail(f"ragged launches by form {forms}: the serving waves (bf16, pages of "
+                 f"{PAGE_SIZE}) must all take the tensor-core kernel")
+        if launches["paged_decode"] != num_layers * burst_steps[0] or burst_steps[0] == 0:
+            fail(f"decode launches {launches['paged_decode']} != "
+                 f"{num_layers} x {burst_steps[0]} burst steps")
+        if run == "warm" and captures:
+            fail(f"the warm generate captured {captures} decode graphs")
     return prompts, wall, waves, burst_steps[0], launches
+
+
+def decode_graph_phase(torch, np, engine, tag):
+    """``[decode-graph]``: one prefilled batch of 8, its pages saved; a
+    ``DECODE_GRAPH_K``-step greedy burst eagerly (``model.decode_burst``)
+    and through the engine's ``DecodeGraphs`` twice (cold: the key's capture
+    and K - 1 replays; warm: K replays), each from the saved pages: the
+    tokens and the pages of every block the bursts touch must be identical,
+    byte for byte. Then the sampled rows: one seed twice gives the same
+    tokens, another seed others. Prints the host ms a step of each run and
+    the device ms a step of K replays (CUDA events) at the batch buckets
+    ``DECODE_GRAPH_BATCHES``. Returns ``{B: device ms a step}``."""
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import BURST_BUCKET_LO
+    graphs, kv, model = engine.decode_graphs, engine.kv_cache, engine._model
+    vocab = engine.model.config.vocab_size
+    rng = np.random.default_rng(5)
+    uids = list(range(20_000, 20_000 + len(DECODE_GRAPH_PROMPTS)))
+    prompts = [rng.integers(0, vocab, size=n) for n in DECODE_GRAPH_PROMPTS]
+    last = engine.put(uids, prompts).argmax(-1)
+    K = DECODE_GRAPH_K
+    seqs, inputs = engine.burst_inputs(uids, last, K)
+    B, mp = inputs[2].shape
+    blocks = torch.as_tensor(sorted({0} | {b for s in seqs for b in s.blocks}),
+                             device=kv.k_pages.device)
+    pages = lambda: (kv.k_pages[:, :, blocks].clone(), kv.v_pages[:, :, blocks].clone())
+    saved = pages()
+
+    def restore():
+        kv.k_pages[:, :, blocks] = saved[0]
+        kv.v_pages[:, :, blocks] = saved[1]
+        torch.cuda.synchronize()
+
+    def same_pages(a, b):          # byte for byte: bf16 pages seen as int16
+        return all(torch.equal(x.view(torch.int16), y.view(torch.int16)) for x, y in zip(a, b))
+
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(kv.k_pages.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ev[0].record()
+    eager = model.decode_burst(kv.k_pages, kv.v_pages, *map(dev, inputs), K,
+                               sampled=False).cpu().numpy()
+    ev[1].record()
+    torch.cuda.synchronize()
+    eager_host = (time.perf_counter() - t) * 1e3 / K
+    eager_span = ev[0].elapsed_time(ev[1]) / K
+    eager_pages = pages()
+    new_key = (B, mp, False) not in graphs._graphs
+    runs = {}
+    for run in ("cold", "warm"):
+        restore()
+        c0, s0, r0 = graphs.captures, graphs.capture_s, graphs.replays
+        t = time.perf_counter()
+        toks = graphs.run(*inputs, K, seed=0)
+        host = (time.perf_counter() - t) * 1e3 / K
+        runs[run] = (graphs.captures - c0, (graphs.capture_s - s0) * 1e3,
+                     graphs.replays - r0, host)
+        if not np.array_equal(toks, eager) or not same_pages(pages(), eager_pages):
+            fail(f"[decode-graph] {tag}: the {run} graph burst differs from the eager one: "
+                 f"tokens equal {np.array_equal(toks, eager)}, pages byte-identical "
+                 f"{same_pages(pages(), eager_pages)}")
+    if runs["cold"][0] != int(new_key) or runs["warm"][0] or runs["warm"][2] != K:
+        fail(f"[decode-graph] {tag}: captures / replays {runs} (cold: {int(new_key)} "
+             f"capture, warm: {K} replays)")
+    print(f"[decode-graph] {tag}: B {B}, mp {mp}, K {K} greedy: eager host "
+          f"{eager_host:.3f} ms a step (events around it {eager_span:.3f}); graph cold: "
+          f"{runs['cold'][0]} capture in {runs['cold'][1]:.1f} ms (its eager first step "
+          f"included), {runs['cold'][2]} replays, host {runs['cold'][3]:.3f} ms a step; "
+          f"warm: {runs['warm'][2]} replays, host {runs['warm'][3]:.3f} ms a step; tokens "
+          f"and the KV pages of {len(blocks)} blocks byte-identical to eager in both",
+          flush=True)
+
+    # sampled rows: seed 7 twice, seed 8
+    temps = np.zeros(B, np.float32)
+    temps[list(DECODE_GRAPH_SAMPLED_ROWS)] = DECODE_GRAPH_TEMP
+    drawn = {}
+    for name, seed in (("a", 7), ("b", 7), ("c", 8)):
+        restore()
+        drawn[name] = graphs.run(inputs[0], inputs[1], inputs[2], temps, K, seed)
+    rows = list(DECODE_GRAPH_SAMPLED_ROWS)
+    greedy_rows = [r for r in range(len(uids)) if r not in rows]
+    differ = int((drawn["a"][rows] != drawn["c"][rows]).sum())
+    print(f"[decode-graph] {tag}: sampled rows {rows} at T {DECODE_GRAPH_TEMP}: seed 7 "
+          f"twice identical {np.array_equal(drawn['a'], drawn['b'])}, seed 8 differs in "
+          f"{differ} of {len(rows) * K} tokens; the greedy rows equal the eager burst's "
+          f"{np.array_equal(drawn['a'][greedy_rows], eager[greedy_rows])}", flush=True)
+    if not np.array_equal(drawn["a"], drawn["b"]) or not differ:
+        fail(f"[decode-graph] {tag}: sampled bursts not seeded as they must be")
+
+    # device ms a step: events around K replays of each bucket's graph
+    step_ms = {}
+    for b in DECODE_GRAPH_BATCHES:
+        sub = [np.zeros((b,) + a.shape[1:], a.dtype) for a in inputs]
+        for dst, src in zip(sub, inputs):
+            dst[:min(b, B)] = src[:min(b, B)]
+        restore()
+        graphs.run(*sub, K, seed=0)                  # captures the bucket's graph
+        restore()
+        key = (b, mp, False)
+        with torch.inference_mode():     # the state's tensors are inference tensors
+            graphs._states[key].load(*sub)
+        ev[0].record()
+        for _ in range(K):
+            graphs._graphs[key].replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms[b] = ev[0].elapsed_time(ev[1]) / K
+    restore()
+    for uid in uids:
+        engine.flush(uid)
+    print(f"[decode-graph] {tag}: device ms a step, K {K} replays at mp {mp}: "
+          + ", ".join(f"B {b} {ms:.4f}" for b, ms in step_ms.items())
+          + f" (the engine's smallest bucket: {BURST_BUCKET_LO}); captures so far "
+          f"{graphs.captures}, {graphs.capture_s * 1e3:.1f} ms", flush=True)
+    return step_ms
+
+
+def programmatic_edges(torch, moe):
+    """``[decode-graph]``: the edges of a captured route -> dispatch gather
+    (one MoE call's first two launches at a decode step, T 8, E 8, H 4096,
+    bf16), by type, read from the graph with the driver's
+    ``cuGraphGetEdges_v2``: the gather launches with programmatic stream
+    serialization, which a capture keeps as a programmatic edge (type 1) or
+    turns into a full dependency (type 0). Returns ``{type: count}``, or None
+    where this torch cannot keep the captured graph."""
+    import ctypes
+    T, E, H = 8, 8, 4096
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(T, E, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def step():
+        src = moe.moe_route(logits, top_k=2, capacity=T)[0]
+        return moe.moe_dispatch_gather(tokens, src)
+
+    want = step()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with torch.cuda.graph(graph):
+        got = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("[decode-graph] the replayed route -> gather differs from the eager pair")
+    cuda = ctypes.CDLL("libcuda.so.1")
+    fn = cuda.cuGraphGetEdges_v2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    handle = graph.raw_cuda_graph()
+    if fn(handle, None, None, None, ctypes.byref(n)) != 0:
+        fail("[decode-graph] cuGraphGetEdges_v2 failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    nodes_to = (ctypes.c_void_p * max(n.value, 1))()
+    data = (ctypes.c_ubyte * (8 * max(n.value, 1)))()    # CUgraphEdgeData: 8 bytes
+    if fn(handle, nodes, nodes_to, data, ctypes.byref(n)) != 0:
+        fail("[decode-graph] cuGraphGetEdges_v2 failed")
+    types = {}
+    for e in range(n.value):
+        types[data[8 * e + 2]] = types.get(data[8 * e + 2], 0) + 1
+    return types
+
+
+def burst_sweep(torch, engine, prompts):
+    """``[engine-sweep]``: warm ``generate`` runs of the 8 requests with
+    ``BURST_SWEEP_NEW_TOKENS`` new tokens at each ``decode_burst`` of
+    ``BURST_SWEEP``, in the order 8 16 32 32 16 8: tok/s, TTFT and the
+    bursts' host ms a step. The engine's own setting is restored. The
+    engine's decode graphs hold the history of ``decode_burst`` steps it was
+    built with, so a longer K runs as chunks of that many replays (one
+    device copy of the tokens a chunk)."""
+    from deepspeed_tpu_torch.inference.v2 import generate
+    own = engine.config.decode_burst
+    order = BURST_SWEEP + BURST_SWEEP[::-1]
+    graphs = engine.decode_graphs
+    for K in order:
+        engine.config.decode_burst = K
+        torch.cuda.synchronize()
+        captures = graphs.captures
+        t0 = time.perf_counter()
+        reqs = generate(engine, prompts, max_new_tokens=BURST_SWEEP_NEW_TOKENS,
+                        return_requests=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(r.generated) for r in reqs)
+        ttft = [r.first_token_s - r.submit_s for r in reqs]
+        print(f"[engine-sweep] decode_burst {K}: {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.2f} tok/s, TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f} ms, "
+              f"captures {graphs.captures - captures}", flush=True)
+        if n_tok != BURST_SWEEP_NEW_TOKENS * len(prompts):
+            fail(f"[engine-sweep] decode_burst {K}: {n_tok} tokens")
+    engine.config.decode_burst = own
 
 
 def serve(torch, np):
@@ -1799,6 +2025,8 @@ def serve(torch, np):
         torch, np, engine, {"ragged_paged_attention": rpa, "paged_decode": pdk})
     memory = {"weight_bytes": quantized_tree_bytes(engine.model),
               "peak_bytes": torch.cuda.max_memory_allocated()}
+    decode_graph_phase(torch, np, engine, "llama2-7b")
+    burst_sweep(torch, engine, prompts)
 
     # prefill logits of one chunked prompt: the bf16 serving path and the
     # plain bf16 full-sequence forward, each against the plain forward of
@@ -1889,8 +2117,8 @@ def serve_woq(torch, np, woq, dense_memory):
     if launches["woq_matmul"] != want or not launches["woq_matmul"]:
         fail(f"WOQ launches {launches['woq_matmul']} != {want} ({len(linears)} linears x "
              f"{burst_steps} burst steps + {len(waves)} waves' heads + {small} small waves)")
-    weight_bytes = quantized_tree_bytes(engine.model)
     peak = torch.cuda.max_memory_allocated()
+    weight_bytes = quantized_tree_bytes(engine.model)
     print(f"[woq-engine] weights {weight_bytes / 2**30:.3f} GiB (dense "
           f"{dense_memory['weight_bytes'] / 2**30:.3f} GiB, ratio "
           f"{weight_bytes / dense_memory['weight_bytes']:.3f}); generate peak "
@@ -1935,6 +2163,7 @@ def serve_woq(torch, np, woq, dense_memory):
     if not bool(got.isfinite().all()) or rel(got) > LOGIT_ERR_RATIO * rel(plain):
         fail(f"WOQ serving logits relative L2 error {rel(got):.3e} > "
              f"{LOGIT_ERR_RATIO} x the plain versions' {rel(plain):.3e}")
+    decode_graph_phase(torch, np, engine, "llama2-7b int8")
     profile_generate(torch, generate, engine, prompts, wall)
     del engine, linears
     torch.cuda.empty_cache()
@@ -1967,6 +2196,9 @@ def serve_int4(torch, np, woq):
     if [len(o) for o in out] != [8, 8] or woq.launches:
         fail(f"int4 generate: token counts {[len(o) for o in out]}, WOQ kernel launches "
              f"{woq.launches} (packed int4 never takes the kernel)")
+    if not engine.decode_graphs.captures or not engine.decode_graphs.replays:
+        fail(f"int4 generate: its bursts captured {engine.decode_graphs.captures} decode "
+             f"graphs and replayed {engine.decode_graphs.replays} steps")
     got = torch.from_numpy(engine.put([10_000], [prompts[0]])[0])
     engine.flush(10_000)
     ids = torch.as_tensor(prompts[0], device="cuda")[None]
@@ -1984,7 +2216,8 @@ def serve_int4(torch, np, woq):
     dense_bytes = 2 * sum(m.in_features * m.out_features for m in linears)
     q_bytes = sum(m.q.numel() + 4 * m.scale.numel() for m in linears)
     print(f"[woq-engine] int4, {INT4_LAYERS} layers at llama2-7b's width: 16 tokens served, "
-          f"no WOQ kernel launch; linears {q_bytes / 2**20:.1f} MiB packed against "
+          f"no WOQ kernel launch, bursts through {engine.decode_graphs.captures} captured "
+          f"decode graphs ({engine.decode_graphs.replays} replays); linears {q_bytes / 2**20:.1f} MiB packed against "
           f"{dense_bytes / 2**20:.1f} MiB bf16 (ratio {q_bytes / dense_bytes:.3f}; model "
           f"{quantized_tree_bytes(engine.model) / 2**30:.3f} GiB); logits ({len(prompts[0])} "
           f"tokens) vs fp32 plain forward over the same nibbles: serving bf16 relative L2 "
@@ -2089,6 +2322,12 @@ def serve_mixtral(torch, np, moe):
     if moe_launches["moe_dispatch_gather_int8"]:
         fail(f"the int8 dispatch gather launched {moe_launches['moe_dispatch_gather_int8']} "
              f"times in Mixtral serving, which has no int8 dispatch")
+    decode_graph_phase(torch, np, engine, "mixtral-8x7b")
+    edges = programmatic_edges(torch, moe)
+    print(f"[decode-graph] route -> dispatch gather captured (T 8, bf16), replay "
+          f"byte-identical to eager; its graph's edges by type (0 full dependency, 1 "
+          f"programmatic): {'not available in this torch' if edges is None else edges}",
+          flush=True)
     profile_generate(torch, generate, engine, prompts, wall)
     del engine
     gc.collect()

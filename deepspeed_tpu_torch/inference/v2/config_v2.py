@@ -49,9 +49,13 @@ class RaggedInferenceEngineConfig:
     # into atoms of <= ragged_block_q query tokens
     ragged_block_q: int = 8
     # decode-only scheduler steps fuse up to this many tokens per sequence
-    # (sampling on the device between steps); 1 disables. The JAX value,
-    # kept until an H100 measurement sets it (PERF.md open questions).
-    decode_burst: int = 32
+    # (sampling on the device between steps); 1 disables. The JAX value is
+    # 32, a TPU choice (a round trip a burst). On the H100, with each burst
+    # a CUDA graph's replays and one copy to the host, 8, 16 and 32 give the
+    # same tokens/s within the spread of repeated runs (chip_smoke.py
+    # [engine-sweep], PERF.md); 16 halves the longest wait of a new request
+    # behind a burst against 32
+    decode_burst: int = 16
 
     def check_supported(self, model_dtype: torch.dtype) -> None:
         if self.tensor_parallel_degree != 1:

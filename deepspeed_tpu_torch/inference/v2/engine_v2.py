@@ -7,6 +7,16 @@ scheduler, ``flush`` retires sequences, ``offload_sequence`` /
 ``restore_sequence`` move a preempted sequence's KV to host memory and
 back, ``decode_burst`` fuses K decode steps.
 
+A decode burst pads its batch to a power-of-two bucket of at least
+``BURST_BUCKET_LO`` rows, as the JAX engine does (padded rows: token 0,
+position 0, a table of null blocks, temperature 0; they write only into the
+null block 0) and runs through ``DecodeGraphs`` (``decode_graph.py``): on
+CUDA one captured decode step a key ``(B_bucket, mp, sampled)``, captured
+at the key's first burst and replayed K times a burst, the tokens carried
+and sampled on the device and copied to the host once; on the CPU the same
+``decode_step`` runs eagerly. One generator an engine, reseeded with each
+burst's ``seed``, draws the sampled rows.
+
 Every ``put`` runs as ragged waves: the host builder (``ragged/wave.py``)
 flattens each wave into one token stream plus atom descriptors, and the
 model runs one ``ragged_paged_attention`` launch per layer over it.
@@ -44,6 +54,7 @@ from ...models.transformer import TransformerLM
 from ...nn.layers import Linear
 from ..quantization.quantization import QuantizationConfig, host_quantize_kernel
 from .config_v2 import RaggedInferenceEngineConfig
+from .decode_graph import DecodeGraphs
 from .model import RaggedInferenceModel
 from .ragged.kv_cache import BlockedKVCache
 from .ragged.ragged_manager import DSStateManager
@@ -54,6 +65,13 @@ logger = logging.getLogger(__name__)
 
 #: host threads that quantize leaves while earlier ones upload
 _QUANT_WORKERS = 4
+#: smallest batch bucket of a decode burst (the JAX engine's is 16, a TPU
+#: choice). 1: a burst pads its batch to the next power of two only. On the
+#: H100 (chip_smoke.py [decode-graph], PERF.md) a Mixtral step at B 1 / 2 / 4
+#: takes 0.43 / 0.60 / 0.81 of one at B 8 (fewer experts' weights streamed),
+#: a dense llama2-7b step 0.91-0.98, an int8 one 0.92-0.96: padding a small
+#: batch to 8 would pay the difference
+BURST_BUCKET_LO = 1
 
 
 def _place_model(model: TransformerLM, params: Optional[Mapping[str, Any]],
@@ -187,6 +205,8 @@ class InferenceEngineV2:
         self._model = RaggedInferenceModel(self.model, block_size,
                                            self.max_blocks_per_seq,
                                            self.config.ragged_block_q)
+        self.decode_graphs = DecodeGraphs(self._model, self.kv_cache.k_pages,
+                                          self.kv_cache.v_pages, self.config.decode_burst)
 
     # -- scheduling queries -------------------------------------------------
     def query(self, uid: int) -> Dict[str, int]:
@@ -330,37 +350,47 @@ class InferenceEngineV2:
                      seed: int = 0) -> np.ndarray:
         """Generate ``num_steps`` tokens for every (already prefilled) UID
         in one call with sampling on the device; returns ``[len(uids),
-        num_steps]``. Unlike the JAX engine, the batch is not padded to a
-        power-of-two bucket: eager PyTorch compiles nothing per shape."""
+        num_steps]``. The batch is padded to its bucket
+        (``burst_inputs``); on CUDA the burst replays the bucket's captured
+        decode step (``DecodeGraphs``)."""
         if not self.can_burst(batch_uids, num_steps):
             raise RuntimeError("burst does not fit KV budget; call can_burst")
+        seqs, (tokens, positions, tables, temps) = self.burst_inputs(
+            batch_uids, last_tokens, num_steps, temperatures)
+        toks = self.decode_graphs.run(tokens, positions, tables, temps, num_steps, seed)
+        for seq in seqs:
+            seq.post_forward(num_steps)
+        return toks[:len(batch_uids)]
+
+    def burst_inputs(self, batch_uids: Sequence[int], last_tokens: Sequence[int],
+                     num_steps: int, temperatures: Optional[Sequence[float]] = None):
+        """Allocate the blocks of ``num_steps`` more tokens for every UID and
+        build the burst's padded host inputs: ``(seqs, (tokens [B],
+        positions [B], tables [B, mp], temperatures [B]))`` with B the
+        power-of-two bucket of ``len(uids)`` (at least ``BURST_BUCKET_LO``)
+        and ``mp`` ``_bucket_blocks``. Padded rows hold token 0, position 0,
+        a table of the null block 0 and temperature 0. Allocating twice for
+        the same tokens allocates nothing more."""
         sm = self.state_manager
         seqs = []
         for uid in batch_uids:
             seq = sm.get_sequence(uid)
             sm.allocate_blocks(seq, num_steps)
             seqs.append(seq)
-
-        B = len(batch_uids)
+        B = _next_bucket(len(batch_uids), lo=BURST_BUCKET_LO)
         mp = self._bucket_blocks(batch_uids)
+        tokens = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
         tables = np.zeros((B, mp), np.int32)
+        temps = np.zeros((B,), np.float32)
+        tokens[:len(seqs)] = np.asarray(last_tokens, np.int32)
         for i, seq in enumerate(seqs):
             positions[i] = seq.seen_tokens
             bt = seq.blocks[:mp]
             tables[i, :len(bt)] = bt
-        temps = np.zeros((B,), np.float32) if temperatures is None \
-            else np.asarray(temperatures, np.float32)
-        toks = self._model.decode_burst(
-            self.kv_cache.k_pages, self.kv_cache.v_pages,
-            self._device(np.asarray(last_tokens, np.int32), torch.int32),
-            self._device(positions, torch.int32),
-            self._device(tables, torch.int32),
-            self._device(temps, torch.float32), num_steps,
-            generator=torch.Generator(device=self.device).manual_seed(seed))
-        for seq in seqs:
-            seq.post_forward(num_steps)
-        return toks.cpu().numpy()
+        if temperatures is not None:
+            temps[:len(seqs)] = np.asarray(temperatures, np.float32)
+        return seqs, (tokens, positions, tables, temps)
 
     def _bucket_blocks(self, uids) -> int:
         need = max((len(self.state_manager.get_sequence(u).blocks) for u in uids),

@@ -3,7 +3,7 @@ block table.
 
 Counterpart of ``deepspeed_tpu/inference/v2/kernels/pallas_paged_decode.py``
 (``paged_gqa_decode``). The decode bursts (``RaggedInferenceModel
-.decode_burst``) call it once per layer and step.
+.decode_step``) call it once per layer and step.
 
 - plain version: ``paged_decode_attention_reference`` (the JAX
   ``_xla_paged_decode``), run for tensors on the CPU;
@@ -17,17 +17,22 @@ The kernel splits each context over its keys (``split_plan``): units of
 each a block; the last block of a (sequence, kv head, row group) merges
 the splits' partials in split order in the same launch. The partials and
 the blocks' counters live in buffers this module keeps per device and
-stream (``_scratch``); every launch leaves the counters zero.
+stream (``_scratch``); every launch leaves the counters zero. What a
+captured CUDA graph may rely on: the buffers it captured stay where they
+are for the life of the process, and its counters are zero at the start
+of every replay (the launch before left them so); a capture never
+allocates scratch, so the step runs once on the capture stream first.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from ....ops.scratch import Scratch
 from .paged_attention import paged_decode_attention_reference
 from .ragged_paged_attention import check_kernel_args
 
@@ -107,19 +112,19 @@ def _kernel():
 
 # the split partials and counters, per (device, stream): every launch leaves
 # the counters zero (the last block of a cell resets its counter), so they
-# are zeroed once; launches on one stream run in order
-_buffers: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# are zeroed once, and a captured graph's replays find them zero too;
+# launches on one stream run in order. A buffer a graph captured is never
+# freed or moved (``ops/scratch.py``).
+_bufs = Scratch()
 
 
-def _scratch(dev: torch.device, stream: int, n_partial: int,
-             n_cells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _scratch(dev: torch.device, stream: int, n_partial: int, n_cells: int,
+             capturing: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (dev.index or 0, stream)
-    part, cnt = _buffers.get(key, (None, None))
-    if part is None or part.numel() < n_partial:
-        part = torch.empty(max(n_partial, 1 << 16), dtype=torch.float32, device=dev)
-    if cnt is None or cnt.numel() < n_cells:
-        cnt = torch.zeros(max(n_cells, 1024), dtype=torch.int32, device=dev)
-    _buffers[key] = (part, cnt)
+    part = _bufs.get(key + ("partial",), n_partial, lambda n: torch.empty(
+        max(n, 1 << 16), dtype=torch.float32, device=dev), capturing)
+    cnt = _bufs.get(key + ("counters",), n_cells, lambda n: torch.zeros(
+        max(n, 1024), dtype=torch.int32, device=dev), capturing)
     return part, cnt
 
 
@@ -143,7 +148,8 @@ def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
     cells = B * kvH * -(-(H // kvH) // gr)
     splits = max_splits(mp, ps)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    part, counters = _scratch(q.device, stream, cells * splits * gr * (D + 2), cells)
+    part, counters = _scratch(q.device, stream, cells * splits * gr * (D + 2), cells,
+                              torch.cuda.is_current_stream_capturing())
     out = torch.empty_like(q)
     rc = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                    out.data_ptr(), context_lens.data_ptr(),

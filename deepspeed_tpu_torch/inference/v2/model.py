@@ -2,9 +2,20 @@
 
 Counterpart of ``deepspeed_tpu/inference/v2/model.py`` for the ragged-wave
 path: ``wave_forward`` (every wave, any mix of prefill chunks and decode
-tokens) and ``decode_burst`` (K decode steps with sampling on the device).
-The JAX legacy two-class programs (``ragged_forward``, ``prefill_chunk``,
+tokens), ``decode_step`` (one decode step of B sequences over a
+``DecodeState``, the JAX burst's scan body ``one``) and ``decode_burst``
+(K calls of ``decode_step``, the eager form of the burst; the engine replays
+a CUDA graph of one ``decode_step`` instead, ``decode_graph.py``). The JAX
+legacy two-class programs (``ragged_forward``, ``prefill_chunk``,
 ``decode``) are not ported (ROADMAP A5).
+
+A step samples on the device as ``jax.random.categorical`` does, by
+Gumbel-max (``sample_next``): ``argmax(logits / T + g)`` with ``g =
+-log(-log(u))`` and ``u`` uniform from an explicit ``torch.Generator``;
+rows with ``T <= 0`` take ``argmax(logits)``. The draws differ from JAX's
+(another generator); their distribution is the same. Whether a step draws
+at all is a Python flag (``sampled``) decided on the host, so a step reads
+no device value on the host and a greedy step draws nothing.
 
 A MoE model's layers route DROPLESS on every wave and decode step
 (``capacity_factor = E``, ``min_capacity = 1``: capacity = the token
@@ -21,6 +32,7 @@ through its layer loop and donates it at the jit boundary
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -30,6 +42,58 @@ from .kernels.paged_decode import paged_gqa_decode
 from .kernels.ragged_paged_attention import ragged_paged_attention
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """The tensors one decode step reads and updates in place, on the
+    model's device: ``tokens [B]`` (int32, the input token of each row),
+    ``positions [B]`` (int32, the position of that token),
+    ``block_tables [B, mp]`` (int32; blocks for every step of the burst
+    already allocated), ``temperatures [B]`` (fp32), the step index ``k
+    [1]`` (int64) and the history ``hist [B, width]`` (int64), whose column
+    ``k`` each step fills. A CUDA graph of a step reads and writes these
+    tensors at fixed addresses, so the engine fills them in place."""
+    tokens: torch.Tensor
+    positions: torch.Tensor
+    block_tables: torch.Tensor
+    temperatures: torch.Tensor
+    k: torch.Tensor
+    hist: torch.Tensor
+
+    @classmethod
+    def empty(cls, batch: int, mp: int, width: int, device) -> "DecodeState":
+        i32 = dict(dtype=torch.int32, device=device)
+        return cls(tokens=torch.zeros(batch, **i32), positions=torch.zeros(batch, **i32),
+                   block_tables=torch.zeros(batch, mp, **i32),
+                   temperatures=torch.zeros(batch, dtype=torch.float32, device=device),
+                   k=torch.zeros(1, dtype=torch.int64, device=device),
+                   hist=torch.zeros(batch, width, dtype=torch.int64, device=device))
+
+    def load(self, tokens, positions, block_tables, temperatures) -> None:
+        """Copy a burst's inputs (tensors or numpy arrays of the state's
+        shapes) into the state and set the step index to 0."""
+        for dst, src in ((self.tokens, tokens), (self.positions, positions),
+                         (self.block_tables, block_tables),
+                         (self.temperatures, temperatures)):
+            dst.copy_(torch.as_tensor(src))
+        self.k.zero_()
+
+
+def sample_next(logits: torch.Tensor, temperatures: torch.Tensor, sampled: bool,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The next token of each row of fp32 ``logits [B, V]`` (int64 [B]):
+    ``argmax(logits)``, and where ``sampled`` a Gumbel-max draw from
+    softmax(logits / T) for the rows with ``T > 0``, its uniforms from
+    ``generator``. ``sampled`` False draws nothing."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not sampled:
+        return greedy
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    gumbel = -torch.log(-torch.log(u))      # u = 0 gives -inf: never drawn
+    drawn = torch.argmax(logits / temperatures.clamp_min(1e-6)[:, None] + gumbel, dim=-1)
+    return torch.where(temperatures <= 0.0, greedy, drawn)
 
 
 class RaggedInferenceModel:
@@ -114,40 +178,55 @@ class RaggedInferenceModel:
         return self._unembed(sel)
 
     @torch.inference_mode()
-    def decode_burst(self, k_pages, v_pages, tokens, positions, block_tables,
-                     temperatures: torch.Tensor, num_steps: int,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """K = ``num_steps`` decode steps for B sequences, sampling on the
-        device between steps: greedy (argmax) where temperature <= 0, else
-        ``torch.multinomial`` over softmax(logits / T) with ``generator``.
-        ``positions[b]`` is the position of the INPUT token; blocks for
-        all K steps must already be in ``block_tables [B, mp]`` (int32).
-        Returns the sampled tokens [B, K] (int64)."""
+    def decode_step(self, k_pages, v_pages, state: DecodeState, sampled: bool = False,
+                    generator: Optional[torch.Generator] = None) -> None:
+        """One decode step of the B sequences of ``state``, the JAX burst's
+        scan body ``one``: embed each row's input token, write its K/V at
+        its position, attend over its block table with ``paged_gqa_decode``
+        and pick the next token (``sample_next``). In place, on the
+        device: the token goes to ``hist[:, k]``, becomes the input token,
+        and ``positions`` and ``k`` advance by one. Nothing is read back to
+        the host, so K calls run K steps, and a CUDA graph of one call
+        replays a step."""
         ps = self.block_size
         max_flat = k_pages.shape[2] * ps
         max_pos = self.max_blocks_per_seq * ps - 1
-        sampled_rows = bool((temperatures > 0).any())
-        out = []
+        tables = state.block_tables
+        x = self._embed(state.tokens, state.positions)
+        pos_c = state.positions.clamp(0, max_pos)
+        page_slot = (pos_c // ps).clamp(0, tables.shape[1] - 1)
+        pages_of = tables.gather(1, page_slot[:, None].long())[:, 0]
+        write_idx = (pages_of.long() * ps + pos_c % ps).clamp(0, max_flat - 1)
+        ctx = (pos_c + 1).to(torch.int32)
+
+        def attn(q, k_l, v_l):
+            return paged_gqa_decode(q, k_l, v_l, ctx, tables, scale=self._scale)
+
+        x = self._layer_loop(k_pages, v_pages, x, attn, write_idx, state.positions)
+        nxt = sample_next(self._unembed(x), state.temperatures, sampled, generator)
+        state.hist.index_copy_(1, state.k, nxt[:, None])
+        state.tokens.copy_(nxt)
+        state.positions.add_(1)
+        state.k.add_(1)
+
+    @torch.inference_mode()
+    def decode_burst(self, k_pages, v_pages, tokens, positions, block_tables,
+                     temperatures: torch.Tensor, num_steps: int,
+                     generator: Optional[torch.Generator] = None,
+                     sampled: Optional[bool] = None) -> torch.Tensor:
+        """K = ``num_steps`` calls of ``decode_step`` for B sequences, run
+        eagerly: greedy (argmax) where temperature <= 0, else a Gumbel-max
+        draw from softmax(logits / T) with ``generator``.
+        ``positions[b]`` is the position of the INPUT token; blocks for
+        all K steps must already be in ``block_tables [B, mp]`` (int32).
+        ``sampled`` says whether any row samples; None reads it from
+        ``temperatures`` (one read back to the host, before the first
+        step). Returns the sampled tokens [B, K] (int64)."""
+        if sampled is None:
+            sampled = bool((temperatures > 0).any())
+        state = DecodeState.empty(tokens.shape[0], block_tables.shape[1], num_steps,
+                                  tokens.device)
+        state.load(tokens, positions, block_tables, temperatures)
         for _ in range(num_steps):
-            x = self._embed(tokens, positions)
-            pos_c = positions.clamp(0, max_pos)
-            page_slot = (pos_c // ps).clamp(0, block_tables.shape[1] - 1)
-            pages_of = block_tables.gather(1, page_slot[:, None].long())[:, 0]
-            write_idx = (pages_of.long() * ps + pos_c % ps).clamp(0, max_flat - 1)
-            ctx = (pos_c + 1).to(torch.int32)
-
-            def attn(q, k_l, v_l):
-                return paged_gqa_decode(q, k_l, v_l, ctx, block_tables,
-                                        scale=self._scale)
-
-            x = self._layer_loop(k_pages, v_pages, x, attn, write_idx, positions)
-            logits = self._unembed(x)                       # [B, V]
-            nxt = torch.argmax(logits, dim=-1)
-            if sampled_rows:
-                temp = temperatures.clamp_min(1e-6)[:, None]
-                probs = torch.softmax(logits / temp, dim=-1)
-                drawn = torch.multinomial(probs, 1, generator=generator)[:, 0]
-                nxt = torch.where(temperatures <= 0.0, nxt, drawn)
-            out.append(nxt)
-            tokens, positions = nxt, positions + 1
-        return torch.stack(out, dim=1)
+            self.decode_step(k_pages, v_pages, state, sampled, generator)
+        return state.hist

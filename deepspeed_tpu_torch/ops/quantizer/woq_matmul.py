@@ -24,16 +24,23 @@ split K across blocks to fill the card (``plan_tc_splits``,
 ``plan_splits``) and add the splits in a fixed order: the tensor-core
 kernel in the same launch (the last block of a column tile, found by a
 counter a column tile that the wrapper keeps zeroed, ``_tile_counters``),
-the CUDA-core kernel in a second one. Two runs give the same bits.
+the CUDA-core kernel in a second one. Two runs give the same bits. What a
+captured CUDA graph may rely on: the counters it captured stay where they
+are for the life of the process and are zero at the start of every replay;
+a capture never allocates them, so the step runs once on the capture
+stream first. The split partials are allocated with each call (inside a
+capture: in the graph's pool).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
+
+from ..scratch import Scratch
 
 _COLS = 128        # output columns a block (csrc/woq_matmul.cu: kCols)
 _ROW_TILE = 8      # rows of x a block of the CUDA-core kernel (the largest MT)
@@ -151,16 +158,16 @@ def _kernel():
 
 # the tensor-core kernel's counters a column tile, per (device, stream): each
 # launch leaves them zero (the last block of a tile resets its counter), so
-# they are zeroed once; launches on one stream run in order
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+# they are zeroed once, and a captured graph's replays find them zero too;
+# launches on one stream run in order. A buffer a graph captured is never
+# freed or moved (``ops/scratch.py``).
+_bufs = Scratch()
 
 
-def _tile_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (dev.index or 0, stream)
-    c = _counters.get(key)
-    if c is None or c.numel() < n:
-        c = _counters[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
-    return c
+def _tile_counters(dev: torch.device, stream: int, n: int,
+                   capturing: bool = False) -> torch.Tensor:
+    return _bufs.get((dev.index or 0, stream), n, lambda m: torch.zeros(
+        max(m, 256), dtype=torch.int32, device=dev), capturing)
 
 
 def _woq_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -184,7 +191,8 @@ def _woq_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     partial = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
                if splits > 1 else None)
-    counters = (_tile_counters(dev, stream, -(-N // _MMA_COLS))
+    counters = (_tile_counters(dev, stream, -(-N // _MMA_COLS),
+                               torch.cuda.is_current_stream_capturing())
                 if mma and splits > 1 else None)
     a = WoqParams(x=x.data_ptr(), q=q.data_ptr(), scale=scale.data_ptr(),
                   out=out.data_ptr(),

@@ -191,7 +191,7 @@ def test_preemption_offload_restore_identical(engines):
 
 
 def test_sampled_generation_completes(engines):
-    """temperature > 0: multinomial sampling inside bursts (the draws
+    """temperature > 0: Gumbel-max sampling inside bursts (the draws
     differ from JAX's by construction; the counts and ranges do not)."""
     _, peng, _ = engines
     prompts = [list(p) for p in _prompts(8, (4, 9))]
