@@ -80,7 +80,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    memory), the losses finite, the first near ln(32000) and falling; the
    launch counters must show 44 flash forwards (remat reruns each block's
    forward), 22 dQ, 22 dK/dV and one Adam launch per bucket a step; one
-   more step under ``torch.profiler``; then a 2-layer model of the same
+   more step under ``torch.profiler``; then ``[checkpoint]`` on the same
+   engine: the disk's free bytes, a synchronous save (the tag's bytes, its
+   seconds, and ``verify_tag``'s crc read-back apart), 2 more steps, the
+   same 2 steps from an engine of another seed that loaded the tag (its
+   load seconds; losses and every param after them bit for bit), an async
+   save (the seconds it blocked, the seconds to its commit; ``latest`` names
+   the tag only after the commit), and on 2 layers of the same width
+   ``keep_last_n`` 2 over three tags, a flipped byte in the newest making
+   ``load_checkpoint()`` fall back to the one before and the bad tag by
+   name raise (the depth is cut, and the cut printed, only where the disk
+   cannot hold a tag); then a 2-layer model of the same
    width trained 3 steps through the kernels and 3 steps through their
    plain versions from the same weights, the losses within 2e-2;
 8. Lion training: the same model, batch and config with ``optimizer: Lion``
@@ -105,7 +115,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their bytes bound, rows a launch as a histogram); then a 2-layer model of the
    same width for 3 steps through the kernels, through their plain versions
    (losses within 2e-2) and at full width without ZeRO++ (int8 losses
-   within the JAX suite's ZeRO++ tolerance, rtol = atol = 0.05). A rank
+   within the JAX suite's ZeRO++ tolerance, rtol = atol = 0.05); then the
+   2-layer ZeRO-3 + ZeRO++ engine after a step saves one rank file a rank,
+   which both ranks load at stage 1 and this process into a single-device
+   engine, every param equal to the saver's (sha256 of its bytes). A rank
    that fails or hangs past ``ZERO_TIMEOUT`` fails the run;
 10. Mixtral serving (``[moe-engine]``): mixtral-8x7b at full width (8
    experts, top-2, FFN 14336), depth cut to 24 of 32 layers, random bf16
@@ -162,6 +175,7 @@ Imports nothing of JAX or ``deepspeed_tpu``; needs one CUDA device.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -411,6 +425,13 @@ ZERO_CONFIG = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
                                      "zero_quantized_gradients": True, "overlap_comm": False}}
 ZERO_PLAIN_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 3, "overlap_comm": False})
 ZERO_ZEROPP_TOL = 0.05   # rtol = atol: the JAX suite's ZeRO++ bound (test_zeropp.py:113)
+# [checkpoint]: phase 7's engine saves a tag, an engine from another seed
+# loads it, and both take CKPT_STEPS more steps, which must agree bit for
+# bit; an async save; keep-last-CKPT_KEEP over three tags of a 2-layer model
+# of the same width. [zero] saves rank files of its 2-layer ZeRO-3 engine and
+# loads them at stage 1 (ZERO_STAGE1_CONFIG) and on one device
+CKPT_STEPS, CKPT_KEEP, CKPT_DISK_MARGIN = 2, 2, 1.05
+ZERO_STAGE1_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 1})
 # Mixtral serving: mixtral-8x7b at full width, depth cut to 24 of 32 layers
 # (65.4 GiB of bf16 weights; 32 layers would need 87 GiB); the logits check
 # at 2 layers of the same width, against an fp32 copy
@@ -2371,12 +2392,12 @@ def serve_mixtral(torch, np, moe):
 # ---------------------------------------------------------------------------
 
 
-def train_engine(torch, config, num_layers=None):
+def train_engine(torch, config, num_layers=None, seed=0):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import llama_model
     kw = {} if num_layers is None else {"num_layers": num_layers}
     engine, *_ = deepspeed_tpu_torch.initialize(model=llama_model("tinyllama-1.1b", **kw),
-                                                config=config, seed=0)
+                                                config=config, seed=seed)
     return engine
 
 
@@ -2444,10 +2465,11 @@ def zero_counts(flash, adam, lion):
     lion.launches = 0
 
 
-def train(torch, np, flash, adam, lion, config, warmup, steps):
+def train(torch, np, flash, adam, lion, config, warmup, steps, after=None):
     """tinyllama-1.1b trained at full width and depth under ``config``
     (AdamW or Lion); returns the training kernels' launch counts over the
-    timed steps and the bytes of the optimizer's master and moments."""
+    timed steps and the bytes of the optimizer's master and moments.
+    ``after(engine, batch)`` runs on the trained engine before it is freed."""
     from torch.profiler import ProfilerActivity, profile
     opt_name = config["optimizer"]["type"].lower()
     opt_kernel, other = (("fused_lion", "fused_adam") if opt_name == "lion"
@@ -2521,6 +2543,8 @@ def train(torch, np, flash, adam, lion, config, warmup, steps):
             ms = e.self_device_time_total / 1e3
             print(f"[train-profile]   {ms:9.2f} ms {ms / busy:6.1%} x{e.count:5d} "
                   f"{e.key[:90]}", flush=True)
+    if after is not None:
+        after(engine, batch)
     del engine
     torch.cuda.empty_cache()
 
@@ -2547,6 +2571,150 @@ def train(torch, np, flash, adam, lion, config, warmup, steps):
     if max(rel) > PATH_RTOL:
         fail(f"kernel and plain training paths differ by {max(rel):.3e}")
     return launches, opt_bytes
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def state_bytes(engine):
+    """Bytes of the params and the optimizer's master and moments."""
+    slots = [v for k, v in engine.opt_state.items() if k not in ("step", "buckets")]
+    return sum(t.numel() * t.element_size()
+               for tree in [engine.params] + slots for t in tree.values())
+
+
+def param_digests(torch, params):
+    """sha256 of each tensor's bytes: bitwise equality across processes."""
+    import hashlib
+    return {k: hashlib.sha256(v.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+            for k, v in params.items()}
+
+
+def flip_a_byte(path):
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def read_latest(d):
+    path = os.path.join(d, "latest")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read().strip()
+
+
+def checkpoint_phase(torch, np, engine, batch, config, smi):
+    """The [checkpoint] phase on phase 7's trained engine: a synchronous save
+    (tag bytes, seconds, the crc read-back apart), CKPT_STEPS more steps,
+    the same steps from an engine of another seed that loaded the tag (losses
+    and params bit for bit), an async save (the seconds it blocked, the
+    seconds to the commit, ``latest`` repointed only at the commit), then
+    keep-last-CKPT_KEEP and the corrupt-tag fallback on a 2-layer model of
+    the same width. The depth is cut only where the disk cannot hold a tag."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.checkpoint import store
+    root = tempfile.mkdtemp(prefix="dstpu-ckpt-")
+    try:
+        c = engine.model.config
+        need, free = state_bytes(engine), shutil.disk_usage(root).free
+        layers, cut = c.num_layers, ""
+        if free < CKPT_DISK_MARGIN * need:
+            n = sum(p.numel() for p in engine.params.values())
+            per_layer = sum(p.numel() for k, p in engine.params.items()
+                            if k.startswith("blocks.0."))
+            fit = int((free / CKPT_DISK_MARGIN * n / need - (n - c.num_layers * per_layer))
+                      // per_layer)
+            if fit < 1:
+                fail(f"[checkpoint] {free} bytes free at {root} hold no layer of the tag")
+            layers, cut = fit, f"; depth cut to {fit} of {c.num_layers} layers to fit the disk"
+            engine = train_engine(torch, config, layers)
+            engine.train_batch(batch)
+            need = state_bytes(engine)
+        print(f"[checkpoint] {smi} | disk free {free} bytes at {root}; tinyllama-1.1b "
+              f"{layers} layers, {need} bytes of params, master and moments{cut}", flush=True)
+        d = os.path.join(root, "full")
+        t = time.perf_counter()
+        engine.save_checkpoint(d)
+        save_s = time.perf_counter() - t
+        tag = read_latest(d)
+        nbytes = dir_bytes(os.path.join(d, tag))
+        t = time.perf_counter()
+        ok, why = store.verify_tag(os.path.join(d, tag))
+        verify_s = time.perf_counter() - t
+        if not ok:
+            fail(f"[checkpoint] {tag} fails verification: {why}")
+        print(f"[checkpoint] {smi} | sync save {tag}: {nbytes} bytes in {save_s:.3f} s "
+              f"({nbytes / save_s / 1e9:.3f} GB/s, staging and the crc of the write included); "
+              f"verify_tag (crc32 read-back) {verify_s:.3f} s "
+              f"({nbytes / verify_s / 1e9:.3f} GB/s)", flush=True)
+        want = [float(engine.train_batch(batch)) for _ in range(CKPT_STEPS)]
+        other = train_engine(torch, dict(config, checkpoint={"async_save": True}), layers, seed=1)
+        t = time.perf_counter()
+        got_tag = other.load_checkpoint(d)[0]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        got = [float(other.train_batch(batch)) for _ in range(CKPT_STEPS)]
+        differ = [k for k, p in engine.params.items() if not torch.equal(p, other.params[k])]
+        print(f"[checkpoint] {smi} | load {got_tag} into an engine of another seed: {load_s:.3f} "
+              f"s ({nbytes / load_s / 1e9:.3f} GB/s, verification included); {CKPT_STEPS} more "
+              f"steps: saver {want}, loader {got}; params differing after them: {len(differ)} "
+              f"of {len(engine.params)}", flush=True)
+        if got_tag != tag or got != want or differ:
+            fail(f"[checkpoint] the resume is not bitwise: losses {want} vs {got}, "
+                 f"params differing {differ[:8]}")
+        shutil.rmtree(os.path.join(d, tag))   # one full tag on the disk at a time
+        t = time.perf_counter()
+        other.save_checkpoint(d)
+        blocked_s = time.perf_counter() - t
+        tag2, before = f"global_step{other.global_steps}", read_latest(d)
+        other.checkpoint_engine.commit(tag2)
+        commit_s = time.perf_counter() - t
+        after = read_latest(d)
+        ok, why = store.verify_tag(os.path.join(d, tag2))
+        print(f"[checkpoint] {smi} | async save {tag2}: save_checkpoint blocked {blocked_s:.3f} s "
+              f"(every tensor staged in host memory), committed after {commit_s:.3f} s; latest "
+              f"{before!r} on return, {after!r} after the commit; verify {ok}", flush=True)
+        if before == tag2 or after != tag2 or not ok:
+            fail(f"[checkpoint] async commit fence: latest {before!r} then {after!r}, verify "
+                 f"{why}")
+        other.checkpoint_engine.close()
+        del other
+        torch.cuda.empty_cache()
+
+        small = train_engine(torch, dict(config, checkpoint={"keep_last_n": CKPT_KEEP}),
+                             PATH_LAYERS)
+        d2 = os.path.join(root, "keep")
+        for _ in range(3):
+            small.train_batch(batch)
+            small.save_checkpoint(d2)
+        tags = sorted(x for x in os.listdir(d2) if os.path.isdir(os.path.join(d2, x)))
+        flip_a_byte(os.path.join(d2, "global_step3", "state.npz"))
+        fell_back = small.load_checkpoint(d2)[0]
+        try:
+            small.load_checkpoint(d2, tag="global_step3")
+            named = "loaded"
+        except ValueError as e:
+            named = f"raised ValueError ({str(e)[:60]}...)"
+        print(f"[checkpoint] {smi} | {PATH_LAYERS} layers, keep_last_n {CKPT_KEEP}, three "
+              f"saves: tags {tags}; a byte flipped in global_step3/state.npz: "
+              f"load_checkpoint() took {fell_back}, the bad tag by name {named}", flush=True)
+        if tags != ["global_step2", "global_step3"] or fell_back != "global_step2" \
+                or not named.startswith("raised"):
+            fail("[checkpoint] retention or the corrupt-tag fallback failed")
+        del small
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2655,11 +2823,12 @@ def wire_summary(records):
     return out
 
 
-def zero_rank(rank, init_method, results):
+def zero_rank(rank, init_method, results, ckpt_dir):
     """One rank of the [zero] phase (a process of its own): tinyllama-1.1b
     at full width and depth through ``initialize`` + ``train_batch`` under
-    ZERO_CONFIG, then the 2-layer kernels / plain / full-width runs. Puts
-    its measurements on ``results``."""
+    ZERO_CONFIG, then the 2-layer kernels / plain / full-width runs, then a
+    2-layer ZeRO-3 engine's rank files saved into ``ckpt_dir`` and loaded at
+    stage 1. Puts its measurements on ``results``."""
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2723,6 +2892,22 @@ def zero_rank(rank, init_method, results):
         del eng
         torch.cuda.empty_cache()
     res["path"] = path
+    eng = train_engine(torch, ZERO_CONFIG, PATH_LAYERS)
+    eng.train_batch(batch)
+    t = time.perf_counter()
+    eng.save_checkpoint(ckpt_dir)
+    save_s = time.perf_counter() - t
+    saved = param_digests(torch, eng.module_state_dict())
+    del eng
+    torch.cuda.empty_cache()
+    eng = train_engine(torch, ZERO_STAGE1_CONFIG, PATH_LAYERS, seed=1)
+    t = time.perf_counter()
+    tag = eng.load_checkpoint(ckpt_dir)[0]
+    torch.cuda.synchronize()
+    res["ckpt"] = dict(tag=tag, saved=saved, stage1=param_digests(torch, eng.module_state_dict()),
+                       save_s=save_s, load_s=time.perf_counter() - t)
+    del eng
+    torch.cuda.empty_cache()
     results.put(res)
     dist.barrier()
     dist.destroy_process_group()
@@ -2735,7 +2920,7 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def run_zero_ranks():
+def run_zero_ranks(ckpt_dir):
     """Spawn ZERO_WORLD ranks of ``zero_rank`` and collect their results;
     fails if a rank fails or the ranks outlast ZERO_TIMEOUT (the ranks are
     then killed)."""
@@ -2744,7 +2929,8 @@ def run_zero_ranks():
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init = f"tcp://localhost:{free_port()}"
-    procs = [ctx.Process(target=zero_rank, args=(r, init, results)) for r in range(ZERO_WORLD)]
+    procs = [ctx.Process(target=zero_rank, args=(r, init, results, ckpt_dir))
+             for r in range(ZERO_WORLD)]
     for p in procs:
         p.start()
     out, deadline = [], time.monotonic() + ZERO_TIMEOUT
@@ -2770,15 +2956,50 @@ def run_zero_ranks():
     return sorted(out, key=lambda r: r["rank"])
 
 
-def train_zero(torch, np, single_opt_bytes):
+def zero_checkpoint(torch, ranks, ckpt_dir, smi):
+    """[zero]'s rank files: the saver's params on both ranks, after the load
+    at world 2 stage 1, and after a load in this process into a single-device
+    engine, bit for bit."""
+    ck = [r["ckpt"] for r in ranks]
+    saved = ck[0]["saved"]
+    t = time.perf_counter()
+    one = train_engine(torch, TRAIN_CONFIG, PATH_LAYERS, seed=2)
+    tag = one.load_checkpoint(ckpt_dir)[0]
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    single = param_digests(torch, one.module_state_dict())
+    del one
+    torch.cuda.empty_cache()
+    files = sorted(f for f in os.listdir(os.path.join(ckpt_dir, tag)) if f.endswith(".npz"))
+    print(f"[zero] {smi} | checkpoint of the {PATH_LAYERS}-layer ZeRO-3 + ZeRO++ engine: {tag}, "
+          f"{files}, {dir_bytes(os.path.join(ckpt_dir, tag))} bytes; save s a rank "
+          f"{[round(c['save_s'], 3) for c in ck]}; load at world 2 stage 1 s a rank "
+          f"{[round(c['load_s'], 3) for c in ck]}; load into one device {one_s:.3f} s (engine "
+          f"build included); params equal to the saver's: stage 1 "
+          f"{[c['stage1'] == saved for c in ck]}, one device {single == saved}", flush=True)
+    if files != [f"state.rank{r}.npz" for r in range(ZERO_WORLD)]:
+        fail(f"[zero] rank files {files}")
+    if any(c["saved"] != saved or c["stage1"] != saved for c in ck) or single != saved:
+        fail("[zero] the params after a load differ from the saver's")
+
+
+def train_zero(torch, np, single_opt_bytes, smi):
     """The [zero] phase: two ranks on one card train tinyllama-1.1b with
-    ZeRO-3 and the ZeRO++ int8 wire; checks and prints what they measured.
-    Returns the quantizer's launches over the timed steps, both ranks."""
+    ZeRO-3 and the ZeRO++ int8 wire; checks and prints what they measured;
+    then the rank files of a 2-layer engine (``zero_checkpoint``). Returns
+    the quantizer's launches over the timed steps, both ranks."""
+    import shutil
+    import tempfile
     print(f"[zero] backend {ZERO_BACKEND} (given; two ranks share cuda:0, so every "
           f"collective crosses host memory on this card), world {ZERO_WORLD}, config "
           f"{json.dumps(ZERO_CONFIG['zero_optimization'])}", flush=True)
     t0 = time.perf_counter()
-    ranks = run_zero_ranks()
+    ckpt_dir = tempfile.mkdtemp(prefix="dstpu-zero-ckpt-")
+    try:
+        ranks = run_zero_ranks(ckpt_dir)
+        zero_checkpoint(torch, ranks, ckpt_dir, smi)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     r0 = ranks[0]
     losses = r0["losses"]
     print(f"[zero] ranks done in {time.perf_counter() - t0:.1f} s; backend reported "
@@ -2925,8 +3146,9 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. training
-    adamw, adamw_opt_bytes = train(torch, np, flash, adam, lion, TRAIN_CONFIG, TRAIN_WARMUP,
-                                   TRAIN_STEPS)
+    adamw, adamw_opt_bytes = train(
+        torch, np, flash, adam, lion, TRAIN_CONFIG, TRAIN_WARMUP, TRAIN_STEPS,
+        after=lambda engine, batch: checkpoint_phase(torch, np, engine, batch, TRAIN_CONFIG, smi))
     launches.update({k: v for k, v in adamw.items() if k != "fused_lion"})
     gc.collect()
     torch.cuda.empty_cache()
@@ -2938,7 +3160,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 9. data-parallel ZeRO-3 with the ZeRO++ int8 wire, two ranks
-    launches["quant_rows"] = train_zero(torch, np, adamw_opt_bytes)
+    launches["quant_rows"] = train_zero(torch, np, adamw_opt_bytes, smi)
     gc.collect()
     torch.cuda.empty_cache()
 

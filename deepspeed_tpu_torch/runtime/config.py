@@ -9,13 +9,15 @@ data_parallel_size``, ``:293-326``), ``optimizer``, ``scheduler``,
 ``optimizer_moment_sq_dtype``), ``fp16_master_weights_and_grads``,
 ``zero_optimization`` (``runtime/zero/config.py``: the stage and the ZeRO++
 knobs ``zero_quantized_weights`` / ``zero_quantized_gradients``),
-``comm_transport`` (the transport planner's policy, ``comm/comm.py``) and
-``topology`` with ``data`` equal to the world size. On a world of one,
+``comm_transport`` (the transport planner's policy, ``comm/comm.py``),
+``checkpoint`` (``async_save``, ``keep_last_n``) and ``topology`` with
+``data`` equal to the world size. On a world of one,
 ZeRO partitions nothing, exactly as in JAX. Keys for features the port
 does not cover yet raise ``NotImplementedError`` naming their ROADMAP
 item: other topology axes, hpZ, MiCS, the layer-pipelined overlap schedule
 (``overlap_comm`` true with ZeRO++, or written true at stage 3), error
-feedback, offload, and the ``comm_transport`` keys of collectives the port
+feedback, offload, the watchdog's ``checkpoint.escalation_*`` keys, and
+the ``comm_transport`` keys of collectives the port
 does not run (``hierarchical``, ``activation_width``, ``permute_width``)
 set to other than their defaults; keys that only tune logging or what the port ignores
 are accepted.
@@ -86,7 +88,11 @@ _UNPORTED = {
     "progressive_layer_drop": ("A12 (progressive layer drop)", _enabled),
     "quantize_training": ("A12 (compression)", _enabled),
     "compression_training": ("A12 (compression)", lambda b: bool(b)),
-    "checkpoint": ("A4 (checkpoints)", lambda b: bool(b)),
+}
+# ``checkpoint`` keys of features the port does not run yet
+_CHECKPOINT_UNPORTED = {
+    "escalation_dir": "A12 (the watchdog's escalation save)",
+    "escalation_save_timeout_s": "A12 (the watchdog's escalation save)",
 }
 _ZERO_UNPORTED = {
     "offload_optimizer": "A9 (offload)",
@@ -132,6 +138,10 @@ def _reject_unported(pd: Dict[str, Any]) -> None:
         if axis != "data" and size != 1:
             raise NotImplementedError(f"topology axis {axis!r} of size {size} is not "
                                       f"ported: ROADMAP {_UNPORTED_AXES[axis]}")
+    for key in pd.get("checkpoint") or {}:
+        if key in _CHECKPOINT_UNPORTED:
+            raise NotImplementedError(f"config key checkpoint.{key} is not ported: ROADMAP "
+                                      f"{_CHECKPOINT_UNPORTED[key]}")
     transport = pd.get("comm_transport") or {}
     if transport.get("error_feedback"):
         raise NotImplementedError("comm_transport.error_feedback is not ported: ROADMAP "
@@ -181,6 +191,7 @@ class DeepSpeedConfig:
         self.data_types_optimizer_moment_dtype = data_types.get("optimizer_moment_dtype")
         self.data_types_optimizer_moment_sq_dtype = data_types.get("optimizer_moment_sq_dtype")
         self.fp16_master_weights_and_grads = bool(pd.get("fp16_master_weights_and_grads", False))
+        self.checkpoint_config: Dict[str, Any] = dict(pd.get("checkpoint") or {})
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get("zero_optimization") or {})
         self.zero_stage: int = self.zero_config.stage
         try:

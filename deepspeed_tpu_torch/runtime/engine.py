@@ -26,22 +26,35 @@ load, so the fp32 gradient tree of the JAX step never exists in memory.
 On a world of more than one rank, ``DataParallelEngine`` (below) runs the
 same step data-parallel with ZeRO stages 0-3 and the ZeRO++ int8 wire.
 
-Not ported yet: checkpoints (ROADMAP A4), the layer-pipelined overlap
-schedule, hpZ / MiCS and meshes with other axes (A6), offload (A9),
-pipeline (A10); ``runtime/config.py`` raises for them. A model with MoE
-layers raises here (ROADMAP A7: MoE training).
+``save_checkpoint`` / ``load_checkpoint`` (``:3135``, ``:3557``) write and
+read the JAX engine's tags (``checkpoint/store.py``): the same keys,
+shapes and dtypes, the port's per-layer ``[out, in]`` tensors stacked into
+the JAX ``[L, in, out]`` leaves (``convert.JaxLeaf``); one file a rank on
+a world of more than one, each rank writing the pieces it owns.
+``checkpoint.async_save`` stages every tensor in host memory and writes on
+a worker thread; ``checkpoint.keep_last_n`` retires old tags after each
+commit.
+
+Not ported yet: the layer-pipelined overlap schedule, hpZ / MiCS and meshes
+with other axes (A6), offload (A9), pipeline (A10); ``runtime/config.py``
+raises for them. A model with MoE layers raises here (ROADMAP A7: MoE
+training).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import logging
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..checkpoint import store
+from ..checkpoint.checkpoint_engine import AsyncCheckpointEngine, NpzCheckpointEngine
 from ..comm import comm as dist
+from ..convert import JaxLeaf, from_host, host_array, jax_leaf, to_jax_leaf
 from ..models.transformer import MOE_TRAINING
 from ..ops.quantizer.quantizer import (fp8_reduce_scatter, quantized_all_gather,
                                        quantized_reduce_scatter)
@@ -54,6 +67,8 @@ from ..utils.groups import DATA_AXIS
 from .topology import MeshTopology
 from .zero.partition import ZeroPartitionPlan, shard_of
 
+logger = logging.getLogger(__name__)
+
 _NARROW = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp16": torch.float16, "float16": torch.float16,
            None: None, "fp32": None, "float32": None}
@@ -63,6 +78,40 @@ def _state_dtype(value, key: str):
     if value not in _NARROW:
         raise ValueError(f"data_types.{key} must be bf16/fp16/fp32, got {value!r}")
     return _NARROW[value]
+
+
+# the loss-scale leaves of a tag and their dtypes (the JAX state's scalars)
+_LOSS_SCALE = {"cur_hysteresis": np.int32, "cur_scale": np.float32, "dynamic": np.bool_,
+               "iter": np.int32, "last_overflow_iter": np.int32}
+
+
+@dataclasses.dataclass
+class _TagLeaf:
+    """One tensor leaf of a tag as this rank holds it: the port leaves
+    stacked into it (or the one), this rank's tensor of each,
+    the ZeRO shard dim of those tensors on the port leaf (None: whole) and
+    the whole port leaf's shape."""
+    leaves: List[JaxLeaf]
+    tensors: List[torch.Tensor]
+    dim: Optional[int]
+    port_shape: Tuple[int, ...]
+
+    @property
+    def jax_shape(self) -> Tuple[int, ...]:
+        return self.leaves[0].shape(self.port_shape, len(self.leaves))
+
+    def spans(self, rank: int, n: int) -> List[Tuple[int, int]]:
+        """This rank's span of the JAX leaf: all its layers, the shard's
+        rows ``[rank * s, (rank + 1) * s)`` of dim ``dim`` (s = size / n,
+        ``zero/partition.py`` ``shard_of``), every other dim whole."""
+        region = [(0, d) for d in self.port_shape]
+        if self.dim is not None:
+            s = self.port_shape[self.dim] // n
+            region[self.dim] = (rank * s, (rank + 1) * s)
+        spans = self.leaves[0].span(region)
+        if self.leaves[0].layer is not None:
+            spans[0] = (0, len(self.leaves))
+        return spans
 
 
 class DeepSpeedEngine:
@@ -118,6 +167,15 @@ class DeepSpeedEngine:
         self.gradient_clipping = config.gradient_clipping
         self._last_grad_norm = None
         self._cached_loss = None
+
+        # -- checkpoints: synchronous npz writes, or write-behind ----------------
+        self._ckpt_async = bool(config.checkpoint_config.get("async_save", False))
+        if self._ckpt_async and dist.get_world_size() > 1:
+            logger.info("checkpoint.async_save: a world of more than one rank saves "
+                        "synchronously (its rank files need the barriers of the commit)")
+            self._ckpt_async = False
+        self.checkpoint_engine = (AsyncCheckpointEngine() if self._ckpt_async
+                                  else NpzCheckpointEngine())
 
     def _init_state(self, seed: int, init_params) -> None:
         self._place_model(seed, init_params)
@@ -238,9 +296,7 @@ class DeepSpeedEngine:
         """Loss of one micro-batch; its gradients (of the loss scaled by
         ``loss_scale / gas``) are added to the fp32 accumulation buffer."""
         batch = self._prepare_batch(batch)
-        if not self.grad_acc:
-            self.grad_acc = {n: torch.zeros(p.shape, dtype=self.grad_dtype, device=self.device)
-                             for n, p in self.params.items()}
+        self._ensure_grad_acc()
         scale = float(np.float32(self.loss_scale_state["cur_scale"])
                       / np.float32(self.gradient_accumulation_steps))
         loss = self.model.loss(batch)
@@ -321,10 +377,175 @@ class DeepSpeedEngine:
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.params.items()}
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported (ROADMAP A4)")
+    # -- checkpoints ---------------------------------------------------------------
+    def _ensure_grad_acc(self) -> None:
+        """The split path's fp32 accumulation buffer, made at first use."""
+        if not self.grad_acc:
+            self.grad_acc = {n: torch.zeros(p.shape, dtype=self.grad_dtype, device=self.device)
+                             for n, p in self.params.items()}
 
-    load_checkpoint = save_checkpoint
+    def _tag_has_grad_acc(self) -> bool:
+        """Whether the tag holds ``grad_acc/...`` leaves: where the JAX engine
+        keeps a gradient buffer in its state (gas > 1, the ZeRO++ explicit
+        micro step, a split path taken); its fused gas == 1 step keeps none."""
+        return (self.gradient_accumulation_steps > 1 or self.config.zero_config.zeropp
+                or bool(self.grad_acc))
+
+    def _rank_and_world(self) -> Tuple[int, int]:
+        return 0, 1
+
+    def _port_shape(self, name: str) -> Tuple[int, ...]:
+        return tuple(self.params[name].shape)
+
+    def _local(self, group: str, name: str) -> Tuple[torch.Tensor, Optional[int]]:
+        """This rank's tensor of a port leaf of ``group`` (``params``,
+        ``grad_acc`` or ``opt/<slot>``) and its shard dim (None: whole)."""
+        if group == "params":
+            return self.params[name].detach(), None
+        if group == "grad_acc":
+            return self.grad_acc[name], None
+        return self.opt_state[group[len("opt/"):]][name], None
+
+    def _tag_leaves(self) -> Dict[str, _TagLeaf]:
+        """Every tensor leaf of this engine's tag, by key (``params/...``,
+        ``grad_acc/...``, ``opt/<slot>/...``: the JAX state's paths)."""
+        groups = ["params"]
+        if self._tag_has_grad_acc():
+            self._ensure_grad_acc()
+            groups.append("grad_acc")
+        groups += [f"opt/{slot}" for slot in self.opt_state if slot not in ("step", "buckets")]
+        out: Dict[str, _TagLeaf] = {}
+        for group in groups:
+            for name in self.params:
+                shape = self._port_shape(name)
+                jl = jax_leaf(name, len(shape))
+                t, dim = self._local(group, name)
+                e = out.setdefault(f"{group}/{jl.path}", _TagLeaf([], [], dim, shape))
+                e.leaves.append(jl)
+                e.tensors.append(t)
+        return out
+
+    def _tag_scalars(self) -> Dict[str, np.ndarray]:
+        out = {"opt/step": np.asarray(self.opt_state["step"], np.int32)}
+        for k, dt in _LOSS_SCALE.items():
+            out[f"loss_scale/{k}"] = np.asarray(self.loss_scale_state[k], dt)
+        return out
+
+    def _stage(self) -> store.Staged:
+        """The tag in host memory, leaf by leaf: every leaf whole on one
+        rank; on a world of more than one, the pieces this rank owns (its
+        shards at their global spans, and the whole leaves and scalars on
+        rank 0 alone: the JAX ``replica_id == 0`` rule)."""
+        rank, n = self._rank_and_world()
+        leaves, scalars = self._tag_leaves(), self._tag_scalars()
+        keys = sorted([*leaves, *scalars])
+        staged = store.Staged(keys, {}, {}, {}, rank_files=n > 1)
+        for i, key in enumerate(keys):
+            if key in scalars:
+                a = scalars[key]
+                staged.dtypes[key], staged.shapes[key] = str(a.dtype), []
+                spans = []
+            else:
+                e = leaves[key]
+                staged.dtypes[key] = str(e.tensors[0].dtype).replace("torch.", "")
+                staged.shapes[key] = list(e.jax_shape)
+                if n > 1 and e.dim is None and rank != 0:
+                    continue
+                spans = e.spans(rank, n)
+                a = host_array(to_jax_leaf(list(zip(e.leaves, e.tensors))))
+            if n == 1:
+                staged.arrays[f"leaf_{i}"] = a
+            elif rank == 0 or spans:
+                staged.arrays[store.piece_key(i, spans)] = a
+        return staged
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict[str, Any]] = None,
+                        save_latest: bool = True) -> None:
+        """Save a tag under ``save_dir`` (``global_step{N}`` by default) with
+        ``client_state`` and the engine's counters and schedule; repoint
+        ``latest`` last. With ``checkpoint.async_save`` it returns once every
+        tensor is in host memory and writes on a worker thread, ``latest``
+        last in the same task."""
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update({
+            "global_steps": self.global_steps,
+            "skipped_steps": self.skipped_steps,
+            "micro_steps": self.micro_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict(),
+        })
+        # a save still in flight would interleave its writes with this one's
+        self.checkpoint_engine.commit(tag)
+        with torch.no_grad():
+            staged = self._stage()
+        rank = self._rank_and_world()[0]
+
+        def write():
+            store.save_checkpoint(save_dir, tag, staged, client_state, save_latest=save_latest)
+            if rank == 0:
+                self._retire_old_checkpoints(save_dir, tag)
+
+        self.checkpoint_engine.submit(tag, write)
+
+    def _retire_old_checkpoints(self, save_dir: str, tag: str) -> None:
+        """Keep-last-N retention (``checkpoint.keep_last_n``; 0 keeps all):
+        after the commit, never the tag ``latest`` names, the pinned one nor
+        the tag just written; it never fails a save."""
+        keep = int(self.config.checkpoint_config.get("keep_last_n", 0))
+        if keep > 0:
+            store.retire_old_tags(save_dir, keep, protect=(tag,))
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True
+                        ) -> Tuple[Optional[str], Dict[str, Any]]:
+        """Load a tag (``latest`` by default, with the store's fallback
+        rules) into the engine; returns ``(tag, client_state)``, or ``(None,
+        {})`` when there is none. Pending async saves commit first. Each rank
+        reads only its own slices. Without ``load_optimizer_states`` the
+        optimizer starts afresh from the loaded weights: master copies of the
+        params, zero moments, step 0. A leaf the tag lacks keeps the engine's
+        value (as in the JAX engine), except the accumulation buffer, zeroed."""
+        self.checkpoint_engine.commit(tag or "")
+        reader, client_state, tag = store.load_checkpoint(load_dir, tag)
+        if reader is None:
+            return None, {}
+        rank, n = self._rank_and_world()
+        with reader, torch.no_grad():
+            for key, e in self._tag_leaves().items():
+                src = key
+                if key.startswith("opt/") and not load_optimizer_states:
+                    if not key.startswith("opt/master/"):
+                        for t in e.tensors:
+                            t.zero_()
+                        continue
+                    src = "params/" + key[len("opt/master/"):]
+                if src not in reader:
+                    if key.startswith("grad_acc/"):
+                        for t in e.tensors:
+                            t.zero_()
+                    continue
+                if reader.shape(src) != e.jax_shape:
+                    raise ValueError(f"checkpoint leaf '{src}' shape {reader.shape(src)} != "
+                                     f"expected {e.jax_shape}")
+                # up to the device whole, so that the transposes run there
+                idx = tuple(slice(lo, hi) for lo, hi in e.spans(rank, n))
+                a = from_host(reader.read(src, idx), reader.dtype(src)).to(e.tensors[0].device)
+                for jl, t in zip(e.leaves, e.tensors):
+                    t.copy_(jl.swap_layout(a[jl.layer] if jl.layer is not None else a))
+            for key, like in self._tag_scalars().items():
+                if key == "opt/step":
+                    self.opt_state["step"] = (int(reader.read(key)) if load_optimizer_states
+                                              and key in reader else 0)
+                elif key in reader:
+                    self.loss_scale_state[key.split("/")[1]] = like.dtype.type(
+                        reader.read(key)).item()
+        self.global_steps = client_state.get("global_steps", 0)
+        self.skipped_steps = client_state.get("skipped_steps", 0)
+        self.micro_steps = client_state.get("micro_steps", 0)
+        if "lr_scheduler" in client_state:
+            self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        return tag, client_state
 
 
 class DataParallelEngine(DeepSpeedEngine):
@@ -542,6 +763,25 @@ class DataParallelEngine(DeepSpeedEngine):
         loss = self.model.loss(batch)
         self._release_params()
         return dist.all_reduce(loss.float(), dist.ReduceOp.AVG)
+
+    # -- checkpoints: each rank writes and reads the pieces it owns --------------------
+    def _tag_has_grad_acc(self) -> bool:
+        return self.gradient_accumulation_steps > 1 or self.config.zero_config.zeropp
+
+    def _rank_and_world(self) -> Tuple[int, int]:
+        return self.rank, self.n_dp
+
+    def _port_shape(self, name: str) -> Tuple[int, ...]:
+        return self.zero_plan.shapes[name]
+
+    def _local(self, group: str, name: str) -> Tuple[torch.Tensor, Optional[int]]:
+        if group == "params":
+            if name in self.param_shards:
+                return self.param_shards[name], self.param_dims[name]
+            return self.params[name].detach(), None
+        if group == "grad_acc":
+            return self.grad_acc[name], self.grad_dims[name]
+        return self.opt_state[group[len("opt/"):]][name], self.opt_dims[name]
 
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The full params on every rank (stage-3 shards gathered at full

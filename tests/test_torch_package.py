@@ -1,7 +1,8 @@
-"""Boundaries of the port: ``deepspeed_tpu_torch`` imports neither JAX nor
-``deepspeed_tpu``, its entry points default to CUDA and raise without it,
-and ``chip_smoke.py`` fails (no result line) without a GPU or outside a
-checkout, as ``kernel_ab.py`` fails without a GPU."""
+"""Boundaries of the port: ``deepspeed_tpu_torch`` imports neither JAX,
+``deepspeed_tpu`` nor ``ml_dtypes`` (bf16 travels as its bits), its entry
+points default to CUDA and raise without it, and ``chip_smoke.py`` fails
+(no result line) without a GPU or outside a checkout, as ``kernel_ab.py``
+fails without a GPU."""
 
 import ast
 import shutil
@@ -14,7 +15,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "deepspeed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "ml_dtypes")
 
 
 def _modules():
