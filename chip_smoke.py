@@ -12,8 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that it serialized a kernel's ``wgmma`` pipeline;
 3. serving kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, bf16 and fp32, at llama2-7b shapes
-   (prefill, mixed and decode waves from the port's own wave builder) and
-   at GQA shapes, with shuffled block tables, chunks about the 64-row
+   (prefill, mixed and decode waves from the port's own wave builder), at
+   GQA shapes and at the served families' (Falcon-7B's 71 heads on one kv
+   head, head_dim 80, 96 and 256, bf16 only past 128), with shuffled block tables, chunks about the 64-row
    query tile's edges, a 40-sequence decode wave, a page size the
    tensor-core wave kernel does not take, decode contexts of 1 to 4133
    keys; two runs bit-identical, the wave's padding rows zero; with its
@@ -24,9 +25,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. training kernels vs plain (TF32 off for matmuls and cuDNN): flash
    forward, dQ and dK/dV in bf16 and fp32 at the training shape
    (tinyllama-1.1b: S 2048, 32 heads, 4 kv heads, head_dim 64), at the
-   llama2-7b shape (MHA, head_dim 128) and at small cases (negative
+   llama2-7b shape (MHA, head_dim 128), at the decoder families' shapes
+   (Phi-2's head_dim 80, GPT-NeoX-20B's 96, GPT-J-6B's 256, Falcon-7B's 71
+   heads on one kv head, BLOOM-7B1's ALiBi, GPT-Neo-2.7B's window 256
+   unscaled; each twice for equal bits) and at small cases (negative
    q_offset with fully masked rows, window, segment ids, ALiBi, Sq != Sk,
-   lengths off the tile); the fused Adam kernel on a 2048 x 5632 leaf and
+   lengths off the tile, the new head dims); the fused Adam kernel on a 2048 x 5632 leaf and
    on a fused bucket of lane-padded small leaves, adamw and lamb, fp32
    moments and stochastically rounded bf16 ones, moments bitwise; each
    with its time, bound, plain time and the time of PyTorch's own call for
@@ -133,7 +137,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch count; the route and gather rows wherever they rank); then a
    2-layer model of the same width: a prompt's logits through the kernels
    within twice the plain bf16 path's error against the fp32 plain
-   dropless forward.
+   dropless forward;
+11. the decoder families (``[families]``): Phi-2 at full width and depth
+   (32 layers, head_dim 80, parallel blocks, partial rotary, a biased
+   untied head) trained through ``initialize`` + ``train_batch`` (S 2048,
+   micro 8, bf16, AdamW, clipping 1.0; 2 warm-up and 5 timed steps: losses
+   finite, the first near its expected value and falling; 64 flash
+   forwards, 32 dQ and 32 dK/dV a step, all at head_dim 80); Falcon-7B at
+   full width and depth (71 heads on one kv head) served through
+   ``build_engine`` + ``generate`` with phase 5's requests, cold and warm
+   (both paged kernels once a layer a wave and decode step, the waves in
+   the CUDA-core form), one prompt's prefill logits against the plain
+   forward; then each of gpt2-xl, opt-6.7b, phi-2, falcon-7b, bloom-7b1,
+   gpt-neox-20b, gpt-neo-2.7b and gpt-j-6b at full width and 2 layers: 3
+   steps through the kernels and 3 through their plain versions (losses
+   within 2e-2), a prompt's logits through the serving engine within twice
+   the plain bf16 path's error, and for BLOOM and GPT-Neo the engine build
+   raising, naming ROADMAP A5.3.
 
 Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
 plain version, q and scale byte-identical: fp32 and bf16 rows of the
@@ -227,6 +247,13 @@ WAVE_CASES = {
     "tile-edges-g4": ([(15, 0), (16, 3), (17, 0), (33, 16)], 8, 4, 128, {"shuffle": True}),
     "decode-40": ([(1, 17 + 29 * i) for i in range(40)], 32, 1, 128, {"shuffle": True}),
     "page-8-cuda-cores": ([(256, 0), (1, 300), (20, 5)], 32, 1, 128, {"ps": 8}),
+    # the decoder families the engine serves beside Llama: Falcon-7B's 71
+    # query heads on one kv head and head_dims 80, 96 and 256 take the
+    # CUDA-core form (the tensor-core form takes g <= 64 and D 64 / 128)
+    "falcon-7b-g71": ([(16, 0), (8, 100), (1, 300), (3, 7)], 1, 71, 64, {"shuffle": True}),
+    "phi-2-d80": ([(256, 0), (1, 300), (20, 5)], 32, 1, 80),
+    "gpt-neox-20b-d96": ([(256, 0), (1, 300), (20, 5)], 64, 1, 96),
+    "gpt-j-6b-d256": ([(256, 0), (1, 300), (20, 5)], 16, 1, 256),
 }
 DECODE_CASES = {
     # name: (context lengths, kvH, g, D[, options])
@@ -239,7 +266,16 @@ DECODE_CASES = {
     "shuffled": ([513, 385, 301, 201, 131, 78, 34, 18], 32, 1, 128, {"shuffle": True}),
     "long-4133": ([4133, 1, 16, 17, 513, 64, 65, 2000], 32, 1, 128, {"shuffle": True}),
     "gqa-g4-long": ([4133, 1, 16, 17], 8, 4, 128, {"shuffle": True}),
+    # the families' decode shapes: 71 heads in row groups of 8, head_dims
+    # 80, 96 and 256 (rows of 160, 192 and 512 bf16 bytes)
+    "falcon-7b-g71": ([513, 385, 301, 201, 131, 78, 34, 18], 1, 71, 64),
+    "phi-2-d80": ([513, 385, 301, 201], 32, 1, 80),
+    "gpt-neox-20b-d96": ([513, 385, 301, 201], 64, 1, 96),
+    "gpt-j-6b-d256": ([513, 385, 301, 201], 16, 1, 256),
 }
+# fp32 rows the paged kernels take: at most 512 bytes (serving is bf16; an
+# fp32 row of 256 values passes both kernels' limits)
+PAGED_FP32_MAX_D = 128
 MAIN_WAVE = "prefill-2x256"          # the shape of the engine run's first wave
 MAIN_DECODE = "decode-8-first-burst"  # the engine run's first burst step
 # flash-attention cases: (B, Sq, Sk, H, kvH, D, mask); fp32 runs B <= 2
@@ -263,9 +299,33 @@ FLASH_CASES = {
     "s193-mha-d128": (1, 193, 193, 8, 8, 128, {}),
     # a window wide enough for whole tiles to lie inside it (interior tiles)
     "window-interior": (1, 1024, 1024, 16, 2, 64, {"window": 512}),
+    # the decoder families' training shapes at full width: head_dim 80 and
+    # 96 (the 128-column tiles, zero past D), 256 (the CUDA-core kernels in
+    # bf16 too), multi-query, ALiBi, GPT-Neo's local layers (unscaled)
+    "phi-2-b4": (4, 2048, 2048, 32, 32, 80, {}),
+    "gpt-neox-20b": (1, 2048, 2048, 64, 64, 96, {}),
+    "gpt-j-6b": (1, 2048, 2048, 16, 16, 256, {}),
+    "falcon-7b-mqa": (1, 2048, 2048, 71, 1, 64, {}),
+    "bloom-7b1-alibi": (1, 2048, 2048, 32, 32, 128, {"alibi": True}),
+    # unscaled logits (scale 1.0) of q drawn at std D^-1/2: the logits'
+    # spread of the scaled cases, as GPT-Neo's weights keep it. At std 1
+    # they spread to ~11, |dS| reaches ~10 and one bf16 ulp of it (0.0625)
+    # passes the bf16 bound (dQ off by 0.25 against the plain version on an
+    # NVIDIA H100 80GB HBM3 at 700.00 W)
+    "gpt-neo-2.7b-window": (1, 2048, 2048, 20, 20, 128,
+                            {"window": 256, "scale": 1.0, "q_std": 128 ** -0.5}),
+    # the new head dims off the tiles, with every mask input
+    "s129-g4-d80-dlse": (2, 129, 129, 8, 2, 80, {"dlse": True}),
+    "s193-mha-d96-window": (1, 193, 193, 8, 8, 96, {"window": 100}),
+    "s77-sk100-g4-d256-dlse": (2, 77, 100, 8, 2, 256, {"dlse": True}),
+    "segments-alibi-d256": (2, 256, 256, 4, 4, 256, {"segments": True, "alibi": True}),
+    "neg-offset-d96": (2, 256, 256, 8, 2, 96, {"q_offset": -100}),
 }
 MAIN_FLASH = "tinyllama-b8"
-FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha")
+FAMILY_FLASH = ("phi-2-b4", "gpt-neox-20b", "gpt-j-6b", "falcon-7b-mqa", "bloom-7b1-alibi",
+                "gpt-neo-2.7b-window")
+FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha") + FAMILY_FLASH
+FLASH_BITWISE = (MAIN_FLASH,) + FAMILY_FLASH   # two runs, the same bits
 FLASH_GRAD_FP32_TOL = 1e-4   # fp32 sums over 2048 keys x 8 heads, two orders
 # Adam cases: (leaf sizes, mode, moment dtype); grads bf16, master fp32
 ADAM_CASES = {
@@ -436,6 +496,19 @@ ZERO_STAGE1_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 1})
 # (65.4 GiB of bf16 weights; 32 layers would need 87 GiB); the logits check
 # at 2 layers of the same width, against an fp32 copy
 MIXTRAL_LAYERS, MIXTRAL_LOGIT_LAYERS = 24, 2
+# [families]: the decoder families of models/gpt2.py, opt_phi_falcon.py and
+# bloom_neox_gptj.py, each at its named preset's full width; Phi-2 trains at
+# full depth (micro 8: ~37 GiB of bf16 params, fp32 master, moments and
+# grads, 49.24 GiB at peak on an NVIDIA H100 80GB HBM3 at 700.00 W),
+# Falcon-7B serves at full depth, and every family runs 2 layers through
+# the kernels and through their plain versions
+FAMILY_MODELS = {"gpt2-xl": "gpt2", "opt-6.7b": "opt", "phi-2": "phi", "falcon-7b": "falcon",
+                 "bloom-7b1": "bloom", "gpt-neox-20b": "gpt_neox",
+                 "gpt-neo-2.7b": "gpt_neo", "gpt-j-6b": "gptj"}
+FAMILY_UNSERVED = ("bloom-7b1", "gpt-neo-2.7b")   # ALiBi, windows: ROADMAP A5.3
+PHI2_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=8)
+FAMILY_PATH_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1)
+FAMILY_LOGIT_PROMPT = 300    # tokens of the 2-layer serving logits check (2 chunks)
 
 
 def fail(msg):
@@ -681,14 +754,17 @@ def profile_generate(torch, generate, engine, prompts, wall):
 def flash_case(torch, flash, B, Sq, Sk, H, kvH, D, mask, dtype, gen):
     """Inputs, mask spec and the card's bound inputs of one flash case."""
     dev = "cuda"
-    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dtype)
-    q, k, v, do = rnd(B, Sq, H, D), rnd(B, Sk, kvH, D), rnd(B, Sk, kvH, D), rnd(B, Sq, H, D)
+    rnd = lambda *shape, std=1.0: (torch.randn(*shape, generator=gen, device=dev)
+                                   * std).to(dtype)
+    q = rnd(B, Sq, H, D, std=mask.get("q_std", 1.0))
+    k, v, do = rnd(B, Sk, kvH, D), rnd(B, Sk, kvH, D), rnd(B, Sq, H, D)
     seg = (torch.randint(0, 3, (B, Sk), generator=gen, device=dev).to(torch.int32)
            if mask.get("segments") else None)
     slopes = None
     if mask.get("alibi"):
         slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device=dev, dtype=torch.float32) / H)
-    spec = flash.mask_spec(q, k, causal=mask.get("causal", True), segment_ids=seg,
+    spec = flash.mask_spec(q, k, causal=mask.get("causal", True), scale=mask.get("scale"),
+                           segment_ids=seg,
                            q_segment_ids=None if seg is None else seg[:, :Sq],
                            alibi_slopes=slopes, window=mask.get("window"),
                            q_offset=mask.get("q_offset"))
@@ -706,6 +782,24 @@ def flash_case(torch, flash, B, Sq, Sk, H, kvH, D, mask, dtype, gen):
         vis = vis & (spec.qseg[:, :, None] == spec.kseg[:, None, :])
     pairs = int(vis.sum()) * H
     return (q, k, v, do, dlse, spec), pairs
+
+
+def sdpa_mask(torch, spec, Sq, Sk, H, dtype):
+    """``scaled_dot_product_attention``'s mask arguments for a causal call
+    of ``spec``: ``is_causal``, or with ALiBi or a window the same mask as an
+    explicit ``attn_mask`` (an additive [H, Sq, Sk] bias for ALiBi, a
+    boolean [Sq, Sk] for a window)."""
+    if spec.slopes is None and spec.window <= 0:
+        return {"is_causal": True}
+    qp = torch.arange(Sq, device="cuda")[:, None] + spec.q_offset
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    vis = qp >= kp
+    if spec.window > 0:
+        vis = vis & (qp - kp < spec.window)
+    if spec.slopes is None:
+        return {"attn_mask": vis}
+    bias = spec.slopes[:, None, None] * (kp - qp).float()
+    return {"attn_mask": bias.masked_fill(~vis, float("-inf")).to(dtype)}
 
 
 def flash_bounds(B, Sq, Sk, H, kvH, D, pairs, isz):
@@ -771,7 +865,7 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
             grads = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, spec)
             want = flash.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, dlse, spec=spec)
             torch.cuda.synchronize()
-            if name == MAIN_FLASH and bf:
+            if name in FLASH_BITWISE and bf:
                 again = flash.flash_fwd(q, k, v, spec)
                 if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
                     fail(f"{tag}: two runs of the forward gave different O or LSE bits")
@@ -808,8 +902,9 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
                 qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                               for x in (q, k, v))
                 dot = do.transpose(1, 2).contiguous()
-                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                              enable_gqa=kvH != H)
+                sdpa_kw = sdpa_mask(torch, spec, Sq, Sk, H, q.dtype)
+                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=spec.scale,
+                                                              enable_gqa=kvH != H, **sdpa_kw)
                 lib_fwd = device_ms(torch, sdpa, 10, flush)[0]
                 lib_fb = device_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
                                                                       dot), 10, flush)[0]
@@ -833,7 +928,8 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
             del q, k, v, do, o, lse, o_ref, lse_ref, grads, want
     print("[flash] plain_ms: events around each synchronized call of the plain "
           "version; for dQ and dK/dV the plain backward, which computes "
-          "both; library_ms is scaled_dot_product_attention (is_causal, enable_gqa): "
+          "both; library_ms is scaled_dot_product_attention (is_causal, enable_gqa; "
+          "ALiBi and windows as an explicit attn_mask): "
           "forward, and for dQ and dK/dV its backward (forward+backward less forward), "
           "which also computes both", flush=True)
     return rows, {k: max(v) for k, v in errs.items()}
@@ -1659,8 +1755,9 @@ def serving_kernels_vs_plain(torch, gen, flush):
         if bool(got[n:].ne(0).any()):
             fail(f"ragged/{name}: stream padding rows are not zero")
         f32 = as_fp32(args)
-        err32 = check_close(f"ragged/{name} fp32", rpa.ragged_paged_attention(*f32)[:n],
-                            rpa.ragged_paged_attention_reference(*f32)[:n], FP32_TOL)
+        err32 = (check_close(f"ragged/{name} fp32", rpa.ragged_paged_attention(*f32)[:n],
+                             rpa.ragged_paged_attention_reference(*f32)[:n], FP32_TOL)
+                 if D <= PAGED_FP32_MAX_D else float("nan"))
         ms, host = device_ms(torch, lambda: rpa.ragged_paged_attention(*args), 20, flush)
         plain, _ = device_ms(torch, lambda: rpa.ragged_paged_attention_reference(*args),
                              5, flush)
@@ -1692,8 +1789,9 @@ def serving_kernels_vs_plain(torch, gen, flush):
         if not torch.equal(got, again):
             fail(f"decode/{name}: two runs differ")
         f32 = as_fp32(args)
-        err32 = check_close(f"decode/{name} fp32", pdk.paged_gqa_decode(*f32),
-                            paged_decode_attention_reference(*f32), FP32_TOL)
+        err32 = (check_close(f"decode/{name} fp32", pdk.paged_gqa_decode(*f32),
+                             paged_decode_attention_reference(*f32), FP32_TOL)
+                 if D <= PAGED_FP32_MAX_D else float("nan"))
         ms, host = device_ms(torch, lambda: pdk.paged_gqa_decode(*args), 20, flush)
         plain, _ = device_ms(torch, lambda: paged_decode_attention_reference(*args), 5,
                              flush)
@@ -1754,16 +1852,19 @@ class DictCount:
         self.counts[self.key] = value
 
 
-def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
+def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS, form="tensor_cores",
+                   label="engine"):
     """Two ``generate`` runs of the 8 requests: cold (the engine's decode
     graphs are captured inside it) and warm, every module of ``counters``
     (``{name: module with a launches count}``) set to 0 just before each
     and read just after. Fails unless, in both, every request got its
     tokens, the two attention kernels ran once a layer in every wave and
     burst step (the burst's launches counted through the graphs' replay
-    accounting), and every ragged launch took the tensor-core form (bf16,
-    pages of 16). Returns the warm run's (prompts, wall s, wave token
-    counts, burst steps, launches)."""
+    accounting), and every ragged launch took the ``form`` the model's
+    shapes give (the tensor-core form at bf16, pages of 16, head_dim 64 or
+    128 and at most 64 query heads a kv head). Prints under ``[label]``.
+    Returns the warm run's (prompts, wall s, wave token counts, burst
+    steps, launches)."""
     from deepspeed_tpu_torch.inference.v2 import generate
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32000, size=n) for n in PROMPT_LENS]
@@ -1808,13 +1909,13 @@ def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
         captures, capture_s = graphs.captures - captures, graphs.capture_s - capture_s
         n_tok = sum(len(r.generated) for r in reqs)
         ttft = [r.first_token_s - r.submit_s for r in reqs]
-        print(f"[engine] {run} generate: {len(reqs)} requests, prompts {list(PROMPT_LENS)}, "
+        print(f"[{label}] {run} generate: {len(reqs)} requests, prompts {list(PROMPT_LENS)}, "
               f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; waves "
               f"{len(waves)}, burst steps {burst_steps[0]}; TTFT mean "
               f"{sum(ttft) / len(ttft) * 1e3:.1f} ms max {max(ttft) * 1e3:.1f} ms; "
               f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"launches {launches}; ragged launches by form {forms}", flush=True)
-        print(f"[engine] {run} host clock: waves {wave_s[0] * 1e3:.1f} ms, bursts "
+        print(f"[{label}] {run} host clock: waves {wave_s[0] * 1e3:.1f} ms, bursts "
               f"{burst_s[0] * 1e3:.1f} ms ({burst_s[0] * 1e3 / max(burst_steps[0], 1):.2f} ms "
               f"a step; decode graph captures {captures} taking {capture_s * 1e3:.1f} ms, "
               f"replays {graphs.replays - replays}), scheduler and the rest "
@@ -1824,9 +1925,9 @@ def timed_generate(torch, np, engine, counters, num_layers=NUM_LAYERS):
         if launches["ragged_paged_attention"] != num_layers * len(waves) or not waves:
             fail(f"ragged launches {launches['ragged_paged_attention']} != "
                  f"{num_layers} x {len(waves)} waves")
-        if forms["tensor_cores"] != launches["ragged_paged_attention"]:
-            fail(f"ragged launches by form {forms}: the serving waves (bf16, pages of "
-                 f"{PAGE_SIZE}) must all take the tensor-core kernel")
+        if forms[form] != launches["ragged_paged_attention"]:
+            fail(f"ragged launches by form {forms}: the serving waves must all take the "
+                 f"{form} form")
         if launches["paged_decode"] != num_layers * burst_steps[0] or burst_steps[0] == 0:
             fail(f"decode launches {launches['paged_decode']} != "
                  f"{num_layers} x {burst_steps[0]} burst steps")
@@ -2465,12 +2566,37 @@ def zero_counts(flash, adam, lion):
     lion.launches = 0
 
 
+def profile_step(torch, engine, batch, step_s, tag):
+    """Where a training step's time goes: one more step under the
+    profiler, its device busy share of the unprofiled step ``step_s`` and
+    its 15 longest kernels, printed under ``[tag]``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print(f"[{tag}] device time not measured: the profiler recorded no "
+              f"CUDA kernels", flush=True)
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[{tag}] device busy {busy:.1f} ms of the unprofiled step's "
+          f"{step_s * 1e3:.1f} ms: busy share {busy / (step_s * 1e3):.3f}, idle share "
+          f"{1 - busy / (step_s * 1e3):.3f}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        ms = e.self_device_time_total / 1e3
+        print(f"[{tag}]   {ms:9.2f} ms {ms / busy:6.1%} x{e.count:5d} "
+              f"{e.key[:90]}", flush=True)
+
+
 def train(torch, np, flash, adam, lion, config, warmup, steps, after=None):
     """tinyllama-1.1b trained at full width and depth under ``config``
     (AdamW or Lion); returns the training kernels' launch counts over the
     timed steps and the bytes of the optimizer's master and moments.
     ``after(engine, batch)`` runs on the trained engine before it is freed."""
-    from torch.profiler import ProfilerActivity, profile
     opt_name = config["optimizer"]["type"].lower()
     opt_kernel, other = (("fused_lion", "fused_adam") if opt_name == "lion"
                          else ("fused_adam", "fused_lion"))
@@ -2523,26 +2649,7 @@ def train(torch, np, flash, adam, lion, config, warmup, steps, after=None):
     if launches != want:
         fail(f"training launches {launches} != {want}")
 
-    # where the time goes: one more step under the profiler
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.train_batch(batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    if not kernels:
-        print("[train-profile] device time not measured: the profiler recorded no "
-              "CUDA kernels", flush=True)
-    else:
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"[train-profile] device busy {busy:.1f} ms of the unprofiled step's "
-              f"{step_s * 1e3:.1f} ms: busy share {busy / (step_s * 1e3):.3f}, idle share "
-              f"{1 - busy / (step_s * 1e3):.3f}", flush=True)
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-            ms = e.self_device_time_total / 1e3
-            print(f"[train-profile]   {ms:9.2f} ms {ms / busy:6.1%} x{e.count:5d} "
-                  f"{e.key[:90]}", flush=True)
+    profile_step(torch, engine, batch, step_s, "train-profile")
     if after is not None:
         after(engine, batch)
     del engine
@@ -3082,6 +3189,257 @@ def train_zero(torch, np, single_opt_bytes, smi):
     return sum(r["launches"]["quant_rows"] for r in ranks)
 
 
+# ---------------------------------------------------------------------------
+# [families]: the decoder families beside Llama
+# ---------------------------------------------------------------------------
+
+
+def family_model(torch, preset, num_layers=None, dtype=None):
+    """``<family>_model(preset)`` of the port in ``dtype`` (bf16), on the meta
+    device; at ``num_layers`` a per-layer window pattern keeps its first
+    ``num_layers`` entries."""
+    from deepspeed_tpu_torch import models
+    fam = FAMILY_MODELS[preset]
+    kw = {"dtype": dtype or torch.bfloat16}
+    if num_layers is not None:
+        kw["num_layers"] = num_layers
+        windows = getattr(models, f"{fam}_config")(preset).attn_windows
+        if isinstance(windows, tuple):
+            kw["attn_windows"] = windows[:num_layers]
+    return getattr(models, f"{fam}_model")(preset, **kw)
+
+
+class flash_head_dims:
+    """Counts the flash launches of a run by head_dim: the wrappers' CUDA
+    launchers wrapped, and restored afterwards."""
+
+    def __init__(self, flash):
+        import collections
+        self.flash, self.dims = flash, collections.Counter()
+
+    def __enter__(self):
+        f = self.flash
+        self.saved = fwd, bwd = f._fwd_cuda, f._bwd_cuda
+
+        def fwd_dims(q, k, v, spec):
+            self.dims[("flash_fwd", q.shape[-1])] += 1
+            return fwd(q, k, v, spec)
+
+        def bwd_dims(q, k, v, o, lse, do, dlse, spec):
+            self.dims[("flash_dq+dkv", q.shape[-1])] += 1
+            return bwd(q, k, v, o, lse, do, dlse, spec)
+        f._fwd_cuda, f._bwd_cuda = fwd_dims, bwd_dims
+        return self
+
+    def __exit__(self, *exc):
+        self.flash._fwd_cuda, self.flash._bwd_cuda = self.saved
+
+
+def first_loss(c):
+    """The expected first loss of a seeded model: logits of N(0, 0.02^2 *
+    hidden) a vocabulary entry (normal(0, 0.02) head over a normed hidden
+    state) give ln V + 0.02^2 * hidden / 2."""
+    import math
+    return math.log(c.vocab_size) + 0.02 ** 2 * c.hidden_size / 2
+
+
+def train_phi2(torch, np, flash, adam, lion):
+    """Phi-2 at full width and depth through ``initialize`` + ``train_batch``:
+    S 2048, micro 8, bf16 with fp32 master and moments, AdamW, clipping 1.0,
+    remat per block; 2 warm-up and 5 timed steps. Fails unless the losses
+    are finite, the first near its expected value and falling, and each step
+    launched 2 x 32 flash forwards, 32 dQ and 32 dK/dV, all at head_dim 80,
+    and one Adam launch a bucket."""
+    import deepspeed_tpu_torch
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(model=family_model(torch, "phi-2"),
+                                                config=PHI2_CONFIG, seed=0)
+    torch.cuda.synchronize()
+    c = engine.model.config
+    buckets = len(engine.opt_state["buckets"])
+    n_all = sum(p.numel() for p in engine.params.values())
+    B = PHI2_CONFIG["train_micro_batch_size_per_gpu"]
+    print(f"[families] phi-2 layers {c.num_layers} hidden {c.hidden_size} heads "
+          f"{c.num_heads} head_dim {c.head_dim} ffn {c.ffn_size} vocab {c.vocab_size} "
+          f"rope_dim {c.rope_dim} parallel block, biased untied head: {n_all} params bf16, "
+          f"adamw, fp32 master and moments in {buckets} buckets, micro {B} x S {TRAIN_SEQ}, "
+          f"built in {time.perf_counter() - t0:.2f} s; state "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, c.vocab_size, size=(B, TRAIN_SEQ))}
+    tokens = B * TRAIN_SEQ
+    losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam, lion)
+    times = []
+    with flash_head_dims(flash) as dims:
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            times.append(time.perf_counter() - t)
+    launches = dict(flash.launches, fused_adam=adam.launches, fused_lion=lion.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    flops, n = training_flops(c, n_all, tokens)
+    print(f"[families] phi-2 losses {[round(x, 4) for x in losses]} (expected first "
+          f"{first_loss(c):.4f}: ln {c.vocab_size} + 0.02^2 x {c.hidden_size} / 2); step ms "
+          f"{[round(x * 1e3, 1) for x in times]} mean {step_s * 1e3:.1f}; tokens/s "
+          f"{tokens / step_s:.0f}; MFU {flops / step_s / PEAK_FLOPS['torch.bfloat16']:.4f} "
+          f"({flops:.4e} flops a step: 6 x {n} non-embedding params x {tokens} tokens + "
+          f"causal attention, at 989 TFLOP/s); max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"launches over {TRAIN_STEPS} steps {launches}; flash calls by head_dim "
+          f"{dict(dims.dims)}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"phi-2 training losses {losses}")
+    if abs(losses[0] - first_loss(c)) > 0.5:
+        fail(f"phi-2 first loss {losses[0]:.4f} not within 0.5 of {first_loss(c):.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"phi-2 loss did not fall on the repeated batch: {losses}")
+    L = c.num_layers
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_dq": L * TRAIN_STEPS,
+            "flash_dkv": L * TRAIN_STEPS, "fused_adam": buckets * TRAIN_STEPS, "fused_lion": 0}
+    if launches != want:
+        fail(f"phi-2 training launches {launches} != {want}")
+    want_dims = {("flash_fwd", c.head_dim): 2 * L * TRAIN_STEPS,
+                 ("flash_dq+dkv", c.head_dim): L * TRAIN_STEPS}
+    if dict(dims.dims) != want_dims:
+        fail(f"phi-2 flash calls by head_dim {dict(dims.dims)} != {want_dims}")
+    profile_step(torch, engine, batch, step_s, "families-profile")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefill_logits_check(torch, engine, preset, num_layers, prompt, tag):
+    """One prompt's prefill logits through the serving engine and through
+    the plain bf16 ``TransformerLM.forward``, each against the plain fp32
+    forward of the same weights; fails unless the serving path's relative
+    L2 error is at most ``LOGIT_ERR_RATIO`` times the plain bf16 path's."""
+    got = torch.from_numpy(engine.put([10_000], [prompt])[0])
+    engine.flush(10_000)
+    ids = torch.as_tensor(prompt, device="cuda")[None]
+    plain = engine.model(ids)[0, -1].cpu()
+    ref32 = family_model(torch, preset, num_layers, dtype=torch.float32)
+    ref32.to_empty(device="cuda").load_state_dict(engine.model.state_dict())
+    want = ref32(ids)[0, -1].cpu()
+    del ref32
+    torch.cuda.empty_cache()
+    rel = lambda a: ((a - want).norm() / want.norm()).item()
+    print(f"[families] {tag}: prefill logits ({len(prompt)} tokens) vs the fp32 plain "
+          f"forward: serving bf16 relative L2 {rel(got):.3e}, plain bf16 forward "
+          f"{rel(plain):.3e} (limit {LOGIT_ERR_RATIO} x); argmax serving "
+          f"{int(got.argmax())} plain-bf16 {int(plain.argmax())} fp32 {int(want.argmax())}",
+          flush=True)
+    if not bool(got.isfinite().all()) or rel(got) > LOGIT_ERR_RATIO * rel(plain):
+        fail(f"{tag}: serving logits relative L2 error {rel(got):.3e} > "
+             f"{LOGIT_ERR_RATIO} x the plain bf16 forward's {rel(plain):.3e}")
+
+
+def serve_falcon(torch, np):
+    """Falcon-7B at full width and depth (71 query heads on one kv head,
+    parallel blocks, bias-free linears), random bf16 weights from a seed,
+    through ``build_engine`` + ``generate`` with the requests of phase 5,
+    cold and warm: every request gets its tokens and both paged kernels run
+    once a layer in every wave and decode step (the waves in the CUDA-core
+    form: 71 heads a kv head pass the tensor-core tile); then one prompt's
+    prefill logits against the plain forward."""
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine, generate)
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    cfg = RaggedInferenceEngineConfig(
+        num_kv_blocks=2049, state_manager=DeepSpeedTPStateManagerConfig(max_context=2048))
+    t0 = time.perf_counter()
+    model = family_model(torch, "falcon-7b")
+    engine = build_engine(model, cfg, seed=0)
+    torch.cuda.synchronize()
+    c = model.config
+    print(f"[families] falcon-7b layers {c.num_layers} hidden {c.hidden_size} heads "
+          f"{c.num_heads}/{c.kv_heads} ffn {c.ffn_size} vocab {c.vocab_size} bf16 on "
+          f"{engine.device}, {cfg.num_kv_blocks} KV blocks x {cfg.kv_block_size} "
+          f"({engine.kv_cache.mem_bytes() / 2**30:.2f} GiB), weights "
+          f"{sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 2**30:.2f} "
+          f"GiB, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts, wall, *_ = timed_generate(torch, np, engine,
+                                       {"ragged_paged_attention": rpa, "paged_decode": pdk},
+                                       num_layers=c.num_layers, form="cuda_cores",
+                                       label="families falcon-7b")
+    prefill_logits_check(torch, engine, "falcon-7b", None, prompts[2], "falcon-7b")
+    profile_generate(torch, generate, engine, prompts, wall)
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def families_two_layers(torch, np, flash, adam, lion):
+    """Each family at its preset's full width and 2 layers: 3 steps through
+    the kernels and 3 through their plain versions from the same weights
+    (micro 1, S 2048 or the preset's context), losses within ``PATH_RTOL``;
+    then, for a family the engine serves, a prompt's logits through the
+    serving engine against the fp32 plain forward, and for BLOOM and
+    GPT-Neo the engine build raising, naming ROADMAP A5.3."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine)
+    rng = np.random.default_rng(0)
+    for preset in FAMILY_MODELS:
+        c = family_model(torch, preset, PATH_LAYERS).config
+        S = min(TRAIN_SEQ, c.max_seq_len)
+        batch = {"input_ids": rng.integers(0, c.vocab_size, size=(1, S))}
+        path, t0 = {}, time.perf_counter()
+        for name in ("kernels", "plain"):
+            eng, *_ = deepspeed_tpu_torch.initialize(
+                model=family_model(torch, preset, PATH_LAYERS), config=FAMILY_PATH_CONFIG,
+                seed=0)
+            zero_counts(flash, adam, lion)
+            if name == "plain":
+                with plain_kernels(flash, adam, lion):
+                    path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+                if any(flash.launches.values()) or adam.launches or lion.launches:
+                    fail(f"{preset}: the plain path launched kernels: {flash.launches}")
+            else:
+                path[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+                want = {"flash_fwd": 2 * PATH_LAYERS * PATH_STEPS,
+                        "flash_dq": PATH_LAYERS * PATH_STEPS,
+                        "flash_dkv": PATH_LAYERS * PATH_STEPS}
+                if flash.launches != want:
+                    fail(f"{preset}: flash launches {flash.launches} != {want}")
+            del eng
+            torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(path["kernels"], path["plain"])]
+        feats = [f for f in ("parallel_block", "parallel_norms", "embedding_norm")
+                 if getattr(c, f)] + [f"position {c.position}"] + (
+            ["windows"] if c.attn_windows else []) + (
+            [f"scale {c.attn_scale}"] if c.attn_scale else [])
+        print(f"[families] {preset} {PATH_LAYERS} layers, hidden {c.hidden_size} heads "
+              f"{c.num_heads}/{c.kv_heads} head_dim {c.head_dim} vocab {c.vocab_size} "
+              f"({', '.join(feats)}), S {S}, {PATH_STEPS} steps: kernels "
+              f"{[round(x, 5) for x in path['kernels']]} plain "
+              f"{[round(x, 5) for x in path['plain']]}, relative difference {max(rel):.3e} "
+              f"(limit {PATH_RTOL}, bf16); {time.perf_counter() - t0:.1f} s", flush=True)
+        if max(rel) > PATH_RTOL:
+            fail(f"{preset}: kernel and plain training paths differ by {max(rel):.3e}")
+        cfg = RaggedInferenceEngineConfig(
+            num_kv_blocks=257, state_manager=DeepSpeedTPStateManagerConfig(max_context=S))
+        if preset in FAMILY_UNSERVED:
+            try:
+                build_engine(family_model(torch, preset, PATH_LAYERS), cfg, seed=0)
+            except NotImplementedError as e:
+                if "ROADMAP A5.3" not in str(e):
+                    fail(f"{preset}: the engine build raised without naming A5.3: {e}")
+                print(f"[families] {preset}: build_engine raises NotImplementedError: {e}",
+                      flush=True)
+            else:
+                fail(f"{preset}: build_engine served a model the paged kernels cannot mask")
+            continue
+        engine = build_engine(family_model(torch, preset, PATH_LAYERS), cfg, seed=0)
+        prompt = rng.integers(0, c.vocab_size, size=FAMILY_LOGIT_PROMPT)
+        prefill_logits_check(torch, engine, preset, PATH_LAYERS, prompt,
+                             f"{preset} {PATH_LAYERS} layers")
+        del engine
+        torch.cuda.empty_cache()
+
+
 def main():
     import gc
 
@@ -3171,8 +3529,21 @@ def main():
     print(f"[kernels] moe_dispatch_gather_int8: {launches['moe_dispatch_gather_int8']} "
           f"launches in Mixtral serving (no path calls it; the int8 expert exchange waits "
           f"for a live expert axis); checked and timed in [moe]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 11. kernels line
+    # 11. the decoder families: Phi-2 training and Falcon-7B serving at full
+    # depth, each family at 2 layers (their launches check themselves; the
+    # kernels line keeps the counts of the paths above)
+    train_phi2(torch, np, flash, adam, lion)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_falcon(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_two_layers(torch, np, flash, adam, lion)
+
+    # 12. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",

@@ -56,9 +56,16 @@
 // aligned base: the wrapper (flash.py _rows) passes a contiguous copy of
 // any q, k or v that is not.
 //
-// fp32 inputs keep the CUDA-core kernels (the same two launches, the tile
-// products of flash_common.cuh); they serve the fp32 correctness cases
-// only.
+// Head dims 80 and 96 run the head_dim 128 tiles with the columns past D
+// zero (flash_common.cuh Tile), as the forward does: S and dP read only the
+// D real columns, and dQ, dK and dV are stored only there.
+//
+// fp32 inputs, and bf16 at head_dim 256, take the CUDA-core kernels (the
+// same two launches, the tile products of flash_common.cuh on tiles staged
+// as fp32; p and ds cast to the input type before their products, as the
+// Pallas kernels cast them). At 256 a dK/dV block keeps 128 of the columns
+// of dK and dV (a grid axis over the column halves, each recomputing S and
+// dP), so that its accumulators fit the registers.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -125,8 +132,8 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
          const __grid_constant__ CUtensorMap mo, const __grid_constant__ CUtensorMap mk,
          const __grid_constant__ CUtensorMap mv, const FlashParams p, int HB) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR;
-  constexpr int QT = 64 * D * 2, KT = BK * D * 2;
+  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR, DP = Tile<D>::DP;
+  constexpr int QT = 64 * DP * 2, KT = BK * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   char* sQ = align1024(smem_raw);
   char* sdO = sQ + kConsumers * QT;
@@ -226,9 +233,9 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
     }
 
     const float scale2 = p.scale * kLog2e;
-    float dq[D / 2];
+    float dq[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % ST;
       bar_wait(&full[s], (it / ST) & 1);
@@ -273,7 +280,7 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
         to_a<BK>(a, sc);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) mma_rs_mn<D>(dq, a[kk], desc_mn<SW>(k_t, BK, kk));
+        for (int kk = 0; kk < BK / 16; ++kk) mma_rs_mn<DP>(dq, a[kk], desc_mn<SW>(k_t, BK, kk));
         wg_commit();
         wg_wait<0>();
         hold(dq);
@@ -290,7 +297,8 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
       if (i >= p.Sq) continue;
       bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) store2(row + 8 * n + 2 * t, dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+      for (int n = 0; n < D / 8; ++n)  // the D real columns of DP
+        store2(row + 8 * n + 2 * t, dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
     }
   }
 }
@@ -304,9 +312,9 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
           const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
           const FlashParams p) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR;
+  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR, DP = Tile<D>::DP;
   constexpr int BKV = 64 * kConsumers;
-  constexpr int KT = BKV * D * 2, QT = BQ * D * 2;
+  constexpr int KT = BKV * DP * 2, QT = BQ * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   char* sK = align1024(smem_raw);
   char* sV = sK + KT;
@@ -378,9 +386,9 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     const int kw = k0 + 64 * wg;  // this warpgroup's keys
     const float scale2 = p.scale * kLog2e;
-    float dk[D / 2], dv[D / 2];
+    float dk[DP / 2], dv[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
     bar_wait(bar_kv, 0);
     for (int it = 0; it < n_iter; ++it) {
       const int s = it % ST;
@@ -436,9 +444,9 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
         to_a<BQ>(ads, dp);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) mma_rs_mn<D>(dv, ap[kk], desc_mn<SW>(do_t, BQ, kk));
+        for (int kk = 0; kk < BQ / 16; ++kk) mma_rs_mn<DP>(dv, ap[kk], desc_mn<SW>(do_t, BQ, kk));
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) mma_rs_mn<D>(dk, ads[kk], desc_mn<SW>(q_t, BQ, kk));
+        for (int kk = 0; kk < BQ / 16; ++kk) mma_rs_mn<DP>(dk, ads[kk], desc_mn<SW>(q_t, BQ, kk));
         wg_commit();
         wg_wait<0>();
         hold(dk);
@@ -458,7 +466,7 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
       if (j >= p.Sk) continue;
       const long long row = (((long long)b * p.Sk + j) * p.kvH + kvh) * D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < D / 8; ++n) {  // the D real columns of DP
         store2(dk_out + row + 8 * n + 2 * t, dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
         store2(dv_out + row + 8 * n + 2 * t, dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
       }
@@ -466,14 +474,13 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
   }
 }
 
-// ---- fp32: the CUDA-core kernels ---------------------------------------------
+// ---- the CUDA-core kernels: fp32, and bf16 at head_dim 256 ------------------------
 
 // dQ (and di)
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
-flash_dq_kernel(const FlashParams p, int HB, int BQ) {
-  using T = float;
+dq_cuda_cores(const FlashParams p, int HB, int BQ) {
   constexpr int LD = D + kPad;
   constexpr int NT = kBK / 8;
   constexpr int DT = D / 8;
@@ -498,10 +505,10 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
   const int h = h0 + hl;
   const int rows = HB * BQ;
 
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sdO = sQ + rows * LD;
-  T* sK = sdO + rows * LD;
-  T* sV = sK + kBK * LD;
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sdO = sQ + rows * LD;
+  float* sK = sdO + rows * LD;
+  float* sV = sK + kBK * LD;
   int* sKseg = reinterpret_cast<int*>(sV + kBK * LD);
   float* scratch = reinterpret_cast<float*>(sKseg + kBK) + warp * 16 * (kBK + 4);
 
@@ -556,7 +563,7 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
     float acc = 0.f;
     if (in) {
       const long long at = (((long long)b * p.Sq + i) * p.H + h) * D;
-      for (int c = t; c < D; c += 4) acc += dout[at + c] * o[at + c];
+      for (int c = t; c < D; c += 4) acc += to_f(dout[at + c]) * to_f(o[at + c]);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -570,15 +577,15 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
   for (int n = 0; n < DT; ++n)
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
-  const T* qw = sQ + (hl * BQ + rb * 16) * LD;
-  const T* dow = sdO + (hl * BQ + rb * 16) * LD;
+  const float* qw = sQ + (hl * BQ + rb * 16) * LD;
+  const float* dow = sdO + (hl * BQ + rb * 16) * LD;
   if (n_tiles > 0) stage(jt_lo);
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();
     const int k0 = (jt_lo + it) * kBK;
-    const T* kt = sK;
-    const T* vt = sV;
+    const float* kt = sK;
+    const float* vt = sV;
 
     float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -594,7 +601,7 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
         const int ks = p.kseg != nullptr ? sKseg[c] : 0;
         const float sv = masked_logit(p, s[n][e], i0 + 8 * r, k0 + c, slope, qseg[r], ks);
         const float pr = lse[r] > kHalfMask ? expf(sv - lse[r]) : 0.f;
-        s[n][e] = pr * (dp[n][e] - di[r]) * p.scale;  // dS
+        s[n][e] = round_to<T>(pr * (dp[n][e] - di[r]) * p.scale);  // dS, in k's type
       }
     mma_pv<kBK, DT>(dq, s, kt, LD, scratch);
     __syncthreads();
@@ -613,28 +620,28 @@ flash_dq_kernel(const FlashParams p, int HB, int BQ) {
   }
 }
 
-// dK / dV
+// dK / dV: the block's DC columns of them, from column c0 = DC * blockIdx.z
 
-template <int D, int BQ2>
+template <typename T, int D, int DC, int BQ2>
 __global__ void __launch_bounds__(128)
-flash_dkv_kernel(const FlashParams p) {
-  using T = float;
+dkv_cuda_cores(const FlashParams p) {
   constexpr int LD = D + kPad;
   constexpr int NT = BQ2 / 8;  // score tiles of 8 query rows
-  constexpr int DT = D / 8;
+  constexpr int DT = DC / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int G = p.H / p.kvH;
+  const int c0 = DC * blockIdx.z;
   const int k0 = blockIdx.x * kBK;
   const int kvh = blockIdx.y % p.kvH;
   const int b = blockIdx.y / p.kvH;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
 
-  T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + kBK * LD;
-  T* sQ = sV + kBK * LD;        // [BQ2][LD]
-  T* sdO = sQ + BQ2 * LD;       // [BQ2][LD]
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + kBK * LD;
+  float* sQ = sV + kBK * LD;        // [BQ2][LD]
+  float* sdO = sQ + BQ2 * LD;       // [BQ2][LD]
   float* sLse = reinterpret_cast<float*>(sdO + BQ2 * LD);  // [BQ2]
   float* sDi = sLse + BQ2;
   int* sQseg = reinterpret_cast<int*>(sDi + BQ2);
@@ -691,8 +698,8 @@ flash_dkv_kernel(const FlashParams p) {
   for (int n = 0; n < DT; ++n)
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  const T* kw = sK + warp * 16 * LD;
-  const T* vw = sV + warp * 16 * LD;
+  const float* kw = sK + warp * 16 * LD;
+  const float* vw = sV + warp * 16 * LD;
   if (n_iter > 0) stage(0);
   for (int it = 0; it < n_iter; ++it) {
     cp_async_wait<0>();
@@ -701,8 +708,8 @@ flash_dkv_kernel(const FlashParams p) {
     const int q0 = (it_lo + it - gi * per_head) * BQ2;
     const int h = kvh * G + gi;
     const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
-    const T* qt = sQ;
-    const T* dot = sdO;
+    const float* qt = sQ;
+    const float* dot = sdO;
 
     float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -719,11 +726,11 @@ flash_dkv_kernel(const FlashParams p) {
         const float sv = masked_logit(p, s[n][e], q0 + c, j0 + 8 * r, slope, qs, kseg[r]);
         const float lse = sLse[c];
         const float pr = lse > kHalfMask ? expf(sv - lse) : 0.f;
-        s[n][e] = pr;                                  // P^T
-        dp[n][e] = pr * (dp[n][e] - sDi[c]) * p.scale;  // dS^T
+        dp[n][e] = round_to<T>(pr * (dp[n][e] - sDi[c]) * p.scale);  // dS^T, in q's type
+        s[n][e] = round_to<T>(pr);                                    // P^T, in dO's type
       }
-    mma_pv<BQ2, DT>(dv, s, dot, LD, scratch);
-    mma_pv<BQ2, DT>(dk, dp, qt, LD, scratch);
+    mma_pv<BQ2, DT>(dv, s, dot + c0, LD, scratch);
+    mma_pv<BQ2, DT>(dk, dp, qt + c0, LD, scratch);
     __syncthreads();
     if (it + 1 < n_iter) stage(it + 1);
   }
@@ -735,7 +742,7 @@ flash_dkv_kernel(const FlashParams p) {
   for (int r = 0; r < 2; ++r) {
     const int j = j0 + 8 * r;
     if (j >= p.Sk) continue;
-    const long long row = (((long long)b * p.Sk + j) * p.kvH + kvh) * D;
+    const long long row = (((long long)b * p.Sk + j) * p.kvH + kvh) * D + c0;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
       store2(dk_out + row + n * 8 + 2 * t, dk[n][2 * r], dk[n][2 * r + 1]);
@@ -748,7 +755,7 @@ flash_dkv_kernel(const FlashParams p) {
 
 template <int D>
 cudaError_t launch_dq_bf16(const FlashParams& p, cudaStream_t stream) {
-  constexpr int SW = Tile<D>::SW, BK = D > 64 ? 64 : kDqKeys64, ST = 2;
+  constexpr int SW = Tile<D>::SW, DP = Tile<D>::DP, BK = DP > 64 ? 64 : kDqKeys64, ST = 2;
   CUtensorMap mq, mdo, mo, mk = {}, mv = {};
   const long long oh = D, os = (long long)p.H * D, ob = (long long)p.Sq * os;
   if (!hopper::map_rows<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
@@ -761,7 +768,7 @@ cudaError_t launch_dq_bf16(const FlashParams& p, cudaStream_t stream) {
   const int G = p.H / p.kvH;
   const int HB = G % kDqHeads == 0 ? kDqHeads : 1;
   const int BQ = 64 * (kConsumers / HB);
-  const size_t smem = 1024 + (size_t)(3 * kConsumers * 64 + 2 * ST * BK) * D * 2 + (1 + 2 * ST) * 8;
+  const size_t smem = 1024 + (size_t)(3 * kConsumers * 64 + 2 * ST * BK) * DP * 2 + (1 + 2 * ST) * 8;
   cudaError_t err = reserve_smem(dq_wgmma<D, BK, ST>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.kvH * (G / HB), (p.Sq + BQ - 1) / BQ);
@@ -771,7 +778,7 @@ cudaError_t launch_dq_bf16(const FlashParams& p, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_dkv_bf16(const FlashParams& p, cudaStream_t stream) {
-  constexpr int SW = Tile<D>::SW, BQ = D > 64 ? kDkvRows128 : 64;
+  constexpr int SW = Tile<D>::SW, DP = Tile<D>::DP, BQ = DP > 64 ? kDkvRows128 : 64;
   constexpr int ST = kDkvStages, BKV = 64 * kConsumers;
   CUtensorMap mq, mdo, mk, mv;
   const long long oh = D, os = (long long)p.H * D, ob = (long long)p.Sq * os;
@@ -780,7 +787,7 @@ cudaError_t launch_dkv_bf16(const FlashParams& p, cudaStream_t stream) {
       !hopper::map_rows<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BKV) ||
       !hopper::map_rows<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BKV))
     return cudaErrorInvalidValue;
-  const size_t smem = 1024 + (size_t)(2 * BKV + 2 * ST * BQ) * D * 2 +
+  const size_t smem = 1024 + (size_t)(2 * BKV + 2 * ST * BQ) * DP * 2 +
                       (size_t)2 * ST * BQ * sizeof(float) + (1 + 2 * ST) * 8;
   cudaError_t err = reserve_smem(dkv_wgmma<D, BQ, ST>, smem);
   if (err != cudaSuccess) return err;
@@ -789,48 +796,72 @@ cudaError_t launch_dkv_bf16(const FlashParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq_fp32(const FlashParams& p, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_dq_cuda_cores(const FlashParams& p, cudaStream_t stream) {
   constexpr int LD = D + kPad;
   int HB, BQ;
-  pick_rows(p.H / p.kvH, kMaxWarps, &HB, &BQ);
+  // at 256 the Q and dO rows of four warps and the K / V tiles pass the
+  // shared memory a block may hold: two warps
+  pick_rows(p.H / p.kvH, D > 128 ? 2 : kMaxWarps, &HB, &BQ);
   const int warps = HB * BQ / 16;
   const size_t smem = sizeof(float) * (2 * (size_t)HB * BQ * LD + 2 * kBK * LD) +
                       sizeof(int) * kBK + sizeof(float) * warps * 16 * (kBK + 4);
-  cudaError_t err = reserve_smem(flash_dq_kernel<D>, smem);
+  cudaError_t err = reserve_smem(dq_cuda_cores<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB));
-  flash_dq_kernel<D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
+  dq_cuda_cores<T, D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_cuda_cores(const FlashParams& p, cudaStream_t stream) {
+  constexpr int BQ2 = D > 64 ? 32 : 64;  // query rows a step: bounds the registers
+  constexpr int DC = D > 128 ? 128 : D;  // dK / dV columns a block
+  constexpr int LD = D + kPad;
+  const size_t smem = sizeof(float) * (2 * (size_t)kBK * LD + 2 * BQ2 * LD) +
+                      sizeof(float) * 3 * BQ2 + sizeof(float) * 4 * 16 * (BQ2 + 4);
+  cudaError_t err = reserve_smem(dkv_cuda_cores<T, D, DC, BQ2>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sk + kBK - 1) / kBK, p.B * p.kvH, D / DC);
+  dkv_cuda_cores<T, D, DC, BQ2><<<grid, 128, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv_fp32(const FlashParams& p, cudaStream_t stream) {
-  constexpr int BQ2 = D > 64 ? 32 : 64;  // query rows a step: bounds the registers
-  constexpr int LD = D + kPad;
-  const size_t smem = sizeof(float) * (2 * (size_t)kBK * LD + 2 * BQ2 * LD) +
-                      sizeof(float) * 3 * BQ2 + sizeof(float) * 4 * 16 * (BQ2 + 4);
-  cudaError_t err = reserve_smem(flash_dkv_kernel<D, BQ2>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sk + kBK - 1) / kBK, p.B * p.kvH);
-  flash_dkv_kernel<D, BQ2><<<grid, 128, smem, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_dq(const FlashParams& p, bool bf16_in, cudaStream_t s) {
+  if (!bf16_in) return launch_dq_cuda_cores<float, D>(p, s);
+  if constexpr (D > 128) return launch_dq_cuda_cores<bf16, D>(p, s);
+  else return launch_dq_bf16<D>(p, s);
 }
 
+template <int D>
+cudaError_t launch_dkv(const FlashParams& p, bool bf16_in, cudaStream_t s) {
+  if (!bf16_in) return launch_dkv_cuda_cores<float, D>(p, s);
+  if constexpr (D > 128) return launch_dkv_cuda_cores<bf16, D>(p, s);
+  else return launch_dkv_bf16<D>(p, s);
+}
+
+// the head dims of flash.py KERNEL_HEAD_DIMS
 cudaError_t dispatch_dq(const FlashParams& p, bool bf16_in, cudaStream_t s) {
   switch (p.D) {
-    case 32: return bf16_in ? launch_dq_bf16<32>(p, s) : launch_dq_fp32<32>(p, s);
-    case 64: return bf16_in ? launch_dq_bf16<64>(p, s) : launch_dq_fp32<64>(p, s);
-    case 128: return bf16_in ? launch_dq_bf16<128>(p, s) : launch_dq_fp32<128>(p, s);
+    case 32: return launch_dq<32>(p, bf16_in, s);
+    case 64: return launch_dq<64>(p, bf16_in, s);
+    case 80: return launch_dq<80>(p, bf16_in, s);
+    case 96: return launch_dq<96>(p, bf16_in, s);
+    case 128: return launch_dq<128>(p, bf16_in, s);
+    case 256: return launch_dq<256>(p, bf16_in, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_dkv(const FlashParams& p, bool bf16_in, cudaStream_t s) {
   switch (p.D) {
-    case 32: return bf16_in ? launch_dkv_bf16<32>(p, s) : launch_dkv_fp32<32>(p, s);
-    case 64: return bf16_in ? launch_dkv_bf16<64>(p, s) : launch_dkv_fp32<64>(p, s);
-    case 128: return bf16_in ? launch_dkv_bf16<128>(p, s) : launch_dkv_fp32<128>(p, s);
+    case 32: return launch_dkv<32>(p, bf16_in, s);
+    case 64: return launch_dkv<64>(p, bf16_in, s);
+    case 80: return launch_dkv<80>(p, bf16_in, s);
+    case 96: return launch_dkv<96>(p, bf16_in, s);
+    case 128: return launch_dkv<128>(p, bf16_in, s);
+    case 256: return launch_dkv<256>(p, bf16_in, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -11,8 +11,9 @@
 // ptxas branch on each score (PERF.md). They must agree: change
 // them together.
 //
-// The fp32 kernels run their products on the CUDA cores in full fp32,
-// in warp tiles of 16 rows:
+// The CUDA-core kernels (fp32 inputs, and bf16 at head_dim 256, which no
+// wgmma form of these kernels fits in registers) run their products in full
+// fp32 on tiles staged into shared memory as fp32, in warp tiles of 16 rows:
 //
 //   mma_nt: C[16 x 8*NT] += A[16 x KD] . B[8*NT x KD]^T   A, B rows in shared memory
 //   mma_pv: C[16 x 8*NT] += P[16 x KN] . V[KN x 8*NT]     P through shared scratch
@@ -68,12 +69,16 @@ struct FlashParams {
 constexpr int kProducerRegs = 24;
 
 // A bf16 tile of rows x D columns in shared memory (hopper.cuh): regions
-// of E columns, swizzled by SW bytes.
+// of E columns, swizzled by SW bytes. A head_dim that is no multiple of E
+// (80, 96) takes the next whole region: the tile holds DP columns, TMA
+// fills the columns past D with zeros (the tensor map's inner extent is
+// D), the products over them add nothing, and the stores stop at D.
 template <int D>
 struct Tile {
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle = bytes of a region row
   static constexpr int E = SW / 2;               // columns of a region
-  static constexpr int NR = D / E;               // regions
+  static constexpr int NR = (D + E - 1) / E;     // regions
+  static constexpr int DP = NR * E;              // columns a tile holds
 };
 
 // Whether the query rows [q0, q0 + nq) see any key of [k0, k0 + nk)
@@ -94,7 +99,7 @@ __device__ __forceinline__ bool interior(const FlashParams& p, int q0, int nq, i
   return first >= k0 + nk - 1 && (p.window <= 0 || last - k0 < p.window);
 }
 
-// ---- fp32: the CUDA-core kernels ---------------------------------------------
+// ---- the CUDA-core kernels -------------------------------------------------------
 
 constexpr int kBK = 64;        // keys per tile (forward, dQ) and per dK/dV block
 constexpr int kPad = 4;        // floats per shared row past D: 16 bytes
@@ -122,8 +127,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
 }
 
-// Stage `rows` rows of D floats into shared memory (row stride ld); row r
-// is read from base + r * stride when r < valid, else zero-filled.
+// Stage `rows` rows of D values into fp32 shared memory (row stride ld);
+// row r is read from base + r * stride when r < valid, else zero-filled.
+// fp32 rows go by cp.async (wait for the group); bf16 rows are read 16
+// bytes at a time and widened to fp32 on the way (plain stores: the
+// __syncthreads before their use orders them).
 template <int D>
 __device__ __forceinline__ void stage_rows(float* smem, int ld, const float* base,
                                            long long stride, int rows, int valid, int tid,
@@ -134,6 +142,33 @@ __device__ __forceinline__ void stage_rows(float* smem, int ld, const float* bas
     const bool ok = r < valid;
     cp_async16(smem + r * ld + c, ok ? base + r * stride + c : base, ok);
   }
+}
+template <int D>
+__device__ __forceinline__ void stage_rows(float* smem, int ld, const bf16* base,
+                                           long long stride, int rows, int valid, int tid,
+                                           int nthreads) {
+  constexpr int C = D / 8;
+  for (int i = tid; i < rows * C; i += nthreads) {
+    const int r = i / C, c = (i - r * C) * 8;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) raw = *reinterpret_cast<const uint4*>(base + r * stride + c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]),
+                 x = __bfloat1622float2(h[2]), y = __bfloat1622float2(h[3]);
+    float4* dst = reinterpret_cast<float4*>(smem + r * ld + c);
+    dst[0] = make_float4(a.x, a.y, b.x, b.y);
+    dst[1] = make_float4(x.x, x.y, y.x, y.y);
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// x rounded to the input type T and back: the Pallas kernels cast p and ds
+// to the input dtype before their products.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return sizeof(T) == 4 ? x : __bfloat162float(__float2bfloat16(x));
 }
 
 // Store two neighbouring columns.

@@ -56,8 +56,17 @@
 // aligned base: the wrapper (flash.py _rows) passes a contiguous copy of
 // any q, k or v that is not.
 //
-// fp32 inputs keep the CUDA-core kernel (the tile products of
-// flash_common.cuh); it serves the fp32 correctness cases only.
+// Head dims: 32, 64 and 128 fill whole 64- or 128-byte regions of the
+// tiles; 80 and 96 (Phi-2, GPT-NeoX-20B) run the head_dim 128 tiles with
+// the columns past D zero (flash_common.cuh Tile): S and the row sums read
+// only the D real columns, O is stored only there.
+//
+// fp32 inputs, and bf16 at head_dim 256 (GPT-J-6B, Pythia-1B), take the
+// CUDA-core kernel (the tile products of flash_common.cuh, on tiles staged
+// as fp32): a 64-row O tile of 256 fp32 columns is 128 registers a thread
+// alone, which leaves the wgmma form no room for S and P. It casts p to the
+// input type before P V, as the Pallas kernel does. It is right first; a
+// wgmma form at 256 is later work (ROADMAP B10).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -105,7 +114,7 @@ __device__ __forceinline__ float edge_x(const FlashParams& p, float dot, float s
 }
 
 // S = Q K^T of one 64-row x BK-key tile, both operands K-major in shared
-// memory; one commit group.
+// memory, over the D real columns; one commit group.
 template <int D, int BK>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], const char* q_t, const char* k_t) {
   using namespace hopper;
@@ -120,21 +129,23 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], const char* q_t, co
   wg_commit();
 }
 
-// O += P V, P in registers, V MN-major in shared memory; one commit group.
+// O += P V over the tile's DP columns, P in registers, V MN-major in shared
+// memory; one commit group.
 template <int D, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&a)[BK / 16][4],
-                                         const char* v_t) {
+__device__ __forceinline__ void issue_pv(float (&o)[Tile<D>::DP / 2],
+                                         const uint32_t (&a)[BK / 16][4], const char* v_t) {
   using namespace hopper;
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) mma_rs_mn<D>(o, a[kk], desc_mn<Tile<D>::SW>(v_t, BK, kk));
+  for (int kk = 0; kk < BK / 16; ++kk)
+    mma_rs_mn<Tile<D>::DP>(o, a[kk], desc_mn<Tile<D>::SW>(v_t, BK, kk));
   wg_commit();
 }
 
-template <int D>
-__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N / 2], const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < N / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
 // The online softmax of one tile, in the log2 domain: the raw dots in sc
@@ -232,9 +243,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
           const __grid_constant__ CUtensorMap mv, const FlashParams p) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR;
+  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR, DP = Tile<D>::DP;
   constexpr int NC = kFwdConsumers, BK = kFwdKeys, ST = kFwdStages;
-  constexpr int QT = 64 * D * 2, KT = BK * D * 2;
+  constexpr int QT = 64 * DP * 2, KT = BK * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   char* sQ = align1024(smem_raw);
   char* sK = sQ + NC * QT;
@@ -303,9 +314,9 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
 
   // softmax state of the thread's rows 16 warp + g (+ 8), in log2 units
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   bar_wait(bar_q, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % ST;
@@ -318,7 +329,7 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
       softmax<BK>(sc, m, l, alpha, p, r0, (jt_lo + it) * BK, b, scale2, slope2);
       uint32_t a[BK / 16][4];
       to_a<BK>(a, sc);
-      rescale<D>(o, alpha);
+      rescale<DP>(o, alpha);
       issue_pv<D, BK>(o, a, sV + s * KT);
       wg_wait<0>();
       hold(o);
@@ -339,7 +350,7 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
     bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)  // the D real columns of DP
       store2(row + 8 * n + 2 * t, o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     if (t == 0)
       lse[((long long)b * p.H + h) * p.Sq + i] =
@@ -349,14 +360,15 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
 
 template <int D>
 cudaError_t launch_bf16(const FlashParams& p, cudaStream_t stream) {
-  constexpr int SW = Tile<D>::SW, NC = kFwdConsumers, BK = kFwdKeys, ST = kFwdStages;
+  constexpr int SW = Tile<D>::SW, DP = Tile<D>::DP, NC = kFwdConsumers, BK = kFwdKeys,
+                ST = kFwdStages;
   CUtensorMap mq, mk = {}, mv = {};
   if (!hopper::map_rows<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
       (p.Sk > 0 &&
        (!hopper::map_rows<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BK) ||
         !hopper::map_rows<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BK))))
     return cudaErrorInvalidValue;
-  const size_t smem = 1024 + (size_t)(NC * 64 + 2 * ST * BK) * D * 2 + (1 + 2 * ST) * 8;
+  const size_t smem = 1024 + (size_t)(NC * 64 + 2 * ST * BK) * DP * 2 + (1 + 2 * ST) * 8;
   cudaError_t err = reserve_smem(fwd_wgmma<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.Sq + 64 * NC - 1) / (64 * NC));
@@ -364,11 +376,11 @@ cudaError_t launch_bf16(const FlashParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- fp32: the CUDA-core kernel ------------------------------------------------
+// ---- the CUDA-core kernel: fp32, and bf16 at head_dim 256 -------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(128)
-fwd_fp32(const FlashParams p, int HB, int BQ) {
+fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
   constexpr int LD = D + kPad;
   constexpr int NT = kBK / 8;  // score tiles of 8 keys
   constexpr int DT = D / 8;    // output tiles of 8 columns
@@ -399,9 +411,9 @@ fwd_fp32(const FlashParams p, int HB, int BQ) {
   int* sKseg = reinterpret_cast<int*>(sV + kBK * LD);  // [kBK]
   float* scratch = reinterpret_cast<float*>(sKseg + kBK) + warp * 16 * (kBK + 4);
 
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
   const int valid_q = min(BQ, p.Sq - q0);
   for (int hh = 0; hh < HB; ++hh)
     stage_rows<D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
@@ -485,6 +497,7 @@ fwd_fp32(const FlashParams p, int HB, int BQ) {
         const int r = e >> 1;
         s[n][e] = expf(s[n][e] - m_safe[r]);
         rs[r] += s[n][e];
+        s[n][e] = round_to<T>(s[n][e]);  // p in v's type for P V
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];  // this lane's columns
@@ -498,7 +511,7 @@ fwd_fp32(const FlashParams p, int HB, int BQ) {
   }
   cp_async_wait<0>();
 
-  float* o = static_cast<float*>(p.out0);
+  T* o = static_cast<T*>(p.out0);
   float* lse = static_cast<float*>(p.out1);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -507,7 +520,7 @@ fwd_fp32(const FlashParams p, int HB, int BQ) {
     const int i = i0 + 8 * r;
     if (i >= p.Sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    float* orow = o + (((long long)b * p.Sq + i) * p.H + h) * D;
+    T* orow = o + (((long long)b * p.Sq + i) * p.H + h) * D;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
       store2(orow + n * 8 + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
@@ -517,26 +530,37 @@ fwd_fp32(const FlashParams p, int HB, int BQ) {
   }
 }
 
-template <int D>
-cudaError_t launch_fp32(const FlashParams& p, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_cuda_cores(const FlashParams& p, cudaStream_t stream) {
   constexpr int LD = D + kPad;
   int HB, BQ;
   pick_rows(p.H / p.kvH, kMaxWarps, &HB, &BQ);
   const int warps = HB * BQ / 16;
   const size_t smem = sizeof(float) * ((size_t)HB * BQ * LD + 2 * kBK * LD) +
                       sizeof(int) * kBK + sizeof(float) * warps * 16 * (kBK + 4);
-  cudaError_t err = reserve_smem(fwd_fp32<D>, smem);
+  cudaError_t err = reserve_smem(fwd_cuda_cores<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB));
-  fwd_fp32<D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
+  fwd_cuda_cores<T, D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch(const FlashParams& p, bool bf16_in, cudaStream_t s) {
+  if (!bf16_in) return launch_cuda_cores<float, D>(p, s);
+  if constexpr (D > 128) return launch_cuda_cores<bf16, D>(p, s);
+  else return launch_bf16<D>(p, s);
+}
+
+// the head dims of flash.py KERNEL_HEAD_DIMS
 cudaError_t dispatch(const FlashParams& p, bool bf16_in, cudaStream_t s) {
   switch (p.D) {
-    case 32: return bf16_in ? launch_bf16<32>(p, s) : launch_fp32<32>(p, s);
-    case 64: return bf16_in ? launch_bf16<64>(p, s) : launch_fp32<64>(p, s);
-    case 128: return bf16_in ? launch_bf16<128>(p, s) : launch_fp32<128>(p, s);
+    case 32: return launch<32>(p, bf16_in, s);
+    case 64: return launch<64>(p, bf16_in, s);
+    case 80: return launch<80>(p, bf16_in, s);
+    case 96: return launch<96>(p, bf16_in, s);
+    case 128: return launch<128>(p, bf16_in, s);
+    case 256: return launch<256>(p, bf16_in, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -69,6 +69,7 @@ constexpr int kTcThreads = 160;  // a consumer warpgroup and a producer warp
 constexpr int kSW = 128;         // swizzle: a region row is 64 bf16 columns
 constexpr int kWarp = 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmemMax = 232448;  // shared memory a block may use
 
 struct WaveArgs {
   const bf16* q;       // [N, H, D], unscaled
@@ -456,7 +457,7 @@ cudaError_t launch_tc(const WaveArgs& a, const void* k_pages, const void* v_page
   static bool raised = false;  // more than 48 KB of shared memory is opt-in, once
   if (!raised) {
     const cudaError_t rc =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (rc != cudaSuccess) return rc;
     raised = true;
   }
@@ -510,6 +511,11 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, void
                    const int* cu_q_lens, const int* kv_lens, const int* page_indices, int N,
                    int A, int H, int kvH, int P, int ps, int D, int MP, int block_q, float scale,
                    cudaStream_t stream) {
+  // an atom's tokens go through the block in pieces of block_q tokens x g
+  // heads of rows; a wide group (Falcon-7B: 71 query heads on one kv head)
+  // takes pieces of fewer tokens, as many as fit a block's shared memory
+  while (block_q > 1 && dstt::smem_bytes<T>(block_q * (H / kvH), ps, D) > (size_t)kSmemMax)
+    --block_q;
   const size_t smem = dstt::smem_bytes<T>(block_q * (H / kvH), ps, D);
   cudaError_t err = dstt::reserve_smem(ragged_wave_kernel<T>, smem);
   if (err != cudaSuccess) return err;

@@ -173,6 +173,10 @@ class InferenceEngineV2:
         self.device = resolve_device(device)
         c = model.config
         self.config.check_supported(c.dtype)
+        if c.position == "alibi" or model.windows is not None:
+            raise NotImplementedError(
+                "serving ALiBi positions or sliding windows is not ported (ROADMAP A5.3: "
+                "the paged kernels take neither; such models train)")
         sm = self.config.state_manager
         block_size = self.config.kv_block_size
         max_ctx = min(sm.max_context, c.max_seq_len)

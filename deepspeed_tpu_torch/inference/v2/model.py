@@ -37,7 +37,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ...models.transformer import Block, TransformerLM
+from ...models.transformer import TransformerLM
 from .kernels.paged_decode import paged_gqa_decode
 from .kernels.ragged_paged_attention import ragged_paged_attention
 
@@ -116,22 +116,6 @@ class RaggedInferenceModel:
         """x [N, hidden] -> fp32 logits [N, vocab]."""
         return self.model.head(x)
 
-    def _qkv(self, block: Block, h: torch.Tensor, rope):
-        """PRE-NORMED h [N, hidden] -> q [N, H, D], k/v [N, kvH, D], rope
-        applied from the forward's tables ``rope`` (None: no rope)."""
-        c = self.config
-        N = h.shape[0]
-        q = block.q_proj(h).view(N, c.num_heads, c.head_dim)
-        k = block.k_proj(h).view(N, c.kv_heads, c.head_dim)
-        v = block.v_proj(h).view(N, c.kv_heads, c.head_dim)
-        if rope is not None:
-            q = self.model.rotate(q, rope)
-            k = self.model.rotate(k, rope)
-        return q, k, v
-
-    def _mlp(self, block: Block, h: torch.Tensor) -> torch.Tensor:
-        return block.mlp(h, dropless=True)
-
     @staticmethod
     def _write_kv(pages: torch.Tensor, new: torch.Tensor,
                   flat_idx: torch.Tensor) -> None:
@@ -144,15 +128,17 @@ class RaggedInferenceModel:
     def _layer_loop(self, k_pages: torch.Tensor, v_pages: torch.Tensor,
                     x: torch.Tensor, attn_fn: AttnFn, write_idx: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
+        """Every layer over the flat stream ``x [N, hidden]``: sequential
+        or parallel blocks (the JAX serving model's ``body``,
+        ``model.py:187-195``), MoE MLPs routed dropless."""
         rope = self.model.rope(positions) if self.config.position == "rope" else None
         for l, block in enumerate(self.model.blocks):
             h1 = block.ln_1(x)
-            q, k, v = self._qkv(block, h1, rope)
+            q, k, v = self.model._qkv(block, h1, rope)
             self._write_kv(k_pages[l], k, write_idx)
             self._write_kv(v_pages[l], v, write_idx)
             attn = attn_fn(q, k_pages[l], v_pages[l])
-            x = x + block.o_proj(attn.reshape(x.shape[0], -1))
-            x = x + self._mlp(block, block.ln_2(x))
+            x = self.model._residual(block, x, h1, attn, None, dropless=True)
         return x
 
     # -- programs -----------------------------------------------------------

@@ -1,5 +1,11 @@
 """Model family of the port (counterpart of ``deepspeed_tpu/models``)."""
 
+from .transformer import MoEConfig, TransformerConfig, TransformerLM  # noqa: F401
+from .gpt2 import gpt2_config, gpt2_model  # noqa: F401
 from .llama import llama_config, llama_model  # noqa: F401
 from .mixtral import mixtral_config, mixtral_model  # noqa: F401
-from .transformer import MoEConfig, TransformerConfig, TransformerLM  # noqa: F401
+from .opt_phi_falcon import (falcon_config, falcon_model, opt_config,  # noqa: F401
+                             opt_model, phi_config, phi_model)
+from .bloom_neox_gptj import (bloom_config, bloom_model, gpt_neo_config,  # noqa: F401
+                              gpt_neo_model, gpt_neox_config, gpt_neox_model,
+                              gptj_config, gptj_model)

@@ -1,5 +1,8 @@
-"""Decoder-only transformer of the port (the Llama family and GPT-2-style
-learned-position models).
+"""Decoder-only transformer of the port: the Llama family, Mixtral, and the
+decoder families of ``gpt2.py``, ``opt_phi_falcon.py`` and
+``bloom_neox_gptj.py`` (learned, rotary or ALiBi positions, sequential or
+parallel blocks with one norm or two, an embedding norm, per-layer causal
+windows).
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``. The JAX model is a
 stateless description whose block parameters are stacked on a leading
@@ -28,15 +31,25 @@ place of its MLP, in every layer, as the JAX block does
 it with capacity = the token count, the function the serving engine
 computes. Training through MoE layers is not ported: ``apply`` raises.
 
+A parallel block (Phi, Falcon, GPT-NeoX, GPT-J) adds attention and MLP to
+the block's input, both read through ``ln_1`` or, with ``parallel_norms``,
+the MLP through its own ``ln_2``; without ``parallel_norms`` the block has
+no ``ln_2``, as the JAX block has none (``models/transformer.py:254-258``),
+so the state dict's keys stay the JAX tree's. ALiBi slopes and the
+per-layer windows are normalized once, as the JAX model does
+(``:202-231``), and go to the flash kernels with every call.
+
 Configurations the port does not cover yet raise ``NotImplementedError``
-naming the ROADMAP item that will bring them: ALiBi, sliding windows,
-bidirectional encoders and MoE training.
+naming the ROADMAP item that will bring them: encoders (post-norm,
+bidirectional attention, token types, the MLM head, pad-based positions)
+and MoE training. Serving ALiBi or windowed models raises at engine build
+(ROADMAP A5.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -44,11 +57,12 @@ from torch import nn
 
 from ..moe.layer import MoE
 from ..nn import layers as L
-from ..ops.transformer.attention import flash_attention
+from ..ops.transformer.attention import alibi_slopes, attention_reference, flash_attention
 
 MOE_TRAINING = ("training through MoE layers is not ported (ROADMAP A7: MoE training "
                 "through a reference-VJP autograd.Function, with A6 / A9 to fit a "
                 "mixtral-class model)")
+ENCODERS = "(ROADMAP A2: encoders)"
 
 ACTIVATIONS = {
     "gelu": L.gelu,  # tanh approximation
@@ -69,8 +83,9 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The port's copy of the JAX ``TransformerConfig`` fields that serving
-    reads (``deepspeed_tpu/models/transformer.py:85``)."""
+    """The port's copy of the JAX ``TransformerConfig``
+    (``deepspeed_tpu/models/transformer.py:85-132``): every field but
+    ``seq_parallel`` (ROADMAP A8)."""
     vocab_size: int = 50257
     max_seq_len: int = 1024
     num_layers: int = 12
@@ -81,22 +96,30 @@ class TransformerConfig:
     activation: str = "gelu"        # 'gelu' | 'gelu_exact' | 'relu' | 'silu_gated'
     norm: str = "layernorm"          # 'layernorm' | 'rmsnorm'
     norm_eps: float = 1e-5
-    position: str = "learned"        # 'learned' | 'rope' ('alibi': not ported)
+    position: str = "learned"        # 'learned' | 'rope' | 'alibi'
     position_offset: int = 0
     rope_theta: float = 10000.0
     rope_dim: Optional[int] = None   # partial rotary; None => head_dim
     rope_style: str = "half"         # 'half' | 'interleaved'
-    attn_windows: Any = None         # sliding windows: not ported
-    attn_scale: Optional[float] = None  # None => 1/sqrt(head_dim)
+    # per-layer causal windows (gpt-neo's local layers, mistral's sliding
+    # window): 0 = global, w > 0 = the last w keys; an int for every layer
+    attn_windows: Any = None         # Optional[int | Tuple[int, ...]]
+    attn_scale: Optional[float] = None  # gpt-neo: 1.0; None => 1/sqrt(head_dim)
+    embedding_norm: bool = False     # bloom: LayerNorm right after wte
     linear_bias: Optional[bool] = None  # None => biases iff layernorm
     attn_bias: Optional[bool] = None
     attn_out_bias: Optional[bool] = None
     lm_head_bias: bool = False
     tie_embeddings: bool = True
-    causal: bool = True
-    parallel_block: bool = False     # falcon/phi parallel blocks: not ported
-    parallel_norms: bool = False     # a norm per parallel branch: not ported
+    causal: bool = True              # False (encoders): not ported
+    parallel_block: bool = False     # falcon/phi: x + attn(ln(x)) + mlp(ln(x))
+    parallel_norms: bool = False     # falcon-40b/neox: a norm per parallel branch
     norm_style: str = "pre"          # 'pre' ('post': not ported)
+    # encoder fields (bert / roberta): not ported
+    type_vocab_size: int = 0
+    mlm_head: bool = False
+    pad_based_positions: bool = False
+    pad_token_id: Optional[int] = None
     moe: Optional[MoEConfig] = None  # every layer's MLP is a MoE when set
     moe_layer_freq: int = 1          # kept as in JAX, whose model reads only 1
     dtype: torch.dtype = torch.float32
@@ -118,37 +141,42 @@ class TransformerConfig:
 
 def check_supported(c: TransformerConfig) -> None:
     """Raise for model features the port does not cover yet."""
-    if c.position == "alibi":
-        raise NotImplementedError(
-            "ALiBi positions are not ported (ROADMAP A5: ALiBi, windows, "
-            "fp8 KV and MoE serving)")
-    if c.attn_windows is not None:
-        raise NotImplementedError(
-            "sliding attention windows are not ported (ROADMAP A5: ALiBi, "
-            "windows, fp8 KV and MoE serving)")
     if c.moe is not None and c.moe_layer_freq != 1:
         raise NotImplementedError(
             f"moe_layer_freq {c.moe_layer_freq}: the JAX model makes every layer a "
             f"MoE (ROADMAP A7: MoE top_k > 2, fp16 and other activations)")
     if not c.causal:
-        raise NotImplementedError(
-            "bidirectional encoders are not ported (ROADMAP A2: model "
-            "forward for training)")
-    if c.parallel_block or c.parallel_norms:
-        raise NotImplementedError(
-            f"parallel blocks (parallel_block={c.parallel_block}, parallel_norms="
-            f"{c.parallel_norms}) are not ported (ROADMAP A2: model forward for "
-            f"training)")
+        raise NotImplementedError(f"bidirectional encoders are not ported {ENCODERS}")
     if c.norm_style != "pre":
         raise NotImplementedError(
-            f"norm_style {c.norm_style!r} is not ported (ROADMAP A2: model forward "
-            f"for training); the port's blocks are pre-norm")
-    if c.position not in ("rope", "learned"):
+            f"norm_style {c.norm_style!r} is not ported {ENCODERS}; the port's "
+            f"blocks are pre-norm")
+    for field in ("type_vocab_size", "mlm_head", "pad_based_positions"):
+        if getattr(c, field):
+            raise NotImplementedError(f"{field} is an encoder feature, not ported "
+                                      f"{ENCODERS}")
+    if c.position not in ("rope", "learned", "alibi"):
         raise ValueError(f"unknown position style {c.position!r}")
     if c.remat and c.remat_policy not in ("full", "nothing_saveable"):
         raise NotImplementedError(
             f"remat policy {c.remat_policy!r} is not ported (ROADMAP A2: model "
             f"forward for training); 'full'/'nothing_saveable' recompute each block")
+
+
+def layer_windows(c: TransformerConfig) -> Optional[Tuple[int, ...]]:
+    """Each layer's causal window (0 = global), or None when no layer's
+    window binds: the JAX model's normalization
+    (``deepspeed_tpu/models/transformer.py:202-221``). An int applies to
+    every layer, a window of at least ``max_seq_len`` is global."""
+    w = c.attn_windows
+    if w is None:
+        return None
+    windows = tuple([int(w)] * c.num_layers if isinstance(w, int) else map(int, w))
+    if len(windows) != c.num_layers:
+        raise ValueError(f"attn_windows has {len(windows)} entries for "
+                         f"{c.num_layers} layers")
+    windows = tuple(0 if wi >= c.max_seq_len else wi for wi in windows)
+    return windows if any(windows) else None
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -168,7 +196,8 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 class Block(nn.Module):
     """One pre-norm decoder block; attribute names match the JAX block's
-    parameter keys (``models/transformer.py:247-280``)."""
+    parameter keys (``models/transformer.py:247-280``). A parallel block
+    with one norm has no ``ln_2``."""
 
     def __init__(self, c: TransformerConfig, device=None):
         super().__init__()
@@ -187,7 +216,7 @@ class Block(nn.Module):
         self.k_proj = L.Linear(h, kv_out, bias=attn_bias, **kw)
         self.v_proj = L.Linear(h, kv_out, bias=attn_bias, **kw)
         self.o_proj = L.Linear(h, h, bias=attn_out_bias, **kw)
-        self.ln_2 = norm()
+        self.ln_2 = norm() if not c.parallel_block or c.parallel_norms else None
         self.gated = c.activation == "silu_gated"
         self.moe = None
         if c.moe is not None:
@@ -234,6 +263,16 @@ class TransformerLM(nn.Module):
         self.lm_head = (None if c.tie_embeddings else
                         L.Linear(c.hidden_size, c.vocab_size,
                                  bias=c.lm_head_bias, **kw))
+        self.ln_emb = ((L.RMSNorm(c.hidden_size, eps=c.norm_eps, **kw)
+                        if c.norm == "rmsnorm"
+                        else L.LayerNorm(c.hidden_size, eps=c.norm_eps, **kw))
+                       if c.embedding_norm else None)
+        #: each layer's causal window (0 = global), or None
+        self.windows = layer_windows(c)
+        #: ALiBi slopes [num_heads] (fp32, host), or None
+        self.alibi_slopes = (torch.from_numpy(alibi_slopes(c.num_heads))
+                             if c.position == "alibi" else None)
+        self._alibi_on: Dict[torch.device, torch.Tensor] = {}
 
     # -- weights -------------------------------------------------------------
     @torch.no_grad()
@@ -274,12 +313,29 @@ class TransformerLM(nn.Module):
         return torch.cat([rot, x[..., rd:]], dim=-1)
 
     def embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Token (+ position) embeddings, the embedding norm, the cast to
+        the compute dtype (JAX ``embed``)."""
         c = self.config
         x = self.wte(tokens)
         if self.wpe is not None:
             pos = positions.clamp(0, c.max_seq_len - 1) + c.position_offset
             x = x + self.wpe(pos)
+        if self.ln_emb is not None:
+            x = self.ln_emb(x)
         return x.to(c.dtype)
+
+    def alibi(self, device: torch.device) -> Optional[torch.Tensor]:
+        """The ALiBi slopes on ``device`` (None without ALiBi), copied there
+        once."""
+        if self.alibi_slopes is None:
+            return None
+        t = self._alibi_on.get(device)
+        if t is None:
+            t = self._alibi_on[device] = self.alibi_slopes.to(device)
+        return t
+
+    def window(self, layer: int) -> Optional[int]:
+        return None if self.windows is None else self.windows[layer]
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and LM head; fp32 logits."""
@@ -287,23 +343,44 @@ class TransformerLM(nn.Module):
         logits = self.wte.attend(x) if self.lm_head is None else self.lm_head(x)
         return logits.float()
 
-    # -- training forward ----------------------------------------------------
-    def _block(self, blk: Block, x: torch.Tensor, rope, keep) -> torch.Tensor:
-        """One pre-norm block (``_block_fn``); ``keep`` gates it (PLD) or is
-        None."""
+    def _qkv(self, blk: Block, h: torch.Tensor, rope):
+        """q [..., H, D], k / v [..., kvH, D] of the normed input ``h [...,
+        hidden]`` (``[B, S]`` tokens in training, a flat ``[N]`` stream in
+        serving), rotated by the tables ``rope`` unless it is None."""
         c = self.config
-        B, S, _ = x.shape
-        h = blk.ln_1(x)
-        q = blk.q_proj(h).view(B, S, c.num_heads, c.head_dim)
-        k = blk.k_proj(h).view(B, S, c.kv_heads, c.head_dim)
-        v = blk.v_proj(h).view(B, S, c.kv_heads, c.head_dim)
+        lead = h.shape[:-1]
+        q = blk.q_proj(h).view(*lead, c.num_heads, c.head_dim)
+        k = blk.k_proj(h).view(*lead, c.kv_heads, c.head_dim)
+        v = blk.v_proj(h).view(*lead, c.kv_heads, c.head_dim)
         if rope is not None:
             q, k = self.rotate(q, rope), self.rotate(k, rope)
-        attn = flash_attention(q, k, v, causal=c.causal, scale=c.attn_scale)
-        a = blk.o_proj(attn.reshape(B, S, c.num_heads * c.head_dim))
+        return q, k, v
+
+    def _residual(self, blk: Block, x: torch.Tensor, h1: torch.Tensor, attn: torch.Tensor,
+                  keep, dropless: bool = False) -> torch.Tensor:
+        """The block's output from its input ``x``, ``h1 = ln_1(x)`` and the
+        attention before ``o_proj``: sequential, or parallel (``x + attn +
+        mlp``, the MLP reading ``h1`` or ``ln_2(x)``), each branch gated by
+        ``keep`` (PLD) unless it is None."""
+        a = blk.o_proj(attn.reshape(*x.shape[:-1], -1))
+        if self.config.parallel_block:
+            hm = blk.ln_2(x) if blk.ln_2 is not None else h1
+            y = a + blk.mlp(hm, dropless=dropless)
+            return x + (y if keep is None else keep * y)
         x = x + (a if keep is None else keep * a)
-        m = blk.mlp(blk.ln_2(x))
+        m = blk.mlp(blk.ln_2(x), dropless=dropless)
         return x + (m if keep is None else keep * m)
+
+    # -- training forward ----------------------------------------------------
+    def _block(self, blk: Block, x: torch.Tensor, rope, keep, window) -> torch.Tensor:
+        """One pre-norm block (``_block_fn``) through the flash kernels;
+        ``keep`` gates it (PLD) or is None, ``window`` is the layer's."""
+        c = self.config
+        h1 = blk.ln_1(x)
+        q, k, v = self._qkv(blk, h1, rope)
+        attn = flash_attention(q, k, v, causal=c.causal, scale=c.attn_scale,
+                               alibi_slopes=self.alibi(x.device), window=window)
+        return self._residual(blk, x, h1, attn, keep)
 
     def apply(self, input_ids: torch.Tensor,
               layer_mask: Optional[torch.Tensor] = None,
@@ -316,8 +393,7 @@ class TransformerLM(nn.Module):
         the logits."""
         if token_type_ids is not None or attention_mask is not None:
             raise NotImplementedError(
-                "token types and padding masks are for encoders, not ported "
-                "(ROADMAP A2: model forward for training)")
+                f"token types and padding masks are for encoders, not ported {ENCODERS}")
         c = self.config
         if c.moe is not None:
             raise NotImplementedError(MOE_TRAINING)
@@ -329,9 +405,9 @@ class TransformerLM(nn.Module):
             keep = None if layer_mask is None else layer_mask[i].to(c.dtype)
             if c.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(self._block, blk, x, rope, keep,
-                                                      use_reentrant=False)
+                                                      self.window(i), use_reentrant=False)
             else:
-                x = self._block(blk, x, rope, keep)
+                x = self._block(blk, x, rope, keep, self.window(i))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return self.ln_f(x), aux
@@ -363,10 +439,11 @@ class TransformerLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, dropless: bool = False) -> torch.Tensor:
         """Full-sequence causal forward: ``input_ids [B, S]`` -> fp32 logits
         ``[B, S, V]``. Attention is the plain chunk reference with no
-        history, one sequence at a time. ``dropless`` routes MoE layers with
-        capacity = the token count (the serving engine's function); else with
-        the config's capacity factor, over all ``B * S`` tokens at once, as
-        the JAX ``apply``."""
+        history, one sequence at a time, or, for ALiBi and windowed layers,
+        the whole-matrix ``attention_reference``. ``dropless`` routes MoE
+        layers with capacity = the token count (the serving engine's
+        function); else with the config's capacity factor, over all ``B *
+        S`` tokens at once, as the JAX ``apply``."""
         from ..inference.v2.kernels.paged_attention import chunk_prefill_attention
 
         c = self.config
@@ -375,18 +452,18 @@ class TransformerLM(nn.Module):
         x = self.embed(input_ids, positions)
         zero = torch.zeros((), dtype=torch.int64, device=input_ids.device)
         rope = self.rope(positions) if c.position == "rope" else None
-        for blk in self.blocks:
-            h = blk.ln_1(x)
-            q = blk.q_proj(h).view(B, S, c.num_heads, c.head_dim)
-            k = blk.k_proj(h).view(B, S, c.kv_heads, c.head_dim)
-            v = blk.v_proj(h).view(B, S, c.kv_heads, c.head_dim)
-            if c.position == "rope":
-                q, k = self.rotate(q, rope), self.rotate(k, rope)
-            attn = torch.stack([
-                chunk_prefill_attention(q[b], k[b].transpose(0, 1),
-                                        v[b].transpose(0, 1), zero,
-                                        scale=c.attn_scale)
-                for b in range(B)])
-            x = x + blk.o_proj(attn.reshape(B, S, -1))
-            x = x + blk.mlp(blk.ln_2(x), dropless=dropless)
+        slopes = self.alibi(x.device)
+        for i, blk in enumerate(self.blocks):
+            h1 = blk.ln_1(x)
+            q, k, v = self._qkv(blk, h1, rope)
+            if slopes is not None or self.window(i):
+                attn = attention_reference(q, k, v, True, c.attn_scale, None,
+                                           alibi=slopes, window=self.window(i))
+            else:
+                attn = torch.stack([
+                    chunk_prefill_attention(q[b], k[b].transpose(0, 1),
+                                            v[b].transpose(0, 1), zero,
+                                            scale=c.attn_scale)
+                    for b in range(B)])
+            x = self._residual(blk, x, h1, attn, None, dropless=dropless)
         return self.head(x)

@@ -15,7 +15,9 @@ a cotangent on the LSE folds into the backward's ``di`` term. Any ``Sq`` and
   as the Pallas kernels cast them), run for tensors on the CPU;
 - kernels: ``csrc/flash_fwd.cu`` (``_fwd_kernel``'s counterpart) and
   ``csrc/flash_bwd.cu`` (``_dq_kernel``, ``_dkv_kernel``), launched for
-  tensors on a GPU. ``launches`` counts launches per kernel.
+  tensors on a GPU at the head dims of ``KERNEL_HEAD_DIMS`` (bf16 on
+  ``wgmma``, 80 and 96 on the 128-column tiles; fp32, and bf16 at 256, on
+  the CUDA cores). ``launches`` counts launches per kernel.
 
 The autograd Function saves only tensors (q, k, v, o, lse and the mask
 inputs), so it is safe under ``torch.utils.checkpoint``.
@@ -32,7 +34,9 @@ import torch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HALF_MASK = MASK_VALUE * 0.5
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# the head dims the kernels take: GPT-2 / Llama at 64 and 128, Phi-2 at 80,
+# GPT-NeoX-20B at 96, GPT-J-6B and Pythia-1B at 256
+KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
@@ -246,8 +250,9 @@ def _check(q, k, v):
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {q.shape[3]}; the kernels take "
-                                  f"{KERNEL_HEAD_DIMS}")
+        raise NotImplementedError(
+            f"head_dim {q.shape[3]}; the kernels take {KERNEL_HEAD_DIMS} (ROADMAP B10: "
+            f"flash at the Pallas kernel's other head dims, up to 128, 384 and 512)")
 
 
 def _params(q, k, v, spec: MaskSpec) -> FlashParams:

@@ -133,13 +133,14 @@ def test_gpt2_style_model_matches_jax():
                                np.asarray(jeng.put([1, 2], prompts)), **TOL)
 
 
-@pytest.mark.parametrize("field,value", [("parallel_block", True),
-                                         ("parallel_norms", True),
+@pytest.mark.parametrize("field,value", [("causal", False),
+                                         ("mlm_head", True),
                                          ("norm_style", "post")])
 def test_block_layouts_outside_the_port_raise(field, value):
-    """A JAX config with a block layout the port does not build (falcon/phi
-    parallel blocks, post-norm), copied field by field as above, makes the
-    port raise instead of building a pre-norm sequential model."""
+    """A JAX config with an encoder's layout the port does not build yet
+    (bidirectional attention, the MLM head, post-norm), copied field by
+    field as above, makes the port raise instead of building a causal
+    pre-norm decoder. Parallel blocks are built (``test_torch_families.py``)."""
     jcfg = dataclasses.replace(jax_gpt2("gpt2-tiny", max_seq_len=64).config,
                                **{field: value})
     names = {f.name for f in dataclasses.fields(TransformerConfig)} - {"dtype"}
@@ -269,8 +270,18 @@ def test_unported_engine_configs_raise(override):
 @pytest.mark.parametrize("override", [
     dict(position="alibi"), dict(attn_windows=8), dict(moe=MoEConfig(num_experts=4, top_k=3))])
 def test_unported_model_features_raise(override):
-    """MoE is served; a top-3 route is not (the JAX kernel
-    picks at most 2)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(TransformerConfig(num_layers=1, hidden_size=32,
-                                        num_heads=4, **override))
+    """MoE is served; a top-3 route is not (the JAX kernel picks at most
+    2). ALiBi and windowed models train; serving them raises at the
+    engine's build (the paged kernels take neither)."""
+    if "moe" in override:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TransformerLM(TransformerConfig(num_layers=1, hidden_size=32,
+                                            num_heads=4, **override))
+        return
+    model = TransformerLM(TransformerConfig(num_layers=1, hidden_size=32, num_heads=4,
+                                            max_seq_len=64, **override))
+    cfg = RaggedInferenceEngineConfig(
+        num_kv_blocks=9, kv_cache_dtype=torch.float32,
+        state_manager=DeepSpeedTPStateManagerConfig(**SM_KW), **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.3"):
+        build_engine(model, cfg, device="cpu")
