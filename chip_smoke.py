@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    PyTorch version on the card, bf16 and fp32, at llama2-7b shapes
    (prefill, mixed and decode waves from the port's own wave builder), at
    GQA shapes and at the served families' (Falcon-7B's 71 heads on one kv
-   head, head_dim 80, 96 and 256, bf16 only past 128), with shuffled block tables, chunks about the 64-row
+   head, head_dim 80, 96 and 256; fp32 too up to 256), at head dims whose
+   rows are no multiple of 16 bytes (open-llama-3b's 100, an odd 33) and the
+   tiny presets' 16, with shuffled block tables, chunks about the 64-row
    query tile's edges, a 40-sequence decode wave, a page size the
    tensor-core wave kernel does not take, decode contexts of 1 to 4133
    keys; two runs bit-identical, the wave's padding rows zero; with its
@@ -28,9 +30,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    llama2-7b shape (MHA, head_dim 128), at the decoder families' shapes
    (Phi-2's head_dim 80, GPT-NeoX-20B's 96, GPT-J-6B's 256, Falcon-7B's 71
    heads on one kv head, BLOOM-7B1's ALiBi, GPT-Neo-2.7B's window 256
-   unscaled; each twice for equal bits) and at small cases (negative
-   q_offset with fully masked rows, window, segment ids, ALiBi, Sq != Sk,
-   lengths off the tile, the new head dims); the fused Adam kernel on a 2048 x 5632 leaf and
+   unscaled; each twice for equal bits), at every head_dim class
+   ``pallas_flash.supports`` takes (16, 48, 112, open-llama-3b's 100 at its
+   training shape and with every mask input, 8, 24, an odd 33, 30 and 122
+   as packed heads, 120, and the CUDA-core forms at 384 and 512; the timed
+   ones twice for equal bits; at D 100 the packed heads the wrappers read
+   in place timed beside the zero-padded design, its kernels and its
+   copies; the forward's time is the wrapper call's, its kernel's alone
+   printed beside it), at the tiny presets' own attention (head_dim 16, S
+   64: one kv head, ALiBi, window 8 unscaled; twice for equal bits) and at small
+   cases (negative q_offset with fully masked rows, window, segment ids,
+   ALiBi, Sq != Sk, lengths off the tile); the fused Adam kernel on a 2048 x 5632 leaf and
    on a fused bucket of lane-padded small leaves, adamw and lamb, fp32
    moments and stochastically rounded bf16 ones, moments bitwise; each
    with its time, bound, plain time and the time of PyTorch's own call for
@@ -153,7 +163,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps through the kernels and 3 through their plain versions (losses
    within 2e-2), a prompt's logits through the serving engine within twice
    the plain bf16 path's error, and for BLOOM and GPT-Neo the engine build
-   raising, naming ROADMAP A5.3.
+   raising, naming ROADMAP A5.3; then each tiny decoder preset (head_dim
+   16): 3 training steps through the kernels and 3 through their plain
+   versions (losses within 2e-2), one served request (BLOOM and GPT-Neo:
+   the build raising);
+12. open-llama-3b (``[open-llama]``): 26 layers, hidden 3200, 32 heads of
+   head_dim 100 (3.43e9 params), random weights from a seed, trained
+   through ``initialize`` + ``train_batch`` in phase 7's configuration
+   (micro ``OPEN_LLAMA_MICRO``; 2 warm-up and 3 timed steps: losses finite,
+   the first near ln 32000 and falling; 52 flash forwards, 26 dQ and 26
+   dK/dV a step, all at head_dim 100; step time, tokens/s, MFU, peak
+   memory, a profiled step; then steps with the flash inputs read as
+   packed heads and zero-padded to 104, in turns A B B A), then served through ``build_engine`` +
+   ``generate`` with phase 5's requests, cold and warm (both paged kernels
+   once a layer a wave and decode step, the waves in the CUDA-core form,
+   the pool ~333 KB a token), one prompt's prefill logits within twice the
+   plain bf16 path's error against the fp32 plain forward; the phase's and
+   the command's seconds.
 
 Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
 plain version, q and scale byte-identical: fp32 and bf16 rows of the
@@ -254,6 +280,12 @@ WAVE_CASES = {
     "phi-2-d80": ([(256, 0), (1, 300), (20, 5)], 32, 1, 80),
     "gpt-neox-20b-d96": ([(256, 0), (1, 300), (20, 5)], 64, 1, 96),
     "gpt-j-6b-d256": ([(256, 0), (1, 300), (20, 5)], 16, 1, 256),
+    # head dims that are no multiple of 8 or 16 bytes: open-llama-3b's 100
+    # (rows of 200 bf16 bytes: 8-byte copies), the tiny presets' 16, an odd
+    # one (2-byte copies, rows of 8 columns staged past it)
+    "open-llama-3b-d100": ([(256, 0), (1, 300), (20, 5)], 32, 1, 100),
+    "tiny-d16": ([(64, 0), (1, 100), (7, 3)], 4, 1, 16),
+    "odd-d33-g2": ([(40, 0), (1, 77), (9, 5)], 2, 2, 33, {"shuffle": True}),
 }
 DECODE_CASES = {
     # name: (context lengths, kvH, g, D[, options])
@@ -272,10 +304,15 @@ DECODE_CASES = {
     "phi-2-d80": ([513, 385, 301, 201], 32, 1, 80),
     "gpt-neox-20b-d96": ([513, 385, 301, 201], 64, 1, 96),
     "gpt-j-6b-d256": ([513, 385, 301, 201], 16, 1, 256),
+    # rows that are no multiple of 16 bytes (the NARROW form): open-llama's
+    # 100 (8-byte loads), an odd head_dim (2-byte loads); the tiny presets' 16
+    "open-llama-3b-d100": ([513, 385, 301, 201], 32, 1, 100),
+    "tiny-d16": ([513, 385, 301, 201], 4, 1, 16),
+    "odd-d33-g2": ([77, 1, 300], 2, 2, 33, {"shuffle": True}),
 }
-# fp32 rows the paged kernels take: at most 512 bytes (serving is bf16; an
-# fp32 row of 256 values passes both kernels' limits)
-PAGED_FP32_MAX_D = 128
+# the fp32 checks of both paged kernels run up to head_dim 256 (decode rows
+# of 1024 bytes take 32 lanes a row; serving is bf16)
+PAGED_FP32_MAX_D = 256
 MAIN_WAVE = "prefill-2x256"          # the shape of the engine run's first wave
 MAIN_DECODE = "decode-8-first-burst"  # the engine run's first burst step
 # flash-attention cases: (B, Sq, Sk, H, kvH, D, mask); fp32 runs B <= 2
@@ -320,12 +357,47 @@ FLASH_CASES = {
     "s77-sk100-g4-d256-dlse": (2, 77, 100, 8, 2, 256, {"dlse": True}),
     "segments-alibi-d256": (2, 256, 256, 4, 4, 256, {"segments": True, "alibi": True}),
     "neg-offset-d96": (2, 256, 256, 8, 2, 96, {"q_offset": -100}),
+    # every head_dim pallas_flash.supports takes: the tiny presets' 16, 48
+    # and 112 (the tiles of 16-column steps), open-llama-3b's 100 (packed
+    # heads) at its training shape and with every mask input (GQA: padded),
+    # small and odd dims (33: padded), and the CUDA-core forms at 384 and
+    # 512 (small: no preset uses them)
+    "d16": (4, 1024, 1024, 8, 8, 16, {}),
+    "d48": (2, 1024, 1024, 16, 4, 48, {"dlse": True}),
+    "d112": (2, 1024, 1024, 16, 16, 112, {}),
+    "open-llama-3b-b8": (8, 2048, 2048, 32, 32, 100, {}),
+    "d100-segments-alibi": (2, 300, 300, 8, 8, 100, {"segments": True, "alibi": True,
+                                                      "dlse": True}),
+    "d100-window-neg-offset": (2, 256, 256, 8, 2, 100, {"window": 64, "q_offset": -30}),
+    "d8-s77-sk100": (2, 77, 100, 4, 2, 8, {"dlse": True}),
+    "d24-noncausal": (2, 129, 129, 4, 4, 24, {"causal": False}),
+    "d33-odd": (2, 129, 129, 4, 2, 33, {"dlse": True}),
+    # packed heads at every shift in the tile (2, 4, 6 columns) on the
+    # 32-column tiles (64-byte swizzle) and at the widest packed head_dim;
+    # D 100 with one kv head (GQA: zero-padded copies)
+    "d30-packed": (2, 129, 129, 8, 8, 30, {"dlse": True}),
+    "d122-packed-window": (1, 193, 193, 4, 4, 122, {"window": 100}),
+    "d100-mqa-padded": (2, 256, 256, 8, 1, 100, {}),
+    "d120-window": (1, 193, 193, 8, 8, 120, {"window": 100}),
+    "d384": (1, 256, 256, 4, 4, 384, {"dlse": True}),
+    "d512": (1, 200, 256, 4, 2, 512, {}),
+    # the tiny presets' own attention at head_dim 16 (S 64, 4 heads):
+    # falcon-tiny's one kv head, bloom-tiny's ALiBi, gpt-neo-tiny's local
+    # layer (window 8, unscaled, q at std D^-1/2 as for GPT-Neo above)
+    "falcon-tiny-mqa": (1, 64, 64, 4, 1, 16, {}),
+    "bloom-tiny-alibi": (1, 64, 64, 4, 4, 16, {"alibi": True}),
+    "gpt-neo-tiny-window": (1, 64, 64, 4, 4, 16, {"window": 8, "scale": 1.0,
+                                                  "q_std": 16 ** -0.5}),
 }
 MAIN_FLASH = "tinyllama-b8"
 FAMILY_FLASH = ("phi-2-b4", "gpt-neox-20b", "gpt-j-6b", "falcon-7b-mqa", "bloom-7b1-alibi",
                 "gpt-neo-2.7b-window")
-FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha") + FAMILY_FLASH
-FLASH_BITWISE = (MAIN_FLASH,) + FAMILY_FLASH   # two runs, the same bits
+HEAD_DIM_FLASH = ("d16", "d48", "d112", "open-llama-3b-b8", "d384", "d512")
+FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha") + FAMILY_FLASH + HEAD_DIM_FLASH
+FLASH_BITWISE = (MAIN_FLASH,) + FAMILY_FLASH + HEAD_DIM_FLASH + (
+    "d100-segments-alibi", "d33-odd", "d30-packed", "d122-packed-window",
+    "d100-mqa-padded", "falcon-tiny-mqa", "bloom-tiny-alibi",
+    "gpt-neo-tiny-window")   # two runs, the same bits
 FLASH_GRAD_FP32_TOL = 1e-4   # fp32 sums over 2048 keys x 8 heads, two orders
 # Adam cases: (leaf sizes, mode, moment dtype); grads bf16, master fp32
 ADAM_CASES = {
@@ -507,6 +579,17 @@ FAMILY_MODELS = {"gpt2-xl": "gpt2", "opt-6.7b": "opt", "phi-2": "phi", "falcon-7
                  "gpt-neo-2.7b": "gpt_neo", "gpt-j-6b": "gptj"}
 FAMILY_UNSERVED = ("bloom-7b1", "gpt-neo-2.7b")   # ALiBi, windows: ROADMAP A5.3
 PHI2_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=8)
+# the tiny decoder presets, all at head_dim 16: one training step through the
+# kernels and one through their plain versions, and one served request
+TINY_FAMILIES = {"opt-tiny": "opt", "phi-tiny": "phi", "falcon-tiny": "falcon",
+                 "bloom-tiny": "bloom", "gpt-neox-tiny": "gpt_neox",
+                 "gpt-neo-tiny": "gpt_neo", "gptj-tiny": "gptj"}
+TINY_UNSERVED = ("bloom-tiny", "gpt-neo-tiny")   # ALiBi, windows: ROADMAP A5.3
+TINY_PROMPT, TINY_NEW_TOKENS = 20, 8
+# [open-llama]: open-llama-3b (26 layers, hidden 3200, 32 heads of head_dim
+# 100, 3.43e9 params) at full width and depth, phase 7's configuration
+OPEN_LLAMA_MICRO, OPEN_LLAMA_STEPS = 8, 3
+HEAD_DIM_AB_ROUNDS = 3   # packed heads against zero-padded copies, A B B A
 FAMILY_PATH_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1)
 FAMILY_LOGIT_PROMPT = 300    # tokens of the 2-layer serving logits check (2 chunks)
 
@@ -812,20 +895,28 @@ def flash_bounds(B, Sq, Sk, H, kvH, D, pairs, isz):
             "flash_dkv": ((2 * qn + 4 * kn) * isz + 2 * rows, 8 * D * pairs)}
 
 
-def flash_single_launchers(torch, flash, q, k, v, o, lse, do, spec):
-    """The dQ and the dK/dV kernel launched alone, for timing (no counts).
-    The dQ launch writes di, which the dK/dV launch reads: it runs once
-    here, so the dK/dV launch reads the di of these inputs."""
+def flash_single_launchers(torch, flash, q, k, v, o, lse, do, spec, prep=None):
+    """The forward, the dQ and the dK/dV kernel launched alone, for timing
+    (no counts), on the inputs as ``prep`` hands them over: the wrappers'
+    ``flash._kernel_inputs`` by default, ``flash._pad8`` for the zero-padded
+    design. The dQ launch writes di, which the dK/dV launch reads: it runs
+    once here, so the dK/dV launch reads the di of these inputs."""
     from deepspeed_tpu_torch.ops.op_builder.builder import launch_check
+    q, k, v, o, do = (prep or flash._kernel_inputs)(q, k, v, o, do)
     B, Sq, H, _ = q.shape
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     p = flash._params(q, k, v, spec)
     p.o, p.dout, p.lse, p.di = o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr()
-    _, dq_fn, dkv_fn = flash._kernels()
+    fwd_fn, dq_fn, dkv_fn = flash._kernels()
     bf16 = int(q.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
-    keep = (di, dq, dk, dv)
+    out, lse_out = torch.empty_like(q), torch.empty_like(lse)
+    keep = (di, dq, dk, dv, out, lse_out)
+
+    def run_fwd():
+        p.out0, p.out1 = keep[4].data_ptr(), keep[5].data_ptr()
+        launch_check(fwd_fn(p, bf16, stream), "flash_fwd")
 
     def run_dq():
         p.out0 = keep[1].data_ptr()
@@ -835,7 +926,7 @@ def flash_single_launchers(torch, flash, q, k, v, o, lse, do, spec):
         p.out0, p.out1 = keep[2].data_ptr(), keep[3].data_ptr()
         launch_check(dkv_fn(p, bf16, stream), "flash_dkv")
     run_dq()
-    return run_dq, run_dkv
+    return run_fwd, run_dq, run_dkv
 
 
 def flash_kernels_vs_plain(torch, flash, gen, flush):
@@ -886,12 +977,31 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
                   f"{sorted(k_ for k_ in mask)}: max_abs_err fwd {e_fwd:.3e} dQ {e_dq:.3e} "
                   f"dK/dV {e_dkv:.3e}", flush=True)
             if bf and name in FLASH_TIMED:
-                run_dq, run_dkv = flash_single_launchers(torch, flash, q, k, v, o_ref,
-                                                         lse_ref, do, spec)
+                run_fwd, run_dq, run_dkv = flash_single_launchers(torch, flash, q, k, v, o_ref,
+                                                                  lse_ref, do, spec)
+                # the forward as a caller runs it (the wrapper call, as in
+                # every earlier slice), and its kernel alone beside it
                 ms = {"flash_fwd": device_ms(torch, lambda: flash.flash_fwd(q, k, v, spec),
                                              10, flush)[0],
                       "flash_dq": device_ms(torch, run_dq, 10, flush)[0],
                       "flash_dkv": device_ms(torch, run_dkv, 10, flush)[0]}
+                fwd_alone = device_ms(torch, run_fwd, 10, flush)[0]
+                if D % 8:
+                    # the design the wrappers do not take at this head_dim:
+                    # zero-padded copies (the forward's q, k, v; the
+                    # backward's q, k, v, O, dO) into the kernels at the
+                    # next multiple of 8, against packed heads read in place
+                    pad = [device_ms(torch, f, 10, flush)[0] for f in flash_single_launchers(
+                        torch, flash, q, k, v, o_ref, lse_ref, do, spec, flash._pad8)]
+                    pad_fwd = device_ms(torch, lambda: flash._pad8(q, k, v), 10, flush)[0]
+                    pad_bwd = device_ms(torch, lambda: flash._pad8(q, k, v, o_ref, do), 10,
+                                        flush)[0]
+                    print(f"[flash]   {name} head_dim {D}: packed heads read in place (the "
+                          f"wrappers' form) kernels fwd {fwd_alone:.4f} dQ {ms['flash_dq']:.4f} "
+                          f"dK/dV {ms['flash_dkv']:.4f} ms; zero-padded to {D + 8 - D % 8}: "
+                          f"kernels fwd {pad[0]:.4f} dQ {pad[1]:.4f} dK/dV {pad[2]:.4f} ms, "
+                          f"copies of the forward's q, k, v {pad_fwd:.4f} ms, of the "
+                          f"backward's q, k, v, O, dO {pad_bwd:.4f} ms", flush=True)
                 # the whole backward as a caller runs it: di and both launches
                 bwd_ms = device_ms(torch, lambda: flash.flash_bwd(
                     q, k, v, o_ref, lse_ref, do, None, spec), 10, flush)[0]
@@ -921,7 +1031,9 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
                                bound_by=b_by, library_ms=lib[kname])
                     if name == MAIN_FLASH:
                         rows[kname] = row
-                    print(f"[flash]   {name} {kname}: kernel_ms {ms[kname]:.4f} plain_ms "
+                    alone = (f" (the wrapper call; the kernel alone {fwd_alone:.4f})"
+                             if kname == "flash_fwd" else "")
+                    print(f"[flash]   {name} {kname}: kernel_ms {ms[kname]:.4f}{alone} plain_ms "
                           f"{plain[kname]:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
                           f"{lib[kname]:.4f} (bound / kernel {b_ms / ms[kname]:.1%})",
                           flush=True)
@@ -3243,28 +3355,29 @@ def first_loss(c):
     return math.log(c.vocab_size) + 0.02 ** 2 * c.hidden_size / 2
 
 
-def train_phi2(torch, np, flash, adam, lion):
-    """Phi-2 at full width and depth through ``initialize`` + ``train_batch``:
-    S 2048, micro 8, bf16 with fp32 master and moments, AdamW, clipping 1.0,
-    remat per block; 2 warm-up and 5 timed steps. Fails unless the losses
-    are finite, the first near its expected value and falling, and each step
-    launched 2 x 32 flash forwards, 32 dQ and 32 dK/dV, all at head_dim 80,
-    and one Adam launch a bucket."""
+def train_full_depth(torch, np, flash, adam, lion, tag, model, config, steps, features,
+                     after=None):
+    """``model`` at full width and depth through ``initialize`` +
+    ``train_batch``: S 2048, bf16 with fp32 master and moments, AdamW,
+    clipping 1.0, remat per block (``config``); 2 warm-up and ``steps``
+    timed steps, then a profiled one. Fails unless the losses are finite,
+    the first near its expected value and falling, and each step launched
+    2 x L flash forwards, L dQ and L dK/dV, all at the model's head_dim, and
+    one Adam launch a bucket. ``after(engine, batch, step_s)``, if given,
+    runs on the trained engine last. Prints under ``[tag]``."""
     import deepspeed_tpu_torch
     t0 = time.perf_counter()
-    engine, *_ = deepspeed_tpu_torch.initialize(model=family_model(torch, "phi-2"),
-                                                config=PHI2_CONFIG, seed=0)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, seed=0)
     torch.cuda.synchronize()
     c = engine.model.config
     buckets = len(engine.opt_state["buckets"])
     n_all = sum(p.numel() for p in engine.params.values())
-    B = PHI2_CONFIG["train_micro_batch_size_per_gpu"]
-    print(f"[families] phi-2 layers {c.num_layers} hidden {c.hidden_size} heads "
-          f"{c.num_heads} head_dim {c.head_dim} ffn {c.ffn_size} vocab {c.vocab_size} "
-          f"rope_dim {c.rope_dim} parallel block, biased untied head: {n_all} params bf16, "
-          f"adamw, fp32 master and moments in {buckets} buckets, micro {B} x S {TRAIN_SEQ}, "
-          f"built in {time.perf_counter() - t0:.2f} s; state "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    B = config["train_micro_batch_size_per_gpu"]
+    print(f"[{tag}] layers {c.num_layers} hidden {c.hidden_size} heads {c.num_heads}/"
+          f"{c.kv_heads} head_dim {c.head_dim} ffn {c.ffn_size} vocab {c.vocab_size} "
+          f"{features}: {n_all} params bf16, adamw, fp32 master and moments in {buckets} "
+          f"buckets, micro {B} x S {TRAIN_SEQ}, built in {time.perf_counter() - t0:.2f} s; "
+          f"state {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     rng = np.random.default_rng(0)
     batch = {"input_ids": rng.integers(0, c.vocab_size, size=(B, TRAIN_SEQ))}
     tokens = B * TRAIN_SEQ
@@ -3274,7 +3387,7 @@ def train_phi2(torch, np, flash, adam, lion):
     zero_counts(flash, adam, lion)
     times = []
     with flash_head_dims(flash) as dims:
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             t = time.perf_counter()
             losses.append(float(engine.train_batch(batch)))
             times.append(time.perf_counter() - t)
@@ -3282,51 +3395,231 @@ def train_phi2(torch, np, flash, adam, lion):
     peak = torch.cuda.max_memory_allocated()
     step_s = sum(times) / len(times)
     flops, n = training_flops(c, n_all, tokens)
-    print(f"[families] phi-2 losses {[round(x, 4) for x in losses]} (expected first "
+    print(f"[{tag}] losses {[round(x, 4) for x in losses]} (expected first "
           f"{first_loss(c):.4f}: ln {c.vocab_size} + 0.02^2 x {c.hidden_size} / 2); step ms "
           f"{[round(x * 1e3, 1) for x in times]} mean {step_s * 1e3:.1f}; tokens/s "
           f"{tokens / step_s:.0f}; MFU {flops / step_s / PEAK_FLOPS['torch.bfloat16']:.4f} "
           f"({flops:.4e} flops a step: 6 x {n} non-embedding params x {tokens} tokens + "
           f"causal attention, at 989 TFLOP/s); max_memory_allocated {peak / 2**30:.2f} GiB; "
-          f"launches over {TRAIN_STEPS} steps {launches}; flash calls by head_dim "
+          f"launches over {steps} steps {launches}; flash calls by head_dim "
           f"{dict(dims.dims)}", flush=True)
     if not all(np.isfinite(losses)):
-        fail(f"phi-2 training losses {losses}")
+        fail(f"{tag} training losses {losses}")
     if abs(losses[0] - first_loss(c)) > 0.5:
-        fail(f"phi-2 first loss {losses[0]:.4f} not within 0.5 of {first_loss(c):.4f}")
+        fail(f"{tag} first loss {losses[0]:.4f} not within 0.5 of {first_loss(c):.4f}")
     if not losses[-1] < losses[0]:
-        fail(f"phi-2 loss did not fall on the repeated batch: {losses}")
+        fail(f"{tag} loss did not fall on the repeated batch: {losses}")
     L = c.num_layers
-    want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_dq": L * TRAIN_STEPS,
-            "flash_dkv": L * TRAIN_STEPS, "fused_adam": buckets * TRAIN_STEPS, "fused_lion": 0}
+    want = {"flash_fwd": 2 * L * steps, "flash_dq": L * steps,
+            "flash_dkv": L * steps, "fused_adam": buckets * steps, "fused_lion": 0}
     if launches != want:
-        fail(f"phi-2 training launches {launches} != {want}")
-    want_dims = {("flash_fwd", c.head_dim): 2 * L * TRAIN_STEPS,
-                 ("flash_dq+dkv", c.head_dim): L * TRAIN_STEPS}
+        fail(f"{tag} training launches {launches} != {want}")
+    want_dims = {("flash_fwd", c.head_dim): 2 * L * steps,
+                 ("flash_dq+dkv", c.head_dim): L * steps}
     if dict(dims.dims) != want_dims:
-        fail(f"phi-2 flash calls by head_dim {dict(dims.dims)} != {want_dims}")
-    profile_step(torch, engine, batch, step_s, "families-profile")
+        fail(f"{tag} flash calls by head_dim {dict(dims.dims)} != {want_dims}")
+    profile_step(torch, engine, batch, step_s, f"{tag}-profile")
+    if after is not None:
+        after(engine, batch, step_s)
     del engine
     torch.cuda.empty_cache()
     return launches
 
 
-def prefill_logits_check(torch, engine, preset, num_layers, prompt, tag):
+def train_phi2(torch, np, flash, adam, lion):
+    """Phi-2 (head_dim 80, a parallel block, partial rotary, a biased untied
+    head) through ``train_full_depth``: micro 8, 5 timed steps."""
+    return train_full_depth(torch, np, flash, adam, lion, "families",
+                            family_model(torch, "phi-2"), PHI2_CONFIG, TRAIN_STEPS,
+                            "(phi-2: rope_dim 32, parallel block, biased untied head)")
+
+
+def train_open_llama(torch, np, flash, adam, lion):
+    """``[open-llama]``: open-llama-3b (head_dim 100, which the flash
+    kernels read in place as packed heads) through ``train_full_depth``:
+    micro ``OPEN_LLAMA_MICRO``, 3 timed steps, 52 flash forwards, 26 dQ and
+    26 dK/dV a step at head_dim 100; then ``packed_vs_padded`` on the
+    trained engine."""
+    from deepspeed_tpu_torch.models import llama_model
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=OPEN_LLAMA_MICRO)
+    return train_full_depth(torch, np, flash, adam, lion, "open-llama",
+                            llama_model("open-llama-3b"), config, OPEN_LLAMA_STEPS,
+                            "(open-llama-3b, MHA)",
+                            after=lambda e, b, s: packed_vs_padded(torch, flash, e, b))
+
+
+def packed_vs_padded(torch, flash, engine, batch):
+    """The end-to-end A/B of the two forms of a head_dim that is no multiple
+    of 8 (open-llama-3b's 100), in one engine: training steps with the
+    wrappers' packed heads, read in place (A), and with every flash call's
+    inputs zero-padded to the next multiple of 8 and its outputs cut back
+    (B: ``flash._pad8``, the form odd head dims take), in turns A B B A for
+    ``HEAD_DIM_AB_ROUNDS`` rounds after a warm-up step of B. Prints each
+    form's step times, their means and the spread."""
+    packed = flash._kernel_inputs
+    forms = {"packed": packed,
+             "padded": lambda *xs: tuple(flash._rows(x) for x in flash._pad8(*xs))}
+    times = {"packed": [], "padded": []}
+    losses = []
+
+    def step(form, keep=True):
+        flash._kernel_inputs = forms[form]
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        if keep:
+            times[form].append(time.perf_counter() - t)
+    try:
+        step("padded", keep=False)
+        for _ in range(HEAD_DIM_AB_ROUNDS):
+            for form in ("packed", "padded", "padded", "packed"):
+                step(form)
+    finally:
+        flash._kernel_inputs = packed
+    mean = {f: sum(t) / len(t) for f, t in times.items()}
+    print(f"[open-llama] packed heads (A) against zero-padded copies (B), steps A B B A x "
+          f"{HEAD_DIM_AB_ROUNDS} after a warm-up step of B: A ms "
+          f"{[round(x * 1e3, 1) for x in times['packed']]} mean {mean['packed'] * 1e3:.1f} "
+          f"(spread {(max(times['packed']) - min(times['packed'])) * 1e3:.1f}); B ms "
+          f"{[round(x * 1e3, 1) for x in times['padded']]} mean {mean['padded'] * 1e3:.1f} "
+          f"(spread {(max(times['padded']) - min(times['padded'])) * 1e3:.1f}); B / A "
+          f"{mean['padded'] / mean['packed']:.4f}; losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"open-llama A/B losses {losses}")
+
+
+def serve_open_llama(torch, np):
+    """``[open-llama]`` serving: open-llama-3b at full width and depth,
+    random bf16 weights from a seed, through ``build_engine`` + ``generate``
+    with the requests of phase 5, cold and warm: every request gets its
+    tokens and both paged kernels run once a layer in every wave and decode
+    step (the waves in the CUDA-core form: head_dim 100); then one prompt's
+    prefill logits against the plain forward."""
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine)
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.models import llama_model
+    cfg = RaggedInferenceEngineConfig(
+        num_kv_blocks=2049, state_manager=DeepSpeedTPStateManagerConfig(max_context=2048))
+    t0 = time.perf_counter()
+    model = llama_model("open-llama-3b")
+    engine = build_engine(model, cfg, seed=0)
+    torch.cuda.synchronize()
+    c = model.config
+    print(f"[open-llama] serving: layers {c.num_layers} hidden {c.hidden_size} heads "
+          f"{c.num_heads}/{c.kv_heads} head_dim {c.head_dim} bf16 on {engine.device}, "
+          f"{cfg.num_kv_blocks} KV blocks x {cfg.kv_block_size} "
+          f"({engine.kv_cache.mem_bytes() / 2**30:.2f} GiB, "
+          f"{engine.kv_cache.mem_bytes() / (cfg.num_kv_blocks * cfg.kv_block_size):.0f} bytes "
+          f"a token), weights "
+          f"{sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 2**30:.2f} "
+          f"GiB, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts, *_ = timed_generate(torch, np, engine,
+                                 {"ragged_paged_attention": rpa, "paged_decode": pdk},
+                                 num_layers=c.num_layers, form="cuda_cores",
+                                 label="open-llama")
+    prefill_logits_check(torch, engine, lambda: llama_model("open-llama-3b",
+                                                            dtype=torch.float32),
+                         prompts[2], "open-llama-3b", phase="open-llama")
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def families_tiny(torch, np, flash, adam, lion):
+    """Each tiny decoder preset (head_dim 16) on the card: ``PATH_STEPS``
+    training steps through the kernels (2 x L flash forwards, L dQ and L
+    dK/dV a step at head_dim 16) and as many through their plain versions
+    from the same weights, losses within ``PATH_RTOL`` at every step (the
+    gradients of a step reach the next one's loss); then one request through ``build_engine`` +
+    ``generate``, through both paged kernels, or for BLOOM and GPT-Neo the
+    engine build raising, naming ROADMAP A5.3."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import models
+    from deepspeed_tpu_torch.inference.v2 import (
+        DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine, generate)
+    from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
+    from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as rpa
+    rng = np.random.default_rng(0)
+    for preset, fam in TINY_FAMILIES.items():
+        make = lambda: getattr(models, f"{fam}_model")(preset, dtype=torch.bfloat16)
+        c = make().config
+        L, S = c.num_layers, c.max_seq_len
+        batch = {"input_ids": rng.integers(0, c.vocab_size, size=(1, S))}
+        loss = {}
+        for name in ("kernels", "plain"):
+            eng, *_ = deepspeed_tpu_torch.initialize(model=make(), config=FAMILY_PATH_CONFIG,
+                                                     seed=0)
+            zero_counts(flash, adam, lion)
+            if name == "plain":
+                with plain_kernels(flash, adam, lion):
+                    loss[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+                if any(flash.launches.values()) or adam.launches or lion.launches:
+                    fail(f"{preset}: the plain path launched kernels: {flash.launches}")
+            else:
+                with flash_head_dims(flash) as dims:
+                    loss[name] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+                n = PATH_STEPS
+                want = {("flash_fwd", c.head_dim): 2 * L * n,
+                        ("flash_dq+dkv", c.head_dim): L * n}
+                counts = {"flash_fwd": 2 * L * n, "flash_dq": L * n, "flash_dkv": L * n}
+                if dict(dims.dims) != want or flash.launches != counts:
+                    fail(f"{preset}: flash calls {dict(dims.dims)}, launches "
+                         f"{flash.launches} != {want}, {counts}")
+            del eng
+        rel = max(abs(a - b) / abs(b) for a, b in zip(loss["kernels"], loss["plain"]))
+        if not all(np.isfinite(loss["kernels"])):
+            fail(f"{preset}: training losses {loss['kernels']}")
+        served = "build_engine raises naming ROADMAP A5.3"
+        cfg = RaggedInferenceEngineConfig(
+            num_kv_blocks=33, state_manager=DeepSpeedTPStateManagerConfig(max_context=S))
+        if preset in TINY_UNSERVED:
+            try:
+                build_engine(make(), cfg, seed=0)
+            except NotImplementedError as e:
+                if "ROADMAP A5.3" not in str(e):
+                    fail(f"{preset}: the engine build raised without naming A5.3: {e}")
+            else:
+                fail(f"{preset}: build_engine served a model the paged kernels cannot mask")
+        else:
+            engine = build_engine(make(), cfg, seed=0)
+            rpa.launches = pdk.launches = 0
+            reqs = generate(engine, [rng.integers(0, c.vocab_size, size=TINY_PROMPT)],
+                            max_new_tokens=TINY_NEW_TOKENS, return_requests=True)
+            torch.cuda.synchronize()
+            n_tok = len(reqs[0].generated)
+            served = (f"one request of {TINY_PROMPT} prompt tokens: {n_tok} tokens, ragged "
+                      f"launches {rpa.launches}, decode launches {pdk.launches}")
+            if n_tok != TINY_NEW_TOKENS or rpa.launches < L or pdk.launches < L:
+                fail(f"{preset}: {served}")
+            del engine
+        print(f"[families] {preset} head_dim {c.head_dim}, S {S}, {PATH_STEPS} steps: "
+              f"kernels {[round(x, 5) for x in loss['kernels']]}, plain versions "
+              f"{[round(x, 5) for x in loss['plain']]}, relative difference {rel:.3e} "
+              f"(limit {PATH_RTOL}); {served}", flush=True)
+        if rel > PATH_RTOL:
+            fail(f"{preset}: kernel and plain training paths differ by {rel:.3e}")
+    torch.cuda.empty_cache()
+
+
+def prefill_logits_check(torch, engine, make_ref32, prompt, tag, phase="families"):
     """One prompt's prefill logits through the serving engine and through
     the plain bf16 ``TransformerLM.forward``, each against the plain fp32
-    forward of the same weights; fails unless the serving path's relative
-    L2 error is at most ``LOGIT_ERR_RATIO`` times the plain bf16 path's."""
+    forward of the same weights (``make_ref32()``: the model in fp32 on the
+    meta device); fails unless the serving path's relative L2 error is at
+    most ``LOGIT_ERR_RATIO`` times the plain bf16 path's. Prints under
+    ``[phase]``."""
     got = torch.from_numpy(engine.put([10_000], [prompt])[0])
     engine.flush(10_000)
     ids = torch.as_tensor(prompt, device="cuda")[None]
     plain = engine.model(ids)[0, -1].cpu()
-    ref32 = family_model(torch, preset, num_layers, dtype=torch.float32)
+    ref32 = make_ref32()
     ref32.to_empty(device="cuda").load_state_dict(engine.model.state_dict())
     want = ref32(ids)[0, -1].cpu()
     del ref32
     torch.cuda.empty_cache()
     rel = lambda a: ((a - want).norm() / want.norm()).item()
-    print(f"[families] {tag}: prefill logits ({len(prompt)} tokens) vs the fp32 plain "
+    print(f"[{phase}] {tag}: prefill logits ({len(prompt)} tokens) vs the fp32 plain "
           f"forward: serving bf16 relative L2 {rel(got):.3e}, plain bf16 forward "
           f"{rel(plain):.3e} (limit {LOGIT_ERR_RATIO} x); argmax serving "
           f"{int(got.argmax())} plain-bf16 {int(plain.argmax())} fp32 {int(want.argmax())}",
@@ -3365,7 +3658,9 @@ def serve_falcon(torch, np):
                                        {"ragged_paged_attention": rpa, "paged_decode": pdk},
                                        num_layers=c.num_layers, form="cuda_cores",
                                        label="families falcon-7b")
-    prefill_logits_check(torch, engine, "falcon-7b", None, prompts[2], "falcon-7b")
+    prefill_logits_check(torch, engine,
+                         lambda: family_model(torch, "falcon-7b", dtype=torch.float32),
+                         prompts[2], "falcon-7b")
     profile_generate(torch, generate, engine, prompts, wall)
     del engine, model
     torch.cuda.empty_cache()
@@ -3434,8 +3729,10 @@ def families_two_layers(torch, np, flash, adam, lion):
             continue
         engine = build_engine(family_model(torch, preset, PATH_LAYERS), cfg, seed=0)
         prompt = rng.integers(0, c.vocab_size, size=FAMILY_LOGIT_PROMPT)
-        prefill_logits_check(torch, engine, preset, PATH_LAYERS, prompt,
-                             f"{preset} {PATH_LAYERS} layers")
+        prefill_logits_check(
+            torch, engine,
+            lambda: family_model(torch, preset, PATH_LAYERS, dtype=torch.float32), prompt,
+            f"{preset} {PATH_LAYERS} layers")
         del engine
         torch.cuda.empty_cache()
 
@@ -3445,6 +3742,7 @@ def main():
 
     import numpy as np
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
@@ -3542,8 +3840,24 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     families_two_layers(torch, np, flash, adam, lion)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_tiny(torch, np, flash, adam, lion)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 12. kernels line
+    # 12. open-llama-3b (head_dim 100) trained and served at full width and
+    # depth
+    t0 = time.perf_counter()
+    train_open_llama(torch, np, flash, adam, lion)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_open_llama(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[open-llama] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",
@@ -3581,6 +3895,8 @@ def main():
                         "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row.get("library_ms")})
+    print(f"[total] {time.perf_counter() - t_start:.1f} s of command before the kernels "
+          f"line", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -56,16 +56,25 @@
 // aligned base: the wrapper (flash.py _rows) passes a contiguous copy of
 // any q, k or v that is not.
 //
-// Head dims 80 and 96 run the head_dim 128 tiles with the columns past D
-// zero (flash_common.cuh Tile), as the forward does: S and dP read only the
-// D real columns, and dQ, dK and dV are stored only there.
+// Head dims: any even head_dim up to 128, at run time, as in the forward:
+// one kernel a DK (the head_dim rounded up to 16), the tiles DP columns wide
+// with the columns past D zero (flash_common.cuh Tile); S and dP run DK / 16
+// k-steps, and dQ, dK and dV are stored only at the D real columns. At a
+// head_dim that is no multiple of 8 the maps span a token's packed heads
+// (flash_common.cuh packed_heads: each box on 16 bytes, the head's columns
+// shifted in the tile), and the consumers zero the other columns of Q and
+// dO (dQ) or of K and V (dK/dV), the loaded-once side of every product
+// over D.
 //
-// fp32 inputs, and bf16 at head_dim 256, take the CUDA-core kernels (the
-// same two launches, the tile products of flash_common.cuh on tiles staged
-// as fp32; p and ds cast to the input type before their products, as the
-// Pallas kernels cast them). At 256 a dK/dV block keeps 128 of the columns
-// of dK and dV (a grid axis over the column halves, each recomputing S and
-// dP), so that its accumulators fit the registers.
+// fp32 inputs, and bf16 at head_dim 256, 384 and 512, take the CUDA-core
+// kernels (the same two launches, the tile products of flash_common.cuh on
+// tiles staged as fp32; p and ds cast to the input type before their
+// products, as the Pallas kernels cast them). From 256 a dK/dV block keeps
+// 128 of the columns of dK and dV (a grid axis over the column chunks, each
+// recomputing S and dP), so that its accumulators fit the registers; past
+// 256 a dQ block keeps 128 of dQ's columns the same way, on one warp of
+// query rows and 32-key tiles, and a dK/dV block takes 32 keys and 16 query
+// rows a step: shared memory holds the rows at their full width.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -126,13 +135,13 @@ __device__ __forceinline__ float edge_p(const FlashParams& p, float dot, float s
 // dQ and di. One block: HB heads of one kv group x BQ = 64 * 2 / HB query
 // rows; consumer warpgroup w owns 64 rows of one head (Q, dO and O tiles
 // loaded once), the producer streams the K/V tiles the rows can see.
-template <int D, int BK, int ST>
+template <int DK, int BK, int ST>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
          const __grid_constant__ CUtensorMap mo, const __grid_constant__ CUtensorMap mk,
          const __grid_constant__ CUtensorMap mv, const FlashParams p, int HB) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR, DP = Tile<D>::DP;
+  constexpr int SW = Tile<DK>::SW, E = Tile<DK>::E, NR = Tile<DK>::NR, DP = Tile<DK>::DP;
   constexpr int QT = 64 * DP * 2, KT = BK * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   char* sQ = align1024(smem_raw);
@@ -180,9 +189,10 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
         const int h = h0 + w / wph, r0 = q0 + (w % wph) * 64;
         for (int rg = 0; rg < NR; ++rg) {
           const int off = w * QT + rg * 64 * SW;
-          tma_load4(sQ + off, &mq, bar_q, rg * E, h, r0, b);
-          tma_load4(sdO + off, &mdo, bar_q, rg * E, h, r0, b);
-          tma_load4(sO + off, &mo, bar_q, rg * E, h, r0, b);
+          const HeadBox x = head_box(p.D, h, rg * E);
+          tma_load4(sQ + off, &mq, bar_q, x.col, x.head, r0, b);
+          tma_load4(sdO + off, &mdo, bar_q, x.col, x.head, r0, b);
+          tma_load4(sO + off, &mo, bar_q, x.col, x.head, r0, b);
         }
       }
       for (int it = 0; it < n_tiles; ++it) {
@@ -191,8 +201,9 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
         bar_expect(&full[s], 2 * KT);
         const int k0 = (jt_lo + it) * BK;
         for (int rg = 0; rg < NR; ++rg) {
-          tma_load4(sK + s * KT + rg * BK * SW, &mk, &full[s], rg * E, kvh, k0, b);
-          tma_load4(sV + s * KT + rg * BK * SW, &mv, &full[s], rg * E, kvh, k0, b);
+          const HeadBox x = head_box(p.D, kvh, rg * E);
+          tma_load4(sK + s * KT + rg * BK * SW, &mk, &full[s], x.col, x.head, k0, b);
+          tma_load4(sV + s * KT + rg * BK * SW, &mv, &full[s], x.col, x.head, k0, b);
         }
       }
     }
@@ -204,6 +215,12 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
     const char* do_t = sdO + wg * QT;
     const char* o_t = sO + wg * QT;
     bar_wait(bar_q, 0);
+    const int o_sh = head_shift(p.D, h);  // this head's first column in its tiles
+    if (packed_heads(p.D)) {  // Q's and dO's columns outside [o_sh, o_sh + D)
+      zero_outside<DK>(sQ + wg * QT, 64, 0, o_sh, o_sh + p.D);
+      zero_outside<DK>(sdO + wg * QT, 64, 0, o_sh, o_sh + p.D);
+      publish(wg);
+    }
 
     // di = rowsum(dO * O) - dLSE of the thread's rows 16 warp + g (+ 8):
     // each of the row's four lanes sums every fourth 16-byte chunk, then the
@@ -215,7 +232,8 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
       const int lr = 16 * warp + g + 8 * r, i = r0 + lr;
       float acc = 0.f;
 #pragma unroll
-      for (int c = t; c < D / 8; c += 4) {
+      for (int c = t; c < DK / 8; c += 4) {
+        if (8 * c >= o_sh + p.D) break;
         const int at = (c / (E / 8)) * 64 * SW + swizzled<SW>(lr, c % (E / 8));
         acc += dot8(*reinterpret_cast<const uint4*>(do_t + at),
                     *reinterpret_cast<const uint4*>(o_t + at));
@@ -246,13 +264,13 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
         float sc[BK / 2], dp[BK / 2];
         wg_fence();
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
+        for (int j = 0; j < DK / 16; ++j) {
           const uint64_t dq_ = desc_k<SW>(q_t, 64, 0, j), dk_ = desc_k<SW>(k_t, BK, 0, j);
           if (j == 0) mma_ss0<BK>(sc, dq_, dk_);
           else mma_ss<BK>(sc, dq_, dk_);
         }
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
+        for (int j = 0; j < DK / 16; ++j) {
           const uint64_t do_ = desc_k<SW>(do_t, 64, 0, j), dv_ = desc_k<SW>(v_t, BK, 0, j);
           if (j == 0) mma_ss0<BK>(dp, do_, dv_);
           else mma_ss<BK>(dp, do_, dv_);
@@ -295,10 +313,13 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
     for (int r = 0; r < 2; ++r) {
       const int i = r0 + 16 * warp + g + 8 * r;
       if (i >= p.Sq) continue;
-      bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * D;
+      // tile column c is dQ's column c - o_sh: the D real columns of DP
+      bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * p.D - o_sh;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)  // the D real columns of DP
-        store2(row + 8 * n + 2 * t, dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+      for (int n = 0; n < DK / 8; ++n) {
+        const int c = 8 * n + 2 * t;
+        if (c >= o_sh && c < o_sh + p.D) store2(row + c, dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+      }
     }
   }
 }
@@ -306,13 +327,13 @@ dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtenso
 // dK / dV. One block: one kv head, 128 keys (64 a consumer warpgroup, K and
 // V loaded once); the producer streams, for each query head of the group
 // in turn, the BQ-row Q / dO tiles that see the keys, with their LSE and di.
-template <int D, int BQ, int ST>
+template <int DK, int BQ, int ST>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
           const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
           const FlashParams p) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR, DP = Tile<D>::DP;
+  constexpr int SW = Tile<DK>::SW, E = Tile<DK>::E, NR = Tile<DK>::NR, DP = Tile<DK>::DP;
   constexpr int BKV = 64 * kConsumers;
   constexpr int KT = BKV * DP * 2, QT = BQ * DP * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -356,8 +377,9 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
       if (lane == 0) {
         bar_expect(bar_kv, 2 * KT);
         for (int rg = 0; rg < NR; ++rg) {
-          tma_load4(sK + rg * BKV * SW, &mk, bar_kv, rg * E, kvh, k0, b);
-          tma_load4(sV + rg * BKV * SW, &mv, bar_kv, rg * E, kvh, k0, b);
+          const HeadBox x = head_box(p.D, kvh, rg * E);
+          tma_load4(sK + rg * BKV * SW, &mk, bar_kv, x.col, x.head, k0, b);
+          tma_load4(sV + rg * BKV * SW, &mv, bar_kv, x.col, x.head, k0, b);
         }
       }
       for (int it = 0; it < n_iter; ++it) {
@@ -375,8 +397,9 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
         if (lane == 0) {
           bar_expect(&full[s], 2 * QT);
           for (int rg = 0; rg < NR; ++rg) {
-            tma_load4(sQ + s * QT + rg * BQ * SW, &mq, &full[s], rg * E, h, q0, b);
-            tma_load4(sdO + s * QT + rg * BQ * SW, &mdo, &full[s], rg * E, h, q0, b);
+            const HeadBox x = head_box(p.D, h, rg * E);
+            tma_load4(sQ + s * QT + rg * BQ * SW, &mq, &full[s], x.col, x.head, q0, b);
+            tma_load4(sdO + s * QT + rg * BQ * SW, &mdo, &full[s], x.col, x.head, q0, b);
           }
         }
       }
@@ -390,6 +413,12 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
     bar_wait(bar_kv, 0);
+    const int o_sh = head_shift(p.D, kvh);  // the head's first column in its tiles
+    if (packed_heads(p.D)) {  // this warpgroup's K and V columns outside [o_sh, o_sh + D)
+      zero_outside<DK>(sK, BKV, 64 * wg, o_sh, o_sh + p.D);
+      zero_outside<DK>(sV, BKV, 64 * wg, o_sh, o_sh + p.D);
+      publish(wg);
+    }
     for (int it = 0; it < n_iter; ++it) {
       const int s = it % ST;
       bar_wait(&full[s], (it / ST) & 1);
@@ -403,13 +432,13 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
         float sc[BQ / 2], dp[BQ / 2];  // S^T and dP^T: [64 keys x BQ queries]
         wg_fence();
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
+        for (int j = 0; j < DK / 16; ++j) {
           const uint64_t dk_ = desc_k<SW>(sK, BKV, 64 * wg, j), dq_ = desc_k<SW>(q_t, BQ, 0, j);
           if (j == 0) mma_ss0<BQ>(sc, dk_, dq_);
           else mma_ss<BQ>(sc, dk_, dq_);
         }
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
+        for (int j = 0; j < DK / 16; ++j) {
           const uint64_t dv_ = desc_k<SW>(sV, BKV, 64 * wg, j), do_ = desc_k<SW>(do_t, BQ, 0, j);
           if (j == 0) mma_ss0<BQ>(dp, dv_, do_);
           else mma_ss<BQ>(dp, dv_, do_);
@@ -464,26 +493,31 @@ dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
     for (int r = 0; r < 2; ++r) {
       const int j = kw + 16 * warp + g + 8 * r;
       if (j >= p.Sk) continue;
-      const long long row = (((long long)b * p.Sk + j) * p.kvH + kvh) * D;
+      // tile column c is column c - o_sh of dK and dV: the D real columns of DP
+      const long long row = (((long long)b * p.Sk + j) * p.kvH + kvh) * p.D - o_sh;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {  // the D real columns of DP
-        store2(dk_out + row + 8 * n + 2 * t, dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
-        store2(dv_out + row + 8 * n + 2 * t, dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      for (int n = 0; n < DK / 8; ++n) {
+        const int c = 8 * n + 2 * t;
+        if (c < o_sh || c >= o_sh + p.D) continue;
+        store2(dk_out + row + c, dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
+        store2(dv_out + row + c, dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
       }
     }
   }
 }
 
-// ---- the CUDA-core kernels: fp32, and bf16 at head_dim 256 ------------------------
+// ---- the CUDA-core kernels: fp32, and bf16 past head_dim 128 ---------------------
 
-// dQ (and di)
+// dQ (and di): the DC columns of dQ from c0 = DC * blockIdx.z, over key
+// tiles of BK keys
 
-template <typename T, int D>
+template <typename T, int DW, int DC, int BK>
 __global__ void __launch_bounds__(256)
 dq_cuda_cores(const FlashParams p, int HB, int BQ) {
-  constexpr int LD = D + kPad;
-  constexpr int NT = kBK / 8;
-  constexpr int DT = D / 8;
+  constexpr int LD = DW + kPad;
+  constexpr int NT = BK / 8;
+  constexpr int DT = DC / 8;
+  const int D = p.D, c0 = DC * blockIdx.z;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int G = p.H / p.kvH;
@@ -508,9 +542,9 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sdO = sQ + rows * LD;
   float* sK = sdO + rows * LD;
-  float* sV = sK + kBK * LD;
-  int* sKseg = reinterpret_cast<int*>(sV + kBK * LD);
-  float* scratch = reinterpret_cast<float*>(sKseg + kBK) + warp * 16 * (kBK + 4);
+  float* sV = sK + BK * LD;
+  int* sKseg = reinterpret_cast<int*>(sV + BK * LD);
+  float* scratch = reinterpret_cast<float*>(sKseg + BK) + warp * 16 * (BK + 4);
 
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
@@ -518,10 +552,10 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
   const T* dout = static_cast<const T*>(p.dout);
   const int valid_q = min(BQ, p.Sq - q0);
   for (int hh = 0; hh < HB; ++hh) {
-    stage_rows<D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
-                  p.q_ss, BQ, valid_q, tid, nthreads);
-    stage_rows<D>(sdO + hh * BQ * LD, LD, dout + (((long long)b * p.Sq + q0) * p.H + h0 + hh) * D,
-                  (long long)p.H * D, BQ, valid_q, tid, nthreads);
+    stage_rows<DW>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
+                   p.q_ss, BQ, valid_q, D, tid, nthreads);
+    stage_rows<DW>(sdO + hh * BQ * LD, LD, dout + (((long long)b * p.Sq + q0) * p.H + h0 + hh) * D,
+                   (long long)p.H * D, BQ, valid_q, D, tid, nthreads);
   }
   cp_async_commit();
 
@@ -530,19 +564,19 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
     k_hi = min(p.Sk, p.q_offset + q0 + BQ);
     if (p.window > 0) k_lo = max(0, p.q_offset + q0 - p.window + 1);
   }
-  const int jt_lo = k_lo / kBK;
-  const int jt_hi = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
+  const int jt_lo = k_lo / BK;
+  const int jt_hi = k_hi > 0 ? (k_hi + BK - 1) / BK : 0;
   const int n_tiles = max(0, jt_hi - jt_lo);
 
   auto stage = [&](int jt) {
-    const int k0 = jt * kBK;
-    const int valid = min(kBK, p.Sk - k0);
-    stage_rows<D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
-                  valid, tid, nthreads);
-    stage_rows<D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
-                  valid, tid, nthreads);
+    const int k0 = jt * BK;
+    const int valid = min(BK, p.Sk - k0);
+    stage_rows<DW>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, BK,
+                   valid, D, tid, nthreads);
+    stage_rows<DW>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, BK,
+                   valid, D, tid, nthreads);
     if (p.kseg != nullptr)
-      for (int c = tid; c < kBK; c += nthreads)
+      for (int c = tid; c < BK; c += nthreads)
         sKseg[c] = k0 + c < p.Sk ? p.kseg[(long long)b * p.Sk + k0 + c] : 0;
     cp_async_commit();
   };
@@ -569,7 +603,7 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (in && p.dlse != nullptr) acc -= p.dlse[row];
     di[r] = in ? acc : 0.f;
-    if (in && t == 0) p.di[row] = acc;
+    if (in && t == 0 && blockIdx.z == 0) p.di[row] = acc;
   }
 
   float dq[DT][4];
@@ -583,7 +617,7 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();
-    const int k0 = (jt_lo + it) * kBK;
+    const int k0 = (jt_lo + it) * BK;
     const float* kt = sK;
     const float* vt = sV;
 
@@ -591,8 +625,8 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_nt<NT, D>(s, qw, LD, kt, LD);
-    mma_nt<NT, D>(dp, dow, LD, vt, LD);
+    mma_nt<NT, DW>(s, qw, LD, kt, LD);
+    mma_nt<NT, DW>(dp, dow, LD, vt, LD);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -603,7 +637,7 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
         const float pr = lse[r] > kHalfMask ? expf(sv - lse[r]) : 0.f;
         s[n][e] = round_to<T>(pr * (dp[n][e] - di[r]) * p.scale);  // dS, in k's type
       }
-    mma_pv<kBK, DT>(dq, s, kt, LD, scratch);
+    mma_pv<BK, DT>(dq, s, kt + c0, LD, scratch);
     __syncthreads();
     if (it + 1 < n_tiles) stage(jt_lo + it + 1);
   }
@@ -614,33 +648,35 @@ dq_cuda_cores(const FlashParams p, int HB, int BQ) {
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + 8 * r;
     if (i >= p.Sq) continue;
-    T* row = out + (((long long)b * p.Sq + i) * p.H + h) * D;
+    T* row = out + (((long long)b * p.Sq + i) * p.H + h) * D + c0;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) store2(row + n * 8 + 2 * t, dq[n][2 * r], dq[n][2 * r + 1]);
+    for (int n = 0; n < DT; ++n)
+      if (c0 + n * 8 + 2 * t < D) store2(row + n * 8 + 2 * t, dq[n][2 * r], dq[n][2 * r + 1]);
   }
 }
 
-// dK / dV: the block's DC columns of them, from column c0 = DC * blockIdx.z
+// dK / dV: the block's DC columns of them, from column c0 = DC * blockIdx.z,
+// for KB = 16 x (its warps) keys
 
-template <typename T, int D, int DC, int BQ2>
+template <typename T, int DW, int DC, int BQ2, int KB>
 __global__ void __launch_bounds__(128)
 dkv_cuda_cores(const FlashParams p) {
-  constexpr int LD = D + kPad;
+  constexpr int LD = DW + kPad;
   constexpr int NT = BQ2 / 8;  // score tiles of 8 query rows
   constexpr int DT = DC / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
-  const int G = p.H / p.kvH;
+  const int G = p.H / p.kvH, D = p.D;
   const int c0 = DC * blockIdx.z;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * KB;
   const int kvh = blockIdx.y % p.kvH;
   const int b = blockIdx.y / p.kvH;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
 
   float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + kBK * LD;
-  float* sQ = sV + kBK * LD;        // [BQ2][LD]
+  float* sV = sK + KB * LD;
+  float* sQ = sV + KB * LD;         // [BQ2][LD]
   float* sdO = sQ + BQ2 * LD;       // [BQ2][LD]
   float* sLse = reinterpret_cast<float*>(sdO + BQ2 * LD);  // [BQ2]
   float* sDi = sLse + BQ2;
@@ -651,18 +687,18 @@ dkv_cuda_cores(const FlashParams p) {
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   const T* dout = static_cast<const T*>(p.dout);
-  const int valid_k = min(kBK, p.Sk - k0);
-  stage_rows<D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
-                   valid_k, tid, nthreads);
-  stage_rows<D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
-                   valid_k, tid, nthreads);
+  const int valid_k = min(KB, p.Sk - k0);
+  stage_rows<DW>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, KB,
+                 valid_k, D, tid, nthreads);
+  stage_rows<DW>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, KB,
+                 valid_k, D, tid, nthreads);
   cp_async_commit();
 
   // query tiles that see this key tile: a contiguous range
   const int nq = (p.Sq + BQ2 - 1) / BQ2;
   int it_lo = 0, it_hi = nq;
-  while (it_lo < nq && !tile_runs(p, it_lo * BQ2, BQ2, k0, kBK)) ++it_lo;
-  while (it_hi > it_lo && !tile_runs(p, (it_hi - 1) * BQ2, BQ2, k0, kBK)) --it_hi;
+  while (it_lo < nq && !tile_runs(p, it_lo * BQ2, BQ2, k0, KB)) ++it_lo;
+  while (it_hi > it_lo && !tile_runs(p, (it_hi - 1) * BQ2, BQ2, k0, KB)) --it_hi;
   const int per_head = it_hi - it_lo;
   const int n_iter = G * per_head;
 
@@ -671,10 +707,10 @@ dkv_cuda_cores(const FlashParams p) {
     const int q0 = (it_lo + idx - gi * per_head) * BQ2;
     const int h = kvh * G + gi;
     const int valid = min(BQ2, p.Sq - q0);
-    stage_rows<D>(sQ, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ2,
-                  valid, tid, nthreads);
-    stage_rows<D>(sdO, LD, dout + (((long long)b * p.Sq + q0) * p.H + h) * D,
-                  (long long)p.H * D, BQ2, valid, tid, nthreads);
+    stage_rows<DW>(sQ, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss, BQ2,
+                   valid, D, tid, nthreads);
+    stage_rows<DW>(sdO, LD, dout + (((long long)b * p.Sq + q0) * p.H + h) * D,
+                   (long long)p.H * D, BQ2, valid, D, tid, nthreads);
     for (int c = tid; c < BQ2; c += nthreads) {
       const int i = q0 + c;
       const bool in = i < p.Sq;
@@ -715,8 +751,8 @@ dkv_cuda_cores(const FlashParams p) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_nt<NT, D>(s, kw, LD, qt, LD);    // S^T  [16 keys x BQ2 queries]
-    mma_nt<NT, D>(dp, vw, LD, dot, LD);  // dP^T
+    mma_nt<NT, DW>(s, kw, LD, qt, LD);    // S^T  [16 keys x BQ2 queries]
+    mma_nt<NT, DW>(dp, vw, LD, dot, LD);  // dP^T
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -745,6 +781,7 @@ dkv_cuda_cores(const FlashParams p) {
     const long long row = (((long long)b * p.Sk + j) * p.kvH + kvh) * D + c0;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
+      if (c0 + n * 8 + 2 * t >= D) continue;
       store2(dk_out + row + n * 8 + 2 * t, dk[n][2 * r], dk[n][2 * r + 1]);
       store2(dv_out + row + n * 8 + 2 * t, dv[n][2 * r], dv[n][2 * r + 1]);
     }
@@ -753,117 +790,127 @@ dkv_cuda_cores(const FlashParams p) {
 
 // ---- launches -------------------------------------------------------------------
 
-template <int D>
+template <int DK>
 cudaError_t launch_dq_bf16(const FlashParams& p, cudaStream_t stream) {
-  constexpr int SW = Tile<D>::SW, DP = Tile<D>::DP, BK = DP > 64 ? 64 : kDqKeys64, ST = 2;
+  constexpr int SW = Tile<DK>::SW, DP = Tile<DK>::DP, BK = DP > 64 ? 64 : kDqKeys64, ST = 2;
+  const int D = p.D;
   CUtensorMap mq, mdo, mo, mk = {}, mv = {};
   const long long oh = D, os = (long long)p.H * D, ob = (long long)p.Sq * os;
-  if (!hopper::map_rows<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
-      !hopper::map_rows<SW>(&mdo, p.dout, p.B, p.Sq, p.H, D, ob, os, oh, 64) ||
-      !hopper::map_rows<SW>(&mo, p.o, p.B, p.Sq, p.H, D, ob, os, oh, 64) ||
+  if (!map_heads<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
+      !map_heads<SW>(&mdo, p.dout, p.B, p.Sq, p.H, D, ob, os, oh, 64) ||
+      !map_heads<SW>(&mo, p.o, p.B, p.Sq, p.H, D, ob, os, oh, 64) ||
       (p.Sk > 0 &&
-       (!hopper::map_rows<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BK) ||
-        !hopper::map_rows<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BK))))
+       (!map_heads<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BK) ||
+        !map_heads<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BK))))
     return cudaErrorInvalidValue;
   const int G = p.H / p.kvH;
   const int HB = G % kDqHeads == 0 ? kDqHeads : 1;
   const int BQ = 64 * (kConsumers / HB);
   const size_t smem = 1024 + (size_t)(3 * kConsumers * 64 + 2 * ST * BK) * DP * 2 + (1 + 2 * ST) * 8;
-  cudaError_t err = reserve_smem(dq_wgmma<D, BK, ST>, smem);
+  cudaError_t err = reserve_smem(dq_wgmma<DK, BK, ST>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.kvH * (G / HB), (p.Sq + BQ - 1) / BQ);
-  dq_wgmma<D, BK, ST><<<grid, kThreads, smem, stream>>>(mq, mdo, mo, mk, mv, p, HB);
+  dq_wgmma<DK, BK, ST><<<grid, kThreads, smem, stream>>>(mq, mdo, mo, mk, mv, p, HB);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK>
 cudaError_t launch_dkv_bf16(const FlashParams& p, cudaStream_t stream) {
-  constexpr int SW = Tile<D>::SW, DP = Tile<D>::DP, BQ = DP > 64 ? kDkvRows128 : 64;
+  constexpr int SW = Tile<DK>::SW, DP = Tile<DK>::DP, BQ = DP > 64 ? kDkvRows128 : 64;
   constexpr int ST = kDkvStages, BKV = 64 * kConsumers;
+  const int D = p.D;
   CUtensorMap mq, mdo, mk, mv;
   const long long oh = D, os = (long long)p.H * D, ob = (long long)p.Sq * os;
-  if (!hopper::map_rows<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, BQ) ||
-      !hopper::map_rows<SW>(&mdo, p.dout, p.B, p.Sq, p.H, D, ob, os, oh, BQ) ||
-      !hopper::map_rows<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BKV) ||
-      !hopper::map_rows<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BKV))
+  if (!map_heads<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, BQ) ||
+      !map_heads<SW>(&mdo, p.dout, p.B, p.Sq, p.H, D, ob, os, oh, BQ) ||
+      !map_heads<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BKV) ||
+      !map_heads<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BKV))
     return cudaErrorInvalidValue;
   const size_t smem = 1024 + (size_t)(2 * BKV + 2 * ST * BQ) * DP * 2 +
                       (size_t)2 * ST * BQ * sizeof(float) + (1 + 2 * ST) * 8;
-  cudaError_t err = reserve_smem(dkv_wgmma<D, BQ, ST>, smem);
+  cudaError_t err = reserve_smem(dkv_wgmma<DK, BQ, ST>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.kvH, (p.Sk + BKV - 1) / BKV);
-  dkv_wgmma<D, BQ, ST><<<grid, kThreads, smem, stream>>>(mq, mdo, mk, mv, p);
+  dkv_wgmma<DK, BQ, ST><<<grid, kThreads, smem, stream>>>(mq, mdo, mk, mv, p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DW>
 cudaError_t launch_dq_cuda_cores(const FlashParams& p, cudaStream_t stream) {
-  constexpr int LD = D + kPad;
-  int HB, BQ;
   // at 256 the Q and dO rows of four warps and the K / V tiles pass the
-  // shared memory a block may hold: two warps
-  pick_rows(p.H / p.kvH, D > 128 ? 2 : kMaxWarps, &HB, &BQ);
+  // shared memory a block may hold: two warps; past 256 one warp, 32-key
+  // tiles and 128 columns of dQ a block
+  constexpr int DC = DW > 256 ? 128 : DW, BK = DW > 256 ? 32 : kBK, LD = DW + kPad;
+  int HB, BQ;
+  pick_rows(p.H / p.kvH, DW > 256 ? 1 : DW > 128 ? 2 : kMaxWarps, &HB, &BQ);
   const int warps = HB * BQ / 16;
-  const size_t smem = sizeof(float) * (2 * (size_t)HB * BQ * LD + 2 * kBK * LD) +
-                      sizeof(int) * kBK + sizeof(float) * warps * 16 * (kBK + 4);
-  cudaError_t err = reserve_smem(dq_cuda_cores<T, D>, smem);
+  const size_t smem = sizeof(float) * (2 * (size_t)HB * BQ * LD + 2 * BK * LD) +
+                      sizeof(int) * BK + sizeof(float) * warps * 16 * (BK + 4);
+  cudaError_t err = reserve_smem(dq_cuda_cores<T, DW, DC, BK>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB));
-  dq_cuda_cores<T, D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB), DW / DC);
+  dq_cuda_cores<T, DW, DC, BK><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DW>
 cudaError_t launch_dkv_cuda_cores(const FlashParams& p, cudaStream_t stream) {
-  constexpr int BQ2 = D > 64 ? 32 : 64;  // query rows a step: bounds the registers
-  constexpr int DC = D > 128 ? 128 : D;  // dK / dV columns a block
-  constexpr int LD = D + kPad;
-  const size_t smem = sizeof(float) * (2 * (size_t)kBK * LD + 2 * BQ2 * LD) +
-                      sizeof(float) * 3 * BQ2 + sizeof(float) * 4 * 16 * (BQ2 + 4);
-  cudaError_t err = reserve_smem(dkv_cuda_cores<T, D, DC, BQ2>, smem);
+  // query rows a step and keys a block (16 a warp): bound the registers and,
+  // past 256, the shared memory
+  constexpr int BQ2 = DW > 256 ? 16 : DW > 64 ? 32 : 64;
+  constexpr int WARPS = DW > 256 ? 2 : 4, KB = 16 * WARPS;
+  constexpr int DC = DW > 128 ? 128 : DW;  // dK / dV columns a block
+  constexpr int LD = DW + kPad;
+  const size_t smem = sizeof(float) * (2 * (size_t)KB * LD + 2 * BQ2 * LD) +
+                      sizeof(float) * 3 * BQ2 + sizeof(float) * WARPS * 16 * (BQ2 + 4);
+  cudaError_t err = reserve_smem(dkv_cuda_cores<T, DW, DC, BQ2, KB>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sk + kBK - 1) / kBK, p.B * p.kvH, D / DC);
-  dkv_cuda_cores<T, D, DC, BQ2><<<grid, 128, smem, stream>>>(p);
+  const dim3 grid((p.Sk + KB - 1) / KB, p.B * p.kvH, DW / DC);
+  dkv_cuda_cores<T, DW, DC, BQ2, KB><<<grid, WARPS * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const FlashParams& p, bool bf16_in, cudaStream_t s) {
-  if (!bf16_in) return launch_dq_cuda_cores<float, D>(p, s);
-  if constexpr (D > 128) return launch_dq_cuda_cores<bf16, D>(p, s);
-  else return launch_dq_bf16<D>(p, s);
-}
-
-template <int D>
-cudaError_t launch_dkv(const FlashParams& p, bool bf16_in, cudaStream_t s) {
-  if (!bf16_in) return launch_dkv_cuda_cores<float, D>(p, s);
-  if constexpr (D > 128) return launch_dkv_cuda_cores<bf16, D>(p, s);
-  else return launch_dkv_bf16<D>(p, s);
-}
-
-// the head dims of flash.py KERNEL_HEAD_DIMS
-cudaError_t dispatch_dq(const FlashParams& p, bool bf16_in, cudaStream_t s) {
+// The CUDA-core launch of the head_dim's width class (flash_fwd.cu
+// cuda_cores): every multiple of 4 up to 128 in fp32 (32, 64 or 128
+// columns staged), 256, 384 and 512 in both types.
+template <typename T, bool DQ>
+cudaError_t cuda_cores(const FlashParams& p, cudaStream_t s) {
+#define FLASH_CC(DW) (DQ ? launch_dq_cuda_cores<T, DW>(p, s) : launch_dkv_cuda_cores<T, DW>(p, s))
+  if constexpr (sizeof(T) == 4) {
+    if (p.D <= 32) return FLASH_CC(32);
+    if (p.D <= 64) return FLASH_CC(64);
+    if (p.D <= 128) return FLASH_CC(128);
+  }
   switch (p.D) {
-    case 32: return launch_dq<32>(p, bf16_in, s);
-    case 64: return launch_dq<64>(p, bf16_in, s);
-    case 80: return launch_dq<80>(p, bf16_in, s);
-    case 96: return launch_dq<96>(p, bf16_in, s);
-    case 128: return launch_dq<128>(p, bf16_in, s);
-    case 256: return launch_dq<256>(p, bf16_in, s);
+    case 256: return FLASH_CC(256);
+    case 384: return FLASH_CC(384);
+    case 512: return FLASH_CC(512);
     default: return cudaErrorInvalidValue;
   }
+#undef FLASH_CC
 }
 
-cudaError_t dispatch_dkv(const FlashParams& p, bool bf16_in, cudaStream_t s) {
-  switch (p.D) {
-    case 32: return launch_dkv<32>(p, bf16_in, s);
-    case 64: return launch_dkv<64>(p, bf16_in, s);
-    case 80: return launch_dkv<80>(p, bf16_in, s);
-    case 96: return launch_dkv<96>(p, bf16_in, s);
-    case 128: return launch_dkv<128>(p, bf16_in, s);
-    case 256: return launch_dkv<256>(p, bf16_in, s);
-    default: return cudaErrorInvalidValue;
+// bf16 up to 128: the wgmma kernels of DK, the columns the products span
+// rounded up to 16 (flash_fwd.cu dispatch).
+template <bool DQ>
+cudaError_t dispatch(const FlashParams& p, bool bf16_in, cudaStream_t s) {
+#define FLASH_WG(DK) (DQ ? launch_dq_bf16<DK>(p, s) : launch_dkv_bf16<DK>(p, s))
+  if (p.D <= 0 || p.D % (bf16_in ? 2 : 4)) return cudaErrorInvalidValue;
+  if (!bf16_in) return cuda_cores<float, DQ>(p, s);
+  const bool packed = packed_heads(p.D);
+  if (packed && (p.D + kMaxShift > 128 || p.H != p.kvH)) return cudaErrorInvalidValue;
+  switch ((p.D + (packed ? kMaxShift : 0) + 15) / 16) {
+    case 1: return FLASH_WG(16);
+    case 2: return FLASH_WG(32);
+    case 3: return FLASH_WG(48);
+    case 4: return FLASH_WG(64);
+    case 5: return FLASH_WG(80);
+    case 6: return FLASH_WG(96);
+    case 7: return FLASH_WG(112);
+    case 8: return FLASH_WG(128);
+    default: return cuda_cores<bf16, DQ>(p, s);
   }
+#undef FLASH_WG
 }
 
 }  // namespace
@@ -873,7 +920,7 @@ cudaError_t dispatch_dkv(const FlashParams& p, bool bf16_in, cudaStream_t s) {
 // ([B, H, Sq] fp32; dlse may be null). Returns the cudaError_t.
 extern "C" int dstt_flash_dq(flash::FlashParams p, int is_bf16, void* stream) {
   if (p.B == 0 || p.Sq == 0) return cudaSuccess;
-  return dispatch_dq(p, is_bf16 != 0, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(p, is_bf16 != 0, static_cast<cudaStream_t>(stream));
 }
 
 // dK, dV (out0, out1, contiguous [B, Sk, kvH, D]), summed over each kv
@@ -881,5 +928,5 @@ extern "C" int dstt_flash_dq(flash::FlashParams p, int is_bf16, void* stream) {
 // Returns the cudaError_t.
 extern "C" int dstt_flash_dkv(flash::FlashParams p, int is_bf16, void* stream) {
   if (p.B == 0 || p.Sk == 0) return cudaSuccess;
-  return dispatch_dkv(p, is_bf16 != 0, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(p, is_bf16 != 0, static_cast<cudaStream_t>(stream));
 }

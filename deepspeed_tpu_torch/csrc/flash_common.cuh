@@ -11,9 +11,10 @@
 // ptxas branch on each score (PERF.md). They must agree: change
 // them together.
 //
-// The CUDA-core kernels (fp32 inputs, and bf16 at head_dim 256, which no
-// wgmma form of these kernels fits in registers) run their products in full
-// fp32 on tiles staged into shared memory as fp32, in warp tiles of 16 rows:
+// The CUDA-core kernels (fp32 inputs, and bf16 at head_dim 256, 384 and 512,
+// which no wgmma form of these kernels fits in registers) run their products
+// in full fp32 on tiles staged into shared memory as fp32 (DW columns, the
+// head_dim's width class; zero past the head_dim), in warp tiles of 16 rows:
 //
 //   mma_nt: C[16 x 8*NT] += A[16 x KD] . B[8*NT x KD]^T   A, B rows in shared memory
 //   mma_pv: C[16 x 8*NT] += P[16 x KN] . V[KN x 8*NT]     P through shared scratch
@@ -26,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace flash {
 
@@ -68,18 +71,81 @@ struct FlashParams {
 // consumer warpgroups take the rest
 constexpr int kProducerRegs = 24;
 
-// A bf16 tile of rows x D columns in shared memory (hopper.cuh): regions
-// of E columns, swizzled by SW bytes. A head_dim that is no multiple of E
-// (80, 96) takes the next whole region: the tile holds DP columns, TMA
-// fills the columns past D with zeros (the tensor map's inner extent is
-// D), the products over them add nothing, and the stores stop at D.
-template <int D>
+// A bf16 tile of rows x DK columns in shared memory (hopper.cuh): regions
+// of E columns, swizzled by SW bytes. DK is the columns the S and dP
+// products span (the head_dim; for packed heads, below, the head_dim plus
+// kMaxShift) rounded up to 16, one wgmma k-step per 16 columns; the tile
+// holds the next whole width DP (32, 64 or 128 columns). The head_dim D
+// itself is a run-time value: the TMA maps' inner extent is D, so the
+// columns past D arrive as zeros, the products over them add nothing, and
+// the stores stop at D.
+template <int DK>
 struct Tile {
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle = bytes of a region row
-  static constexpr int E = SW / 2;               // columns of a region
-  static constexpr int NR = (D + E - 1) / E;     // regions
-  static constexpr int DP = NR * E;              // columns a tile holds
+  static constexpr int DP = DK <= 32 ? 32 : DK <= 64 ? 64 : 128;  // columns a tile holds
+  static constexpr int SW = DP >= 64 ? 128 : 64;  // swizzle = bytes of a region row
+  static constexpr int E = SW / 2;                // columns of a region
+  static constexpr int NR = DP / E;               // regions
 };
+
+// Heads at a head_dim that is no multiple of 8 (open-llama-3b's 100; bf16,
+// an even D up to 122, one kv head a query head, heads packed: head stride
+// D, which flash.py makes sure of): no head's row is whole 16 bytes, so no
+// TMA map steps over heads, and a TMA box must start on 16 bytes. The maps
+// then span a token's H x D columns (map_heads, hopper.cuh map_cols), and
+// head h's box starts at the 16-byte column at or before h * D: its
+// columns sit at [o, o + D) of the tile, o = (h * D) % 8 (head_shift), the
+// rest holds the neighbours' columns (zeros past the last). Q, K, V, O and
+// dO of one head share o (one kv head a query head), so the consumers zero
+// the columns outside [o, o + D) of one operand of every product over D
+// (zero_outside: Q and dO, or K and V), the products run over o + D
+// columns, and the stores take columns [o, o + D).
+__host__ __device__ inline bool packed_heads(int D) { return D % 8 != 0; }
+constexpr int kMaxShift = 6;  // the largest o at an even D
+
+// Where head h's columns start in its tiles.
+__device__ __forceinline__ int head_shift(int D, int h) {
+  return packed_heads(D) ? (h * D) % 8 : 0;
+}
+
+struct HeadBox {
+  int col, head;
+};
+// The box coordinates (column, head) of head h's tile columns from c.
+__device__ __forceinline__ HeadBox head_box(int D, int h, int c) {
+  return packed_heads(D) ? HeadBox{h * D - (h * D) % 8 + c, 0} : HeadBox{c, h};
+}
+
+// The TMA map of [B, S, H, D] bf16 rows (strides in elements) whose box is
+// box_rows rows x SW / 2 columns of one head.
+template <int SW>
+inline bool map_heads(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
+                      long long ss, long long sh, int box_rows) {
+  if (!packed_heads(D)) return hopper::map_rows<SW>(map, base, B, S, H, D, sb, ss, sh, box_rows);
+  if (sh != D) return false;
+  return hopper::map_cols<SW>(map, base, B, S, (long long)H * D, sb, ss, box_rows);
+}
+
+// Zero the columns outside [lo, hi) of the 64 rows from row0 of a Tile<DK>
+// tile of `rows` rows, by the 128 threads of a warpgroup.
+template <int DK>
+__device__ __forceinline__ void zero_outside(char* tile, int rows, int row0, int lo, int hi) {
+  constexpr int SW = Tile<DK>::SW, E = Tile<DK>::E, C = Tile<DK>::DP / 8;
+  for (int i = threadIdx.x % 128; i < 64 * C; i += 128) {
+    const int r = row0 + i / C, c = i % C;
+    if (8 * c >= lo && 8 * c + 8 <= hi) continue;
+    bf16* e = reinterpret_cast<bf16*>(tile + (c / (E / 8)) * rows * SW +
+                                      hopper::swizzled<SW>(r, c % (E / 8)));
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (8 * c + k < lo || 8 * c + k >= hi) e[k] = __float2bfloat16(0.f);
+  }
+}
+// Make warpgroup wg's stores to shared memory visible to its wgmma (the
+// async proxy): a fence and the warpgroup's named barrier 1 + wg.
+__device__ __forceinline__ void publish(int wg) {
+  hopper::fence_async_smem();
+  hopper::named_sync(1 + wg, 128);
+}
 
 // Whether the query rows [q0, q0 + nq) see any key of [k0, k0 + nk)
 // (pallas_flash._should_run).
@@ -101,8 +167,8 @@ __device__ __forceinline__ bool interior(const FlashParams& p, int q0, int nq, i
 
 // ---- the CUDA-core kernels -------------------------------------------------------
 
-constexpr int kBK = 64;        // keys per tile (forward, dQ) and per dK/dV block
-constexpr int kPad = 4;        // floats per shared row past D: 16 bytes
+constexpr int kBK = 64;        // keys per tile (forward, dQ) and per dK/dV block, DW <= 256
+constexpr int kPad = 4;        // floats per shared row past DW: 16 bytes
 constexpr int kMaxWarps = 4;   // forward / dQ block
 
 // Heads of one kv group a forward / dQ block covers, and its query rows
@@ -127,31 +193,33 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
 }
 
-// Stage `rows` rows of D values into fp32 shared memory (row stride ld);
-// row r is read from base + r * stride when r < valid, else zero-filled.
-// fp32 rows go by cp.async (wait for the group); bf16 rows are read 16
-// bytes at a time and widened to fp32 on the way (plain stores: the
-// __syncthreads before their use orders them).
-template <int D>
+// Stage `rows` rows of the first d values (d a multiple of 4 in fp32, of 8
+// in bf16) into fp32 shared memory of DW columns (row stride ld); row r is
+// read from base + r * stride when r < valid, and the columns from d to DW
+// and the rows from valid on are zero-filled. fp32 rows go by cp.async
+// (wait for the group); bf16 rows are read 16 bytes at a time and widened
+// to fp32 on the way (plain stores: the __syncthreads before their use
+// orders them).
+template <int DW>
 __device__ __forceinline__ void stage_rows(float* smem, int ld, const float* base,
-                                           long long stride, int rows, int valid, int tid,
+                                           long long stride, int rows, int valid, int d, int tid,
                                            int nthreads) {
-  constexpr int C = D / 4;
+  constexpr int C = DW / 4;
   for (int i = tid; i < rows * C; i += nthreads) {
     const int r = i / C, c = (i - r * C) * 4;
-    const bool ok = r < valid;
+    const bool ok = r < valid && c < d;
     cp_async16(smem + r * ld + c, ok ? base + r * stride + c : base, ok);
   }
 }
-template <int D>
+template <int DW>
 __device__ __forceinline__ void stage_rows(float* smem, int ld, const bf16* base,
-                                           long long stride, int rows, int valid, int tid,
+                                           long long stride, int rows, int valid, int d, int tid,
                                            int nthreads) {
-  constexpr int C = D / 8;
+  constexpr int C = DW / 8;
   for (int i = tid; i < rows * C; i += nthreads) {
     const int r = i / C, c = (i - r * C) * 8;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) raw = *reinterpret_cast<const uint4*>(base + r * stride + c);
+    if (r < valid && c < d) raw = *reinterpret_cast<const uint4*>(base + r * stride + c);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
     const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]),
                  x = __bfloat1622float2(h[2]), y = __bfloat1622float2(h[3]);

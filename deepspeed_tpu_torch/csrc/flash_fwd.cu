@@ -56,17 +56,26 @@
 // aligned base: the wrapper (flash.py _rows) passes a contiguous copy of
 // any q, k or v that is not.
 //
-// Head dims: 32, 64 and 128 fill whole 64- or 128-byte regions of the
-// tiles; 80 and 96 (Phi-2, GPT-NeoX-20B) run the head_dim 128 tiles with
-// the columns past D zero (flash_common.cuh Tile): S and the row sums read
-// only the D real columns, O is stored only there.
+// Head dims: any even head_dim up to 128, at run time. One kernel a DK, the
+// head_dim rounded up to 16 (16, 32, ..., 128): S runs DK / 16 k-steps, the
+// tiles hold the next whole width DP of 32, 64 or 128 columns, and the TMA
+// maps' inner extent is D, so the columns past D arrive as zeros
+// (flash_common.cuh Tile); O is stored only at the D real columns. A
+// head_dim that is no multiple of 8 (open-llama-3b's 100) has no head row of
+// whole 16 bytes: its maps span a token's packed heads, each box starts on
+// 16 bytes with the head's columns shifted in the tile, and Q's other
+// columns are zeroed in shared memory (flash_common.cuh packed_heads). The
+// wrapper (flash.py) pads the head dims this does not take (odd ones, GQA)
+// to the next multiple of 8.
 //
-// fp32 inputs, and bf16 at head_dim 256 (GPT-J-6B, Pythia-1B), take the
-// CUDA-core kernel (the tile products of flash_common.cuh, on tiles staged
-// as fp32): a 64-row O tile of 256 fp32 columns is 128 registers a thread
-// alone, which leaves the wgmma form no room for S and P. It casts p to the
-// input type before P V, as the Pallas kernel does. It is right first; a
-// wgmma form at 256 is later work (ROADMAP B10).
+// fp32 inputs, and bf16 at head_dim 256, 384 and 512, take the CUDA-core
+// kernel (the tile products of flash_common.cuh, on tiles staged as fp32):
+// a 64-row O tile of 256 fp32 columns is 128 registers a thread alone,
+// which leaves the wgmma form no room for S and P. Past 256 a block keeps
+// 128 of O's columns (a grid axis over the column chunks, each recomputing
+// S), one warp of query rows and 32-key tiles, so that registers and shared
+// memory hold. It casts p to the input type before P V, as the Pallas
+// kernel does. It is right first; a wgmma form at 256 is later work.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -114,14 +123,14 @@ __device__ __forceinline__ float edge_x(const FlashParams& p, float dot, float s
 }
 
 // S = Q K^T of one 64-row x BK-key tile, both operands K-major in shared
-// memory, over the D real columns; one commit group.
-template <int D, int BK>
+// memory, over the DK columns (zero past D); one commit group.
+template <int DK, int BK>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], const char* q_t, const char* k_t) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW;
+  constexpr int SW = Tile<DK>::SW;
   wg_fence();
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
+  for (int j = 0; j < DK / 16; ++j) {
     const uint64_t dq = desc_k<SW>(q_t, 64, 0, j), dk = desc_k<SW>(k_t, BK, 0, j);
     if (j == 0) mma_ss0<BK>(sc, dq, dk);
     else mma_ss<BK>(sc, dq, dk);
@@ -131,14 +140,14 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], const char* q_t, co
 
 // O += P V over the tile's DP columns, P in registers, V MN-major in shared
 // memory; one commit group.
-template <int D, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[Tile<D>::DP / 2],
+template <int DK, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[Tile<DK>::DP / 2],
                                          const uint32_t (&a)[BK / 16][4], const char* v_t) {
   using namespace hopper;
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    mma_rs_mn<Tile<D>::DP>(o, a[kk], desc_mn<Tile<D>::SW>(v_t, BK, kk));
+    mma_rs_mn<Tile<DK>::DP>(o, a[kk], desc_mn<Tile<DK>::SW>(v_t, BK, kk));
   wg_commit();
 }
 
@@ -238,12 +247,12 @@ __device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2], floa
 // One block: BQ = 64 * NC query rows of one head; consumer warpgroup w
 // owns rows 64 w .. 64 w + 63 (its Q tile loaded once), the producer
 // streams the K/V tiles the rows can see.
-template <int D>
+template <int DK>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
           const __grid_constant__ CUtensorMap mv, const FlashParams p) {
   using namespace hopper;
-  constexpr int SW = Tile<D>::SW, E = Tile<D>::E, NR = Tile<D>::NR, DP = Tile<D>::DP;
+  constexpr int SW = Tile<DK>::SW, E = Tile<DK>::E, NR = Tile<DK>::NR, DP = Tile<DK>::DP;
   constexpr int NC = kFwdConsumers, BK = kFwdKeys, ST = kFwdStages;
   constexpr int QT = 64 * DP * 2, KT = BK * DP * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -283,16 +292,19 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
     if (threadIdx.x == NC * 128) {
       bar_expect(bar_q, NC * QT);
       for (int w = 0; w < NC; ++w)
-        for (int rg = 0; rg < NR; ++rg)
-          tma_load4(sQ + w * QT + rg * 64 * SW, &mq, bar_q, rg * E, h, q0 + 64 * w, b);
+        for (int rg = 0; rg < NR; ++rg) {
+          const HeadBox x = head_box(p.D, h, rg * E);
+          tma_load4(sQ + w * QT + rg * 64 * SW, &mq, bar_q, x.col, x.head, q0 + 64 * w, b);
+        }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % ST, n = it / ST;
         if (n > 0) bar_wait(&empty[s], (n - 1) & 1);
         bar_expect(&full[s], 2 * KT);
         const int k0 = (jt_lo + it) * BK;
         for (int rg = 0; rg < NR; ++rg) {
-          tma_load4(sK + s * KT + rg * BK * SW, &mk, &full[s], rg * E, kvh, k0, b);
-          tma_load4(sV + s * KT + rg * BK * SW, &mv, &full[s], rg * E, kvh, k0, b);
+          const HeadBox x = head_box(p.D, kvh, rg * E);
+          tma_load4(sK + s * KT + rg * BK * SW, &mk, &full[s], x.col, x.head, k0, b);
+          tma_load4(sV + s * KT + rg * BK * SW, &mv, &full[s], x.col, x.head, k0, b);
         }
       }
     }
@@ -318,19 +330,24 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   bar_wait(bar_q, 0);
+  const int o_sh = head_shift(p.D, h);  // this head's first column in its tiles
+  if (packed_heads(p.D)) {  // Q's columns outside [o_sh, o_sh + D): the neighbours'
+    zero_outside<DK>(sQ + wg * QT, 64, 0, o_sh, o_sh + p.D);
+    publish(wg);
+  }
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % ST;
     bar_wait(&full[s], (it / ST) & 1);
     if (it >= t_lo && it < t_hi) {
       float sc[BK / 2];
-      issue_s<D, BK>(sc, q_t, sK + s * KT);
+      issue_s<DK, BK>(sc, q_t, sK + s * KT);
       wg_wait<0>();
       hold(sc);
       softmax<BK>(sc, m, l, alpha, p, r0, (jt_lo + it) * BK, b, scale2, slope2);
       uint32_t a[BK / 16][4];
       to_a<BK>(a, sc);
       rescale<DP>(o, alpha);
-      issue_pv<D, BK>(o, a, sV + s * KT);
+      issue_pv<DK, BK>(o, a, sV + s * KT);
       wg_wait<0>();
       hold(o);
       hold(a);
@@ -348,42 +365,50 @@ fwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtens
     const int i = r0 + 16 * warp + g + 8 * r;
     if (i >= p.Sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * D;
+    // tile column c is O's column c - o_sh: the D real columns of DP
+    bf16* row = out + (((long long)b * p.Sq + i) * p.H + h) * p.D - o_sh;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)  // the D real columns of DP
-      store2(row + 8 * n + 2 * t, o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    for (int n = 0; n < DK / 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      if (c >= o_sh && c < o_sh + p.D)
+        store2(row + c, o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    }
     if (t == 0)
       lse[((long long)b * p.H + h) * p.Sq + i] =
           l[r] == 0.f ? kMask : (fmaxf(m[r], kHalfMask) + log2f(l[r])) * kLn2;
   }
 }
 
-template <int D>
+template <int DK>
 cudaError_t launch_bf16(const FlashParams& p, cudaStream_t stream) {
-  constexpr int SW = Tile<D>::SW, DP = Tile<D>::DP, NC = kFwdConsumers, BK = kFwdKeys,
+  constexpr int SW = Tile<DK>::SW, DP = Tile<DK>::DP, NC = kFwdConsumers, BK = kFwdKeys,
                 ST = kFwdStages;
+  const int D = p.D;
   CUtensorMap mq, mk = {}, mv = {};
-  if (!hopper::map_rows<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
+  if (!map_heads<SW>(&mq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh, 64) ||
       (p.Sk > 0 &&
-       (!hopper::map_rows<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BK) ||
-        !hopper::map_rows<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BK))))
+       (!map_heads<SW>(&mk, p.k, p.B, p.Sk, p.kvH, D, p.k_sb, p.k_ss, p.k_sh, BK) ||
+        !map_heads<SW>(&mv, p.v, p.B, p.Sk, p.kvH, D, p.v_sb, p.v_ss, p.v_sh, BK))))
     return cudaErrorInvalidValue;
   const size_t smem = 1024 + (size_t)(NC * 64 + 2 * ST * BK) * DP * 2 + (1 + 2 * ST) * 8;
-  cudaError_t err = reserve_smem(fwd_wgmma<D>, smem);
+  cudaError_t err = reserve_smem(fwd_wgmma<DK>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.Sq + 64 * NC - 1) / (64 * NC));
-  fwd_wgmma<D><<<grid, kFwdThreads, smem, stream>>>(mq, mk, mv, p);
+  fwd_wgmma<DK><<<grid, kFwdThreads, smem, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
 
-// ---- the CUDA-core kernel: fp32, and bf16 at head_dim 256 -------------------------
+// ---- the CUDA-core kernel: fp32, and bf16 past head_dim 128 ----------------------
 
-template <typename T, int D>
+// One block: HB heads x BQ query rows, the DC columns of O from c0 = DC *
+// blockIdx.z, over key tiles of BK keys; S over the D real columns.
+template <typename T, int DW, int DC, int BK>
 __global__ void __launch_bounds__(128)
 fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
-  constexpr int LD = D + kPad;
-  constexpr int NT = kBK / 8;  // score tiles of 8 keys
-  constexpr int DT = D / 8;    // output tiles of 8 columns
+  constexpr int LD = DW + kPad;
+  constexpr int NT = BK / 8;   // score tiles of 8 keys
+  constexpr int DT = DC / 8;   // output tiles of 8 columns
+  const int D = p.D, c0 = DC * blockIdx.z;
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int G = p.H / p.kvH;
@@ -406,18 +431,18 @@ fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
   const int rows = HB * BQ;
 
   float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + rows * LD;  // [kBK][LD]
-  float* sV = sK + kBK * LD;   // [kBK][LD]
-  int* sKseg = reinterpret_cast<int*>(sV + kBK * LD);  // [kBK]
-  float* scratch = reinterpret_cast<float*>(sKseg + kBK) + warp * 16 * (kBK + 4);
+  float* sK = sQ + rows * LD;  // [BK][LD]
+  float* sV = sK + BK * LD;    // [BK][LD]
+  int* sKseg = reinterpret_cast<int*>(sV + BK * LD);  // [BK]
+  float* scratch = reinterpret_cast<float*>(sKseg + BK) + warp * 16 * (BK + 4);
 
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   const int valid_q = min(BQ, p.Sq - q0);
   for (int hh = 0; hh < HB; ++hh)
-    stage_rows<D>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
-                  p.q_ss, BQ, valid_q, tid, nthreads);
+    stage_rows<DW>(sQ + hh * BQ * LD, LD, q + b * p.q_sb + (long long)q0 * p.q_ss + (h0 + hh) * p.q_sh,
+                   p.q_ss, BQ, valid_q, D, tid, nthreads);
   cp_async_commit();
 
   // key tiles the block can see
@@ -426,19 +451,19 @@ fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
     k_hi = min(p.Sk, p.q_offset + q0 + BQ);
     if (p.window > 0) k_lo = max(0, p.q_offset + q0 - p.window + 1);
   }
-  const int jt_lo = k_lo / kBK;
-  const int jt_hi = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
+  const int jt_lo = k_lo / BK;
+  const int jt_hi = k_hi > 0 ? (k_hi + BK - 1) / BK : 0;
   const int n_tiles = max(0, jt_hi - jt_lo);
 
   auto stage = [&](int jt) {
-    const int k0 = jt * kBK;
-    const int valid = min(kBK, p.Sk - k0);
-    stage_rows<D>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, kBK,
-                  valid, tid, nthreads);
-    stage_rows<D>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, kBK,
-                  valid, tid, nthreads);
+    const int k0 = jt * BK;
+    const int valid = min(BK, p.Sk - k0);
+    stage_rows<DW>(sK, LD, k + b * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss, BK,
+                   valid, D, tid, nthreads);
+    stage_rows<DW>(sV, LD, v + b * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss, BK,
+                   valid, D, tid, nthreads);
     if (p.kseg != nullptr)
-      for (int c = tid; c < kBK; c += nthreads)
+      for (int c = tid; c < BK; c += nthreads)
         sKseg[c] = k0 + c < p.Sk ? p.kseg[(long long)b * p.Sk + k0 + c] : 0;
     cp_async_commit();
   };
@@ -462,13 +487,13 @@ fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();
-    const int k0 = (jt_lo + it) * kBK;
+    const int k0 = (jt_lo + it) * BK;
 
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_nt<NT, D>(s, qw, LD, sK, LD);
+    mma_nt<NT, DW>(s, qw, LD, sK, LD);
 
     float mx[2] = {kMask, kMask};
 #pragma unroll
@@ -505,7 +530,7 @@ fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
     for (int n = 0; n < DT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    mma_pv<kBK, DT>(acc, s, sV, LD, scratch);
+    mma_pv<BK, DT>(acc, s, sV + c0, LD, scratch);
     __syncthreads();  // the tile is free for the next stage
     if (it + 1 < n_tiles) stage(jt_lo + it + 1);
   }
@@ -520,54 +545,77 @@ fwd_cuda_cores(const FlashParams p, int HB, int BQ) {
     const int i = i0 + 8 * r;
     if (i >= p.Sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    T* orow = o + (((long long)b * p.Sq + i) * p.H + h) * D;
+    T* orow = o + (((long long)b * p.Sq + i) * p.H + h) * D + c0;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      store2(orow + n * 8 + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t == 0)
+      if (c0 + n * 8 + 2 * t < D)
+        store2(orow + n * 8 + 2 * t, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (t == 0 && blockIdx.z == 0)
       lse[((long long)b * p.H + h) * p.Sq + i] =
           l[r] == 0.f ? kMask : fmaxf(m[r], kHalfMask) + logf(l[r]);
   }
 }
 
-template <typename T, int D>
+// Past head_dim 256: 128 columns of O a block, one warp, 32-key tiles.
+template <typename T, int DW>
 cudaError_t launch_cuda_cores(const FlashParams& p, cudaStream_t stream) {
-  constexpr int LD = D + kPad;
+  constexpr int DC = DW > 256 ? 128 : DW, BK = DW > 256 ? 32 : kBK, LD = DW + kPad;
   int HB, BQ;
-  pick_rows(p.H / p.kvH, kMaxWarps, &HB, &BQ);
+  pick_rows(p.H / p.kvH, DW > 256 ? 1 : kMaxWarps, &HB, &BQ);
   const int warps = HB * BQ / 16;
-  const size_t smem = sizeof(float) * ((size_t)HB * BQ * LD + 2 * kBK * LD) +
-                      sizeof(int) * kBK + sizeof(float) * warps * 16 * (kBK + 4);
-  cudaError_t err = reserve_smem(fwd_cuda_cores<T, D>, smem);
+  const size_t smem = sizeof(float) * ((size_t)HB * BQ * LD + 2 * BK * LD) +
+                      sizeof(int) * BK + sizeof(float) * warps * 16 * (BK + 4);
+  cudaError_t err = reserve_smem(fwd_cuda_cores<T, DW, DC, BK>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB));
-  fwd_cuda_cores<T, D><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.kvH * (p.H / p.kvH / HB), DW / DC);
+  fwd_cuda_cores<T, DW, DC, BK><<<grid, warps * 32, smem, stream>>>(p, HB, BQ);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch(const FlashParams& p, bool bf16_in, cudaStream_t s) {
-  if (!bf16_in) return launch_cuda_cores<float, D>(p, s);
-  if constexpr (D > 128) return launch_cuda_cores<bf16, D>(p, s);
-  else return launch_bf16<D>(p, s);
+// The CUDA-core kernel of the head_dim's width class (32, 64 or 128
+// columns staged: every multiple of 4 up to 128 in fp32, rows of whole 16
+// bytes), and 256, 384, 512 (pallas_flash.supports' dims past 128) in both
+// types.
+template <typename T>
+cudaError_t cuda_cores(const FlashParams& p, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    if (p.D <= 32) return launch_cuda_cores<T, 32>(p, s);
+    if (p.D <= 64) return launch_cuda_cores<T, 64>(p, s);
+    if (p.D <= 128) return launch_cuda_cores<T, 128>(p, s);
+  }
+  switch (p.D) {
+    case 256: return launch_cuda_cores<T, 256>(p, s);
+    case 384: return launch_cuda_cores<T, 384>(p, s);
+    case 512: return launch_cuda_cores<T, 512>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// the head dims of flash.py KERNEL_HEAD_DIMS
+// bf16 up to 128: the wgmma kernel of DK, the columns the products span
+// rounded up to 16 (D, or D + kMaxShift for packed heads: an even D that is
+// no multiple of 8, at most 122, one kv head a query head).
 cudaError_t dispatch(const FlashParams& p, bool bf16_in, cudaStream_t s) {
-  switch (p.D) {
-    case 32: return launch<32>(p, bf16_in, s);
-    case 64: return launch<64>(p, bf16_in, s);
-    case 80: return launch<80>(p, bf16_in, s);
-    case 96: return launch<96>(p, bf16_in, s);
-    case 128: return launch<128>(p, bf16_in, s);
-    case 256: return launch<256>(p, bf16_in, s);
-    default: return cudaErrorInvalidValue;
+  if (p.D <= 0 || p.D % (bf16_in ? 2 : 4)) return cudaErrorInvalidValue;
+  if (!bf16_in) return cuda_cores<float>(p, s);
+  const bool packed = packed_heads(p.D);
+  if (packed && (p.D + kMaxShift > 128 || p.H != p.kvH)) return cudaErrorInvalidValue;
+  switch ((p.D + (packed ? kMaxShift : 0) + 15) / 16) {
+    case 1: return launch_bf16<16>(p, s);
+    case 2: return launch_bf16<32>(p, s);
+    case 3: return launch_bf16<48>(p, s);
+    case 4: return launch_bf16<64>(p, s);
+    case 5: return launch_bf16<80>(p, s);
+    case 6: return launch_bf16<96>(p, s);
+    case 7: return launch_bf16<112>(p, s);
+    case 8: return launch_bf16<128>(p, s);
+    default: return cuda_cores<bf16>(p, s);
   }
 }
 
 }  // namespace
 
-// q [B, Sq, H, D], k / v [B, Sk, kvH, D] (strided rows, unit last stride);
+// q [B, Sq, H, D], k / v [B, Sk, kvH, D] (strided rows, unit last stride; D
+// a multiple of 8, at most 128, or 256, 384 or 512);
 // writes O (out0, contiguous [B, Sq, H, D]) and LSE (out1, [B, H, Sq] fp32).
 // Returns the cudaError_t of the launch.
 extern "C" int dstt_flash_fwd(flash::FlashParams p, int is_bf16, void* stream) {

@@ -402,6 +402,28 @@ inline bool map_rows(CUtensorMap* map, const void* base, int B, int S, int H, in
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Map of bf16 rows of C columns, [B, S, C] (unit stride along C; token and
+// batch strides ss, sb elements, multiples of 8), as a 4-d map {C, 1, S, B}
+// with map_rows' box (box_rows rows x SW / 2 columns): for rows of heads
+// packed at a head_dim that is no multiple of 8, whose heads no map can
+// step over. A box must start at a multiple of 8 columns (16 bytes: TMA
+// faults with an illegal instruction otherwise, on an H100); past the last
+// column it reads zeros.
+template <int SW>
+inline bool map_cols(CUtensorMap* map, const void* base, int B, int S, long long C, long long sb,
+                     long long ss, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, 1, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {SW / 2, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<SW>::kTma,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Map of a 2-d [rows, cols] tensor of `esize`-byte elements (row stride
 // `ld` elements, unit stride along cols; base and ld * esize multiples of
 // 16 bytes) whose box is box_rows x box_cols elements: with a 128-byte

@@ -31,6 +31,15 @@
 // reads at one offset fall into distinct shared-memory banks. RC (rows a
 // thread carries) is 4 where the group has 4 or more rows, else 2 or 1,
 // chosen per block.
+//
+// Any head_dim: a head_dim that is no multiple of 8 takes the NARROW form,
+// whose shared memory holds rows of DV = D rounded up to 8 columns (zero
+// past D), so every product reads whole 8-element chunks, and whose rows
+// are copied from the pool at the widest width their byte length allows
+// (16, 8, 4 or 2 bytes, row_width), so rows that are no multiple of 16
+// bytes (D 100 in bf16, odd D) read aligned. The other form keeps 16-byte
+// copies only: the width chosen at run time cost the waves at D 64-256
+// 10-30% (kernel_ab.py, PR 16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +53,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileKeys = 64;
 constexpr int kMaxRowChunk = 4;  // query rows one thread carries
 constexpr int kPad = 8;          // padding elements per staged K/V row
+constexpr int kTileBytes = 160 * 1024;  // the K / V tiles' shared memory at most
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -86,6 +96,20 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
+// A w-byte global -> shared copy, w = 16, 8, 4 (cp.async) or 2 (a plain
+// load and store, ordered by the __syncthreads before its use).
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem, int w) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (w == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+  } else if (w == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem));
+  } else if (w == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+  } else {
+    *static_cast<unsigned short*>(smem) = *static_cast<const unsigned short*>(gmem);
+  }
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
@@ -104,8 +128,22 @@ __device__ __forceinline__ float scale_round(float x, float scale) {
   return to_float(from_float<T>(x * scale));
 }
 
-__host__ __device__ inline int tile_keys(int ps) {
-  return ps >= kTileKeys ? ps : (kTileKeys / ps) * ps;
+// The widest load (16, 8, 4 or 2 bytes) that keeps every row of `bytes`
+// bytes aligned, the rows being consecutive from a 16-byte aligned base.
+__host__ __device__ inline int row_width(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+}
+
+// Columns a staged row holds: D rounded up to 8.
+__host__ __device__ inline int width8(int D) { return (D + 7) / 8 * 8; }
+
+// Keys a K/V tile: kTileKeys in whole pages, or a whole page when pages are
+// longer; fewer (halved, down to a page or 16) where the four tiles (K and
+// V, two buffers) of rows this wide would pass kTileBytes (fp32 past D 150).
+__host__ __device__ inline int tile_keys(int ps, int D, int esize) {
+  int keys = kTileKeys;
+  while (keys > ps && keys > 16 && 4 * keys * (width8(D) + kPad) * esize > kTileBytes) keys /= 2;
+  return ps >= keys ? ps : (keys / ps) * ps;
 }
 
 __host__ __device__ inline int padded_rows(int rows) {
@@ -113,26 +151,27 @@ __host__ __device__ inline int padded_rows(int rows) {
 }
 
 // fp32 part of the shared memory, rounded up to 16 bytes
-__host__ __device__ inline size_t smem_float_words(int rows, int ps, int D) {
+__host__ __device__ inline size_t smem_float_words(int rows, int ps, int D, int esize) {
   const size_t rp = padded_rows(rows);
-  const size_t words = 2 * rp * D                // q, accumulator
-                       + rp * tile_keys(ps)      // scores / probabilities
+  const size_t words = 2 * rp * width8(D)                 // q, accumulator
+                       + rp * tile_keys(ps, D, esize)     // scores / probabilities
                        + 3 * rp;                 // max, denominator, rescale
   return (words + 3) / 4 * 4;
 }
 
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int rows, int ps, int D) {
-  return smem_float_words(rows, ps, D) * sizeof(float)
-         + 4 * (size_t)tile_keys(ps) * (D + kPad) * sizeof(T);  // K, V tiles, 2 buffers
+  return smem_float_words(rows, ps, D, sizeof(T)) * sizeof(float)
+         + 4 * (size_t)tile_keys(ps, D, sizeof(T)) * (width8(D) + kPad) * sizeof(T);  // K, V tiles, 2 buffers
 }
 
 // Causal attention of `rows = q_len * g` query rows (row r = t*g + gi is
 // query token t at position kv_len - q_len + t, head kvh*g + gi) against
 // the keys of `table`, each thread carrying RC rows. q (unscaled) and out
 // point at the first token of the group; token t, head h is at
-// (t*H + h)*D. Requires D % 8 == 0 and 16-byte aligned rows.
-template <typename T, int RC>
+// (t*H + h)*D. Any D (NARROW: D no multiple of 8); q, out and the pool
+// 16-byte aligned.
+template <typename T, int RC, bool NARROW>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             const T* __restrict__ k_pages, const T* __restrict__ v_pages,
                             const int* __restrict__ table, int n_table, int H, int kvh,
@@ -141,31 +180,41 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   const int rows = q_len * g;
   const int rp = (rows + RC - 1) / RC * RC;  // rows padded to whole chunks
   const int n_rc = rp / RC;
-  const int TK = tile_keys(ps);
-  const int Dp = D + kPad;
+  const int TK = tile_keys(ps, D, sizeof(T));
+  const int DV = NARROW ? width8(D) : D;  // columns of a staged row, zero past D
+  const int Dp = DV + kPad;
   float* qs = reinterpret_cast<float*>(smem_raw);
-  float* acc = qs + rp * D;
-  float* s = acc + rp * D;
+  float* acc = qs + rp * DV;
+  float* s = acc + rp * DV;
   float* m = s + rp * TK;
   float* l = m + rp;
   float* alpha = l + rp;
-  T* kv_tiles = reinterpret_cast<T*>(smem_raw + smem_float_words(rows, ps, D) * sizeof(float));
+  T* kv_tiles =
+      reinterpret_cast<T*>(smem_raw + smem_float_words(rows, ps, D, sizeof(T)) * sizeof(float));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunks = D / 8;
+  const int chunks = DV / 8;
+  const int rb = D * (int)sizeof(T);  // bytes of a row
 
   for (int i = tid; i < rp * chunks; i += kThreads) {
     const int r = i / chunks, c8 = (i - r * chunks) * 8;
-    if (r < rows) {
-      float* dst = qs + r * D + c8;
-      load8(q + (long)(r / g) * H * D + (long)(kvh * g + r % g) * D + c8, dst);
+    float* dst = qs + r * DV + c8;
+    if constexpr (!NARROW) {
+      if (r < rows) {
+        load8(q + (long)(r / g) * H * D + (long)(kvh * g + r % g) * D + c8, dst);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = scale_round<T>(dst[e], scale);
-    } else {
+        for (int e = 0; e < 8; ++e) dst[e] = scale_round<T>(dst[e], scale);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qs[r * D + c8 + e] = 0.f;
+        for (int e = 0; e < 8; ++e) dst[e] = 0.f;
+      }
+    } else {  // one element at a time, zero past D
+      const T* src = q + (long)(r / g) * H * D + (long)(kvh * g + r % g) * D;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = r < rows && c8 + e < D ? scale_round<T>(to_float(src[c8 + e]), scale) : 0.f;
     }
   }
-  for (int i = tid; i < rp * D; i += kThreads) acc[i] = 0.f;
+  for (int i = tid; i < rp * DV; i += kThreads) acc[i] = 0.f;
   for (int r = tid; r < rp; r += kThreads) {
     m[r] = kMask;
     l[r] = 0.f;
@@ -173,8 +222,13 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
 
   const int n_keys = min(kv_len, n_table * ps);
   const long page_elems = (long)ps * D;
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+  const int W = NARROW ? row_width(rb) : 16;  // bytes a copy
+  const int V = W / (int)sizeof(T);           // elements a copy
   const int vecs = D / V;
+  if constexpr (NARROW) {  // the columns past D of both buffers stay zero
+    for (int i = tid; i < 4 * TK; i += kThreads)
+      for (int e = D; e < DV; ++e) kv_tiles[(long)i * Dp + e] = from_float<T>(0.f);
+  }
   // stage the K and V rows of the tile starting at key k0 into buffer b
   // (K at kv_tiles + b*2*TK*Dp, V right after it); all copies in flight at once
   auto stage = [&](int k0, int b) {
@@ -187,8 +241,13 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       int page = table[key / ps];
       page = page < 0 ? 0 : (page >= P ? P - 1 : page);
       const long src = ((long)kvh * P + page) * page_elems + (long)(key % ps) * D + e;
-      cp_async16(kb + c * Dp + e, k_pages + src);
-      cp_async16(vb + c * Dp + e, v_pages + src);
+      if constexpr (NARROW) {
+        copy_async(kb + c * Dp + e, k_pages + src, W);
+        copy_async(vb + c * Dp + e, v_pages + src, W);
+      } else {
+        cp_async16(kb + c * Dp + e, k_pages + src);
+        cp_async16(vb + c * Dp + e, v_pages + src);
+      }
     }
     cp_async_commit();
   };
@@ -216,14 +275,14 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       for (int i = 0; i < RC; ++i) dot[i] = 0.f;
       if (c < valid) {
         const T* kr = ks + c * Dp;
-        const float* q0 = qs + r0 * D;
-        for (int e = 0; e < D; e += 8) {
+        const float* q0 = qs + r0 * DV;
+        for (int e = 0; e < DV; e += 8) {
           float k8[8];
           load8(kr + e, k8);
 #pragma unroll
           for (int i = 0; i < RC; ++i) {
             float q8[8];
-            load8(q0 + i * D + e, q8);
+            load8(q0 + i * DV + e, q8);
 #pragma unroll
             for (int j = 0; j < 8; ++j) dot[i] = fmaf(q8[j], k8[j], dot[i]);
           }
@@ -272,14 +331,14 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
 
     // P.V: thread (columns d, d+1; rows r0 .. r0+RC-1), the 2*RC sums in
     // registers, so each V element read feeds RC rows
-    const int half_d = D / 2;
+    const int half_d = DV / 2;
     for (int u = tid; u < half_d * n_rc; u += kThreads) {
       const int d = (u % half_d) * 2, r0 = (u / half_d) * RC;
       float o[RC][2];
 #pragma unroll
       for (int i = 0; i < RC; ++i) {
         const float a = alpha[r0 + i];
-        const float2 prev = *reinterpret_cast<const float2*>(acc + (r0 + i) * D + d);
+        const float2 prev = *reinterpret_cast<const float2*>(acc + (r0 + i) * DV + d);
         o[i][0] = prev.x * a;
         o[i][1] = prev.y * a;
       }
@@ -294,7 +353,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       }
 #pragma unroll
       for (int i = 0; i < RC; ++i) {
-        *reinterpret_cast<float2*>(acc + (r0 + i) * D + d) = make_float2(o[i][0], o[i][1]);
+        *reinterpret_cast<float2*>(acc + (r0 + i) * DV + d) = make_float2(o[i][0], o[i][1]);
       }
     }
     __syncthreads();  // this buffer and s are free for the next step
@@ -304,12 +363,13 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   for (int i = tid; i < rows * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     const float den = l[r] > 0.f ? l[r] : 1.f;
-    out[(long)(r / g) * H * D + (long)(kvh * g + r % g) * D + d] = from_float<T>(acc[i] / den);
+    out[(long)(r / g) * H * D + (long)(kvh * g + r % g) * D + d] =
+        from_float<T>(acc[r * DV + d] / den);
   }
 }
 
 // attend_rows with the widest row chunk the group fills.
-template <typename T>
+template <typename T, bool NARROW>
 __device__ void attend_pages(const T* __restrict__ q, T* __restrict__ out,
                              const T* __restrict__ k_pages, const T* __restrict__ v_pages,
                              const int* __restrict__ table, int n_table, int H, int kvh,
@@ -318,14 +378,14 @@ __device__ void attend_pages(const T* __restrict__ q, T* __restrict__ out,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = q_len * g;
   if (rows >= 4) {
-    attend_rows<T, 4>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D, q_len,
-                      kv_len, scale, smem_raw);
+    attend_rows<T, 4, NARROW>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
+                              q_len, kv_len, scale, smem_raw);
   } else if (rows >= 2) {
-    attend_rows<T, 2>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D, q_len,
-                      kv_len, scale, smem_raw);
+    attend_rows<T, 2, NARROW>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
+                              q_len, kv_len, scale, smem_raw);
   } else {
-    attend_rows<T, 1>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D, q_len,
-                      kv_len, scale, smem_raw);
+    attend_rows<T, 1, NARROW>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
+                              q_len, kv_len, scale, smem_raw);
   }
 }
 

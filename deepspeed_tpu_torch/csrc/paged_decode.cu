@@ -42,7 +42,13 @@
 // rest of a block (its page indices, the merges, the counter) is latency
 // that only more overlap between blocks would hide.
 //
-// fp32 runs the same kernel with fp32 loads (4 elements a vector).
+// fp32 runs the same kernel with fp32 loads (4 elements a vector). Any
+// head_dim: a row whose byte length is no multiple of 16 (bf16 D 100, odd D)
+// takes the NARROW form, whose 16-byte vectors are assembled from loads of
+// the widest width the rows' alignment allows (8, 4 or 2 bytes), zero past
+// the row, one query row a block; rows above 512 bytes (fp32 D 256, bf16 D
+// 512) take 32 lanes a row and at most 2 query rows a block. Rows above
+// 1024 bytes are refused (ROADMAP B10).
 #include <algorithm>
 
 #include "paged_attention_common.cuh"
@@ -83,6 +89,39 @@ __device__ __forceinline__ Plan plan(int ctx, int mp, int ps, int splits) {
   return p;
 }
 
+// The 16-byte vector v of a row of `bytes` bytes (row_width w): one load,
+// or, NARROW, loads of w bytes, zero past the row's end.
+template <bool NARROW>
+__device__ __forceinline__ uint4 load_vec(const void* row, int v, int bytes, int w) {
+  const char* src = static_cast<const char*>(row) + v * 16;
+  if constexpr (!NARROW) {
+    return *reinterpret_cast<const uint4*>(src);
+  } else {
+    union {
+      uint4 u;
+      uint2 d[2];
+      unsigned s[4];
+      unsigned short h[8];
+    } x;
+    x.u = make_uint4(0u, 0u, 0u, 0u);
+    const int left = bytes - v * 16;
+    if (w == 8) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (8 * i < left) x.d[i] = *reinterpret_cast<const uint2*>(src + 8 * i);
+    } else if (w == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * i < left) x.s[i] = *reinterpret_cast<const unsigned*>(src + 4 * i);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (2 * i < left) x.h[i] = *reinterpret_cast<const unsigned short*>(src + 2 * i);
+    }
+    return x.u;
+  }
+}
+
 // V elements of type T as floats
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& raw, float* f);
@@ -107,8 +146,9 @@ __device__ __forceinline__ void unpack<float>(const uint4& raw, float* f) {
 // One block: split blockIdx.y of cell blockIdx.x = (sequence, kv head, row
 // group) = (b * kvH + kvh) * RC + rc, so the first splits of every cell,
 // which always hold keys, are dispatched first. LG lanes a key row, NV
-// 16-byte vectors a lane, GR query rows, KPG keys a lane group and pass.
-template <typename T, int LG, int NV, int GR, int KPG>
+// 16-byte vectors a lane, GR query rows, KPG keys a lane group and pass;
+// NARROW rows are no multiple of 16 bytes (load_vec).
+template <typename T, int LG, int NV, int GR, int KPG, bool NARROW>
 __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
   constexpr int VEC = 16 / sizeof(T);  // elements a vector
   constexpr int NG = kThreads / LG;    // lane groups
@@ -126,7 +166,8 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
   const int g = a.H / a.kvH, RC = (g + GR - 1) / GR;
   const int b = cell / (a.kvH * RC), kvh = cell / RC % a.kvH, r0 = cell % RC * GR;
   const int tid = threadIdx.x, grp = tid / LG, li = tid % LG;
-  const int nvec = a.D / VEC;
+  const int rowb = a.D * (int)sizeof(T), nvec = (rowb + 15) / 16;
+  const int lw = dstt::row_width(rowb);  // bytes a load of a NARROW row
   // loads that need no context length, issued before it arrives: q, and
   // the split's pages when it is one unit long (the common case)
   const T* q = static_cast<const T*>(a.q) + ((long long)b * a.H + kvh * g + r0) * a.D;
@@ -136,9 +177,8 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int v = li + j * LG;
-      qraw[r][j] = r0 + r < g && v < nvec
-                       ? *reinterpret_cast<const uint4*>(q + (long long)r * a.D + v * VEC)
-                       : make_uint4(0, 0, 0, 0);
+      qraw[r][j] = r0 + r < g && v < nvec ? load_vec<NARROW>(q + (long long)r * a.D, v, rowb, lw)
+                                          : make_uint4(0, 0, 0, 0);
     }
   const int* table = a.block_tables + (long long)b * a.mp;
   const int guess_lo = s * kUnit / a.ps, guess_n = kUnit / a.ps + 2;
@@ -193,8 +233,8 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
       for (int j = 0; j < NV; ++j) {
         const int v = li + j * LG;
         if (ok && v < nvec) {
-          kr[i][j] = *reinterpret_cast<const uint4*>(kp + row + v * VEC);
-          vr[i][j] = *reinterpret_cast<const uint4*>(vp + row + v * VEC);
+          kr[i][j] = load_vec<NARROW>(kp + row, v, rowb, lw);
+          vr[i][j] = load_vec<NARROW>(vp + row, v, rowb, lw);
         } else {
           kr[i][j] = vr[i][j] = make_uint4(0, 0, 0, 0);
         }
@@ -277,7 +317,8 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
       if (v < nvec) {
         float* dst = red_acc + (grp * GR + r) * a.D + v * VEC;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = acc[r][j][e];
+        for (int e = 0; e < VEC; ++e)
+          if (!NARROW || v * VEC + e < a.D) dst[e] = acc[r][j][e];
       }
     }
     if (li == 0) {
@@ -359,10 +400,10 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
   if (tid == 0) a.counters[cell] = 0;  // ready for the next launch
 }
 
-template <typename T, int LG, int NV, int GR>
+template <typename T, int LG, int NV, int GR, bool NARROW>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   constexpr int KPG = GR >= 8 ? 2 : 4;
-  auto kernel = decode_split<T, LG, NV, GR, KPG>;
+  auto kernel = decode_split<T, LG, NV, GR, KPG, NARROW>;
   const int NG = kThreads / LG, g = a.H / a.kvH;
   // a split's pages: per units of kUnit keys and a page on each side
   const int units = std::max(1, (a.mp * a.ps + kUnit - 1) / kUnit);
@@ -376,25 +417,41 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int LG, int NV>
+// Rows of 32 lanes (more than 512 bytes) take at most 2 query rows a block
+// (paged_decode.row_group): the registers of more would spill. NARROW rows
+// take one query row a block: a form built for every row group would double
+// this file's build time for shapes no preset has (a GQA group at an odd
+// head_dim).
+template <typename T, int LG, int NV, bool NARROW>
 cudaError_t by_rows(const DecodeArgs& a, cudaStream_t stream) {
-  switch (a.GR) {
-    case 1: return launch<T, LG, NV, 1>(a, stream);
-    case 2: return launch<T, LG, NV, 2>(a, stream);
-    case 4: return launch<T, LG, NV, 4>(a, stream);
-    case 8: return launch<T, LG, NV, 8>(a, stream);
-    default: return cudaErrorInvalidValue;
+  if (a.GR == 1) return launch<T, LG, NV, 1, NARROW>(a, stream);
+  if constexpr (!NARROW) {
+    if (a.GR == 2) return launch<T, LG, NV, 2, NARROW>(a, stream);
+    if constexpr (LG < 32) {
+      switch (a.GR) {
+        case 4: return launch<T, LG, NV, 4, NARROW>(a, stream);
+        case 8: return launch<T, LG, NV, 8, NARROW>(a, stream);
+      }
+    }
   }
+  return cudaErrorInvalidValue;
 }
 
-// lanes a row and vectors a lane by the row's 16-byte vectors
-template <typename T>
+// lanes a row and vectors a lane by the row's 16-byte vectors (the last
+// one partial in the NARROW form)
+template <typename T, bool NARROW>
 cudaError_t by_width(const DecodeArgs& a, cudaStream_t stream) {
-  const int nvec = a.D * (int)sizeof(T) / 16;
-  if (nvec <= 8) return by_rows<T, 8, 1>(a, stream);
-  if (nvec <= 16) return by_rows<T, 16, 1>(a, stream);
-  if (nvec <= 32) return by_rows<T, 16, 2>(a, stream);
+  const int nvec = (a.D * (int)sizeof(T) + 15) / 16;
+  if (nvec <= 8) return by_rows<T, 8, 1, NARROW>(a, stream);
+  if (nvec <= 16) return by_rows<T, 16, 1, NARROW>(a, stream);
+  if (nvec <= 32) return by_rows<T, 16, 2, NARROW>(a, stream);
+  if (nvec <= 64) return by_rows<T, 32, 2, NARROW>(a, stream);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t by_type(const DecodeArgs& a, cudaStream_t stream) {
+  return a.D * sizeof(T) % 16 ? by_width<T, true>(a, stream) : by_width<T, false>(a, stream);
 }
 
 }  // namespace
@@ -402,7 +459,8 @@ cudaError_t by_width(const DecodeArgs& a, cudaStream_t stream) {
 // q (unscaled) [B, H, D], k_pages / v_pages [kvH, P, ps, D], out [B, H, D];
 // context_lens [B], block_tables [B, mp] int32; partial and counters as
 // DecodeArgs says, sized by the caller for `splits` splits of GR rows
-// (counters zero). D * itemsize a multiple of 16 and at most 512 bytes.
+// (counters zero). Any D up to 1024 bytes a row; q, the pool and out
+// 16-byte aligned.
 // Returns the cudaError_t.
 extern "C" int dstt_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                  void* out, const int* context_lens, const int* block_tables,
@@ -414,5 +472,5 @@ extern "C" int dstt_paged_decode(const void* q, const void* k_pages, const void*
   const DecodeArgs a{q, k_pages, v_pages, out, context_lens, block_tables, partial, counters,
                      B, H, kvH, P, ps, D, mp, splits, GR, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? by_width<__nv_bfloat16>(a, s) : by_width<float>(a, s);
+  return is_bf16 ? by_type<__nv_bfloat16>(a, s) : by_type<float>(a, s);
 }

@@ -47,10 +47,11 @@
 // the memory's latency.
 //
 // fp32, and shapes the tiles do not take (head_dim other than 64 / 128,
-// page sizes other than 16, 32 or a multiple of 64, GQA groups above 64
-// rows), keep the CUDA-core kernel (ragged_wave_kernel, one block an atom
-// and kv head, attend_rows in paged_attention_common.cuh); the wrapper
-// picks the form (kernels/ragged_paged_attention.py).
+// any of them: open-llama-3b's 100, the tiny presets' 16, odd ones; page
+// sizes other than 16, 32 or a multiple of 64, GQA groups above 64 rows),
+// keep the CUDA-core kernel (ragged_wave_kernel, one block an atom and kv
+// head, attend_rows in paged_attention_common.cuh); the wrapper picks the
+// form (kernels/ragged_paged_attention.py).
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -476,8 +477,9 @@ cudaError_t launch_tc(const WaveArgs& a, const void* k_pages, const void* v_page
 
 // One block an atom and kv head; an atom longer than block_q is taken
 // block_q rows at a time (each such piece an atom of its own, with the
-// same positions). Rows from cu[A] to N are zeroed across the grid.
-template <typename T>
+// same positions). Rows from cu[A] to N are zeroed across the grid. NARROW:
+// a head_dim that is no multiple of 8 (attend_rows).
+template <typename T, bool NARROW>
 __global__ void __launch_bounds__(dstt::kThreads)
 ragged_wave_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages, T* __restrict__ out,
@@ -486,27 +488,31 @@ ragged_wave_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    int ps, int D, int MP, int block_q, float scale) {
   const long tok = (long)H * D;
   {
-    const long long per_row = tok * sizeof(T) / 16, hi = N * per_row;
+    // 16 bytes a store where a token's row is a multiple of 16 bytes, else
+    // an element
+    const bool wide = !NARROW || tok * sizeof(T) % 16 == 0;
+    const long long per_row = wide ? tok * sizeof(T) / 16 : tok, hi = N * per_row;
     const long long lo = min(hi, max(0ll, (long long)cu_q_lens[A] * per_row));
     const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    uint4* o = reinterpret_cast<uint4*>(out);
     for (long long i = lo + b * dstt::kThreads + threadIdx.x; i < hi;
-         i += (long long)gridDim.x * gridDim.y * dstt::kThreads)
-      o[i] = make_uint4(0, 0, 0, 0);
+         i += (long long)gridDim.x * gridDim.y * dstt::kThreads) {
+      if (wide) reinterpret_cast<uint4*>(out)[i] = make_uint4(0, 0, 0, 0);
+      else out[i] = dstt::from_float<T>(0.f);
+    }
   }
   const int a = blockIdx.x, kvh = blockIdx.y;
   if (a >= A) return;
   const int row0 = cu_q_lens[a], q_len = cu_q_lens[a + 1] - row0, kv_len = kv_lens[a];
   for (int off = 0; off < q_len; off += block_q) {
     const int n = min(block_q, q_len - off);
-    dstt::attend_pages<T>(q + (row0 + off) * tok, out + (row0 + off) * tok, k_pages, v_pages,
-                          page_indices + (long)a * MP, MP, H, kvh, H / kvH, P, ps, D, n,
-                          kv_len - q_len + off + n, scale);
+    dstt::attend_pages<T, NARROW>(q + (row0 + off) * tok, out + (row0 + off) * tok, k_pages,
+                                  v_pages, page_indices + (long)a * MP, MP, H, kvh, H / kvH, P,
+                                  ps, D, n, kv_len - q_len + off + n, scale);
     __syncthreads();  // the shared memory is free for the next piece
   }
 }
 
-template <typename T>
+template <typename T, bool NARROW>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, void* out,
                    const int* cu_q_lens, const int* kv_lens, const int* page_indices, int N,
                    int A, int H, int kvH, int P, int ps, int D, int MP, int block_q, float scale,
@@ -517,9 +523,9 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, void
   while (block_q > 1 && dstt::smem_bytes<T>(block_q * (H / kvH), ps, D) > (size_t)kSmemMax)
     --block_q;
   const size_t smem = dstt::smem_bytes<T>(block_q * (H / kvH), ps, D);
-  cudaError_t err = dstt::reserve_smem(ragged_wave_kernel<T>, smem);
+  cudaError_t err = dstt::reserve_smem(ragged_wave_kernel<T, NARROW>, smem);
   if (err != cudaSuccess) return err;
-  ragged_wave_kernel<T><<<dim3(std::max(A, 1), kvH), dstt::kThreads, smem, stream>>>(
+  ragged_wave_kernel<T, NARROW><<<dim3(std::max(A, 1), kvH), dstt::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<T*>(out), cu_q_lens, kv_lens,
       page_indices, N, A, H, kvH, P, ps, D, MP, block_q, scale);
@@ -539,11 +545,13 @@ extern "C" int dstt_ragged_paged_attention(const void* q, const void* k_pages,
                                            float scale, int is_bf16, void* stream) {
   if (N == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(q, k_pages, v_pages, out, cu_q_lens, kv_lens,
-                                         page_indices, N, A, H, kvH, P, ps, D, MP, block_q,
-                                         scale, s)
-                 : launch<float>(q, k_pages, v_pages, out, cu_q_lens, kv_lens, page_indices,
-                                 N, A, H, kvH, P, ps, D, MP, block_q, scale, s);
+#define RAGGED_CC(T, NARROW)                                                                  \
+  launch<T, NARROW>(q, k_pages, v_pages, out, cu_q_lens, kv_lens, page_indices, N, A, H, kvH, \
+                    P, ps, D, MP, block_q, scale, s)
+  if (D % 8)
+    return is_bf16 ? RAGGED_CC(__nv_bfloat16, true) : RAGGED_CC(float, true);
+  return is_bf16 ? RAGGED_CC(__nv_bfloat16, false) : RAGGED_CC(float, false);
+#undef RAGGED_CC
 }
 
 // The tensor-core form, bf16: the same operands; head_dim 64 or 128, H / kvH

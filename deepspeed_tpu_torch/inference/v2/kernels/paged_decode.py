@@ -40,6 +40,7 @@ launches = 0
 
 SPLIT_UNIT = 128  # keys a split unit (csrc/paged_decode.cu kUnit)
 MAX_SPLITS = 16   # splits a sequence at most
+MAX_ROW_BYTES = 1024  # a K / V row: bf16 D 512, fp32 D 256 (any D below)
 
 
 def max_splits(mp: int, ps: int) -> int:
@@ -63,10 +64,16 @@ def split_plan(context_len: int, mp: int, ps: int) -> List[Tuple[int, int]]:
             for s in range(n)]
 
 
-def row_group(g: int) -> int:
+def row_group(g: int, row_bytes: int = 0) -> int:
     """Query rows of one kv head a block takes (the kernel's GR): the whole
-    GQA group up to 8 rows, else groups of 8."""
-    return 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
+    GQA group up to 8 rows, else groups of 8; at most 2 for K / V rows of
+    more than 512 bytes (32 lanes a row: the registers of 2 rows), and 1 for
+    rows that are no multiple of 16 bytes (the kernel's NARROW form, built
+    for one row a block only)."""
+    gr = 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
+    if row_bytes % 16:
+        return 1
+    return min(gr, 2) if row_bytes > 512 else gr
 
 
 def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -140,11 +147,11 @@ def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
         raise ValueError(f"context_lens {tuple(context_lens.shape)} / "
                          f"block_tables {tuple(block_tables.shape)} for {B} "
                          f"sequences")
-    if D * q.element_size() > 512:
+    if D * q.element_size() > MAX_ROW_BYTES:
         raise NotImplementedError(
             f"head_dim {D} in {q.dtype}: the decode kernel takes rows of at "
-            f"most 512 bytes (ROADMAP A5)")
-    gr = row_group(H // kvH)
+            f"most {MAX_ROW_BYTES} bytes, 32 lanes a row (ROADMAP B10)")
+    gr = row_group(H // kvH, D * q.element_size())
     cells = B * kvH * -(-(H // kvH) // gr)
     splits = max_splits(mp, ps)
     stream = torch.cuda.current_stream(q.device).cuda_stream

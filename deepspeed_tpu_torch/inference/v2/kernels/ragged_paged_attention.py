@@ -33,10 +33,12 @@ follows from the operands alone (``tensor_core_form``):
   multiple of 64 (the engine's 16 among them): one block a 64-row query
   tile of consecutive atoms of one sequence (``wave_tiles``), one K/V
   stream a tile;
-- the CUDA-core form for everything else (fp32, other page sizes or
-  widths): one block an atom and kv head; inside it, an atom's
-  ``q_len x g`` query rows of one kv head are ordered ``row = t*g + gi``,
-  the Pallas GQA fold.
+- the CUDA-core form for everything else (fp32, other page sizes, and
+  every other head_dim: open-llama-3b's 100, the tiny presets' 16, odd
+  ones): one block an atom and kv head; inside it, an atom's ``q_len x g``
+  query rows of one kv head are ordered ``row = t*g + gi``, the Pallas GQA
+  fold. Rows are copied from the pool at the widest load their byte length
+  allows (16, 8, 4 or 2 bytes).
 
 ``launches`` counts kernel launches, ``form_launches`` each form's.
 """
@@ -201,8 +203,8 @@ def _kernel():
 
 def check_kernel_args(q, k_pages, v_pages, descriptors) -> None:
     """What both CUDA kernels accept: one CUDA device, bf16 or fp32, the
-    pool's dtype equal to q's, contiguous operands, int32 descriptors,
-    ``head_dim`` a multiple of 8 (16-byte vector loads)."""
+    pool's dtype equal to q's, contiguous 16-byte aligned operands, int32
+    descriptors, q's head_dim equal to the pool's (any head_dim)."""
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages), *descriptors):
         if t.device != dev:
@@ -222,9 +224,9 @@ def check_kernel_args(q, k_pages, v_pages, descriptors) -> None:
     for name, t in descriptors:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32")
-    if q.shape[-1] % 8 or q.shape[-1] != k_pages.shape[-1]:
-        raise ValueError(f"head_dim {q.shape[-1]} must match the pool's "
-                         f"{k_pages.shape[-1]} and be a multiple of 8")
+    if q.shape[-1] != k_pages.shape[-1]:
+        raise ValueError(f"q {tuple(q.shape)} and the pool {tuple(k_pages.shape)} "
+                         f"differ in their last dim")
 
 
 def _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens, page_indices,

@@ -15,9 +15,16 @@ a cotangent on the LSE folds into the backward's ``di`` term. Any ``Sq`` and
   as the Pallas kernels cast them), run for tensors on the CPU;
 - kernels: ``csrc/flash_fwd.cu`` (``_fwd_kernel``'s counterpart) and
   ``csrc/flash_bwd.cu`` (``_dq_kernel``, ``_dkv_kernel``), launched for
-  tensors on a GPU at the head dims of ``KERNEL_HEAD_DIMS`` (bf16 on
-  ``wgmma``, 80 and 96 on the 128-column tiles; fp32, and bf16 at 256, on
-  the CUDA cores). ``launches`` counts launches per kernel.
+  tensors on a GPU at every head_dim the Pallas kernels take
+  (``head_dim_ok``): bf16 up to 128 on ``wgmma`` (the tiles of the head_dim
+  rounded up to 16, zero past it); fp32, and bf16 at 256, 384 and 512, on
+  the CUDA cores. The kernels read a head_dim that is no multiple of 8 in
+  place where they can (``_kernel_inputs``): bf16 rows of an even head_dim
+  (open-llama-3b's 100) as packed heads, fp32 rows of whole 16 bytes;
+  anything else (odd head dims, GQA at such a head_dim) goes in padded with
+  zero columns to the next multiple of 8 (``_pad8``), and the outputs are
+  cut back.
+  ``launches`` counts launches per kernel.
 
 The autograd Function saves only tensors (q, k, v, o, lse and the mask
 inputs), so it is safe under ``torch.utils.checkpoint``.
@@ -34,9 +41,32 @@ import torch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HALF_MASK = MASK_VALUE * 0.5
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# the head dims the kernels take: GPT-2 / Llama at 64 and 128, Phi-2 at 80,
-# GPT-NeoX-20B at 96, GPT-J-6B and Pythia-1B at 256
-KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+# past 128 the kernels stage whole rows in shared memory: up to 512 columns
+MAX_HEAD_DIM = 512
+# packed heads: a head's columns sit up to 6 columns into its 128-column tile
+MAX_PACKED_HEAD_DIM = 122
+
+
+def head_dim_ok(D: int) -> bool:
+    """``pallas_flash.supports``' head_dim rule: any head_dim up to 128, and
+    multiples of 128 past it."""
+    return 0 < D <= 128 or D % 128 == 0
+
+
+def check_head_dim(D: int) -> None:
+    """The kernels' head_dim gate (CUDA tensors only; the plain versions
+    compute any head_dim): ``ValueError`` for a head_dim the Pallas kernel
+    refuses too, ``NotImplementedError`` past ``MAX_HEAD_DIM``."""
+    if not head_dim_ok(D):
+        raise ValueError(
+            f"head_dim {D}: past 128 the flash kernels take multiples of 128 only, as "
+            f"the Pallas flash kernel does (pallas_flash.supports refuses {D} too; the "
+            f"JAX package runs such a head_dim through XLA attention, which this port "
+            f"does not do on CUDA tensors)")
+    if D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head_dim {D}: the flash kernels stage rows of at most {MAX_HEAD_DIM} "
+            f"columns (ROADMAP B10)")
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
@@ -249,10 +279,41 @@ def _check(q, k, v):
                              f"on {q.device}")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head_dim {q.shape[3]}; the kernels take {KERNEL_HEAD_DIMS} (ROADMAP B10: "
-            f"flash at the Pallas kernel's other head dims, up to 128, 384 and 512)")
+    check_head_dim(q.shape[3])
+
+
+def _kernel_inputs(*xs: torch.Tensor):
+    """The tensors (all of one head_dim and dtype) as the kernels read them.
+    A head_dim that is a multiple of 8, and fp32 rows of whole 16 bytes (D a
+    multiple of 4), are read in place (``_rows``). bf16 rows of an even
+    head_dim up to ``MAX_PACKED_HEAD_DIM`` that is no multiple of 8 are read
+    as packed heads when every tensor has the same heads (one kv head a
+    query head): contiguous (head stride D), a token's H x D columns a
+    multiple of 8 and a 16-byte aligned base, for the kernels' tensor maps
+    over whole token rows (``csrc/flash_common.cuh`` ``packed_heads``). Any
+    other (an odd head_dim, GQA) is zero-padded to the next multiple of 8
+    (``_pad8``)."""
+    D = xs[0].shape[-1]
+    if D % 8 == 0 or (xs[0].dtype == torch.float32 and D % 4 == 0):
+        return tuple(_rows(x) for x in xs)
+    H = xs[0].shape[-2]
+    if D % 2 == 0 and D <= MAX_PACKED_HEAD_DIM and xs[0].dtype == torch.bfloat16 and \
+            H * D % 8 == 0 and all(x.shape[-2] == H for x in xs):
+        packed = (x.contiguous() for x in xs)
+        return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in packed)
+    return tuple(_rows(x) for x in _pad8(*xs))
+
+
+def _pad8(*xs: torch.Tensor):
+    """The tensors with their last dim zero-padded to the next multiple of 8
+    (a contiguous copy), or themselves when it is one already: rows of whole
+    16 bytes for the head dims the kernels cannot read in place. Zero
+    columns add nothing to S or dP, and the columns of O, dQ, dK and dV past
+    the head_dim are cut off by the caller."""
+    D = xs[0].shape[-1]
+    if D % 8 == 0:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, 8 - D % 8)) for x in xs)
 
 
 def _params(q, k, v, spec: MaskSpec) -> FlashParams:
@@ -276,7 +337,8 @@ def _stream(t: torch.Tensor) -> int:
 def _fwd_cuda(q, k, v, spec: MaskSpec):
     from ..op_builder.builder import launch_check
     _check(q, k, v)
-    q, k, v = _rows(q), _rows(k), _rows(v)
+    D0 = q.shape[3]
+    q, k, v = _kernel_inputs(q, k, v)
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -285,7 +347,7 @@ def _fwd_cuda(q, k, v, spec: MaskSpec):
     launch_check(_kernels()[0](p, int(q.dtype == torch.bfloat16), _stream(q)),
                  "flash_fwd")
     launches["flash_fwd"] += 1
-    return out, lse
+    return out[..., :D0], lse
 
 
 def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
@@ -293,11 +355,10 @@ def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
     O) - dLSE) into an fp32 buffer that the dK/dV kernel reads."""
     from ..op_builder.builder import launch_check
     _check(q, k, v)
-    q, k, v = _rows(q), _rows(k), _rows(v)
+    D0 = q.shape[3]
+    q, k, v, o, do = _kernel_inputs(q, k, v, o.contiguous(), do.to(q.dtype).contiguous())
     B, Sq, H, D = q.shape
     Sk, kvH = k.shape[1], k.shape[2]
-    o = _rows(o.contiguous())
-    do = _rows(do.to(q.dtype).contiguous())
     lse = lse.float().contiguous()
     dlse = dlse.float().contiguous() if dlse is not None else None
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -315,7 +376,7 @@ def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
     p.out0, p.out1 = dk.data_ptr(), dv.data_ptr()
     launch_check(dkv_fn(p, is_bf16, _stream(q)), "flash_dkv")
     launches["flash_dkv"] += 1
-    return dq, dk, dv
+    return dq[..., :D0], dk[..., :D0], dv[..., :D0]
 
 
 def _on(t: torch.Tensor) -> str:

@@ -22,8 +22,9 @@ attention on the CPU), the port its plain kernel versions.
 (e) a Phi tag the port saved loads in the JAX engine, and a BLOOM tag the
     JAX engine saved loads in the port, params equal;
 (f) the plain flash forward and backward at head_dim 80, 96 and 256
-    against the JAX Pallas kernel in interpret mode; other head dims make
-    the kernels' gate raise, naming ROADMAP B10.
+    against the JAX Pallas kernel in interpret mode; a head_dim that
+    ``pallas_flash.supports`` refuses (136: past 128 and no multiple of it)
+    makes the port's kernel gate raise, while the plain version computes it.
 """
 
 import dataclasses
@@ -263,10 +264,21 @@ def test_flash_plain_versions_at_new_head_dims(D, _pallas_compiler_params):
                                    err_msg=["o", "lse", "dq", "dk", "dv"][i],
                                    **(dict(rtol=2e-5, atol=5e-6) if i < 2
                                       else dict(rtol=5e-5, atol=5e-6)))
-    assert D in tflash.KERNEL_HEAD_DIMS
+    assert tflash.head_dim_ok(D)
 
 
 def test_other_head_dims_raise_naming_b10():
-    x = torch.zeros(1, 4, 2, 48)
-    with pytest.raises(NotImplementedError, match="ROADMAP B10"):
-        tflash._check(x, x, x)
+    """head_dim 136: the JAX shape gate refuses it, and the port's kernel
+    gate raises a ValueError that says so; the plain version (CPU tensors)
+    still computes it, as the JAX package's XLA attention does."""
+    assert not jflash.supports((1, 4, 2, 136), (1, 4, 2, 136), compiled=False)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 4, 2, 136, generator=g) for _ in range(3))
+    out, lse = tflash.flash_attention_with_lse(q, k, v)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 136 ** 0.5
+    s = s.masked_fill(~torch.ones(4, 4, dtype=torch.bool).tril(), float("-inf"))
+    want = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, s.logsumexp(-1), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="pallas_flash.supports refuses 136"):
+        tflash._check(q, k, v)

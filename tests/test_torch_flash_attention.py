@@ -6,7 +6,10 @@ kernel pair run in interpret mode, as the JAX suite runs it on the CPU
 inputs: O, LSE and the gradients of q, k and v (through dO and a cotangent
 on the LSE) across every mask feature (causal, non-causal, window, segment
 ids, ALiBi, negative ``q_offset`` with fully masked rows, Sq != Sk), GQA
-g in {1, 2, 4} and head_dim in {32, 64}. Tolerances are the JAX suite's
+g in {1, 2, 4} and head_dim in {32, 64}; then every head_dim class the
+CUDA kernels added (16, 48, 112, open-llama-3b's 100, an odd 33, 384 and
+512) in fp32 and bf16, and every mask feature at head_dim 100. Tolerances
+are the JAX suite's
 (``tests/unit/ops/test_pallas_flash.py:30-33``): fp32 at ``FP32_TOL`` /
 ``GRAD_TOL``, bf16 at ``BF16_TOL`` / ``BF16_GRAD_TOL``.
 
@@ -147,6 +150,93 @@ def test_bf16(case):
     x, mask = _inputs(CASES[case], g=4, D=64, seed=2)
     _check(_port(x, mask, torch.bfloat16), _jax(x, mask, jnp.bfloat16), BF16_TOL,
            BF16_GRAD_TOL)
+
+
+# head dims the kernels take beyond the ones above: the tiny presets' 16, 48
+# and 112 (16-column steps of the wgmma tiles), open-llama-3b's 100 and an
+# odd 33 (padded to a multiple of 8 for the kernels), 384 and 512 (the
+# CUDA-core forms past 256)
+NEW_HEAD_DIMS = (16, 48, 100, 112, 33, 384, 512)
+
+
+@pytest.mark.parametrize("D", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_head_dims(D, dtype):
+    """O, LSE and the gradients at each head_dim the kernels added, GQA 2,
+    causal, against the Pallas kernels in interpret mode."""
+    x, mask = _inputs(CASES["causal"], g=2, D=D, seed=8, S=32 if D > 128 else 64)
+    if dtype == "fp32":
+        _check(_port(x, mask, torch.float32), _jax(x, mask, jnp.float32), FP32_TOL, GRAD_TOL)
+    else:
+        _check(_port(x, mask, torch.bfloat16), _jax(x, mask, jnp.bfloat16), BF16_TOL,
+               BF16_GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["noncausal", "window", "segids_causal", "alibi",
+                                  "alibi_window", "neg_offset", "short_q"])
+def test_open_llama_head_dim_masks(case):
+    """Every mask feature at open-llama-3b's head_dim 100, fp32."""
+    x, mask = _inputs(CASES[case], g=2, D=100, seed=9)
+    _check(_port(x, mask, torch.float32), _jax(x, mask, jnp.float32), FP32_TOL, GRAD_TOL)
+
+
+@pytest.mark.parametrize("D", [100, 33, 12])
+def test_padding_to_eight_leaves_the_function_unchanged(D):
+    """The kernels' wrappers zero-pad a head_dim that is no multiple of 8
+    (``_pad8``) and cut the outputs back. Through the plain versions, at the
+    unpadded head_dim's scale: O, LSE, dQ, dK and dV of the padded inputs
+    cut to D equal those of the inputs themselves, and the padded columns
+    of O and the gradients are zero."""
+    x, _ = _inputs(CASES["alibi_window"], g=2, D=D, seed=10)
+    q, k, v, do = (torch.from_numpy(x[n]) for n in ("q", "k", "v", "do"))
+    spec = tflash.mask_spec(q, k, causal=True, window=24,
+                            alibi_slopes=torch.from_numpy(alibi_slopes(q.shape[2])))
+    o, lse = tflash.flash_fwd_reference(q, k, v, spec=spec)
+    grads = tflash.flash_bwd_reference(q, k, v, o, lse, do, None, spec=spec)
+    qp, kp, vp, op, dop = tflash._pad8(q, k, v, o, do)
+    assert qp.shape[-1] % 8 == 0 and qp.shape[-1] - D < 8 and qp.is_contiguous()
+    o2, lse2 = tflash.flash_fwd_reference(qp, kp, vp, spec=spec)
+    grads2 = tflash.flash_bwd_reference(qp, kp, vp, op, lse2, dop, None, spec=spec)
+    torch.testing.assert_close(o2[..., :D], o, **FP32_TOL)
+    torch.testing.assert_close(lse2, lse, **FP32_TOL)
+    for a, b in zip(grads2, grads):
+        torch.testing.assert_close(a[..., :D], b, **GRAD_TOL)
+        assert not a[..., D:].any()
+    assert not o2[..., D:].any()
+    assert tflash._pad8(qp)[0] is qp   # a multiple of 8 is passed through
+
+
+@pytest.mark.parametrize("D,dtype,H,form", [
+    (100, torch.bfloat16, 4, "packed"), (100, torch.float32, 4, "in place"),
+    (64, torch.bfloat16, 4, "in place"), (33, torch.bfloat16, 4, "padded"),
+    (102, torch.bfloat16, 2, "padded"), (102, torch.bfloat16, 4, "packed"),
+    (124, torch.bfloat16, 4, "padded"), (90, torch.float32, 4, "padded"),
+    (100, torch.bfloat16, "gqa", "padded")])
+def test_kernel_inputs_form(D, dtype, H, form):
+    """What the kernels read at each head_dim: rows in place (a multiple of
+    8, or fp32 rows of whole 16 bytes), bf16 packed heads of an even
+    head_dim (contiguous, the same tensor when it already is), or copies
+    zero-padded to the next multiple of 8 (odd head dims, GQA, a head_dim
+    past 122, or a token's H x D columns no multiple of 8)."""
+    x = torch.randn(2, 8, 4, D).to(dtype)
+    kv = x[:, :, :2].contiguous() if H == "gqa" else x[:, :, :H].clone()
+    x = x if H == "gqa" else x[:, :, :H].clone()
+    got = tflash._kernel_inputs(x, kv)
+    assert got[0].shape[-1] == (-(-D // 8) * 8 if form == "padded" else D)
+    if form != "padded":
+        assert got[0] is x
+    else:
+        assert torch.equal(got[0][..., :D], x) and not got[0][..., D:].any()
+
+
+def test_head_dim_gate_follows_pallas_supports():
+    """The port's head_dim rule is the Pallas shape gate's: every head_dim
+    up to 128 and the multiples of 128 past it (to the kernels' 512)."""
+    for D in list(range(1, 130)) + [136, 200, 256, 384, 512, 520]:
+        want = jflash.supports((1, 32, 2, D), (1, 32, 2, D), compiled=False)
+        assert tflash.head_dim_ok(D) == want, D
+    with pytest.raises(NotImplementedError, match="ROADMAP B10"):
+        tflash.check_head_dim(640)
 
 
 def _c_fields(path):

@@ -29,7 +29,7 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 CTXS = [1, 3, 4, 5, 9, 17, 30]
 
 
-def _inputs(ctxs, g, seed):
+def _inputs(ctxs, g, seed, d=D):
     rng = np.random.default_rng(seed)
     mp = max(-(-c // PS) for c in ctxs)
     tables, nxt = np.zeros((len(ctxs), mp), np.int32), 1
@@ -37,9 +37,9 @@ def _inputs(ctxs, g, seed):
         nb = -(-c // PS)
         tables[i, :nb] = np.arange(nxt, nxt + nb)
         nxt += nb
-    k = rng.normal(size=(KVH, nxt + 1, PS, D)).astype(np.float32)
-    v = rng.normal(size=(KVH, nxt + 1, PS, D)).astype(np.float32)
-    q = rng.normal(size=(len(ctxs), KVH * g, D)).astype(np.float32)
+    k = rng.normal(size=(KVH, nxt + 1, PS, d)).astype(np.float32)
+    v = rng.normal(size=(KVH, nxt + 1, PS, d)).astype(np.float32)
+    q = rng.normal(size=(len(ctxs), KVH * g, d)).astype(np.float32)
     return q, k, v, np.asarray(ctxs, np.int32), tables
 
 
@@ -96,7 +96,7 @@ def test_rejects_mismatched_heads():
         _port(q[:, :3], k, v, ctx, tables)
 
 
-def _inputs_shuffled(ctxs, g, seed):
+def _inputs_shuffled(ctxs, g, seed, d=D):
     """As ``_inputs``, each sequence's pages drawn from a seeded
     permutation of the pool (not consecutive)."""
     rng = np.random.default_rng(seed)
@@ -106,9 +106,9 @@ def _inputs_shuffled(ctxs, g, seed):
     for i, n in enumerate(counts):
         tables[i, :n] = order[at:at + n]
         at += n
-    k = rng.normal(size=(KVH, at + 2, PS, D)).astype(np.float32)
-    v = rng.normal(size=(KVH, at + 2, PS, D)).astype(np.float32)
-    q = rng.normal(size=(len(ctxs), KVH * g, D)).astype(np.float32)
+    k = rng.normal(size=(KVH, at + 2, PS, d)).astype(np.float32)
+    v = rng.normal(size=(KVH, at + 2, PS, d)).astype(np.float32)
+    q = rng.normal(size=(len(ctxs), KVH * g, d)).astype(np.float32)
     return q, k, v, np.asarray(ctxs, np.int32), tables
 
 
@@ -144,3 +144,27 @@ def test_row_group(g, want):
     """Query rows of one kv head a decode block takes: the GQA group up to
     8 rows, else groups of 8."""
     assert tpd.row_group(g) == want
+
+
+@pytest.mark.parametrize("shuffle", [False, True], ids=["consecutive", "shuffled"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("d", [100, 33, 256])
+def test_head_dims_match_jax_kernel(d, g, shuffle):
+    """open-llama-3b's head_dim 100 and an odd 33 (rows of no whole 16
+    bytes: the CUDA kernel's NARROW form) and 256 (fp32 rows of 1024 bytes:
+    32 lanes a row), consecutive and shuffled tables: the port's plain
+    version against the Pallas kernel in interpret mode, fp32, 2e-5."""
+    make = _inputs_shuffled if shuffle else _inputs
+    q, k, v, ctx, tables = make(CTXS + [40, 1, 16, 17], g, seed=30 + g + d, d=d)
+    j = jnp.asarray
+    want = jpd.paged_gqa_decode(j(q), j(k), j(v), j(ctx), j(tables), interpret=True)
+    np.testing.assert_allclose(_port(q, k, v, ctx, tables), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("row_bytes,want", [(512, 8), (528, 2), (1024, 2), (200, 1), (66, 1)])
+def test_row_group_of_wide_rows(row_bytes, want):
+    """K / V rows above 512 bytes (32 lanes a row) take at most 2 query
+    rows a block (a GQA group of 8 splits into 4 blocks), rows that are no
+    multiple of 16 bytes (the NARROW form) one."""
+    assert tpd.row_group(8, row_bytes) == want
+    assert tpd.row_group(1, row_bytes) == 1

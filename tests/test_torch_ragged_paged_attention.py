@@ -62,14 +62,15 @@ def _entries(mod, seqs):
     return out, nxt
 
 
-def _inputs(seqs, g, seed):
-    entries, n_pages = _entries(twave, seqs)
+def _inputs(seqs, g, seed, d=D, shuffle=False):
+    entries, n_pages = (_entries_shuffled(twave, seqs, seed) if shuffle
+                        else _entries(twave, seqs))
     desc = twave.build_wave(entries, block_q=BQ, block_size=PS)
     rng = np.random.default_rng(seed)
     P = n_pages + 2
-    k = rng.normal(size=(KVH, P, PS, D)).astype(np.float32)
-    v = rng.normal(size=(KVH, P, PS, D)).astype(np.float32)
-    q = rng.normal(size=(len(desc.tokens), KVH * g, D)).astype(np.float32)
+    k = rng.normal(size=(KVH, P, PS, d)).astype(np.float32)
+    v = rng.normal(size=(KVH, P, PS, d)).astype(np.float32)
+    q = rng.normal(size=(len(desc.tokens), KVH * g, d)).astype(np.float32)
     return q, k, v, desc
 
 
@@ -254,3 +255,40 @@ def test_tensor_core_form_rule(dtype, g, D, ps, want):
     """Which kernel a wave takes on the card: bf16 at head_dim 64 / 128, at
     most 64 query rows a kv head, pages of 16, 32 or a multiple of 64."""
     assert trpa.tensor_core_form(dtype, g, D, ps) is want
+
+
+# ---- head dims past the tensor-core form's 64 / 128 -------------------------
+
+
+@pytest.mark.parametrize("shuffle", [False, True], ids=["consecutive", "shuffled"])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("wave", sorted(WAVES))
+@pytest.mark.parametrize("d", [100, 33])
+def test_head_dims_match_jax_kernel(d, wave, g, shuffle):
+    """open-llama-3b's head_dim 100 (bf16 rows of 200 bytes, which the CUDA
+    kernel copies 8 bytes at a time) and an odd 33 (2-byte copies), with
+    consecutive and shuffled block tables: the port's plain version against
+    the Pallas kernel in interpret mode, fp32, 2e-5."""
+    seed = sorted(WAVES).index(wave) * 10 + g + 200 + d
+    q, k, v, desc = _inputs(WAVES[wave], g, seed, d=d, shuffle=shuffle)
+    n = desc.n_tokens
+    np.testing.assert_allclose(_port(q, k, v, desc)[:n],
+                               _jax_pallas(q, k, v, desc)[:n], **TOL)
+
+
+def _descriptors(desc):
+    return (("kv_lens", torch.from_numpy(desc.kv_lens)),
+            ("page_indices", torch.from_numpy(desc.page_indices)),
+            ("cu_q_lens", torch.from_numpy(desc.cu_q_lens)))
+
+
+@pytest.mark.parametrize("d", [100, 16, 33, 80, 256])
+def test_check_kernel_args_takes_any_head_dim(d):
+    """Both CUDA kernels' argument check takes every head_dim the JAX
+    kernels take (no multiple-of-8 rule); q and the pool must agree on it."""
+    q, k, v, desc = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                     for a in _inputs(WAVES["mixed"], 2, seed=d, d=d))
+    trpa.check_kernel_args(q, k, v, _descriptors(desc))
+    trpa.check_kernel_args(q.bfloat16(), k.bfloat16(), v.bfloat16(), _descriptors(desc))
+    with pytest.raises(ValueError, match="last dim"):
+        trpa.check_kernel_args(q[..., :-1].contiguous(), k, v, _descriptors(desc))
