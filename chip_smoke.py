@@ -19,7 +19,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tiny presets' 16, with shuffled block tables, chunks about the 64-row
    query tile's edges, a 40-sequence decode wave, a page size the
    tensor-core wave kernel does not take, decode contexts of 1 to 4133
-   keys; two runs bit-identical, the wave's padding rows zero; with its
+   keys, and ALiBi and windows in both kernels and both wave forms
+   (BLOOM-7b1's and bloom-560m's slopes, GPT-Neo-2.7b's window of 256 with
+   decode splits that start inside the context, both at once on GQA,
+   windows crossing pages, the NARROW forms at D 100; the bound counts the
+   keys the queries see); two runs bit-identical, the wave's padding rows zero; with its
    time, the plain version's time and the card's lower bound for the same
    work, and at the main shapes the time after a clean L2 flush and, as
    context, ``scaled_dot_product_attention`` over the same K/V gathered
@@ -38,7 +42,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in place timed beside the zero-padded design, its kernels and its
    copies; the forward's time is the wrapper call's, its kernel's alone
    printed beside it), at the tiny presets' own attention (head_dim 16, S
-   64: one kv head, ALiBi, window 8 unscaled; twice for equal bits) and at small
+   64: one kv head, ALiBi, window 8 unscaled; twice for equal bits), at
+   bert-large's (B 32, S 512, 16 heads of 64, bidirectional, padded rows
+   as segment ids; timed beside SDPA with the same boolean mask) and at small
    cases (negative q_offset with fully masked rows, window, segment ids,
    ALiBi, Sq != Sk, lengths off the tile); the fused Adam kernel on a 2048 x 5632 leaf and
    on a fused bucket of lane-padded small leaves, adamw and lamb, fp32
@@ -154,19 +160,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    micro 8, bf16, AdamW, clipping 1.0; 2 warm-up and 5 timed steps: losses
    finite, the first near its expected value and falling; 64 flash
    forwards, 32 dQ and 32 dK/dV a step, all at head_dim 80); Falcon-7B at
-   full width and depth (71 heads on one kv head) served through
+   full width and depth (71 heads on one kv head), BLOOM-7b1 (ALiBi, vocab
+   250880) and GPT-Neo-2.7b (window 256 on alternate layers) served through
    ``build_engine`` + ``generate`` with phase 5's requests, cold and warm
    (both paged kernels once a layer a wave and decode step, the waves in
-   the CUDA-core form), one prompt's prefill logits against the plain
-   forward; then each of gpt2-xl, opt-6.7b, phi-2, falcon-7b, bloom-7b1,
-   gpt-neox-20b, gpt-neo-2.7b and gpt-j-6b at full width and 2 layers: 3
+   the CUDA-core form for Falcon, the tensor-core form for the others),
+   one prompt's prefill logits against the plain forward, a profile; then
+   each of gpt2-xl, opt-6.7b, phi-2, falcon-7b, bloom-7b1, gpt-neox-20b,
+   gpt-neo-2.7b and gpt-j-6b at full width and 2 layers: 3 steps through
+   the kernels and 3 through their plain versions (losses within 2e-2), a
+   prompt's logits through the serving engine within twice the plain bf16
+   path's error; then each tiny decoder preset (head_dim 16): 3 training
    steps through the kernels and 3 through their plain versions (losses
-   within 2e-2), a prompt's logits through the serving engine within twice
-   the plain bf16 path's error, and for BLOOM and GPT-Neo the engine build
-   raising, naming ROADMAP A5.3; then each tiny decoder preset (head_dim
-   16): 3 training steps through the kernels and 3 through their plain
-   versions (losses within 2e-2), one served request (BLOOM and GPT-Neo:
-   the build raising);
+   within 2e-2), one served request;
 12. open-llama-3b (``[open-llama]``): 26 layers, hidden 3200, 32 heads of
    head_dim 100 (3.43e9 params), random weights from a seed, trained
    through ``initialize`` + ``train_batch`` in phase 7's configuration
@@ -178,8 +184,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``generate`` with phase 5's requests, cold and warm (both paged kernels
    once a layer a wave and decode step, the waves in the CUDA-core form,
    the pool ~333 KB a token), one prompt's prefill logits within twice the
-   plain bf16 path's error against the fp32 plain forward; the phase's and
-   the command's seconds.
+   plain bf16 path's error against the fp32 plain forward; the phase's
+   seconds;
+13. the encoders (``[encoders]``): bert-large MLM at full width and depth
+   (24 layers, hidden 1024, 16 heads of 64, FFN 4096, vocab 30522), S 512,
+   micro 32, bf16, AdamW, remat full, through ``initialize`` +
+   ``train_batch`` on padded rows (lengths drawn in 128-512, two token
+   types, 15% of the real positions labelled): 2 warm-up and 5 timed steps
+   (losses finite and falling; 48 flash forwards, 24 dQ and 24 dK/dV a
+   step, non-causal with the padding as segment ids; step time, tokens/s,
+   MFU counting S^2 pairs and the tied MLM decoder, peak memory, a
+   profiled step); every remat policy at the same shape (step time, peak
+   memory, flash forwards a step, the losses equal to full remat's); a
+   2-layer bert-large through the kernels and through their plain
+   versions (losses within 2e-2); the task heads through ``initialize``:
+   bert-base sequence and token classification (S 128) and question
+   answering (S 384), roberta-base sequence classification with MuAdamW,
+   on padded batches; the phase's and the command's seconds.
 
 Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
 plain version, q and scale byte-identical: fp32 and bf16 rows of the
@@ -286,6 +307,20 @@ WAVE_CASES = {
     "open-llama-3b-d100": ([(256, 0), (1, 300), (20, 5)], 32, 1, 100),
     "tiny-d16": ([(64, 0), (1, 100), (7, 3)], 4, 1, 16),
     "odd-d33-g2": ([(40, 0), (1, 77), (9, 5)], 2, 2, 33, {"shuffle": True}),
+    # ALiBi (BLOOM's slopes) and windows in both forms: BLOOM-7b1 and
+    # bloom-560m (tensor cores, D 128 / 64), GPT-Neo-2.7b's local layers
+    # (window 256: chunks whose window starts mid-page and mid-step, a
+    # chunk longer than the window), both at once on GQA in both forms (a
+    # window of 37 crossing pages of 16), and the CUDA-core form at D 100
+    "bloom-7b1-alibi": ([(256, 0), (1, 300), (20, 5), (64, 640)], 32, 1, 128,
+                        {"alibi": True}),
+    "bloom-560m-alibi": ([(256, 0), (1, 300), (20, 5)], 16, 1, 64, {"alibi": True}),
+    "gpt-neo-2.7b-window": ([(256, 0), (1, 300), (20, 301), (300, 100), (1, 1000)], 20, 1,
+                            128, {"window": 256, "shuffle": True}),
+    "alibi-window-g4-d128": ([(100, 0), (1, 300), (17, 60), (64, 37)], 8, 4, 128,
+                             {"alibi": True, "window": 37, "shuffle": True}),
+    "alibi-window-g4-d100": ([(64, 0), (1, 200), (30, 50)], 8, 4, 100,
+                             {"alibi": True, "window": 40, "shuffle": True}),
 }
 DECODE_CASES = {
     # name: (context lengths, kvH, g, D[, options])
@@ -309,6 +344,17 @@ DECODE_CASES = {
     "open-llama-3b-d100": ([513, 385, 301, 201], 32, 1, 100),
     "tiny-d16": ([513, 385, 301, 201], 4, 1, 16),
     "odd-d33-g2": ([77, 1, 300], 2, 2, 33, {"shuffle": True}),
+    # ALiBi and windows: BLOOM-7b1's decode shape; GPT-Neo-2.7b's local
+    # layers, whose splits start inside the context at ctx - 256 (mid-page:
+    # 1000 - 256 = 744), contexts at and about the window; both at once on
+    # GQA, and the NARROW form at D 100 with a window crossing pages
+    "bloom-7b1-alibi": ([513, 385, 301, 201, 131, 78, 34, 18], 32, 1, 128, {"alibi": True}),
+    "gpt-neo-2.7b-window": ([1000, 300, 257, 256, 255, 130, 17, 1], 20, 1, 128,
+                            {"window": 256, "shuffle": True}),
+    "alibi-window-g8-d64": ([4133, 1, 16, 300], 4, 8, 64,
+                            {"alibi": True, "window": 300, "shuffle": True}),
+    "alibi-window-g4-d100": ([700, 77, 1, 300], 8, 4, 100,
+                             {"alibi": True, "window": 200, "shuffle": True}),
 }
 # the fp32 checks of both paged kernels run up to head_dim 256 (decode rows
 # of 1024 bytes take 32 lanes a row; serving is bf16)
@@ -388,13 +434,17 @@ FLASH_CASES = {
     "bloom-tiny-alibi": (1, 64, 64, 4, 4, 16, {"alibi": True}),
     "gpt-neo-tiny-window": (1, 64, 64, 4, 4, 16, {"window": 8, "scale": 1.0,
                                                   "q_std": 16 ** -0.5}),
+    # bert-large's training shape: bidirectional, the padding mask of
+    # padded rows (lengths drawn in 128-512) as segment ids, pads among pads
+    "bert-large-b32": (32, 512, 512, 16, 16, 64, {"causal": False, "padding": True}),
 }
 MAIN_FLASH = "tinyllama-b8"
 FAMILY_FLASH = ("phi-2-b4", "gpt-neox-20b", "gpt-j-6b", "falcon-7b-mqa", "bloom-7b1-alibi",
                 "gpt-neo-2.7b-window")
 HEAD_DIM_FLASH = ("d16", "d48", "d112", "open-llama-3b-b8", "d384", "d512")
-FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha") + FAMILY_FLASH + HEAD_DIM_FLASH
-FLASH_BITWISE = (MAIN_FLASH,) + FAMILY_FLASH + HEAD_DIM_FLASH + (
+FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha") + FAMILY_FLASH + HEAD_DIM_FLASH + (
+    "bert-large-b32",)
+FLASH_BITWISE = (MAIN_FLASH,) + FAMILY_FLASH + HEAD_DIM_FLASH + ("bert-large-b32",) + (
     "d100-segments-alibi", "d33-odd", "d30-packed", "d122-packed-window",
     "d100-mqa-padded", "falcon-tiny-mqa", "bloom-tiny-alibi",
     "gpt-neo-tiny-window")   # two runs, the same bits
@@ -577,20 +627,38 @@ MIXTRAL_LAYERS, MIXTRAL_LOGIT_LAYERS = 24, 2
 FAMILY_MODELS = {"gpt2-xl": "gpt2", "opt-6.7b": "opt", "phi-2": "phi", "falcon-7b": "falcon",
                  "bloom-7b1": "bloom", "gpt-neox-20b": "gpt_neox",
                  "gpt-neo-2.7b": "gpt_neo", "gpt-j-6b": "gptj"}
-FAMILY_UNSERVED = ("bloom-7b1", "gpt-neo-2.7b")   # ALiBi, windows: ROADMAP A5.3
+# the families served at full width and depth, and the form their waves take
+FAMILY_SERVED = {"falcon-7b": "cuda_cores", "bloom-7b1": "tensor_cores",
+                 "gpt-neo-2.7b": "tensor_cores"}
 PHI2_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=8)
 # the tiny decoder presets, all at head_dim 16: one training step through the
 # kernels and one through their plain versions, and one served request
 TINY_FAMILIES = {"opt-tiny": "opt", "phi-tiny": "phi", "falcon-tiny": "falcon",
                  "bloom-tiny": "bloom", "gpt-neox-tiny": "gpt_neox",
                  "gpt-neo-tiny": "gpt_neo", "gptj-tiny": "gptj"}
-TINY_UNSERVED = ("bloom-tiny", "gpt-neo-tiny")   # ALiBi, windows: ROADMAP A5.3
 TINY_PROMPT, TINY_NEW_TOKENS = 20, 8
 # [open-llama]: open-llama-3b (26 layers, hidden 3200, 32 heads of head_dim
 # 100, 3.43e9 params) at full width and depth, phase 7's configuration
 OPEN_LLAMA_MICRO, OPEN_LLAMA_STEPS = 8, 3
 HEAD_DIM_AB_ROUNDS = 3   # packed heads against zero-padded copies, A B B A
 FAMILY_PATH_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1)
+# [encoders]: bert-large MLM at full width and depth (24 layers, hidden
+# 1024, 16 heads of 64, FFN 4096, vocab 30522), S 512, bf16, AdamW, remat
+# full; padded rows (lengths drawn in 128-512), two token types, 15% of the
+# real positions labelled
+BERT_SEQ, BERT_MICRO, BERT_STEPS = 512, 32, 5
+BERT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=BERT_MICRO)
+REMAT_STEPS = 2   # timed steps a policy, after one warm-up
+REMAT_POLICIES = ("full", "nothing_saveable", "attention_only", "dots_saveable",
+                  "checkpoint_dots", "dots_with_no_batch_dims_saveable",
+                  "checkpoint_dots_with_no_batch_dims", "everything_saveable", "alternating")
+# the task heads through initialize: (preset, body, task, head style, S, micro, optimizer)
+TASK_CASES = (("bert-base", "bert", "sequence_classification", "bert", 128, 32, "AdamW"),
+              ("bert-base", "bert", "token_classification", "bert", 128, 32, "AdamW"),
+              ("bert-base", "bert", "question_answering", "bert", 384, 16, "AdamW"),
+              ("roberta-base", "roberta", "sequence_classification", "roberta", 128, 32,
+               "MuAdamW"))
+TASK_STEPS = 3
 FAMILY_LOGIT_PROMPT = 300    # tokens of the 2-layer serving logits check (2 chunks)
 
 
@@ -690,9 +758,17 @@ def page_lists(torch, counts, shuffle, seed=0):
     return lists, total + 2
 
 
-def wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D, ps, gen, shuffle=False):
+def visible(pos, window):
+    """Keys a query at ``pos`` sees: all before it, or its window's."""
+    return pos + 1 if window <= 0 else min(pos + 1, window)
+
+
+def wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D, ps, gen, shuffle=False,
+              window=0):
     """Inputs of one ragged wave: seqs [(q_len, seen)], disjoint pages per
-    sequence, descriptors from the port's wave builder."""
+    sequence, descriptors from the port's wave builder. The bound counts
+    the keys the queries see (under a window, from the first query's window
+    on)."""
     tables, P = page_lists(torch, [-(-(seen + q_len) // ps) for q_len, seen in seqs], shuffle)
     entries = [WaveEntry(uid, [0] * q_len, seen, tables[uid])
                for uid, (q_len, seen) in enumerate(seqs)]
@@ -705,15 +781,15 @@ def wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D, ps, gen, shuffle=Fa
     t = lambda a: torch.from_numpy(a).to(dev)
     args = (q, k, v, t(desc.kv_lens), t(desc.page_indices), t(desc.cu_q_lens))
     n = desc.n_tokens
-    kv_tokens = sum(seen + q_len for q_len, seen in seqs)
-    pairs = sum(seen + t_ + 1 for q_len, seen in seqs for t_ in range(q_len))
+    kv_tokens = sum(seen + q_len - (seen + 1 - visible(seen, window)) for q_len, seen in seqs)
+    pairs = sum(visible(seen + t_, window) for q_len, seen in seqs for t_ in range(q_len))
     nbytes = (2 * n * H * D + 2 * kvH * kv_tokens * D) * 2 \
         + 4 * (desc.kv_lens.size * 2 + 1 + desc.page_indices.size)
     flops = 4 * pairs * H * D
     return args, n, nbytes, flops
 
 
-def decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle=False):
+def decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle=False, window=0):
     dev, bf16 = "cuda", torch.bfloat16
     mp = max(-(-c // ps) for c in ctxs)
     lists, P = page_lists(torch, [-(-c // ps) for c in ctxs], shuffle)
@@ -724,18 +800,40 @@ def decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle=False):
     q = torch.randn(len(ctxs), H, D, generator=gen, device=dev).to(bf16)
     ctx = torch.tensor(ctxs, dtype=torch.int32, device=dev)
     tab = torch.tensor(tables, dtype=torch.int32, device=dev)
-    nbytes = (2 * len(ctxs) * H * D + 2 * kvH * sum(ctxs) * D) * 2 \
+    keys = sum(visible(c - 1, window) for c in ctxs)
+    nbytes = (2 * len(ctxs) * H * D + 2 * kvH * keys * D) * 2 \
         + 4 * (len(ctxs) + len(ctxs) * mp)
-    flops = 4 * sum(ctxs) * H * D
+    flops = 4 * keys * H * D
     return (q, k, v, ctx, tab), nbytes, flops
 
 
 def case_options(case):
-    """(seqs or contexts, kvH, g, D, page size, shuffle) of a WAVE_CASES or
-    DECODE_CASES entry."""
+    """(seqs or contexts, kvH, g, D, page size, shuffle, window) of a
+    WAVE_CASES or DECODE_CASES entry."""
     first, kvH, g, D, *opt = case
     opt = opt[0] if opt else {}
-    return first, kvH, g, D, opt.get("ps", PAGE_SIZE), opt.get("shuffle", False)
+    return (first, kvH, g, D, opt.get("ps", PAGE_SIZE), opt.get("shuffle", False),
+            opt.get("window", 0))
+
+
+def case_masks(torch, case):
+    """The keyword arguments of a case's ALiBi slopes (BLOOM's, fp32 on the
+    card) and window, for the wrappers and their plain versions alike."""
+    _, kvH, g, _, *opt = case
+    opt = opt[0] if opt else {}
+    kw = {}
+    if opt.get("alibi"):
+        from deepspeed_tpu_torch.ops.transformer.attention import alibi_slopes
+        kw["alibi_slopes"] = torch.from_numpy(alibi_slopes(kvH * g)).cuda()
+    if opt.get("window"):
+        kw["window"] = opt["window"]
+    return kw
+
+
+def masks_note(kw):
+    """How a paged case's print names its ALiBi slopes and window."""
+    return "".join([", ALiBi" if "alibi_slopes" in kw else "",
+                    f", window {kw['window']}" if "window" in kw else ""])
 
 
 def sdpa_context_ms(torch, flush, q, k_pages, v_pages, tables, q_lens, ctxs):
@@ -843,6 +941,9 @@ def flash_case(torch, flash, B, Sq, Sk, H, kvH, D, mask, dtype, gen):
     k, v, do = rnd(B, Sk, kvH, D), rnd(B, Sk, kvH, D), rnd(B, Sq, H, D)
     seg = (torch.randint(0, 3, (B, Sk), generator=gen, device=dev).to(torch.int32)
            if mask.get("segments") else None)
+    if mask.get("padding"):
+        lens = torch.randint(Sk // 4, Sk + 1, (B, 1), generator=gen, device=dev)
+        seg = (torch.arange(Sk, device=dev)[None, :] < lens).to(torch.int32)
     slopes = None
     if mask.get("alibi"):
         slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device=dev, dtype=torch.float32) / H)
@@ -868,10 +969,15 @@ def flash_case(torch, flash, B, Sq, Sk, H, kvH, D, mask, dtype, gen):
 
 
 def sdpa_mask(torch, spec, Sq, Sk, H, dtype):
-    """``scaled_dot_product_attention``'s mask arguments for a causal call
-    of ``spec``: ``is_causal``, or with ALiBi or a window the same mask as an
-    explicit ``attn_mask`` (an additive [H, Sq, Sk] bias for ALiBi, a
-    boolean [Sq, Sk] for a window)."""
+    """``scaled_dot_product_attention``'s mask arguments for ``spec``: a
+    bidirectional call with segment ids (a padding mask) takes the same
+    mask as a boolean [B, 1, Sq, Sk]; a causal call ``is_causal``, or with
+    ALiBi or a window the same mask as an explicit ``attn_mask`` (an
+    additive [H, Sq, Sk] bias for ALiBi, a boolean [Sq, Sk] for a window)."""
+    if not spec.causal:
+        if spec.qseg is None:
+            return {}
+        return {"attn_mask": (spec.qseg[:, :, None] == spec.kseg[:, None, :])[:, None]}
     if spec.slopes is None and spec.window <= 0:
         return {"is_causal": True}
     qp = torch.arange(Sq, device="cuda")[:, None] + spec.q_offset
@@ -1041,7 +1147,7 @@ def flash_kernels_vs_plain(torch, flash, gen, flush):
     print("[flash] plain_ms: events around each synchronized call of the plain "
           "version; for dQ and dK/dV the plain backward, which computes "
           "both; library_ms is scaled_dot_product_attention (is_causal, enable_gqa; "
-          "ALiBi and windows as an explicit attn_mask): "
+          "ALiBi, windows and bert-large's padding mask as an explicit attn_mask): "
           "forward, and for dQ and dK/dV its backward (forward+backward less forward), "
           "which also computes both", flush=True)
     return rows, {k: max(v) for k, v in errs.items()}
@@ -1853,13 +1959,15 @@ def serving_kernels_vs_plain(torch, gen, flush):
     from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
     rows = {}
     for name, case in WAVE_CASES.items():
-        seqs, kvH, g, D, ps, shuffle = case_options(case)
+        seqs, kvH, g, D, ps, shuffle, window = case_options(case)
+        kw = case_masks(torch, case)
         args, n, nbytes, flops = wave_case(torch, build_wave, WaveEntry, seqs, kvH, g, D,
-                                           ps, gen, shuffle)
+                                           ps, gen, shuffle, window)
         before = dict(rpa.form_launches)
-        got, again = rpa.ragged_paged_attention(*args), rpa.ragged_paged_attention(*args)
+        got, again = (rpa.ragged_paged_attention(*args, **kw),
+                      rpa.ragged_paged_attention(*args, **kw))
         form = [f for f, c in rpa.form_launches.items() if c > before[f]]
-        want = rpa.ragged_paged_attention_reference(*args)
+        want = rpa.ragged_paged_attention_reference(*args, **kw)
         torch.cuda.synchronize()
         err = check_close(f"ragged/{name}", got[:n], want[:n])
         if not torch.equal(got, again):
@@ -1867,12 +1975,17 @@ def serving_kernels_vs_plain(torch, gen, flush):
         if bool(got[n:].ne(0).any()):
             fail(f"ragged/{name}: stream padding rows are not zero")
         f32 = as_fp32(args)
-        err32 = (check_close(f"ragged/{name} fp32", rpa.ragged_paged_attention(*f32)[:n],
-                             rpa.ragged_paged_attention_reference(*f32)[:n], FP32_TOL)
+        err32 = (check_close(f"ragged/{name} fp32", rpa.ragged_paged_attention(*f32, **kw)[:n],
+                             rpa.ragged_paged_attention_reference(*f32, **kw)[:n], FP32_TOL)
                  if D <= PAGED_FP32_MAX_D else float("nan"))
-        ms, host = device_ms(torch, lambda: rpa.ragged_paged_attention(*args), 20, flush)
-        plain, _ = device_ms(torch, lambda: rpa.ragged_paged_attention_reference(*args),
-                             5, flush)
+        ms, host = device_ms(torch, lambda: rpa.ragged_paged_attention(*args, **kw), 20,
+                             flush)
+        plain, _ = device_ms(
+            torch, lambda: rpa.ragged_paged_attention_reference(*args, **kw), 5, flush)
+        kw_note = ""
+        if kw:   # the same wave without its slopes and window, as context
+            bare = device_ms(torch, lambda: rpa.ragged_paged_attention(*args), 20, flush)[0]
+            kw_note = f"; the same wave unmasked {bare:.4f} ms"
         b_ms, b_by = bound(nbytes, flops, args[0].dtype)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                           bound_by=b_by)
@@ -1886,27 +1999,34 @@ def serving_kernels_vs_plain(torch, gen, flush):
                               clean=True)[0]
             context = (f" after a clean L2 flush {clean:.4f} ms; context: SDPA over the "
                        f"gathered K/V {cms:.4f} ms (gather not timed)")
-        print(f"[ragged] {name}: tokens {n} ({'/'.join(form)}) max_abs_err {err:.3e} (fp32 "
+        print(f"[ragged] {name}: tokens {n} ({'/'.join(form)}{masks_note(kw)}) max_abs_err "
+              f"{err:.3e} (fp32 "
               f"{err32:.3e}), two runs bit-identical; kernel_ms {ms:.4f} "
               f"plain_ms {plain:.4f} bound_ms {b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}% "
-              f"of it) library_ms null wrapper_host_ms {host:.4f}{context}", flush=True)
+              f"of it) library_ms null wrapper_host_ms {host:.4f}{context}{kw_note}",
+              flush=True)
     drows = {}
     for name, case in DECODE_CASES.items():
-        ctxs, kvH, g, D, ps, shuffle = case_options(case)
-        args, nbytes, flops = decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle)
-        got, again = pdk.paged_gqa_decode(*args), pdk.paged_gqa_decode(*args)
-        want = paged_decode_attention_reference(*args)
+        ctxs, kvH, g, D, ps, shuffle, window = case_options(case)
+        kw = case_masks(torch, case)
+        args, nbytes, flops = decode_case(torch, ctxs, kvH, g, D, ps, gen, shuffle, window)
+        got, again = pdk.paged_gqa_decode(*args, **kw), pdk.paged_gqa_decode(*args, **kw)
+        want = paged_decode_attention_reference(*args, **kw)
         torch.cuda.synchronize()
         err = check_close(f"decode/{name}", got, want)
         if not torch.equal(got, again):
             fail(f"decode/{name}: two runs differ")
         f32 = as_fp32(args)
-        err32 = (check_close(f"decode/{name} fp32", pdk.paged_gqa_decode(*f32),
-                             paged_decode_attention_reference(*f32), FP32_TOL)
+        err32 = (check_close(f"decode/{name} fp32", pdk.paged_gqa_decode(*f32, **kw),
+                             paged_decode_attention_reference(*f32, **kw), FP32_TOL)
                  if D <= PAGED_FP32_MAX_D else float("nan"))
-        ms, host = device_ms(torch, lambda: pdk.paged_gqa_decode(*args), 20, flush)
-        plain, _ = device_ms(torch, lambda: paged_decode_attention_reference(*args), 5,
+        ms, host = device_ms(torch, lambda: pdk.paged_gqa_decode(*args, **kw), 20, flush)
+        plain, _ = device_ms(torch, lambda: paged_decode_attention_reference(*args, **kw), 5,
                              flush)
+        kw_note = ""
+        if kw:   # the same step without its slopes and window, as context
+            bare = device_ms(torch, lambda: pdk.paged_gqa_decode(*args), 20, flush)[0]
+            kw_note = f"; the same step unmasked {bare:.4f} ms"
         b_ms, b_by = bound(nbytes, flops, args[0].dtype)
         drows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by)
@@ -1918,11 +2038,11 @@ def serving_kernels_vs_plain(torch, gen, flush):
                               clean=True)[0]
             context = (f" after a clean L2 flush {clean:.4f} ms; context: SDPA over the "
                        f"gathered K/V {cms:.4f} ms (gather not timed)")
-        print(f"[decode] {name}: max_abs_err {err:.3e} (fp32 {err32:.3e}), two runs "
-              f"bit-identical; splits {pdk.max_splits(args[4].shape[1], ps)} "
+        print(f"[decode] {name}{masks_note(kw)}: max_abs_err {err:.3e} (fp32 {err32:.3e}), "
+              f"two runs bit-identical; splits {pdk.max_splits(args[4].shape[1], ps, window)} "
               f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.4f} ({b_by}, "
               f"{100 * b_ms / ms:.1f}% of it) library_ms null wrapper_host_ms "
-              f"{host:.4f}{context}", flush=True)
+              f"{host:.4f}{context}{kw_note}", flush=True)
     print("[kernels] library_ms is null: no single PyTorch call computes "
           "attention over a paged (block-table) KV pool; the SDPA context times "
           "need the K/V gathered into contiguous tensors first")
@@ -3532,8 +3652,8 @@ def families_tiny(torch, np, flash, adam, lion):
     dK/dV a step at head_dim 16) and as many through their plain versions
     from the same weights, losses within ``PATH_RTOL`` at every step (the
     gradients of a step reach the next one's loss); then one request through ``build_engine`` +
-    ``generate``, through both paged kernels, or for BLOOM and GPT-Neo the
-    engine build raising, naming ROADMAP A5.3."""
+    ``generate``, through both paged kernels (BLOOM's ALiBi and GPT-Neo's
+    window of 8 among them)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import models
     from deepspeed_tpu_torch.inference.v2 import (
@@ -3570,29 +3690,19 @@ def families_tiny(torch, np, flash, adam, lion):
         rel = max(abs(a - b) / abs(b) for a, b in zip(loss["kernels"], loss["plain"]))
         if not all(np.isfinite(loss["kernels"])):
             fail(f"{preset}: training losses {loss['kernels']}")
-        served = "build_engine raises naming ROADMAP A5.3"
         cfg = RaggedInferenceEngineConfig(
             num_kv_blocks=33, state_manager=DeepSpeedTPStateManagerConfig(max_context=S))
-        if preset in TINY_UNSERVED:
-            try:
-                build_engine(make(), cfg, seed=0)
-            except NotImplementedError as e:
-                if "ROADMAP A5.3" not in str(e):
-                    fail(f"{preset}: the engine build raised without naming A5.3: {e}")
-            else:
-                fail(f"{preset}: build_engine served a model the paged kernels cannot mask")
-        else:
-            engine = build_engine(make(), cfg, seed=0)
-            rpa.launches = pdk.launches = 0
-            reqs = generate(engine, [rng.integers(0, c.vocab_size, size=TINY_PROMPT)],
-                            max_new_tokens=TINY_NEW_TOKENS, return_requests=True)
-            torch.cuda.synchronize()
-            n_tok = len(reqs[0].generated)
-            served = (f"one request of {TINY_PROMPT} prompt tokens: {n_tok} tokens, ragged "
-                      f"launches {rpa.launches}, decode launches {pdk.launches}")
-            if n_tok != TINY_NEW_TOKENS or rpa.launches < L or pdk.launches < L:
-                fail(f"{preset}: {served}")
-            del engine
+        engine = build_engine(make(), cfg, seed=0)
+        rpa.launches = pdk.launches = 0
+        reqs = generate(engine, [rng.integers(0, c.vocab_size, size=TINY_PROMPT)],
+                        max_new_tokens=TINY_NEW_TOKENS, return_requests=True)
+        torch.cuda.synchronize()
+        n_tok = len(reqs[0].generated)
+        served = (f"one request of {TINY_PROMPT} prompt tokens: {n_tok} tokens, ragged "
+                  f"launches {rpa.launches}, decode launches {pdk.launches}")
+        if n_tok != TINY_NEW_TOKENS or rpa.launches < L or pdk.launches < L:
+            fail(f"{preset}: {served}")
+        del engine
         print(f"[families] {preset} head_dim {c.head_dim}, S {S}, {PATH_STEPS} steps: "
               f"kernels {[round(x, 5) for x in loss['kernels']]}, plain versions "
               f"{[round(x, 5) for x in loss['plain']]}, relative difference {rel:.3e} "
@@ -3629,14 +3739,15 @@ def prefill_logits_check(torch, engine, make_ref32, prompt, tag, phase="families
              f"{LOGIT_ERR_RATIO} x the plain bf16 forward's {rel(plain):.3e}")
 
 
-def serve_falcon(torch, np):
-    """Falcon-7B at full width and depth (71 query heads on one kv head,
-    parallel blocks, bias-free linears), random bf16 weights from a seed,
+def serve_family(torch, np, preset):
+    """``preset`` at full width and depth, random bf16 weights from a seed,
     through ``build_engine`` + ``generate`` with the requests of phase 5,
     cold and warm: every request gets its tokens and both paged kernels run
-    once a layer in every wave and decode step (the waves in the CUDA-core
-    form: 71 heads a kv head pass the tensor-core tile); then one prompt's
-    prefill logits against the plain forward."""
+    once a layer in every wave and decode step, the waves in the form
+    ``FAMILY_SERVED`` names (Falcon-7B's 71 query heads a kv head pass the
+    tensor-core tile: CUDA cores; BLOOM-7b1's ALiBi and GPT-Neo-2.7b's
+    windows on the tensor cores); then one prompt's prefill logits against
+    the plain forward, and a profile of a warm ``generate``."""
     from deepspeed_tpu_torch.inference.v2 import (
         DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine, generate)
     from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as pdk
@@ -3644,23 +3755,24 @@ def serve_falcon(torch, np):
     cfg = RaggedInferenceEngineConfig(
         num_kv_blocks=2049, state_manager=DeepSpeedTPStateManagerConfig(max_context=2048))
     t0 = time.perf_counter()
-    model = family_model(torch, "falcon-7b")
+    model = family_model(torch, preset)
     engine = build_engine(model, cfg, seed=0)
     torch.cuda.synchronize()
     c = model.config
-    print(f"[families] falcon-7b layers {c.num_layers} hidden {c.hidden_size} heads "
-          f"{c.num_heads}/{c.kv_heads} ffn {c.ffn_size} vocab {c.vocab_size} bf16 on "
+    feats = f" position {c.position}" + (" windows" if c.attn_windows else "")
+    print(f"[families] {preset} layers {c.num_layers} hidden {c.hidden_size} heads "
+          f"{c.num_heads}/{c.kv_heads} ffn {c.ffn_size} vocab {c.vocab_size}{feats} bf16 on "
           f"{engine.device}, {cfg.num_kv_blocks} KV blocks x {cfg.kv_block_size} "
           f"({engine.kv_cache.mem_bytes() / 2**30:.2f} GiB), weights "
           f"{sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 2**30:.2f} "
           f"GiB, built in {time.perf_counter() - t0:.2f} s", flush=True)
     prompts, wall, *_ = timed_generate(torch, np, engine,
                                        {"ragged_paged_attention": rpa, "paged_decode": pdk},
-                                       num_layers=c.num_layers, form="cuda_cores",
-                                       label="families falcon-7b")
+                                       num_layers=c.num_layers, form=FAMILY_SERVED[preset],
+                                       label=f"families {preset}")
     prefill_logits_check(torch, engine,
-                         lambda: family_model(torch, "falcon-7b", dtype=torch.float32),
-                         prompts[2], "falcon-7b")
+                         lambda: family_model(torch, preset, dtype=torch.float32),
+                         prompts[2], preset)
     profile_generate(torch, generate, engine, prompts, wall)
     del engine, model
     torch.cuda.empty_cache()
@@ -3670,9 +3782,8 @@ def families_two_layers(torch, np, flash, adam, lion):
     """Each family at its preset's full width and 2 layers: 3 steps through
     the kernels and 3 through their plain versions from the same weights
     (micro 1, S 2048 or the preset's context), losses within ``PATH_RTOL``;
-    then, for a family the engine serves, a prompt's logits through the
-    serving engine against the fp32 plain forward, and for BLOOM and
-    GPT-Neo the engine build raising, naming ROADMAP A5.3."""
+    then a prompt's logits (300 tokens: two prefill chunks, past GPT-Neo's
+    window) through the serving engine against the fp32 plain forward."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import (
         DeepSpeedTPStateManagerConfig, RaggedInferenceEngineConfig, build_engine)
@@ -3716,23 +3827,220 @@ def families_two_layers(torch, np, flash, adam, lion):
             fail(f"{preset}: kernel and plain training paths differ by {max(rel):.3e}")
         cfg = RaggedInferenceEngineConfig(
             num_kv_blocks=257, state_manager=DeepSpeedTPStateManagerConfig(max_context=S))
-        if preset in FAMILY_UNSERVED:
-            try:
-                build_engine(family_model(torch, preset, PATH_LAYERS), cfg, seed=0)
-            except NotImplementedError as e:
-                if "ROADMAP A5.3" not in str(e):
-                    fail(f"{preset}: the engine build raised without naming A5.3: {e}")
-                print(f"[families] {preset}: build_engine raises NotImplementedError: {e}",
-                      flush=True)
-            else:
-                fail(f"{preset}: build_engine served a model the paged kernels cannot mask")
-            continue
         engine = build_engine(family_model(torch, preset, PATH_LAYERS), cfg, seed=0)
         prompt = rng.integers(0, c.vocab_size, size=FAMILY_LOGIT_PROMPT)
         prefill_logits_check(
             torch, engine,
             lambda: family_model(torch, preset, PATH_LAYERS, dtype=torch.float32), prompt,
             f"{preset} {PATH_LAYERS} layers")
+        del engine
+        torch.cuda.empty_cache()
+
+
+def mlm_batch(np, rng, B, S, vocab, pad=0, types=2):
+    """A padded MLM batch: row lengths drawn in [S/4, S] (pads past them),
+    token types in [0, types) on the real positions, labels on 15% of them
+    (-100 elsewhere)."""
+    ids = rng.integers(5, vocab, size=(B, S))
+    lens = rng.integers(S // 4, S + 1, size=B)
+    mask = (np.arange(S)[None, :] < lens[:, None]).astype(np.int32)
+    return {"input_ids": np.where(mask == 1, ids, pad), "attention_mask": mask,
+            "token_type_ids": rng.integers(0, types, size=(B, S)) * mask,
+            "labels": np.where((rng.random((B, S)) < 0.15) & (mask == 1), ids, -100)}
+
+
+def encoder_flops(c, n_params, B, S):
+    """Training FLOPs of a step of an encoder: 6 x N x tokens, N the params
+    without the position and token-type tables (lookups; the tied word
+    embedding counts once, as the MLM decoder's product, 6 V H a token),
+    plus bidirectional attention, S^2 pairs a head and layer (4 D a pair
+    forward, three times that for forward and backward)."""
+    n = n_params - (c.max_seq_len + c.position_offset + c.type_vocab_size) * c.hidden_size
+    attn = 3 * 4 * c.head_dim * S * S * c.num_heads * B * c.num_layers
+    return 6 * n * B * S + attn, n
+
+
+def bert_engine(torch, model, config, seed=0):
+    import deepspeed_tpu_torch
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, seed=seed)
+    return engine
+
+
+def train_bert_large(torch, np, flash, adam, lion):
+    """bert-large MLM at full width and depth through ``initialize`` +
+    ``train_batch`` (``BERT_CONFIG``: micro 32, S 512, remat full), on a
+    padded batch: 2 warm-up and ``BERT_STEPS`` timed steps, then a profiled
+    one. Fails unless the losses are finite and falling and each step ran
+    2 x 24 flash forwards, 24 dQ and 24 dK/dV (non-causal, the mask as
+    segment ids) and one Adam launch a bucket. Returns the step's seconds."""
+    from deepspeed_tpu_torch.models import bert_model
+    t0 = time.perf_counter()
+    engine = bert_engine(torch, bert_model("bert-large"), BERT_CONFIG)
+    torch.cuda.synchronize()
+    c = engine.model.config
+    buckets = len(engine.opt_state["buckets"])
+    n_all = sum(p.numel() for p in engine.params.values())
+    B, S = BERT_MICRO, BERT_SEQ
+    batch = mlm_batch(np, np.random.default_rng(0), B, S, c.vocab_size)
+    real, labelled = int(batch["attention_mask"].sum()), int((batch["labels"] >= 0).sum())
+    print(f"[encoders] bert-large layers {c.num_layers} hidden {c.hidden_size} heads "
+          f"{c.num_heads} head_dim {c.head_dim} ffn {c.ffn_size} vocab {c.vocab_size} "
+          f"(post-norm, bidirectional, token types, MLM head): {n_all} params bf16, adamw, "
+          f"fp32 master and moments in {buckets} buckets, remat {c.remat_policy}, micro {B} "
+          f"x S {S} ({real} real tokens, {labelled} labelled), built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam, lion)
+    times = []
+    for _ in range(BERT_STEPS):
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        times.append(time.perf_counter() - t)
+    launches = dict(flash.launches, fused_adam=adam.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    flops, n = encoder_flops(c, n_all, B, S)
+    print(f"[encoders] bert-large losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(x * 1e3, 1) for x in times]} mean {step_s * 1e3:.1f}; tokens/s "
+          f"{B * S / step_s:.0f} ({real / step_s:.0f} real); MFU "
+          f"{flops / step_s / PEAK_FLOPS['torch.bfloat16']:.4f} ({flops:.4e} flops a step: 6 x "
+          f"{n} params without the position and type tables x {B * S} tokens + S^2 "
+          f"bidirectional attention, at 989 TFLOP/s); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; launches over {BERT_STEPS} steps {launches}", flush=True)
+    L = c.num_layers
+    want = {"flash_fwd": 2 * L * BERT_STEPS, "flash_dq": L * BERT_STEPS,
+            "flash_dkv": L * BERT_STEPS, "fused_adam": buckets * BERT_STEPS}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"bert-large training losses {losses}")
+    if launches != want:
+        fail(f"bert-large training launches {launches} != {want}")
+    profile_step(torch, engine, batch, step_s, "encoders-profile")
+    del engine
+    torch.cuda.empty_cache()
+    return step_s
+
+
+def remat_policies(torch, np, flash, adam, lion):
+    """Every remat policy at bert-large's full width and depth, micro 32,
+    the same weights and padded batch: a warm-up and ``REMAT_STEPS`` timed
+    steps each, step ms, peak memory and flash forwards a step (2 x 24
+    where attention is recomputed, 24 where the flash op is kept: dots,
+    everything, attention_only; 36 alternating); the losses of every step
+    equal across policies (relative 1e-6; bitwise where the kernels give
+    the same bits)."""
+    from deepspeed_tpu_torch.models import bert_model
+    batch = mlm_batch(np, np.random.default_rng(1), BERT_MICRO, BERT_SEQ, 30522)
+    L = 24
+    fwd_per_step = {"full": 2 * L, "nothing_saveable": 2 * L, "attention_only": L,
+                    "dots_saveable": L, "checkpoint_dots": L,
+                    "dots_with_no_batch_dims_saveable": 2 * L,
+                    "checkpoint_dots_with_no_batch_dims": 2 * L,
+                    "everything_saveable": L, "alternating": L + L // 2}
+    ref = None
+    for policy in REMAT_POLICIES:
+        engine = bert_engine(torch, bert_model("bert-large", remat_policy=policy), BERT_CONFIG)
+        losses = [float(engine.train_batch(batch))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(flash, adam, lion)
+        times = []
+        for _ in range(REMAT_STEPS):
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        fwd = flash.launches["flash_fwd"] / REMAT_STEPS
+        ref = losses if ref is None else ref
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        print(f"[encoders] remat {policy}: losses {[round(x, 6) for x in losses]} "
+              f"(relative difference to full {rel:.3e}, {'bitwise' if losses == ref else 'not bitwise'}); "
+              f"step ms {[round(x * 1e3, 1) for x in times]} mean "
+              f"{sum(times) / len(times) * 1e3:.1f}; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; flash forwards a step {fwd:g} (dQ "
+              f"{flash.launches['flash_dq'] / REMAT_STEPS:g})", flush=True)
+        if rel > 1e-6 or fwd != fwd_per_step[policy]:
+            fail(f"remat {policy}: losses {losses} against {ref}, flash forwards a step {fwd} "
+                 f"(want {fwd_per_step[policy]})")
+        del engine
+        torch.cuda.empty_cache()
+
+
+def encoders_two_layers(torch, np, flash, adam, lion):
+    """bert-large at full width and 2 layers, micro 1 on a padded row: 3
+    steps through the kernels and 3 through their plain versions from the
+    same weights, losses within ``PATH_RTOL``."""
+    from deepspeed_tpu_torch.models import bert_model
+    batch = mlm_batch(np, np.random.default_rng(2), 1, BERT_SEQ, 30522)
+    path = {}
+    for name in ("kernels", "plain"):
+        engine = bert_engine(torch, bert_model("bert-large", num_layers=PATH_LAYERS),
+                             FAMILY_PATH_CONFIG)
+        zero_counts(flash, adam, lion)
+        if name == "plain":
+            with plain_kernels(flash, adam, lion):
+                path[name] = [float(engine.train_batch(batch)) for _ in range(PATH_STEPS)]
+            if any(flash.launches.values()) or adam.launches:
+                fail(f"bert-large: the plain path launched kernels: {flash.launches}")
+        else:
+            path[name] = [float(engine.train_batch(batch)) for _ in range(PATH_STEPS)]
+            want = {"flash_fwd": 2 * PATH_LAYERS * PATH_STEPS,
+                    "flash_dq": PATH_LAYERS * PATH_STEPS, "flash_dkv": PATH_LAYERS * PATH_STEPS}
+            if flash.launches != want:
+                fail(f"bert-large 2 layers: flash launches {flash.launches} != {want}")
+        del engine
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(path["kernels"], path["plain"]))
+    print(f"[encoders] bert-large {PATH_LAYERS} layers, micro 1, S {BERT_SEQ} "
+          f"({int(batch['attention_mask'].sum())} real), {PATH_STEPS} steps: kernels "
+          f"{[round(x, 5) for x in path['kernels']]} plain {[round(x, 5) for x in path['plain']]}, "
+          f"relative difference {rel:.3e} (limit {PATH_RTOL}, bf16)", flush=True)
+    if rel > PATH_RTOL:
+        fail(f"bert-large: kernel and plain training paths differ by {rel:.3e}")
+
+
+def train_task_heads(torch, np, flash, adam, lion):
+    """The task heads through ``initialize`` + ``train_batch``
+    (``TASK_CASES``: bert-base sequence classification and token
+    classification at S 128, QA at S 384, roberta-base sequence
+    classification with MuAdamW), padded batches, ``TASK_STEPS`` steps each:
+    finite losses and 2 x 12 flash forwards a step (whether the loss fell
+    in so few steps of bf16 weights is printed, not held: MLM above holds
+    the falling loss)."""
+    from deepspeed_tpu_torch import models
+    rng = np.random.default_rng(3)
+    for preset, body, task, style, S, B, opt in TASK_CASES:
+        lm = getattr(models, f"{body}_model")(preset.replace("roberta", "bert"),
+                                              mlm_head=False)
+        model = models.EncoderTaskModel(lm, task, num_labels=3, head_style=style)
+        c = lm.config
+        config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=B,
+                      optimizer={"type": opt, "params": {"lr": 5e-5, "weight_decay": 0.01}})
+        t0 = time.perf_counter()
+        engine = bert_engine(torch, model, config)
+        batch = mlm_batch(np, rng, B, S, c.vocab_size, pad=c.pad_token_id or 0,
+                          types=c.type_vocab_size)
+        del batch["labels"]
+        if task == "sequence_classification":
+            batch["labels"] = rng.integers(0, 3, size=B)
+        elif task == "token_classification":
+            batch["labels"] = np.where(batch["attention_mask"] == 1,
+                                       rng.integers(0, 3, size=(B, S)), -100)
+        else:
+            lens = batch["attention_mask"].sum(1)
+            batch["start_positions"] = rng.integers(0, lens // 2)
+            batch["end_positions"] = batch["start_positions"] + rng.integers(0, lens // 2)
+        zero_counts(flash, adam, lion)
+        losses = [float(engine.train_batch(batch)) for _ in range(TASK_STEPS)]
+        torch.cuda.synchronize()
+        print(f"[encoders] {preset} {task} ({style} head) {opt}, micro {B} x S {S}: losses "
+              f"{[round(x, 4) for x in losses]} ({'fell' if losses[-1] < losses[0] else 'did not fall'}), {TASK_STEPS} steps in "
+              f"{time.perf_counter() - t0:.1f} s with the build; flash launches "
+              f"{flash.launches}", flush=True)
+        L = c.num_layers
+        if not all(np.isfinite(losses)) or flash.launches["flash_fwd"] != 2 * L * TASK_STEPS:
+            fail(f"{preset} {task}: losses {losses}, launches {flash.launches}")
         del engine
         torch.cuda.empty_cache()
 
@@ -3836,9 +4144,10 @@ def main():
     train_phi2(torch, np, flash, adam, lion)
     gc.collect()
     torch.cuda.empty_cache()
-    serve_falcon(torch, np)
-    gc.collect()
-    torch.cuda.empty_cache()
+    for preset in FAMILY_SERVED:
+        serve_family(torch, np, preset)
+        gc.collect()
+        torch.cuda.empty_cache()
     families_two_layers(torch, np, flash, adam, lion)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3857,7 +4166,20 @@ def main():
     torch.cuda.empty_cache()
     print(f"[open-llama] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 13. kernels line
+    # 13. the encoders: bert-large MLM at full width and depth, every remat
+    # policy at its shape, 2 layers kernels against plain, the task heads
+    t0 = time.perf_counter()
+    train_bert_large(torch, np, flash, adam, lion)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_policies(torch, np, flash, adam, lion)
+    encoders_two_layers(torch, np, flash, adam, lion)
+    train_task_heads(torch, np, flash, adam, lion)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[encoders] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 14. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",

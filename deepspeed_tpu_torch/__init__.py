@@ -44,8 +44,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     """Build a ready-to-train engine; returns ``(engine, optimizer,
     dataloader, lr_scheduler)`` as the JAX ``initialize`` does.
 
-    ``model`` is a ``TransformerLM`` (on the meta device it is given storage
-    and seeded weights, the same on every rank); ``model_parameters`` an
+    ``model`` is a ``TransformerLM`` or an ``EncoderTaskModel`` (on the meta
+    device it is given storage and seeded weights, the same on every rank); ``model_parameters`` an
     optional state_dict of full weights to start from; ``config`` a dict, a
     JSON path or a ``DeepSpeedConfig``. The optimizer and schedule come from
     the config: client optimizer and scheduler objects are not taken.

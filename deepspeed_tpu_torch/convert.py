@@ -13,6 +13,11 @@ from the JAX ``quantize_param_tree`` or ``host_quantize_kernel``) becomes
 ``<layer>.q`` / ``<layer>.scale`` with the same bytes and no transpose: the
 port's quantized ``Linear`` keeps the JAX storage layout.
 
+Top-level subtrees may nest: an encoder's MLM head
+(``mlm.{dense, ln}`` layers beside the bare decoder bias ``mlm.bias``) and
+a task model's ``head.{mid, classifier}`` become ``mlm.dense.weight``,
+``mlm.bias``, ``head.classifier.weight`` and so on.
+
 A MoE block's leaves (``blocks.moe.{gate, wi_gate, wi_up, wi, wo}``, bare
 arrays stacked ``[L, ...]``) become ``blocks.{l}.moe.*`` under the same
 names. ``gate [H, E]`` keeps its layout; the expert weights are transposed
@@ -94,9 +99,18 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                         out[f"blocks.{l}.{layer}.{_port_name(name, leaves)}"] = \
                             _leaf(name, t[l])
         else:
-            for name, a in sub.items():
-                out[f"{top}.{_port_name(name, sub)}"] = _leaf(name, _tensor(a))
+            _from_subtree(top, sub, out)
     return out
+
+
+def _from_subtree(prefix: str, sub: Mapping[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    """A top-level subtree that is not stacked: a layer's leaves, or nested
+    layers (``mlm.{dense, ln, bias}``, ``head.{mid, classifier}``)."""
+    for name, a in sub.items():
+        if isinstance(a, Mapping):
+            _from_subtree(f"{prefix}.{name}", a, out)
+        else:
+            out[f"{prefix}.{_port_name(name, sub)}"] = _leaf(name, _tensor(a))
 
 
 def opt_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
@@ -173,9 +187,10 @@ def jax_leaf(name: str, ndim: int) -> JaxLeaf:
             if len(parts) != 2 or parts[1] not in _MOE_LEAF:
                 raise KeyError(f"unknown port MoE leaf {name!r}")
             return JaxLeaf(f"blocks/moe/{parts[1]}", layer, _MOE_LEAF[parts[1]])
-    if len(parts) != 2 or parts[1] not in ("weight", "bias", "q", "scale"):
+    if len(parts) < 2 or parts[-1] not in ("weight", "bias", "q", "scale") or \
+            (layer is not None and len(parts) != 2):
         raise KeyError(f"unknown port parameter {name!r}")
-    module, leaf = parts
+    module, leaf = "/".join(parts[:-1]), parts[-1]
     if leaf != "weight":   # a bias, or a quantized kernel's leaves (the JAX layout)
         return JaxLeaf(f"{prefix}{module}/{leaf}", layer, False)
     jname = ("embedding" if module in _EMBEDDINGS else "scale" if ndim == 1 else "kernel")

@@ -20,7 +20,9 @@
 //     s[r][c] = q[r] . k[c]     one thread per (key, RC rows): each K
 //                               element read feeds RC rows; q is scaled
 //                               and rounded to T as it is staged
-//     mask    : key < kv_len and key <= kv_len - q_len + t
+//     mask    : key < kv_len and key <= pos (pos = kv_len - q_len + t),
+//               and pos - key < window where a window is set
+//     ALiBi   : s += slope[head] * (key - pos), fp32, before the mask
 //     one warp per row: m_new = max(m, max_c s); p = exp(s - m_new);
 //                       rescale l and acc
 //     acc[r][d] += sum_c p[r][c] * v[c][d]   one thread per (2 columns,
@@ -31,6 +33,9 @@
 // reads at one offset fall into distinct shared-memory banks. RC (rows a
 // thread carries) is 4 where the group has 4 or more rows, else 2 or 1,
 // chosen per block.
+//
+// A window skips the key tiles wholly below the first row's window: the
+// loop starts at the tile holding key kv_len - q_len - window + 1.
 //
 // Any head_dim: a head_dim that is no multiple of 8 takes the NARROW form,
 // whose shared memory holds rows of DV = D rounded up to 8 columns (zero
@@ -170,13 +175,15 @@ __host__ __device__ inline size_t smem_bytes(int rows, int ps, int D) {
 // the keys of `table`, each thread carrying RC rows. q (unscaled) and out
 // point at the first token of the group; token t, head h is at
 // (t*H + h)*D. Any D (NARROW: D no multiple of 8); q, out and the pool
-// 16-byte aligned.
+// 16-byte aligned. `slopes` ([H] fp32, ALiBi) may be null; `window` <= 0 is
+// global.
 template <typename T, int RC, bool NARROW>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             const T* __restrict__ k_pages, const T* __restrict__ v_pages,
                             const int* __restrict__ table, int n_table, int H, int kvh,
                             int g, int P, int ps, int D, int q_len, int kv_len,
-                            float scale, unsigned char* smem_raw) {
+                            float scale, const float* __restrict__ slopes, int window,
+                            unsigned char* smem_raw) {
   const int rows = q_len * g;
   const int rp = (rows + RC - 1) / RC * RC;  // rows padded to whole chunks
   const int n_rc = rp / RC;
@@ -251,8 +258,10 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     }
     cp_async_commit();
   };
-  if (n_keys > 0) stage(0, 0);
-  for (int k0 = 0, b = 0; k0 < n_keys; k0 += TK, b ^= 1) {
+  // the first tile any row's window reaches
+  const int k_first = window > 0 ? max(0, kv_len - q_len - window + 1) / TK * TK : 0;
+  if (k_first < n_keys) stage(k_first, 0);
+  for (int k0 = k_first, b = 0; k0 < n_keys; k0 += TK, b ^= 1) {
     const int valid = min(TK, n_keys - k0);
     // prefetch the next tile into the other buffer (its readers finished
     // at the end of the previous step), then wait for this tile only
@@ -290,10 +299,11 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       }
 #pragma unroll
       for (int i = 0; i < RC; ++i) {
-        const int r = r0 + i;
-        bool visible = c < valid;
-        visible = visible && k0 + c <= kv_len - q_len + r / g;
-        s[r * TK + c] = visible ? dot[i] : kMask;
+        const int r = r0 + i, key = k0 + c, pos = kv_len - q_len + r / g;
+        const bool visible = c < valid && key <= pos && (window <= 0 || pos - key < window);
+        const float bias = slopes != nullptr && r < rows
+                               ? slopes[kvh * g + r % g] * (float)(key - pos) : 0.f;
+        s[r * TK + c] = visible ? dot[i] + bias : kMask;
       }
     }
     __syncthreads();
@@ -374,18 +384,18 @@ __device__ void attend_pages(const T* __restrict__ q, T* __restrict__ out,
                              const T* __restrict__ k_pages, const T* __restrict__ v_pages,
                              const int* __restrict__ table, int n_table, int H, int kvh,
                              int g, int P, int ps, int D, int q_len, int kv_len,
-                             float scale) {
+                             float scale, const float* __restrict__ slopes, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = q_len * g;
   if (rows >= 4) {
     attend_rows<T, 4, NARROW>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
-                              q_len, kv_len, scale, smem_raw);
+                              q_len, kv_len, scale, slopes, window, smem_raw);
   } else if (rows >= 2) {
     attend_rows<T, 2, NARROW>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
-                              q_len, kv_len, scale, smem_raw);
+                              q_len, kv_len, scale, slopes, window, smem_raw);
   } else {
     attend_rows<T, 1, NARROW>(q, out, k_pages, v_pages, table, n_table, H, kvh, g, P, ps, D,
-                              q_len, kv_len, scale, smem_raw);
+                              q_len, kv_len, scale, slopes, window, smem_raw);
   }
 }
 

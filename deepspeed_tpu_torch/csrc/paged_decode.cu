@@ -1,5 +1,8 @@
 // Paged GQA decode attention: one new query token per sequence against its
-// block table.
+// block table, with ALiBi slopes and a causal window when the layer has
+// them (the JAX engine's XLA decode path, _xla_paged_decode: slope[h] *
+// (key - (ctx - 1)) added in fp32 to the scaled logits; the window keeps
+// keys ctx - window .. ctx - 1).
 //
 // Replaces the TPU kernel _decode_kernel in
 // deepspeed_tpu/inference/v2/kernels/pallas_paged_decode.py (reached
@@ -16,8 +19,9 @@
 // design is about putting the context's bytes in flight at once:
 //
 // - Split over the key axis (flash-decoding). A block owns one split of
-//   one (sequence, kv head, group of up to GR query rows): the context is
-//   cut into units of kUnit keys, at most `splits` splits of whole units a
+//   one (sequence, kv head, group of up to GR query rows): the visible keys
+//   (from max(0, ctx - window) with a window, else from 0) are cut into
+//   units of kUnit keys, at most `splits` splits of whole units a
 //   sequence (the host sets `splits` from block_tables.shape[1], with no
 //   sync); blocks past a sequence's last split return at once, and the
 //   first split of every cell is dispatched first.
@@ -69,20 +73,23 @@ struct DecodeArgs {
   const int* block_tables;
   float* partial;  // [B, kvH * RC, splits, GR, D + 2]: acc, then m and l
   int* counters;   // [B, kvH * RC], zero between launches
-  int B, H, kvH, P, ps, D, mp, splits, GR;
+  const float* slopes;  // [H] ALiBi slopes, or null
+  int B, H, kvH, P, ps, D, mp, splits, GR, window;
   float scale;
 };
 
 // The split plan of one context (mirrored by paged_decode.split_plan):
-// n_keys = min(ctx, mp * ps) keys in units of kUnit; at most `splits`
-// splits of `per` whole units each, the last one shorter.
+// the keys lo .. n_keys - 1 (n_keys = min(ctx, mp * ps); lo = max(0, ctx -
+// window) with a window, else 0) in units of kUnit from lo; at most
+// `splits` splits of `per` whole units each, the last one shorter.
 struct Plan {
-  int n_keys, per, nsplit;
+  int n_keys, lo, per, nsplit;
 };
-__device__ __forceinline__ Plan plan(int ctx, int mp, int ps, int splits) {
+__device__ __forceinline__ Plan plan(int ctx, int mp, int ps, int splits, int window) {
   Plan p;
   p.n_keys = min(max(ctx, 0), mp * ps);
-  const int units = max(1, (p.n_keys + kUnit - 1) / kUnit);
+  p.lo = window > 0 ? min(max(ctx - window, 0), p.n_keys) : 0;
+  const int units = max(1, (p.n_keys - p.lo + kUnit - 1) / kUnit);
   const int n0 = min(splits, units);
   p.per = (units + n0 - 1) / n0;
   p.nsplit = (units + p.per - 1) / p.per;
@@ -184,11 +191,12 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
   const int guess_lo = s * kUnit / a.ps, guess_n = kUnit / a.ps + 2;
   const bool spec = guess_n <= kThreads;
   const int guess = spec && tid < guess_n && guess_lo + tid < a.mp ? table[guess_lo + tid] : 0;
-  const Plan pl = plan(a.context_lens[b], a.mp, a.ps, a.splits);
+  const int ctx = a.context_lens[b];
+  const Plan pl = plan(ctx, a.mp, a.ps, a.splits, a.window);
   if (s >= pl.nsplit) return;
-  const int k_lo = s * pl.per * kUnit, k_hi = min(k_lo + pl.per * kUnit, pl.n_keys);
+  const int k_lo = pl.lo + s * pl.per * kUnit, k_hi = min(k_lo + pl.per * kUnit, pl.n_keys);
   const int p_lo = k_lo / a.ps;
-  if (pl.per == 1 && spec) {
+  if (pl.per == 1 && spec && pl.lo == 0) {
     if (tid < guess_n) pages[tid] = guess;
   } else {
     for (int i = tid; p_lo + i < (k_hi + a.ps - 1) / a.ps; i += kThreads) pages[i] = table[p_lo + i];
@@ -204,6 +212,13 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qf[r][j][e] = dstt::scale_round<T>(f[e], a.scale);
     }
+
+  // ALiBi: each row's slope (0 without), the bias slope * (key - (ctx - 1))
+  float slope[GR];
+#pragma unroll
+  for (int r = 0; r < GR; ++r)
+    slope[r] = a.slopes != nullptr && r0 + r < g ? a.slopes[kvh * g + r0 + r] : 0.f;
+  const int pos = ctx - 1;
 
   float m[GR], l[GR], acc[GR][NV][VEC];
 #pragma unroll
@@ -263,6 +278,8 @@ __global__ void __launch_bounds__(kThreads) decode_split(const DecodeArgs a) {
       for (int off = LG / 2; off > 0; off >>= 1)
 #pragma unroll
         for (int r = 0; r < GR; ++r) sc[i][r] += __shfl_xor_sync(0xffffffffu, sc[i][r], off);
+#pragma unroll
+      for (int r = 0; r < GR; ++r) sc[i][r] = fmaf(slope[r], (float)(k0 + i - pos), sc[i][r]);
     }
 #pragma unroll
     for (int r = 0; r < GR; ++r) {
@@ -459,18 +476,18 @@ cudaError_t by_type(const DecodeArgs& a, cudaStream_t stream) {
 // q (unscaled) [B, H, D], k_pages / v_pages [kvH, P, ps, D], out [B, H, D];
 // context_lens [B], block_tables [B, mp] int32; partial and counters as
 // DecodeArgs says, sized by the caller for `splits` splits of GR rows
-// (counters zero). Any D up to 1024 bytes a row; q, the pool and out
-// 16-byte aligned.
+// (counters zero); slopes [H] fp32 or null; window 0 = global. Any D up to
+// 1024 bytes a row; q, the pool and out 16-byte aligned.
 // Returns the cudaError_t.
 extern "C" int dstt_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                  void* out, const int* context_lens, const int* block_tables,
-                                 float* partial, int* counters, int B, int H, int kvH, int P,
-                                 int ps, int D, int mp, int splits, int GR, float scale,
-                                 int is_bf16, void* stream) {
+                                 float* partial, int* counters, const float* slopes, int B,
+                                 int H, int kvH, int P, int ps, int D, int mp, int splits, int GR,
+                                 int window, float scale, int is_bf16, void* stream) {
   if (B == 0) return cudaSuccess;
   if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
   const DecodeArgs a{q, k_pages, v_pages, out, context_lens, block_tables, partial, counters,
-                     B, H, kvH, P, ps, D, mp, splits, GR, scale};
+                     slopes, B, H, kvH, P, ps, D, mp, splits, GR, window, scale};
   auto s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? by_type<__nv_bfloat16>(a, s) : by_type<float>(a, s);
 }

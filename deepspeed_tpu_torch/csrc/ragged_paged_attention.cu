@@ -10,7 +10,11 @@
 // masking with the HALF_MASK floor, so no row produces NaN; l == 0 -> 0;
 // rows past cu_q_lens[A] (stream padding) are zero. Both forms below scale
 // q and round it to its type themselves (bf16(float(q) * scale)) and write
-// the padding rows, so a call is one launch.
+// the padding rows, so a call is one launch. Both take ALiBi slopes ([H]
+// fp32, null for none: slope[h] * (key - pos) added in fp32 to the scaled
+// logits before the mask) and a causal window (0 = global: a row at pos
+// sees keys pos - window + 1 .. pos); the JAX engine sends such waves to its
+// XLA path, whose function this is.
 //
 // Bound on an H100 SXM: bytes. A wave reads each sequence's KV once
 // (2 * kv_len * D * itemsize a kv head) plus q and the output; the
@@ -40,6 +44,12 @@
 //   memory), an exp2 online softmax in registers, and O += P V with P from
 //   registers and V through wgmma's transpose bit, as flash_fwd.cu does.
 //   Only steps that reach a row's diagonal or the table's end are masked.
+// - ALiBi and windows (the EXTRA form, a template of its own so the plain
+//   form's code is unchanged): the steps wholly below the tile's first
+//   window are skipped (both roles start at the same step); a step that
+//   reaches the last row's lower window edge is masked there too; with
+//   ALiBi every step takes the masked path, which adds the bias to the raw
+//   dot before the log2 e scaling (x = (dot + slope * (key - pos)) log2 e).
 //
 // Measured (PERF.md): a 2 x 256 prefill wave spends about a quarter of
 // the launch on the tile list, a quarter waiting for its first K/V step and
@@ -73,14 +83,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemMax = 232448;  // shared memory a block may use
 
 struct WaveArgs {
-  const bf16* q;       // [N, H, D], unscaled
-  bf16* out;           // [N, H, D]
-  const int* cu;       // [A + 1]
-  const int* kv_lens;  // [A]
-  const int* pages;    // [A, MP]
-  int N, A, H, kvH, P, ps, MP, max_tiles;
+  const bf16* q;        // [N, H, D], unscaled
+  bf16* out;            // [N, H, D]
+  const int* cu;        // [A + 1]
+  const int* kv_lens;   // [A]
+  const int* pages;     // [A, MP]
+  const float* slopes;  // [H] ALiBi slopes, or null
+  int N, A, H, kvH, P, ps, MP, max_tiles, window;
   float scale;
 };
+
+constexpr int kNoEdge = -(1 << 30);  // a lower key bound below every key
 
 // Floor division and its remainder, for x of any sign (d > 0).
 __device__ __forceinline__ int floor_div(int x, int d) { return x >= 0 ? x / d : -((-x + d - 1) / d); }
@@ -107,7 +120,7 @@ __device__ int begin_tiles(int row0, int ql, int p0, bool cont, int TT, int i, i
 }
 
 struct Tile {
-  int row0, rows, pos0, n_keys, steps;
+  int row0, rows, pos0, n_keys, steps, first;  // first: the first step any row sees
   const int* table;
 };
 
@@ -128,6 +141,7 @@ __device__ __forceinline__ Tile tile_at(const WaveArgs& a, const int* cu, const 
   t.pos0 = kv[a0] - (cu[a0 + 1] - cu[a0]) + (t.row0 - cu[a0]);
   t.n_keys = max(0, min(t.pos0 + n_tok, a.MP * a.ps));
   t.steps = (t.n_keys + kKeys - 1) / kKeys;
+  t.first = a.window > 0 ? max(0, t.pos0 - a.window + 1) / kKeys : 0;
   t.table = a.pages + (long long)a1 * a.MP;
   return t;
 }
@@ -160,10 +174,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
 // The online softmax of one step in the log2 domain: the raw dots in sc
 // become p = 2^(x - m) in place (x = dot * log2 e, or MASK_VALUE where the
 // key is not visible: at or past hi[r] of the thread's two rows, offsets
-// from its first column); m, l (this lane's columns) and O's factor alpha
-// follow. `inner`: every key of the step is visible to every row.
+// from its first column; EXTRA: also below lo[r], and x = (dot + slope[r] *
+// (c + cb[r])) * log2 e, cb[r] the key minus the position at offset 0);
+// m, l (this lane's columns) and O's factor alpha follow. `inner`: every
+// key of the step is visible to every row, with no bias.
+template <bool EXTRA>
 __device__ __forceinline__ void softmax(float (&sc)[kKeys / 2], float (&m)[2], float (&l)[2],
-                                        float (&alpha)[2], bool inner, const int (&hi)[2]) {
+                                        float (&alpha)[2], bool inner, const int (&hi)[2],
+                                        const int (&lo)[2], const float (&slope)[2],
+                                        const float (&cb)[2]) {
   using dstt::kFloor;
   using dstt::kMask;
   using hopper::ex2;
@@ -177,7 +196,12 @@ __device__ __forceinline__ void softmax(float (&sc)[kKeys / 2], float (&m)[2], f
 #pragma unroll
     for (int e = 0; e < kKeys / 2; ++e) {
       const int r = (e >> 1) & 1, c = 8 * (e >> 2) + (e & 1);
-      sc[e] = c < hi[r] ? sc[e] * kLog2e : kMask;
+      if constexpr (EXTRA) {
+        const float x = fmaf(slope[r], (float)c + cb[r], sc[e]);
+        sc[e] = c < hi[r] && c >= lo[r] ? x * kLog2e : kMask;
+      } else {
+        sc[e] = c < hi[r] ? sc[e] * kLog2e : kMask;
+      }
       mx[r] = fmaxf(mx[r], sc[e]);
     }
   }
@@ -212,7 +236,7 @@ inline size_t wave_smem(int D, int A, int max_tiles) {
          sizeof(int) * ((size_t)2 * A + 1 + 2 * (size_t)max_tiles + 8) + A;
 }
 
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kTcThreads, 2)
 wave_wgmma(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
            const WaveArgs a) {
@@ -330,7 +354,7 @@ wave_wgmma(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUten
       // lane l holds the table entry of page base + l, 32 pages loaded at
       // a time, so a step's copies wait for no table load of their own
       int base = -kWarp, held = 0;
-      for (int st = 0; st < t.steps; ++st, ++it) {
+      for (int st = EXTRA ? t.first : 0; st < t.steps; ++st, ++it) {
         const int s = it % kStages;
         const int kp = st * kKeys / a.ps;  // the step's first page
         if (kp + pps > base + kWarp) {
@@ -386,24 +410,38 @@ wave_wgmma(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUten
 
     // the keys each of the thread's rows sees: up to its position, within
     // the table
-    int row_hi[2];
+    // (EXTRA) the first key each row's window holds, each row's position
+    // and slope, and the lowest key every row of the tile sees
+    int row_hi[2], row_lo[2], row_pos[2];
+    float slope[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      row_hi[h] = min(t.pos0 + (16 * warp + gq + 8 * h) / g + 1, t.n_keys);
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + gq + 8 * h;
+      row_pos[h] = t.pos0 + r / g;
+      row_hi[h] = min(row_pos[h] + 1, t.n_keys);
+      row_lo[h] = EXTRA && a.window > 0 ? row_pos[h] - a.window + 1 : kNoEdge;
+      slope[h] = EXTRA && a.slopes != nullptr ? a.slopes[kvh * g + r % g] : 0.f;
+    }
+    const int tile_lo = EXTRA && a.window > 0 ? t.pos0 + (t.rows - 1) / g - a.window + 1
+                                              : kNoEdge;
+    const bool biased = EXTRA && a.slopes != nullptr;
     float m[2] = {dstt::kMask, dstt::kMask}, l[2] = {0.f, 0.f}, alpha[2];
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    for (int st = 0; st < t.steps; ++st, ++it) {
+    for (int st = EXTRA ? t.first : 0; st < t.steps; ++st, ++it) {
       const int s = it % kStages, k0 = st * kKeys;
       bar_wait(&full[s], (it / kStages) & 1);
       float sc[kKeys / 2];
       issue_s<D>(sc, sQ, sK + s * T);
       wg_wait<0>();
       hold(sc);
-      const bool inner = k0 + kKeys <= min(t.pos0 + 1, t.n_keys);
+      const bool inner =
+          !biased && k0 + kKeys <= min(t.pos0 + 1, t.n_keys) && k0 >= tile_lo;
       const int hi[2] = {row_hi[0] - k0 - 2 * tq, row_hi[1] - k0 - 2 * tq};
-      softmax(sc, m, l, alpha, inner, hi);
+      const int lo[2] = {row_lo[0] - k0 - 2 * tq, row_lo[1] - k0 - 2 * tq};
+      const float cb[2] = {(float)(k0 + 2 * tq - row_pos[0]), (float)(k0 + 2 * tq - row_pos[1])};
+      softmax<EXTRA>(sc, m, l, alpha, inner, hi, lo, slope, cb);
       uint32_t p[kKeys / 16][4];
       to_a<kKeys>(p, sc);
 #pragma unroll
@@ -443,7 +481,7 @@ int sm_count() {
   return n;
 }
 
-template <int D>
+template <int D, bool EXTRA>
 cudaError_t launch_tc(const WaveArgs& a, const void* k_pages, const void* v_pages,
                       cudaStream_t stream) {
   CUtensorMap mk, mv;
@@ -454,7 +492,7 @@ cudaError_t launch_tc(const WaveArgs& a, const void* k_pages, const void* v_page
   if (!hopper::map_2d(&mk, k_pages, bf, 2, rows, D, D, 64, box, sw) ||
       !hopper::map_2d(&mv, v_pages, bf, 2, rows, D, D, 64, box, sw))
     return cudaErrorInvalidValue;
-  auto kernel = wave_wgmma<D>;
+  auto kernel = wave_wgmma<D, EXTRA>;
   static bool raised = false;  // more than 48 KB of shared memory is opt-in, once
   if (!raised) {
     const cudaError_t rc =
@@ -485,7 +523,8 @@ ragged_wave_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages, T* __restrict__ out,
                    const int* __restrict__ cu_q_lens, const int* __restrict__ kv_lens,
                    const int* __restrict__ page_indices, int N, int A, int H, int kvH, int P,
-                   int ps, int D, int MP, int block_q, float scale) {
+                   int ps, int D, int MP, int block_q, float scale,
+                   const float* __restrict__ slopes, int window) {
   const long tok = (long)H * D;
   {
     // 16 bytes a store where a token's row is a multiple of 16 bytes, else
@@ -507,7 +546,7 @@ ragged_wave_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int n = min(block_q, q_len - off);
     dstt::attend_pages<T, NARROW>(q + (row0 + off) * tok, out + (row0 + off) * tok, k_pages,
                                   v_pages, page_indices + (long)a * MP, MP, H, kvh, H / kvH, P,
-                                  ps, D, n, kv_len - q_len + off + n, scale);
+                                  ps, D, n, kv_len - q_len + off + n, scale, slopes, window);
     __syncthreads();  // the shared memory is free for the next piece
   }
 }
@@ -516,7 +555,7 @@ template <typename T, bool NARROW>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, void* out,
                    const int* cu_q_lens, const int* kv_lens, const int* page_indices, int N,
                    int A, int H, int kvH, int P, int ps, int D, int MP, int block_q, float scale,
-                   cudaStream_t stream) {
+                   const float* slopes, int window, cudaStream_t stream) {
   // an atom's tokens go through the block in pieces of block_q tokens x g
   // heads of rows; a wide group (Falcon-7B: 71 query heads on one kv head)
   // takes pieces of fewer tokens, as many as fit a block's shared memory
@@ -528,7 +567,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, void
   ragged_wave_kernel<T, NARROW><<<dim3(std::max(A, 1), kvH), dstt::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<T*>(out), cu_q_lens, kv_lens,
-      page_indices, N, A, H, kvH, P, ps, D, MP, block_q, scale);
+      page_indices, N, A, H, kvH, P, ps, D, MP, block_q, scale, slopes, window);
   return cudaGetLastError();
 }
 
@@ -536,18 +575,20 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages, void
 
 // The CUDA-core form. q (unscaled) [N, H, D], k_pages / v_pages
 // [kvH, P, ps, D], out [N, H, D]; cu_q_lens [A+1], kv_lens [A],
-// page_indices [A, MP] int32. Returns the cudaError_t.
+// page_indices [A, MP] int32; slopes [H] fp32 or null; window 0 = global.
+// Returns the cudaError_t.
 extern "C" int dstt_ragged_paged_attention(const void* q, const void* k_pages,
                                            const void* v_pages, void* out,
                                            const int* cu_q_lens, const int* kv_lens,
-                                           const int* page_indices, int N, int A, int H,
-                                           int kvH, int P, int ps, int D, int MP, int block_q,
-                                           float scale, int is_bf16, void* stream) {
+                                           const int* page_indices, const float* slopes,
+                                           int N, int A, int H, int kvH, int P, int ps, int D,
+                                           int MP, int block_q, int window, float scale,
+                                           int is_bf16, void* stream) {
   if (N == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
 #define RAGGED_CC(T, NARROW)                                                                  \
   launch<T, NARROW>(q, k_pages, v_pages, out, cu_q_lens, kv_lens, page_indices, N, A, H, kvH, \
-                    P, ps, D, MP, block_q, scale, s)
+                    P, ps, D, MP, block_q, scale, slopes, window, s)
   if (D % 8)
     return is_bf16 ? RAGGED_CC(__nv_bfloat16, true) : RAGGED_CC(float, true);
   return is_bf16 ? RAGGED_CC(__nv_bfloat16, false) : RAGGED_CC(float, false);
@@ -560,17 +601,21 @@ extern "C" int dstt_ragged_paged_attention(const void* q, const void* k_pages,
 extern "C" int dstt_ragged_paged_attention_tc(const void* q, const void* k_pages,
                                               const void* v_pages, void* out,
                                               const int* cu_q_lens, const int* kv_lens,
-                                              const int* page_indices, int N, int A, int H,
-                                              int kvH, int P, int ps, int D, int MP,
-                                              float scale, void* stream) {
+                                              const int* page_indices, const float* slopes,
+                                              int N, int A, int H, int kvH, int P, int ps, int D,
+                                              int MP, int window, float scale, void* stream) {
   if (N == 0) return cudaSuccess;
   const int TT = kRows / (H / kvH);
   const WaveArgs a{static_cast<const bf16*>(q), static_cast<bf16*>(out), cu_q_lens, kv_lens,
-                   page_indices, N, A, H, kvH, P, ps, MP, 2 * A + (N + TT - 1) / TT + 1, scale};
+                   page_indices, slopes, N, A, H, kvH, P, ps, MP,
+                   2 * A + (N + TT - 1) / TT + 1, window, scale};
   auto s = static_cast<cudaStream_t>(stream);
+  const bool extra = slopes != nullptr || window > 0;
   switch (D) {
-    case 64: return launch_tc<64>(a, k_pages, v_pages, s);
-    case 128: return launch_tc<128>(a, k_pages, v_pages, s);
+    case 64: return extra ? launch_tc<64, true>(a, k_pages, v_pages, s)
+                          : launch_tc<64, false>(a, k_pages, v_pages, s);
+    case 128: return extra ? launch_tc<128, true>(a, k_pages, v_pages, s)
+                           : launch_tc<128, false>(a, k_pages, v_pages, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -34,6 +34,9 @@ the burst's tokens back once, as the JAX burst does.
   only where Python launches a kernel, and a replay runs no Python. A
   capture records the counters' deltas and undoes them (the captured
   launches have not run); each replay adds the deltas (``LaunchCounts``).
+- **ALiBi and windows.** A step reads the model's ALiBi slopes from one
+  device tensor that never moves (``TransformerLM.alibi``) and passes each
+  layer's window as a launch argument; a capture keeps both as they are.
 - **No fallback.** A capture or a replay that fails raises; there is no
   switch that turns graphs off. On the CPU the same ``decode_step`` runs
   eagerly K times (``StepGraph`` raises for a device other than CUDA).

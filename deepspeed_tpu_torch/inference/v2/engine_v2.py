@@ -29,6 +29,11 @@ are uploaded, so the device never holds the dense tree; a seeded model is
 quantized on the device one leaf at a time. ``linear_impl`` names the
 linear the engine chose (``dense`` / ``woq_int8`` / ``woq_int4``).
 
+ALiBi models (BLOOM) and windowed ones (GPT-Neo, a windowed Mistral) serve
+through the same two kernels, which take the slopes and each layer's
+window. An encoder raises ``ValueError``, as the JAX engine does: it has no
+decode semantics.
+
 A MoE model (``models/mixtral.py``) is placed and seeded the same way: a
 meta-device model gets its storage and its weights on the device, nothing
 twice.
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from ...accelerator import DeviceLike, resolve_device
-from ...models.transformer import TransformerLM
+from ...models.transformer import ENCODER_SERVING, TransformerLM
 from ...nn.layers import Linear
 from ..quantization.quantization import QuantizationConfig, host_quantize_kernel
 from .config_v2 import RaggedInferenceEngineConfig
@@ -173,10 +178,8 @@ class InferenceEngineV2:
         self.device = resolve_device(device)
         c = model.config
         self.config.check_supported(c.dtype)
-        if c.position == "alibi" or model.windows is not None:
-            raise NotImplementedError(
-                "serving ALiBi positions or sliding windows is not ported (ROADMAP A5.3: "
-                "the paged kernels take neither; such models train)")
+        if not c.causal:
+            raise ValueError(ENCODER_SERVING)
         sm = self.config.state_manager
         block_size = self.config.kv_block_size
         max_ctx = min(sm.max_context, c.max_seq_len)

@@ -9,8 +9,13 @@ same ``NEG_INF`` masking, softmax in fp32, probabilities cast to the query
 dtype before the product with V.
 
 Page layout everywhere: ``[kv_heads, num_pages, page_size, head_dim]``.
-The JAX functions' ALiBi and sliding-window arguments are not ported
-(ROADMAP A5).
+
+ALiBi and sliding windows follow the JAX contract (``:192-201``):
+``alibi_slopes [H]`` adds ``slope[h] * (c - pos_q)`` in fp32 to the scaled
+logits before the mask, head ``h = kv * g + gi`` (the slopes laid out
+``reshape(kvH, g)``); ``window`` (an int, 0 or None = global) keeps the keys
+``sliding_window_allowed`` allows, the last ``window`` positions up to the
+query's.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ....ops.transformer.attention import sliding_window_allowed
 
 NEG_INF = -2.3819763e38
 
@@ -36,11 +43,18 @@ def _scale(D: int, scale: Optional[float]) -> float:
     return scale if scale is not None else 1.0 / (D ** 0.5)
 
 
+def _alibi(alibi_slopes, kvH: int, device) -> torch.Tensor:
+    """fp32 slopes ``[kvH, g]`` (head ``h = kv * g + gi``)."""
+    return torch.as_tensor(alibi_slopes, device=device).float().reshape(kvH, -1)
+
+
 def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                                      v_pages: torch.Tensor,
                                      context_lens: torch.Tensor,
                                      block_tables: torch.Tensor,
-                                     scale: Optional[float] = None) -> torch.Tensor:
+                                     scale: Optional[float] = None,
+                                     alibi_slopes: Optional[torch.Tensor] = None,
+                                     window: Optional[int] = None) -> torch.Tensor:
     """One query token per sequence: q [B, H, D] -> [B, H, D].
 
     ``context_lens[b]`` counts tokens INCLUDING the one just written at
@@ -51,7 +65,15 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     kvH, C = k.shape[1], k.shape[2]
     qg = q.reshape(B, kvH, H // kvH, D)
     logits = torch.einsum("bkgd,bkcd->bkgc", qg.float(), k.float()) * _scale(D, scale)
-    mask = torch.arange(C, device=q.device)[None, :] < context_lens[:, None]
+    keys = torch.arange(C, device=q.device)[None, :]
+    pos_q = context_lens.long()[:, None] - 1                      # [B, 1]
+    if alibi_slopes is not None:
+        rel = (keys - pos_q).float()                              # [B, C]
+        logits = logits + _alibi(alibi_slopes, kvH, q.device)[None, :, :, None] \
+            * rel[:, None, None, :]
+    mask = keys < context_lens[:, None]
+    if window is not None:
+        mask = mask & sliding_window_allowed(pos_q, keys, window)
     logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bkgc,bkcd->bkgd", probs, v).reshape(B, H, D)
@@ -60,7 +82,9 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 def ragged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, history_lens: torch.Tensor,
                            block_tables: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           alibi_slopes: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
     """Batched SplitFuse attention: S sequence-chunks x T tokens each.
 
     q [S, T, H, D]; query t of chunk s sits at absolute position
@@ -73,7 +97,14 @@ def ragged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     qg = q.reshape(S, T, kvH, H // kvH, D).permute(0, 2, 3, 1, 4)  # [S,k,g,T,D]
     logits = torch.einsum("skgtd,skcd->skgtc", qg.float(), k.float()) * _scale(D, scale)
     pos_q = history_lens.long()[:, None] + torch.arange(T, device=q.device)[None, :]
-    allowed = torch.arange(C, device=q.device)[None, None, :] <= pos_q[:, :, None]
+    keys = torch.arange(C, device=q.device)[None, None, :]
+    if alibi_slopes is not None:
+        rel = (keys - pos_q[:, :, None]).float()                  # [S, T, C]
+        logits = logits + _alibi(alibi_slopes, kvH, q.device)[None, :, :, None, None] \
+            * rel[:, None, None]
+    allowed = keys <= pos_q[:, :, None]
+    if window is not None:
+        allowed = allowed & sliding_window_allowed(pos_q[:, :, None], keys, window)
     logits = torch.where(allowed[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("skgtc,skcd->skgtd", probs, v)
@@ -82,7 +113,9 @@ def ragged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 def chunk_prefill_attention(q: torch.Tensor, k_ctx: torch.Tensor,
                             v_ctx: torch.Tensor, history_len: torch.Tensor,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            alibi_slopes: Optional[torch.Tensor] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
     """Prefill-chunk attention for ONE sequence.
 
     q [T, H, D] at absolute positions ``history_len + i``; k_ctx/v_ctx
@@ -93,7 +126,13 @@ def chunk_prefill_attention(q: torch.Tensor, k_ctx: torch.Tensor,
     qg = q.reshape(T, kvH, H // kvH, D).permute(1, 2, 0, 3)      # [kvH, g, T, D]
     logits = torch.einsum("kgtd,kcd->kgtc", qg.float(), k_ctx.float()) * _scale(D, scale)
     pos_q = history_len + torch.arange(T, device=q.device)
-    allowed = torch.arange(C, device=q.device)[None, :] <= pos_q[:, None]
+    keys = torch.arange(C, device=q.device)[None, :]
+    if alibi_slopes is not None:
+        rel = (keys - pos_q[:, None]).float()
+        logits = logits + _alibi(alibi_slopes, kvH, q.device)[:, :, None, None] * rel[None, None]
+    allowed = keys <= pos_q[:, None]
+    if window is not None:
+        allowed = allowed & sliding_window_allowed(pos_q[:, None], keys, window)
     logits = torch.where(allowed[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("kgtc,kcd->kgtd", probs, v_ctx.to(q.dtype))

@@ -12,8 +12,14 @@ Counterpart of ``deepspeed_tpu/inference/v2/kernels/pallas_paged_decode.py``
   back to q's dtype itself, as the Pallas call's caller does, so a call is
   one launch. ``launches`` counts launches.
 
-The kernel splits each context over its keys (``split_plan``): units of
-``SPLIT_UNIT`` keys, at most ``max_splits(mp, ps)`` splits a sequence,
+``alibi_slopes [H]`` (fp32) and ``window`` (0 or None = global) are the
+layer's ALiBi slopes and causal window, in the plain version and the
+kernel alike.
+
+The kernel splits each context over its visible keys (``split_plan``:
+from ``max(0, ctx - window)`` under a window, so a local layer reads its
+window, not the context): units of ``SPLIT_UNIT`` keys, at most
+``max_splits(mp, ps, window)`` splits a sequence,
 each a block; the last block of a (sequence, kv head, row group) merges
 the splits' partials in split order in the same launch. The partials and
 the blocks' counters live in buffers this module keeps per device and
@@ -34,7 +40,7 @@ import torch
 
 from ....ops.scratch import Scratch
 from .paged_attention import paged_decode_attention_reference
-from .ragged_paged_attention import check_kernel_args
+from .ragged_paged_attention import check_kernel_args, kernel_slopes
 
 launches = 0
 
@@ -43,24 +49,29 @@ MAX_SPLITS = 16   # splits a sequence at most
 MAX_ROW_BYTES = 1024  # a K / V row: bf16 D 512, fp32 D 256 (any D below)
 
 
-def max_splits(mp: int, ps: int) -> int:
-    """Splits a sequence at most, from the block table's width alone (the
-    host knows it without a sync): one per unit of the widest context the
-    table holds, at most ``MAX_SPLITS``."""
-    return max(1, min(MAX_SPLITS, -(-mp * ps // SPLIT_UNIT)))
+def max_splits(mp: int, ps: int, window: int = 0) -> int:
+    """Splits a sequence at most, from the block table's width and the
+    layer's window alone (the host knows both without a sync): one per unit
+    of the widest context the table holds, or of the window, at most
+    ``MAX_SPLITS``."""
+    keys = mp * ps if window <= 0 else min(mp * ps, window)
+    return max(1, min(MAX_SPLITS, -(-keys // SPLIT_UNIT)))
 
 
-def split_plan(context_len: int, mp: int, ps: int) -> List[Tuple[int, int]]:
+def split_plan(context_len: int, mp: int, ps: int,
+               window: int = 0) -> List[Tuple[int, int]]:
     """The key ranges ``[lo, hi)`` the kernel's splits take for one context,
-    in split order (``csrc/paged_decode.cu`` ``plan``): the
-    ``min(context_len, mp * ps)`` keys in units of ``SPLIT_UNIT``, cut into
-    at most ``max_splits(mp, ps)`` runs of whole units; no keys is one empty
-    split."""
+    in split order (``csrc/paged_decode.cu`` ``plan``): the keys from
+    ``max(0, context_len - window)`` (0 without a window) to
+    ``min(context_len, mp * ps)`` in units of ``SPLIT_UNIT``, cut into at
+    most ``max_splits(mp, ps, window)`` runs of whole units; no keys is one
+    empty split."""
     n_keys = min(max(context_len, 0), mp * ps)
-    units = max(1, -(-n_keys // SPLIT_UNIT))
-    per = -(-units // min(max_splits(mp, ps), units))
+    lo = min(max(context_len - window, 0), n_keys) if window > 0 else 0
+    units = max(1, -(-(n_keys - lo) // SPLIT_UNIT))
+    per = -(-units // min(max_splits(mp, ps, window), units))
     n = -(-units // per)
-    return [(s * per * SPLIT_UNIT, min((s + 1) * per * SPLIT_UNIT, n_keys))
+    return [(lo + s * per * SPLIT_UNIT, min(lo + (s + 1) * per * SPLIT_UNIT, n_keys))
             for s in range(n)]
 
 
@@ -79,7 +90,9 @@ def row_group(g: int, row_bytes: int = 0) -> int:
 def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, context_lens: torch.Tensor,
                      block_tables: torch.Tensor,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     alibi_slopes: Optional[torch.Tensor] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """q [B, H, D]; k_pages/v_pages [kvH, P, ps, D]; context_lens [B]
     (including the token just written at ``context_lens[b]-1``);
     block_tables [B, mp] -> [B, H, D]."""
@@ -95,18 +108,18 @@ def paged_gqa_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pages, v_pages,
                                                 context_lens, block_tables,
-                                                scale)
+                                                scale, alibi_slopes, window)
     if q.device.type != "cuda":
         raise NotImplementedError(f"no paged decode attention for {q.device}")
     return _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens,
-                                  block_tables, scale)
+                                  block_tables, scale, alibi_slopes, window)
 
 
 def bind(lib: ctypes.CDLL):
     """The kernel's C entry point in a built library, typed."""
     fn = lib.dstt_paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                                 ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                                  ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -136,7 +149,7 @@ def _scratch(dev: torch.device, stream: int, n_partial: int, n_cells: int,
 
 
 def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
-                           scale: float):
+                           scale: float, alibi_slopes=None, window: Optional[int] = None):
     global launches
     B, H, D = q.shape
     kvH, P, ps, _ = k_pages.shape
@@ -153,15 +166,17 @@ def _paged_gqa_decode_cuda(q, k_pages, v_pages, context_lens, block_tables,
             f"most {MAX_ROW_BYTES} bytes, 32 lanes a row (ROADMAP B10)")
     gr = row_group(H // kvH, D * q.element_size())
     cells = B * kvH * -(-(H // kvH) // gr)
-    splits = max_splits(mp, ps)
+    window = max(int(window or 0), 0)
+    splits = max_splits(mp, ps, window)
+    slopes = kernel_slopes(alibi_slopes, q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part, counters = _scratch(q.device, stream, cells * splits * gr * (D + 2), cells,
                               torch.cuda.is_current_stream_capturing())
     out = torch.empty_like(q)
     rc = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                    out.data_ptr(), context_lens.data_ptr(),
-                   block_tables.data_ptr(), part.data_ptr(), counters.data_ptr(),
-                   B, H, kvH, P, ps, D, mp, splits, gr, scale,
+                   block_tables.data_ptr(), part.data_ptr(), counters.data_ptr(), slopes,
+                   B, H, kvH, P, ps, D, mp, splits, gr, window, scale,
                    int(q.dtype == torch.bfloat16), stream)
     from ....ops.op_builder.builder import launch_check
     launch_check(rc, "paged_gqa_decode")

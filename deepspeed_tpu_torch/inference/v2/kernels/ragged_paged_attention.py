@@ -11,7 +11,10 @@ into atoms of at most ``block_q`` query tokens, described by
 - ``page_indices [A, MP]``: the block table of the atom's sequence.
 
 Causality is bottom-right aligned per atom: query row t sits at absolute
-position ``kv_len - q_len + t``.
+position ``kv_len - q_len + t``. ``alibi_slopes [H]`` (fp32) adds the ALiBi
+bias and ``window`` (0 or None = global) is the layer's causal window, as
+in ``ragged_chunk_attention``; both kernel forms take them (the JAX engine
+sends such waves to its XLA path).
 
 Two versions of the same function:
 
@@ -90,14 +93,15 @@ def _gather_from_atoms(out_tiled: torch.Tensor, dest: torch.Tensor) -> torch.Ten
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, kv_lens, page_indices,
                                      cu_q_lens, scale: Optional[float] = None,
-                                     block_q: int = 8) -> torch.Tensor:
+                                     block_q: int = 8, alibi_slopes=None,
+                                     window: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: same contract as ``ragged_paged_attention``."""
     A = page_indices.shape[0]
     q_lens = cu_q_lens[1:] - cu_q_lens[:-1]
     q_tiled, dest = _scatter_to_atoms(q, cu_q_lens, A, block_q)
     out = ragged_chunk_attention(q_tiled, k_pages, v_pages,
                                  kv_lens.long() - q_lens.long(), page_indices,
-                                 scale=scale)
+                                 scale=scale, alibi_slopes=alibi_slopes, window=window)
     return _gather_from_atoms(out, dest)
 
 
@@ -105,7 +109,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, kv_lens: torch.Tensor,
                            page_indices: torch.Tensor, cu_q_lens: torch.Tensor,
                            scale: Optional[float] = None,
-                           block_q: int = 8) -> torch.Tensor:
+                           block_q: int = 8,
+                           alibi_slopes: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
     """One ragged wave of attention: q [N, H, D] against the blocked pool
     ``k_pages`` / ``v_pages`` [kvH, P, ps, D]; returns [N, H, D].
 
@@ -123,12 +129,12 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(q, k_pages, v_pages, kv_lens,
                                                 page_indices, cu_q_lens,
-                                                scale, block_q)
+                                                scale, block_q, alibi_slopes, window)
     if q.device.type != "cuda":
         raise NotImplementedError(f"no ragged paged attention for {q.device}")
     return _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens,
                                         page_indices, cu_q_lens, scale,
-                                        block_q)
+                                        block_q, alibi_slopes, window)
 
 
 def tensor_core_form(dtype: torch.dtype, g: int, D: int, ps: int) -> bool:
@@ -185,11 +191,11 @@ def bind(lib: ctypes.CDLL):
     """The kernels' C entry points in a built library, typed: the
     CUDA-core form and the tensor-core form."""
     cuda_cores = lib.dstt_ragged_paged_attention
-    cuda_cores.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    cuda_cores.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     cuda_cores.restype = ctypes.c_int
     tensor_cores = lib.dstt_ragged_paged_attention_tc
-    tensor_cores.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    tensor_cores.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                              + [ctypes.c_float, ctypes.c_void_p])
     tensor_cores.restype = ctypes.c_int
     return cuda_cores, tensor_cores
@@ -229,8 +235,24 @@ def check_kernel_args(q, k_pages, v_pages, descriptors) -> None:
                          f"differ in their last dim")
 
 
+def kernel_slopes(alibi_slopes, q: torch.Tensor) -> Optional[int]:
+    """The ALiBi slopes' address for a kernel (None without), after checking
+    that they are contiguous fp32 ``[H]`` on q's device."""
+    if alibi_slopes is None:
+        return None
+    H = q.shape[-2]
+    if not torch.is_tensor(alibi_slopes) or alibi_slopes.dtype != torch.float32 or \
+            tuple(alibi_slopes.shape) != (H,) or alibi_slopes.device != q.device or \
+            not alibi_slopes.is_contiguous():
+        raise ValueError(f"alibi_slopes must be contiguous fp32 [{H}] on {q.device}, got "
+                         f"{getattr(alibi_slopes, 'dtype', type(alibi_slopes))} "
+                         f"{tuple(getattr(alibi_slopes, 'shape', ()))}")
+    return alibi_slopes.data_ptr()
+
+
 def _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens, page_indices,
-                                 cu_q_lens, scale: float, block_q: int):
+                                 cu_q_lens, scale: float, block_q: int,
+                                 alibi_slopes=None, window: Optional[int] = None):
     global launches
     N, H, D = q.shape
     kvH, P, ps, _ = k_pages.shape
@@ -244,15 +266,17 @@ def _ragged_paged_attention_cuda(q, k_pages, v_pages, kv_lens, page_indices,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-            cu_q_lens.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr())
+            cu_q_lens.data_ptr(), kv_lens.data_ptr(), page_indices.data_ptr(),
+            kernel_slopes(alibi_slopes, q))
+    window = max(int(window or 0), 0)
     cuda_cores, tensor_cores = _kernel()
     if tensor_core_form(q.dtype, H // kvH, D, ps):
         if kvH * P * ps >= 2 ** 31:
             raise NotImplementedError(f"a KV pool of {kvH * P * ps} rows (ROADMAP A5)")
-        rc = tensor_cores(*ptrs, N, A, H, kvH, P, ps, D, MP, scale, stream)
+        rc = tensor_cores(*ptrs, N, A, H, kvH, P, ps, D, MP, window, scale, stream)
         form = "tensor_cores"
     else:
-        rc = cuda_cores(*ptrs, N, A, H, kvH, P, ps, D, MP, block_q, scale,
+        rc = cuda_cores(*ptrs, N, A, H, kvH, P, ps, D, MP, block_q, window, scale,
                         int(q.dtype == torch.bfloat16), stream)
         form = "cuda_cores"
     from ....ops.op_builder.builder import launch_check

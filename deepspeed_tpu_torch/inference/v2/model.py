@@ -23,6 +23,13 @@ count, so generation does not depend on how requests are batched), as the
 JAX model's ``_moe_serve`` does (``model.py:83-96``), through the MoE
 kernels of ``ops/transformer/moe.py``.
 
+ALiBi slopes (``model.alibi``, one device tensor a model, at a fixed
+address) and each layer's window (``model.window(l)``, a Python int) go to
+both paged kernels with every layer's call; a CUDA graph of a decode step
+captures them as they are (the slopes' address and the windows as launch
+arguments). The JAX engine sends such models to its XLA paged path; the
+port's kernels take them.
+
 The KV pool is updated IN PLACE: each layer's new K/V rows are written
 with ``index_copy_`` into ``k_pages[l]`` / ``v_pages[l]`` of the
 preallocated pool, where the JAX program carries the pool functionally
@@ -41,7 +48,8 @@ from ...models.transformer import TransformerLM
 from .kernels.paged_decode import paged_gqa_decode
 from .kernels.ragged_paged_attention import ragged_paged_attention
 
-AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+#: (q, the layer's k / v pages, the layer index) -> attention
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -137,7 +145,7 @@ class RaggedInferenceModel:
             q, k, v = self.model._qkv(block, h1, rope)
             self._write_kv(k_pages[l], k, write_idx)
             self._write_kv(v_pages[l], v, write_idx)
-            attn = attn_fn(q, k_pages[l], v_pages[l])
+            attn = attn_fn(q, k_pages[l], v_pages[l], l)
             x = self.model._residual(block, x, h1, attn, None, dropless=True)
         return x
 
@@ -154,10 +162,13 @@ class RaggedInferenceModel:
         max_flat = k_pages.shape[2] * self.block_size
         write_idx = write_idx.long().clamp(0, max_flat - 1)
 
-        def attn(q, k_l, v_l):
+        slopes = self.model.alibi(x.device)
+
+        def attn(q, k_l, v_l, l):
             return ragged_paged_attention(q, k_l, v_l, kv_lens, page_tables,
                                           cu_q_lens, scale=self._scale,
-                                          block_q=self.ragged_block_q)
+                                          block_q=self.ragged_block_q,
+                                          alibi_slopes=slopes, window=self.model.window(l))
 
         x = self._layer_loop(k_pages, v_pages, x, attn, write_idx, positions)
         sel = x[last_rows.long().clamp(0, x.shape[0] - 1)]
@@ -185,8 +196,11 @@ class RaggedInferenceModel:
         write_idx = (pages_of.long() * ps + pos_c % ps).clamp(0, max_flat - 1)
         ctx = (pos_c + 1).to(torch.int32)
 
-        def attn(q, k_l, v_l):
-            return paged_gqa_decode(q, k_l, v_l, ctx, tables, scale=self._scale)
+        slopes = self.model.alibi(x.device)
+
+        def attn(q, k_l, v_l, l):
+            return paged_gqa_decode(q, k_l, v_l, ctx, tables, scale=self._scale,
+                                    alibi_slopes=slopes, window=self.model.window(l))
 
         x = self._layer_loop(k_pages, v_pages, x, attn, write_idx, state.positions)
         nxt = sample_next(self._unembed(x), state.temperatures, sampled, generator)

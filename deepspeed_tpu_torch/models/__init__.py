@@ -1,7 +1,9 @@
 """Model family of the port (counterpart of ``deepspeed_tpu/models``)."""
 
 from .transformer import MoEConfig, TransformerConfig, TransformerLM  # noqa: F401
+from .bert import bert_config, bert_model, roberta_config, roberta_model  # noqa: F401
 from .gpt2 import gpt2_config, gpt2_model  # noqa: F401
+from .heads import TASKS, EncoderTaskModel  # noqa: F401
 from .llama import llama_config, llama_model  # noqa: F401
 from .mixtral import mixtral_config, mixtral_model  # noqa: F401
 from .opt_phi_falcon import (falcon_config, falcon_model, opt_config,  # noqa: F401

@@ -11,8 +11,8 @@ the preset tables):
 - **GPT-J**: a parallel block from one norm, partial interleaved rotary,
   bias-free attention with a biased MLP, an untied head with a bias.
 
-BLOOM and GPT-Neo train; serving them raises (ROADMAP A5.3: the paged
-kernels take neither ALiBi nor windows).
+Every family trains and serves: both paged kernels take BLOOM's ALiBi
+slopes and GPT-Neo's windows.
 """
 
 from __future__ import annotations

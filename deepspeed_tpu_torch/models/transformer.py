@@ -1,8 +1,9 @@
-"""Decoder-only transformer of the port: the Llama family, Mixtral, and the
-decoder families of ``gpt2.py``, ``opt_phi_falcon.py`` and
-``bloom_neox_gptj.py`` (learned, rotary or ALiBi positions, sequential or
-parallel blocks with one norm or two, an embedding norm, per-layer causal
-windows).
+"""Transformer of the port: the Llama family, Mixtral, the decoder families
+of ``gpt2.py``, ``opt_phi_falcon.py`` and ``bloom_neox_gptj.py`` (learned,
+rotary or ALiBi positions, sequential or parallel blocks with one norm or
+two, an embedding norm, per-layer causal windows) and the encoders of
+``bert.py`` (bidirectional, post-norm blocks, token-type embeddings,
+RoBERTa's pad-based positions, the MLM head, padding masks).
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``. The JAX model is a
 stateless description whose block parameters are stacked on a leading
@@ -20,10 +21,12 @@ fills it from a ``torch.Generator``.
 it: tests and ``chip_smoke.py`` hold the serving path's logits against it.
 
 The training half is ``apply`` (logits through the flash attention of
-``ops/transformer/attention.py``, each block under
-``torch.utils.checkpoint`` when ``remat``), ``derive_labels``,
-``head_loss`` and ``loss`` (``models/transformer.py:757-882``), with
-``masked_cross_entropy``.
+``ops/transformer/attention.py``, each block under the config's remat
+policy, ``runtime/activation_checkpointing/checkpointing.py``),
+``derive_labels``, ``head_loss`` and ``loss``
+(``models/transformer.py:757-882``), with ``masked_cross_entropy``. An
+``attention_mask [B, S]`` (1 = a real token) goes to the flash kernels as
+int32 segment ids, so pad rows attend among pads, as in JAX.
 
 A block of a ``moe`` configuration holds a ``MoE`` (``moe/layer.py``) in
 place of its MLP, in every layer, as the JAX block does
@@ -39,11 +42,14 @@ so the state dict's keys stay the JAX tree's. ALiBi slopes and the
 per-layer windows are normalized once, as the JAX model does
 (``:202-231``), and go to the flash kernels with every call.
 
-Configurations the port does not cover yet raise ``NotImplementedError``
-naming the ROADMAP item that will bring them: encoders (post-norm,
-bidirectional attention, token types, the MLM head, pad-based positions)
-and MoE training. Serving ALiBi or windowed models raises at engine build
-(ROADMAP A5.3).
+A post-norm block (BERT) applies its norms after each residual add and
+mixes the PLD gate outside them (``keep * y + (1 - keep) * x``); a post-norm
+model has no ``ln_f``. The MLM head is dense -> activation -> LN -> the tied
+decoder plus ``mlm.bias``.
+
+MoE training raises ``NotImplementedError`` naming ROADMAP A7. The plain
+serving ``forward`` is causal-only: an encoder raises ``ValueError``, as
+the JAX serving model does.
 """
 
 from __future__ import annotations
@@ -52,17 +58,19 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from ..moe.layer import MoE
 from ..nn import layers as L
-from ..ops.transformer.attention import alibi_slopes, attention_reference, flash_attention
+from ..ops.transformer.attention import alibi_slopes, flash_attention
+from ..runtime.activation_checkpointing import checkpointing
 
 MOE_TRAINING = ("training through MoE layers is not ported (ROADMAP A7: MoE training "
                 "through a reference-VJP autograd.Function, with A6 / A9 to fit a "
                 "mixtral-class model)")
-ENCODERS = "(ROADMAP A2: encoders)"
+ENCODER_SERVING = ("the ragged serving engine generates autoregressively; "
+                   "bidirectional encoders (bert/roberta) have no decode semantics "
+                   "- use the model's apply() for MLM scoring")
 
 ACTIVATIONS = {
     "gelu": L.gelu,  # tanh approximation
@@ -111,13 +119,13 @@ class TransformerConfig:
     attn_out_bias: Optional[bool] = None
     lm_head_bias: bool = False
     tie_embeddings: bool = True
-    causal: bool = True              # False (encoders): not ported
+    causal: bool = True              # False: a bidirectional encoder (bert)
     parallel_block: bool = False     # falcon/phi: x + attn(ln(x)) + mlp(ln(x))
     parallel_norms: bool = False     # falcon-40b/neox: a norm per parallel branch
-    norm_style: str = "pre"          # 'pre' ('post': not ported)
-    # encoder fields (bert / roberta): not ported
-    type_vocab_size: int = 0
-    mlm_head: bool = False
+    norm_style: str = "pre"          # 'pre' | 'post' (bert-era encoders)
+    type_vocab_size: int = 0         # bert segment (token-type) embeddings
+    mlm_head: bool = False           # bert cls.predictions transform + bias
+    # roberta: position ids cumsum(real) * real + pad_token_id
     pad_based_positions: bool = False
     pad_token_id: Optional[int] = None
     moe: Optional[MoEConfig] = None  # every layer's MLP is a MoE when set
@@ -140,27 +148,24 @@ class TransformerConfig:
 
 
 def check_supported(c: TransformerConfig) -> None:
-    """Raise for model features the port does not cover yet."""
+    """Raise for configurations the JAX model refuses (``ValueError``) and
+    for those the port does not cover yet (``NotImplementedError``)."""
     if c.moe is not None and c.moe_layer_freq != 1:
         raise NotImplementedError(
             f"moe_layer_freq {c.moe_layer_freq}: the JAX model makes every layer a "
             f"MoE (ROADMAP A7: MoE top_k > 2, fp16 and other activations)")
-    if not c.causal:
-        raise NotImplementedError(f"bidirectional encoders are not ported {ENCODERS}")
-    if c.norm_style != "pre":
-        raise NotImplementedError(
-            f"norm_style {c.norm_style!r} is not ported {ENCODERS}; the port's "
-            f"blocks are pre-norm")
-    for field in ("type_vocab_size", "mlm_head", "pad_based_positions"):
-        if getattr(c, field):
-            raise NotImplementedError(f"{field} is an encoder feature, not ported "
-                                      f"{ENCODERS}")
     if c.position not in ("rope", "learned", "alibi"):
         raise ValueError(f"unknown position style {c.position!r}")
-    if c.remat and c.remat_policy not in ("full", "nothing_saveable"):
-        raise NotImplementedError(
-            f"remat policy {c.remat_policy!r} is not ported (ROADMAP A2: model "
-            f"forward for training); 'full'/'nothing_saveable' recompute each block")
+    if c.norm_style not in ("pre", "post"):
+        raise ValueError(f"unknown norm_style {c.norm_style!r}")
+    if not c.causal and c.position != "learned":
+        raise ValueError("bidirectional encoders use learned positions")
+    if not c.causal and c.attn_windows is not None:
+        raise ValueError("attention windows are causal-only")
+    if c.pad_based_positions and c.pad_token_id is None:
+        raise ValueError("pad_based_positions requires pad_token_id")
+    if c.remat:
+        checkpointing.check_model_policy(c.remat_policy)
 
 
 def layer_windows(c: TransformerConfig) -> Optional[Tuple[int, ...]]:
@@ -195,9 +200,9 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class Block(nn.Module):
-    """One pre-norm decoder block; attribute names match the JAX block's
-    parameter keys (``models/transformer.py:247-280``). A parallel block
-    with one norm has no ``ln_2``."""
+    """One block; attribute names match the JAX block's parameter keys
+    (``models/transformer.py:247-280``). A parallel block with one norm has
+    no ``ln_2``."""
 
     def __init__(self, c: TransformerConfig, device=None):
         super().__init__()
@@ -257,16 +262,24 @@ class TransformerLM(nn.Module):
                                 c.hidden_size, **kw)
                     if c.position == "learned" else None)
         self.blocks = nn.ModuleList(Block(c, device) for _ in range(c.num_layers))
-        self.ln_f = (L.RMSNorm(c.hidden_size, eps=c.norm_eps, **kw)
-                     if c.norm == "rmsnorm"
-                     else L.LayerNorm(c.hidden_size, eps=c.norm_eps, **kw))
+        norm = (lambda: L.RMSNorm(c.hidden_size, eps=c.norm_eps, **kw)) \
+            if c.norm == "rmsnorm" else \
+            (lambda: L.LayerNorm(c.hidden_size, eps=c.norm_eps, **kw))
+        # post-norm: the last block's output norm already normalizes
+        self.ln_f = norm() if c.norm_style == "pre" else None
         self.lm_head = (None if c.tie_embeddings else
                         L.Linear(c.hidden_size, c.vocab_size,
                                  bias=c.lm_head_bias, **kw))
-        self.ln_emb = ((L.RMSNorm(c.hidden_size, eps=c.norm_eps, **kw)
-                        if c.norm == "rmsnorm"
-                        else L.LayerNorm(c.hidden_size, eps=c.norm_eps, **kw))
-                       if c.embedding_norm else None)
+        self.ln_emb = norm() if c.embedding_norm else None
+        self.wtt = (L.Embedding(c.type_vocab_size, c.hidden_size, **kw)
+                    if c.type_vocab_size else None)
+        self.mlm = None
+        if c.mlm_head:
+            self.mlm = nn.Module()
+            self.mlm.dense = L.Linear(c.hidden_size, c.hidden_size, **kw)
+            self.mlm.ln = norm()
+            self.mlm.bias = nn.Parameter(torch.empty(c.vocab_size, **kw),
+                                         requires_grad=False)
         #: each layer's causal window (0 = global), or None
         self.windows = layer_windows(c)
         #: ALiBi slopes [num_heads] (fp32, host), or None
@@ -285,6 +298,8 @@ class TransformerLM(nn.Module):
                 m.reset_parameters(generator)
             elif isinstance(m, (L.RMSNorm, L.LayerNorm)):
                 m.reset_parameters()
+        if self.mlm is not None:
+            self.mlm.bias.zero_()
 
     def materialize(self, device, seed: int = 0) -> "TransformerLM":
         """Give a meta-device model storage on ``device`` and fill it from
@@ -312,35 +327,55 @@ class TransformerLM(nn.Module):
         rot = L.apply_rotary(x[..., :rd], *rope, c.rope_style)
         return torch.cat([rot, x[..., rd:]], dim=-1)
 
-    def embed(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """Token (+ position) embeddings, the embedding norm, the cast to
-        the compute dtype (JAX ``embed``)."""
+    def embed(self, tokens: torch.Tensor, positions: torch.Tensor,
+              token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token + position (+ token-type) embeddings, the embedding norm,
+        the cast to the compute dtype (JAX ``embed``). With
+        ``pad_based_positions`` a token's position id is
+        ``cumsum(real) * real + pad_token_id`` along the sequence (HF
+        RoBERTa's), ``positions`` unread; token types default to 0."""
         c = self.config
         x = self.wte(tokens)
         if self.wpe is not None:
-            pos = positions.clamp(0, c.max_seq_len - 1) + c.position_offset
+            if c.pad_based_positions:
+                real = (tokens != c.pad_token_id).long()
+                pos = torch.cumsum(real, dim=-1) * real + c.pad_token_id
+            else:
+                pos = positions.clamp(0, c.max_seq_len - 1) + c.position_offset
             x = x + self.wpe(pos)
+        if self.wtt is not None:
+            x = x + self.wtt(token_type_ids if token_type_ids is not None
+                             else torch.zeros_like(tokens))
         if self.ln_emb is not None:
             x = self.ln_emb(x)
         return x.to(c.dtype)
 
     def alibi(self, device: torch.device) -> Optional[torch.Tensor]:
         """The ALiBi slopes on ``device`` (None without ALiBi), copied there
-        once."""
+        once, at an address that stays (a captured decode graph reads it);
+        a normal tensor even when first asked for under inference mode, so
+        training can save it for the backward."""
         if self.alibi_slopes is None:
             return None
         t = self._alibi_on.get(device)
         if t is None:
-            t = self._alibi_on[device] = self.alibi_slopes.to(device)
+            with torch.inference_mode(False):
+                t = self._alibi_on[device] = self.alibi_slopes.to(device)
         return t
 
     def window(self, layer: int) -> Optional[int]:
         return None if self.windows is None else self.windows[layer]
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and LM head; fp32 logits."""
-        x = self.ln_f(x)
+        """Final norm (pre-norm models), the MLM transform (dense ->
+        activation -> LN) and the LM / MLM head; fp32 logits."""
+        if self.ln_f is not None:
+            x = self.ln_f(x)
+        if self.mlm is not None:
+            x = self.mlm.ln(ACTIVATIONS[self.config.activation](self.mlm.dense(x)))
         logits = self.wte.attend(x) if self.lm_head is None else self.lm_head(x)
+        if self.mlm is not None:
+            logits = logits + self.mlm.bias.to(logits.dtype)
         return logits.float()
 
     def _qkv(self, blk: Block, h: torch.Tensor, rope):
@@ -372,15 +407,24 @@ class TransformerLM(nn.Module):
         return x + (m if keep is None else keep * m)
 
     # -- training forward ----------------------------------------------------
-    def _block(self, blk: Block, x: torch.Tensor, rope, keep, window) -> torch.Tensor:
-        """One pre-norm block (``_block_fn``) through the flash kernels;
-        ``keep`` gates it (PLD) or is None, ``window`` is the layer's."""
+    def _block(self, blk: Block, x: torch.Tensor, rope, keep, window,
+               seg: Optional[torch.Tensor]) -> torch.Tensor:
+        """One block (``_block_fn``) through the flash kernels; ``keep``
+        gates it (PLD) or is None, ``window`` is the layer's, ``seg`` the
+        int32 segment ids of the padding mask or None. Post-norm: LN after
+        each residual add, the gate mixed outside the norms."""
         c = self.config
-        h1 = blk.ln_1(x)
+        post = c.norm_style == "post"
+        h1 = x if post else blk.ln_1(x)
         q, k, v = self._qkv(blk, h1, rope)
         attn = flash_attention(q, k, v, causal=c.causal, scale=c.attn_scale,
-                               alibi_slopes=self.alibi(x.device), window=window)
-        return self._residual(blk, x, h1, attn, keep)
+                               segment_ids=seg, alibi_slopes=self.alibi(x.device),
+                               window=window)
+        if not post:
+            return self._residual(blk, x, h1, attn, keep)
+        h = blk.ln_1(x + blk.o_proj(attn.reshape(*x.shape[:-1], -1)))
+        y = blk.ln_2(h + blk.mlp(h))
+        return y if keep is None else keep * y + (1 - keep) * x
 
     def apply(self, input_ids: torch.Tensor,
               layer_mask: Optional[torch.Tensor] = None,
@@ -389,35 +433,48 @@ class TransformerLM(nn.Module):
               return_hidden: bool = False):
         """``(logits [B, S, V] fp32, moe_aux_loss)``, differentiable
         (``apply``). ``layer_mask`` [num_layers] gates each block;
-        ``return_hidden`` returns the final-normed hidden states instead of
-        the logits."""
-        if token_type_ids is not None or attention_mask is not None:
-            raise NotImplementedError(
-                f"token types and padding masks are for encoders, not ported {ENCODERS}")
+        ``token_type_ids [B, S]`` select the segment embeddings;
+        ``attention_mask [B, S]`` (1 = real) masks padding;
+        ``return_hidden`` returns the final hidden states (after ``ln_f``
+        where the model has one) instead of the logits.
+
+        Remat (when grad is on): each block under ``remat_policy``
+        (``checkpointing.checkpoint``), or, for ``alternating``, layer
+        pairs with the first of each pair checkpointed in full and the
+        second not (an odd last layer checkpointed)."""
         c = self.config
         if c.moe is not None:
             raise NotImplementedError(MOE_TRAINING)
         S = input_ids.shape[1]
         positions = torch.arange(S, device=input_ids.device)[None, :]
-        x = self.embed(input_ids, positions)
+        x = self.embed(input_ids, positions, token_type_ids)
         rope = self.rope(positions) if c.position == "rope" else None
+        seg = None if attention_mask is None else attention_mask.to(torch.int32)
+        remat = c.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             keep = None if layer_mask is None else layer_mask[i].to(c.dtype)
-            if c.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(self._block, blk, x, rope, keep,
-                                                      self.window(i), use_reentrant=False)
+            args = (blk, x, rope, keep, self.window(i), seg)
+            if not remat:
+                x = self._block(*args)
+            elif c.remat_policy == "alternating":
+                x = checkpointing.checkpoint(self._block, *args, policy=(
+                    "full" if i % 2 == 0 else "everything_saveable"))
             else:
-                x = self._block(blk, x, rope, keep, self.window(i))
+                x = checkpointing.checkpoint(self._block, *args, policy=c.remat_policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
-            return self.ln_f(x), aux
+            return (x if self.ln_f is None else self.ln_f(x)), aux
         return self.head(x), aux
 
     def derive_labels(self, batch) -> torch.Tensor:
-        """Explicit labels, or the causal next-token shift (-100 = ignore)."""
+        """Explicit labels, or the causal next-token shift (-100 = ignore);
+        an encoder needs explicit labels."""
         labels = batch.get("labels")
         if labels is not None:
             return labels
+        if not self.config.causal:
+            raise ValueError("encoder (MLM) training requires explicit labels - "
+                             "next-token shift is meaningless bidirectionally")
         ids = batch["input_ids"]
         return torch.nn.functional.pad(ids[:, 1:], (0, 1), value=-100)
 
@@ -428,10 +485,14 @@ class TransformerLM(nn.Module):
         return masked_cross_entropy(self.head(x), labels, extra_mask=extra_mask)
 
     def loss(self, batch) -> torch.Tensor:
-        """Next-token cross-entropy of ``batch`` (``input_ids [B, S]``,
-        optional ``labels``, ``loss_mask``, ``layer_mask``)."""
+        """Cross-entropy of ``batch`` (``input_ids [B, S]``, optional
+        ``labels``, ``loss_mask``, ``layer_mask``, ``token_type_ids``,
+        ``attention_mask``): next-token for causal models, masked-LM for
+        encoders (labels required, -100 = ignore)."""
         labels = self.derive_labels(batch)
-        logits, _ = self.apply(batch["input_ids"], layer_mask=batch.get("layer_mask"))
+        logits, _ = self.apply(batch["input_ids"], layer_mask=batch.get("layer_mask"),
+                               token_type_ids=batch.get("token_type_ids"),
+                               attention_mask=batch.get("attention_mask"))
         return masked_cross_entropy(logits, labels, extra_mask=batch.get("loss_mask"))
 
     # -- plain reference forward ---------------------------------------------
@@ -439,14 +500,16 @@ class TransformerLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, dropless: bool = False) -> torch.Tensor:
         """Full-sequence causal forward: ``input_ids [B, S]`` -> fp32 logits
         ``[B, S, V]``. Attention is the plain chunk reference with no
-        history, one sequence at a time, or, for ALiBi and windowed layers,
-        the whole-matrix ``attention_reference``. ``dropless`` routes MoE
+        history, one sequence at a time, with the ALiBi slopes and each
+        layer's window. ``dropless`` routes MoE
         layers with capacity = the token count (the serving engine's
         function); else with the config's capacity factor, over all ``B *
         S`` tokens at once, as the JAX ``apply``."""
         from ..inference.v2.kernels.paged_attention import chunk_prefill_attention
 
         c = self.config
+        if not c.causal:
+            raise ValueError(ENCODER_SERVING)
         B, S = input_ids.shape
         positions = torch.arange(S, device=input_ids.device)[None, :].expand(B, S)
         x = self.embed(input_ids, positions)
@@ -456,14 +519,10 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             h1 = blk.ln_1(x)
             q, k, v = self._qkv(blk, h1, rope)
-            if slopes is not None or self.window(i):
-                attn = attention_reference(q, k, v, True, c.attn_scale, None,
-                                           alibi=slopes, window=self.window(i))
-            else:
-                attn = torch.stack([
-                    chunk_prefill_attention(q[b], k[b].transpose(0, 1),
-                                            v[b].transpose(0, 1), zero,
-                                            scale=c.attn_scale)
-                    for b in range(B)])
+            attn = torch.stack([
+                chunk_prefill_attention(q[b], k[b].transpose(0, 1), v[b].transpose(0, 1),
+                                        zero, scale=c.attn_scale, alibi_slopes=slopes,
+                                        window=self.window(i))
+                for b in range(B)])
             x = self._residual(blk, x, h1, attn, None, dropless=dropless)
         return self.head(x)

@@ -199,3 +199,16 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
     signature). x: ``[..., seq, heads, head_dim]``; positions:
     ``[..., seq]``."""
     return apply_rotary(x, *rotary_tables(positions, x.shape[-1], theta), style)
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (the JAX layer's signature, the key replaced by an
+    explicit ``torch.Generator`` on ``x``'s device): ``x`` itself when
+    ``deterministic`` or ``rate == 0``, else each element kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, zero
+    otherwise. The draws are the generator's, not JAX's."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

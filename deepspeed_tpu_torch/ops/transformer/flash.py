@@ -26,8 +26,11 @@ a cotangent on the LSE folds into the backward's ``di`` term. Any ``Sq`` and
   cut back.
   ``launches`` counts launches per kernel.
 
-The autograd Function saves only tensors (q, k, v, o, lse and the mask
-inputs), so it is safe under ``torch.utils.checkpoint``.
+The forward and backward are registered as custom operators
+(``dstpu_torch::flash_fwd`` / ``flash_bwd``) with the forward's autograd
+formula; the forward saves only tensors (q, k, v, o, lse and the mask
+inputs), so it is safe under ``torch.utils.checkpoint``, and a dispatch
+mode sees the whole forward as one op (``FLASH_FWD_OP``).
 """
 
 from __future__ import annotations
@@ -347,7 +350,8 @@ def _fwd_cuda(q, k, v, spec: MaskSpec):
     launch_check(_kernels()[0](p, int(q.dtype == torch.bfloat16), _stream(q)),
                  "flash_fwd")
     launches["flash_fwd"] += 1
-    return out[..., :D0], lse
+    # an operator's outputs are fresh tensors, never views
+    return (out if D0 == D else out[..., :D0].contiguous()), lse
 
 
 def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
@@ -376,7 +380,9 @@ def _bwd_cuda(q, k, v, o, lse, do, dlse, spec: MaskSpec):
     p.out0, p.out1 = dk.data_ptr(), dv.data_ptr()
     launch_check(dkv_fn(p, is_bf16, _stream(q)), "flash_dkv")
     launches["flash_dkv"] += 1
-    return dq[..., :D0], dk[..., :D0], dv[..., :D0]
+    if D0 == D:
+        return dq, dk, dv
+    return tuple(t[..., :D0].contiguous() for t in (dq, dk, dv))
 
 
 def _on(t: torch.Tensor) -> str:
@@ -401,25 +407,49 @@ def flash_bwd(q, k, v, o, lse, do, dlse, spec: MaskSpec):
     return _bwd_cuda(q, k, v, o, lse, do, dlse, spec)
 
 
-class _Flash(torch.autograd.Function):
+# The forward and the backward are custom operators, so a dispatch mode (the
+# remat policies' ``runtime/activation_checkpointing``) sees each as ONE op:
+# the kernels launch through ctypes, which no mode sees, and the plain
+# versions' own torch ops stay inside the operator.
+@torch.library.custom_op("dstpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+                  slopes: Optional[torch.Tensor], causal: bool, scale: float, window: int,
+                  q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, MaskSpec(causal, scale, window, q_offset, qseg, kseg, slopes))
 
-    @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, slopes, causal, scale, window, q_offset):
-        spec = MaskSpec(causal, scale, window, q_offset, qseg, kseg, slopes)
-        out, lse = flash_fwd(q, k, v, spec)
-        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg, slopes)
-        ctx.static = (causal, scale, window, q_offset)
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, do, dlse):
-        q, k, v, out, lse, qseg, kseg, slopes = ctx.saved_tensors
-        spec = MaskSpec(*ctx.static, qseg, kseg, slopes)
-        if do is None:
-            do = torch.zeros_like(out)
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, dlse, spec)
-        return dq, dk, dv, None, None, None, None, None, None, None
+@torch.library.custom_op("dstpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                  lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor],
+                  qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+                  slopes: Optional[torch.Tensor], causal: bool, scale: float, window: int,
+                  q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    spec = MaskSpec(causal, scale, window, q_offset, qseg, kseg, slopes)
+    return flash_bwd(q, k, v, o, lse, do, dlse, spec)
+
+
+#: the forward operator (what a remat policy names to keep or recompute)
+FLASH_FWD_OP = torch.ops.dstpu_torch.flash_fwd.default
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, qseg, kseg, slopes, *static = inputs
+    ctx.save_for_backward(q, k, v, *output, qseg, kseg, slopes)
+    ctx.static = tuple(static)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, do, dlse):
+    q, k, v, out, lse, qseg, kseg, slopes = ctx.saved_tensors
+    if do is None:
+        do = torch.zeros_like(out)
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, lse, do, dlse, qseg, kseg, slopes, *ctx.static)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+torch.library.register_autograd("dstpu_torch::flash_fwd", _backward,
+                                setup_context=_setup_context)
 
 
 def flash_attention_with_lse(
@@ -435,8 +465,8 @@ def flash_attention_with_lse(
     s = mask_spec(q, k, causal=causal, scale=scale, segment_ids=segment_ids,
                   q_segment_ids=q_segment_ids, alibi_slopes=alibi_slopes,
                   window=window, q_offset=q_offset)
-    return _Flash.apply(q, k, v, s.qseg, s.kseg, s.slopes, s.causal, s.scale,
-                        s.window, s.q_offset)
+    return _flash_fwd_op(q, k, v, s.qseg, s.kseg, s.slopes, s.causal, s.scale,
+                         s.window, s.q_offset)
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True,

@@ -10,7 +10,10 @@ data_parallel_size``, ``:293-326``), ``optimizer``, ``scheduler``,
 ``zero_optimization`` (``runtime/zero/config.py``: the stage and the ZeRO++
 knobs ``zero_quantized_weights`` / ``zero_quantized_gradients``),
 ``comm_transport`` (the transport planner's policy, ``comm/comm.py``),
-``checkpoint`` (``async_save``, ``keep_last_n``) and ``topology`` with
+``checkpoint`` (``async_save``, ``keep_last_n``),
+``activation_checkpointing`` (``ActivationCheckpointingConfig``: stored; as
+in JAX only its ``policy`` acts, through
+``activation_checkpointing.checkpointing.configure``) and ``topology`` with
 ``data`` equal to the world size. On a world of one,
 ZeRO partitions nothing, exactly as in JAX. Keys for features the port
 does not cover yet raise ``NotImplementedError`` naming their ROADMAP
@@ -66,6 +69,20 @@ class OptimizerConfig:
 class SchedulerConfig:
     type: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ActivationCheckpointingConfig:
+    """The JAX block (``runtime/config.py:90-99``). Only ``policy`` acts
+    (``checkpointing.configure``); the other flags are stored, unread, as in
+    JAX."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = "full"
 
 
 def _enabled(block) -> bool:
@@ -192,6 +209,8 @@ class DeepSpeedConfig:
         self.data_types_optimizer_moment_sq_dtype = data_types.get("optimizer_moment_sq_dtype")
         self.fp16_master_weights_and_grads = bool(pd.get("fp16_master_weights_and_grads", False))
         self.checkpoint_config: Dict[str, Any] = dict(pd.get("checkpoint") or {})
+        self.activation_checkpointing_config = ActivationCheckpointingConfig(
+            **pd.get("activation_checkpointing", {}))
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get("zero_optimization") or {})
         self.zero_stage: int = self.zero_config.stage
         try:

@@ -208,8 +208,10 @@ class DeepSpeedEngine:
 
     # -- data --------------------------------------------------------------
     def _prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Check the token ids, as the JAX engine does, and move the batch
-        to the device."""
+        """Check the token ids, as the JAX engine does, and move every key
+        of the batch to the device (``input_ids``, ``labels``, and an
+        encoder's ``token_type_ids``, ``attention_mask`` or a QA head's
+        ``start_positions`` / ``end_positions``)."""
         ids = batch.get("input_ids")
         vocab = getattr(getattr(self.model, "config", None), "vocab_size", None)
         if ids is not None and vocab is not None:

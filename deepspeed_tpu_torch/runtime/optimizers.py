@@ -17,7 +17,9 @@ bucket every step, the port's master and moments live in the flat bucket
 buffers themselves (each leaf a view), so the kernel updates them in place
 with no copy; only a fused bucket's gradients are gathered, and its param
 casts scattered, per step. sgd and adagrad are plain tensor code, as in
-JAX. The 1-bit and mu variants raise, naming their ROADMAP item.
+JAX. ``muadam`` / ``muadamw`` step as adam / adamw on the fused Adam
+kernel, as in JAX (whose mu variants keep adam's moments and its update;
+``musgd`` is sgd). The 1-bit variants raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,13 +38,14 @@ OptState = Dict[str, Any]
 #: fused-bucket cap in elements (the JAX ``_OPT_BUCKET_ELEMS``)
 _OPT_BUCKET_ELEMS = 1 << 20
 
-_FUSED = ("adam", "adamw", "lamb", "lion")
+_FUSED = ("adam", "adamw", "muadam", "muadamw", "lamb", "lion")
+# the fused Adam kernel's mode of each Adam-family optimizer
+_ADAM_MODE = {"adam": "adam", "muadam": "adam", "adamw": "adamw", "muadamw": "adamw",
+              "lamb": "lamb"}
 _NOT_PORTED = {
     "onebit_adam": "ROADMAP A6 (1-bit optimizers need the distributed step)",
     "onebit_lamb": "ROADMAP A6 (1-bit optimizers need the distributed step)",
     "zero_one_adam": "ROADMAP A6 (1-bit optimizers need the distributed step)",
-    "muadam": "ROADMAP A3 (mu-parametrized optimizers)",
-    "muadamw": "ROADMAP A3 (mu-parametrized optimizers)",
 }
 
 
@@ -189,7 +192,7 @@ class Optimizer:
         (norms are per-leaf reductions)."""
         f32 = torch.float32
         lamb = self.name == "lamb"
-        kmode = "lamb" if lamb else self.name
+        kmode = _ADAM_MODE.get(self.name)
         sdt = self.moment_dtype or f32
         sqdt = self.moment_sq_dtype or f32
         for b_idx, b in enumerate(state["buckets"]):

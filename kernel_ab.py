@@ -10,7 +10,8 @@ version against the plain PyTorch versions in bf16 at every kernel case of
 (``--rounds`` times), one line per pass, so the two are compared on one
 card within one run. The paged-attention group (``paged``: the ragged
 wave at every ``WAVE_CASES`` case, paged decode at every ``DECODE_CASES``
-case) drives each version through the wrappers of the tree that holds its
+case, but those with ALiBi slopes or a window, which ``chip_smoke.py``
+times and which the wrappers of a tree from before them do not take) drives each version through the wrappers of the tree that holds its
 ``csrc`` (``inference/v2/kernels/ragged_paged_attention.py``,
 ``paged_decode.py``), since a redesign changes what a wrapper passes its
 kernel. The weight-only-quantized matmul joins in (at the
@@ -254,12 +255,14 @@ def main():
         adam._kernel = lambda: versions[tag][5]
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    unmasked = lambda cases: {name: case for name, case in cases.items()
+                              if not cs.case_masks(torch, case)}
     waves = {name: cs.wave_case(torch, build_wave, WaveEntry, *cs.case_options(case)[:5], gen,
                                 cs.case_options(case)[5])[:2]
-             for name, case in cs.WAVE_CASES.items()} if has_paged else {}
+             for name, case in unmasked(cs.WAVE_CASES).items()} if has_paged else {}
     decodes = {name: cs.decode_case(torch, *cs.case_options(case)[:5], gen,
                                     cs.case_options(case)[5])[0]
-               for name, case in cs.DECODE_CASES.items()} if has_paged else {}
+               for name, case in unmasked(cs.DECODE_CASES).items()} if has_paged else {}
     flashes = {}
     if has_flash:
         for name in cs.FLASH_TIMED:

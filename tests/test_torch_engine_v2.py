@@ -6,7 +6,11 @@ CPU (its plain attention path), the same numpy prompts on both sides.
 - ``generate`` greedy tokens are identical, with decode bursts, with
   single-token decode steps, and under KV pressure that preempts, offloads
   and restores sequences;
-- the allocator and the KV cache's offload / restore behave as the JAX ones.
+- the allocator and the KV cache's offload / restore behave as the JAX ones;
+- a windowed llama2-tiny (window 8) gives the JAX engine's greedy tokens,
+  ALiBi and windowed 1-layer models serve their plain forward's greedy
+  continuation, and the encoders' block layouts build with the JAX tree's
+  keys and logits (the engine refuses a bidirectional one).
 
 The JAX engine runs with ``kv_pool_sharding="replicated"``: the test mesh
 has 8 CPU devices, and a derived pool would otherwise be sharded and its
@@ -137,17 +141,34 @@ def test_gpt2_style_model_matches_jax():
                                          ("mlm_head", True),
                                          ("norm_style", "post")])
 def test_block_layouts_outside_the_port_raise(field, value):
-    """A JAX config with an encoder's layout the port does not build yet
-    (bidirectional attention, the MLM head, post-norm), copied field by
-    field as above, makes the port raise instead of building a causal
-    pre-norm decoder. Parallel blocks are built (``test_torch_families.py``)."""
+    """A JAX config with an encoder's layout (bidirectional attention, the
+    MLM head, post-norm), copied field by field as above, builds in the
+    port: the JAX tree's keys, and logits equal to the JAX ``apply``'s. The
+    serving engine refuses a bidirectional model with the JAX engine's
+    ``ValueError``; the other two serve."""
+    from deepspeed_tpu.models.transformer import TransformerLM as JaxLM
     jcfg = dataclasses.replace(jax_gpt2("gpt2-tiny", max_seq_len=64).config,
-                               **{field: value})
+                               dtype=jnp.float32, remat=False, **{field: value})
     names = {f.name for f in dataclasses.fields(TransformerConfig)} - {"dtype"}
     cfg = TransformerConfig(**{n: getattr(jcfg, n) for n in names}, dtype=torch.float32)
     assert getattr(cfg, field) == value
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        TransformerLM(cfg)
+    jm = JaxLM(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(3), jnp.float32)
+    if field == "mlm_head":   # a bias the init leaves at zero
+        jparams["mlm"]["bias"] = jnp.linspace(-1.0, 1.0, jcfg.vocab_size)
+    state = params_from_jax(jax.device_get(jparams))
+    model = TransformerLM(cfg, device="cpu")
+    assert set(model.state_dict()) == set(state)
+    model.load_state_dict(state)
+    ids = np.stack(_prompts(8, (12, 12)))
+    want, _ = jax.jit(jm.apply)(jparams, jnp.asarray(ids))
+    got, _ = model.apply(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if field == "causal":
+        with pytest.raises(ValueError, match="bidirectional encoders"):
+            _port_engine(state, model=model)
+    else:
+        _port_engine(state, model=model)
 
 
 def test_generate_greedy_tokens_identical(engines):
@@ -271,8 +292,8 @@ def test_unported_engine_configs_raise(override):
     dict(position="alibi"), dict(attn_windows=8), dict(moe=MoEConfig(num_experts=4, top_k=3))])
 def test_unported_model_features_raise(override):
     """MoE is served; a top-3 route is not (the JAX kernel picks at most
-    2). ALiBi and windowed models train; serving them raises at the
-    engine's build (the paged kernels take neither)."""
+    2). ALiBi and windowed models serve through the paged kernels: greedy
+    tokens equal the argmax continuation of the plain full forward."""
     if "moe" in override:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig(num_layers=1, hidden_size=32,
@@ -283,5 +304,24 @@ def test_unported_model_features_raise(override):
     cfg = RaggedInferenceEngineConfig(
         num_kv_blocks=9, kv_cache_dtype=torch.float32,
         state_manager=DeepSpeedTPStateManagerConfig(**SM_KW), **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.3"):
-        build_engine(model, cfg, device="cpu")
+    eng = build_engine(model, cfg, device="cpu")
+    prompt = [int(t) for t in _prompts(9, (11,))[0] % model.config.vocab_size]
+    got = generate(eng, [prompt], max_new_tokens=5)[0]
+    ids = list(prompt)
+    for _ in range(5):
+        ids.append(int(eng.model(torch.tensor([ids]))[0, -1].argmax()))
+    assert got == ids[len(prompt):]
+
+def test_windowed_llama_greedy_tokens_match_the_jax_engine():
+    """llama2-tiny with a sliding window of 8 on every layer: prompts past
+    the window, chunked prefill and decode bursts, the same greedy tokens
+    as the JAX engine (its XLA paged path)."""
+    jeng = _jax_engine(model=jax_llama("llama2-tiny", dtype=jnp.float32, remat=False,
+                                       max_seq_len=64, attn_windows=8))
+    params = params_from_jax(jax.device_get(jeng.params))
+    peng = _port_engine(params, model=llama_model("llama2-tiny", dtype=torch.float32,
+                                                  max_seq_len=64, attn_windows=8))
+    assert peng.model.windows == (8, 8)
+    prompts = [list(p) for p in _prompts(10, (20, 9, 13))]
+    want = jax_generate(jeng, prompts, max_new_tokens=10)
+    assert generate(peng, prompts, max_new_tokens=10) == want

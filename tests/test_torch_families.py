@@ -18,7 +18,8 @@ attention on the CPU), the port its plain kernel versions.
 (c) greedy tokens from ``build_engine`` + ``generate`` equal to the JAX
     engine's for phi-tiny, falcon-tiny (multi-query) and gpt-neox-tiny
     (a norm per parallel branch);
-(d) BLOOM and GPT-Neo serving raise, naming ROADMAP A5.3;
+(d) BLOOM (ALiBi) and GPT-Neo (windows) serve: first-wave logits and
+    greedy tokens equal the JAX engine's;
 (e) a Phi tag the port saved loads in the JAX engine, and a BLOOM tag the
     JAX engine saved loads in the port, params equal;
 (f) the plain flash forward and backward at head_dim 80, 96 and 256
@@ -225,9 +226,24 @@ def test_generate_greedy_tokens_match_the_jax_engine(preset):
 
 @pytest.mark.parametrize("preset", ["bloom-tiny", "gpt-neo-tiny"])
 def test_alibi_and_windowed_serving_raise(preset):
-    _, tm = _models(preset)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.3"):
-        build_engine(tm, _port_config(), device="cpu")
+    """BLOOM (ALiBi) and GPT-Neo (a window of 8 on its second layer) serve:
+    the first wave's logits (prompts past the window, one spanning two
+    prefill chunks) and the greedy tokens equal the JAX engine's, whose
+    paged programs take its XLA path for them."""
+    jm, tm = _models(preset)
+    params = _params(jm, seed=8)
+    jeng = _jax_engine(jm, params)
+    peng = build_engine(tm, _port_config(), params=params_from_jax(jax.device_get(params)),
+                        device="cpu")
+    rng = np.random.default_rng(9)
+    prompts = [list(rng.integers(0, jm.config.vocab_size, size=n)) for n in (13, 21)]
+    np.testing.assert_allclose(peng.put([1, 2], prompts), np.asarray(jeng.put([1, 2], prompts)),
+                               rtol=1e-4, atol=1e-4)
+    for uid in (1, 2):
+        peng.flush(uid)
+        jeng.flush(uid)
+    want = jax_generate(jeng, prompts, max_new_tokens=6)
+    assert generate(peng, prompts, max_new_tokens=6) == want
 
 
 # -- (f) the plain flash versions at the new head dims ----------------------------------

@@ -16,8 +16,8 @@ same numpy inputs:
   moments differ by an ulp in places (an SR bit flips only if that ulp
   carries into bit 16), and ``1 - b**t`` is an fp32 pow on both sides;
 - ``_plan_opt_buckets`` and ``bucket_geometry``: the same plans;
-- the optimizer over a dict of small leaves (fused buckets with lane
-  padding) and one leaf at the cap: three steps with fp32 moments within
+- the optimizer (adamw, lamb, muadam, muadamw) over a dict of small
+  leaves (fused buckets with lane padding) and one leaf at the cap: three steps with fp32 moments within
   rtol 1e-6; a first step from zero bf16 moments, where the fp32 chain is
   exact on both sides, with the SR bits equal.
 
@@ -162,7 +162,8 @@ def test_bucket_plans_match():
 
 
 @pytest.mark.parametrize("name,moments", [("adamw", "float32"), ("adamw", "bfloat16"),
-                                          ("lamb", "float32")])
+                                          ("lamb", "float32"), ("muadam", "float32"),
+                                          ("muadamw", "float32")])
 def test_optimizer_buckets_match_pallas(name, moments):
     """Leaves named so that JAX's sorted flattening keeps their order: the
     two sides build the same buckets (lane-padded small leaves, one leaf at
@@ -199,8 +200,11 @@ def test_optimizer_buckets_match_pallas(name, moments):
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="A3"):
-        topt.Optimizer(name="muadamw")
+    """muadam / muadamw build (as adam / adamw on the fused kernel, and
+    musgd as sgd); unknown names and the 1-bit family still raise."""
+    C = lambda t: type("C", (), {"type": t, "params": {"lr": 1e-3}})()
+    assert [topt.build_optimizer(C(t)).name for t in ("MuAdam", "MuAdamW", "MuSGD")] == \
+        ["muadam", "muadamw", "sgd"]
     with pytest.raises(ValueError, match="Unknown optimizer"):
         topt.Optimizer(name="lion8bit")
     with pytest.raises(NotImplementedError, match="A6"):

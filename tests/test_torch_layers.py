@@ -106,3 +106,36 @@ def test_init_is_seeded():
     b.reset_parameters(torch.Generator().manual_seed(3))
     assert torch.equal(a.weight, b.weight) and not a.bias.any()
     assert abs(a.weight.std().item() - 0.02) < 2e-3
+
+
+@pytest.mark.parametrize("rate,deterministic", [(0.0, False), (0.3, True), (0.0, True)])
+def test_dropout_is_identity_where_jax_is(rate, deterministic):
+    """Bitwise the input, as the JAX layer returns it, at rate 0 or when
+    deterministic (no draw is made: the generator does not move)."""
+    import jax
+    x = _x(5, (6, 40))
+    g = torch.Generator().manual_seed(1)
+    state = g.get_state()
+    got = tl.dropout(g, torch.from_numpy(x), rate, deterministic)
+    want = jl.dropout(jax.random.PRNGKey(0), jnp.asarray(x), rate, deterministic)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    assert torch.equal(g.get_state(), state)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_keeps_its_share_and_the_mean(dtype):
+    """Torch cannot draw JAX's bits: held by the kept share (1 - rate, within
+    4 standard deviations of a binomial) and the mean (kept elements scaled
+    by 1 / (1 - rate)); dropped elements are exactly 0, kept ones x / (1 -
+    rate); the same generator seed gives the same mask."""
+    rate, n = 0.25, 200_000
+    x = torch.ones(n, dtype=dtype)
+    out = tl.dropout(torch.Generator().manual_seed(7), x, rate, False)
+    assert out.dtype == dtype
+    kept = out != 0
+    share = kept.float().mean().item()
+    assert abs(share - (1 - rate)) < 4 * (rate * (1 - rate) / n) ** 0.5
+    assert torch.equal(out[kept], (x / (1 - rate))[kept])
+    assert abs(out.float().mean().item() - 1.0) < 4 * (rate / (1 - rate) / n) ** 0.5
+    again = tl.dropout(torch.Generator().manual_seed(7), x, rate, False)
+    assert torch.equal(out, again)

@@ -1,8 +1,10 @@
 """Parity of the port's paged decode attention
 (``deepspeed_tpu_torch/inference/v2/kernels/paged_decode.py``) with the JAX
 Pallas ``paged_gqa_decode`` in interpret mode (as the JAX suite runs it on
-the CPU) and with the JAX plain ``_xla_paged_decode``. Same numpy inputs on
-both sides; fp32, tolerance 2e-5.
+the CPU) and with the JAX plain ``_xla_paged_decode``, also with ALiBi
+slopes and windows (``paged_decode_attention``'s XLA path), and the split
+plan under a window. Same numpy inputs on both sides; fp32, tolerance
+2e-5.
 
 On the CPU the port runs its plain version; ``chip_smoke.py`` holds the
 CUDA kernel to it on the GPU."""
@@ -168,3 +170,44 @@ def test_row_group_of_wide_rows(row_bytes, want):
     multiple of 16 bytes (the NARROW form) one."""
     assert tpd.row_group(8, row_bytes) == want
     assert tpd.row_group(1, row_bytes) == 1
+
+
+# -- ALiBi and sliding windows --------------------------------------------------------
+
+
+@pytest.mark.parametrize("alibi,window", [(True, None), (False, 5), (True, 9), (False, 0)],
+                         ids=["alibi", "window-5", "alibi-window-9", "window-0"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_alibi_and_window_match_jax(g, alibi, window):
+    """The wrapper's plain version with ALiBi slopes and / or a window (one
+    that crosses pages; 0 = global) against the JAX ``paged_decode_attention``
+    (its XLA path, ``_xla_paged_decode``), fp32, 2e-5."""
+    q, k, v, ctx, tables = _inputs_shuffled(CTXS + [40, 16], g, seed=30 + g)
+    slopes = ((0.25 + np.random.default_rng(g).random(KVH * g)).astype(np.float32)
+              if alibi else None)
+    t, j = torch.from_numpy, jnp.asarray
+    got = tpd.paged_gqa_decode(t(q), t(k), t(v), t(ctx), t(tables),
+                               alibi_slopes=None if slopes is None else t(slopes),
+                               window=window)
+    want = jpa.paged_decode_attention(j(q), j(k), j(v), j(ctx), j(tables),
+                                      alibi_slopes=None if slopes is None else j(slopes),
+                                      window=None if window is None else jnp.int32(window))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ctx", [0, 1, 200, 256, 257, 300, 2048, 4133])
+@pytest.mark.parametrize("window", [1, 100, 256, 4096])
+def test_split_plan_with_a_window(ctx, window):
+    """Under a window the splits cover exactly the keys the query sees,
+    ``max(0, ctx - window)`` to ``min(ctx, mp * ps)``, once and in order,
+    in whole units from the window's first key; the host's split count is
+    capped by the window (GPT-Neo's local layers: 256 keys, two splits)."""
+    mp, ps = 300, 16
+    plan = tpd.split_plan(ctx, mp, ps, window)
+    n_keys = min(ctx, mp * ps)
+    lo = min(max(ctx - window, 0), n_keys)
+    assert 1 <= len(plan) <= tpd.max_splits(mp, ps, window) <= -(-window // tpd.SPLIT_UNIT)
+    assert plan[0][0] == lo and plan[-1][1] == n_keys
+    for (a, b), (a2, _) in zip(plan, plan[1:]):
+        assert b == a2 and b > a and (b - a) % tpd.SPLIT_UNIT == 0
+    assert tpd.split_plan(ctx, mp, ps, 0) == tpd.split_plan(ctx, mp, ps)

@@ -3,8 +3,12 @@
 with the JAX Pallas kernel run in interpret mode, as the JAX suite runs it
 on the CPU (``ragged_paged_attention(..., use_pallas=True,
 interpret=True)``), over prefill, mixed and decode-burst waves, GQA groups
-g in {1, 2, 4} and page-straddling chunks. Both sides get the same numpy
-inputs; fp32, tolerance 2e-5 (the JAX suite's fp32 bound for this kernel).
+g in {1, 2, 4} and page-straddling chunks; with ALiBi slopes and windows
+(one crossing pages) against the JAX function's XLA atom path, which the
+JAX engine takes for them, and ``ragged_chunk_attention`` /
+``chunk_prefill_attention`` against the JAX ones. Both sides get the same
+numpy inputs; fp32, tolerance 2e-5 (the JAX suite's fp32 bound for this
+kernel).
 
 On the CPU the port runs its plain version; the CUDA kernel is held to that
 plain version on the GPU by ``chip_smoke.py``."""
@@ -19,12 +23,14 @@ import pytest
 import torch
 
 from deepspeed_tpu.inference.v2.ragged import wave as jwave
+from deepspeed_tpu_torch.inference.v2.kernels import paged_attention as tpa
 from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as trpa
 from deepspeed_tpu_torch.inference.v2.ragged import wave as twave
 
 # the JAX kernels package re-exports a function under the module's name
 jrpa = importlib.import_module(
     "deepspeed_tpu.inference.v2.kernels.ragged_paged_attention")
+jpa = importlib.import_module("deepspeed_tpu.inference.v2.kernels.paged_attention")
 
 BQ, PS, D, KVH = 8, 4, 16, 2
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -292,3 +298,67 @@ def test_check_kernel_args_takes_any_head_dim(d):
     trpa.check_kernel_args(q.bfloat16(), k.bfloat16(), v.bfloat16(), _descriptors(desc))
     with pytest.raises(ValueError, match="last dim"):
         trpa.check_kernel_args(q[..., :-1].contiguous(), k, v, _descriptors(desc))
+
+
+# -- ALiBi and sliding windows (the JAX XLA atom path's contract) -----------------------
+
+# (slopes, window): ALiBi alone, a window that crosses pages (PS 4) alone, both
+MASKS = {"alibi": (True, None), "window-6": (False, 6), "alibi-window-3": (True, 3)}
+
+
+def _slopes(H, seed):
+    return (0.25 + np.random.default_rng(seed).random(H)).astype(np.float32)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("mask", sorted(MASKS))
+@pytest.mark.parametrize("wave", sorted(WAVES))
+def test_alibi_and_window_match_jax(wave, mask, g):
+    """The wrapper's plain version with ALiBi slopes and / or a window
+    against the JAX ``ragged_paged_attention`` (which takes its XLA atom
+    path for them), fp32, 2e-5."""
+    q, k, v, desc = _inputs(WAVES[wave], g, seed=sorted(WAVES).index(wave) + 50 * g)
+    alibi, window = MASKS[mask]
+    slopes = _slopes(KVH * g, seed=g) if alibi else None
+    t, j = torch.from_numpy, jnp.asarray
+    got = trpa.ragged_paged_attention(
+        t(q), t(k), t(v), t(desc.kv_lens), t(desc.page_indices), t(desc.cu_q_lens),
+        block_q=BQ, alibi_slopes=None if slopes is None else t(slopes), window=window)
+    want = jrpa.ragged_paged_attention(
+        j(q), j(k), j(v), j(desc.kv_lens), j(desc.page_indices), j(desc.cu_q_lens),
+        block_q=BQ, alibi_slopes=None if slopes is None else j(slopes),
+        window=None if window is None else jnp.int32(window))
+    n = desc.n_tokens
+    np.testing.assert_allclose(got.numpy()[:n], np.asarray(want)[:n], **TOL)
+
+
+@pytest.mark.parametrize("mask", sorted(MASKS))
+def test_chunk_functions_match_jax(mask):
+    """``ragged_chunk_attention`` (S chunks of T tokens over pages) and
+    ``chunk_prefill_attention`` (one sequence's gathered context) with the
+    same slopes / window as the JAX functions; GQA 2, scale 0.7."""
+    alibi, window = MASKS[mask]
+    rng = np.random.default_rng(7)
+    S, T, H, mp = 3, 5, 4, 6
+    q = rng.normal(size=(S, T, H, D)).astype(np.float32)
+    k = rng.normal(size=(KVH, 20, PS, D)).astype(np.float32)
+    v = rng.normal(size=(KVH, 20, PS, D)).astype(np.float32)
+    tables = rng.permutation(19)[:S * mp].reshape(S, mp).astype(np.int32) + 1
+    hist = np.asarray([0, 7, 15], np.int32)
+    slopes = _slopes(H, seed=3) if alibi else None
+    t, j = torch.from_numpy, jnp.asarray
+    ts = None if slopes is None else t(slopes)
+    js = None if slopes is None else j(slopes)
+    jw = None if window is None else jnp.int32(window)
+    got = tpa.ragged_chunk_attention(t(q), t(k), t(v), t(hist), t(tables), scale=0.7,
+                                     alibi_slopes=ts, window=window)
+    want = jpa.ragged_chunk_attention(j(q), j(k), j(v), j(hist), j(tables), scale=0.7,
+                                      alibi_slopes=js, window=jw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    kc = k[:, tables[2]].reshape(KVH, mp * PS, D)[:, :hist[2] + T]
+    vc = v[:, tables[2]].reshape(KVH, mp * PS, D)[:, :hist[2] + T]
+    got = tpa.chunk_prefill_attention(t(q[2]), t(kc), t(vc), int(hist[2]), scale=0.7,
+                                      alibi_slopes=ts, window=window)
+    want = jpa.chunk_prefill_attention(j(q[2]), j(kc), j(vc), jnp.int32(hist[2]),
+                                       scale=0.7, alibi_slopes=js, window=jw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
