@@ -200,7 +200,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions (losses within 2e-2); the task heads through ``initialize``:
    bert-base sequence and token classification (S 128) and question
    answering (S 384), roberta-base sequence classification with MuAdamW,
-   on padded batches; the phase's and the command's seconds.
+   on padded batches; the phase's seconds;
+14. MoE training (``[moe-train]``): the MoE operator (``make_moe_forward``
+   with gradients; its backward the reference VJP) at mixtral-8x7b's widths
+   in bf16 and fp32, at the training step's call, T 8192 with capacity
+   1280 (the split form; 10240 of 16384 choices kept), and T 256 with
+   capacity 40 (the fused form), a cotangent on its output and on aux:
+   output, aux and every gradient (tokens, router, each expert weight)
+   through the kernels against the same call on the plain versions, and
+   the backward's router logits and routes bitwise the forward's; each MoE
+   kernel timed at T 8192, capacity 1280 beside its plain version, its
+   bound and the library call; then
+   mixtral-8x7b at full width and 2 of its 32 layers (3.16e9 params)
+   trained through ``initialize`` + ``train_batch`` (micro 4 x S 2048, a
+   MoE call of T 8192 at capacity 1280 a layer, bf16, AdamW lr 3e-4, wd
+   0.1, clipping 1.0, remat per block, aux_loss_coef 0.01; a warm-up and 3
+   timed steps: losses and the summed aux of every step, losses finite, the
+   first near its expected value and falling; launches a step: route,
+   gather, split FFN and combine twice a layer, flash forward twice, dQ
+   and dK/dV once, Adam once a bucket; step time, tokens/s, MFU over the
+   active parameters counting top-2 choices and counting the kept ones,
+   peak memory, a profiled step), and the same 2 layers through the kernels
+   and through their plain versions, 3 steps at lr 3e-5 (losses within
+   2e-2) and at lr 3e-4 (the first two steps within 2e-2; the third within
+   3x the largest of four witnesses: the plain path again, with one router
+   element one ulp off, and with the MoE or the flash and Adam kernels
+   alone on their plain versions); the phase's and the command's seconds.
 
 Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
 plain version, q and scale byte-identical: fp32 and bf16 rows of the
@@ -241,6 +266,7 @@ The output ends with a ``{"kernels": [...]}`` line (15 kernels), the
 Imports nothing of JAX or ``deepspeed_tpu``; needs one CUDA device.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -437,13 +463,16 @@ FLASH_CASES = {
     # bert-large's training shape: bidirectional, the padding mask of
     # padded rows (lengths drawn in 128-512) as segment ids, pads among pads
     "bert-large-b32": (32, 512, 512, 16, 16, 64, {"causal": False, "padding": True}),
+    # the Mixtral training step's shape (``[moe-train]``: micro 4, 32 / 8
+    # heads of 128)
+    "mixtral-8x7b-b4": (4, 2048, 2048, 32, 8, 128, {}),
 }
 MAIN_FLASH = "tinyllama-b8"
 FAMILY_FLASH = ("phi-2-b4", "gpt-neox-20b", "gpt-j-6b", "falcon-7b-mqa", "bloom-7b1-alibi",
                 "gpt-neo-2.7b-window")
 HEAD_DIM_FLASH = ("d16", "d48", "d112", "open-llama-3b-b8", "d384", "d512")
 FLASH_TIMED = ("tinyllama-b8", "llama2-7b-mha") + FAMILY_FLASH + HEAD_DIM_FLASH + (
-    "bert-large-b32",)
+    "bert-large-b32", "mixtral-8x7b-b4")
 FLASH_BITWISE = (MAIN_FLASH,) + FAMILY_FLASH + HEAD_DIM_FLASH + ("bert-large-b32",) + (
     "d100-segments-alibi", "d33-odd", "d30-packed", "d122-packed-window",
     "d100-mqa-padded", "falcon-tiny-mqa", "bloom-tiny-alibi",
@@ -660,6 +689,45 @@ TASK_CASES = (("bert-base", "bert", "sequence_classification", "bert", 128, 32, 
                "MuAdamW"))
 TASK_STEPS = 3
 FAMILY_LOGIT_PROMPT = 300    # tokens of the 2-layer serving logits check (2 chunks)
+# MoE training (``[moe-train]``): the MoE operator with its backward at
+# mixtral-8x7b's widths at the training step's call and at
+# MOE_TRAIN_FUSED_T tokens (``moe_train_cases``); then mixtral-8x7b at full
+# width, 2 of its 32 layers, trained
+MOE_TRAIN_FUSED_T = 256
+MOE_TRAIN_GRAD_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}   # atol = rtol
+# the operator's output: bf16 at the [moe] bound; fp32 at 1e-4, not [moe]'s
+# 1e-5 (set at its small shapes): the kernel and the plain version add 4096
+# and 14336 fp32 products in two orders (8.7e-5 at T 4096, the first run),
+# as FLASH_GRAD_FP32_TOL's sums over 2048 keys
+MOE_TRAIN_FWD_TOL = {"torch.bfloat16": MOE_BF16_TOL, "torch.float32": 1e-4}
+MOE_TRAIN_D_AUX = 0.7   # the cotangent on aux
+MOE_TRAIN_SEED = 3      # the phase's own generator: the earlier draws stay as they were
+MOE_TRAIN_LAYERS, MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 2, 1, 3
+# micro 4 (T 8192 a MoE call, capacity 1280): micro 2 peaked at 50.72 GiB
+# beside 41.33 GiB of state (a probe run of this phase)
+MOE_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
+                    "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+                    "gradient_clipping": 1.0}
+# kernels against plain: at lr 3e-4 the 2-layer full-width model's repeated
+# batch is memorised in one Adam step (11.19 -> 3.81) and the loss then
+# rises (4.24), and the two paths part at the third step (4.9e-2, 9.6e-2 at
+# micro 2): all three steps are held to PATH_RTOL at lr 3e-5, the first two
+# at lr 3e-4; the third at lr 3e-4 within MOE_TRAIN_WITNESS_RATIO times the
+# largest step-3 gap of witnesses that change only rounding
+# (MOE_TRAIN_WITNESSES: one router element one ulp off moved it 1.9e-2,
+# one component on its plain version at a time 2.2e-2 and 2.8e-2, the plain
+# path again 0, in the first run)
+MOE_TRAIN_PATH_LR = 3e-5
+MOE_TRAIN_WITNESS_RATIO = 3
+# the witnesses at lr 3e-4, each against the plain path: the plain path
+# again; the plain path with one element of layer 0's router one bf16 ulp
+# off; the kernels with the MoE kernels on their plain versions; the
+# kernels with flash and Adam on theirs. (name, plain flash + Adam, plain
+# MoE, nudged router)
+MOE_TRAIN_WITNESSES = (("plain again", True, True, False),
+                       ("plain, router 1 ulp off", True, True, True),
+                       ("kernels, plain MoE", False, True, False),
+                       ("kernels, plain flash and Adam", True, False, False))
 
 
 def fail(msg):
@@ -1615,7 +1683,8 @@ def moe_bounds(torch, src, E, cap, T, H, F, top_k, activation, isz):
     """(bytes, flops) of each MoE kernel on these inputs: each input read
     once, each output written once; the FFN counts the filled slots' flops
     (6 H F a slot gated, 4 H F gelu) and the weights of the experts that
-    received a token."""
+    received a token; the combine the rows of the kept choices (a dropped
+    one weighs 0: the row it reads adds nothing; dropless, all T x k)."""
     S = E * cap
     filled = int((src > 0).sum())
     live = int((src.view(E, cap)[:, 0] > 0).sum())
@@ -1627,7 +1696,43 @@ def moe_bounds(torch, src, E, cap, T, H, F, top_k, activation, isz):
             "moe_dispatch_gather_int8": (T * H * isz + S * 4 + S * H + S * 4, 3 * S * H),
             "moe_ffn_combine": (weights + filled * H * isz + S * 8 + T * H * 4, flops),
             "moe_ffn": (weights + filled * H * isz + S * 4 + S * H * 4, flops),
-            "moe_combine": (T * top_k * H * 4 + T * top_k * 8 + T * H * 4, 0)}
+            "moe_combine": (filled * H * 4 + T * top_k * 8 + T * H * 4, 0)}
+
+
+def moe_calls(torch, moe, tokens, logits, route, p3, y, w, k, cap, act, int8=False):
+    """{kernel: (kernel call, plain call, library call or None)} of the MoE
+    kernels on one routed case: the route of ``logits``, the gather of
+    ``tokens`` by the route's ``src`` (and with ``int8`` the int8 gather,
+    mask_pad on), both FFN forms over the payload ``p3``, the combine of
+    ``y``; the library calls are ``index_select`` for the gather and
+    ``F.embedding_bag`` (mode sum, the route's weights as per-sample
+    weights) for the combine."""
+    src, slot_w, slot_tk, w_tk = route
+    T = tokens.shape[0]
+    wg, wu, wo = moe_ffn_args(w, act)
+    slot_l = slot_tk.long()
+    calls = {
+        "moe_route": (lambda: moe.moe_route(logits, top_k=k, capacity=cap),
+                      lambda: moe.moe_route_reference(logits, top_k=k, capacity=cap), None),
+        "moe_dispatch_gather": (lambda: moe.moe_dispatch_gather(tokens, src),
+                                lambda: moe.moe_dispatch_gather_reference(tokens, src),
+                                lambda: tokens.index_select(0, (src.long() - 1).clamp_min(0)))}
+    if int8:
+        calls["moe_dispatch_gather_int8"] = (
+            lambda: moe.moe_dispatch_gather_int8(tokens, src, mask_pad=True),
+            lambda: moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=True), None)
+    return {
+        **calls,
+        "moe_ffn_combine": (
+            lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act),
+            lambda: moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
+                                                  activation=act), None),
+        "moe_ffn": (lambda: moe.moe_ffn(p3, wg, wu, wo, src, activation=act),
+                    lambda: moe.moe_ffn_reference(p3, wg, wu, wo, src, activation=act), None),
+        "moe_combine": (lambda: moe.moe_combine(y, slot_tk, w_tk),
+                        lambda: moe.moe_combine_reference(y, slot_tk, w_tk),
+                        lambda: torch.nn.functional.embedding_bag(
+                            slot_l, y, per_sample_weights=w_tk, mode="sum"))}
 
 
 def moe_kernels_vs_plain(torch, moe, gen, flush):
@@ -1673,29 +1778,9 @@ def moe_kernels_vs_plain(torch, moe, gen, flush):
         logits = tokens @ w["gate"]
         p3 = payload.view(E, cap, H)
         y = moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H)
-        slot_l = slot_tk.long()
-        bag = lambda: torch.nn.functional.embedding_bag(slot_l, y, per_sample_weights=w_tk,
-                                                        mode="sum")
-        calls = {
-            "moe_route": (lambda: moe.moe_route(logits, top_k=k, capacity=cap),
-                          lambda: moe.moe_route_reference(logits, top_k=k, capacity=cap), None),
-            "moe_dispatch_gather": (
-                lambda: moe.moe_dispatch_gather(tokens, src),
-                lambda: moe.moe_dispatch_gather_reference(tokens, src),
-                lambda: tokens.index_select(0, (src.long() - 1).clamp_min(0))),
-            "moe_dispatch_gather_int8": (
-                lambda: moe.moe_dispatch_gather_int8(tokens, src, mask_pad=True),
-                lambda: moe.moe_dispatch_gather_int8_reference(tokens, src, mask_pad=True),
-                None),
-            "moe_ffn_combine": (
-                lambda: moe.moe_ffn_combine(p3, wg, wu, wo, src, slot_w, T, activation=act),
-                lambda: moe.moe_ffn_combine_reference(p3, wg, wu, wo, src, slot_w, T,
-                                                      activation=act), None),
-            "moe_ffn": (lambda: moe.moe_ffn(p3, wg, wu, wo, src, activation=act),
-                        lambda: moe.moe_ffn_reference(p3, wg, wu, wo, src, activation=act),
-                        None),
-            "moe_combine": (lambda: moe.moe_combine(y, slot_tk, w_tk),
-                            lambda: moe.moe_combine_reference(y, slot_tk, w_tk), bag)}
+        calls = moe_calls(torch, moe, tokens, logits, (src, slot_w, slot_tk, w_tk), p3, y, w,
+                          k, cap, act, int8=True)
+        bag = calls["moe_combine"][2]
         bnd = moe_bounds(torch, src, E, cap, T, H, F, k, act, 2)
         if T == MOE_DECODE_T:
             # counted before any profiled phase: in this process, after the
@@ -4045,6 +4130,395 @@ def train_task_heads(torch, np, flash, adam, lion):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# MoE training
+# ---------------------------------------------------------------------------
+
+
+class record_routes:
+    """Record the router logits and the outputs of every route the forward
+    takes (``moe.moe_route``) and the logits every reference forward of the
+    backward routes (``moe/layer.py``'s ``top_k_gating_indices``), to hold
+    the backward's routes to the forward's; a check of this phase, not code
+    on the path."""
+
+    def __init__(self, moe):
+        from deepspeed_tpu_torch.moe import layer
+        self.moe, self.layer, self.fwd, self.bwd = moe, layer, [], []
+
+    def __enter__(self):
+        route, gating = self.saved = (self.moe.moe_route, self.layer.top_k_gating_indices)
+
+        def recorded_route(logits, **kw):
+            out = route(logits, **kw)
+            self.fwd.append((logits.detach().clone(), out))
+            return out
+
+        def recorded_gating(logits, *args):
+            self.bwd.append(logits.detach().clone())
+            return gating(logits, *args)
+
+        self.moe.moe_route, self.layer.top_k_gating_indices = recorded_route, recorded_gating
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_route, self.layer.top_k_gating_indices = self.saved
+
+    def check(self, torch, moe, top_k, cap, tag):
+        """Each backward's router logits bitwise its forward's, and the
+        forward's route (src, slot_tk) bitwise the plain route of those
+        logits, its weights within MOE_W_ULPS: the backward differentiates
+        the routes the forward took. Returns the number of calls checked."""
+        if len(self.fwd) != len(self.bwd) or not self.fwd:
+            fail(f"{tag}: {len(self.fwd)} forward routes, {len(self.bwd)} backward ones")
+        for (logits, got), again in zip(self.fwd, self.bwd):
+            if not torch.equal(logits, again):
+                fail(f"{tag}: the backward's router logits differ from the forward's")
+            want = moe.moe_route_reference(again.float(), top_k=top_k, capacity=cap)
+            for i, name in ((0, "src"), (2, "slot_tk")):
+                if not torch.equal(got[i], want[i]):
+                    fail(f"{tag}: the backward's route differs from the forward's ({name})")
+            for i in (1, 3):
+                if bool(((got[i] - want[i]).abs() > MOE_W_ULPS * 2.0 ** -23
+                         * want[i].abs()).any()):
+                    fail(f"{tag}: route weights beyond {MOE_W_ULPS} ulp of the backward's")
+        return len(self.fwd)
+
+
+def moe_train_cases():
+    """(T, capacity) of the operator checks, each at the training capacity
+    (factor 1.25, at least 4): the training step's MoE call
+    (``MOE_TRAIN_CONFIG``'s micro x ``TRAIN_SEQ`` tokens: T 8192 at
+    capacity int(8192 x 1.25 / 8) = 1280, the split form, 10240 slots for
+    16384 choices) and ``MOE_TRAIN_FUSED_T`` tokens (T 256 at capacity 40,
+    the fused form)."""
+    from deepspeed_tpu_torch.moe.sharded_moe import capacity
+    step_t = MOE_TRAIN_CONFIG["train_micro_batch_size_per_gpu"] * TRAIN_SEQ
+    return tuple((T, capacity(T, MOE_E, 1.25, 4)) for T in (step_t, MOE_TRAIN_FUSED_T))
+
+
+def moe_op_vs_plain(torch, moe, gen, flush):
+    """The MoE operator (``make_moe_forward`` with gradients) at
+    mixtral-8x7b's widths, bf16 and fp32, at ``moe_train_cases()``: its
+    output, aux and gradients (tokens, router, each expert weight; a
+    cotangent on out and on aux) through the kernels against the same call
+    with the wrappers on their plain versions (``plain_moe_kernels``), the
+    forward at ``MOE_TRAIN_FWD_TOL``, the gradients at
+    ``MOE_TRAIN_GRAD_TOL``; the backward's routes bitwise the forward's.
+    Then each MoE kernel timed at the training step's call (T 8192,
+    capacity 1280, bf16) beside its plain version, its bound and the
+    library call."""
+    E, H, F, k, act = MOE_E, MOE_H, MOE_F, MOE_K, "silu_gated"
+    cases = moe_train_cases()
+    for dtype in (torch.bfloat16, torch.float32):
+        w = moe_weights(torch, E, H, F, act, dtype, gen)
+        fwd_tol = MOE_TRAIN_FWD_TOL[str(dtype)]
+        grad_tol = MOE_TRAIN_GRAD_TOL[str(dtype)]
+        for T, cap in cases:
+            tokens = torch.randn(T, H, generator=gen, device="cuda").to(dtype)
+            d_out = torch.randn(T, H, generator=gen, device="cuda").to(dtype)
+            d_aux = torch.full((), MOE_TRAIN_D_AUX, device="cuda")
+            fused = T <= moe.MOE_FUSED_COMBINE_MAX_TOKENS
+            tag = (f"{str(dtype)[6:]} T{T} cap {cap} ({'fused' if fused else 'split'} form)")
+            res = {}
+            for path in ("kernels", "plain"):
+                p = {n: t.detach().requires_grad_(True) for n, t in w.items()}
+                x = tokens.detach().requires_grad_(True)
+                before = dict(moe.launches)
+                t0 = time.perf_counter()
+                rec = record_routes(moe)
+                with plain_moe_kernels(moe) if path == "plain" else rec:
+                    out, aux = moe.make_moe_forward(top_k=k, capacity=cap, activation=act)(p, x)
+                    torch.autograd.backward([out, aux], [d_out, d_aux])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                ran = {n: moe.launches[n] - before[n] for n in before if moe.launches[n] > before[n]}
+                if path == "kernels":
+                    want = (["moe_route", "moe_dispatch_gather"]
+                            + (["moe_ffn_combine"] if fused else ["moe_ffn", "moe_combine"]))
+                    if ran != dict.fromkeys(want, 1):
+                        fail(f"[moe-train] {tag}: launches {ran}, want one each of {want}")
+                    checked = rec.check(torch, moe, k, cap, f"[moe-train] {tag}")
+                    filled = int((rec.fwd[0][1][0] > 0).sum())
+                elif ran:
+                    fail(f"[moe-train] {tag}: the plain path launched {ran}")
+                res[path] = (out.detach(), aux.detach(), x.grad,
+                             {n: t.grad for n, t in p.items()}, secs)
+            (out, aux, gx, gw, secs), (pout, paux, pgx, pgw, psecs) = res["kernels"], res["plain"]
+            if not filled < k * T:
+                fail(f"[moe-train] {tag}: no choice dropped ({filled} of {k * T} kept)")
+            errs = {"out": check_close(f"[moe-train] {tag} out", out, pout, fwd_tol),
+                    "aux": check_close(f"[moe-train] {tag} aux", aux, paux, MOE_FP32_TOL),
+                    "d tokens": check_close(f"[moe-train] {tag} d tokens", gx, pgx, grad_tol)}
+            for n in gw:
+                errs[f"d {n}"] = check_close(f"[moe-train] {tag} d {n}", gw[n], pgw[n], grad_tol)
+            print(f"[moe-train] op {tag}: {filled} of {k * T} choices kept in {E * cap} slots; "
+                  f"max_abs_err against plain "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + f" (forward at {fwd_tol}, gradients at {grad_tol} + {grad_tol}|ref|, aux "
+                  f"{float(aux):.6f}); backward routes bitwise the forward's ({checked} call); "
+                  f"forward + backward {secs * 1e3:.1f} ms kernels, {psecs * 1e3:.1f} ms plain "
+                  f"(host clock, first calls)", flush=True)
+            del res, out, aux, gx, gw, pout, paux, pgx, pgw, tokens, d_out
+        del w
+        torch.cuda.empty_cache()
+
+    # each kernel at the training step's call, bf16 (the fused FFN too,
+    # which the step leaves to the split form at this T)
+    T, cap = cases[0]
+    w = moe_weights(torch, E, H, F, act, torch.bfloat16, gen)
+    wg, wu, wo = moe_ffn_args(w, act)
+    tokens = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+    logits = tokens @ w["gate"]
+    src, slot_w, slot_tk, w_tk, _, _ = moe.moe_route(logits, top_k=k, capacity=cap)
+    p3 = moe.moe_dispatch_gather(tokens, src).view(E, cap, H)
+    y = moe.moe_ffn(p3, wg, wu, wo, src, activation=act).view(E * cap, H)
+    calls = moe_calls(torch, moe, tokens, logits, (src, slot_w, slot_tk, w_tk), p3, y, w, k,
+                      cap, act)
+    bnd = moe_bounds(torch, src, E, cap, T, H, F, k, act, 2)
+    per_expert = (src.view(E, cap) > 0).sum(dim=1).tolist()
+    print(f"[moe-train] kernels at a training call, T {T} cap {cap} bf16: slots filled "
+          f"{sum(per_expert)}/{E * cap} of {k * T} choices, filled slots an expert "
+          f"{per_expert} (a full expert's capacity tiles are all full)", flush=True)
+    for name, (kern, plain, lib) in calls.items():
+        ms = device_ms(torch, kern, 10, flush)[0]
+        plain_ms = synced_ms(torch, plain, 3)
+        lib_ms = device_ms(torch, lib, 10, flush)[0] if lib is not None else None
+        b_ms, b_by = bound(*bnd[name], torch.bfloat16)
+        print(f"[moe-train]   T{T} cap {cap} {name}: kernel_ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} ({b_ms / ms:.1%} of bound)",
+              flush=True)
+    del w, wg, wu, wo, tokens, logits, p3, y, calls
+    torch.cuda.empty_cache()
+
+
+def mixtral_train_engine(torch, np, config, seed=0, nudge=False):
+    """mixtral-8x7b at full width, ``MOE_TRAIN_LAYERS`` of its 32 layers,
+    through ``initialize``: bf16 params, fp32 master and moments, remat per
+    block, aux_loss_coef 0.01 (the preset's). ``nudge`` moves the first
+    element of layer 0's router one bf16 ulp away from zero after the
+    seeded init."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import mixtral_model
+    model = mixtral_model("mixtral-8x7b", num_layers=MOE_TRAIN_LAYERS, max_seq_len=TRAIN_SEQ)
+    if nudge:
+        init = model.init_weights
+
+        def nudged(generator=None):
+            init(generator)
+            with torch.no_grad():
+                w = model.blocks[0].moe.gate.view(-1)
+                v = w[:1].to(torch.bfloat16)
+                w[:1] = (v.view(torch.int16) + 1).view(torch.bfloat16).to(w.dtype)
+        model.init_weights = nudged
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, seed=seed)
+    return engine
+
+
+class count_kept:
+    """Sum, on the card, the filled slots of every route the forward takes
+    (``moe.moe_route``'s src > 0): the choices the experts compute, for the
+    MFU over kept choices; one reduction a route, a measurement of this
+    phase, not code on the path."""
+
+    def __init__(self, moe):
+        self.moe, self.calls, self.filled = moe, 0, 0
+
+    def __enter__(self):
+        route = self.saved = self.moe.moe_route
+
+        def counted(logits, **kw):
+            out = route(logits, **kw)
+            self.filled = self.filled + (out[0] > 0).sum()
+            self.calls += 1
+            return out
+
+        self.moe.moe_route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self.saved
+
+
+def active_params(c, n_params):
+    """The parameters a token passes through, the input embedding aside:
+    ``n_params`` less the embedding and, in each layer, the experts it is
+    not routed to (``E - top_k`` of E gated FFNs)."""
+    m = c.moe
+    per_expert = 3 * c.hidden_size * c.ffn_size
+    return (n_params - c.vocab_size * c.hidden_size
+            - c.num_layers * (m.num_experts - m.top_k) * per_expert)
+
+
+def train_mixtral(torch, np, flash, adam, lion, moe):
+    """``[moe-train]``: mixtral-8x7b at full width and ``MOE_TRAIN_LAYERS``
+    layers, trained through ``initialize`` + ``train_batch``
+    (``MOE_TRAIN_CONFIG``: micro 4 x S 2048, a MoE call of T 8192 a layer,
+    capacity 1280): a warm-up and ``MOE_TRAIN_STEPS`` timed steps, then a
+    profiled one; the loss and the summed aux of every step, step ms,
+    tokens/s, MFU over the active parameters, peak memory, launches a step
+    (per layer a step: route, gather, split FFN and combine twice each, the
+    forward and its remat replay; flash forward twice, dQ and dK/dV once;
+    Adam once a bucket). MFU twice: counting top_k expert FFNs a token, and
+    counting the choices the routes kept (the filled slots of the timed
+    steps), which is the work the card did. Fails unless the losses are
+    finite, the first near its expected value, and falling. Then the same
+    model from the same seed through the plain versions of every kernel
+    (``plain_kernels`` and ``plain_moe_kernels``) for the first
+    ``PATH_STEPS`` steps: at lr 3e-4 against the run above (the first two
+    steps held to ``PATH_RTOL``, the third to ``MOE_TRAIN_WITNESS_RATIO``
+    times the largest gap of ``MOE_TRAIN_WITNESSES``), and both paths at
+    ``MOE_TRAIN_PATH_LR``, every step held to ``PATH_RTOL``."""
+    t0 = time.perf_counter()
+    engine = mixtral_train_engine(torch, np, MOE_TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    c = engine.model.config
+    buckets = len(engine.opt_state["buckets"])
+    n_all = sum(p.numel() for p in engine.params.values())
+    B = MOE_TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = B * TRAIN_SEQ
+    cap = engine.model.blocks[0].moe.capacity(tokens)
+    if (tokens, cap) != moe_train_cases()[0]:
+        fail(f"[moe-train] the step's MoE call (T {tokens}, capacity {cap}) is not the "
+             f"operator check's {moe_train_cases()[0]}")
+    print(f"[moe-train] mixtral-8x7b layers {c.num_layers}/32 hidden {c.hidden_size} heads "
+          f"{c.num_heads}/{c.kv_heads} experts {c.moe.num_experts} top-{c.moe.top_k} ffn "
+          f"{c.ffn_size} vocab {c.vocab_size}: {n_all} params bf16, AdamW, fp32 master and "
+          f"moments in {buckets} buckets, micro {B} x S {TRAIN_SEQ} (T {tokens} a MoE call, "
+          f"capacity {cap}), remat per block, aux_loss_coef {c.moe.aux_loss_coef}; built in "
+          f"{time.perf_counter() - t0:.2f} s; state {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    auxes = []
+    combine = engine.model.combine_aux
+    engine.model.combine_aux = lambda loss, aux: (auxes.append(aux.detach()),
+                                                  combine(loss, aux))[1]
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, c.vocab_size, size=(B, TRAIN_SEQ))}
+    losses = [float(engine.train_batch(batch)) for _ in range(MOE_TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam, lion)
+    moe.launches.update(dict.fromkeys(moe.launches, 0))
+    times = []
+    with count_kept(moe) as kept:
+        for _ in range(MOE_TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            times.append(time.perf_counter() - t)
+    steps = MOE_TRAIN_STEPS
+    launches = {**{n: v / steps for n, v in moe.launches.items()},
+                **{n: v / steps for n, v in flash.launches.items()},
+                "fused_adam": adam.launches / steps, "fused_lion": lion.launches / steps}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    n_act = active_params(c, n_all)
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * c.head_dim * pairs * c.num_heads * B * c.num_layers
+    flops = 6 * n_act * tokens + attn
+    # the routes of the timed steps, the forward's and the remat replay's
+    # (the same routes): the kept choices a layer, and the FLOPs with only
+    # those through the expert FFNs
+    L, k = c.num_layers, c.moe.top_k
+    if kept.calls != 2 * L * steps:
+        fail(f"[moe-train] {kept.calls} routes in {steps} steps, want {2 * L * steps}")
+    filled = float(kept.filled) / kept.calls
+    flops_kept = flops - 6 * 3 * c.hidden_size * c.ffn_size * L * (k * tokens - filled)
+    mfu, mfu_kept = (f / step_s / PEAK_FLOPS["torch.bfloat16"] for f in (flops, flops_kept))
+    aux_vals = [float(a) for a in auxes]
+    print(f"[moe-train] losses {[round(x, 4) for x in losses]} (expected first "
+          f"{first_loss(c):.4f} + {c.moe.aux_loss_coef} x aux / {c.num_layers}); aux (sum over "
+          f"the layers) {[round(a, 5) for a in aux_vals]}; step ms "
+          f"{[round(x * 1e3, 1) for x in times]} mean {step_s * 1e3:.1f}; tokens/s "
+          f"{tokens / step_s:.0f}; MFU {mfu:.4f} over active parameters counting top-{k} "
+          f"choices ({flops:.4e} flops a step: 6 x {n_act} active non-embedding params "
+          f"(top-{k} of {c.moe.num_experts} experts and the router) x {tokens} tokens + causal "
+          f"attention, at 989 TFLOP/s); MFU {mfu_kept:.4f} over the kept choices "
+          f"({flops_kept:.4e} flops a step: {filled:.0f} of {k * tokens} choices kept a layer, "
+          f"in {c.moe.num_experts * cap} slots); max_memory_allocated {peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[moe-train] launches a step {launches}", flush=True)
+    if not all(np.isfinite(losses + aux_vals)):
+        fail(f"[moe-train] losses {losses}, aux {aux_vals}")
+    first = first_loss(c) + c.moe.aux_loss_coef * aux_vals[0] / c.num_layers
+    if abs(losses[0] - first) > 0.5:
+        fail(f"[moe-train] first loss {losses[0]:.4f} not within 0.5 of {first:.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"[moe-train] loss did not fall on the repeated batch: {losses}")
+    want = {"moe_route": 2 * L, "moe_dispatch_gather": 2 * L, "moe_dispatch_gather_int8": 0,
+            "moe_ffn_combine": 0, "moe_ffn": 2 * L, "moe_combine": 2 * L,
+            "flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L, "fused_adam": buckets,
+            "fused_lion": 0}
+    if launches != want:
+        fail(f"[moe-train] launches a step {launches} != {want}")
+    profile_step(torch, engine, batch, step_s, "moe-train-profile")
+    engine.model.combine_aux = combine
+    del engine
+    gc_cuda(torch)
+
+    t0 = time.perf_counter()
+    low = dict(MOE_TRAIN_CONFIG, optimizer={"type": "AdamW", "params": {
+        "lr": MOE_TRAIN_PATH_LR, "weight_decay": 0.1}})
+    paths = {("kernels", "3e-4"): losses[:PATH_STEPS]}
+    runs = ((("plain", "3e-4"), True, True, False), (("kernels", "low"), False, False, False),
+            (("plain", "low"), True, True, False))
+    runs += tuple(((name, "3e-4"), *how) for name, *how in MOE_TRAIN_WITNESSES)
+    for key, plain_dense, plain_moe, nudge in runs:
+        engine = mixtral_train_engine(torch, np, MOE_TRAIN_CONFIG if key[1] == "3e-4" else low,
+                                      nudge=nudge)
+        zero_counts(flash, adam, lion)
+        moe.launches.update(dict.fromkeys(moe.launches, 0))
+        with contextlib.ExitStack() as swaps:
+            if plain_dense:
+                swaps.enter_context(plain_kernels(flash, adam, lion))
+            if plain_moe:
+                swaps.enter_context(plain_moe_kernels(moe))
+            paths[key] = [float(engine.train_batch(batch)) for _ in range(PATH_STEPS)]
+        dense = [*flash.launches.values(), adam.launches]
+        moe_n = [moe.launches[n] for n in ("moe_route", "moe_dispatch_gather", "moe_ffn",
+                                            "moe_combine")]
+        if any(any(n) if plain else not all(n)
+               for plain, n in ((plain_dense, dense), (plain_moe, moe_n))):
+            fail(f"[moe-train] {key[0]}: launches flash {flash.launches}, adam {adam.launches}, "
+                 f"moe {moe.launches}")
+        del engine
+        gc_cuda(torch)
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(paths[a], paths[b])]
+    held = {"3e-4": rel(("kernels", "3e-4"), ("plain", "3e-4"))[:2],
+            "low": rel(("kernels", "low"), ("plain", "low"))}
+    step3 = rel(("kernels", "3e-4"), ("plain", "3e-4"))[2]
+    witness3 = max(rel((name, "3e-4"), ("plain", "3e-4"))[2] for name, *_ in MOE_TRAIN_WITNESSES)
+    for lr, note in (("3e-4", f"steps 1-2 held to {PATH_RTOL}, step 3 to "
+                              f"{MOE_TRAIN_WITNESS_RATIO} x the witnesses' largest, "
+                              f"{witness3:.3e}"),
+                     ("low", f"limit {PATH_RTOL}, bf16")):
+        diff = rel(("kernels", lr), ("plain", lr))
+        print(f"[moe-train] {MOE_TRAIN_LAYERS} layers, full width, {PATH_STEPS} steps at lr "
+              f"{MOE_TRAIN_PATH_LR if lr == 'low' else 3e-4}: kernels {paths['kernels', lr]} "
+              f"plain {paths['plain', lr]}, relative difference by step "
+              f"{[float(f'{r:.3e}') for r in diff]} ({note})", flush=True)
+    for name, *_ in MOE_TRAIN_WITNESSES:
+        diff = rel((name, "3e-4"), ("plain", "3e-4"))
+        print(f"[moe-train] witness at lr 3e-4, {name}: {paths[name, '3e-4']}, relative "
+              f"difference from plain by step {[float(f'{r:.3e}') for r in diff]}", flush=True)
+    print(f"[moe-train] kernels against plain and the witnesses: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    worst = max(held["3e-4"] + held["low"])
+    if worst > PATH_RTOL:
+        fail(f"[moe-train] kernel and plain training paths differ by {worst:.3e}")
+    if step3 > MOE_TRAIN_WITNESS_RATIO * witness3:
+        fail(f"[moe-train] at lr 3e-4 the kernel and plain paths differ by {step3:.3e} at "
+             f"step 3, past {MOE_TRAIN_WITNESS_RATIO} x the witnesses' {witness3:.3e}")
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import gc
 
@@ -4179,7 +4653,21 @@ def main():
     torch.cuda.empty_cache()
     print(f"[encoders] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 14. kernels line
+    # 14. MoE training: the MoE operator and its backward against the plain
+    # versions, each MoE kernel at the training call, and mixtral-8x7b at
+    # full width and 2 layers trained through the kernels and through their
+    # plain versions (its launches check themselves; the kernels line keeps
+    # the counts of the paths above)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    moe_op_vs_plain(torch, moe, gen, flush)
+    del flush
+    gc_cuda(torch)
+    train_mixtral(torch, np, flash, adam, lion, moe)
+    print(f"[moe-train] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",

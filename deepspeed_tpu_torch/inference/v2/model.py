@@ -146,7 +146,7 @@ class RaggedInferenceModel:
             self._write_kv(k_pages[l], k, write_idx)
             self._write_kv(v_pages[l], v, write_idx)
             attn = attn_fn(q, k_pages[l], v_pages[l], l)
-            x = self.model._residual(block, x, h1, attn, None, dropless=True)
+            x, _ = self.model._residual(block, x, h1, attn, None, dropless=True)
         return x
 
     # -- programs -----------------------------------------------------------

@@ -30,9 +30,13 @@ int32 segment ids, so pad rows attend among pads, as in JAX.
 
 A block of a ``moe`` configuration holds a ``MoE`` (``moe/layer.py``) in
 place of its MLP, in every layer, as the JAX block does
-(``models/transformer.py:259-275``); ``forward(..., dropless=True)`` routes
-it with capacity = the token count, the function the serving engine
-computes. Training through MoE layers is not ported: ``apply`` raises.
+(``models/transformer.py:259-275``), whatever ``moe_layer_freq`` says, as
+the JAX model never reads it; ``forward(..., dropless=True)`` routes it
+with capacity = the token count, the function the serving engine
+computes. In training every block returns ``(x, aux)`` (a dense block's
+aux is 0): ``apply`` sums ``keep * aux`` over the layers as the JAX scan
+carries it, and ``loss``
+adds ``aux_loss_coef * aux / num_layers`` (``combine_aux``).
 
 A parallel block (Phi, Falcon, GPT-NeoX, GPT-J) adds attention and MLP to
 the block's input, both read through ``ln_1`` or, with ``parallel_norms``,
@@ -47,9 +51,8 @@ mixes the PLD gate outside them (``keep * y + (1 - keep) * x``); a post-norm
 model has no ``ln_f``. The MLM head is dense -> activation -> LN -> the tied
 decoder plus ``mlm.bias``.
 
-MoE training raises ``NotImplementedError`` naming ROADMAP A7. The plain
-serving ``forward`` is causal-only: an encoder raises ``ValueError``, as
-the JAX serving model does.
+The plain serving ``forward`` is causal-only: an encoder raises
+``ValueError``, as the JAX serving model does.
 """
 
 from __future__ import annotations
@@ -65,9 +68,6 @@ from ..nn import layers as L
 from ..ops.transformer.attention import alibi_slopes, flash_attention
 from ..runtime.activation_checkpointing import checkpointing
 
-MOE_TRAINING = ("training through MoE layers is not ported (ROADMAP A7: MoE training "
-                "through a reference-VJP autograd.Function, with A6 / A9 to fit a "
-                "mixtral-class model)")
 ENCODER_SERVING = ("the ragged serving engine generates autoregressively; "
                    "bidirectional encoders (bert/roberta) have no decode semantics "
                    "- use the model's apply() for MLM scoring")
@@ -129,7 +129,7 @@ class TransformerConfig:
     pad_based_positions: bool = False
     pad_token_id: Optional[int] = None
     moe: Optional[MoEConfig] = None  # every layer's MLP is a MoE when set
-    moe_layer_freq: int = 1          # kept as in JAX, whose model reads only 1
+    moe_layer_freq: int = 1          # kept as in JAX, whose model never reads it
     dtype: torch.dtype = torch.float32
     remat: bool = True               # recompute each block in the backward
     remat_policy: str = "nothing_saveable"
@@ -150,10 +150,6 @@ class TransformerConfig:
 def check_supported(c: TransformerConfig) -> None:
     """Raise for configurations the JAX model refuses (``ValueError``) and
     for those the port does not cover yet (``NotImplementedError``)."""
-    if c.moe is not None and c.moe_layer_freq != 1:
-        raise NotImplementedError(
-            f"moe_layer_freq {c.moe_layer_freq}: the JAX model makes every layer a "
-            f"MoE (ROADMAP A7: MoE top_k > 2, fp16 and other activations)")
     if c.position not in ("rope", "learned", "alibi"):
         raise ValueError(f"unknown position style {c.position!r}")
     if c.norm_style not in ("pre", "post"):
@@ -238,15 +234,17 @@ class Block(nn.Module):
             self.fc_in = L.Linear(h, c.ffn_size, bias=use_bias, **kw)
             self.fc_out = L.Linear(c.ffn_size, h, bias=use_bias, **kw)
 
-    def mlp(self, h: torch.Tensor, dropless: bool = False) -> torch.Tensor:
-        """MLP over the PRE-NORMED input h; a MoE block's output without its
-        aux loss (not computed), routed dropless when asked (capacity = the
-        token count)."""
+    def mlp(self, h: torch.Tensor, dropless: bool = False, with_aux: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """MLP over the PRE-NORMED input h: ``(out, aux)``. A MoE block's aux
+        loss when asked for (training), else None (serving: not computed);
+        the MoE routed dropless when asked (capacity = the token count). A
+        dense block's aux is None."""
         if self.moe is not None:
-            return self.moe(h, dropless=dropless, with_aux=False)[0]
+            return self.moe(h, dropless=dropless, with_aux=with_aux)
         if self.gated:
-            return self.down_proj(L.silu(self.gate_proj(h)) * self.up_proj(h))
-        return self.fc_out(self.act(self.fc_in(h)))
+            return self.down_proj(L.silu(self.gate_proj(h)) * self.up_proj(h)), None
+        return self.fc_out(self.act(self.fc_in(h))), None
 
 
 class TransformerLM(nn.Module):
@@ -392,27 +390,31 @@ class TransformerLM(nn.Module):
         return q, k, v
 
     def _residual(self, blk: Block, x: torch.Tensor, h1: torch.Tensor, attn: torch.Tensor,
-                  keep, dropless: bool = False) -> torch.Tensor:
+                  keep, dropless: bool = False, with_aux: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The block's output from its input ``x``, ``h1 = ln_1(x)`` and the
         attention before ``o_proj``: sequential, or parallel (``x + attn +
         mlp``, the MLP reading ``h1`` or ``ln_2(x)``), each branch gated by
-        ``keep`` (PLD) unless it is None."""
+        ``keep`` (PLD) unless it is None; with the MLP's aux (``Block.mlp``)."""
         a = blk.o_proj(attn.reshape(*x.shape[:-1], -1))
         if self.config.parallel_block:
             hm = blk.ln_2(x) if blk.ln_2 is not None else h1
-            y = a + blk.mlp(hm, dropless=dropless)
-            return x + (y if keep is None else keep * y)
+            m, aux = blk.mlp(hm, dropless=dropless, with_aux=with_aux)
+            y = a + m
+            return x + (y if keep is None else keep * y), aux
         x = x + (a if keep is None else keep * a)
-        m = blk.mlp(blk.ln_2(x), dropless=dropless)
-        return x + (m if keep is None else keep * m)
+        m, aux = blk.mlp(blk.ln_2(x), dropless=dropless, with_aux=with_aux)
+        return x + (m if keep is None else keep * m), aux
 
     # -- training forward ----------------------------------------------------
     def _block(self, blk: Block, x: torch.Tensor, rope, keep, window,
-               seg: Optional[torch.Tensor]) -> torch.Tensor:
+               seg: Optional[torch.Tensor]):
         """One block (``_block_fn``) through the flash kernels; ``keep``
         gates it (PLD) or is None, ``window`` is the layer's, ``seg`` the
         int32 segment ids of the padding mask or None. Post-norm: LN after
-        each residual add, the gate mixed outside the norms."""
+        each residual add, the gate mixed outside the norms. Returns
+        ``(output, aux)``: a MoE block's aux loss, a dense block's a zero
+        fp32 scalar."""
         c = self.config
         post = c.norm_style == "post"
         h1 = x if post else blk.ln_1(x)
@@ -421,10 +423,15 @@ class TransformerLM(nn.Module):
                                segment_ids=seg, alibi_slopes=self.alibi(x.device),
                                window=window)
         if not post:
-            return self._residual(blk, x, h1, attn, keep)
-        h = blk.ln_1(x + blk.o_proj(attn.reshape(*x.shape[:-1], -1)))
-        y = blk.ln_2(h + blk.mlp(h))
-        return y if keep is None else keep * y + (1 - keep) * x
+            y, aux = self._residual(blk, x, h1, attn, keep, with_aux=True)
+        else:
+            h = blk.ln_1(x + blk.o_proj(attn.reshape(*x.shape[:-1], -1)))
+            m, aux = blk.mlp(h, with_aux=True)
+            y = blk.ln_2(h + m)
+            y = y if keep is None else keep * y + (1 - keep) * x
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return y, aux
 
     def apply(self, input_ids: torch.Tensor,
               layer_mask: Optional[torch.Tensor] = None,
@@ -441,27 +448,30 @@ class TransformerLM(nn.Module):
         Remat (when grad is on): each block under ``remat_policy``
         (``checkpointing.checkpoint``), or, for ``alternating``, layer
         pairs with the first of each pair checkpointed in full and the
-        second not (an odd last layer checkpointed)."""
+        second not (an odd last layer checkpointed).
+
+        ``moe_aux_loss`` is the sum over the layers of each MoE layer's aux
+        gated by ``keep`` (fp32; 0 for a model without MoE layers)."""
         c = self.config
-        if c.moe is not None:
-            raise NotImplementedError(MOE_TRAINING)
         S = input_ids.shape[1]
         positions = torch.arange(S, device=input_ids.device)[None, :]
         x = self.embed(input_ids, positions, token_type_ids)
         rope = self.rope(positions) if c.position == "rope" else None
         seg = None if attention_mask is None else attention_mask.to(torch.int32)
         remat = c.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, blk in enumerate(self.blocks):
             keep = None if layer_mask is None else layer_mask[i].to(c.dtype)
             args = (blk, x, rope, keep, self.window(i), seg)
             if not remat:
-                x = self._block(*args)
+                x, layer_aux = self._block(*args)
             elif c.remat_policy == "alternating":
-                x = checkpointing.checkpoint(self._block, *args, policy=(
+                x, layer_aux = checkpointing.checkpoint(self._block, *args, policy=(
                     "full" if i % 2 == 0 else "everything_saveable"))
             else:
-                x = checkpointing.checkpoint(self._block, *args, policy=c.remat_policy)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, layer_aux = checkpointing.checkpoint(self._block, *args,
+                                                        policy=c.remat_policy)
+            aux = aux + (layer_aux if keep is None else keep * layer_aux)
         if return_hidden:
             return (x if self.ln_f is None else self.ln_f(x)), aux
         return self.head(x), aux
@@ -484,16 +494,25 @@ class TransformerLM(nn.Module):
         output."""
         return masked_cross_entropy(self.head(x), labels, extra_mask=extra_mask)
 
+    def combine_aux(self, loss: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+        """Fold the summed MoE aux loss into the objective (JAX
+        ``combine_aux``): ``loss + aux_loss_coef * aux / num_layers``."""
+        if self.config.moe is not None:
+            loss = loss + self.config.moe.aux_loss_coef * aux / self.config.num_layers
+        return loss
+
     def loss(self, batch) -> torch.Tensor:
         """Cross-entropy of ``batch`` (``input_ids [B, S]``, optional
         ``labels``, ``loss_mask``, ``layer_mask``, ``token_type_ids``,
         ``attention_mask``): next-token for causal models, masked-LM for
-        encoders (labels required, -100 = ignore)."""
+        encoders (labels required, -100 = ignore), plus the MoE aux term
+        (``combine_aux``)."""
         labels = self.derive_labels(batch)
-        logits, _ = self.apply(batch["input_ids"], layer_mask=batch.get("layer_mask"),
-                               token_type_ids=batch.get("token_type_ids"),
-                               attention_mask=batch.get("attention_mask"))
-        return masked_cross_entropy(logits, labels, extra_mask=batch.get("loss_mask"))
+        logits, aux = self.apply(batch["input_ids"], layer_mask=batch.get("layer_mask"),
+                                 token_type_ids=batch.get("token_type_ids"),
+                                 attention_mask=batch.get("attention_mask"))
+        loss = masked_cross_entropy(logits, labels, extra_mask=batch.get("loss_mask"))
+        return self.combine_aux(loss, aux)
 
     # -- plain reference forward ---------------------------------------------
     @torch.no_grad()
@@ -524,5 +543,5 @@ class TransformerLM(nn.Module):
                                         zero, scale=c.attn_scale, alibi_slopes=slopes,
                                         window=self.window(i))
                 for b in range(B)])
-            x = self._residual(blk, x, h1, attn, None, dropless=dropless)
+            x, _ = self._residual(blk, x, h1, attn, None, dropless=dropless)
         return self.head(x)

@@ -14,10 +14,16 @@ kernels on CUDA tensors, their plain versions on CPU tensors.
 ``min_capacity = 1`` (capacity = the token count, nothing dropped), as the
 serving model's ``_moe_serve`` does (``inference/v2/model.py:83-96``).
 
+Training: the parameters are made with ``requires_grad=False``, as every
+layer of the port's is, and a training engine turns it on. With gradients
+on, ``forward`` returns ``(out, aux)`` both differentiable: the kernel path
+runs as one custom operator whose backward is the VJP of
+``moe_reference_forward`` below, recomputed from the tokens and the weights
+(``ops/transformer/moe.py``).
+
 Not ported: the expert exchange over a mesh and the capacity-chunked
-dispatch (ROADMAP A6), the backward (MoE training, ROADMAP A7), and what the
-JAX kernel does not serve either (top_k > 2, fp16, other activations: they
-raise ``NotImplementedError``).
+dispatch (ROADMAP A6), and what the JAX kernel does not serve either
+(top_k > 2, fp16, other activations: they raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -104,7 +110,8 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, dropless: bool = False, with_aux: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``x [..., H]`` -> ``(out [..., H], aux)``; aux None when not
-        asked for (``with_aux=False`` saves its launches)."""
+        asked for (``with_aux=False`` saves its launches where no gradient is
+        taken). Differentiable in ``x`` and the weights, through aux too."""
         tokens = x.reshape(-1, self.hidden_size)
         fwd = moe_ops.make_moe_forward(top_k=self.top_k,
                                        capacity=self.capacity(tokens.shape[0], dropless),

@@ -42,7 +42,11 @@ split FFN -> combine above. The threshold is the port's own, set from the
 H100 sweep in ``chip_smoke.py`` (``PERF.md``); the JAX VMEM budgets
 (``_FUSED_OUT_BUDGET``, ``_ROUTE_BUDGET``, ``_FFN_BUDGET``) are TPU numbers
 and are not carried over. The capacity-chunked scan (``n_chunks``) exists
-for a live expert axis and waits for it (ROADMAP A6).
+for a live expert axis and waits for it (ROADMAP A6). With gradients on,
+the forward is the custom operator ``MOE_FWD_OP``: it saves the tokens and
+the weights, and its backward is the VJP of the plain
+``moe/layer.py`` ``moe_reference_forward`` recomputed at them, as the JAX
+``custom_vjp`` has it (``pallas_moe.py`` ``make_moe_forward``).
 
 Expert weights are in the ``[out, in]`` layout, the reduction axis
 contiguous as the FFN kernel reads it: ``wi_gate`` / ``wi_up`` / ``wi``
@@ -520,8 +524,86 @@ def moe_combine(y: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor) -> t
 
 
 # ---------------------------------------------------------------------------
-# the forward
+# the forward and its backward
 # ---------------------------------------------------------------------------
+
+
+def _kernel_forward(tokens: torch.Tensor, gate: torch.Tensor, wi_gate: torch.Tensor,
+                    wi_up: Optional[torch.Tensor], wo: torch.Tensor, top_k: int,
+                    capacity: int, activation: str, with_aux: bool):
+    """The kernel path: the router product, route, gather, then the fused
+    FFN + combine or the split FFN -> combine; ``(out, aux or None)``."""
+    T, H = tokens.shape
+    E = gate.shape[-1]
+    logits = tokens @ gate.to(tokens.dtype)
+    src, slot_w, slot_tk, w_tk, me, ce = moe_route(logits, top_k=top_k, capacity=capacity)
+    aux = (me * ce).sum() * E if with_aux else None
+    cast = lambda t: None if t is None else t.to(tokens.dtype)
+    wi_gate, wi_up, wo = cast(wi_gate), cast(wi_up), cast(wo)
+    payload = moe_dispatch_gather(tokens, src).view(E, capacity, H)
+    if T <= MOE_FUSED_COMBINE_MAX_TOKENS:
+        out = moe_ffn_combine(payload, wi_gate, wi_up, wo, src, slot_w, T,
+                              activation=activation)
+    else:
+        y = moe_ffn(payload, wi_gate, wi_up, wo, src, activation=activation)
+        out = moe_combine(y.view(E * capacity, H), slot_tk, w_tk)
+    return out.to(tokens.dtype), aux
+
+
+# The differentiable forward is a custom operator, as flash's is
+# (``ops/transformer/flash.py``): a dispatch mode (the remat policies of
+# ``runtime/activation_checkpointing``) sees it as ONE op, never the ctypes
+# launches inside it, and keeps or recomputes it whole. It saves only its
+# inputs; its backward is the VJP of the plain ``moe/layer.py``
+# ``moe_reference_forward`` recomputed at them, the design of the JAX
+# ``custom_vjp`` (``pallas_moe.py`` ``make_moe_forward``): no kernel computes
+# an MoE gradient, and the reference's batched products stay ``torch.bmm``,
+# as XLA computes them there. Both sides route from the same
+# ``tokens @ gate`` and the route kernel is bitwise its plain version, so the
+# backward differentiates the routes the forward took.
+@torch.library.custom_op("dstpu_torch::moe_fwd", mutates_args=())
+def _moe_fwd_op(tokens: torch.Tensor, gate: torch.Tensor, wi_gate: torch.Tensor,
+                wi_up: Optional[torch.Tensor], wo: torch.Tensor, top_k: int, capacity: int,
+                activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _kernel_forward(tokens, gate, wi_gate, wi_up, wo, top_k, capacity, activation,
+                           True)
+
+
+#: the forward operator (what a remat policy names to keep or recompute)
+MOE_FWD_OP = torch.ops.dstpu_torch.moe_fwd.default
+
+
+def _setup_context(ctx, inputs, output):
+    tokens, gate, wi_gate, wi_up, wo, *static = inputs
+    ctx.save_for_backward(tokens, gate, wi_gate, wi_up, wo)
+    ctx.static = tuple(static)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, d_out, d_aux):
+    from ...moe.layer import moe_reference_forward
+    top_k, capacity, activation = ctx.static
+    need = ctx.needs_input_grad[:5]
+    gated = activation == "silu_gated"
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        tokens, gate, wi_gate, wi_up, wo = leaves
+        params = {"gate": gate, "wi_gate" if gated else "wi": wi_gate, "wo": wo}
+        if gated:
+            params["wi_up"] = wi_up
+        out, aux = moe_reference_forward(params, tokens, top_k=top_k, capacity=capacity,
+                                         activation=activation)
+        pairs = [(o, g) for o, g in ((out, d_out), (aux, d_aux)) if g is not None]
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                         allow_unused=True) if pairs and wrt else ())
+    return (*(next(grads, None) if t is not None and t.requires_grad else None
+              for t in leaves), None, None, None)
+
+
+torch.library.register_autograd("dstpu_torch::moe_fwd", _backward,
+                                setup_context=_setup_context)
 
 
 def make_moe_forward(*, top_k: int, capacity: int, activation: str, with_aux: bool = True
@@ -531,29 +613,21 @@ def make_moe_forward(*, top_k: int, capacity: int, activation: str, with_aux: bo
     in the tokens' dtype, aux fp32)`` for one capacity: the fused FFN +
     combine up to ``MOE_FUSED_COMBINE_MAX_TOKENS`` tokens, the split form
     above. ``aux`` costs three launches: a caller that drops it (serving)
-    asks for none with ``with_aux=False`` and gets None. No backward:
-    training through MoE is not ported (ROADMAP A7)."""
+    asks for none with ``with_aux=False`` and gets None.
+
+    With gradients on and an input that requires them, the forward runs as
+    the operator ``MOE_FWD_OP``: differentiable in the tokens and every
+    weight, through ``aux`` too, by the reference VJP (above). Without
+    (serving, ``no_grad``) the same kernels run without the operator."""
 
     def forward(params: Mapping[str, torch.Tensor], tokens: torch.Tensor):
         check_supported(top_k=top_k, activation=activation, dtype=tokens.dtype)
-        T, H = tokens.shape
-        gate = params["gate"]
-        E = gate.shape[-1]
-        logits = tokens @ gate.to(tokens.dtype)
-        src, slot_w, slot_tk, w_tk, me, ce = moe_route(logits, top_k=top_k, capacity=capacity)
-        aux = (me * ce).sum() * E if with_aux else None
         gated = activation == "silu_gated"
-        cast = lambda t: None if t is None else t.to(tokens.dtype)
-        wi_gate = cast(params["wi_gate"] if gated else params["wi"])
-        wi_up = cast(params["wi_up"]) if gated else None
-        wo = cast(params["wo"])
-        payload = moe_dispatch_gather(tokens, src).view(E, capacity, H)
-        if T <= MOE_FUSED_COMBINE_MAX_TOKENS:
-            out = moe_ffn_combine(payload, wi_gate, wi_up, wo, src, slot_w, T,
-                                  activation=activation)
-        else:
-            y = moe_ffn(payload, wi_gate, wi_up, wo, src, activation=activation)
-            out = moe_combine(y.view(E * capacity, H), slot_tk, w_tk)
-        return out.to(tokens.dtype), aux
+        args = (tokens, params["gate"], params["wi_gate"] if gated else params["wi"],
+                params["wi_up"] if gated else None, params["wo"])
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+            out, aux = _moe_fwd_op(*args, top_k, capacity, activation)
+            return out, aux if with_aux else None
+        return _kernel_forward(*args, top_k, capacity, activation, with_aux)
 
     return forward

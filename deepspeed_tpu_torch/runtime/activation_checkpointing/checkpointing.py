@@ -11,7 +11,13 @@ backward; the rest is recomputed:
   the linears' (``aten.mm`` / ``addmm``), batched ones (``bmm`` /
   ``baddbmm``) and the flash attention forward, a batched product, kept as
   one operator (``flash.FLASH_FWD_OP``: its kernels launch through ctypes,
-  which no dispatch mode sees, so the policy decides about the whole op);
+  which no dispatch mode sees, so the policy decides about the whole op).
+  The MoE forward (``ops/transformer/moe.py`` ``MOE_FWD_OP``, one operator
+  too) is not among them: it is recomputed whole. Its JAX counterpart is a
+  ``custom_vjp`` whose outputs come from Pallas calls, not from a
+  ``dot_general``, so ``dots_saveable`` does not save them; the one product
+  in its body, the router's, is read by no backward (the VJP recomputes it
+  from the saved tokens and weights);
 - ``dots_with_no_batch_dims_saveable`` / ``checkpoint_dots_with_no_batch_dims``:
   the linears' outputs only; attention is recomputed;
 - ``everything_saveable``: everything, i.e. no recomputation;

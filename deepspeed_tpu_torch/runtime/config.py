@@ -93,7 +93,6 @@ def _enabled(block) -> bool:
 _UNPORTED = {
     "pipeline": ("A10 (pipeline parallelism)",
                  lambda b: isinstance(b, dict) and b.get("stages", 1) > 1),
-    "moe": ("A7 (mixture of experts)", lambda b: bool(b)),
     "hybrid_engine": ("A12 (hybrid engine)", _enabled),
     "elasticity": ("A12 (elastic training and resume)", _enabled),
     "telemetry": ("A12 (telemetry)", _enabled),

@@ -37,8 +37,10 @@ commit.
 
 Not ported yet: the layer-pipelined overlap schedule, hpZ / MiCS and meshes
 with other axes (A6), offload (A9), pipeline (A10); ``runtime/config.py``
-raises for them. A model with MoE layers raises here (ROADMAP A7: MoE
-training).
+raises for them. A model with MoE layers trains on one rank (its expert
+weights ``[E, F, H]`` / ``[E, H, F]`` are leaves like any other, bucketed,
+clipped and stepped whole); on a world of more than one rank it raises
+(``MOE_DATA_PARALLEL``).
 """
 
 from __future__ import annotations
@@ -55,7 +57,6 @@ from ..checkpoint import store
 from ..checkpoint.checkpoint_engine import AsyncCheckpointEngine, NpzCheckpointEngine
 from ..comm import comm as dist
 from ..convert import JaxLeaf, from_host, host_array, jax_leaf, to_jax_leaf
-from ..models.transformer import MOE_TRAINING
 from ..ops.quantizer.quantizer import (fp8_reduce_scatter, quantized_all_gather,
                                        quantized_reduce_scatter)
 from .config import DeepSpeedConfig
@@ -68,6 +69,13 @@ from .topology import MeshTopology
 from .zero.partition import ZeroPartitionPlan, shard_of
 
 logger = logging.getLogger(__name__)
+
+MOE_DATA_PARALLEL = (
+    "MoE training on a world of more than one rank is not ported (ROADMAP A7: MoE under "
+    "data parallelism, with the expert exchange of A6). The JAX engine is one SPMD "
+    "program over the global batch: its capacity, its cumsum ranks and its me / ce "
+    "means span every rank's tokens. Per-rank programs differ from it as soon as a "
+    "choice drops, and the aux loss is not linear in the split of the batch")
 
 _NARROW = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp16": torch.float16, "float16": torch.float16,
@@ -124,8 +132,6 @@ class DeepSpeedEngine:
         if config.data_parallel_size != dist.get_world_size():
             raise ValueError(f"a data-parallel size of {config.data_parallel_size} needs as "
                              f"many ranks; the world has {dist.get_world_size()}")
-        if getattr(model.config, "moe", None) is not None:
-            raise NotImplementedError(MOE_TRAINING)
         self.device = resolve_device(device)
         self.model = model
 
@@ -601,6 +607,8 @@ class DataParallelEngine(DeepSpeedEngine):
         config = config or DeepSpeedConfig(config_dict or {})
         self.topology = topology if topology is not None else MeshTopology(config.topology)
         n = self.topology.data_parallel_size
+        if getattr(model.config, "moe", None) is not None and n > 1:
+            raise NotImplementedError(MOE_DATA_PARALLEL)
         if dist.get_world_size() != n or config.data_parallel_size != n:
             raise ValueError(f"the topology's data axis ({n}), the config's data-parallel "
                              f"size ({config.data_parallel_size}) and the world "

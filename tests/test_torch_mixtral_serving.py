@@ -235,17 +235,22 @@ def test_seeded_meta_model_is_placed_and_serves():
 
 
 def test_moe_training_raises():
+    """The doors that raised before MoE training was ported (``initialize``,
+    ``apply`` and ``loss`` on mixtral-tiny) now run: a finite loss with
+    the aux term, a positive aux from ``apply``, and a step through the
+    engine (``tests/test_torch_moe_training.py`` holds them to JAX)."""
     model = mixtral_model("mixtral-tiny", dtype=torch.float32, max_seq_len=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: MoE training"):
-        deepspeed_tpu_torch.initialize(model=model, config={
-            "train_micro_batch_size_per_gpu": 1,
-            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}, device="cpu")
-    model.materialize("cpu")
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_micro_batch_size_per_gpu": 1,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}, device="cpu")
     ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: MoE training"):
-        model.apply(ids)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: MoE training"):
-        model.loss({"input_ids": ids})
+    assert np.isfinite(float(engine.train_batch({"input_ids": ids})))
+    model = mixtral_model("mixtral-tiny", dtype=torch.float32, max_seq_len=64)
+    model.materialize("cpu")
+    logits, aux = model.apply(ids)
+    assert logits.shape == (1, 8, 1024) and float(aux) > 0
+    loss = model.loss({"input_ids": ids})
+    assert np.isfinite(float(loss))
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
