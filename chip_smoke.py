@@ -225,7 +225,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    2e-2) and at lr 3e-4 (the first two steps within 2e-2; the third within
    3x the largest of four witnesses: the plain path again, with one router
    element one ulp off, and with the MoE or the flash and Adam kernels
-   alone on their plain versions); the phase's and the command's seconds.
+   alone on their plain versions); the phase's and the command's seconds;
+15. sequence parallelism (``[seq-parallel]``): first the forms' kernel
+   calls at their shapes against the plain versions, timed beside their
+   bounds: flash forward and backward (bf16, a cotangent on the LSE) at a
+   ring hop's shape (8192 queries against 8192 keys, 32 / 4 heads of 64)
+   at ``q_offset`` +8192, 0 and -8192 (O all 0 and LSE all ``MASK_VALUE``
+   there, its bound the bytes of the outputs alone), at Ulysses' (S 16384, 16 / 2 heads), and the row quantizer on a
+   hop's K block, byte for byte; then two ranks on the one card (gloo, as
+   ``[zero]``) train tinyllama-1.1b at full width and depth, max_seq_len
+   raised to 16384, global S 16384 at micro 1 (8192 tokens a rank), bf16,
+   AdamW, clipping 1.0, ZeRO-1 over data x seq, remat per block, through
+   ``initialize`` + ``train_batch`` with ``topology.seq`` 2: Ulysses, the
+   ring at the default int8 hop width and at full width, each a warm-up
+   and 1 timed step (losses finite, the first near ln(32000), falling and
+   equal on both ranks; flash and quantizer launches a step; step time,
+   tokens/s, MFU over the global causal pairs, peak memory a rank, one
+   more step's collective share, the wire bytes by op and width, each
+   seq-axis exchange of the forward, the remat replay and the backward
+   counted); then
+   each form at 2 layers through the kernels against one process's plain
+   single-rank path on the whole sequence (losses within 2e-2); the
+   phase's seconds.
 
 Phase 4 also holds the ZeRO++ wire quantizer (``[quant]``) against its
 plain version, q and scale byte-identical: fp32 and bf16 rows of the
@@ -728,6 +749,40 @@ MOE_TRAIN_WITNESSES = (("plain again", True, True, False),
                        ("plain, router 1 ulp off", True, True, True),
                        ("kernels, plain MoE", False, True, False),
                        ("kernels, plain flash and Adam", True, False, False))
+# [seq-parallel]: two ranks on the one card (gloo, as [zero]) train
+# tinyllama-1.1b at full width and depth over a seq axis of 2, max_seq_len
+# raised to SEQ_LEN (no width changes): global S 16384, micro 1, so a rank
+# holds 8192 tokens; bf16, AdamW, clipping 1.0, ZeRO stage 1 over data x
+# seq, remat per block, lr 1e-4 (at 3e-4 the fourth step's loss rises above
+# the first on this repeated batch, for one rank over the whole sequence as
+# for the two ranks). Forms: Ulysses, the ring at the default int8 hop
+# width, the ring at full width. A form takes a warm-up, SEQ_STEPS timed
+# steps and one with its collectives timed: one timed step, not three,
+# since gloo moves 3.7-3.9 GB a step (8.3 with Ulysses' all-to-alls) through
+# host memory, 10-20 s a step on an NVIDIA H100 80GB HBM3 at 700.00 W, and
+# the whole script has to end inside its time limit
+SEQ_LEN, SEQ_WORLD, SEQ_WARMUP, SEQ_STEPS = 16384, 2, 1, 1
+SEQ_TIMEOUT = 600      # seconds for the ranks: a hung rank fails the run
+SEQ_CONFIG = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": True},
+              "gradient_clipping": 1.0,
+              "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+              "zero_optimization": {"stage": 1}, "topology": {"seq": SEQ_WORLD}}
+# form: (seq_parallel, comm_transport)
+SEQ_FORMS = {"ulysses": ("ulysses", {}), "ring-int8": ("ring", {}),
+             "ring-full": ("ring", {"permute_width": "full"})}
+# the flash calls of the forms at their shapes: a ring hop's (a rank's
+# 8192 queries against another rank's 8192 keys, 32 / 4 heads of 64, a
+# cotangent on the LSE as the merge gives it) at q_offset +8192 (keys all
+# in the past), 0 (the diagonal) and -8192 (all in the future: O = 0, LSE =
+# MASK_VALUE), and Ulysses' (the whole sequence, 16 / 2 heads a rank)
+SEQ_FLASH_CASES = {
+    "ring-hop-past": (1, 8192, 8192, 32, 4, 64, {"q_offset": 8192, "dlse": True}),
+    "ring-hop-diagonal": (1, 8192, 8192, 32, 4, 64, {"q_offset": 0, "dlse": True}),
+    "ring-hop-future": (1, 8192, 8192, 32, 4, 64, {"q_offset": -8192, "dlse": True}),
+    "ulysses-s16384": (1, 16384, 16384, 16, 2, 64, {}),
+}
+# a hop's K (or V) block: [1, 8192, 4, 64] bf16 in groups of 256
+SEQ_HOP_GROUPS = (8192 * 4 * 64 // 256, 256)
 
 
 def fail(msg):
@@ -1062,8 +1117,13 @@ def sdpa_mask(torch, spec, Sq, Sk, H, dtype):
 def flash_bounds(B, Sq, Sk, H, kvH, D, pairs, isz):
     """(bytes, flops) of forward, dQ and dK/dV: each input read once, each
     output written once; 2 flops per multiply-add of the products the
-    visible pairs need (forward S, PV; dQ S, dP, dQ; dK/dV S, dP, dV, dK)."""
+    visible pairs need (forward S, PV; dQ S, dP, dQ; dK/dV S, dP, dV, dK).
+    With no visible pair the outputs do not depend on the inputs (O = 0,
+    LSE = MASK_VALUE, dQ = dK = dV = 0): the bound is writing them."""
     qn, kn, rows = B * Sq * H * D, B * Sk * kvH * D, B * H * Sq * 4
+    if pairs == 0:
+        return {"flash_fwd": (qn * isz + rows, 0), "flash_dq": (qn * isz, 0),
+                "flash_dkv": (2 * kn * isz, 0)}
     return {"flash_fwd": ((2 * qn + 2 * kn) * isz + rows, 4 * D * pairs),
             "flash_dq": ((3 * qn + 2 * kn) * isz + 2 * rows, 6 * D * pairs),
             "flash_dkv": ((2 * qn + 4 * kn) * isz + 2 * rows, 8 * D * pairs)}
@@ -3166,10 +3226,11 @@ def zero_steps(torch, engine, batch, steps, quant):
 def collective_share(torch, engine, batch):
     """One more step with every collective of ``comm`` timed on the host
     clock (the device synchronized before and after each): ``(seconds in
-    collectives, seconds of the step, collectives)``. On gloo a collective's
-    time includes the copies of its tensors to and from host memory."""
+    collectives, seconds of the step, collectives, the step's loss)``. On
+    gloo a collective's time includes the copies of its tensors to and from
+    host memory."""
     from deepspeed_tpu_torch.comm import comm as dist
-    names = ("all_gather", "all_to_all", "all_reduce", "reduce_scatter")
+    names = ("all_gather", "all_to_all", "all_reduce", "reduce_scatter", "ppermute")
     saved = {n: getattr(dist, n) for n in names}
     acc = [0.0, 0]
 
@@ -3188,12 +3249,12 @@ def collective_share(torch, engine, batch):
         setattr(dist, n, timed(saved[n]))
     try:
         t = time.perf_counter()
-        float(engine.train_batch(batch))
+        loss = float(engine.train_batch(batch))
         step = time.perf_counter() - t
     finally:
         for n in names:
             setattr(dist, n, saved[n])
-    return acc[0], step, acc[1]
+    return acc[0], step, acc[1], loss
 
 
 def quant_step_profile(torch, engine, batch, quant, profiled):
@@ -3284,7 +3345,7 @@ def zero_rank(rank, init_method, results, ckpt_dir):
         quant_per_step=[x["quant"] for x in timed],
         launches=dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches),
         peak=torch.cuda.max_memory_allocated())
-    comm_s, step_s, n_coll = collective_share(torch, engine, batch)
+    comm_s, step_s, n_coll, _ = collective_share(torch, engine, batch)
     res["quant_profile"] = quant_step_profile(torch, engine, batch, quant, rank == 0)
     res.update(
         comm_s=comm_s, comm_step_s=step_s, comm_launches=n_coll, opt_bytes=opt_bytes,
@@ -4513,6 +4574,351 @@ def train_mixtral(torch, np, flash, adam, lion, moe):
              f"step 3, past {MOE_TRAIN_WITNESS_RATIO} x the witnesses' {witness3:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# [seq-parallel]: sequence parallelism, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def seq_engine(torch, form, num_layers=None, seed=0):
+    """tinyllama-1.1b at SEQ_LEN context through ``initialize`` under
+    SEQ_CONFIG, as a ``SEQ_FORMS`` form (its ``seq_parallel`` and
+    transport); ``topology`` is dropped in a world of one."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.models import llama_model
+    sp_form, transport = SEQ_FORMS[form]
+    kw = {} if num_layers is None else {"num_layers": num_layers}
+    config = dict(SEQ_CONFIG, comm_transport=transport)
+    if dist.get_world_size() == 1:
+        config.pop("topology")
+    model = llama_model("tinyllama-1.1b", max_seq_len=SEQ_LEN, seq_parallel=sp_form, **kw)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, seed=seed)
+    return engine
+
+
+def seq_batch(np, vocab):
+    return {"input_ids": np.random.default_rng(0).integers(0, vocab, size=(1, SEQ_LEN))}
+
+
+def seq_wire(records):
+    """A step's collectives by op and width: launches, logical and wire
+    bytes. A ppermute whose wire is narrower than its tensor travelled
+    int8; the all-to-alls move bf16 activations as they are (bf16, the
+    planner's activation width)."""
+    out = {}
+    for r in records:
+        if r["op"] == "ppermute":
+            width = "int8" if r["wire_bytes"] < r["bytes"] else "full"
+        elif r["op"] == "all_to_all":
+            width = "bf16"
+        else:
+            width = "full"
+        e = out.setdefault(f"{r['op']}/{width}", {"launches": 0, "bytes": 0, "wire_bytes": 0})
+        e["launches"] += r["count"]
+        e["bytes"] += r["bytes"] * r["count"]
+        e["wire_bytes"] += r["wire_bytes"] * r["count"]
+    return out
+
+
+def seq_flops(c, n_params):
+    """6 x non-embedding params x tokens plus causal attention over the
+    global sequence's pairs (``training_flops``' count at S = SEQ_LEN)."""
+    n = n_params - c.vocab_size * c.hidden_size
+    pairs = SEQ_LEN * (SEQ_LEN + 1) // 2
+    return 6 * n * SEQ_LEN + 3 * 4 * c.head_dim * pairs * c.num_heads * c.num_layers
+
+
+def seq_rank(rank, init_method, results):
+    """One rank of [seq-parallel] (a process of its own): each SEQ_FORMS
+    form at full width and depth, a warm-up and SEQ_STEPS timed steps, one
+    more with the collectives timed; then each form at PATH_LAYERS layers
+    through the kernels. Puts its measurements on ``results``."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.ops.adam import adam
+    from deepspeed_tpu_torch.ops.lion import lion
+    from deepspeed_tpu_torch.ops.quantizer import quant
+    from deepspeed_tpu_torch.ops.transformer import flash
+    t0 = time.perf_counter()
+    dist.init_distributed(ZERO_BACKEND, rank=rank, world_size=SEQ_WORLD,
+                          init_method=init_method, timeout=SEQ_TIMEOUT)
+    res = {"rank": rank, "backend": dist.get_backend(), "forms": {}, "path": {}}
+    for form in SEQ_FORMS:
+        t = time.perf_counter()
+        engine = seq_engine(torch, form)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        c = engine.model.config
+        n_params = sum(int(np.prod(s)) for s in engine.zero_plan.shapes.values())
+        batch = seq_batch(np, c.vocab_size)
+        warm = zero_steps(torch, engine, batch, SEQ_WARMUP, quant)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(flash, adam, lion)
+        quant.launches = 0
+        timed = zero_steps(torch, engine, batch, SEQ_STEPS, quant)
+        launches = dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches)
+        peak = torch.cuda.max_memory_allocated()
+        comm_s, step_s, n_coll, last = collective_share(torch, engine, batch)
+        if rank == 0:
+            print(f"[seq-parallel] rank 0 {form}: engine {build_s:.1f} s, losses "
+                  f"{[round(x['loss'], 4) for x in warm + timed] + [round(last, 4)]}, step s "
+                  f"{[round(x['s'], 2) for x in warm + timed]}, collectives {comm_s:.2f} of "
+                  f"{step_s:.2f} s", flush=True)
+        res["forms"][form] = dict(
+            losses=[x["loss"] for x in warm + timed] + [last], step_s=[x["s"] for x in timed],
+            launches=launches, peak=peak, build_s=build_s, comm_s=comm_s,
+            comm_step_s=step_s, comm_launches=n_coll, wire=seq_wire(timed[-1]["records"]),
+            buckets=len(engine.opt_state["buckets"]), flops=seq_flops(c, n_params),
+            layers=c.num_layers, heads=(c.num_heads, c.kv_heads, c.head_dim),
+            vocab=c.vocab_size, tokens=SEQ_LEN // SEQ_WORLD)
+        del engine
+        torch.cuda.empty_cache()
+    for form in SEQ_FORMS:
+        t = time.perf_counter()
+        eng = seq_engine(torch, form, PATH_LAYERS)
+        res["path"][form] = [float(eng.train_batch(batch)) for _ in range(PATH_STEPS)]
+        if rank == 0:
+            print(f"[seq-parallel] rank 0 {form} at {PATH_LAYERS} layers: "
+                  f"{res['path'][form]} in {time.perf_counter() - t:.1f} s", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    res["ranks_s"] = time.perf_counter() - t0
+    results.put(res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_seq_ranks():
+    """Spawn SEQ_WORLD ranks of ``seq_rank`` and collect their results;
+    fails if a rank fails or the ranks outlast SEQ_TIMEOUT."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://localhost:{free_port()}"
+    procs = [ctx.Process(target=seq_rank, args=(r, init, results)) for r in range(SEQ_WORLD)]
+    for p in procs:
+        p.start()
+    out, deadline = [], time.monotonic() + SEQ_TIMEOUT
+    try:
+        while len(out) < SEQ_WORLD:
+            try:
+                out.append(results.get(timeout=5))
+            except queue.Empty:
+                bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if bad:
+                    fail(f"[seq-parallel] a rank exited with {bad}")
+                if time.monotonic() > deadline:
+                    fail(f"[seq-parallel] the ranks did not finish within {SEQ_TIMEOUT} s")
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5))
+            if p.exitcode != 0:
+                fail(f"[seq-parallel] rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def seq_kernels_vs_plain(torch, flash, quant, smi):
+    """The forms' kernel calls at their shapes against the plain versions,
+    each timed beside its bound: flash forward and backward at
+    SEQ_FLASH_CASES (bf16; the future hop's O all 0 and LSE all
+    MASK_VALUE), the row quantizer on a hop's K block, byte for byte."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEQ_WORLD)   # the phase's own draws
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for name, (B, Sq, Sk, H, kvH, D, mask) in SEQ_FLASH_CASES.items():
+        (q, k, v, do, dlse, spec), pairs = flash_case(torch, flash, B, Sq, Sk, H, kvH, D,
+                                                      mask, torch.bfloat16, gen)
+        o, lse = flash.flash_fwd(q, k, v, spec)
+        o_ref, lse_ref = flash.flash_fwd_reference(q, k, v, spec=spec)
+        torch.cuda.synchronize()
+        tag = f"[seq-parallel] flash {name}"
+        e_fwd = max(check_close(f"{tag} O", o, o_ref), check_close(f"{tag} LSE", lse, lse_ref))
+        dead = min(Sq, max(0, -spec.q_offset))
+        if dead and (bool(o[:, :dead].any())
+                     or bool((lse[:, :, :dead] != flash.MASK_VALUE).any())):
+            fail(f"{tag}: rows with no visible key must give O = 0, LSE = MASK_VALUE")
+        grads = flash.flash_bwd(q, k, v, o_ref, lse_ref, do, dlse, spec)
+        want = flash.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, dlse, spec=spec)
+        torch.cuda.synchronize()
+        e_dq = check_close(f"{tag} dQ", grads[0], want[0])
+        e_dkv = max(check_close(f"{tag} dK", grads[1], want[1]),
+                    check_close(f"{tag} dV", grads[2], want[2]))
+        _, run_dq, run_dkv = flash_single_launchers(torch, flash, q, k, v, o_ref, lse_ref, do,
+                                                    spec)
+        ms = {"flash_fwd": device_ms(torch, lambda: flash.flash_fwd(q, k, v, spec), 5,
+                                     flush)[0],
+              "flash_dq": device_ms(torch, run_dq, 5, flush)[0],
+              "flash_dkv": device_ms(torch, run_dkv, 5, flush)[0]}
+        plain_fwd = synced_ms(torch, lambda: flash.flash_fwd_reference(q, k, v, spec=spec), 1)
+        plain_bwd = synced_ms(torch, lambda: flash.flash_bwd_reference(
+            q, k, v, o_ref, lse_ref, do, dlse, spec=spec), 1)
+        lib = "null (no single PyTorch call: every key is masked)"
+        lib_fwd = lib_bwd = None
+        if pairs:
+            # the past hop sees every key (no mask); the diagonal and Ulysses
+            # are causal from position 0
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            causal = pairs < B * Sq * Sk * H
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=spec.scale,
+                                                          is_causal=causal, enable_gqa=True)
+            lib_fwd = device_ms(torch, sdpa, 5, flush)[0]
+            lib_bwd = device_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                                5, flush)[0] - lib_fwd
+            lib = f"fwd {lib_fwd:.4f} bwd {lib_bwd:.4f} (SDPA, is_causal {causal})"
+            del qt, kt, vt, dot
+        bnd = flash_bounds(B, Sq, Sk, H, kvH, D, pairs, q.element_size())
+        parts = []
+        for kname in ms:
+            b_ms, b_by = bound(*bnd[kname], torch.bfloat16)
+            parts.append(f"{kname} {ms[kname]:.4f} ms (bound {b_ms:.4f} {b_by}, "
+                         f"{b_ms / ms[kname]:.1%})")
+        print(f"{tag} bf16 B{B} Sq{Sq} Sk{Sk} H{H} kvH{kvH} D{D} q_offset {spec.q_offset}"
+              f"{' dlse' if dlse is not None else ''}: {pairs} visible pairs; max_abs_err fwd "
+              f"{e_fwd:.3e} dQ {e_dq:.3e} dK/dV {e_dkv:.3e}; " + "; ".join(parts)
+              + f"; plain fwd {plain_fwd:.4f} bwd {plain_bwd:.4f} ms; library {lib} | {smi}",
+              flush=True)
+        del q, k, v, do, dlse, o, lse, o_ref, lse_ref, grads, want
+        torch.cuda.empty_cache()
+    G, gs = SEQ_HOP_GROUPS
+    x = (torch.randn(G, gs, generator=gen, device="cuda")).to(torch.bfloat16)
+    q8, s8 = quant.quantize_rows_int8(x)
+    qp, sp = quant.quantize_rows_int8_reference(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(q8, qp) and torch.equal(s8.view(torch.int32), sp.view(torch.int32))):
+        fail("[seq-parallel] quant_rows on a hop's K block differs from the plain version")
+    ms = device_ms(torch, lambda: quant.quantize_rows_int8(x), 10, flush)[0]
+    plain_ms = synced_ms(torch, lambda: quant.quantize_rows_int8_reference(x), 3)
+    b_ms, b_by = bound(*quant_bounds(G, gs, 2), torch.float32)
+    print(f"[seq-parallel] quant_rows on a hop's K block ({G} x {gs} bf16, "
+          f"{G * gs * 2} bytes): q and scale byte-identical to the plain version; kernel_ms "
+          f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / ms:.1%}); "
+          f"library null | {smi}", flush=True)
+    del flush
+
+
+def train_seq_parallel(torch, np, flash, adam, lion, quant, smi):
+    """The [seq-parallel] phase: the kernel calls at the forms' shapes, the
+    ranks' runs (``seq_rank``), and one process's plain single-rank path on
+    the whole sequence at PATH_LAYERS layers against the forms' kernel
+    runs."""
+    seq_kernels_vs_plain(torch, flash, quant, smi)
+    gc_cuda(torch)
+    # one rank over the whole sequence at full depth, through the kernels:
+    # the trajectory the forms' steps must follow
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    engine = seq_engine(torch, "ulysses")
+    batch = seq_batch(np, engine.model.config.vocab_size)
+    one = [float(engine.train_batch(batch)) for _ in range(SEQ_WARMUP + SEQ_STEPS + 1)]
+    one_peak = torch.cuda.max_memory_allocated()
+    layers = engine.model.config.num_layers
+    del engine
+    gc_cuda(torch)
+    print(f"[seq-parallel] one rank, the whole sequence (S {SEQ_LEN}), {layers} layers, through the "
+          f"kernels: losses {[round(x, 4) for x in one]}, max_memory_allocated "
+          f"{one_peak / 2**30:.2f} GiB, {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[seq-parallel] backend {ZERO_BACKEND}, world {SEQ_WORLD} (seq {SEQ_WORLD}, data 1; "
+          f"both ranks on cuda:0), config {json.dumps(SEQ_CONFIG['zero_optimization'])}, "
+          f"S {SEQ_LEN}, micro 1", flush=True)
+    ranks = run_seq_ranks()
+    r0 = ranks[0]
+    print(f"[seq-parallel] ranks done in {max(r['ranks_s'] for r in ranks):.1f} s; backend "
+          f"reported {[r['backend'] for r in ranks]}", flush=True)
+    failures = []
+    for form, f0 in r0["forms"].items():
+        losses = f0["losses"]
+        L = f0["layers"]
+        H, kvH, D = f0["heads"]
+        step_s = sum(f0["step_s"]) / len(f0["step_s"])
+        mfu = f0["flops"] / step_s / PEAK_FLOPS["torch.bfloat16"]
+        hops = 2 if form.startswith("ring") else 1     # flash calls a layer and pass
+        want = {"flash_fwd": 2 * hops * L * SEQ_STEPS, "flash_dq": hops * L * SEQ_STEPS,
+                "flash_dkv": hops * L * SEQ_STEPS, "fused_adam": f0["buckets"] * SEQ_STEPS,
+                "quant_rows": (2 * (SEQ_WORLD - 1) * 2 * L * SEQ_STEPS
+                               if form == "ring-int8" else 0)}
+        print(f"[seq-parallel] {form}: tinyllama-1.1b layers {L} heads {H}/{kvH} D {D}, "
+              f"{f0['tokens']} tokens a rank: losses {[round(x, 4) for x in losses]}; engine "
+              f"built in {f0['build_s']:.1f} s; step ms "
+              f"{[round(x * 1e3, 1) for x in f0['step_s']]} mean {step_s * 1e3:.1f}; tokens/s "
+              f"{SEQ_LEN / step_s:.0f}; MFU {mfu:.4f} ({f0['flops']:.4e} flops a step: 6 x "
+              f"non-embedding params x {SEQ_LEN} tokens + causal attention over the global "
+              f"pairs, at 989 TFLOP/s); max_memory_allocated per rank "
+              f"{[round(r['forms'][form]['peak'] / 2**30, 2) for r in ranks]} GiB | {smi}",
+              flush=True)
+        if any(r["forms"][form]["losses"] != losses for r in ranks):
+            failures.append(f"{form}: losses differ between ranks: "
+                            f"{[r['forms'][form]['losses'] for r in ranks]}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{form}: losses {losses}")
+        elif abs(losses[0] - np.log(f0["vocab"])) > 0.5:
+            failures.append(f"{form}: first loss {losses[0]:.4f} not within 0.5 of "
+                            f"ln({f0['vocab']})")
+        elif not losses[-1] < losses[0]:
+            failures.append(f"{form}: loss did not fall on the repeated batch: {losses}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+        print(f"[seq-parallel] {form}: losses against the one-rank run's, relative difference "
+              f"{rel:.3e} (limit {PATH_RTOL})", flush=True)
+        if rel > PATH_RTOL:
+            failures.append(f"{form}: losses {losses} part from the one-rank run's {one} by "
+                            f"{rel:.3e}")
+        for r in ranks:
+            fr = r["forms"][form]
+            got = {k: fr["launches"][k] for k in want}
+            print(f"[seq-parallel] {form} rank {r['rank']}: launches a step "
+                  f"{ {k: v / SEQ_STEPS for k, v in got.items()} }; one more step of {fr['comm_step_s'] * 1e3:.1f} ms, "
+                  f"{fr['comm_launches']} collectives timed (device synchronized around each) "
+                  f"{fr['comm_s'] * 1e3:.1f} ms: share {fr['comm_s'] / fr['comm_step_s']:.3f}; "
+                  f"wire a step {json.dumps(fr['wire'])}", flush=True)
+            if got != want:
+                failures.append(f"{form} rank {r['rank']} launches {got} != {want}")
+            # each layer's exchanges, recorded in the forward, its remat
+            # replay and the backward: Ulysses' 4 all-to-alls (q, k, v, out),
+            # the ring's sp - 1 hops of K and V (the backward's inverse hops
+            # at full width)
+            hop_n = 2 * (SEQ_WORLD - 1) * L
+            seq_ops = {"ulysses": {"all_to_all/bf16": 12 * L},
+                       "ring-int8": {"ppermute/int8": 2 * hop_n, "ppermute/full": hop_n},
+                       "ring-full": {"ppermute/full": 3 * hop_n}}[form]
+            got_ops = {k: v["launches"] for k, v in fr["wire"].items()
+                       if k.split("/")[0] in ("all_to_all", "ppermute")}
+            if got_ops != seq_ops:
+                failures.append(f"{form}: seq-axis launches a step {got_ops} != {seq_ops}")
+    t = time.perf_counter()
+    engine = seq_engine(torch, "ulysses", PATH_LAYERS)
+    batch = seq_batch(np, engine.model.config.vocab_size)
+    zero_counts(flash, adam, lion)
+    with plain_kernels(flash, adam, lion):
+        plain = [float(engine.train_batch(batch)) for _ in range(PATH_STEPS)]
+    if any(flash.launches.values()) or adam.launches:
+        fail(f"[seq-parallel] the plain path launched kernels: {flash.launches}, "
+             f"adam {adam.launches}")
+    del engine
+    gc_cuda(torch)
+    for form, got in r0["path"].items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, plain)]
+        print(f"[seq-parallel] {PATH_LAYERS} layers, same width, S {SEQ_LEN}, {PATH_STEPS} "
+              f"steps: {form} at sp {SEQ_WORLD} through the kernels {got}; one process, the "
+              f"whole sequence, the plain versions {plain}: relative difference "
+              f"{max(rel):.3e} (limit {PATH_RTOL})", flush=True)
+        if max(rel) > PATH_RTOL:
+            failures.append(f"{form}: kernels at sp {SEQ_WORLD} and the plain single-rank "
+                            f"path differ by {max(rel):.3e}")
+    print(f"[seq-parallel] the plain single-rank path: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    if failures:
+        fail("[seq-parallel] " + "; ".join(failures))
+
+
 def gc_cuda(torch):
     import gc
     gc.collect()
@@ -4666,8 +5072,17 @@ def main():
     gc_cuda(torch)
     train_mixtral(torch, np, flash, adam, lion, moe)
     print(f"[moe-train] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    gc_cuda(torch)
 
-    # 15. kernels line
+    # 15. sequence parallelism: the forms' kernel calls at their shapes,
+    # tinyllama-1.1b at 16384 tokens over two ranks in each form, the
+    # 2-layer kernels-vs-plain runs (their launches check themselves; the
+    # kernels line keeps the counts of the paths above)
+    t0 = time.perf_counter()
+    train_seq_parallel(torch, np, flash, adam, lion, quant, smi)
+    print(f"[seq-parallel] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 16. kernels line
     kernels = []
     for name, src, replaces, row, err in (
             ("ragged_paged_attention", "ragged_paged_attention.cu",

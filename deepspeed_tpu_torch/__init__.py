@@ -72,10 +72,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     else:
         engine = DeepSpeedEngine(**kw)
     dataloader = None
+    topo = getattr(engine, "topology", None)
+    # a global batch's rows split over the data ranks only (a seq axis splits
+    # the sequence)
+    rows_split = comm.get_world_size() // (1 if topo is None else topo.sequence_parallel_size)
     if training_data is not None:
         import torch.utils.data
         dataloader = torch.utils.data.DataLoader(
             training_data,
-            batch_size=engine.train_micro_batch_size_per_gpu * comm.get_world_size(),
+            batch_size=engine.train_micro_batch_size_per_gpu * rows_split,
             collate_fn=collate_fn)
     return engine, engine.optimizer, dataloader, engine.lr_scheduler

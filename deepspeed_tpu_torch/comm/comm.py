@@ -4,17 +4,23 @@ rank.
 Counterpart of ``deepspeed_tpu/comm/comm.py``. There, collectives are
 ``jax.lax`` primitives over named mesh axes inside ``shard_map``; here they
 are ``torch.distributed`` calls over a process group (``group=None`` is the
-world), called eagerly. The port's only live axis is ``data``: the world.
+world), called eagerly. The port's live axes are ``data`` and ``seq``
+(``runtime/topology.py`` gives each its group).
 
 - bootstrap: ``init_distributed`` (torchrun's ``RANK`` / ``WORLD_SIZE`` /
   ``MASTER_ADDR`` / ``MASTER_PORT`` when no arguments are given; NCCL for
   CUDA and gloo for the CPU unless a backend is named), ``is_initialized``,
-  ``get_rank``, ``get_world_size``, ``get_local_rank``, ``barrier``;
+  ``get_rank``, ``get_world_size``, ``get_local_rank``, ``barrier``,
+  ``new_group``;
 - collectives returning new tensors, tiled along dim 0 as the JAX
   ``tiled=True`` forms are: ``all_reduce``, ``all_gather``,
-  ``reduce_scatter``, ``all_to_all``, ``broadcast``. On a gloo group a CUDA
-  tensor is staged through host memory (what gloo does with CUDA tensors
-  anyway, made explicit so every op works on every gloo build). Without an
+  ``reduce_scatter``, ``all_to_all`` (along any ``split_axis`` /
+  ``concat_axis``, with the JAX signature ``comm.py:662``; ``kind=
+  "activation"`` narrows its wire to bf16 and records the launch),
+  ``broadcast``, and ``ppermute`` (a permutation of the group's members,
+  ``isend`` / ``irecv``: the ring hop). On a gloo group a CUDA tensor is
+  staged through host memory (what gloo does with CUDA tensors anyway,
+  made explicit so every op works on every gloo build). Without an
   initialized process group the world is one rank and every collective is
   the identity;
 - the transport planner (``TransportPlan``, ``resolve_transport``,
@@ -23,9 +29,11 @@ world), called eagerly. The port's only live axis is ``data``: the world.
   and bucket bytes, and its algorithm (flat / hierarchical) from the live
   axes. The JAX ``DSTPU_COMM_QUANT`` / ``DSTPU_COMM_HIER`` switches are not
   carried over: ``comm_transport.enabled`` and ``.hierarchical`` do their
-  work. The hierarchical algorithm needs two live data axes (hpZ / MiCS,
-  ROADMAP A6), so on the port's one axis it never fires, and the engine's
-  config accepts ``hierarchical`` only at its default;
+  work. Axis sizes come from the published topology
+  (``runtime/topology.py``), as the JAX planner reads its mesh. The
+  hierarchical algorithm needs two live data axes (hpZ / MiCS, ROADMAP A6),
+  so on the port's axes it never fires, and the engine's config accepts
+  ``hierarchical`` only at its default;
 - ``record_collective``, ``CollectiveLedger`` and ``record_into``
   (``comm.py:352-445``): the engine records each launch with its logical and
   wire bytes, and a ledger installed with ``record_into`` collects them.
@@ -165,8 +173,13 @@ FULL_FLAT_PLAN = TransportPlan()
 
 
 def _transport_axis_size(axis) -> int:
-    """The size of a mesh axis for planning: the world for ``data``, 1 for
-    every other axis (the port runs none of them)."""
+    """The size of a mesh axis for planning: the published topology's
+    (``runtime/topology.py``); without one the world for ``data`` and 1
+    for every other axis."""
+    from ..runtime import topology as topo_mod
+    t = topo_mod.get_topology()
+    if t is not None:
+        return t.axis_size(axis)
     return get_world_size() if axis == DATA_AXIS else 1
 
 
@@ -327,7 +340,17 @@ def barrier(group=None) -> None:
         tdist.barrier(group)
 
 
+def new_group(ranks: Sequence[int]):
+    """A process group of the world ranks ``ranks``; every rank of the world
+    must make the same calls in the same order."""
+    return tdist.new_group(list(ranks))
+
+
 def destroy_process_group() -> None:
+    """Leave the process group; the published topology, whose axis groups
+    die with it, is cleared."""
+    from ..runtime import topology as topo_mod
+    topo_mod.reset()
     if tdist.is_initialized():
         tdist.destroy_process_group()
 
@@ -404,9 +427,7 @@ def reduce_scatter(t: torch.Tensor, op=ReduceOp.SUM, group=None) -> torch.Tensor
     return out
 
 
-def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Split ``t`` along dim 0 into n equal blocks, send block j to member
-    j, and concatenate the blocks received in rank order."""
+def _all_to_all_rows(t: torch.Tensor, group) -> torch.Tensor:
     n = get_world_size(group)
     if t.shape[0] % n:
         raise ValueError(f"all-to-all of leading dim {t.shape[0]} over {n} members")
@@ -418,6 +439,39 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     return out.view(t.dtype).to(t.device)
 
 
+def all_to_all(t: torch.Tensor, group=None, split_axis: int = 0, concat_axis: int = 0,
+               kind: Optional[str] = None, axis: Optional[AxisNames] = None) -> torch.Tensor:
+    """Split ``t`` along ``split_axis`` into n equal blocks, send block j to
+    member j, and concatenate the blocks received along ``concat_axis`` in
+    rank order (``lax.all_to_all(..., tiled=True)``). ``kind`` is the
+    tensor kind the transport planner reads (``activation``: a bf16 wire
+    for a wider dtype, a pure-movement cast restored on receive). A launch
+    on a named mesh ``axis`` (the axis ``group`` spans) is recorded there
+    with its wire bytes."""
+    n = get_world_size(group)
+    if t.shape[split_axis] % n:
+        raise ValueError(f"all-to-all of dim {split_axis} of {t.shape[split_axis]} over "
+                         f"{n} members")
+    nbytes = t.numel() * t.element_size()
+    plan = (resolve_transport(kind, "all_to_all", nbytes, () if axis is None else axis)
+            if kind is not None else FULL_FLAT_PLAN)
+    if axis is not None:
+        record_collective("all_to_all", nbytes, axis, overlapped=False,
+                          wire_bytes=plan.wire_bytes(t.numel(), t.element_size()))
+    wire = t
+    if plan.width == WIDTH_BF16 and t.element_size() > 2:
+        wire = t.to(torch.bfloat16)
+    if split_axis == 0 and concat_axis == 0:
+        out = _all_to_all_rows(wire, group)
+    else:
+        blocks = wire.movedim(split_axis, 0)
+        c = blocks.shape[0] // n
+        got = _all_to_all_rows(blocks.reshape((n * c,) + tuple(blocks.shape[1:])), group)
+        got = got.reshape((n, c) + tuple(blocks.shape[1:]))
+        out = torch.cat([got[j].movedim(0, split_axis) for j in range(n)], dim=concat_axis)
+    return out.to(t.dtype) if wire is not t else out
+
+
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """Member ``src``'s ``t`` on every member (a new tensor)."""
     if get_world_size(group) == 1:
@@ -425,3 +479,29 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     buf = _moved(group, t).clone()
     tdist.broadcast(buf, src=src, group=group)
     return buf.view(t.dtype).to(t.device)
+
+
+def ppermute(t: torch.Tensor, perm: Sequence[Tuple[int, int]], group=None) -> torch.Tensor:
+    """Point-to-point permutation over the group (``lax.ppermute``):
+    ``perm`` lists ``(source, destination)`` pairs of group ranks; each
+    member sends ``t`` to its destination and returns what its source sent,
+    zeros where no pair sends to it. ``isend`` / ``irecv``; on gloo a CUDA
+    tensor is staged through host memory, as every collective here is."""
+    me, n = get_rank(group), get_world_size(group)
+    dst = [d for s_, d in perm if s_ == me]
+    src = [s_ for s_, d in perm if d == me]
+    if n == 1:
+        return t.clone() if src else torch.zeros_like(t)
+    send = _moved(group, t)
+    recv = torch.empty_like(send)
+    peer = (lambda r: r) if group is None else (lambda r: tdist.get_global_rank(group, r))
+    reqs = []
+    if dst:
+        reqs.append(tdist.isend(send, dst=peer(dst[0]), group=group))
+    if src:
+        reqs.append(tdist.irecv(recv, src=peer(src[0]), group=group))
+    for r in reqs:
+        r.wait()
+    if not src:
+        recv.zero_()
+    return recv.view(t.dtype).to(t.device)

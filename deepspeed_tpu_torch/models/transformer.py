@@ -53,6 +53,16 @@ decoder plus ``mlm.bias``.
 
 The plain serving ``forward`` is causal-only: an encoder raises
 ``ValueError``, as the JAX serving model does.
+
+Sequence parallelism (``seq_parallel``, read where the published topology
+has a ``seq`` axis above 1, ``runtime/topology.py``): ``apply`` then takes
+this rank's slice of the sequence, its positions starting at the slice's
+offset (rotary and learned; RoBERTa's pad-based positions count the real
+tokens of the earlier slices), and each block's attention is
+``ulysses_attention`` (``sequence/layer.py``) or ``ring_attention``
+(``sequence/ring_attention.py``), the JAX dispatch (``:374-387``) with its
+``ValueError`` s: ring is causal-only, without windows, ALiBi or a padding
+mask.
 """
 
 from __future__ import annotations
@@ -66,7 +76,11 @@ from torch import nn
 from ..moe.layer import MoE
 from ..nn import layers as L
 from ..ops.transformer.attention import alibi_slopes, flash_attention
+from ..comm import comm as dist
+from ..runtime import topology as topo_mod
 from ..runtime.activation_checkpointing import checkpointing
+from ..sequence.layer import ulysses_attention
+from ..sequence.ring_attention import ring_attention
 
 ENCODER_SERVING = ("the ragged serving engine generates autoregressively; "
                    "bidirectional encoders (bert/roberta) have no decode semantics "
@@ -92,8 +106,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The port's copy of the JAX ``TransformerConfig``
-    (``deepspeed_tpu/models/transformer.py:85-132``): every field but
-    ``seq_parallel`` (ROADMAP A8)."""
+    (``deepspeed_tpu/models/transformer.py:85-132``), every field."""
     vocab_size: int = 50257
     max_seq_len: int = 1024
     num_layers: int = 12
@@ -128,6 +141,7 @@ class TransformerConfig:
     # roberta: position ids cumsum(real) * real + pad_token_id
     pad_based_positions: bool = False
     pad_token_id: Optional[int] = None
+    seq_parallel: str = "ulysses"    # 'ulysses' | 'ring' (long-context SP)
     moe: Optional[MoEConfig] = None  # every layer's MLP is a MoE when set
     moe_layer_freq: int = 1          # kept as in JAX, whose model never reads it
     dtype: torch.dtype = torch.float32
@@ -156,8 +170,17 @@ def check_supported(c: TransformerConfig) -> None:
         raise ValueError(f"unknown norm_style {c.norm_style!r}")
     if not c.causal and c.position != "learned":
         raise ValueError("bidirectional encoders use learned positions")
-    if not c.causal and c.attn_windows is not None:
-        raise ValueError("attention windows are causal-only")
+    if not c.causal and c.seq_parallel == "ring":
+        raise ValueError("ring attention is causal-only")
+    if c.attn_windows is not None:
+        if not c.causal:
+            raise ValueError("attention windows are causal-only")
+        if c.seq_parallel == "ring":
+            raise ValueError("attention windows are not supported with ring sequence "
+                             "parallelism")
+    if c.position == "alibi" and c.seq_parallel == "ring":
+        raise ValueError("alibi positions are not supported with ring sequence "
+                         "parallelism (K/V rotation loses absolute key positions)")
     if c.pad_based_positions and c.pad_token_id is None:
         raise ValueError("pad_based_positions requires pad_token_id")
     if c.remat:
@@ -181,10 +204,13 @@ def layer_windows(c: TransformerConfig) -> Optional[Tuple[int, ...]]:
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         extra_mask: Optional[torch.Tensor] = None,
+                         denominator: Optional[float] = None) -> torch.Tensor:
     """Mean cross-entropy over positions where ``labels >= 0`` (-100 = HF
     ignore). ``log_softmax`` and a gather: the same sum as the JAX one-hot
-    contraction, which exists there only for GSPMD's sake."""
+    contraction, which exists there only for GSPMD's sake. ``denominator``
+    replaces the local count of such positions (a sequence shard's share of
+    a global mean)."""
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits, dim=-1)
@@ -192,6 +218,8 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     mask = valid.float()
     if extra_mask is not None:
         mask = mask * extra_mask.float()
+    if denominator is not None:
+        return (nll * mask).sum() / max(float(denominator), 1.0)
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
@@ -326,18 +354,24 @@ class TransformerLM(nn.Module):
         return torch.cat([rot, x[..., rd:]], dim=-1)
 
     def embed(self, tokens: torch.Tensor, positions: torch.Tensor,
-              token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+              token_type_ids: Optional[torch.Tensor] = None,
+              real_before: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token + position (+ token-type) embeddings, the embedding norm,
         the cast to the compute dtype (JAX ``embed``). With
         ``pad_based_positions`` a token's position id is
         ``cumsum(real) * real + pad_token_id`` along the sequence (HF
-        RoBERTa's), ``positions`` unread; token types default to 0."""
+        RoBERTa's), ``positions`` unread, the cumsum starting at
+        ``real_before [B, 1]`` (the real tokens of the earlier sequence
+        slices) where given; token types default to 0."""
         c = self.config
         x = self.wte(tokens)
         if self.wpe is not None:
             if c.pad_based_positions:
                 real = (tokens != c.pad_token_id).long()
-                pos = torch.cumsum(real, dim=-1) * real + c.pad_token_id
+                run = torch.cumsum(real, dim=-1)
+                if real_before is not None:
+                    run = run + real_before
+                pos = run * real + c.pad_token_id
             else:
                 pos = positions.clamp(0, c.max_seq_len - 1) + c.position_offset
             x = x + self.wpe(pos)
@@ -419,9 +453,12 @@ class TransformerLM(nn.Module):
         post = c.norm_style == "post"
         h1 = x if post else blk.ln_1(x)
         q, k, v = self._qkv(blk, h1, rope)
-        attn = flash_attention(q, k, v, causal=c.causal, scale=c.attn_scale,
-                               segment_ids=seg, alibi_slopes=self.alibi(x.device),
-                               window=window)
+        if c.seq_parallel == "ring":
+            attn = ring_attention(q, k, v, causal=True, scale=c.attn_scale)
+        else:
+            attn = ulysses_attention(flash_attention, q, k, v, causal=c.causal,
+                                     scale=c.attn_scale, segment_ids=seg,
+                                     alibi_slopes=self.alibi(x.device), window=window)
         if not post:
             y, aux = self._residual(blk, x, h1, attn, keep, with_aux=True)
         else:
@@ -451,11 +488,22 @@ class TransformerLM(nn.Module):
         second not (an odd last layer checkpointed).
 
         ``moe_aux_loss`` is the sum over the layers of each MoE layer's aux
-        gated by ``keep`` (fp32; 0 for a model without MoE layers)."""
+        gated by ``keep`` (fp32; 0 for a model without MoE layers).
+
+        Under sequence parallelism ``input_ids`` (and the other ``[B, S]``
+        inputs) are this rank's slice of the sequence."""
         c = self.config
+        if c.seq_parallel == "ring" and attention_mask is not None:
+            raise ValueError("ring attention does not support padding masks (attention_mask)")
         S = input_ids.shape[1]
-        positions = torch.arange(S, device=input_ids.device)[None, :]
-        x = self.embed(input_ids, positions, token_type_ids)
+        sp, r, group = topo_mod.sequence_parallel()
+        positions = torch.arange(r * S, (r + 1) * S, device=input_ids.device)[None, :]
+        real_before = None
+        if sp > 1 and c.pad_based_positions:
+            real = (input_ids != c.pad_token_id).sum(dim=1).to(torch.int64)
+            counts = dist.all_gather(real[None], group=group)       # [sp, B]
+            real_before = counts[:r].sum(dim=0)[:, None]
+        x = self.embed(input_ids, positions, token_type_ids, real_before)
         rope = self.rope(positions) if c.position == "rope" else None
         seg = None if attention_mask is None else attention_mask.to(torch.int32)
         remat = c.remat and torch.is_grad_enabled()
@@ -501,17 +549,20 @@ class TransformerLM(nn.Module):
             loss = loss + self.config.moe.aux_loss_coef * aux / self.config.num_layers
         return loss
 
-    def loss(self, batch) -> torch.Tensor:
+    def loss(self, batch, denominator: Optional[float] = None) -> torch.Tensor:
         """Cross-entropy of ``batch`` (``input_ids [B, S]``, optional
         ``labels``, ``loss_mask``, ``layer_mask``, ``token_type_ids``,
         ``attention_mask``): next-token for causal models, masked-LM for
         encoders (labels required, -100 = ignore), plus the MoE aux term
-        (``combine_aux``)."""
+        (``combine_aux``). ``denominator`` divides the summed loss in place
+        of the batch's own label count (a sequence shard: the global
+        count)."""
         labels = self.derive_labels(batch)
         logits, aux = self.apply(batch["input_ids"], layer_mask=batch.get("layer_mask"),
                                  token_type_ids=batch.get("token_type_ids"),
                                  attention_mask=batch.get("attention_mask"))
-        loss = masked_cross_entropy(logits, labels, extra_mask=batch.get("loss_mask"))
+        loss = masked_cross_entropy(logits, labels, extra_mask=batch.get("loss_mask"),
+                                    denominator=denominator)
         return self.combine_aux(loss, aux)
 
     # -- plain reference forward ---------------------------------------------

@@ -10,7 +10,11 @@ them over a ``torch.distributed`` group:
 - ``quantized_reduce_scatter`` (qgZ: quantize each destination chunk,
   all-to-all, dequantize, local sum);
 - ``fp8_all_gather``, ``fp8_reduce_scatter`` and ``quantized_all_reduce``
-  (reduce-scatter then all-gather, both on the low-precision wire).
+  (reduce-scatter then all-gather, both on the low-precision wire);
+- ``quantized_ppermute`` (the ring-attention K/V hop: quantize, permute the
+  payload and its scales / zero points, dequantize on arrival; its backward
+  permutes the cotangent along the inverse ring at full width, the JAX
+  straight-through ``custom_vjp``).
 
 The layouts, the per-segment padding and the effective group size
 (``min(group_size, chunk)``, kept even for int4) are the JAX functions', so
@@ -25,8 +29,7 @@ jitted JAX wire bit for bit.
 The axis argument of the JAX functions becomes ``group`` (a process group,
 ``None`` for the world). ``ef_quantized_reduce_scatter`` and
 ``quantize_with_feedback`` (error feedback, used only by the overlap
-schedule) and ``quantized_ppermute`` (ring attention) are not ported: ROADMAP
-A6 and A8.
+schedule) are not ported: ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -284,3 +287,35 @@ def quantized_all_reduce(x: torch.Tensor, group=None, num_bits: int = 8,
         full = quantized_all_gather(quantized_reduce_scatter(flat, group, num_bits, group_size),
                                     group, num_bits, group_size)
     return full[:x.numel()].reshape(x.shape).to(x.dtype)
+
+
+class _QuantizedHop(torch.autograd.Function):
+    """One quantized hop; the backward is the straight-through inverse hop."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group, num_bits, group_size):
+        ctx.perm, ctx.group = perm, group
+        gs = _wire_group_size(x.numel(), group_size, num_bits)
+        q, scale, zero = quantize_blockwise(x, num_bits, gs)
+        q = dist.ppermute(q, perm, group)
+        side = dist.ppermute(torch.stack([scale, zero], dim=1), perm, group)
+        return dequantize_blockwise(q, side[:, 0].contiguous(), side[:, 1].contiguous(),
+                                    num_bits, gs, out_size=x.numel(), out_shape=x.shape,
+                                    dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = [(dst, src) for src, dst in ctx.perm]
+        return dist.ppermute(g.contiguous(), inv, ctx.group), None, None, None, None
+
+
+def quantized_ppermute(t: torch.Tensor, perm, group=None, num_bits: int = 8,
+                       group_size: int = 256) -> torch.Tensor:
+    """Quantized point-to-point permutation (ring hops): quantize ``t``
+    blockwise (symmetric, groups of ``min(group_size, t.numel())``),
+    permute the payload with its fp32 scales and zero points, dequantize on
+    arrival into ``t``'s dtype and shape. Differentiable: the backward
+    permutes the cotangent along the inverse ring at full width
+    (quantization is the identity to autograd), so rotating K/V blocks keep
+    their gradients."""
+    return _QuantizedHop.apply(t, list(perm), group, num_bits, group_size)

@@ -89,11 +89,16 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     segment_ids: Optional[torch.Tensor] = None,
-                    alibi_slopes=None, window=None) -> torch.Tensor:
+                    alibi_slopes=None, window=None, q_offset=None,
+                    q_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head attention, ``[B, S, H, D]``, GQA-aware, differentiable:
     the flash kernels on CUDA, their plain version on the CPU.
     ``alibi_slopes`` [num_heads] adds the ALiBi bias; ``window`` (0 =
-    global) is the causal sliding window."""
+    global) is the causal sliding window; ``q_offset`` the first query's
+    position among the keys (default bottom-right: ``Sk - Sq``);
+    ``q_segment_ids`` the queries' segment ids where they are not
+    ``segment_ids`` (the keys')."""
     return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
-                                  segment_ids=segment_ids,
-                                  alibi_slopes=alibi_slopes, window=window)
+                                  segment_ids=segment_ids, q_segment_ids=q_segment_ids,
+                                  alibi_slopes=alibi_slopes, window=window,
+                                  q_offset=q_offset)

@@ -13,17 +13,22 @@ knobs ``zero_quantized_weights`` / ``zero_quantized_gradients``),
 ``checkpoint`` (``async_save``, ``keep_last_n``),
 ``activation_checkpointing`` (``ActivationCheckpointingConfig``: stored; as
 in JAX only its ``policy`` acts, through
-``activation_checkpointing.checkpointing.configure``) and ``topology`` with
-``data`` equal to the world size. On a world of one,
+``activation_checkpointing.checkpointing.configure``) and ``topology``
+(``data`` and ``seq``, whose product is the world size). The batch sizes
+resolve over ``data_parallel_size = data x seq``, as the JAX resolution
+counts the dense gradient group (``DENSE_GRAD_AXES``, ``:292-300``), though a
+global batch's rows split over ``data`` alone. On a world of one,
 ZeRO partitions nothing, exactly as in JAX. Keys for features the port
 does not cover yet raise ``NotImplementedError`` naming their ROADMAP
 item: other topology axes, hpZ, MiCS, the layer-pipelined overlap schedule
 (``overlap_comm`` true with ZeRO++, or written true at stage 3), error
 feedback, offload, the watchdog's ``checkpoint.escalation_*`` keys, and
-the ``comm_transport`` keys of collectives the port
-does not run (``hierarchical``, ``activation_width``, ``permute_width``)
-set to other than their defaults; keys that only tune logging or what the port ignores
-are accepted.
+``comm_transport.hierarchical`` set to other than its default (the
+algorithm is chosen only where a second data axis is live).
+``comm_transport.activation_width`` steers the Ulysses exchange (the MoE
+exchange it also steers needs the ``expert`` axis, which raises) and
+``.permute_width`` the ring's K/V hops. Keys that only tune logging or what
+the port ignores are accepted.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import json
 from typing import Any, Dict, Optional
 
 from ..comm import comm as dist
-from .topology import _UNPORTED_AXES
+from .topology import _UNPORTED_AXES, LIVE_AXES
 from .zero.config import OVERLAP_SCHEDULE, DeepSpeedZeroConfig, validate_zeropp
 
 
@@ -139,8 +144,6 @@ _ONE_BIT = ("onebit_adam", "onebitadam", "zero_one_adam", "zerooneadam", "onebit
 _TRANSPORT_UNPORTED = {
     "hierarchical": "A6 (the algorithm is chosen only where a second data axis is "
                     "live, hpZ / MiCS)",
-    "activation_width": "A7 (the MoE expert all-to-all)",
-    "permute_width": "A8 (the ring-attention KV hops)",
 }
 
 
@@ -149,9 +152,9 @@ def _reject_unported(pd: Dict[str, Any]) -> None:
         if key in pd and asks(pd[key]):
             raise NotImplementedError(f"config key {key!r} is not ported: ROADMAP {item}")
     for axis, size in (pd.get("topology") or {}).items():
-        if axis not in _UNPORTED_AXES and axis != "data":
+        if axis not in _UNPORTED_AXES and axis not in LIVE_AXES:
             raise DeepSpeedConfigError(f"unknown topology axis {axis!r}")
-        if axis != "data" and size != 1:
+        if axis in _UNPORTED_AXES and size != 1:
             raise NotImplementedError(f"topology axis {axis!r} of size {size} is not "
                                       f"ported: ROADMAP {_UNPORTED_AXES[axis]}")
     for key in pd.get("checkpoint") or {}:
@@ -221,9 +224,16 @@ class DeepSpeedConfig:
         self.comm_transport: Dict[str, Any] = dict(pd.get("comm_transport") or {})
         self.topology: Dict[str, int] = dict(pd.get("topology") or {})
         if data_parallel_size is None:
-            data_parallel_size = self.topology.get("data", -1)
-            if data_parallel_size == -1:
-                data_parallel_size = dist.get_world_size()
+            seq = self.topology.get("seq", 1)
+            data = self.topology.get("data", -1)
+            if data == -1:
+                n = dist.get_world_size()
+                if n % seq:
+                    raise DeepSpeedConfigError(
+                        f"Cannot infer data-parallel degree: {n} ranks not divisible by "
+                        f"seq={seq}")
+                data = n // seq
+            data_parallel_size = data * seq
         self.data_parallel_size = data_parallel_size
         self.train_micro_batch_size_per_gpu = pd.get("train_micro_batch_size_per_gpu")
         self.train_batch_size = pd.get("train_batch_size")

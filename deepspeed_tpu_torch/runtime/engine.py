@@ -24,7 +24,8 @@ kernel as it is: its cast to fp32 is exact and happens in the kernel's
 load, so the fp32 gradient tree of the JAX step never exists in memory.
 
 On a world of more than one rank, ``DataParallelEngine`` (below) runs the
-same step data-parallel with ZeRO stages 0-3 and the ZeRO++ int8 wire.
+same step data-parallel with ZeRO stages 0-3 and the ZeRO++ int8 wire, and
+sequence-parallel over a ``seq`` axis (Ulysses or ring attention).
 
 ``save_checkpoint`` / ``load_checkpoint`` (``:3135``, ``:3557``) write and
 read the JAX engine's tags (``checkpoint/store.py``): the same keys,
@@ -65,7 +66,7 @@ from .fp16.loss_scaler import (dynamic_loss_scale_state, has_overflow,
 from .lr_schedules import build_lr_schedule
 from .optimizers import build_optimizer
 from ..utils.groups import DATA_AXIS
-from .topology import MeshTopology
+from .topology import MeshTopology, set_topology
 from .zero.partition import ZeroPartitionPlan, shard_of
 
 logger = logging.getLogger(__name__)
@@ -76,6 +77,9 @@ MOE_DATA_PARALLEL = (
     "program over the global batch: its capacity, its cumsum ranks and its me / ce "
     "means span every rank's tokens. Per-rank programs differ from it as soon as a "
     "choice drops, and the aux loss is not linear in the split of the batch")
+SEQ_TASK_HEADS = (
+    "sequence parallelism trains the language models (TransformerLM): a task head's pooled "
+    "token and span labels need the whole sequence on a rank (ROADMAP A8)")
 
 _NARROW = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp16": torch.float16, "float16": torch.float16,
@@ -123,6 +127,10 @@ class _TagLeaf:
 
 
 class DeepSpeedEngine:
+    # the topology the engine publishes (``set_topology``) at construction
+    # and before each forward, as the JAX engine does: none on one rank, so
+    # a model run here never sees an axis that an earlier engine published
+    topology: Optional[MeshTopology] = None
 
     def __init__(self, model, config: Optional[DeepSpeedConfig] = None,
                  config_dict: Optional[Dict[str, Any]] = None, seed: int = 42,
@@ -132,6 +140,7 @@ class DeepSpeedEngine:
         if config.data_parallel_size != dist.get_world_size():
             raise ValueError(f"a data-parallel size of {config.data_parallel_size} needs as "
                              f"many ranks; the world has {dist.get_world_size()}")
+        set_topology(self.topology)
         self.device = resolve_device(device)
         self.model = model
 
@@ -289,6 +298,7 @@ class DeepSpeedEngine:
 
     # -- fused gas == 1 step --------------------------------------------------------
     def _train_batch_fused(self, batch) -> torch.Tensor:
+        set_topology(self.topology)
         batch = self._prepare_batch(batch)
         scale = self.loss_scale_state["cur_scale"]
         loss = self.model.loss(batch)
@@ -303,6 +313,7 @@ class DeepSpeedEngine:
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Loss of one micro-batch; its gradients (of the loss scaled by
         ``loss_scale / gas``) are added to the fp32 accumulation buffer."""
+        set_topology(self.topology)
         batch = self._prepare_batch(batch)
         self._ensure_grad_acc()
         scale = float(np.float32(self.loss_scale_state["cur_scale"])
@@ -355,6 +366,7 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+        set_topology(self.topology)
         return self.model.loss(self._prepare_batch(batch))
 
     # -- state and introspection ---------------------------------------------------
@@ -595,6 +607,19 @@ class DataParallelEngine(DeepSpeedEngine):
     ``comm.record_collective`` (logical and wire bytes, on the critical
     path).
 
+    With a ``seq`` axis (``topology.seq`` > 1) each rank takes the rows of
+    its data coordinate and the sequence slice of its seq coordinate
+    (``_prepare_batch``). Three things follow the global sequence, not the
+    slice: the next-token labels are derived from the global batch before
+    the split, so a slice's last label is the next slice's first token and
+    only the last slice ends in -100; the loss is the global token mean, each
+    rank's summed loss over the global batch's count of labels, and the
+    reported loss their sum over the ranks; the gradients are summed over
+    data x seq, which is the world, so they equal those of one rank running
+    the whole batch. ZeRO partitions over data x seq, as JAX's dp set does
+    (``zero/partition.py``), so the tags are those of a data-parallel
+    engine of the same world. ZeRO++ with ``seq`` > 1 raises, as in JAX.
+
     Without a ``device``, a rank runs on ``cuda:(local rank mod cards)``:
     its own card under torchrun, the one card for every rank of a machine
     with one.
@@ -607,14 +632,23 @@ class DataParallelEngine(DeepSpeedEngine):
         config = config or DeepSpeedConfig(config_dict or {})
         self.topology = topology if topology is not None else MeshTopology(config.topology)
         n = self.topology.data_parallel_size
+        self.sp = self.topology.sequence_parallel_size
         if getattr(model.config, "moe", None) is not None and n > 1:
             raise NotImplementedError(MOE_DATA_PARALLEL)
+        if self.sp > 1:
+            from ..models.transformer import TransformerLM
+            if not isinstance(model, TransformerLM):
+                raise NotImplementedError(SEQ_TASK_HEADS)
+            if config.zero_config.zeropp:
+                raise ValueError("ZeRO++ (zero_quantized_weights/gradients, hpZ) requires a "
+                                 f"pure data-parallel mesh; got {self.topology}")
         if dist.get_world_size() != n or config.data_parallel_size != n:
             raise ValueError(f"the topology's data axis ({n}), the config's data-parallel "
                              f"size ({config.data_parallel_size}) and the world "
                              f"({dist.get_world_size()}) must agree")
         dist.reset_transport()
         dist.configure_transport(**config.comm_transport)
+        self._denominator = None
         if device is None and torch.cuda.is_available():
             # a card a local rank; ranks beyond the cards share them
             device = torch.device("cuda", dist.get_local_rank() % torch.cuda.device_count())
@@ -677,11 +711,11 @@ class DataParallelEngine(DeepSpeedEngine):
         number: this rank's shard of it, or all of it for a leaf with no
         grad shard dim."""
         zc = self.config.zero_config
-        d, n = self.grad_dims[k], self.n_dp
+        d = self.grad_dims[k]
         if d is None:
             dist.record_collective("all_reduce", g.numel() * g.element_size(), DATA_AXIS,
                                    overlapped=False)
-            return dist.all_reduce(g) / n
+            return dist.all_reduce(g) / self._grad_div
         tp = dist.resolve_transport(
             dist.KIND_GRAD if zc.zeropp else None, "reduce_scatter", g.numel() * 4, DATA_AXIS,
             requested=dist.WIDTH_INT8 if zc.zero_quantized_gradients else None)
@@ -695,14 +729,33 @@ class DataParallelEngine(DeepSpeedEngine):
             res = fp8_reduce_scatter(gm.float(), group_size=tp.group_size)
         else:
             res = dist.reduce_scatter(gm.float())
-        return res.movedim(0, d) / n
+        return res.movedim(0, d) / self._grad_div
+
+    @property
+    def _grad_div(self) -> int:
+        """What the summed gradients are divided by: the world for data
+        parallelism (each rank's loss is its rows' mean), 1 with a seq axis
+        (each rank's loss is its share of the global mean)."""
+        return self.n_dp if self.sp == 1 else 1
 
     # -- data --------------------------------------------------------------------
     _REPLICATED_BATCH_KEYS = ("layer_mask",)   # per-layer inputs, not per row
 
     def _prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """This rank's rows of the global batch, on the device."""
-        rows = None
+        """This rank's rows of the global batch (and, with a seq axis, its
+        slice of the sequence), on the device. With a seq axis the labels
+        are derived from the global batch first and ``_denominator`` is set
+        to the global batch's count of labels >= 0 (under ``loss_mask``)."""
+        self._denominator = None
+        if self.sp > 1:
+            batch = {k: (v if k in self._REPLICATED_BATCH_KEYS else torch.as_tensor(v))
+                     for k, v in batch.items()}
+            batch["labels"] = self.model.derive_labels(batch)
+            mask = (batch["labels"] >= 0).double()
+            if "loss_mask" in batch:
+                mask = mask * batch["loss_mask"].double()
+            self._denominator = float(mask.sum())
+        rows = cols = None
         local = {}
         for k, v in batch.items():
             if k in self._REPLICATED_BATCH_KEYS:
@@ -710,18 +763,34 @@ class DataParallelEngine(DeepSpeedEngine):
                 continue
             rows = rows or self.topology.batch_rows(len(v))
             local[k] = v[rows]
+            if self.sp > 1:
+                cols = cols or self.topology.seq_slice(v.shape[1])
+                local[k] = local[k][:, cols]
         return super()._prepare_batch(local)
+
+    def _local_loss(self, batch) -> torch.Tensor:
+        if self._denominator is None:
+            return self.model.loss(batch)
+        return self.model.loss(batch, denominator=self._denominator)
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss over the world: the ranks' mean (data parallelism) or
+        sum (shares of the global mean)."""
+        op = dist.ReduceOp.AVG if self.sp == 1 else dist.ReduceOp.SUM
+        return dist.all_reduce(loss.detach().float(), op)
 
     # -- micro step ---------------------------------------------------------------
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """One micro step over the global batch: this rank's rows forward and
-        backward on the gathered params, the gradients reduced into the
-        accumulation shards. Returns the loss averaged over the ranks."""
+        """One micro step over the global batch: this rank's rows (and
+        sequence slice) forward and backward on the gathered params, the
+        gradients reduced into the accumulation shards. Returns the loss
+        over the world (``_global_loss``)."""
+        set_topology(self.topology)
         batch = self._prepare_batch(batch)
         scale = float(np.float32(self.loss_scale_state["cur_scale"])
                       / np.float32(self.gradient_accumulation_steps))
         self._gather_params()
-        loss = self.model.loss(batch)
+        loss = self._local_loss(batch)
         (loss * scale).backward()
         with torch.no_grad():
             for k, p in self.params.items():
@@ -729,7 +798,7 @@ class DataParallelEngine(DeepSpeedEngine):
                 self.grad_acc[k] += self._scatter_grad(k, g).to(self.grad_dtype)
         self._zero_param_grads()
         self._release_params()
-        self._cached_loss = dist.all_reduce(loss.detach().float(), dist.ReduceOp.AVG)
+        self._cached_loss = self._global_loss(loss)
         return self._cached_loss
 
     # -- apply step ---------------------------------------------------------------
@@ -768,11 +837,12 @@ class DataParallelEngine(DeepSpeedEngine):
     # -- state and introspection ---------------------------------------------------
     @torch.no_grad()
     def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+        set_topology(self.topology)
         batch = self._prepare_batch(batch)
         self._gather_params()
-        loss = self.model.loss(batch)
+        loss = self._local_loss(batch)
         self._release_params()
-        return dist.all_reduce(loss.float(), dist.ReduceOp.AVG)
+        return self._global_loss(loss)
 
     # -- checkpoints: each rank writes and reads the pieces it owns --------------------
     def _tag_has_grad_acc(self) -> bool:

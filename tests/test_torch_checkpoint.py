@@ -65,6 +65,7 @@ from deepspeed_tpu_torch.models import llama_model
 from deepspeed_tpu_torch.runtime.engine import _TagLeaf
 from deepspeed_tpu_torch.runtime.zero.partition import shard_dim
 from deepspeed_tpu_torch.utils import zero_to_fp32 as port_fp32
+from tests.port_threads import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT = 300   # seconds for the whole two-rank run, rendezvous included

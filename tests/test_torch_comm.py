@@ -38,6 +38,7 @@ from deepspeed_tpu.ops.quantizer import quantizer as jq
 from deepspeed_tpu.runtime import topology as jtopo
 from deepspeed_tpu.utils.jax_compat import shard_map
 from deepspeed_tpu_torch.comm import comm as tcomm
+from tests.port_threads import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT = 180   # seconds for a whole two-rank run, rendezvous included

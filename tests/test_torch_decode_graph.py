@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.inference.v2.model import DecodeState, sample_next
 from deepspeed_tpu_torch.models import llama_model, mixtral_model
 from deepspeed_tpu_torch.ops.quantizer import woq_matmul
 from deepspeed_tpu_torch.ops.scratch import Scratch
+from tests.port_threads import torch_threads  # noqa: F401
 
 V = 1024  # the tiny presets' vocabulary
 ENGINE_KW = dict(kv_block_size=4, max_prefill_chunk=16)

@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.convert import params_from_jax
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig, build_engine
 from deepspeed_tpu_torch.models import EncoderTaskModel, bert_model, roberta_model
 from deepspeed_tpu_torch.models import heads as theads
+from tests.port_threads import torch_threads  # noqa: F401
 
 ROBERTA_TINY = dict(vocab_size=256, max_seq_len=64)   # bert-tiny's widths
 MODELS = {

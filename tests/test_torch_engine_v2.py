@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAll
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
 from deepspeed_tpu_torch.models import llama_model
 from deepspeed_tpu_torch.models.transformer import MoEConfig, TransformerConfig, TransformerLM
+from tests.port_threads import torch_threads  # noqa: F401
 
 V = 1024  # llama2-tiny vocabulary
 TOL = dict(rtol=1e-4, atol=1e-4)

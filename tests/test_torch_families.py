@@ -52,6 +52,7 @@ from deepspeed_tpu_torch.inference.v2 import (DeepSpeedTPStateManagerConfig,
                                               build_engine, generate)
 from deepspeed_tpu_torch.models.transformer import TransformerConfig
 from deepspeed_tpu_torch.ops.transformer import flash as tflash
+from tests.port_threads import torch_threads  # noqa: F401
 
 # preset -> (JAX model function, the port's)
 FAMILIES = {

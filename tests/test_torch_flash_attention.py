@@ -35,6 +35,7 @@ from deepspeed_tpu.ops.transformer import pallas_flash as jflash
 from deepspeed_tpu.ops.transformer.attention import _xla_attention, alibi_slopes
 from deepspeed_tpu_torch.ops.transformer import attention as tattn
 from deepspeed_tpu_torch.ops.transformer import flash as tflash
+from tests.port_threads import torch_threads  # noqa: F401
 
 FP32_TOL = dict(rtol=2e-5, atol=5e-6)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-6)
@@ -93,16 +94,23 @@ def _tile(n):
 
 
 def _jax(x, mask, dtype):
+    """O, LSE, dQ, dK, dV of the Pallas pair in interpret mode, the forward
+    and its VJP traced into one jitted program (the eager form gives the
+    same values and compiles each piece on its own, at twice the cost)."""
     kw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in mask.items()}
     if "window" in kw:
         kw["window"] = jnp.asarray(kw["window"], jnp.int32)
     bq, bk = _tile(x["q"].shape[1]), _tile(x["k"].shape[1])
-    f = lambda q, k, v: jflash.flash_attention_with_lse(
-        q, k, v, block_q=bq, block_k=bk, interpret=True, **kw)
-    (o, lse), vjp = jax.vjp(f, *(jnp.asarray(x[n], dtype) for n in "qkv"))
-    grads = vjp((jnp.asarray(x["do"], dtype), jnp.asarray(x["dlse"])))
-    f32 = lambda a: np.asarray(a.astype(jnp.float32))
-    return [f32(o), f32(lse)] + [f32(d) for d in grads]
+
+    def run(q, k, v, do, dlse):
+        f = lambda q, k, v: jflash.flash_attention_with_lse(
+            q, k, v, block_q=bq, block_k=bk, interpret=True, **kw)
+        (o, lse), vjp = jax.vjp(f, q, k, v)
+        return (o, lse) + vjp((do, dlse))
+
+    out = jax.jit(run)(*(jnp.asarray(x[n], dtype) for n in ("q", "k", "v", "do")),
+                       jnp.asarray(x["dlse"]))
+    return [np.asarray(a.astype(jnp.float32)) for a in out]
 
 
 def _port(x, mask, dtype):

@@ -34,6 +34,7 @@ from deepspeed_tpu.ops.adam import pallas_adam as jadam
 from deepspeed_tpu.runtime import optimizers as jopt
 from deepspeed_tpu_torch.ops.adam import adam as tadam
 from deepspeed_tpu_torch.runtime import optimizers as topt
+from tests.port_threads import torch_threads  # noqa: F401
 
 MASTER_TOL = dict(rtol=1e-6, atol=1e-7)
 

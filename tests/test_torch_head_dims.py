@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.v2 import (DeepSpeedTPStateManagerConfig,
 from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as tpd
 from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as trpa
 from deepspeed_tpu_torch.ops.transformer import flash as tflash
+from tests.port_threads import torch_threads  # noqa: F401
 
 # open-llama-3b's head_dim (3200 / 32) at 2 layers and 2 heads
 WIDTHS = dict(num_layers=2, hidden_size=200, num_heads=2, num_kv_heads=2,

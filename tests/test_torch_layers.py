@@ -10,6 +10,7 @@ import torch
 
 from deepspeed_tpu.nn import layers as jl
 from deepspeed_tpu_torch.nn import layers as tl
+from tests.port_threads import torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

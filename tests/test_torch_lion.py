@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.models import llama_model
 from deepspeed_tpu_torch.ops.adam import adam as tadam
 from deepspeed_tpu_torch.ops.lion import lion as tlion
 from deepspeed_tpu_torch.runtime import optimizers as topt
+from tests.port_threads import torch_threads  # noqa: F401
 
 V = 1024
 TOL = dict(rtol=1e-6, atol=1e-7)

@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.inference.v2 import (DeepSpeedTPStateManagerConfig,
                                               build_engine, generate)
 from deepspeed_tpu_torch.models import mixtral_model
 from deepspeed_tpu_torch.ops.transformer import moe as moe_ops
+from tests.port_threads import torch_threads  # noqa: F401
 
 V = 1024  # mixtral-tiny vocabulary
 TOL = dict(rtol=2e-4, atol=2e-4)

@@ -45,6 +45,7 @@ from deepspeed_tpu.ops.transformer import pallas_moe as pm
 from deepspeed_tpu_torch.convert import params_from_jax
 from deepspeed_tpu_torch.moe import MoE, capacity, moe_reference_forward, top_k_gating_indices
 from deepspeed_tpu_torch.ops.transformer import moe
+from tests.port_threads import torch_threads  # noqa: F401
 
 T, E, H, F = 32, 4, 16, 32
 W_ULPS = 4

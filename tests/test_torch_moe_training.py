@@ -61,6 +61,7 @@ from deepspeed_tpu_torch.models.transformer import MoEConfig
 from deepspeed_tpu_torch.moe import utils
 from deepspeed_tpu_torch.ops.transformer import moe
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from tests.port_threads import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT = 180   # seconds for the two-rank run, rendezvous included

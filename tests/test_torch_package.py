@@ -13,6 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from tests.port_threads import torch_threads  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "deepspeed_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "ml_dtypes")
@@ -43,6 +45,17 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_scans_cover_the_sequence_parallel_modules():
+    """The two scans above walk the whole package; the sequence-parallel
+    modules (and the topology and collectives they run on) are among the
+    modules they import and read."""
+    names = {n for n, _ in _modules()}
+    assert {"deepspeed_tpu_torch.sequence", "deepspeed_tpu_torch.sequence.layer",
+            "deepspeed_tpu_torch.sequence.ring_attention",
+            "deepspeed_tpu_torch.runtime.topology", "deepspeed_tpu_torch.comm.comm",
+            "deepspeed_tpu_torch.ops.quantizer.quantizer"} <= names
 
 
 def test_no_jax_import_in_source():

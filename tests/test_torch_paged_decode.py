@@ -20,6 +20,7 @@ from deepspeed_tpu_torch.inference.v2.kernels import paged_attention as tpa
 from deepspeed_tpu_torch.inference.v2.kernels import paged_decode as tpd
 from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as trpa
 from deepspeed_tpu_torch.inference.v2.ragged.wave import WaveEntry, build_wave
+from tests.port_threads import torch_threads  # noqa: F401
 
 # the JAX kernels package re-exports functions under the modules' names
 jpa = importlib.import_module("deepspeed_tpu.inference.v2.kernels.paged_attention")

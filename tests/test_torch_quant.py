@@ -42,6 +42,7 @@ from deepspeed_tpu.ops.quantizer.pallas_quant import quantize_rows_int8 as jax_r
 from deepspeed_tpu.ops.transformer import pallas_moe as jpm
 from deepspeed_tpu_torch.ops.quantizer import quant, quantizer as tq
 from deepspeed_tpu_torch.ops.transformer import moe
+from tests.port_threads import torch_threads  # noqa: F401
 
 GROUP_SIZES = (1, 7, 100, 255, 256, 4096)
 _spec = importlib.util.spec_from_file_location(

@@ -26,6 +26,7 @@ from deepspeed_tpu.inference.v2.ragged import wave as jwave
 from deepspeed_tpu_torch.inference.v2.kernels import paged_attention as tpa
 from deepspeed_tpu_torch.inference.v2.kernels import ragged_paged_attention as trpa
 from deepspeed_tpu_torch.inference.v2.ragged import wave as twave
+from tests.port_threads import torch_threads  # noqa: F401
 
 # the JAX kernels package re-exports a function under the module's name
 jrpa = importlib.import_module(

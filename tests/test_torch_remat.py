@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.models import bert_model, llama_model
 from deepspeed_tpu_torch.ops.transformer import flash
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from tests.port_threads import torch_threads  # noqa: F401
 
 POLICIES = ["nothing_saveable", "attention_only", "dots_saveable", "checkpoint_dots",
             "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims",

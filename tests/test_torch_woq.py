@@ -45,6 +45,7 @@ from deepspeed_tpu_torch.inference.v2 import (DeepSpeedTPStateManagerConfig,
 from deepspeed_tpu_torch.models import llama_model
 from deepspeed_tpu_torch.nn.layers import Linear
 from deepspeed_tpu_torch.ops.quantizer import woq_matmul as twoq
+from tests.port_threads import torch_threads  # noqa: F401
 
 V = 1024
 FP32_RTOL = 1e-5     # of the largest |output|

@@ -62,6 +62,7 @@ from deepspeed_tpu_torch.runtime.topology import MeshTopology as TorchTopology
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartitionPlan, shard_dim
 from deepspeed_tpu_torch.runtime.zero.partition import dp_axes_in as torch_dp_axes_in
+from tests.port_threads import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT = 300   # seconds for the whole two-rank run, rendezvous included
@@ -126,10 +127,7 @@ def test_topology_rows_and_axes():
     ("zero_optimization", {"stage": 3, "offload_param": {"device": "cpu"}}, "A9"),
     ("comm_transport", {"error_feedback": True}, "A6 \\(error feedback"),
     ("comm_transport", {"hierarchical": False}, "A6 \\(the algorithm"),
-    ("comm_transport", {"activation_width": "full"}, "A7 \\(the MoE"),
-    ("comm_transport", {"permute_width": "bf16"}, "A8 \\(the ring"),
     ("topology", {"data": 2, "model": 2}, "A6 \\(tensor"),
-    ("topology", {"seq": 2}, "A8"),
     ("topology", {"expert": 2}, "A7"),
     ("topology", {"mics": 2}, "A6 \\(hpZ"),
     ("topology", {"pipe": 2}, "A10"),
@@ -137,6 +135,37 @@ def test_topology_rows_and_axes():
 def test_configs_outside_the_slice_raise(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.DeepSpeedConfig({key: value})
+
+
+# keys that raised until the sequence-parallel slice, and what they do now
+@pytest.mark.parametrize("key,value", [
+    ("comm_transport", {"activation_width": "full"}),
+    ("comm_transport", {"permute_width": "bf16"}),
+    ("topology", {"data": 1, "seq": 2}),
+])
+def test_sequence_slice_keys_are_accepted(key, value):
+    """``comm_transport.activation_width`` steers the Ulysses all-to-all and
+    ``.permute_width`` the ring's hops through the planner, as in JAX;
+    ``topology.seq`` counts in the data-parallel size of the batch
+    resolution."""
+    from deepspeed_tpu_torch.comm import comm as tcomm
+    cfg = deepspeed_tpu_torch.DeepSpeedConfig({key: value})
+    if key == "topology":
+        assert cfg.data_parallel_size == 2 and cfg.train_batch_size == 2
+        return
+    tcomm.reset_transport()
+    jcomm.reset_transport()
+    try:
+        tcomm.configure_transport(**cfg.comm_transport)
+        jcomm.configure_transport(**value)
+        op = "ppermute" if "permute_width" in value else "all_to_all"
+        got = tcomm.resolve_transport("activation", op, 1 << 20, "seq")
+        want = jcomm.resolve_transport("activation", op, 1 << 20, "seq",
+                                       axis_sizes={"seq": 2})
+        assert got.width == want.width == next(iter(value.values()))
+    finally:
+        tcomm.reset_transport()
+        jcomm.reset_transport()
 
 
 @pytest.mark.parametrize("zero", [{"stage": 1, "zero_quantized_gradients": True},
