@@ -138,7 +138,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within the JAX suite's ZeRO++ tolerance, rtol = atol = 0.05); then the
    2-layer ZeRO-3 + ZeRO++ engine after a step saves one rank file a rank,
    which both ranks load at stage 1 and this process into a single-device
-   engine, every param equal to the saver's (sha256 of its bytes). A rank
+   engine, every param equal to the saver's (sha256 of its bytes). In the
+   same ranks, after the barrier run, ``[zero-overlap]``: the layer-pipelined
+   overlap schedule under the JAX package's default ZeRO++ config
+   (``ZERO_OVERLAP_CONFIG``, ``overlap_comm`` unset) at full width and
+   depth, 1 warm-up and 2 timed steps on the same batch: the engine took the
+   schedule, losses equal on both ranks, falling and within the ZeRO++
+   tolerance of the barrier run's; each step's launches by op, width and
+   class (overlapped / exposed) equal to the count the schedule states
+   (``overlap_expected``), quantizer launches equal to its int8 collectives,
+   the flash and Adam launches a step; step ms, peak memory, the host's
+   time blocked in ``wait()`` and the overlapped / exposed wire bytes
+   beside the barrier's, and one more step with every collective
+   synchronized (an upper bound of the collectives' share on this
+   schedule); then at 2 layers, plain stage 3 at full width on the schedule
+   against two barrier runs (bitwise, or within the two barrier runs' gap,
+   printed beside it) and the ZeRO++ schedule's first block reduce-scatter
+   within the int8 rounding bound of the two ranks' exact mean. A rank
    that fails or hangs past ``ZERO_TIMEOUT`` fails the run;
 10. Mixtral serving (``[moe-engine]``): mixtral-8x7b at full width (8
    experts, top-2, FFN 14336), depth cut to 24 of 32 layers, random bf16
@@ -233,8 +249,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at ``q_offset`` +8192, 0 and -8192 (O all 0 and LSE all ``MASK_VALUE``
    there, its bound the bytes of the outputs alone), at Ulysses' (S 16384, 16 / 2 heads), and the row quantizer on a
    hop's K block, byte for byte; then two ranks on the one card (gloo, as
-   ``[zero]``) train tinyllama-1.1b at full width and depth, max_seq_len
-   raised to 16384, global S 16384 at micro 1 (8192 tokens a rank), bf16,
+   ``[zero]``) train tinyllama-1.1b at full width, depth cut to
+   ``SEQ_LAYERS`` (11 of 22), max_seq_len raised to 16384, global S 16384
+   at micro 1 (8192 tokens a rank), bf16,
    AdamW, clipping 1.0, ZeRO-1 over data x seq, remat per block, through
    ``initialize`` + ``train_batch`` with ``topology.seq`` 2: Ulysses, the
    ring at the default int8 hop width and at full width, each a warm-up
@@ -657,6 +674,21 @@ ZERO_CONFIG = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
                                      "zero_quantized_gradients": True, "overlap_comm": False}}
 ZERO_PLAIN_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 3, "overlap_comm": False})
 ZERO_ZEROPP_TOL = 0.05   # rtol = atol: the JAX suite's ZeRO++ bound (test_zeropp.py:113)
+# [zero-overlap]: in the same ranks, after the barrier run, the layer-pipelined
+# overlap schedule at full width and depth under the JAX package's default
+# ZeRO++ config (overlap_comm unset: true at stage 3), 1 warm-up and 2 timed
+# steps on the same seeded batch; then at 2 layers, same width, plain stage 3
+# on the schedule at full width (overlap_comm written true, the transport's
+# defaults off) against two barrier runs, and the ZeRO++ schedule's first
+# block reduce-scatter against the int8 rounding bound
+ZERO_OVERLAP_CONFIG = dict(ZERO_CONFIG, zero_optimization={
+    "stage": 3, "zero_quantized_weights": True, "zero_quantized_gradients": True})
+ZERO_OVERLAP_WARMUP, ZERO_OVERLAP_STEPS = 1, 2
+ZERO_S3_BARRIER_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 3, "overlap_comm": False},
+                              comm_transport={"enabled": False})
+ZERO_S3_OVERLAP_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 3, "overlap_comm": True},
+                              comm_transport={"enabled": False})
+INT8_GROUP, INT8_SLACK = 256, 1e-4   # the wire's group; fp32 rounding of x / scale, q * scale
 # [checkpoint]: phase 7's engine saves a tag, an engine from another seed
 # loads it, and both take CKPT_STEPS more steps, which must agree bit for
 # bit; an async save; keep-last-CKPT_KEEP over three tags of a 2-layer model
@@ -750,7 +782,10 @@ MOE_TRAIN_WITNESSES = (("plain again", True, True, False),
                        ("kernels, plain MoE", False, True, False),
                        ("kernels, plain flash and Adam", True, False, False))
 # [seq-parallel]: two ranks on the one card (gloo, as [zero]) train
-# tinyllama-1.1b at full width and depth over a seq axis of 2, max_seq_len
+# tinyllama-1.1b at full width over a seq axis of 2, depth cut to SEQ_LAYERS
+# of its 22 layers so that the script, grown by [zero-overlap], ends well
+# inside its time limit (the witness over the whole sequence on one rank at
+# the same depth), max_seq_len
 # raised to SEQ_LEN (no width changes): global S 16384, micro 1, so a rank
 # holds 8192 tokens; bf16, AdamW, clipping 1.0, ZeRO stage 1 over data x
 # seq, remat per block, lr 1e-4 (at 3e-4 the fourth step's loss rises above
@@ -761,7 +796,7 @@ MOE_TRAIN_WITNESSES = (("plain again", True, True, False),
 # since gloo moves 3.7-3.9 GB a step (8.3 with Ulysses' all-to-alls) through
 # host memory, 10-20 s a step on an NVIDIA H100 80GB HBM3 at 700.00 W, and
 # the whole script has to end inside its time limit
-SEQ_LEN, SEQ_WORLD, SEQ_WARMUP, SEQ_STEPS = 16384, 2, 1, 1
+SEQ_LEN, SEQ_WORLD, SEQ_WARMUP, SEQ_STEPS, SEQ_LAYERS = 16384, 2, 1, 1, 11
 SEQ_TIMEOUT = 600      # seconds for the ranks: a hung rank fails the run
 SEQ_CONFIG = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": True},
               "gradient_clipping": 1.0,
@@ -3226,27 +3261,40 @@ def zero_steps(torch, engine, batch, steps, quant):
 def collective_share(torch, engine, batch):
     """One more step with every collective of ``comm`` timed on the host
     clock (the device synchronized before and after each): ``(seconds in
-    collectives, seconds of the step, collectives, the step's loss)``. On
-    gloo a collective's time includes the copies of its tensors to and from
-    host memory."""
+    collectives, seconds of the step, collectives, the step's loss)``. A
+    launched collective (the overlap schedule's ``*_async`` forms) is timed
+    at its launch and at its ``wait()``, each synchronized, so on that
+    schedule the share is an upper bound: the synchronizations take away the
+    overlap they measure. On gloo a collective's time includes the copies
+    of its tensors to and from host memory."""
     from deepspeed_tpu_torch.comm import comm as dist
-    names = ("all_gather", "all_to_all", "all_reduce", "reduce_scatter", "ppermute")
+    names = ("all_gather", "all_to_all", "all_reduce", "reduce_scatter", "ppermute",
+             "all_gather_async", "all_reduce_async", "reduce_scatter_async",
+             "all_to_all_rows_async")
     saved = {n: getattr(dist, n) for n in names}
-    acc = [0.0, 0]
+    saved_wait = dist.Work.wait
+    acc = [0.0, 0, 0]   # seconds, launches, nesting depth
 
-    def timed(fn):
+    def timed(fn, launch=True):
         def call(*args, **kw):
+            if acc[2]:
+                return fn(*args, **kw)
+            acc[2] += 1
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                acc[2] -= 1
             acc[0] += time.perf_counter() - t
-            acc[1] += 1
+            acc[1] += int(launch)
             return out
         return call
 
     for n in names:
         setattr(dist, n, timed(saved[n]))
+    dist.Work.wait = timed(saved_wait, launch=False)
     try:
         t = time.perf_counter()
         loss = float(engine.train_batch(batch))
@@ -3254,6 +3302,7 @@ def collective_share(torch, engine, batch):
     finally:
         for n in names:
             setattr(dist, n, saved[n])
+        dist.Work.wait = saved_wait
     return acc[0], step, acc[1], loss
 
 
@@ -3308,6 +3357,207 @@ def wire_summary(records):
     return out
 
 
+def schedule_class(r):
+    """A ledger record's ``(op, width, class)``: int8 where fewer bytes
+    travel than the logical ones."""
+    return (r["op"], "int8" if r["wire_bytes"] < r["bytes"] else "full",
+            "overlapped" if r["overlapped"] else "exposed")
+
+
+def class_counts(records):
+    """Launches by ``schedule_class``."""
+    out = {}
+    for r in records:
+        k = schedule_class(r)
+        out[k] = out.get(k, 0) + r["count"]
+    return out
+
+
+def ledger_split(dist, records):
+    """The overlapped and exposed wire bytes of ``records``."""
+    ledger = dist.CollectiveLedger()
+    ledger.records = records
+    return ledger.split()
+
+
+def overlap_expected(engine):
+    """The launches a training step of the overlap schedule states, by
+    ``(op, width, class)``, from the engine's plan: for ``n`` steps of layers,
+    each block gather launch ``n`` times forward (the first exposed) and
+    ``n - 1`` times backward, each block reduction ``n`` times (the last
+    exposed), a flush a dtype of deferred leaves (exposed), the rest leaves'
+    launches once (the head side's overlapped under the edge split), and the
+    optimizer step's full-width refresh of each persistent leaf (exposed)."""
+    from collections import Counter
+    sch = engine._sched
+    n = engine.model.config.num_layers // sch.lps
+    out = Counter()
+
+    def launches(op, entries, tps, comms, counts):
+        for e, tp in zip(entries, tps):
+            if comms[e.leaves[0]].dim is None:
+                continue
+            o = "all_to_all" if op == "reduce_scatter" and tp.quantized else op
+            for cls, k in counts.items():
+                out[(o, "int8" if tp.quantized else "full", cls)] += k
+
+    blk = sch.blk_comm
+    ahead = sch.depth if n > 2 else 1   # the prologue's gathers
+    launches("all_gather", blk.gather_plan, blk.gather_tp, blk.gcomms,
+             {"exposed": ahead, "overlapped": 2 * n - 1 - ahead})
+    launches("reduce_scatter", blk.scatter_plan, blk.scatter_tp, blk.scomms,
+             {"exposed": 1, "overlapped": n - 1})
+    dtypes = {blk.scomms[i].dtype for i in blk.deferred_leaves}
+    if dtypes:
+        out[("all_reduce", "full", "exposed")] += len(dtypes)
+    for cm in sch.rest_comms:
+        cls = "overlapped" if cm.overlapped else "exposed"
+        launches("all_gather", cm.gather_plan, cm.gather_tp, cm.gcomms, {cls: 1})
+        launches("reduce_scatter", cm.scatter_plan, cm.scatter_tp, cm.scomms, {cls: 1})
+        reps = sum(1 for e in cm.scatter_plan if cm.scomms[e.leaves[0]].dim is None)
+        if reps:
+            out[("all_reduce", "full", cls)] += reps
+    out[("all_gather", "full", "exposed")] += len(engine._cast_shards)
+    return +out
+
+
+def host_waits(dist):
+    """Wraps ``comm.Work.wait`` to add up the host's seconds blocked in it
+    (no synchronization added); returns ``(restore, seconds)``."""
+    saved, acc = dist.Work.wait, [0.0]
+
+    def wait(self):
+        t = time.perf_counter()
+        try:
+            return saved(self)
+        finally:
+            acc[0] += time.perf_counter() - t
+
+    dist.Work.wait = wait
+    return (lambda: setattr(dist.Work, "wait", saved)), acc
+
+
+def half_steps(torch, x):
+    """Half the int8 step of each element's group of INT8_GROUP along flat
+    ``x`` (zero-padded tail): absmax / 254, or 1/2 for an all-zero group."""
+    pad = (-x.numel()) % INT8_GROUP
+    g = torch.nn.functional.pad(x.abs().double(), (0, pad)).reshape(-1, INT8_GROUP)
+    scale = g.amax(dim=1) / 127
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return (scale / 2).repeat_interleave(INT8_GROUP)[:x.numel()]
+
+
+def scatter_within_int8_bound(torch, dist, comm, grads, shards, rank):
+    """The first block reduce-scatter of a ZeRO++ overlap step against the
+    exact mean of both ranks' local gradients (each rank's rows for this
+    destination arrive by an all-to-all): ``(worst err / bound, rounded
+    elements)``; the bound is the mean of the sources' half int8 steps of
+    each element's group, plus INT8_SLACK of it and 1e-6 of the value."""
+    n, worst, rounded = comm.n_dp, 0.0, 0
+    for g, got, lc in zip(grads, shards, comm.scomms):
+        if lc.dim is None:
+            continue
+        rows = g.movedim(lc.dim, 0).reshape(n, -1).contiguous()
+        src = dist.all_to_all(rows).double()             # [source, this rank's row]
+        exact = src.sum(dim=0) / n
+        bound = (sum(half_steps(torch, src[s]) for s in range(n)) / n * (1 + INT8_SLACK)
+                 + 1e-6 * exact.abs())
+        err = (got.movedim(lc.dim, 0).reshape(-1).double() - exact).abs()
+        worst = max(worst, float((err / bound).max()))
+        rounded += int((err > 1e-6 * exact.abs()).sum())
+    return worst, rounded
+
+
+def zero_overlap_rank(torch, np, batch, flash, adam, lion, quant):
+    """[zero-overlap] in a rank of [zero], after the barrier run: the
+    overlap schedule at full width and depth under ZERO_OVERLAP_CONFIG, then
+    the 2-layer checks. Returns what it measured."""
+    from deepspeed_tpu_torch.comm import comm as dist
+    t0 = time.perf_counter()
+    eng = train_engine(torch, ZERO_OVERLAP_CONFIG)
+    if not eng._overlap_active:
+        raise RuntimeError(f"[zero-overlap] the ZeRO++ config did not take the overlap "
+                           f"schedule: {eng._overlap_fallback!r}")
+    res = {"plan": eng._sched.plan.summary(), "plans": [
+        cm.plan_summary() for cm in (eng._sched.blk_comm,) + eng._sched.rest_comms],
+        "expected": dict(overlap_expected(eng))}
+    warm = zero_steps(torch, eng, batch, ZERO_OVERLAP_WARMUP, quant)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam, lion)
+    quant.launches = 0
+    restore, waited = host_waits(dist)
+    try:
+        timed = zero_steps(torch, eng, batch, ZERO_OVERLAP_STEPS, quant)
+    finally:
+        restore()
+    res.update(
+        losses=[x["loss"] for x in warm + timed], step_s=[x["s"] for x in timed],
+        quant_per_step=[x["quant"] for x in timed], peak=torch.cuda.max_memory_allocated(),
+        launches=dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches),
+        wait_s=waited[0] / ZERO_OVERLAP_STEPS,
+        classes=[class_counts(x["records"]) for x in timed],
+        split=[ledger_split(dist, x["records"]) for x in timed],
+        wire=[wire_summary(x["records"]) for x in timed])
+    res["comm_s"], res["comm_step_s"], res["comm_launches"], _ = collective_share(
+        torch, eng, batch)
+    # one more step, rank 0 under the profiler: the device's busy share of
+    # the unprofiled step, and its kernels (both ranks take the step)
+    if dist.get_rank() == 0:
+        profile_step(torch, eng, batch, sum(res["step_s"]) / len(res["step_s"]),
+                     "zero-overlap-profile")
+        print("[zero-overlap-profile] rank 0's kernels only: rank 1 runs as many on the same "
+              "card, so the card's busy share is about twice rank 0's", flush=True)
+    else:
+        float(eng.train_batch(batch))
+    del eng
+    gc_cuda(torch)
+    # 2 layers: plain stage 3 on the schedule at full width against two barrier runs
+    runs = {}
+    for name, cfg in (("barrier", ZERO_S3_BARRIER_CONFIG), ("barrier-again",
+                                                            ZERO_S3_BARRIER_CONFIG),
+                      ("overlap", ZERO_S3_OVERLAP_CONFIG)):
+        e = train_engine(torch, cfg, PATH_LAYERS)
+        if e._overlap_active != (name == "overlap"):
+            raise RuntimeError(f"[zero-overlap] {name} run: overlap active {e._overlap_active}")
+        losses = [float(e.train_batch(batch)) for _ in range(PATH_STEPS)]
+        runs[name] = (losses, {k: v.float().clone() for k, v in e.module_state_dict().items()})
+        del e
+        gc_cuda(torch)
+
+    def gap(a, b):
+        return max([abs(x - y) for x, y in zip(runs[a][0], runs[b][0])]
+                   + [float((runs[a][1][k] - runs[b][1][k]).abs().max()) for k in runs[a][1]])
+
+    res["s3"] = dict(losses={k: v[0] for k, v in runs.items()},
+                     witness=gap("barrier", "barrier-again"), gap=gap("overlap", "barrier"),
+                     bitwise=all(torch.equal(runs["overlap"][1][k], runs["barrier"][1][k])
+                                 for k in runs["barrier"][1])
+                     and runs["overlap"][0] == runs["barrier"][0])
+    del runs
+    gc_cuda(torch)
+    # 2 layers: the ZeRO++ schedule's first block reduce-scatter (the last
+    # layer's fused bucket) against the int8 bound
+    e = train_engine(torch, ZERO_OVERLAP_CONFIG, PATH_LAYERS)
+    blk, seen = e._sched.blk_comm, []
+    scatter = blk.scatter
+
+    def first(gs):
+        h = scatter(gs)
+        if not seen:
+            seen.append(([g.detach().clone() for g in gs], [r.clone() for r in h.wait()]))
+        return h
+
+    blk.scatter = first
+    float(e.train_batch(batch))
+    blk.scatter = scatter
+    res["bound"] = scatter_within_int8_bound(torch, dist, blk, *seen[0], dist.get_rank())
+    res["bound_widths"] = sorted({tp.width for tp in blk.scatter_tp})
+    del e, seen
+    gc_cuda(torch)
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
 def zero_rank(rank, init_method, results, ckpt_dir):
     """One rank of the [zero] phase (a process of its own): tinyllama-1.1b
     at full width and depth through ``initialize`` + ``train_batch`` under
@@ -3357,6 +3607,7 @@ def zero_rank(rank, init_method, results, ckpt_dir):
         wire=[wire_summary(x["records"]) for x in timed])
     del engine
     torch.cuda.empty_cache()
+    res["overlap"] = zero_overlap_rank(torch, np, batch, flash, adam, lion, quant)
     # 2 layers, same width: kernels, plain versions, full width (no ZeRO++)
     path = {}
     for name, cfg in (("kernels", ZERO_CONFIG), ("plain", ZERO_CONFIG),
@@ -3564,7 +3815,85 @@ def train_zero(torch, np, single_opt_bytes, smi):
                        atol=ZERO_ZEROPP_TOL):
         fail(f"[zero] int8 wire losses {path['kernels']} beyond the ZeRO++ tolerance of the "
              f"full-width {path['full-width']}")
+    zero_overlap_report(np, ranks, smi)
     return sum(r["launches"]["quant_rows"] for r in ranks)
+
+
+def zero_overlap_report(np, ranks, smi):
+    """[zero-overlap]: checks and prints what the ranks measured on the
+    overlap schedule, beside the barrier run of the same ranks."""
+    ov = [r["overlap"] for r in ranks]
+    o0, r0 = ov[0], ranks[0]
+    losses = o0["losses"]
+    print(f"[zero-overlap] {smi} | config {json.dumps(ZERO_OVERLAP_CONFIG['zero_optimization'])}"
+          f" (overlap_comm unset: true at stage 3); plan {o0['plan']}; "
+          f"{'; '.join(o0['plans'])}", flush=True)
+    if any(o["losses"] != losses for o in ov):
+        fail(f"[zero-overlap] losses differ between ranks: {[o['losses'] for o in ov]}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"[zero-overlap] losses {losses} not finite and falling")
+    barrier = r0["losses"][:len(losses)]
+    if not np.allclose(losses, barrier, rtol=ZERO_ZEROPP_TOL, atol=ZERO_ZEROPP_TOL):
+        fail(f"[zero-overlap] losses {losses} beyond the ZeRO++ tolerance of the barrier "
+             f"run's {barrier}")
+    for r, o in zip(ranks, ov):
+        for i, got in enumerate(o["classes"]):
+            if got != o["expected"]:
+                fail(f"[zero-overlap] rank {r['rank']} step {i}: launches by (op, width, "
+                     f"class) {sorted(got.items())} != the schedule's "
+                     f"{sorted(o['expected'].items())}")
+        n_int8 = sum(k for (op, w, _), k in o["classes"][-1].items() if w == "int8")
+        if any(q != n_int8 for q in o["quant_per_step"]):
+            fail(f"[zero-overlap] rank {r['rank']}: quantizer launches "
+                 f"{o['quant_per_step']} a step against {n_int8} int8 collectives")
+        want = {"flash_fwd": r["layers"] * ZERO_OVERLAP_STEPS,
+                "flash_dq": r["layers"] * ZERO_OVERLAP_STEPS,
+                "flash_dkv": r["layers"] * ZERO_OVERLAP_STEPS,
+                "fused_adam": r["buckets"] * ZERO_OVERLAP_STEPS}
+        want["flash_fwd"] *= 2     # the forward, and the recompute of each step
+        got = {k: o["launches"][k] for k in want}
+        if got != want:
+            fail(f"[zero-overlap] rank {r['rank']} training launches {got} != {want}")
+    step = sum(o0["step_s"]) / len(o0["step_s"])
+    bstep = sum(r0["step_s"]) / len(r0["step_s"])
+    print(f"[zero-overlap] tinyllama-1.1b layers {r0['layers']}: losses "
+          f"{[round(x, 4) for x in losses]} (equal on both ranks; barrier "
+          f"{[round(x, 4) for x in barrier]}, within rtol = atol {ZERO_ZEROPP_TOL}); step ms "
+          f"{[round(x * 1e3, 1) for x in o0['step_s']]} mean {step * 1e3:.1f} beside the "
+          f"barrier's {bstep * 1e3:.1f}; max_memory_allocated per rank "
+          f"{[round(o['peak'] / 2**30, 2) for o in ov]} GiB beside the barrier's "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]}", flush=True)
+    for r, o in zip(ranks, ov):
+        sp = o["split"][-1]
+        print(f"[zero-overlap] rank {r['rank']} a step: wire bytes overlapped "
+              f"{sp['overlapped_bytes']} exposed {sp['exposed_bytes']}; launches by (op, width, "
+              f"class) {json.dumps({'/'.join(k): v for k, v in sorted(o['classes'][-1].items())})}"
+              f" (the schedule's count); quantizer launches a step {o['quant_per_step']}; host "
+              f"blocked in wait() {o['wait_s'] * 1e3:.1f} ms a step (no synchronization added); "
+              f"training launches {o['launches']}", flush=True)
+        print(f"[zero-overlap] rank {r['rank']} one more step of {o['comm_step_s'] * 1e3:.1f} ms, "
+              f"{o['comm_launches']} collectives each synchronized at launch and at wait(): "
+              f"{o['comm_s'] * 1e3:.1f} ms, share {o['comm_s'] / o['comm_step_s']:.3f} (an upper "
+              f"bound on this schedule: the synchronizations take away the overlap)", flush=True)
+    s3 = o0["s3"]
+    print(f"[zero-overlap] {PATH_LAYERS} layers, same width, plain stage 3 at full width "
+          f"(comm_transport off), {PATH_STEPS} steps: overlap {s3['losses']['overlap']} barrier "
+          f"{s3['losses']['barrier']} again {s3['losses']['barrier-again']}; bitwise "
+          f"{[o['s3']['bitwise'] for o in ov]}; largest difference overlap vs barrier "
+          f"{[o['s3']['gap'] for o in ov]} beside the two barrier runs' "
+          f"{[o['s3']['witness'] for o in ov]} (losses and every param)", flush=True)
+    for o in ov:
+        if not (o["s3"]["bitwise"] or o["s3"]["gap"] <= o["s3"]["witness"]):
+            fail(f"[zero-overlap] the schedule moved plain stage 3 by {o['s3']['gap']} beyond "
+                 f"the barrier's run-to-run {o['s3']['witness']}")
+    print(f"[zero-overlap] {PATH_LAYERS} layers, ZeRO++ on the schedule: the first block "
+          f"reduce-scatter (widths {o0['bound_widths']}) within the int8 bound: worst err / bound "
+          f"per rank {[round(o['bound'][0], 4) for o in ov]}, elements rounded "
+          f"{[o['bound'][1] for o in ov]}", flush=True)
+    if any(o["bound"][0] > 1 or o["bound"][1] == 0 for o in ov):
+        fail(f"[zero-overlap] the int8 reduce-scatter left its bound or rounded nothing: "
+             f"{[o['bound'] for o in ov]}")
+    print(f"[zero-overlap] phase {max(o['s'] for o in ov):.1f} s (in the ranks)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4630,7 +4959,7 @@ def seq_flops(c, n_params):
 
 def seq_rank(rank, init_method, results):
     """One rank of [seq-parallel] (a process of its own): each SEQ_FORMS
-    form at full width and depth, a warm-up and SEQ_STEPS timed steps, one
+    form at full width and SEQ_LAYERS layers, a warm-up and SEQ_STEPS timed steps, one
     more with the collectives timed; then each form at PATH_LAYERS layers
     through the kernels. Puts its measurements on ``results``."""
     import numpy as np
@@ -4648,7 +4977,7 @@ def seq_rank(rank, init_method, results):
     res = {"rank": rank, "backend": dist.get_backend(), "forms": {}, "path": {}}
     for form in SEQ_FORMS:
         t = time.perf_counter()
-        engine = seq_engine(torch, form)
+        engine = seq_engine(torch, form, SEQ_LAYERS)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t
         c = engine.model.config
@@ -4813,11 +5142,11 @@ def train_seq_parallel(torch, np, flash, adam, lion, quant, smi):
     runs."""
     seq_kernels_vs_plain(torch, flash, quant, smi)
     gc_cuda(torch)
-    # one rank over the whole sequence at full depth, through the kernels:
+    # one rank over the whole sequence at SEQ_LAYERS layers, through the kernels:
     # the trajectory the forms' steps must follow
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    engine = seq_engine(torch, "ulysses")
+    engine = seq_engine(torch, "ulysses", SEQ_LAYERS)
     batch = seq_batch(np, engine.model.config.vocab_size)
     one = [float(engine.train_batch(batch)) for _ in range(SEQ_WARMUP + SEQ_STEPS + 1)]
     one_peak = torch.cuda.max_memory_allocated()

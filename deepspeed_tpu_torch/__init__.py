@@ -8,8 +8,9 @@ weight-only-quantized weights (``inference/quantization``) or through
 mixture-of-experts layers (``moe``, Mixtral), the
 single-device training step (``initialize`` +
 ``DeepSpeedEngine.train_batch``) with the Adam family or Lion, and
-data-parallel training over ``torch.distributed`` with ZeRO stages 0-3 and
-the ZeRO++ int8 wire (``DataParallelEngine``: ``comm``, ``runtime/zero``),
+data-parallel training over ``torch.distributed`` with ZeRO stages 0-3, the
+ZeRO++ int8 wire and the layer-pipelined overlap schedule
+(``DataParallelEngine``: ``comm``, ``runtime/zero``),
 with their hand-written Hopper kernels (``csrc/``).
 
 Front door (``deepspeed_tpu/__init__.py:67``):
@@ -52,7 +53,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``dist_init_required=True`` joins the process group from torchrun's
     variables (``comm.init_distributed``); ``topology`` (a
     ``runtime.topology.MeshTopology``) defaults to the world. A world of
-    more than one rank builds a ``DataParallelEngine``."""
+    more than one rank builds a ``DataParallelEngine``. ``training_data``
+    (an indexable of sample dicts) comes back as the JAX loader
+    (``runtime/dataloader.py`` ``DeepSpeedDataLoader``: shuffled, the short
+    last batch dropped, samples stacked by ``collate_fn`` or ``np.stack``)
+    over batches of the micro batch times the data ranks."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     if optimizer is not None or lr_scheduler is not None:
@@ -77,8 +82,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     # the sequence)
     rows_split = comm.get_world_size() // (1 if topo is None else topo.sequence_parallel_size)
     if training_data is not None:
-        import torch.utils.data
-        dataloader = torch.utils.data.DataLoader(
+        from .runtime.dataloader import DeepSpeedDataLoader
+        dataloader = DeepSpeedDataLoader(
             training_data,
             batch_size=engine.train_micro_batch_size_per_gpu * rows_split,
             collate_fn=collate_fn)

@@ -46,6 +46,8 @@ import dataclasses
 import datetime
 import enum
 import os
+import queue
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -335,22 +337,186 @@ def get_backend(group=None) -> Optional[str]:
     return str(tdist.get_backend(group)) if tdist.is_initialized() else None
 
 
+
+
+# -- launches: one comm thread a process, in issue order ---------------------------
+#
+# Every call on a process group runs on one worker thread of this process, in
+# the order the caller issued it: the ranks of a group then meet in the same
+# order whichever thread asked, as gloo and NCCL need. A blocking collective
+# is its asynchronous form waited at once; an asynchronous one (``*_async``)
+# returns a ``Work`` at once and the caller computes on until ``wait()``.
+#
+# On gloo a CUDA tensor is staged through host memory without blocking the
+# caller: its copy to pinned host memory runs on a side stream that waits for
+# the work queued so far on the current stream (the producer is in there, the
+# compute queued after the launch is not), the comm thread waits for that copy
+# and then runs gloo, and ``wait()`` queues the copy back on the current
+# stream. So a launch issued before a layer's kernels moves its bytes while
+# they run. The caller must not write a launch's input until it has waited.
+# NCCL reads CUDA tensors in place: its ops, issued from the comm thread,
+# order against the device's default stream, where the port computes.
+
+
+class Work:
+    """A launched collective. ``wait()`` blocks until it is done and returns
+    its result (once computed, the same object on every call)."""
+
+    def __init__(self, finish=None):
+        self._done = threading.Event()
+        self._finish = finish
+        self._host = self._error = self._result = None
+        self._waited = False
+
+    def _run(self, fn, ready) -> None:
+        try:
+            if ready is not None:
+                ready.synchronize()
+            self._host = fn()
+        except BaseException as e:   # re-raised in the caller's wait()
+            self._error = e
+        finally:
+            self._done.set()
+
+    def wait(self):
+        if not self._waited:
+            self._done.wait()
+            if self._error is not None:
+                raise self._error
+            self._result = self._finish(self._host) if self._finish else self._host
+            self._host, self._waited = None, True
+        return self._result
+
+
+class Pending:
+    """Several launches and what makes one result of theirs:
+    ``wait()`` waits each part in order and returns ``combine(results)``.
+    ``Pending([], lambda _: x)`` is a result that needs no launch."""
+
+    def __init__(self, parts: Sequence, combine):
+        self._parts, self._combine = list(parts), combine
+        self._waited, self._result = False, None
+
+    def wait(self):
+        if not self._waited:
+            self._result = self._combine([p.wait() for p in self._parts])
+            self._parts, self._waited = [], True
+        return self._result
+
+
+def ready(value) -> Pending:
+    """A result that needs no launch, as a handle."""
+    return Pending([], lambda _: value)
+
+
+_WORKER = {"queue": None, "thread": None}
+_WORKER_LOCK = threading.Lock()
+
+
+def _worker_loop(q: "queue.Queue") -> None:
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        work, fn, ready_event = item
+        work._run(fn, ready_event)
+
+
+def _submit(fn, ready_event=None, finish=None) -> Work:
+    """Queue ``fn`` (which runs the process-group calls and returns host
+    results) on the comm thread, after ``ready_event`` (a staging copy)."""
+    with _WORKER_LOCK:
+        if _WORKER["thread"] is None or not _WORKER["thread"].is_alive():
+            _WORKER["queue"] = queue.Queue()
+            _WORKER["thread"] = threading.Thread(target=_worker_loop, args=(_WORKER["queue"],),
+                                                 name="dstpu-comm", daemon=True)
+            _WORKER["thread"].start()
+        work = Work(finish)
+        _WORKER["queue"].put((work, fn, ready_event))
+    return work
+
+
+def _drain() -> None:
+    """Wait for every launch queued so far."""
+    if _WORKER["thread"] is not None and _WORKER["thread"].is_alive():
+        _submit(lambda: None).wait()
+
+
+def _stop_worker() -> None:
+    with _WORKER_LOCK:
+        thread, q = _WORKER["thread"], _WORKER["queue"]
+        _WORKER["thread"] = _WORKER["queue"] = None
+    if thread is not None and thread.is_alive():
+        q.put(None)
+        thread.join()
+
+
+_SIDE_STREAMS = {}
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """Whether ``t`` must go through host memory: a CUDA tensor on gloo."""
+    return t.is_cuda and get_backend(group) == "gloo"
+
+
+def _to_host(group, t: torch.Tensor, copy: bool = False):
+    """``(src, ready)``: ``t`` as the process group reads it (contiguous; for
+    a CUDA tensor on gloo a pinned host copy made on a side stream, with
+    ``ready`` the event of that copy), fp8 as its bytes (which gloo moves; it
+    has no fp8 type). ``copy`` makes ``src`` a tensor of its own even when
+    nothing is staged (for collectives that write their input)."""
+    src, ready_event = t.detach().contiguous(), None
+    if _staged(group, t):
+        dev = src.device
+        side = _SIDE_STREAMS.get(dev)
+        if side is None:
+            side = _SIDE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+            ready_event = torch.cuda.Event()
+            ready_event.record(side)
+        src.record_stream(side)
+        src = host
+    elif copy and src.data_ptr() == t.data_ptr():
+        src = src.clone()
+    if src.is_floating_point() and src.element_size() == 1:
+        src = src.view(torch.uint8)
+    return src, ready_event
+
+
+def _host_empty(shape, like: torch.Tensor, pinned: bool) -> torch.Tensor:
+    """An output buffer beside the input ``like`` as the group reads it;
+    ``pinned`` (a staged launch) so that the copy back does not block."""
+    return torch.empty(shape, dtype=like.dtype, device=like.device, pin_memory=pinned)
+
+
+def _back(out: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A result buffer as ``t``'s dtype on ``t``'s device (queued on the
+    current stream)."""
+    return out.view(t.dtype).to(t.device, non_blocking=True)
+
+
 def barrier(group=None) -> None:
     if tdist.is_initialized():
-        tdist.barrier(group)
+        _submit(lambda: tdist.barrier(group)).wait()
 
 
 def new_group(ranks: Sequence[int]):
     """A process group of the world ranks ``ranks``; every rank of the world
     must make the same calls in the same order."""
+    _drain()
     return tdist.new_group(list(ranks))
 
 
 def destroy_process_group() -> None:
     """Leave the process group; the published topology, whose axis groups
-    die with it, is cleared."""
+    die with it, is cleared, and the comm thread stops."""
     from ..runtime import topology as topo_mod
     topo_mod.reset()
+    _drain()
+    _stop_worker()
     if tdist.is_initialized():
         tdist.destroy_process_group()
 
@@ -361,82 +527,102 @@ _TORCH_OPS = {ReduceOp.SUM: "SUM", ReduceOp.AVG: "SUM", ReduceOp.MAX: "MAX",
               ReduceOp.MIN: "MIN", ReduceOp.PRODUCT: "PRODUCT"}
 
 
-def _staged(group, t: torch.Tensor) -> bool:
-    """Whether ``t`` must go through host memory: a CUDA tensor on gloo."""
-    return t.is_cuda and get_backend(group) == "gloo"
-
-
-def _moved(group, t: torch.Tensor) -> torch.Tensor:
-    """``t`` as a data-movement collective sends it: contiguous, on the host
-    for a CUDA tensor on gloo, and fp8 as its bytes (which gloo moves; it
-    has no fp8 type)."""
-    src = t.detach().contiguous()
-    if _staged(group, t):
-        src = src.cpu()
-    return src.view(torch.uint8) if src.is_floating_point() and src.element_size() == 1 else src
-
-
 def _reduce_op(op) -> "tdist.ReduceOp":
     op = ReduceOp(op) if not isinstance(op, ReduceOp) else op
     return getattr(tdist.ReduceOp, _TORCH_OPS[op])
 
 
+def all_reduce_async(t: torch.Tensor, op=ReduceOp.SUM, group=None):
+    """:func:`all_reduce`, launched: a handle whose ``wait()`` returns it."""
+    n = get_world_size(group)
+    if n == 1:
+        return ready(t.clone())
+    buf, ready_event = _to_host(group, t, copy=True)
+    avg = ReduceOp(op) == ReduceOp.AVG
+
+    def run():
+        tdist.all_reduce(buf, op=_reduce_op(op), group=group)
+        return buf
+
+    def finish(out):
+        out = _back(out, t)
+        return out / n if avg else out
+
+    return _submit(run, ready_event, finish)
+
+
 def all_reduce(t: torch.Tensor, op=ReduceOp.SUM, group=None) -> torch.Tensor:
     """The reduction of ``t`` over the group (a new tensor); ``AVG``
     divides the sum by the group size."""
+    return all_reduce_async(t, op, group).wait()
+
+
+def all_gather_async(t: torch.Tensor, group=None):
+    """:func:`all_gather`, launched: a handle whose ``wait()`` returns it."""
     n = get_world_size(group)
     if n == 1:
-        return t.clone()
-    out = t.detach().cpu() if _staged(group, t) else t.detach().clone()
-    tdist.all_reduce(out, op=_reduce_op(op), group=group)
-    out = out.to(t.device)
-    if ReduceOp(op) == ReduceOp.AVG:
-        out = out / n
-    return out
+        return ready(t.clone())
+    src, ready_event = _to_host(group, t)
+    out = _host_empty((n * src.shape[0],) + tuple(src.shape[1:]), src, ready_event is not None)
+
+    def run():
+        tdist.all_gather_into_tensor(out, src, group=group)
+        return out
+
+    return _submit(run, ready_event, lambda o: _back(o, t))
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every member's ``t`` concatenated along dim 0, in rank order."""
+    return all_gather_async(t, group).wait()
+
+
+def reduce_scatter_async(t: torch.Tensor, op=ReduceOp.SUM, group=None):
+    """:func:`reduce_scatter`, launched: a handle whose ``wait()`` returns
+    it."""
     n = get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"reduce-scatter of leading dim {t.shape[0]} over {n} members")
     if n == 1:
-        return t.clone()
-    src = _moved(group, t)
-    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
-    tdist.all_gather_into_tensor(out, src, group=group)
-    return out.view(t.dtype).to(t.device)
+        return ready(t.clone())
+    src, ready_event = _to_host(group, t)
+    out = _host_empty((src.shape[0] // n,) + tuple(src.shape[1:]), src, ready_event is not None)
+    avg = ReduceOp(op) == ReduceOp.AVG
+
+    def run():
+        tdist.reduce_scatter_tensor(out, src, op=_reduce_op(op), group=group)
+        return out
+
+    def finish(o):
+        o = _back(o, t)
+        return o / n if avg else o
+
+    return _submit(run, ready_event, finish)
 
 
 def reduce_scatter(t: torch.Tensor, op=ReduceOp.SUM, group=None) -> torch.Tensor:
     """Member r's rows ``[r * s0, (r + 1) * s0)`` of the reduction of
     ``t [n * s0, ...]`` over the group."""
-    n = get_world_size(group)
-    if t.shape[0] % n:
-        raise ValueError(f"reduce-scatter of leading dim {t.shape[0]} over {n} members")
-    if n == 1:
-        return t.clone()
-    src = t.detach().contiguous()
-    if _staged(group, t):
-        src = src.cpu()
-    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
-    tdist.reduce_scatter_tensor(out, src, op=_reduce_op(op), group=group)
-    out = out.to(t.device)
-    if ReduceOp(op) == ReduceOp.AVG:
-        out = out / n
-    return out
+    return reduce_scatter_async(t, op, group).wait()
 
 
-def _all_to_all_rows(t: torch.Tensor, group) -> torch.Tensor:
+def all_to_all_rows_async(t: torch.Tensor, group=None):
+    """Row block j of ``t [n * c, ...]`` to member j; member i's block
+    received lands at rows ``[i * c, (i + 1) * c)`` (``all_to_all_single``),
+    launched: a handle whose ``wait()`` returns the result."""
     n = get_world_size(group)
     if t.shape[0] % n:
         raise ValueError(f"all-to-all of leading dim {t.shape[0]} over {n} members")
     if n == 1:
-        return t.clone()
-    src = _moved(group, t)
-    out = torch.empty_like(src)
-    tdist.all_to_all_single(out, src, group=group)
-    return out.view(t.dtype).to(t.device)
+        return ready(t.clone())
+    src, ready_event = _to_host(group, t)
+    out = _host_empty(tuple(src.shape), src, ready_event is not None)
+
+    def run():
+        tdist.all_to_all_single(out, src, group=group)
+        return out
+
+    return _submit(run, ready_event, lambda o: _back(o, t))
 
 
 def all_to_all(t: torch.Tensor, group=None, split_axis: int = 0, concat_axis: int = 0,
@@ -462,11 +648,12 @@ def all_to_all(t: torch.Tensor, group=None, split_axis: int = 0, concat_axis: in
     if plan.width == WIDTH_BF16 and t.element_size() > 2:
         wire = t.to(torch.bfloat16)
     if split_axis == 0 and concat_axis == 0:
-        out = _all_to_all_rows(wire, group)
+        out = all_to_all_rows_async(wire, group).wait()
     else:
         blocks = wire.movedim(split_axis, 0)
         c = blocks.shape[0] // n
-        got = _all_to_all_rows(blocks.reshape((n * c,) + tuple(blocks.shape[1:])), group)
+        got = all_to_all_rows_async(blocks.reshape((n * c,) + tuple(blocks.shape[1:])),
+                                    group).wait()
         got = got.reshape((n, c) + tuple(blocks.shape[1:]))
         out = torch.cat([got[j].movedim(0, split_axis) for j in range(n)], dim=concat_axis)
     return out.to(t.dtype) if wire is not t else out
@@ -476,9 +663,13 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """Member ``src``'s ``t`` on every member (a new tensor)."""
     if get_world_size(group) == 1:
         return t.clone()
-    buf = _moved(group, t).clone()
-    tdist.broadcast(buf, src=src, group=group)
-    return buf.view(t.dtype).to(t.device)
+    buf, ready_event = _to_host(group, t, copy=True)
+
+    def run():
+        tdist.broadcast(buf, src=src, group=group)
+        return buf
+
+    return _submit(run, ready_event, lambda o: _back(o, t)).wait()
 
 
 def ppermute(t: torch.Tensor, perm: Sequence[Tuple[int, int]], group=None) -> torch.Tensor:
@@ -492,16 +683,20 @@ def ppermute(t: torch.Tensor, perm: Sequence[Tuple[int, int]], group=None) -> to
     src = [s_ for s_, d in perm if d == me]
     if n == 1:
         return t.clone() if src else torch.zeros_like(t)
-    send = _moved(group, t)
-    recv = torch.empty_like(send)
+    send, ready_event = _to_host(group, t)
+    recv = _host_empty(tuple(send.shape), send, ready_event is not None)
     peer = (lambda r: r) if group is None else (lambda r: tdist.get_global_rank(group, r))
-    reqs = []
-    if dst:
-        reqs.append(tdist.isend(send, dst=peer(dst[0]), group=group))
-    if src:
-        reqs.append(tdist.irecv(recv, src=peer(src[0]), group=group))
-    for r in reqs:
-        r.wait()
-    if not src:
-        recv.zero_()
-    return recv.view(t.dtype).to(t.device)
+
+    def run():
+        reqs = []
+        if dst:
+            reqs.append(tdist.isend(send, dst=peer(dst[0]), group=group))
+        if src:
+            reqs.append(tdist.irecv(recv, src=peer(src[0]), group=group))
+        for r in reqs:
+            r.wait()
+        if not src:
+            recv.zero_()
+        return recv
+
+    return _submit(run, ready_event, lambda o: _back(o, t)).wait()

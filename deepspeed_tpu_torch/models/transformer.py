@@ -13,6 +13,11 @@ per-block layer names (``ln_1``, ``q_proj`` ... ``down_proj``) are the JAX
 block's keys, so ``convert.params_from_jax`` maps one tree onto the other
 by name.
 
+The overlap schedule of the data-parallel engine runs the blocks through
+``scan_blocks_pipelined`` (JAX ``:506-750``): one step of layers at a time,
+each step's parameters gathered a step ahead and its gradients reduced while
+the step before it runs backward (``runtime/zero/overlap.py``).
+
 A model is built on the ``meta`` device by default: it holds no storage
 until ``materialize`` (or the serving engine) places it on a device and
 fills it from a ``torch.Generator``.
@@ -67,8 +72,9 @@ mask.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -276,6 +282,11 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
+    #: the modules ``embed`` reads (JAX ``embed_param_keys``, the same top-level
+    #: names): a parameter ``<module>.<leaf>`` whose module is one of them is
+    #: embed-side, every other one outside the blocks head-side (the overlap
+    #: schedule's edge split)
+    embed_param_keys = ("wte", "wpe", "ln_emb", "wtt")
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -441,6 +452,29 @@ class TransformerLM(nn.Module):
         return x + (m if keep is None else keep * m), aux
 
     # -- training forward ----------------------------------------------------
+    def embed_inputs(self, input_ids: torch.Tensor,
+                     token_type_ids: Optional[torch.Tensor] = None,
+                     attention_mask: Optional[torch.Tensor] = None):
+        """What every block of a training forward reads: ``(x, rope, seg)``,
+        the embedded tokens (their positions this rank's slice under
+        sequence parallelism), the rotary tables or None, and the int32
+        segment ids of the padding mask or None."""
+        c = self.config
+        if c.seq_parallel == "ring" and attention_mask is not None:
+            raise ValueError("ring attention does not support padding masks (attention_mask)")
+        S = input_ids.shape[1]
+        sp, r, group = topo_mod.sequence_parallel()
+        positions = torch.arange(r * S, (r + 1) * S, device=input_ids.device)[None, :]
+        real_before = None
+        if sp > 1 and c.pad_based_positions:
+            real = (input_ids != c.pad_token_id).sum(dim=1).to(torch.int64)
+            counts = dist.all_gather(real[None], group=group)       # [sp, B]
+            real_before = counts[:r].sum(dim=0)[:, None]
+        x = self.embed(input_ids, positions, token_type_ids, real_before)
+        rope = self.rope(positions) if c.position == "rope" else None
+        seg = None if attention_mask is None else attention_mask.to(torch.int32)
+        return x, rope, seg
+
     def _block(self, blk: Block, x: torch.Tensor, rope, keep, window,
                seg: Optional[torch.Tensor]):
         """One block (``_block_fn``) through the flash kernels; ``keep``
@@ -470,6 +504,157 @@ class TransformerLM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return y, aux
 
+    def block_apply(self, layer: int, x: torch.Tensor, rope=None, keep=None,
+                    seg: Optional[torch.Tensor] = None):
+        """Block ``layer`` alone over ``x`` (JAX ``block_apply``: the unit of
+        the overlap schedule), with whatever tensors its parameters hold
+        now; ``(x', aux)``."""
+        return self._block(self.blocks[layer], x, rope, keep, self.window(layer), seg)
+
+    def _layer_params(self, layers) -> List[Tuple[str, nn.Parameter]]:
+        return [(name, p) for l in layers for name, p in self.blocks[l].named_parameters()]
+
+    def scan_blocks_pipelined(self, x: torch.Tensor, rope=None,
+                              seg: Optional[torch.Tensor] = None, *, gather, scatter,
+                              keep: Optional[torch.Tensor] = None, layers_per_step: int = 1,
+                              prefetch_depth: int = 1, comm_edge=None):
+        """The layer-pipelined ZeRO schedule over the blocks (JAX
+        ``scan_blocks_pipelined``, ``deepspeed_tpu/models/transformer.py:
+        506-750``), as an eager loop; the engine's
+        ``DataParallelEngine._micro_overlap`` drives it.
+
+        The blocks run in steps of ``layers_per_step`` layers (2 for the
+        ``alternating`` remat policy). ``gather(s)`` launches step s's
+        parameter gathers and returns a handle whose ``wait()`` gives, for
+        each layer of the step, ``{parameter name: full tensor}``;
+        ``scatter(s, grads)`` launches the reductions of step s's gradients
+        (the same form) and returns a handle whose ``wait()`` completes them.
+        A step's full tensors are bound to its blocks' parameters
+        (``.data``) while it runs and unbound after, so their storage goes
+        as soon as the step is done.
+
+        Forward (under ``no_grad``): step s+1's gathers are launched before
+        step s computes, so they move while it runs; at most two steps' full
+        parameters are live (three at ``prefetch_depth`` 2, which gathers two
+        steps ahead; a depth of 2 needs at least 3 steps and is clamped to 1
+        below that). Only each step's input is kept. The last step's
+        parameters stay bound for the backward.
+
+        Backward (``pullback(dx_out, daux)``, returning the gradient of the
+        blocks' input): steps in reverse, re-gathering one step ahead (two
+        at depth 2), each step recomputed from its saved input under
+        ``enable_grad`` and differentiated with ``torch.autograd.grad`` (the
+        schedule is the remat; no ``checkpointing.checkpoint`` around it).
+        Step s's reductions are launched when its backward is queued and
+        waited after step s-1's is, so they move while it runs.
+
+        ``keep`` ``[num_layers]`` gates each layer (PLD), ``rope`` and
+        ``seg`` are those of ``embed_inputs``, each layer keeps its window.
+        ``comm_edge(overlapped)`` (the engine's ``TreeComm.schedule_class``)
+        is entered around the edge launches: the prologue gathers and the
+        last reduction.
+
+        Launches a micro step: the JAX scan gathers each step's parameters
+        twice more than needed to keep one scan body shape (the forward's
+        last slot re-gathers the final step, the backward's slot 0 is dead;
+        two more of each at depth 2). This loop issues neither: ``n`` steps
+        take ``n`` gathers forward, ``n - 1`` backward and ``n``
+        reductions, against JAX's ``n + 1``, ``n`` and ``n`` at depth 1.
+
+        Returns ``(x_out, aux_sum, pullback)``; ``x_out`` and ``aux_sum``
+        carry no graph."""
+        c = self.config
+        L = c.num_layers
+        lps = int(layers_per_step)
+        if lps < 1 or L % lps:
+            raise ValueError(f"layers_per_step={lps} must divide num_layers={L}")
+        n = L // lps
+        depth = int(prefetch_depth)
+        if depth < 1:
+            raise ValueError(f"prefetch_depth={depth} must be >= 1")
+        depth = 1 if n <= 2 else min(depth, 2)
+        edge = comm_edge or (lambda overlapped: contextlib.nullcontext())
+        layers = lambda s: range(s * lps, (s + 1) * lps)
+
+        def bind(s, fulls):
+            saved = []
+            for j, l in enumerate(layers(s)):
+                for name, p in self.blocks[l].named_parameters():
+                    saved.append((p, p.data))
+                    p.data = fulls[j][name]
+            return saved
+
+        def unbind(saved):
+            for p, d in saved:
+                p.data = d
+
+        def unit(s, xx, aux):
+            for l in layers(s):
+                k = None if keep is None else keep[l].to(c.dtype)
+                xx, a = self.block_apply(l, xx, rope, k, seg)
+                aux = aux + (a if k is None else k * a)
+            return xx, aux
+
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        pend = {}
+        with edge(False):   # the prologue: nothing runs yet to hide it
+            for s in range(min(depth, n)):
+                pend[s] = gather(s)
+        acts, aux_sum, last = [], zero, None
+        with torch.no_grad():
+            for s in range(n):
+                full = pend.pop(s).wait()
+                if s + depth < n:
+                    pend[s + depth] = gather(s + depth)
+                acts.append(x)
+                saved = bind(s, full)
+                del full
+                x, aux_sum = unit(s, x, aux_sum)
+                if s < n - 1:
+                    unbind(saved)
+                else:
+                    last = saved
+
+        def pullback(dx: torch.Tensor, daux: Optional[torch.Tensor] = None) -> torch.Tensor:
+            pend = {s: gather(s) for s in range(n - 2, max(n - 2 - depth, -1), -1)}
+            waiting = None
+            for s in range(n - 1, -1, -1):
+                if s == n - 1:
+                    saved = last
+                else:
+                    full = pend.pop(s).wait()
+                    if s - depth >= 0:
+                        pend[s - depth] = gather(s - depth)
+                    saved = bind(s, full)
+                    del full
+                named = self._layer_params(layers(s))
+                xin = acts[s].detach().requires_grad_(True)
+                acts[s] = None
+                with torch.enable_grad():
+                    y, a = unit(s, xin, zero)
+                outs, cots = [y], [dx]
+                if daux is not None and a.requires_grad:
+                    outs.append(a)
+                    cots.append(daux)
+                got = torch.autograd.grad(outs, [xin] + [p for _, p in named], cots,
+                                          allow_unused=True)
+                dx = got[0]
+                grads = [{} for _ in range(lps)]
+                for i, ((name, p), g) in enumerate(zip(named, got[1:])):
+                    grads[i * lps // len(named)][name] = torch.zeros_like(p) if g is None else g
+                unbind(saved)
+                del got, named, saved
+                with edge(False) if s == 0 else contextlib.nullcontext():
+                    h = scatter(s, grads)
+                del grads
+                if waiting is not None:
+                    waiting.wait()
+                waiting = h
+            waiting.wait()
+            return dx
+
+        return x, aux_sum, pullback
+
     def apply(self, input_ids: torch.Tensor,
               layer_mask: Optional[torch.Tensor] = None,
               token_type_ids: Optional[torch.Tensor] = None,
@@ -493,19 +678,7 @@ class TransformerLM(nn.Module):
         Under sequence parallelism ``input_ids`` (and the other ``[B, S]``
         inputs) are this rank's slice of the sequence."""
         c = self.config
-        if c.seq_parallel == "ring" and attention_mask is not None:
-            raise ValueError("ring attention does not support padding masks (attention_mask)")
-        S = input_ids.shape[1]
-        sp, r, group = topo_mod.sequence_parallel()
-        positions = torch.arange(r * S, (r + 1) * S, device=input_ids.device)[None, :]
-        real_before = None
-        if sp > 1 and c.pad_based_positions:
-            real = (input_ids != c.pad_token_id).sum(dim=1).to(torch.int64)
-            counts = dist.all_gather(real[None], group=group)       # [sp, B]
-            real_before = counts[:r].sum(dim=0)[:, None]
-        x = self.embed(input_ids, positions, token_type_ids, real_before)
-        rope = self.rope(positions) if c.position == "rope" else None
-        seg = None if attention_mask is None else attention_mask.to(torch.int32)
+        x, rope, seg = self.embed_inputs(input_ids, token_type_ids, attention_mask)
         remat = c.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, blk in enumerate(self.blocks):

@@ -11,6 +11,11 @@ them over a ``torch.distributed`` group:
   all-to-all, dequantize, local sum);
 - ``fp8_all_gather``, ``fp8_reduce_scatter`` and ``quantized_all_reduce``
   (reduce-scatter then all-gather, both on the low-precision wire);
+- the issue halves ``quantized_all_gather_start``,
+  ``quantized_reduce_scatter_start``, ``fp8_all_gather_start`` and
+  ``fp8_reduce_scatter_start``: quantize and launch, returning a handle
+  whose ``wait()`` dequantizes (the overlap schedule's form; each blocking
+  function is its issue half waited at once);
 - ``quantized_ppermute`` (the ring-attention K/V hop: quantize, permute the
   payload and its scales / zero points, dequantize on arrival; its backward
   permutes the cotangent along the inverse ring at full width, the JAX
@@ -28,8 +33,8 @@ jitted JAX wire bit for bit.
 
 The axis argument of the JAX functions becomes ``group`` (a process group,
 ``None`` for the world). ``ef_quantized_reduce_scatter`` and
-``quantize_with_feedback`` (error feedback, used only by the overlap
-schedule) are not ported: ROADMAP A6.
+``quantize_with_feedback`` (error feedback on the overlap schedule's int8
+reduce-scatter) are not ported: ROADMAP A6.2.
 """
 
 from __future__ import annotations
@@ -63,34 +68,53 @@ def _groups(x: torch.Tensor, group_size: int, keep_dtype: bool = False) -> torch
     return flat.reshape(-1, group_size)
 
 
-def gather_in_row_chunks(gather_one: Callable, x: torch.Tensor, n: int,
-                         n_chunks: int) -> torch.Tensor:
+def gather_in_row_chunks_start(start_one: Callable, x: torch.Tensor, n: int,
+                               n_chunks: int):
     """Split a shard's leading dim into ``n_chunks`` launches of
-    ``gather_one`` (a tiled all-gather over ``n`` members) and interleave
-    the results back into the single-launch layout."""
+    ``start_one`` (a tiled all-gather over ``n`` members, launched); the
+    handle's ``wait()`` interleaves the results back into the single-launch
+    layout."""
     if x.shape[0] % n_chunks:
         raise ValueError(f"n_chunks={n_chunks} must divide the shard's "
                          f"leading dim {x.shape[0]}")
     ck = x.shape[0] // n_chunks
-    parts = [gather_one(x[c * ck:(c + 1) * ck]) for c in range(n_chunks)]
-    stacked = torch.stack([p.reshape((n, ck) + tuple(x.shape[1:])) for p in parts], dim=1)
-    return stacked.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    parts = [start_one(x[c * ck:(c + 1) * ck]) for c in range(n_chunks)]
+
+    def interleave(got):
+        stacked = torch.stack([p.reshape((n, ck) + tuple(x.shape[1:])) for p in got], dim=1)
+        return stacked.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+    return dist.Pending(parts, interleave)
 
 
-def scatter_in_row_chunks(scatter_one: Callable, x: torch.Tensor, n: int,
-                          n_chunks: int) -> torch.Tensor:
+def gather_in_row_chunks(gather_one: Callable, x: torch.Tensor, n: int,
+                         n_chunks: int) -> torch.Tensor:
+    """:func:`gather_in_row_chunks_start` over a blocking ``gather_one``."""
+    return gather_in_row_chunks_start(lambda c: dist.ready(gather_one(c)), x, n,
+                                      n_chunks).wait()
+
+
+def scatter_in_row_chunks_start(start_one: Callable, x: torch.Tensor, n: int,
+                                n_chunks: int):
     """Split a reduce-scatter input ``[n*s0, ...]`` along the destination
-    rows into ``n_chunks`` launches of ``scatter_one``; the output layout
-    matches the single launch."""
+    rows into ``n_chunks`` launches of ``start_one``; the handle's
+    ``wait()`` gives the single launch's layout."""
     s0 = x.shape[0] // n
     if s0 % n_chunks:
         raise ValueError(f"n_chunks={n_chunks} must divide the output's "
                          f"leading dim {s0}")
     ck = s0 // n_chunks
     xr = x.reshape((n, s0) + tuple(x.shape[1:]))
-    parts = [scatter_one(xr[:, c * ck:(c + 1) * ck].reshape((n * ck,) + tuple(x.shape[1:])))
+    parts = [start_one(xr[:, c * ck:(c + 1) * ck].reshape((n * ck,) + tuple(x.shape[1:])))
              for c in range(n_chunks)]
-    return torch.cat(parts, dim=0)
+    return dist.Pending(parts, lambda got: torch.cat(got, dim=0))
+
+
+def scatter_in_row_chunks(scatter_one: Callable, x: torch.Tensor, n: int,
+                          n_chunks: int) -> torch.Tensor:
+    """:func:`scatter_in_row_chunks_start` over a blocking ``scatter_one``."""
+    return scatter_in_row_chunks_start(lambda c: dist.ready(scatter_one(c)), x, n,
+                                       n_chunks).wait()
 
 
 def quantize_blockwise(x: torch.Tensor, num_bits: int = 8, group_size: int = 256,
@@ -174,31 +198,47 @@ def _wire_group_size(n_elems: int, group_size: int, num_bits: int) -> int:
     return gs
 
 
+def quantized_all_gather_start(x: torch.Tensor, group=None, num_bits: int = 8,
+                               group_size: int = 256, n_chunks: int = 1):
+    """The issue half of :func:`quantized_all_gather`: quantize the local
+    shard (the row-quantizer kernel on CUDA), launch the gathers of the
+    payload and of its scales / zero points; the handle's ``wait()``
+    dequantizes."""
+    n = dist.get_world_size(group)
+    if n_chunks > 1:
+        return gather_in_row_chunks_start(
+            lambda c: quantized_all_gather_start(c, group, num_bits, group_size), x, n,
+            n_chunks)
+    gs = _wire_group_size(x.numel(), group_size, num_bits)
+    q, scale, zero = quantize_blockwise(x, num_bits, gs)
+    works = [dist.all_gather_async(q, group=group),
+             dist.all_gather_async(torch.stack([scale, zero], dim=1), group=group)]
+
+    def finish(got):
+        q_g, side = got
+        out = dequantize_blockwise(q_g, side[:, 0].contiguous(), side[:, 1].contiguous(),
+                                   num_bits, gs)
+        padded = -(-x.numel() // gs) * gs
+        out = out.reshape(n, padded)[:, :x.numel()]
+        return out.reshape((x.shape[0] * n,) + tuple(x.shape[1:])).to(x.dtype)
+
+    return dist.Pending(works, finish)
+
+
 def quantized_all_gather(x: torch.Tensor, group=None, num_bits: int = 8,
                          group_size: int = 256, n_chunks: int = 1) -> torch.Tensor:
     """qwZ all-gather: quantize the local shard, all-gather the payload and
     its scales / zero points, dequantize; ``[n * x.shape[0], ...]`` in
     ``x``'s dtype, each member's segment cut at its own group padding."""
-    n = dist.get_world_size(group)
-    if n_chunks > 1:
-        return gather_in_row_chunks(
-            lambda c: quantized_all_gather(c, group, num_bits, group_size), x, n, n_chunks)
-    gs = _wire_group_size(x.numel(), group_size, num_bits)
-    q, scale, zero = quantize_blockwise(x, num_bits, gs)
-    q_g = dist.all_gather(q, group=group)
-    side = dist.all_gather(torch.stack([scale, zero], dim=1), group=group)
-    out = dequantize_blockwise(q_g, side[:, 0].contiguous(), side[:, 1].contiguous(),
-                               num_bits, gs)
-    padded = -(-x.numel() // gs) * gs
-    out = out.reshape(n, padded)[:, :x.numel()]
-    return out.reshape((x.shape[0] * n,) + tuple(x.shape[1:])).to(x.dtype)
+    return quantized_all_gather_start(x, group, num_bits, group_size, n_chunks).wait()
 
 
-def _scatter_wire(x: torch.Tensor, group, gs_req: int, num_bits: int, quantize, dequantize,
-                  out_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """The all-to-all reduce-scatter shared by the int and fp8 wires:
-    quantize each destination chunk (padded at its tail to a group
-    multiple), exchange, dequantize, sum over the sources in rank order."""
+def _scatter_wire_start(x: torch.Tensor, group, gs_req: int, num_bits: int, quantize,
+                        dequantize, out_dtype: Optional[torch.dtype]):
+    """The all-to-all reduce-scatter shared by the int and fp8 wires,
+    launched: quantize each destination chunk (padded at its tail to a
+    group multiple) and launch the exchanges; ``wait()`` dequantizes and
+    sums over the sources in rank order."""
     n = dist.get_world_size(group)
     if x.shape[0] % n:
         raise ValueError(f"reduce-scatter of leading dim {x.shape[0]} over {n} members")
@@ -209,13 +249,41 @@ def _scatter_wire(x: torch.Tensor, group, gs_req: int, num_bits: int, quantize, 
     if pad:
         xr = torch.nn.functional.pad(xr, (0, pad))
     q, side = quantize(xr, gs)
-    q_t = dist.all_to_all(q, group=group)
-    side_t = dist.all_to_all(side, group=group)
-    shard = dequantize(q_t, side_t, gs).reshape(n, chunk + pad)[:, :chunk]
-    out = shard[0]
-    for i in range(1, n):
-        out = out + shard[i]
-    return out.reshape((x.shape[0] // n,) + tuple(x.shape[1:])).to(out_dtype or x.dtype)
+    works = [dist.all_to_all_rows_async(q, group=group),
+             dist.all_to_all_rows_async(side, group=group)]
+
+    def finish(got):
+        q_t, side_t = got
+        shard = dequantize(q_t, side_t, gs).reshape(n, chunk + pad)[:, :chunk]
+        out = shard[0]
+        for i in range(1, n):
+            out = out + shard[i]
+        return out.reshape((x.shape[0] // n,) + tuple(x.shape[1:])).to(out_dtype or x.dtype)
+
+    return dist.Pending(works, finish)
+
+
+def quantized_reduce_scatter_start(x: torch.Tensor, group=None, num_bits: int = 8,
+                                   group_size: int = 256, n_chunks: int = 1,
+                                   out_dtype: Optional[torch.dtype] = None):
+    """The issue half of :func:`quantized_reduce_scatter` (quantize with
+    the row-quantizer kernel on CUDA, launch the exchanges); the handle's
+    ``wait()`` dequantizes and sums."""
+    n = dist.get_world_size(group)
+    if n_chunks > 1:
+        return scatter_in_row_chunks_start(
+            lambda c: quantized_reduce_scatter_start(c, group, num_bits, group_size,
+                                                     out_dtype=out_dtype), x, n, n_chunks)
+
+    def quantize(xr, gs):
+        q, scale, zero = quantize_blockwise(xr, num_bits, gs)
+        return q, torch.stack([scale, zero], dim=1)
+
+    def dequantize(q, side, gs):
+        return dequantize_blockwise(q, side[:, 0].contiguous(), side[:, 1].contiguous(),
+                                    num_bits, gs)
+
+    return _scatter_wire_start(x, group, group_size, num_bits, quantize, dequantize, out_dtype)
 
 
 def quantized_reduce_scatter(x: torch.Tensor, group=None, num_bits: int = 8,
@@ -226,49 +294,52 @@ def quantized_reduce_scatter(x: torch.Tensor, group=None, num_bits: int = 8,
     ``out_dtype`` (default ``x``'s dtype). The payload travels int8 (or
     int4) with per-group scales. A bf16 ``x`` is quantized as it is: the
     result equals that of ``x.float()``, whose copy is never made."""
+    return quantized_reduce_scatter_start(x, group, num_bits, group_size, n_chunks,
+                                          out_dtype).wait()
+
+
+def fp8_reduce_scatter_start(x: torch.Tensor, group=None, group_size: int = 256,
+                             n_chunks: int = 1):
+    """The issue half of :func:`fp8_reduce_scatter`."""
     n = dist.get_world_size(group)
     if n_chunks > 1:
-        return scatter_in_row_chunks(
-            lambda c: quantized_reduce_scatter(c, group, num_bits, group_size,
-                                               out_dtype=out_dtype), x, n, n_chunks)
-
-    def quantize(xr, gs):
-        q, scale, zero = quantize_blockwise(xr, num_bits, gs)
-        return q, torch.stack([scale, zero], dim=1)
-
-    def dequantize(q, side, gs):
-        return dequantize_blockwise(q, side[:, 0].contiguous(), side[:, 1].contiguous(),
-                                    num_bits, gs)
-
-    return _scatter_wire(x, group, group_size, num_bits, quantize, dequantize, out_dtype)
+        return scatter_in_row_chunks_start(
+            lambda c: fp8_reduce_scatter_start(c, group, group_size), x, n, n_chunks)
+    return _scatter_wire_start(x, group, group_size, 8, quantize_blockwise_fp8,
+                               lambda q, scale, gs: dequantize_blockwise_fp8(q, scale), None)
 
 
 def fp8_reduce_scatter(x: torch.Tensor, group=None, group_size: int = 256,
                        n_chunks: int = 1) -> torch.Tensor:
     """:func:`quantized_reduce_scatter` on the scaled-fp8 wire (one fp32
     scale a group, no zero point)."""
+    return fp8_reduce_scatter_start(x, group, group_size, n_chunks).wait()
+
+
+def fp8_all_gather_start(x: torch.Tensor, group=None, group_size: int = 256,
+                         n_chunks: int = 1):
+    """The issue half of :func:`fp8_all_gather`."""
     n = dist.get_world_size(group)
     if n_chunks > 1:
-        return scatter_in_row_chunks(
-            lambda c: fp8_reduce_scatter(c, group, group_size), x, n, n_chunks)
-    return _scatter_wire(x, group, group_size, 8, quantize_blockwise_fp8,
-                         lambda q, scale, gs: dequantize_blockwise_fp8(q, scale), None)
+        return gather_in_row_chunks_start(lambda c: fp8_all_gather_start(c, group, group_size),
+                                          x, n, n_chunks)
+    gs = max(1, min(group_size, x.numel()))
+    q, scale = quantize_blockwise_fp8(x, gs)
+    works = [dist.all_gather_async(q, group=group), dist.all_gather_async(scale, group=group)]
+
+    def finish(got):
+        out = dequantize_blockwise_fp8(*got)
+        padded = -(-x.numel() // gs) * gs
+        out = out.reshape(n, padded)[:, :x.numel()]
+        return out.reshape((x.shape[0] * n,) + tuple(x.shape[1:])).to(x.dtype)
+
+    return dist.Pending(works, finish)
 
 
 def fp8_all_gather(x: torch.Tensor, group=None, group_size: int = 256,
                    n_chunks: int = 1) -> torch.Tensor:
     """:func:`quantized_all_gather` on the scaled-fp8 wire."""
-    n = dist.get_world_size(group)
-    if n_chunks > 1:
-        return gather_in_row_chunks(lambda c: fp8_all_gather(c, group, group_size),
-                                    x, n, n_chunks)
-    gs = max(1, min(group_size, x.numel()))
-    q, scale = quantize_blockwise_fp8(x, gs)
-    out = dequantize_blockwise_fp8(dist.all_gather(q, group=group),
-                                   dist.all_gather(scale, group=group))
-    padded = -(-x.numel() // gs) * gs
-    out = out.reshape(n, padded)[:, :x.numel()]
-    return out.reshape((x.shape[0] * n,) + tuple(x.shape[1:])).to(x.dtype)
+    return fp8_all_gather_start(x, group, group_size, n_chunks).wait()
 
 
 def quantized_all_reduce(x: torch.Tensor, group=None, num_bits: int = 8,

@@ -7,9 +7,12 @@ data_parallel_size``, ``:293-326``), ``optimizer``, ``scheduler``,
 ``bf16``, ``fp16`` (loss-scale fields), ``gradient_clipping``,
 ``data_types`` (``grad_accum_dtype``, ``optimizer_moment_dtype``,
 ``optimizer_moment_sq_dtype``), ``fp16_master_weights_and_grads``,
-``zero_optimization`` (``runtime/zero/config.py``: the stage and the ZeRO++
-knobs ``zero_quantized_weights`` / ``zero_quantized_gradients``),
+``zero_optimization`` (``runtime/zero/config.py``: the stage, the ZeRO++
+knobs ``zero_quantized_weights`` / ``zero_quantized_gradients``,
+``overlap_comm`` and the bucket sizes),
 ``comm_transport`` (the transport planner's policy, ``comm/comm.py``),
+``overlap_plan`` (default true, JAX ``:226``: false pins the overlap
+schedule to the identity plan, ``runtime/overlap_planner.py``),
 ``checkpoint`` (``async_save``, ``keep_last_n``),
 ``activation_checkpointing`` (``ActivationCheckpointingConfig``: stored; as
 in JAX only its ``policy`` acts, through
@@ -20,9 +23,7 @@ counts the dense gradient group (``DENSE_GRAD_AXES``, ``:292-300``), though a
 global batch's rows split over ``data`` alone. On a world of one,
 ZeRO partitions nothing, exactly as in JAX. Keys for features the port
 does not cover yet raise ``NotImplementedError`` naming their ROADMAP
-item: other topology axes, hpZ, MiCS, the layer-pipelined overlap schedule
-(``overlap_comm`` true with ZeRO++, or written true at stage 3), error
-feedback, offload, the watchdog's ``checkpoint.escalation_*`` keys, and
+item: other topology axes, hpZ, MiCS, error feedback (A6.2), offload, the watchdog's ``checkpoint.escalation_*`` keys, and
 ``comm_transport.hierarchical`` set to other than its default (the
 algorithm is chosen only where a second data axis is live).
 ``comm_transport.activation_width`` steers the Ulysses exchange (the MoE
@@ -39,7 +40,7 @@ from typing import Any, Dict, Optional
 
 from ..comm import comm as dist
 from .topology import _UNPORTED_AXES, LIVE_AXES
-from .zero.config import OVERLAP_SCHEDULE, DeepSpeedZeroConfig, validate_zeropp
+from .zero.config import DeepSpeedZeroConfig, validate_zeropp
 
 
 class DeepSpeedConfigError(Exception):
@@ -164,8 +165,8 @@ def _reject_unported(pd: Dict[str, Any]) -> None:
     transport = pd.get("comm_transport") or {}
     if transport.get("error_feedback"):
         raise NotImplementedError("comm_transport.error_feedback is not ported: ROADMAP "
-                                  "A6 (error feedback rides the overlap schedule, "
-                                  "`runtime/zero/overlap.py`)")
+                                  "A6.2 (error feedback on the overlap schedule's int8 "
+                                  "reduce-scatter, `runtime/zero/overlap.py`)")
     for key, item in _TRANSPORT_UNPORTED.items():
         if key in transport and transport[key] != dist.TRANSPORT_DEFAULTS[key]:
             raise NotImplementedError(f"comm_transport.{key}={transport[key]!r} is not "
@@ -176,14 +177,9 @@ def _reject_unported(pd: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"zero_optimization.{key} is not ported: ROADMAP {item}")
     try:
-        zc = DeepSpeedZeroConfig.from_dict(zero)
+        DeepSpeedZeroConfig.from_dict(zero)
     except ValueError as e:
         raise DeepSpeedConfigError(str(e)) from None
-    if zc.overlap_comm and (zc.zeropp or (zc.stage == 3 and zc.overlap_comm_explicit)):
-        raise NotImplementedError(
-            f"zero_optimization.overlap_comm true{' with ZeRO++' if zc.zeropp else ''} is "
-            f"not ported: ROADMAP {OVERLAP_SCHEDULE}; set overlap_comm false for the "
-            f"barrier schedule")
 
 
 class DeepSpeedConfig:
@@ -222,6 +218,7 @@ class DeepSpeedConfig:
         except ValueError as e:
             raise DeepSpeedConfigError(str(e)) from None
         self.comm_transport: Dict[str, Any] = dict(pd.get("comm_transport") or {})
+        self.overlap_plan: bool = bool(pd.get("overlap_plan", True))
         self.topology: Dict[str, int] = dict(pd.get("topology") or {})
         if data_parallel_size is None:
             seq = self.topology.get("seq", 1)

@@ -24,8 +24,10 @@ kernel as it is: its cast to fp32 is exact and happens in the kernel's
 load, so the fp32 gradient tree of the JAX step never exists in memory.
 
 On a world of more than one rank, ``DataParallelEngine`` (below) runs the
-same step data-parallel with ZeRO stages 0-3 and the ZeRO++ int8 wire, and
-sequence-parallel over a ``seq`` axis (Ulysses or ring attention).
+same step data-parallel with ZeRO stages 0-3 and the ZeRO++ int8 wire, on
+the barrier schedule or the layer-pipelined overlap schedule as the JAX
+engine routes it (``overlap_route``), and sequence-parallel over a ``seq``
+axis (Ulysses or ring attention).
 
 ``save_checkpoint`` / ``load_checkpoint`` (``:3135``, ``:3557``) write and
 read the JAX engine's tags (``checkpoint/store.py``): the same keys,
@@ -36,9 +38,9 @@ a world of more than one, each rank writing the pieces it owns.
 a worker thread; ``checkpoint.keep_last_n`` retires old tags after each
 commit.
 
-Not ported yet: the layer-pipelined overlap schedule, hpZ / MiCS and meshes
-with other axes (A6), offload (A9), pipeline (A10); ``runtime/config.py``
-raises for them. A model with MoE layers trains on one rank (its expert
+Not ported yet: hpZ / MiCS and meshes with other axes (A6), error feedback
+(A6.2), offload (A9), pipeline (A10); ``runtime/config.py`` raises for
+them. A model with MoE layers trains on one rank (its expert
 weights ``[E, F, H]`` / ``[E, H, F]`` are leaves like any other, bucketed,
 clipped and stepped whole); on a world of more than one rank it raises
 (``MOE_DATA_PARALLEL``).
@@ -67,7 +69,9 @@ from .lr_schedules import build_lr_schedule
 from .optimizers import build_optimizer
 from ..utils.groups import DATA_AXIS
 from .topology import MeshTopology, set_topology
-from .zero.partition import ZeroPartitionPlan, shard_of
+from .overlap_planner import PLACEMENT_SCAN_CARRY, ZEROPP_ENTRY, plan_for
+from .zero.overlap import build_tree_comm
+from .zero.partition import ZeroPartitionPlan, shard_dim, shard_of
 
 logger = logging.getLogger(__name__)
 
@@ -131,6 +135,11 @@ class DeepSpeedEngine:
     # and before each forward, as the JAX engine does: none on one rank, so
     # a model run here never sees an axis that an earlier engine published
     topology: Optional[MeshTopology] = None
+    # whether micro steps run the layer-pipelined overlap schedule, and why
+    # not where it was asked for (``DataParallelEngine``; one rank has no
+    # collectives to overlap)
+    _overlap_active = False
+    _overlap_fallback = ""
 
     def __init__(self, model, config: Optional[DeepSpeedConfig] = None,
                  config_dict: Optional[Dict[str, Any]] = None, seed: int = 42,
@@ -568,9 +577,68 @@ class DeepSpeedEngine:
         return tag, client_state
 
 
+# what a model needs for the overlap schedule (JAX ``_zero_overlap_eligibility``)
+OVERLAP_MODEL_HOOKS = ("embed", "block_apply", "head", "scan_blocks_pipelined",
+                       "derive_labels", "head_loss", "combine_aux")
+
+
+def overlap_route(zc, model, shapes: Dict[str, Tuple[int, ...]], n_dp: int,
+                  pure_data: bool = True) -> Tuple[bool, bool, str]:
+    """``(stage3_overlap, active, fallback)``: the JAX engine's dispatch of
+    a micro step (``engine.py:280-289``, ``_build_zeropp_micro`` and
+    ``_zero_overlap_eligibility``, ``:1338-1380``). ZeRO++ takes the overlap
+    schedule when ``overlap_comm`` is true (the stage-3 default); plain
+    stage 3 only when ``overlap_comm: true`` is written and the topology is
+    pure data parallelism (``pure_data``); everything else keeps the barrier
+    schedule. A model without the schedule's hooks, or a block leaf that
+    JAX's stacked ``[L, ...]`` leaf would shard over its layer dim, falls
+    back to the barrier schedule with JAX's reason."""
+    stage3_overlap = (not zc.zeropp and zc.stage == 3 and zc.overlap_comm
+                      and zc.overlap_comm_explicit and pure_data)
+    if not (zc.zeropp or stage3_overlap) or not zc.overlap_comm:
+        return stage3_overlap, False, ""
+    for attr in OVERLAP_MODEL_HOOKS:
+        if not hasattr(model, attr):
+            return stage3_overlap, False, (f"model {type(model).__name__} lacks .{attr} "
+                                           "(TransformerLM family required)")
+    L = model.config.num_layers
+    for name, shape in shapes.items():
+        if not name.startswith("blocks.0."):
+            continue
+        stacked = jax_leaf(name, len(shape)).shape(shape, L)
+        for dim in (shard_dim(stacked, n_dp) if zc.stage >= 2 else None,
+                    shard_dim(stacked, n_dp, zc.stage3_param_persistence_threshold)
+                    if zc.stage >= 3 else None):
+            if dim == 0:
+                spec = ", ".join(["'data'"] + ["None"] * (len(stacked) - 1))
+                return stage3_overlap, False, (f"block leaf sharded over the layer dim "
+                                               f"(PartitionSpec({spec}))")
+    return stage3_overlap, True, ""
+
+
+def _jax_order(shapes: Dict[str, Tuple[int, ...]]) -> List[str]:
+    """The names of ``shapes`` in the flatten order of their JAX tree (its
+    sorted keys)."""
+    return sorted(shapes, key=lambda k: tuple(jax_leaf(k, len(shapes[k])).path.split("/")))
+
+
+@dataclasses.dataclass
+class _OverlapSchedule:
+    """What ``DataParallelEngine._build_overlap`` sets up once."""
+    plan: Any
+    lps: int
+    depth: int
+    blk_names: List[str]      # a block's parameter names, in JAX flatten order
+    blk_comm: Any
+    rest_comms: Tuple[Any, ...]   # (embed, head) under the edge split, else (rest,)
+    split: bool
+
+
 class DataParallelEngine(DeepSpeedEngine):
     """Data-parallel training over the ``torch.distributed`` world, ZeRO
-    stages 0-3 and the ZeRO++ int8 wire, on the barrier schedule.
+    stages 0-3 and the ZeRO++ int8 wire, on the barrier schedule (below)
+    or, where ``overlap_route`` sends it, on the layer-pipelined overlap
+    schedule (``_micro_overlap``).
 
     Counterpart of the JAX engine's explicit micro step
     (``_zeropp_micro_env:1319``, ``_build_zeropp_micro_barrier:1383``) and
@@ -655,6 +723,70 @@ class DataParallelEngine(DeepSpeedEngine):
             torch.cuda.set_device(device)
         super().__init__(model, config=config, seed=seed, init_params=init_params,
                          device=device)
+        self._stage3_overlap, self._overlap_active, self._overlap_fallback = overlap_route(
+            config.zero_config, model, self.zero_plan.shapes, self.n_dp,
+            pure_data=self.sp == 1)
+        if self._overlap_fallback and self.rank == 0:
+            logger.info(f"zero overlap_comm: falling back to the barrier schedule "
+                        f"({self._overlap_fallback})")
+        self._sched = self._build_overlap() if self._overlap_active else None
+
+    def _build_overlap(self) -> _OverlapSchedule:
+        """The overlap schedule's plan and launch sets (JAX
+        ``_build_zeropp_micro_overlap``, ``engine.py:1548-1640``): the
+        planner's plan, the block ``TreeComm`` over one step's bundle of
+        layers, and the rest leaves in one ``TreeComm``, or split into an
+        embed side and a head side when the plan says ``split_edge_leaves``."""
+        zc, c = self.config.zero_config, self.model.config
+        plan = plan_for(ZEROPP_ENTRY, config_flag=self.config.overlap_plan)
+        planned = plan.placement == PLACEMENT_SCAN_CARRY
+        ag_bucket = plan.allgather_bucket or zc.allgather_bucket_size
+        rs_bucket = plan.reduce_bucket or zc.reduce_bucket_size
+        L = c.num_layers
+        lps = 2 if c.remat_policy == "alternating" and L % 2 == 0 and L >= 2 else 1
+        shapes = self.zero_plan.shapes
+        dt = self.param_dtype
+
+        def tree_comm(names, shape_of, dim_of, overlapped, name, defer=False):
+            return build_tree_comm(
+                names, [dim_of(self.param_dims, k) for k in names],
+                [dim_of(self.grad_dims, k) for k in names], [shape_of(k) for k in names],
+                [dt] * len(names), n_dp=self.n_dp, quant_weights=zc.zero_quantized_weights,
+                quant_grads=zc.zero_quantized_gradients, allgather_bucket=ag_bucket,
+                reduce_bucket=rs_bucket, overlapped=overlapped, name=name,
+                defer_replicated=defer)
+
+        blk = "blocks.0."
+        blk_names = [k[len(blk):] for k in _jax_order({k: s for k, s in shapes.items()
+                                                       if k.startswith(blk)})]
+        # a bundle leaf is [lps, *leaf]: its shard dim one further in
+        bundle_dim = lambda dims, k: None if dims[blk + k] is None else dims[blk + k] + 1
+        blk_comm = tree_comm(blk_names, lambda k: (lps,) + shapes[blk + k], bundle_dim, True,
+                             "blocks", defer=planned and plan.defer_replicated)
+        rest = _jax_order({k: s for k, s in shapes.items() if not k.startswith("blocks.")})
+        embed_keys = getattr(self.model, "embed_param_keys", None)
+        head = ([k for k in rest if k.split(".")[0] not in embed_keys]
+                if embed_keys is not None else [])
+        split = planned and plan.split_edge_leaves and bool(head)
+        leaf = lambda dims, k: dims[k]
+        if split:
+            rest_comms = (tree_comm([k for k in rest if k not in head], shapes.get, leaf, False,
+                                    "rest-embed"),
+                          tree_comm(head, shapes.get, leaf, True, "rest-head"))
+        else:
+            rest_comms = (tree_comm(rest, shapes.get, leaf, False, "rest"),)
+        oversize = blk_comm.oversize + sum((cm.oversize for cm in rest_comms), [])
+        if oversize:
+            logger.warning(f"zero bucket plan: {len(oversize)} leaves exceed allgather/reduce "
+                           f"bucket sizes even after splitting (first: {oversize[0]}); raise "
+                           f"the bucket knobs or accept single oversized launches")
+        if self.rank == 0:
+            logger.info(f"zero overlap schedule ({'plan: ' + plan.summary() if planned else 'hand'}"
+                        f"): {L} layers x {lps}/step; {blk_comm.plan_summary()}; "
+                        + "; ".join(cm.plan_summary() for cm in rest_comms))
+        return _OverlapSchedule(plan=plan, lps=lps, depth=plan.prefetch_depth if planned else 1,
+                                blk_names=blk_names, blk_comm=blk_comm, rest_comms=rest_comms,
+                                split=split)
 
     # -- state -------------------------------------------------------------------
     def _init_state(self, seed: int, init_params) -> None:
@@ -789,17 +921,112 @@ class DataParallelEngine(DeepSpeedEngine):
         batch = self._prepare_batch(batch)
         scale = float(np.float32(self.loss_scale_state["cur_scale"])
                       / np.float32(self.gradient_accumulation_steps))
-        self._gather_params()
-        loss = self._local_loss(batch)
-        (loss * scale).backward()
-        with torch.no_grad():
-            for k, p in self.params.items():
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                self.grad_acc[k] += self._scatter_grad(k, g).to(self.grad_dtype)
+        if self._overlap_active:
+            loss = self._micro_overlap(batch, scale)
+        else:
+            self._gather_params()
+            loss = self._local_loss(batch)
+            (loss * scale).backward()
+            with torch.no_grad():
+                for k, p in self.params.items():
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                    self.grad_acc[k] += self._scatter_grad(k, g).to(self.grad_dtype)
         self._zero_param_grads()
         self._release_params()
         self._cached_loss = self._global_loss(loss)
         return self._cached_loss
+
+    def _held(self, k: str) -> torch.Tensor:
+        """What this rank holds of leaf ``k``: its stage-3 shard, or the
+        whole param."""
+        return self.param_shards[k] if k in self.param_shards else self.params[k].detach()
+
+    def _bind_rest(self, comm, handle) -> None:
+        for k, full in zip(comm.names, handle.wait()):
+            self.params[k].data = full
+
+    def _accumulate(self, names, grads) -> None:
+        with torch.no_grad():
+            for k, g in zip(names, grads):
+                self.grad_acc[k] += g.to(self.grad_dtype)
+
+    def _micro_overlap(self, batch: Dict[str, torch.Tensor], scale: float) -> torch.Tensor:
+        """One micro step on the layer-pipelined overlap schedule (JAX
+        ``_build_zeropp_micro_overlap``'s ``local_micro``, ``engine.py:
+        1680-1800``); returns this rank's loss.
+
+        The rest leaves are gathered first (head side, then embed side,
+        under the edge split), the embedding runs with its graph, the blocks
+        run through ``TransformerLM.scan_blocks_pipelined`` with the block
+        ``TreeComm`` gathering and reducing one step's bundle at a time,
+        then the head's loss and its backward; the head side's gradients
+        are reduced before the blocks' backward (which hides them), the
+        embed side's after the embedding's backward, and the deferred
+        replicated block gradients in one fused all-reduce at the end. Each
+        reduced shard is added to the accumulation buffer, as the barrier
+        schedule does; the loss scale is applied to the loss, as there."""
+        sch, model = self._sched, self.model
+        lps, blk, names = sch.lps, sch.blk_comm, sch.blk_names
+        labels = model.derive_labels(batch)
+        rest_comms = sch.rest_comms
+        handles = [cm.gather([self._held(k) for k in cm.names]) for cm in rest_comms[::-1]]
+        self._bind_rest(rest_comms[0], handles[-1])   # the embed side (or all the rest)
+        deferred = []
+
+        def gather(s):
+            layers = range(s * lps, (s + 1) * lps)
+            held = [[self._held(f"blocks.{l}.{k}") for l in layers] for k in names]
+            h = blk.gather([t[0].unsqueeze(0) if lps == 1 else torch.stack(t) for t in held])
+            return dist.Pending([h], lambda r: [{k: r[0][i][j] for i, k in enumerate(names)}
+                                                for j in range(lps)])
+
+        def scatter(s, grads):
+            gs = [grads[0][k].unsqueeze(0) if lps == 1 else torch.stack([g[k] for g in grads])
+                  for k in names]
+            h = blk.scatter(gs)
+
+            def accumulate(r):
+                for i, k in enumerate(names):
+                    for j, l in enumerate(range(s * lps, (s + 1) * lps)):
+                        if i in blk.deferred_leaves:
+                            deferred.append((f"blocks.{l}.{k}", r[0][i][j]))
+                        else:
+                            self._accumulate([f"blocks.{l}.{k}"], [r[0][i][j]])
+            return dist.Pending([h], accumulate)
+
+        x0, rope, seg = model.embed_inputs(batch["input_ids"], batch.get("token_type_ids"),
+                                           batch.get("attention_mask"))
+        x_out, aux_sum, pullback = model.scan_blocks_pipelined(
+            x0.detach(), rope, seg, gather=gather, scatter=scatter,
+            keep=batch.get("layer_mask"), layers_per_step=lps, prefetch_depth=sch.depth,
+            comm_edge=blk.schedule_class)
+        if sch.split:
+            self._bind_rest(rest_comms[1], handles[0])
+        x_out.requires_grad_(True)
+        loss = model.combine_aux(model.head_loss(x_out, labels, extra_mask=batch.get("loss_mask")),
+                                 aux_sum)
+        (loss * scale).backward()
+        # d(objective)/d(aux), from combine_aux itself (None: the aux is unused)
+        a = torch.zeros((), dtype=torch.float32, device=x0.device, requires_grad=True)
+        objective = model.combine_aux(torch.zeros_like(a), a)
+        daux = (torch.autograd.grad(objective, a)[0] * scale if objective.requires_grad
+                else None)
+        grad_of = lambda k: (self.params[k].grad if self.params[k].grad is not None
+                             else torch.zeros_like(self.params[k]))
+        if sch.split:   # the head side's reductions hide under the blocks' backward
+            head_comm = rest_comms[1]
+            head_red = head_comm.scatter([grad_of(k) for k in head_comm.names])
+        dx0 = pullback(x_out.grad, daux)
+        x0.backward(dx0)
+        last = rest_comms[0]
+        self._accumulate(last.names, last.scatter([grad_of(k) for k in last.names]).wait())
+        if sch.split:
+            self._accumulate(head_comm.names, head_red.wait())
+        if deferred:
+            with blk.schedule_class(False):
+                self._accumulate([k for k, _ in deferred],
+                                 blk.flush_deferred([g for _, g in deferred]))
+        return loss
 
     # -- apply step ---------------------------------------------------------------
     def _overflow(self, grads: Dict[str, torch.Tensor]) -> bool:
@@ -846,7 +1073,8 @@ class DataParallelEngine(DeepSpeedEngine):
 
     # -- checkpoints: each rank writes and reads the pieces it owns --------------------
     def _tag_has_grad_acc(self) -> bool:
-        return self.gradient_accumulation_steps > 1 or self.config.zero_config.zeropp
+        return (self.gradient_accumulation_steps > 1 or self.config.zero_config.zeropp
+                or self._stage3_overlap)
 
     def _rank_and_world(self) -> Tuple[int, int]:
         return self.rank, self.n_dp

@@ -43,9 +43,9 @@ _FUSED = ("adam", "adamw", "muadam", "muadamw", "lamb", "lion")
 _ADAM_MODE = {"adam": "adam", "muadam": "adam", "adamw": "adamw", "muadamw": "adamw",
               "lamb": "lamb"}
 _NOT_PORTED = {
-    "onebit_adam": "ROADMAP A6 (1-bit optimizers need the distributed step)",
-    "onebit_lamb": "ROADMAP A6 (1-bit optimizers need the distributed step)",
-    "zero_one_adam": "ROADMAP A6 (1-bit optimizers need the distributed step)",
+    "onebit_adam": "ROADMAP A6.3 (1-bit optimizers need the distributed step)",
+    "onebit_lamb": "ROADMAP A6.3 (1-bit optimizers need the distributed step)",
+    "zero_one_adam": "ROADMAP A6.3 (1-bit optimizers need the distributed step)",
 }
 
 

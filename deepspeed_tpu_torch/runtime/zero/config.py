@@ -3,7 +3,11 @@
 Counterpart of ``deepspeed_tpu/runtime/zero/config.py``, reduced to the
 fields the data-parallel engine reads: ``stage``; ``overlap_comm`` and
 whether the user wrote it (``overlap_comm_explicit``, ``:101-114``: the
-default is true at stage 3); ``stage3_param_persistence_threshold``; the ZeRO++ knobs
+default is true at stage 3), which route a micro step to the layer-pipelined
+overlap schedule (``runtime/zero/overlap.py``) or the barrier schedule;
+``reduce_bucket_size`` and ``allgather_bucket_size`` (element counts, the
+overlap schedule's fusion and split bound, ``:70-72``);
+``stage3_param_persistence_threshold``; the ZeRO++ knobs
 ``zero_quantized_weights`` (qwZ), ``zero_quantized_gradients`` (qgZ) and
 ``zero_hpz_partition_size``; ``mics_shard_size``. Other keys of the JAX
 model are accepted and ignored, except those the port does not cover,
@@ -18,15 +22,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-OVERLAP_SCHEDULE = ("A6: the layer-pipelined overlap schedule, "
-                    "`runtime/zero/overlap.py`")
-
-
 @dataclasses.dataclass(frozen=True)
 class DeepSpeedZeroConfig:
     stage: int = 0
     overlap_comm: bool = False
     overlap_comm_explicit: bool = False
+    reduce_bucket_size: int = int(5e8)
+    allgather_bucket_size: int = int(5e8)
     stage3_param_persistence_threshold: int = int(1e5)
     zero_quantized_weights: bool = False
     zero_quantized_gradients: bool = False
@@ -52,8 +54,8 @@ class DeepSpeedZeroConfig:
 
 
 def validate_zeropp(zc: DeepSpeedZeroConfig, one_bit: bool = False) -> None:
-    """The JAX engine's ZeRO++ checks (hpZ and the overlap schedule, which
-    the port does not cover, raise earlier, in ``runtime/config.py``)."""
+    """The JAX engine's ZeRO++ checks (hpZ, which the port does not cover,
+    raises earlier, in ``runtime/config.py``)."""
     if not zc.zeropp:
         return
     if zc.stage < 2:

@@ -16,11 +16,17 @@ master and moments at stage >= 1.
 Rank r's shard of a leaf sharded over dim d is the slice
 ``[r * s, (r + 1) * s)`` of dim d, s = size / n: what the JAX mesh
 places on the r-th device of the data axis.
+
+``BucketEntry`` and ``plan_comm_buckets`` (``:67-127``) plan the overlap
+schedule's launches (``runtime/zero/overlap.py``): small leaves fused into
+one flat collective, oversize leaves split into chunks. Pure Python, the
+JAX function line for line.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +48,72 @@ def dp_axes_in(spec: Sequence) -> Tuple[Optional[int], Tuple[str, ...]]:
         if dp:
             return dim, dp
     return None, ()
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketEntry:
+    """One collective launch of the overlap schedule: several small leaves
+    fused into one flat gather / scatter, or one big leaf split into
+    ``chunks`` pipelined launches."""
+    leaves: Tuple[int, ...]   # leaf indices (flatten order) in this launch
+    chunks: int = 1           # >1 only for single-leaf entries
+
+
+def plan_comm_buckets(sizes: Sequence[int], keys: Sequence[Any],
+                      extents: Sequence[Optional[int]], bucket_elems: int,
+                      max_chunks: int = 16) -> Tuple[List[BucketEntry], List[int]]:
+    """The bucket plan of one launch set (gathers or reductions) over a
+    leaf list, in flatten order.
+
+    ``sizes``: full element counts. ``keys``: fuse-compatibility key a
+    leaf (axes and dtype); only leaves of one key share a launch.
+    ``extents``: the shard's leading extent with the dp dim moved to front
+    (chunk bounds divide it); None marks a replicated leaf, which never
+    fuses or chunks.
+
+    A leaf of ``size >= bucket_elems`` stands alone, split into the smallest
+    divisor of its extent (at most ``max_chunks``) that brings each chunk
+    under the bucket; smaller leaves pack greedily, per key, into fused
+    launches that stay under it. Returns ``(entries, oversize)``:
+    ``oversize`` lists the leaves still above the bucket after the best
+    split."""
+    bucket = int(bucket_elems)
+    entries: List[BucketEntry] = []
+    oversize: List[int] = []
+    open_groups: dict = {}  # key -> [idx list, total elems]
+
+    def close(key):
+        g = open_groups.pop(key, None)
+        if g:
+            entries.append(BucketEntry(leaves=tuple(g[0])))
+
+    for i, (sz, key, ext) in enumerate(zip(sizes, keys, extents)):
+        if ext is None or bucket <= 0:
+            entries.append(BucketEntry(leaves=(i,)))
+            continue
+        if sz >= bucket:
+            chunks = 1
+            for c in range(1, min(int(ext), max_chunks) + 1):
+                if ext % c == 0:
+                    chunks = c
+                    if sz / c <= bucket:
+                        break
+            if sz / chunks > bucket:
+                oversize.append(i)
+            entries.append(BucketEntry(leaves=(i,), chunks=chunks))
+            continue
+        g = open_groups.get(key)
+        if g is not None and g[1] + sz > bucket:
+            close(key)
+            g = None
+        if g is None:
+            open_groups[key] = [[i], sz]
+        else:
+            g[0].append(i)
+            g[1] += sz
+    for key in list(open_groups):
+        close(key)
+    return entries, oversize
 
 
 def shard_dim(shape: Sequence[int], n: int, min_size: int = 0) -> Optional[int]:

@@ -4,8 +4,9 @@
   ``ZeroPartitionPlan`` on the same shapes, over world sizes, stages and the
   persistence threshold;
 - the config: the ZeRO++ rules, the batch resolution with a data-parallel
-  size, and every configuration outside the slice raising with its ROADMAP
-  item;
+  size, every configuration outside the slice raising with its ROADMAP
+  item, and the overlap schedule's keys routed as the JAX engine routes
+  them (the schedule itself: ``test_torch_zero_overlap.py``);
 - the engine at world 2 on gloo (two child processes that import only the
   port; a fresh ``file://`` rendezvous in ``tmp_path`` and a timeout on the
   run) against the JAX engine on a 2-device mesh (``MeshTopology(
@@ -117,15 +118,11 @@ def test_topology_rows_and_axes():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("zero_optimization", {"stage": 3, "zero_quantized_weights": True}, "A6: the layer-pipelined"),
-    ("zero_optimization", {"stage": 2, "zero_quantized_gradients": True, "overlap_comm": True},
-     "A6: the layer-pipelined"),
-    ("zero_optimization", {"stage": 3, "overlap_comm": True}, "A6: the layer-pipelined"),
     ("zero_optimization", {"stage": 3, "zero_hpz_partition_size": 2, "overlap_comm": False},
      "A6 \\(hpZ"),
     ("zero_optimization", {"stage": 3, "mics_shard_size": 2}, "A6 \\(MiCS"),
     ("zero_optimization", {"stage": 3, "offload_param": {"device": "cpu"}}, "A9"),
-    ("comm_transport", {"error_feedback": True}, "A6 \\(error feedback"),
+    ("comm_transport", {"error_feedback": True}, "A6.2 \\(error feedback"),
     ("comm_transport", {"hierarchical": False}, "A6 \\(the algorithm"),
     ("topology", {"data": 2, "model": 2}, "A6 \\(tensor"),
     ("topology", {"expert": 2}, "A7"),
@@ -135,6 +132,38 @@ def test_topology_rows_and_axes():
 def test_configs_outside_the_slice_raise(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.DeepSpeedConfig({key: value})
+
+
+# keys that raised until the overlap schedule's slice, and what they do now
+@pytest.mark.parametrize("zero", [{"stage": 3, "zero_quantized_weights": True},
+                                  {"stage": 2, "zero_quantized_gradients": True,
+                                   "overlap_comm": True},
+                                  {"stage": 3, "overlap_comm": True}])
+def test_overlap_slice_keys_are_accepted(zero):
+    """The JAX default ZeRO++ config, ZeRO++ at stage 2 with ``overlap_comm``
+    and plain stage 3 with ``overlap_comm: true`` written build, and route
+    a world of 2 to the overlap schedule as the JAX engine does: its
+    ``_explicit_micro``, ``overlap_comm`` and eligibility (the micro step it
+    builds at the first step takes the schedule when all three hold)."""
+    from deepspeed_tpu_torch.models import llama_model
+    from deepspeed_tpu_torch.runtime.engine import overlap_route
+    cfg = deepspeed_tpu_torch.DeepSpeedConfig({"zero_optimization": zero,
+                                              "topology": {"data": 2}})
+    model = llama_model("llama2-tiny")
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    stage3_overlap, active, reason = overlap_route(cfg.zero_config, model, shapes, 2)
+    jtopo.reset()
+    try:
+        topo = MeshTopology(TopologyConfig(data=2), devices=jax.devices()[:2])
+        eng, *_ = deepspeed_tpu.initialize(model=jax_llama("llama2-tiny"), topology=topo, config={
+            "zero_optimization": zero, "train_micro_batch_size_per_gpu": 1})
+        jreason = eng._zero_overlap_eligibility(eng.zero_plan.grad_spec_tree())
+        want = eng._explicit_micro and eng.config.zero_config.overlap_comm and not jreason
+        assert (stage3_overlap, active, reason) == (eng._stage3_overlap, want, jreason)
+        assert active
+    finally:
+        jtopo.reset()
+        jcomm.reset_transport()
 
 
 # keys that raised until the sequence-parallel slice, and what they do now
