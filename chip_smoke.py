@@ -666,7 +666,7 @@ QUANT_SWEEP_PAIRS, QUANT_SWEEP_ROWS = 10 ** 8, 65536
 # card
 ZERO_BACKEND = "gloo"
 ZERO_WORLD, ZERO_WARMUP, ZERO_STEPS = 2, 1, 3
-ZERO_TIMEOUT = 600     # seconds for the ranks: a hung rank fails the run
+ZERO_TIMEOUT = 900     # seconds for the ranks: a hung rank fails the run
 ZERO_CONFIG = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True},
                "gradient_clipping": 1.0,
                "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}},
@@ -696,6 +696,46 @@ INT8_GROUP, INT8_SLACK = 256, 1e-4   # the wire's group; fp32 rounding of x / sc
 # loads them at stage 1 (ZERO_STAGE1_CONFIG) and on one device
 CKPT_STEPS, CKPT_KEEP, CKPT_DISK_MARGIN = 2, 2, 1.05
 ZERO_STAGE1_CONFIG = dict(ZERO_CONFIG, zero_optimization={"stage": 1})
+# [zero-ef]: in the same ranks, after the checkpoint: the overlap schedule at
+# full width and depth under ZERO_OVERLAP_CONFIG with error feedback, 1
+# warm-up and 2 timed steps on [zero-overlap]'s batch. Then at 2 layers, same
+# width: JAX's telescoping test (EF_MICROS accumulated micro steps of
+# distinct batches on plain stage 3 on the schedule, the full-width wire,
+# the plain int8 wire and error feedback; EF_SEQ tokens a row, since the
+# wire's bytes follow the params), and the error-feedback engine through the
+# kernels and through their plain versions
+ZERO_EF_CONFIG = dict(ZERO_OVERLAP_CONFIG, comm_transport={"error_feedback": True})
+EF_MICROS, EF_SEQ = 8, 512
+EF_S3 = dict(ZERO_CONFIG, gradient_accumulation_steps=EF_MICROS, zero_optimization={
+    "stage": 3, "overlap_comm": True, "stage3_param_persistence_threshold": 0})
+EF_RUNS = {"full": dict(EF_S3, comm_transport={"enabled": False}), "plain": EF_S3,
+           "ef": dict(EF_S3, comm_transport={"error_feedback": True})}
+EF_GAIN, EF_SCALE = 1.3, 0.01   # JAX test_error_feedback_carry_telescopes's bounds
+# [onebit]: then the 1-bit optimizers in the same ranks, pure data
+# parallelism (params replicated, local gradients), each at full width and
+# ONEBIT_LAYERS: onebit_adam and onebit_lamb at freeze_step 1 (one warm-up
+# step on the full-width all-reduce and two compressed steps), zero_one_adam
+# at its defaults (it syncs each of its first 3 steps). 1-bit Adam ran at
+# full depth until a whole run of this script took 1127.9 s of command
+# (its 22 layers: 18.8 s of it, a peak of 29.34 GiB a rank); the depth is
+# cut to keep the script inside its limit on a slow host. At
+# freeze_step 1 the frozen variance is one step's, so a compressed step moves
+# an element by lr x scale / sqrt(v), large where the gradient was small: at
+# lr 1e-4 a CPU rehearsal (llama2-tiny, two ranks) saw the loss rise after
+# the first compressed step, at 1e-5 fall
+ONEBIT_LR, ONEBIT_STEPS = 1e-5, 3
+# each run's last step, a compressed one whose errors carry the steps before,
+# is held against a plain fp32 transcription of the JAX formulas on the same
+# local gradients and state (``onebit_reference``), on every leaf of at most
+# ONEBIT_CHECK_NUMEL elements (the attention projections and the norms):
+# master, moments, worker and
+# server errors within ONEBIT_TOL, but for at most ONEBIT_FLIPS of a leaf
+# (the CPU test's rule: a sign flips where a compensated value lies within an
+# ulp or so of zero)
+ONEBIT_CHECK_NUMEL, ONEBIT_TOL, ONEBIT_FLIPS = 2 ** 24, 1e-5, 1e-4
+ONEBIT_LAYERS = PATH_LAYERS
+ONEBIT_RUNS = (("onebit_adam", {"freeze_step": 1}), ("onebit_lamb", {"freeze_step": 1}),
+               ("zero_one_adam", {}))
 # Mixtral serving: mixtral-8x7b at full width, depth cut to 24 of 32 layers
 # (65.4 GiB of bf16 weights; 32 layers would need 87 GiB); the logits check
 # at 2 layers of the same width, against an fp32 copy
@@ -3558,6 +3598,254 @@ def zero_overlap_rank(torch, np, batch, flash, adam, lion, quant):
     return res
 
 
+def ef_residual_sum(engine):
+    """The summed magnitude of every error-feedback residual slot."""
+    st = engine._ef_state
+    return sum(float(t.abs().sum()) for slots in (*st["blocks"], *(
+        v for k, v in st.items() if k != "blocks")) for t in slots if t is not None)
+
+
+def full_grads(engine):
+    """The accumulated gradient shards of a ZeRO engine gathered whole."""
+    from deepspeed_tpu_torch.comm import comm as dist
+    out = {}
+    for k, g in engine.grad_acc.items():
+        d = engine.grad_dims[k]
+        out[k] = g if d is None else dist.all_gather(g.movedim(d, 0)).movedim(0, d)
+    return out
+
+
+def zero_ef_rank(torch, np, batch, vocab, flash, adam, lion, quant):
+    """[zero-ef] in a rank of [zero]: error feedback on the overlap schedule
+    at full width and depth, then the 2-layer checks. Returns what it
+    measured."""
+    t0 = time.perf_counter()
+    eng = train_engine(torch, ZERO_EF_CONFIG)
+    if not (eng._overlap_active and eng._ef_carry_active):
+        raise RuntimeError(f"[zero-ef] no error-feedback carry: overlap {eng._overlap_active}, "
+                           f"carry {eng._ef_carry_active}")
+    st = eng._sched.ef_struct
+    slots = [s for step in st["blocks"] for s in step] + [s for k, v in st.items()
+                                                         if k != "blocks" for s in v]
+    res = {"slots": sum(s is not None for s in slots), "slot_bytes": 4 * sum(
+        int(np.prod(s)) for s in slots if s is not None)}
+    warm = zero_steps(torch, eng, batch, ZERO_OVERLAP_WARMUP, quant)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash, adam, lion)
+    quant.launches = 0
+    timed = zero_steps(torch, eng, batch, ZERO_OVERLAP_STEPS, quant)
+    res.update(losses=[x["loss"] for x in warm + timed], step_s=[x["s"] for x in timed],
+               quant_per_step=[x["quant"] for x in timed],
+               peak=torch.cuda.max_memory_allocated(),
+               launches=dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches),
+               residual=ef_residual_sum(eng), wire=wire_summary(timed[-1]["records"]))
+    del eng
+    gc_cuda(torch)
+    # 2 layers: JAX's telescoping test, on distinct batches
+    rng = np.random.default_rng(5)
+    rows = len(batch["input_ids"])
+    micros = [{"input_ids": rng.integers(0, vocab, size=(rows, EF_SEQ))}
+              for _ in range(EF_MICROS)]
+    grads = {}
+    for name, cfg in EF_RUNS.items():
+        e = train_engine(torch, cfg, PATH_LAYERS)
+        for b in micros:
+            e.forward(b)
+            e.backward()
+        grads[name] = full_grads(e)
+        if name == "ef":
+            res["tele_carry"] = (e._ef_carry_active, ef_residual_sum(e))
+        del e
+        gc_cuda(torch)
+    err = lambda name: max(float((grads[name][k] - grads["full"][k]).abs().max())
+                           for k in grads["full"])
+    res["tele"] = dict(ef=err("ef"), plain=err("plain"), scale=max(
+        float(v.abs().max()) for v in grads["full"].values()))
+    del grads
+    gc_cuda(torch)
+    # 2 layers: the error-feedback engine through the kernels and the plain versions
+    path = {}
+    for name in ("kernels", "plain"):
+        e = train_engine(torch, ZERO_EF_CONFIG, PATH_LAYERS)
+        zero_counts(flash, adam, lion)
+        quant.launches = 0
+        if name == "plain":
+            with plain_kernels(flash, adam, lion, quant):
+                path[name] = [float(e.train_batch(batch)) for _ in range(PATH_STEPS)]
+            if any(flash.launches.values()) or adam.launches or quant.launches:
+                raise RuntimeError(f"[zero-ef] the plain path launched kernels: "
+                                   f"{flash.launches}, adam {adam.launches}, quant "
+                                   f"{quant.launches}")
+        else:
+            path[name] = [float(e.train_batch(batch)) for _ in range(PATH_STEPS)]
+        del e
+        gc_cuda(torch)
+    res["path"] = path
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+class onebit_capture:
+    """A 1-bit optimizer whose next ``update`` keeps, for the leaves of at
+    most ONEBIT_CHECK_NUMEL elements, the state before it and the local
+    gradients it was given (``before``), and its step and lr."""
+
+    SLOTS = ("master", "exp_avg", "exp_avg_sq", "worker_error", "server_error", "lamb_coeff")
+
+    def __init__(self, opt):
+        self.opt, self.before = opt, None
+
+    def __getattr__(self, k):
+        return getattr(self.opt, k)
+
+    def update(self, grads, state, lr, write_back=None):
+        self.lr, self.step, self.var_counter = lr, state["step"], state.get("var_counter")
+        self.before = {
+            p: dict({k: state[k][p].clone() for k in self.SLOTS if k in state}, grad=grads[p])
+            for p, t in state["master"].items() if t.numel() <= ONEBIT_CHECK_NUMEL}
+        return self.opt.update(grads, state, lr, write_back)
+
+
+def onebit_reference(torch, name, opt, cap, rank):
+    """This rank's state after the captured update, from the JAX formulas
+    (``runtime/comm/compressed.py``, ``runtime/fp16/onebit/{adam,lamb,
+    zoadam}.py``) transcribed in plain fp32 torch on every rank's captured
+    gradients, momentum and errors (gathered on the host by
+    ``torch.distributed``): ``{path: {slot: tensor}}``."""
+    import torch.distributed as tdist
+    n = tdist.get_world_size()
+    b1, b2 = opt.betas
+    step = cap.step + 1
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    sign = lambda x: torch.where(x >= 0, 1.0, -1.0)
+
+    def every_rank(t):
+        got = [torch.empty_like(t, device="cpu") for _ in range(n)]
+        tdist.all_gather(got, t.cpu())
+        return [g.to(t.device) for g in got]
+
+    if name == "zero_one_adam":
+        sync = step % (2 ** min(step // opt.local_step_scaler, 10)) == 0
+        var_update = (step <= opt.var_freeze_step
+                      and step % (2 ** min(step // opt.var_update_scaler, 10)) == 0)
+    else:
+        sync, var_update = step > opt.freeze_step, False
+    if not sync:
+        raise RuntimeError(f"[onebit] {name}: the checked step {step} does not compress")
+    out = {}
+    for path, b in cap.before.items():
+        p, m, v = b["master"], b["exp_avg"], b["exp_avg_sq"]
+        grads, moms = every_rank(b["grad"]), every_rank(m)
+        wes, ses = every_rank(b["worker_error"]), every_rank(b["server_error"])
+        numel, padded = p.numel(), wes[0].numel()
+        chunk = padded // n
+        # the workers: compensate, a sign a value and a scale
+        comps = [torch.nn.functional.pad((b1 * mk + (1 - b1) * gk).reshape(-1),
+                                         (0, padded - numel)) + we
+                 for mk, gk, we in zip(moms, grads, wes)]
+        scales = [c.abs().mean() for c in comps]
+        signs = [sign(c) for c in comps]
+        new_we = comps[rank] - scales[rank] * signs[rank]
+        # the servers: average each chunk, compress again
+        synced, new_se = [], None
+        for j in range(n):
+            avg = torch.stack([sc * sg[j * chunk:(j + 1) * chunk]
+                               for sc, sg in zip(scales, signs)]).mean(dim=0)
+            comp_s = avg + ses[j]
+            scale_s, sign_s = comp_s.abs().mean(), sign(comp_s)
+            synced.append(scale_s * sign_s)
+            if j == rank:
+                new_se = comp_s - scale_s * sign_s
+        m_new = torch.cat(synced)[:numel].reshape(p.shape)
+        want = {"exp_avg": m_new, "worker_error": new_we, "server_error": new_se}
+        if name == "zero_one_adam":
+            v_new = b2 * v + (1 - b2) * m_new * m_new if var_update else v
+            counter = cap.var_counter + int(var_update)
+            bc1 = 1.0 - f32(b1) ** f32(step)
+            bc2 = 1.0 - f32(b2) ** f32(max(counter, 1))
+            want["exp_avg_sq"] = v_new
+            want["master"] = p - cap.lr * ((m_new / bc1.to(p.device))
+                                           / (torch.sqrt(v_new / bc2.to(p.device)) + opt.eps)
+                                           + opt.weight_decay * p)
+        else:
+            update = m_new / (torch.sqrt(v) + opt.eps) + opt.weight_decay * p
+            coeff = b["lamb_coeff"] if name == "onebit_lamb" else 1.0
+            want["master"] = p - cap.lr * coeff * update
+            want["exp_avg_sq"] = v
+            if name == "onebit_lamb":
+                want["lamb_coeff"] = coeff
+        out[path] = want
+    return out
+
+
+def onebit_check(torch, name, eng, cap, rank):
+    """The engine's state after the captured update against
+    ``onebit_reference``: per slot, the largest absolute difference, the
+    elements off ONEBIT_TOL, the elements checked and the leaves with more
+    elements off than ONEBIT_FLIPS of them (or one)."""
+    want = onebit_reference(torch, name, eng.optimizer.opt, cap, rank)
+    res = {}
+    for path, slots in want.items():
+        for slot, w in slots.items():
+            got = eng.opt_state[slot][path]
+            d = (got - w).abs()
+            off = int((d > ONEBIT_TOL + ONEBIT_TOL * w.abs()).sum())
+            r = res.setdefault(slot, {"max_abs_err": 0.0, "off": 0, "numel": 0, "bad": 0})
+            r["max_abs_err"] = max(r["max_abs_err"], float(d.max()))
+            r["off"] += off
+            r["numel"] += w.numel()
+            r["bad"] += off > max(1, int(ONEBIT_FLIPS * w.numel()))
+    return {"leaves": len(want), "slots": res}
+
+
+def onebit_config(name, params):
+    return {"train_micro_batch_size_per_gpu": ZERO_CONFIG["train_micro_batch_size_per_gpu"],
+            "bf16": {"enabled": True},
+            "optimizer": {"type": name, "params": {"lr": ONEBIT_LR, **params}}}
+
+
+def onebit_rank(torch, np, batch, flash, adam, lion, quant):
+    """[onebit] in a rank of [zero]: each 1-bit optimizer of ONEBIT_RUNS
+    through ``initialize`` + ``train_batch``. Returns, for each, what it
+    measured."""
+    from deepspeed_tpu_torch.comm import comm as dist
+    out = {}
+    for name, params in ONEBIT_RUNS:
+        t0 = time.perf_counter()
+        gc_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        eng = train_engine(torch, onebit_config(name, params), ONEBIT_LAYERS)
+        if type(eng).__name__ != "OnebitDataParallelEngine" or eng._overlap_active:
+            raise RuntimeError(f"[onebit] {name}: {type(eng).__name__} is not the 1-bit "
+                               "engine, or it took a ZeRO schedule")
+        n = dist.get_world_size()
+        numel = [int(t.numel()) for t in eng.opt_state["master"].values()]
+        padded = [-(-k // n) * n for k in numel]
+        zero_counts(flash, adam, lion)
+        quant.launches = 0
+        steps = zero_steps(torch, eng, batch, ONEBIT_STEPS - 1, quant)
+        eng.optimizer = cap = onebit_capture(eng.optimizer)   # the last step
+        steps += zero_steps(torch, eng, batch, 1, quant)
+        torch.cuda.synchronize()
+        check = onebit_check(torch, name, eng, cap, dist.get_rank())
+        del cap.before
+        out[name] = dict(
+            check=check,
+            layers=eng.model.config.num_layers, losses=[x["loss"] for x in steps],
+            step_s=[x["s"] for x in steps],
+            wire=[sum(r["wire_bytes"] for r in x["records"]) for x in steps],
+            full_bytes=4 * sum(numel),
+            compressed_bytes=sum(p + p // n + 8 for p in padded),
+            launches=dict(flash.launches, fused_adam=adam.launches, quant_rows=quant.launches),
+            digests=param_digests(torch, eng.module_state_dict()),
+            state_bytes=sum(t.numel() * t.element_size() for slot in eng.opt_state.values()
+                            if isinstance(slot, dict) for t in slot.values()),
+            peak=torch.cuda.max_memory_allocated(), s=time.perf_counter() - t0)
+        del eng
+        gc_cuda(torch)
+    return out
+
+
 def zero_rank(rank, init_method, results, ckpt_dir):
     """One rank of the [zero] phase (a process of its own): tinyllama-1.1b
     at full width and depth through ``initialize`` + ``train_batch`` under
@@ -3644,6 +3932,8 @@ def zero_rank(rank, init_method, results, ckpt_dir):
                        save_s=save_s, load_s=time.perf_counter() - t)
     del eng
     torch.cuda.empty_cache()
+    res["ef"] = zero_ef_rank(torch, np, batch, c.vocab_size, flash, adam, lion, quant)
+    res["onebit"] = onebit_rank(torch, np, batch, flash, adam, lion, quant)
     results.put(res)
     dist.barrier()
     dist.destroy_process_group()
@@ -3816,6 +4106,8 @@ def train_zero(torch, np, single_opt_bytes, smi):
         fail(f"[zero] int8 wire losses {path['kernels']} beyond the ZeRO++ tolerance of the "
              f"full-width {path['full-width']}")
     zero_overlap_report(np, ranks, smi)
+    zero_ef_report(np, ranks, smi)
+    onebit_report(np, ranks, smi)
     return sum(r["launches"]["quant_rows"] for r in ranks)
 
 
@@ -3894,6 +4186,119 @@ def zero_overlap_report(np, ranks, smi):
         fail(f"[zero-overlap] the int8 reduce-scatter left its bound or rounded nothing: "
              f"{[o['bound'] for o in ov]}")
     print(f"[zero-overlap] phase {max(o['s'] for o in ov):.1f} s (in the ranks)", flush=True)
+
+
+def zero_ef_report(np, ranks, smi):
+    """[zero-ef]: checks and prints what the ranks measured with error
+    feedback on the overlap schedule, beside [zero-overlap]."""
+    ef = [r["ef"] for r in ranks]
+    e0 = ef[0]
+    losses, ov = e0["losses"], ranks[0]["overlap"]
+    print(f"[zero-ef] {smi} | config {json.dumps(ZERO_EF_CONFIG['zero_optimization'])} + "
+          f"comm_transport {json.dumps(ZERO_EF_CONFIG['comm_transport'])}; {e0['slots']} residual "
+          f"slots of {e0['slot_bytes']} bytes a rank", flush=True)
+    if any(e["losses"] != losses for e in ef):
+        fail(f"[zero-ef] losses differ between ranks: {[e['losses'] for e in ef]}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"[zero-ef] losses {losses} not finite and falling")
+    if not np.allclose(losses, ov["losses"], rtol=ZERO_ZEROPP_TOL, atol=ZERO_ZEROPP_TOL):
+        fail(f"[zero-ef] losses {losses} beyond the ZeRO++ tolerance of [zero-overlap]'s "
+             f"{ov['losses']}")
+    for r, e in zip(ranks, ef):
+        if not e["residual"] > 0:
+            fail(f"[zero-ef] rank {r['rank']}: the residual slots are all zero")
+        if e["quant_per_step"] != r["overlap"]["quant_per_step"]:
+            fail(f"[zero-ef] rank {r['rank']}: quantizer launches a step {e['quant_per_step']} "
+                 f"against [zero-overlap]'s {r['overlap']['quant_per_step']}")
+        want = {"flash_fwd": 2 * r["layers"] * ZERO_OVERLAP_STEPS,
+                "flash_dq": r["layers"] * ZERO_OVERLAP_STEPS,
+                "flash_dkv": r["layers"] * ZERO_OVERLAP_STEPS,
+                "fused_adam": r["buckets"] * ZERO_OVERLAP_STEPS}
+        got = {k: e["launches"][k] for k in want}
+        if got != want or e["launches"]["quant_rows"] == 0:
+            fail(f"[zero-ef] rank {r['rank']} launches {e['launches']} against {want} and "
+                 f"some quant_rows")
+    step = sum(e0["step_s"]) / len(e0["step_s"])
+    ostep = sum(ov["step_s"]) / len(ov["step_s"])
+    print(f"[zero-ef] tinyllama-1.1b layers {ranks[0]['layers']}: losses "
+          f"{[round(x, 4) for x in losses]} (equal on both ranks; [zero-overlap] "
+          f"{[round(x, 4) for x in ov['losses']]}, within rtol = atol {ZERO_ZEROPP_TOL}); step ms "
+          f"{[round(x * 1e3, 1) for x in e0['step_s']]} mean {step * 1e3:.1f} beside "
+          f"[zero-overlap]'s {ostep * 1e3:.1f}; max_memory_allocated per rank "
+          f"{[round(e['peak'] / 2**30, 2) for e in ef]} GiB beside [zero-overlap]'s "
+          f"{[round(r['overlap']['peak'] / 2**30, 2) for r in ranks]}; quantizer launches a step "
+          f"{e0['quant_per_step']} ([zero-overlap] {ov['quant_per_step']}); launches over "
+          f"{ZERO_OVERLAP_STEPS} steps {e0['launches']}; residual magnitude per rank "
+          f"{[round(e['residual'], 3) for e in ef]}; wire a step {json.dumps(e0['wire'])}",
+          flush=True)
+    for r, e in zip(ranks, ef):
+        t = e["tele"]
+        print(f"[zero-ef] rank {r['rank']} {PATH_LAYERS} layers, {EF_MICROS} accumulated micro "
+              f"steps of distinct batches, plain stage 3 on the schedule: largest gradient error "
+              f"against the full-width wire: error feedback {t['ef']:.4e}, plain int8 "
+              f"{t['plain']:.4e} (ratio {t['plain'] / max(t['ef'], 1e-30):.2f}, need "
+              f">= {EF_GAIN}); gradient scale {t['scale']:.4e} (error feedback within "
+              f"{EF_SCALE} x: {t['ef'] <= EF_SCALE * t['scale']}); carry {e['tele_carry']}",
+              flush=True)
+        if not (t["ef"] < t["plain"] / EF_GAIN and t["ef"] <= EF_SCALE * t["scale"]):
+            fail(f"[zero-ef] rank {r['rank']}: error feedback does not telescope: {t}")
+        if not (e["tele_carry"][0] and e["tele_carry"][1] > 0):
+            fail(f"[zero-ef] rank {r['rank']}: no live carry in the telescoping run")
+    path = e0["path"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(path["kernels"], path["plain"])]
+    print(f"[zero-ef] {PATH_LAYERS} layers, same width, {PATH_STEPS} steps: kernels "
+          f"{path['kernels']} plain {path['plain']} (relative difference {max(rel):.3e}, limit "
+          f"{PATH_RTOL})", flush=True)
+    if max(rel) > PATH_RTOL or any(e["path"] != path for e in ef):
+        fail(f"[zero-ef] kernel and plain paths differ by {max(rel):.3e}, or the ranks do")
+    print(f"[zero-ef] phase {max(e['s'] for e in ef):.1f} s (in the ranks)", flush=True)
+
+
+def onebit_report(np, ranks, smi):
+    """[onebit]: checks and prints what the ranks measured with the 1-bit
+    optimizers."""
+    for name, params in ONEBIT_RUNS:
+        runs = [r["onebit"][name] for r in ranks]
+        o = runs[0]
+        losses = o["losses"]
+        warm = params.get("freeze_step", 0)
+        print(f"[onebit] {smi} | {name} {json.dumps(params)} lr {ONEBIT_LR}, tinyllama-1.1b "
+              f"layers {o['layers']}: losses {[round(x, 4) for x in losses]}; step ms "
+              f"{[round(x * 1e3, 1) for x in o['step_s']]}; wire bytes a step and rank "
+              f"{o['wire']} (the full-width all-reduce {o['full_bytes']}, compressed "
+              f"{o['compressed_bytes']}: {o['compressed_bytes'] / o['full_bytes']:.4f} of it); "
+              f"optimizer state a rank {o['state_bytes'] / 2**30:.2f} GiB; "
+              f"max_memory_allocated per rank {[round(x['peak'] / 2**30, 2) for x in runs]} GiB; "
+              f"launches {o['launches']}; {o['s']:.1f} s", flush=True)
+        if any(x["losses"] != losses for x in runs):
+            fail(f"[onebit] {name}: losses differ between ranks: {[x['losses'] for x in runs]}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"[onebit] {name}: losses {losses} not finite and falling")
+        # every step here synchronizes, so the ranks hold the same params
+        if any(x["digests"] != o["digests"] for x in runs):
+            fail(f"[onebit] {name}: the ranks' params differ")
+        want = [o["full_bytes"]] * warm + [o["compressed_bytes"]] * (ONEBIT_STEPS - warm)
+        for r, x in zip(ranks, runs):
+            if x["wire"] != want:
+                fail(f"[onebit] {name} rank {r['rank']}: wire bytes {x['wire']} != {want}")
+            L = x["layers"]
+            lw = {"flash_fwd": 2 * L * ONEBIT_STEPS, "flash_dq": L * ONEBIT_STEPS,
+                  "flash_dkv": L * ONEBIT_STEPS, "fused_adam": 0, "quant_rows": 0}
+            if {k: x["launches"][k] for k in lw} != lw:
+                fail(f"[onebit] {name} rank {r['rank']}: launches {x['launches']} != {lw}")
+        for r, x in zip(ranks, runs):
+            c = x["check"]
+            print(f"[onebit] {name} rank {r['rank']}: the last step's update against the plain "
+                  f"fp32 transcription of the JAX formulas on {c['leaves']} leaves: " + "; ".join(
+                      f"{slot} max_abs_err {v['max_abs_err']:.3e}, {v['off']} of {v['numel']} "
+                      f"off {ONEBIT_TOL}" for slot, v in c["slots"].items()), flush=True)
+            bad = [slot for slot, v in c["slots"].items() if v["bad"]]
+            if not c["leaves"] or bad:
+                fail(f"[onebit] {name} rank {r['rank']}: the compressed update is off its "
+                     f"reference in {bad} (or no leaf was checked)")
+        if o["compressed_bytes"] / o["full_bytes"] > 0.4:
+            fail(f"[onebit] {name}: the compressed wire is {o['compressed_bytes']} bytes against "
+                 f"{o['full_bytes']} at full width")
 
 
 # ---------------------------------------------------------------------------

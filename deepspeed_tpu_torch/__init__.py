@@ -33,7 +33,9 @@ from typing import Any, Dict, Optional
 from .accelerator import resolve_device  # noqa: F401
 from .comm import comm
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError  # noqa: F401
-from .runtime.engine import DataParallelEngine, DeepSpeedEngine  # noqa: F401
+from .runtime.engine import (DataParallelEngine, DeepSpeedEngine,  # noqa: F401
+                             OnebitDataParallelEngine, OnebitEngine)
+from .runtime.optimizers import is_onebit
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -53,7 +55,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``dist_init_required=True`` joins the process group from torchrun's
     variables (``comm.init_distributed``); ``topology`` (a
     ``runtime.topology.MeshTopology``) defaults to the world. A world of
-    more than one rank builds a ``DataParallelEngine``. ``training_data``
+    more than one rank builds a ``DataParallelEngine``; a 1-bit optimizer
+    (``onebit_adam``, ``onebit_lamb``, ``zero_one_adam``) an ``OnebitEngine``
+    or ``OnebitDataParallelEngine``. ``training_data``
     (an indexable of sample dicts) comes back as the JAX loader
     (``runtime/dataloader.py`` ``DeepSpeedDataLoader``: shuffled, the short
     last batch dropped, samples stacked by ``collate_fn`` or ``np.stack``)
@@ -69,13 +73,16 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             config = json.load(f)
     if dist_init_required:
         comm.init_distributed(distributed_port=distributed_port)
-    kw = dict(model=model, config=config if isinstance(config, DeepSpeedConfig) else None,
-              config_dict=config if isinstance(config, dict) else None, seed=seed,
-              init_params=model_parameters, device=device)
+    if not isinstance(config, DeepSpeedConfig):
+        config = DeepSpeedConfig(config or {})
+    kw = dict(model=model, config=config, seed=seed, init_params=model_parameters,
+              device=device)
+    onebit = is_onebit(config.optimizer)
     if comm.get_world_size() > 1:
-        engine = DataParallelEngine(topology=topology, **kw)
+        engine = (OnebitDataParallelEngine if onebit else DataParallelEngine)(
+            topology=topology, **kw)
     else:
-        engine = DeepSpeedEngine(**kw)
+        engine = (OnebitEngine if onebit else DeepSpeedEngine)(**kw)
     dataloader = None
     topo = getattr(engine, "topology", None)
     # a global batch's rows split over the data ranks only (a seq axis splits

@@ -517,7 +517,7 @@ class TransformerLM(nn.Module):
     def scan_blocks_pipelined(self, x: torch.Tensor, rope=None,
                               seg: Optional[torch.Tensor] = None, *, gather, scatter,
                               keep: Optional[torch.Tensor] = None, layers_per_step: int = 1,
-                              prefetch_depth: int = 1, comm_edge=None):
+                              prefetch_depth: int = 1, comm_edge=None, scatter_err=None):
         """The layer-pipelined ZeRO schedule over the blocks (JAX
         ``scan_blocks_pipelined``, ``deepspeed_tpu/models/transformer.py:
         506-750``), as an eager loop; the engine's
@@ -553,6 +553,15 @@ class TransformerLM(nn.Module):
         ``comm_edge(overlapped)`` (the engine's ``TreeComm.schedule_class``)
         is entered around the edge launches: the prologue gathers and the
         last reduction.
+
+        ``scatter_err`` (the engine's error-feedback carry): a list with one
+        residual slot a step. Step s's reduction is then launched as
+        ``scatter(s, grads, err=scatter_err[s])``, whose handle's ``wait()``
+        gives that step's new residual, and ``pullback`` returns ``(dx,
+        new_err)``, the list with each step's slot replaced. The JAX reverse
+        scan carries ``scatter_err[1:]`` in its xs and flushes slot 0 in its
+        epilogue; keyed by step, both give step s's slot to step s's
+        reduction.
 
         Launches a micro step: the JAX scan gathers each step's parameters
         twice more than needed to keep one scan body shape (the forward's
@@ -615,7 +624,15 @@ class TransformerLM(nn.Module):
                 else:
                     last = saved
 
-        def pullback(dx: torch.Tensor, daux: Optional[torch.Tensor] = None) -> torch.Tensor:
+        new_err = None if scatter_err is None else list(scatter_err)
+
+        def finish(waiting):
+            s, h = waiting
+            got = h.wait()
+            if new_err is not None:
+                new_err[s] = got
+
+        def pullback(dx: torch.Tensor, daux: Optional[torch.Tensor] = None):
             pend = {s: gather(s) for s in range(n - 2, max(n - 2 - depth, -1), -1)}
             waiting = None
             for s in range(n - 1, -1, -1):
@@ -645,13 +662,14 @@ class TransformerLM(nn.Module):
                 unbind(saved)
                 del got, named, saved
                 with edge(False) if s == 0 else contextlib.nullcontext():
-                    h = scatter(s, grads)
+                    h = (scatter(s, grads) if new_err is None
+                         else scatter(s, grads, err=new_err[s]))
                 del grads
                 if waiting is not None:
-                    waiting.wait()
-                waiting = h
-            waiting.wait()
-            return dx
+                    finish(waiting)
+                waiting = (s, h)
+            finish(waiting)
+            return dx if new_err is None else (dx, new_err)
 
         return x, aux_sum, pullback
 

@@ -11,11 +11,16 @@ them over a ``torch.distributed`` group:
   all-to-all, dequantize, local sum);
 - ``fp8_all_gather``, ``fp8_reduce_scatter`` and ``quantized_all_reduce``
   (reduce-scatter then all-gather, both on the low-precision wire);
+- ``quantize_with_feedback`` and ``ef_quantized_reduce_scatter`` (error
+  feedback on the int8 reduce-scatter: the compensated signal ``x + err``
+  goes on the wire and the new residual comes back, ``x``'s shape in fp32;
+  the wire, its padding and its layout are the plain call's);
 - the issue halves ``quantized_all_gather_start``,
-  ``quantized_reduce_scatter_start``, ``fp8_all_gather_start`` and
-  ``fp8_reduce_scatter_start``: quantize and launch, returning a handle
-  whose ``wait()`` dequantizes (the overlap schedule's form; each blocking
-  function is its issue half waited at once);
+  ``quantized_reduce_scatter_start``, ``ef_quantized_reduce_scatter_start``,
+  ``fp8_all_gather_start`` and ``fp8_reduce_scatter_start``: quantize and
+  launch, returning a handle whose ``wait()`` dequantizes (the overlap
+  schedule's form; each blocking function is its issue half waited at
+  once);
 - ``quantized_ppermute`` (the ring-attention K/V hop: quantize, permute the
   payload and its scales / zero points, dequantize on arrival; its backward
   permutes the cotangent along the inverse ring at full width, the JAX
@@ -32,9 +37,7 @@ that jitted XLA computes (``_recip``), so the port's wire matches the
 jitted JAX wire bit for bit.
 
 The axis argument of the JAX functions becomes ``group`` (a process group,
-``None`` for the world). ``ef_quantized_reduce_scatter`` and
-``quantize_with_feedback`` (error feedback on the overlap schedule's int8
-reduce-scatter) are not ported: ROADMAP A6.2.
+``None`` for the world).
 """
 
 from __future__ import annotations
@@ -189,6 +192,21 @@ def dequantize_blockwise_fp8(q: torch.Tensor, scale: torch.Tensor,
     return out.to(dtype)
 
 
+def quantize_with_feedback(x: torch.Tensor, err: torch.Tensor, num_bits: int = 8,
+                           group_size: int = 256):
+    """Error-feedback quantization: quantize the compensated signal
+    ``comp = x + err`` (fp32) and return ``(q, scale, zero, comp -
+    dequant(q))``, the last the new residual in ``x``'s shape. Carried from
+    step to step, the residuals telescope: the dequantized sum over T steps
+    is the sum of the signals plus ``err_0 - err_T``, so the accumulated
+    error stays one step's quantization error."""
+    comp = x.float() + err.float()
+    q, scale, zero = quantize_blockwise(comp, num_bits, group_size)
+    roundtrip = dequantize_blockwise(q, scale, zero, num_bits, group_size,
+                                     out_size=comp.numel(), out_shape=comp.shape)
+    return q, scale, zero, comp - roundtrip
+
+
 def _wire_group_size(n_elems: int, group_size: int, num_bits: int) -> int:
     """The effective group size: never pad a small shard or chunk up to a
     full group; int4 groups stay even."""
@@ -234,21 +252,32 @@ def quantized_all_gather(x: torch.Tensor, group=None, num_bits: int = 8,
 
 
 def _scatter_wire_start(x: torch.Tensor, group, gs_req: int, num_bits: int, quantize,
-                        dequantize, out_dtype: Optional[torch.dtype]):
+                        dequantize, out_dtype: Optional[torch.dtype], err=None):
     """The all-to-all reduce-scatter shared by the int and fp8 wires,
     launched: quantize each destination chunk (padded at its tail to a
     group multiple) and launch the exchanges; ``wait()`` dequantizes and
-    sums over the sources in rank order."""
+    sums over the sources in rank order. With ``err`` (``x``'s shape) the
+    chunks are quantized with error feedback (``quantize_with_feedback``)
+    and ``wait()`` gives ``(out, new_err)``; a padded position's signal and
+    residual are both zero, so the residual drops the padding."""
     n = dist.get_world_size(group)
     if x.shape[0] % n:
         raise ValueError(f"reduce-scatter of leading dim {x.shape[0]} over {n} members")
     chunk = x.numel() // n
     gs = _wire_group_size(chunk, gs_req, num_bits)
     xr = x.reshape(n, chunk)
+    er = None if err is None else err.float().reshape(n, chunk)
     pad = (-chunk) % gs
     if pad:
         xr = torch.nn.functional.pad(xr, (0, pad))
-    q, side = quantize(xr, gs)
+        er = None if er is None else torch.nn.functional.pad(er, (0, pad))
+    new_err = None
+    if er is None:
+        q, side = quantize(xr, gs)
+    else:
+        q, scale, zero, new_err = quantize_with_feedback(xr, er, num_bits, gs)
+        side = torch.stack([scale, zero], dim=1)
+        new_err = new_err[:, :chunk].reshape(x.shape)
     works = [dist.all_to_all_rows_async(q, group=group),
              dist.all_to_all_rows_async(side, group=group)]
 
@@ -258,9 +287,24 @@ def _scatter_wire_start(x: torch.Tensor, group, gs_req: int, num_bits: int, quan
         out = shard[0]
         for i in range(1, n):
             out = out + shard[i]
-        return out.reshape((x.shape[0] // n,) + tuple(x.shape[1:])).to(out_dtype or x.dtype)
+        out = out.reshape((x.shape[0] // n,) + tuple(x.shape[1:])).to(out_dtype or x.dtype)
+        return out if new_err is None else (out, new_err)
 
     return dist.Pending(works, finish)
+
+
+def _int_side(num_bits: int):
+    """The int wire's quantize (payload and a ``[G, 2]`` scale / zero
+    sideband) and dequantize."""
+    def quantize(xr, gs):
+        q, scale, zero = quantize_blockwise(xr, num_bits, gs)
+        return q, torch.stack([scale, zero], dim=1)
+
+    def dequantize(q, side, gs):
+        return dequantize_blockwise(q, side[:, 0].contiguous(), side[:, 1].contiguous(),
+                                    num_bits, gs)
+
+    return quantize, dequantize
 
 
 def quantized_reduce_scatter_start(x: torch.Tensor, group=None, num_bits: int = 8,
@@ -274,16 +318,7 @@ def quantized_reduce_scatter_start(x: torch.Tensor, group=None, num_bits: int = 
         return scatter_in_row_chunks_start(
             lambda c: quantized_reduce_scatter_start(c, group, num_bits, group_size,
                                                      out_dtype=out_dtype), x, n, n_chunks)
-
-    def quantize(xr, gs):
-        q, scale, zero = quantize_blockwise(xr, num_bits, gs)
-        return q, torch.stack([scale, zero], dim=1)
-
-    def dequantize(q, side, gs):
-        return dequantize_blockwise(q, side[:, 0].contiguous(), side[:, 1].contiguous(),
-                                    num_bits, gs)
-
-    return _scatter_wire_start(x, group, group_size, num_bits, quantize, dequantize, out_dtype)
+    return _scatter_wire_start(x, group, group_size, num_bits, *_int_side(num_bits), out_dtype)
 
 
 def quantized_reduce_scatter(x: torch.Tensor, group=None, num_bits: int = 8,
@@ -296,6 +331,34 @@ def quantized_reduce_scatter(x: torch.Tensor, group=None, num_bits: int = 8,
     result equals that of ``x.float()``, whose copy is never made."""
     return quantized_reduce_scatter_start(x, group, num_bits, group_size, n_chunks,
                                           out_dtype).wait()
+
+
+def ef_quantized_reduce_scatter_start(x: torch.Tensor, err: torch.Tensor, group=None,
+                                      num_bits: int = 8, group_size: int = 256,
+                                      out_dtype: Optional[torch.dtype] = None):
+    """The issue half of :func:`ef_quantized_reduce_scatter`: the
+    compensated quantize (``quantize_with_feedback`` through
+    ``quantize_blockwise``, so the row-quantizer kernel on CUDA, in the
+    launches of the plain wire) and the exchanges; the handle's ``wait()``
+    gives ``(out, new_err)``."""
+    if err.shape != x.shape:
+        raise ValueError(f"error-feedback residual of shape {tuple(err.shape)} for a "
+                         f"reduce-scatter input of shape {tuple(x.shape)}")
+    return _scatter_wire_start(x, group, group_size, num_bits, *_int_side(num_bits),
+                               out_dtype, err=err)
+
+
+def ef_quantized_reduce_scatter(x: torch.Tensor, err: torch.Tensor, group=None,
+                                num_bits: int = 8, group_size: int = 256,
+                                out_dtype: Optional[torch.dtype] = None):
+    """:func:`quantized_reduce_scatter` with error feedback: ``(out,
+    new_err)``. This member's chunks carry ``x + err`` on the wire, and
+    ``new_err`` (``x``'s shape, fp32; zeros on the first step) is the
+    residual of their quantization, to be fed back on the next reduction of
+    the same bucket. The wire format, padding and output layout are the
+    plain call's; only the quantized values differ."""
+    return ef_quantized_reduce_scatter_start(x, err, group, num_bits, group_size,
+                                             out_dtype).wait()
 
 
 def fp8_reduce_scatter_start(x: torch.Tensor, group=None, group_size: int = 256,

@@ -23,7 +23,8 @@ counts the dense gradient group (``DENSE_GRAD_AXES``, ``:292-300``), though a
 global batch's rows split over ``data`` alone. On a world of one,
 ZeRO partitions nothing, exactly as in JAX. Keys for features the port
 does not cover yet raise ``NotImplementedError`` naming their ROADMAP
-item: other topology axes, hpZ, MiCS, error feedback (A6.2), offload, the watchdog's ``checkpoint.escalation_*`` keys, and
+item: other topology axes, hpZ, MiCS, offload, the watchdog's
+``checkpoint.escalation_*`` keys, and
 ``comm_transport.hierarchical`` set to other than its default (the
 algorithm is chosen only where a second data axis is live).
 ``comm_transport.activation_width`` steers the Ulysses exchange (the MoE
@@ -39,6 +40,7 @@ import json
 from typing import Any, Dict, Optional
 
 from ..comm import comm as dist
+from .optimizers import is_onebit
 from .topology import _UNPORTED_AXES, LIVE_AXES
 from .zero.config import DeepSpeedZeroConfig, validate_zeropp
 
@@ -136,10 +138,6 @@ def _zero_asks(key: str, val) -> bool:
     return True
 
 
-_ONE_BIT = ("onebit_adam", "onebitadam", "zero_one_adam", "zerooneadam", "onebit_lamb",
-            "onebitlamb")
-
-
 # transport keys that steer collectives the port does not run: only the
 # default is accepted
 _TRANSPORT_UNPORTED = {
@@ -163,10 +161,6 @@ def _reject_unported(pd: Dict[str, Any]) -> None:
             raise NotImplementedError(f"config key checkpoint.{key} is not ported: ROADMAP "
                                       f"{_CHECKPOINT_UNPORTED[key]}")
     transport = pd.get("comm_transport") or {}
-    if transport.get("error_feedback"):
-        raise NotImplementedError("comm_transport.error_feedback is not ported: ROADMAP "
-                                  "A6.2 (error feedback on the overlap schedule's int8 "
-                                  "reduce-scatter, `runtime/zero/overlap.py`)")
     for key, item in _TRANSPORT_UNPORTED.items():
         if key in transport and transport[key] != dist.TRANSPORT_DEFAULTS[key]:
             raise NotImplementedError(f"comm_transport.{key}={transport[key]!r} is not "
@@ -212,9 +206,7 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get("zero_optimization") or {})
         self.zero_stage: int = self.zero_config.stage
         try:
-            validate_zeropp(self.zero_config,
-                            one_bit=(self.optimizer is not None and self.optimizer.type.lower()
-                                     .replace("-", "_") in _ONE_BIT))
+            validate_zeropp(self.zero_config, one_bit=is_onebit(self.optimizer))
         except ValueError as e:
             raise DeepSpeedConfigError(str(e)) from None
         self.comm_transport: Dict[str, Any] = dict(pd.get("comm_transport") or {})

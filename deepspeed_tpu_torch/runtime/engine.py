@@ -38,18 +38,25 @@ a world of more than one, each rank writing the pieces it owns.
 a worker thread; ``checkpoint.keep_last_n`` retires old tags after each
 commit.
 
-Not ported yet: hpZ / MiCS and meshes with other axes (A6), error feedback
-(A6.2), offload (A9), pipeline (A10); ``runtime/config.py`` raises for
-them. A model with MoE layers trains on one rank (its expert
-weights ``[E, F, H]`` / ``[E, H, F]`` are leaves like any other, bucketed,
-clipped and stepped whole); on a world of more than one rank it raises
-(``MOE_DATA_PARALLEL``).
+Error feedback (``comm_transport.error_feedback``) rides the overlap
+schedule's micro-step carry (``DataParallelEngine._micro_overlap``). The
+1-bit optimizers (``onebit_adam``, ``onebit_lamb``, ``zero_one_adam``)
+step in ``OnebitEngine`` / ``OnebitDataParallelEngine`` (below), which
+``initialize`` builds for them: pure data parallelism, replicated params,
+local gradients, the compressed momentum all-reduce inside ``update``.
+
+Not ported yet: hpZ / MiCS and meshes with other axes (A6), offload (A9),
+pipeline (A10); ``runtime/config.py`` raises for them. A model with MoE
+layers trains on one rank (its expert weights ``[E, F, H]`` / ``[E, H, F]``
+are leaves like any other, bucketed, clipped and stepped whole); on a world
+of more than one rank it raises (``MOE_DATA_PARALLEL``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,7 +73,7 @@ from .config import DeepSpeedConfig
 from .fp16.loss_scaler import (dynamic_loss_scale_state, has_overflow,
                                static_loss_scale_state, update_scale)
 from .lr_schedules import build_lr_schedule
-from .optimizers import build_optimizer
+from .optimizers import build_optimizer, is_onebit
 from ..utils.groups import DATA_AXIS
 from .topology import MeshTopology, set_topology
 from .overlap_planner import PLACEMENT_SCAN_CARRY, ZEROPP_ENTRY, plan_for
@@ -106,20 +113,30 @@ class _TagLeaf:
     """One tensor leaf of a tag as this rank holds it: the port leaves
     stacked into it (or the one), this rank's tensor of each,
     the ZeRO shard dim of those tensors on the port leaf (None: whole) and
-    the whole port leaf's shape."""
+    the whole port leaf's shape. ``ranks`` > 0: per-rank state (the 1-bit
+    optimizers' errors and local gradients), a leading axis of ``ranks``
+    rows of which this rank holds its own."""
     leaves: List[JaxLeaf]
     tensors: List[torch.Tensor]
     dim: Optional[int]
     port_shape: Tuple[int, ...]
+    ranks: int = 0
 
     @property
     def jax_shape(self) -> Tuple[int, ...]:
-        return self.leaves[0].shape(self.port_shape, len(self.leaves))
+        shape = self.leaves[0].shape(self.port_shape, len(self.leaves))
+        return ((self.ranks,) if self.ranks else ()) + shape
+
+    @property
+    def whole(self) -> bool:
+        """Held whole and the same on every rank (rank 0 writes it)."""
+        return self.dim is None and not self.ranks
 
     def spans(self, rank: int, n: int) -> List[Tuple[int, int]]:
         """This rank's span of the JAX leaf: all its layers, the shard's
         rows ``[rank * s, (rank + 1) * s)`` of dim ``dim`` (s = size / n,
-        ``zero/partition.py`` ``shard_of``), every other dim whole."""
+        ``zero/partition.py`` ``shard_of``), every other dim whole; a
+        per-rank leaf's row ``rank`` first."""
         region = [(0, d) for d in self.port_shape]
         if self.dim is not None:
             s = self.port_shape[self.dim] // n
@@ -127,7 +144,39 @@ class _TagLeaf:
         spans = self.leaves[0].span(region)
         if self.leaves[0].layer is not None:
             spans[0] = (0, len(self.leaves))
-        return spans
+        return ([(rank, rank + 1)] if self.ranks else []) + spans
+
+    def host(self) -> np.ndarray:
+        """This rank's piece on the host, as the tag holds it."""
+        a = host_array(to_jax_leaf(list(zip(self.leaves, self.tensors))))
+        return a[None] if self.ranks else a
+
+    def load(self, a: torch.Tensor) -> None:
+        """Copy this rank's piece ``a`` (read at ``spans``) into the tensors."""
+        a = a[0] if self.ranks else a
+        for jl, t in zip(self.leaves, self.tensors):
+            src = jl.swap_layout(a[jl.layer] if jl.layer is not None else a)
+            t.copy_(src.reshape(()) if t.dim() == 0 else src)   # a scalar reads back 1-d
+
+
+class _JaxGrads(Mapping):
+    """Port gradients seen as the JAX tree's leaves, by path: each leaf
+    built when read (the layers stacked, in the JAX axis order), in fp32,
+    times ``inv``."""
+
+    def __init__(self, groups: Dict[str, List[Tuple[JaxLeaf, str]]],
+                 grads: Dict[str, torch.Tensor], inv: torch.Tensor):
+        self.groups, self.grads, self.inv = groups, grads, inv
+
+    def __getitem__(self, path: str) -> torch.Tensor:
+        leaf = to_jax_leaf([(jl, self.grads[n]) for jl, n in self.groups[path]])
+        return leaf.to(torch.float32, copy=True).mul_(self.inv)
+
+    def __iter__(self):
+        return iter(self.groups)
+
+    def __len__(self) -> int:
+        return len(self.groups)
 
 
 class DeepSpeedEngine:
@@ -164,17 +213,7 @@ class DeepSpeedEngine:
                                        "grad_accum_dtype") or torch.float32
 
         # -- optimizer + schedule ---------------------------------------------
-        opt_dtypes = {}
-        if config.fp16_master_weights_and_grads:
-            opt_dtypes["master_dtype"] = self.param_dtype
-        mdt = _state_dtype(config.data_types_optimizer_moment_dtype, "optimizer_moment_dtype")
-        sqdt = _state_dtype(config.data_types_optimizer_moment_sq_dtype,
-                            "optimizer_moment_sq_dtype")
-        if mdt is not None:
-            opt_dtypes["moment_dtype"] = mdt
-        if sqdt is not None:
-            opt_dtypes["moment_sq_dtype"] = sqdt
-        self.optimizer = dataclasses.replace(build_optimizer(config.optimizer), **opt_dtypes)
+        self.optimizer = self._build_optimizer(config)
         self.lr_scheduler = build_lr_schedule(config.scheduler, self.optimizer.lr)
 
         # -- parameters and state ---------------------------------------------
@@ -200,6 +239,23 @@ class DeepSpeedEngine:
             self._ckpt_async = False
         self.checkpoint_engine = (AsyncCheckpointEngine() if self._ckpt_async
                                   else NpzCheckpointEngine())
+
+    def _build_optimizer(self, config: DeepSpeedConfig):
+        """The config's optimizer, its state at the ``data_types`` dtypes."""
+        if is_onebit(config.optimizer):
+            raise ValueError(f"optimizer {config.optimizer.type!r} steps in OnebitEngine / "
+                             "OnebitDataParallelEngine, which initialize builds for it")
+        opt_dtypes = {}
+        if config.fp16_master_weights_and_grads:
+            opt_dtypes["master_dtype"] = self.param_dtype
+        mdt = _state_dtype(config.data_types_optimizer_moment_dtype, "optimizer_moment_dtype")
+        sqdt = _state_dtype(config.data_types_optimizer_moment_sq_dtype,
+                            "optimizer_moment_sq_dtype")
+        if mdt is not None:
+            opt_dtypes["moment_dtype"] = mdt
+        if sqdt is not None:
+            opt_dtypes["moment_sq_dtype"] = sqdt
+        return dataclasses.replace(build_optimizer(config.optimizer), **opt_dtypes)
 
     def _init_state(self, seed: int, init_params) -> None:
         self._place_model(seed, init_params)
@@ -260,6 +316,13 @@ class DeepSpeedEngine:
         self.optimizer.update(grads, self.opt_state, lr, grad_scale=factor,
                               params_out=self.params)
 
+    def _update_loss_scale(self, overflow: bool) -> None:
+        fp16 = self.config.fp16
+        self.loss_scale_state = update_scale(
+            self.loss_scale_state, overflow, scale_window=fp16.loss_scale_window,
+            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis,
+            consecutive_hysteresis=fp16.consecutive_hysteresis)
+
     def _apply_from_grads(self, grads: Dict[str, torch.Tensor], lr: float):
         """Unscale, clip, update, loss-scale bookkeeping. Returns
         ``(overflow, gnorm)``; ``gnorm`` is a device scalar."""
@@ -274,11 +337,7 @@ class DeepSpeedEngine:
         if not overflow:
             with torch.no_grad():
                 self._update(grads, lr, factor)
-        fp16 = self.config.fp16
-        self.loss_scale_state = update_scale(
-            self.loss_scale_state, overflow, scale_window=fp16.loss_scale_window,
-            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis,
-            consecutive_hysteresis=fp16.consecutive_hysteresis)
+        self._update_loss_scale(overflow)
         return overflow, gnorm
 
     def _grads(self) -> Dict[str, torch.Tensor]:
@@ -316,6 +375,10 @@ class DeepSpeedEngine:
         self._zero_param_grads()
         self.micro_steps += 1
         self._post_step(overflow, gnorm)
+        return self._global_loss(loss)
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The reported loss: this rank's (one rank is the world)."""
         return loss.detach()
 
     # -- split path ------------------------------------------------------------------
@@ -334,7 +397,7 @@ class DeepSpeedEngine:
                 if p.grad is not None:
                     self.grad_acc[n] += p.grad.to(self.grad_dtype)
         self._zero_param_grads()
-        self._cached_loss = loss.detach()
+        self._cached_loss = self._global_loss(loss)
         return self._cached_loss
 
     def backward(self, loss=None):
@@ -455,7 +518,8 @@ class DeepSpeedEngine:
         return out
 
     def _tag_scalars(self) -> Dict[str, np.ndarray]:
-        out = {"opt/step": np.asarray(self.opt_state["step"], np.int32)}
+        out = {f"opt/{k}": np.asarray(v, np.int32) for k, v in self.opt_state.items()
+               if k in ("step", "var_counter")}
         for k, dt in _LOSS_SCALE.items():
             out[f"loss_scale/{k}"] = np.asarray(self.loss_scale_state[k], dt)
         return out
@@ -478,10 +542,10 @@ class DeepSpeedEngine:
                 e = leaves[key]
                 staged.dtypes[key] = str(e.tensors[0].dtype).replace("torch.", "")
                 staged.shapes[key] = list(e.jax_shape)
-                if n > 1 and e.dim is None and rank != 0:
+                if n > 1 and e.whole and rank != 0:
                     continue
                 spans = e.spans(rank, n)
-                a = host_array(to_jax_leaf(list(zip(e.leaves, e.tensors))))
+                a = e.host()
             if n == 1:
                 staged.arrays[f"leaf_{i}"] = a
             elif rank == 0 or spans:
@@ -559,13 +623,11 @@ class DeepSpeedEngine:
                                      f"expected {e.jax_shape}")
                 # up to the device whole, so that the transposes run there
                 idx = tuple(slice(lo, hi) for lo, hi in e.spans(rank, n))
-                a = from_host(reader.read(src, idx), reader.dtype(src)).to(e.tensors[0].device)
-                for jl, t in zip(e.leaves, e.tensors):
-                    t.copy_(jl.swap_layout(a[jl.layer] if jl.layer is not None else a))
+                e.load(from_host(reader.read(src, idx), reader.dtype(src)).to(e.tensors[0].device))
             for key, like in self._tag_scalars().items():
-                if key == "opt/step":
-                    self.opt_state["step"] = (int(reader.read(key)) if load_optimizer_states
-                                              and key in reader else 0)
+                if key.startswith("opt/"):
+                    self.opt_state[key[len("opt/"):]] = (
+                        int(reader.read(key)) if load_optimizer_states and key in reader else 0)
                 elif key in reader:
                     self.loss_scale_state[key.split("/")[1]] = like.dtype.type(
                         reader.read(key)).item()
@@ -632,6 +694,15 @@ class _OverlapSchedule:
     blk_comm: Any
     rest_comms: Tuple[Any, ...]   # (embed, head) under the edge split, else (rest,)
     split: bool
+    # the error-feedback carry's slot shapes (``_ef_zeros``), None without one
+    ef_struct: Optional[Dict[str, Any]] = None
+
+
+# JAX's warning where error feedback is asked for and the schedule cannot
+# carry the residual (``engine.py:512-517``)
+EF_NOT_CARRIED = ("comm_transport.error_feedback: this engine's schedule does not carry "
+                  "the residual state (pipelined micro + overlap planner required); error "
+                  "feedback is active only for explicit TreeComm.scatter(err=...) callers")
 
 
 class DataParallelEngine(DeepSpeedEngine):
@@ -699,7 +770,8 @@ class DataParallelEngine(DeepSpeedEngine):
                  topology: Optional[MeshTopology] = None):
         config = config or DeepSpeedConfig(config_dict or {})
         self.topology = topology if topology is not None else MeshTopology(config.topology)
-        n = self.topology.data_parallel_size
+        self.n_dp = n = self.topology.data_parallel_size
+        self.rank = self.topology.rank
         self.sp = self.topology.sequence_parallel_size
         if getattr(model.config, "moe", None) is not None and n > 1:
             raise NotImplementedError(MOE_DATA_PARALLEL)
@@ -723,13 +795,22 @@ class DataParallelEngine(DeepSpeedEngine):
             torch.cuda.set_device(device)
         super().__init__(model, config=config, seed=seed, init_params=init_params,
                          device=device)
-        self._stage3_overlap, self._overlap_active, self._overlap_fallback = overlap_route(
-            config.zero_config, model, self.zero_plan.shapes, self.n_dp,
-            pure_data=self.sp == 1)
+        self._stage3_overlap, self._overlap_active, self._overlap_fallback = self._route()
         if self._overlap_fallback and self.rank == 0:
             logger.info(f"zero overlap_comm: falling back to the barrier schedule "
                         f"({self._overlap_fallback})")
         self._sched = self._build_overlap() if self._overlap_active else None
+        # the error-feedback residuals, carried from micro step to micro step
+        # (optimizer steps included) where the schedule carries them
+        self._ef_carry_active = self._sched is not None and self._sched.ef_struct is not None
+        self._ef_state = None
+        if dist.transport_config()["error_feedback"] and not self._ef_carry_active:
+            logger.warning(EF_NOT_CARRIED)
+
+    def _route(self) -> Tuple[bool, bool, str]:
+        """``overlap_route`` of this engine's micro step."""
+        return overlap_route(self.config.zero_config, self.model, self.zero_plan.shapes,
+                             self.n_dp, pure_data=self.sp == 1)
 
     def _build_overlap(self) -> _OverlapSchedule:
         """The overlap schedule's plan and launch sets (JAX
@@ -784,9 +865,31 @@ class DataParallelEngine(DeepSpeedEngine):
             logger.info(f"zero overlap schedule ({'plan: ' + plan.summary() if planned else 'hand'}"
                         f"): {L} layers x {lps}/step; {blk_comm.plan_summary()}; "
                         + "; ".join(cm.plan_summary() for cm in rest_comms))
+        # the error-feedback carry (JAX ``engine.py:1656-1693``): a residual a
+        # block reduction launch for each step, and one a rest launch
+        ef_struct = None
+        if planned and plan.carry_error_feedback and dist.transport_config()["error_feedback"]:
+            keys = ("rest_embed", "rest_head") if split else ("rest",)
+            ef_struct = {"blocks": [blk_comm.err_struct() for _ in range(L // lps)],
+                         **{k: cm.err_struct() for k, cm in zip(keys, rest_comms)}}
+            n_slots = sum(s is not None for slots in [*ef_struct["blocks"], *(
+                ef_struct[k] for k in keys)] for s in slots)
+            if not n_slots:
+                ef_struct = None   # no int8 bucket with a shard dim
+            elif self.rank == 0:
+                logger.info(f"zero overlap schedule: error-feedback residuals ride the "
+                            f"micro-step carry ({n_slots} slots)")
         return _OverlapSchedule(plan=plan, lps=lps, depth=plan.prefetch_depth if planned else 1,
                                 blk_names=blk_names, blk_comm=blk_comm, rest_comms=rest_comms,
-                                split=split)
+                                split=split, ef_struct=ef_struct)
+
+    def _ef_zeros(self) -> Dict[str, Any]:
+        """The error-feedback carry's first state: a zero residual a slot
+        (fp32 on the engine's device), None where feedback does not apply."""
+        zeros = lambda slots: [None if s is None else torch.zeros(
+            s, dtype=torch.float32, device=self.device) for s in slots]
+        return {k: ([zeros(slots) for slots in v] if k == "blocks" else zeros(v))
+                for k, v in self._sched.ef_struct.items()}
 
     # -- state -------------------------------------------------------------------
     def _init_state(self, seed: int, init_params) -> None:
@@ -794,8 +897,7 @@ class DataParallelEngine(DeepSpeedEngine):
         if self.optimizer.name == "lamb" and zc.stage >= 1:
             raise NotImplementedError("LAMB over sharded optimizer state needs each leaf's "
                                       "global norm: ROADMAP A6")
-        self.n_dp = n = self.topology.data_parallel_size
-        self.rank = r = self.topology.rank
+        n, r = self.n_dp, self.rank
         self._place_model(seed, init_params)
         self.params = dict(self.model.named_parameters())
         self.zero_plan = ZeroPartitionPlan(zc, {k: p.shape for k, p in self.params.items()}, n)
@@ -964,8 +1066,17 @@ class DataParallelEngine(DeepSpeedEngine):
         embed side's after the embedding's backward, and the deferred
         replicated block gradients in one fused all-reduce at the end. Each
         reduced shard is added to the accumulation buffer, as the barrier
-        schedule does; the loss scale is applied to the loss, as there."""
+        schedule does; the loss scale is applied to the loss, as there.
+
+        With the error-feedback carry, every reduction takes its residual
+        slot of ``_ef_state`` (zeros at the first micro step) and the new
+        residuals replace the state after the step; no optimizer step resets
+        it, so the quantization error telescopes over accumulation windows."""
         sch, model = self._sched, self.model
+        if self._ef_carry_active and self._ef_state is None:
+            self._ef_state = self._ef_zeros()
+        ef = self._ef_state if self._ef_carry_active else None
+        new_ef = {}
         lps, blk, names = sch.lps, sch.blk_comm, sch.blk_names
         labels = model.derive_labels(batch)
         rest_comms = sch.rest_comms
@@ -980,26 +1091,34 @@ class DataParallelEngine(DeepSpeedEngine):
             return dist.Pending([h], lambda r: [{k: r[0][i][j] for i, k in enumerate(names)}
                                                 for j in range(lps)])
 
-        def scatter(s, grads):
+        def scatter(s, grads, err=None):
             gs = [grads[0][k].unsqueeze(0) if lps == 1 else torch.stack([g[k] for g in grads])
                   for k in names]
-            h = blk.scatter(gs)
+            h = blk.scatter(gs) if err is None else blk.scatter(gs, err=err)
 
             def accumulate(r):
+                shards, new_err = r[0] if err is not None else (r[0], None)
                 for i, k in enumerate(names):
                     for j, l in enumerate(range(s * lps, (s + 1) * lps)):
                         if i in blk.deferred_leaves:
-                            deferred.append((f"blocks.{l}.{k}", r[0][i][j]))
+                            deferred.append((f"blocks.{l}.{k}", shards[i][j]))
                         else:
-                            self._accumulate([f"blocks.{l}.{k}"], [r[0][i][j]])
+                            self._accumulate([f"blocks.{l}.{k}"], [shards[i][j]])
+                return new_err
             return dist.Pending([h], accumulate)
+
+        def scatter_rest(comm, key, grads):
+            # a rest launch set's reduction: ``(shards, new residuals)`` when carried
+            if ef is None:
+                return dist.Pending([comm.scatter(grads)], lambda r: (r[0], None))
+            return comm.scatter(grads, err=ef[key])
 
         x0, rope, seg = model.embed_inputs(batch["input_ids"], batch.get("token_type_ids"),
                                            batch.get("attention_mask"))
         x_out, aux_sum, pullback = model.scan_blocks_pipelined(
             x0.detach(), rope, seg, gather=gather, scatter=scatter,
             keep=batch.get("layer_mask"), layers_per_step=lps, prefetch_depth=sch.depth,
-            comm_edge=blk.schedule_class)
+            comm_edge=blk.schedule_class, scatter_err=None if ef is None else ef["blocks"])
         if sch.split:
             self._bind_rest(rest_comms[1], handles[0])
         x_out.requires_grad_(True)
@@ -1015,13 +1134,22 @@ class DataParallelEngine(DeepSpeedEngine):
                              else torch.zeros_like(self.params[k]))
         if sch.split:   # the head side's reductions hide under the blocks' backward
             head_comm = rest_comms[1]
-            head_red = head_comm.scatter([grad_of(k) for k in head_comm.names])
+            head_red = scatter_rest(head_comm, "rest_head",
+                                    [grad_of(k) for k in head_comm.names])
         dx0 = pullback(x_out.grad, daux)
+        if ef is not None:
+            dx0, new_ef["blocks"] = dx0
         x0.backward(dx0)
         last = rest_comms[0]
-        self._accumulate(last.names, last.scatter([grad_of(k) for k in last.names]).wait())
+        shards, new_ef["rest_embed" if sch.split else "rest"] = scatter_rest(
+            last, "rest_embed" if sch.split else "rest",
+            [grad_of(k) for k in last.names]).wait()
+        self._accumulate(last.names, shards)
         if sch.split:
-            self._accumulate(head_comm.names, head_red.wait())
+            shards, new_ef["rest_head"] = head_red.wait()
+            self._accumulate(head_comm.names, shards)
+        if ef is not None:
+            self._ef_state = new_ef
         if deferred:
             with blk.schedule_class(False):
                 self._accumulate([k for k, _ in deferred],
@@ -1100,3 +1228,119 @@ class DataParallelEngine(DeepSpeedEngine):
             out[k] = (p.detach() if d is None else
                       dist.all_gather(self.param_shards[k].movedim(d, 0)).movedim(0, d))
         return out
+
+
+class _OnebitStep:
+    """The engine of the 1-bit optimizers (JAX ``_build_onebit_jits``,
+    ``engine.py:1213-1300``), over ``DeepSpeedEngine`` on one rank
+    (``OnebitEngine``) or ``DataParallelEngine`` on a world
+    (``OnebitDataParallelEngine``): pure data parallelism, whatever the
+    ZeRO stage (JAX ``_onebit_state_shardings``, ``:675-695``): params, the
+    fp32 master and the moments replicated, the gradients and the worker /
+    server errors a rank's own. A micro step keeps its gradients local (the
+    one-rank step on this rank's rows; the reported loss the mean over the
+    ranks); the apply step unscales them, takes the fp16 overflow flag as a
+    max over the ranks, reports the gradient norm as ``sqrt(mean over ranks
+    of the local sums of squares)``, clips nothing (as in JAX), and
+    ``update`` steps the state on the JAX tree's leaves (``_onebit_leaves``:
+    each path's port parameters and layers), each leaf's new master cast
+    back into its params at once."""
+
+    def _build_optimizer(self, config: DeepSpeedConfig):
+        # fp32 state whatever data_types says, as in JAX
+        return build_optimizer(config.optimizer)
+
+    def _init_state(self, seed: int, init_params) -> None:
+        if self.topology is not None and self.topology.sequence_parallel_size > 1:
+            raise ValueError("1-bit optimizers support pure data parallelism (the reference's "
+                             f"supported regime); got {self.topology}")
+        self._place_model(seed, init_params)
+        self.params = dict(self.model.named_parameters())
+        groups: Dict[str, List[Tuple[JaxLeaf, str]]] = {}
+        for n, p in self.params.items():
+            jl = jax_leaf(n, p.dim())
+            groups.setdefault(jl.path, []).append((jl, n))
+        self._onebit_leaves = {path: sorted(groups[path], key=lambda m: m[0].layer or 0)
+                               for path in sorted(groups)}
+        self._init_opt_state()
+
+    def _init_opt_state(self) -> None:
+        """The optimizer's state from the params as they are."""
+        self.opt_state = self.optimizer.init(
+            {path: to_jax_leaf([(jl, self.params[n]) for jl, n in members])
+             for path, members in self._onebit_leaves.items()})
+
+    def _route(self) -> Tuple[bool, bool, str]:
+        return False, False, ""   # local gradients: no ZeRO schedule
+
+    def _apply_from_grads(self, grads: Dict[str, torch.Tensor], lr: float):
+        scale = self.loss_scale_state["cur_scale"]
+        overflow = self._overflow(grads) if self.config.fp16.enabled else False
+        inv = self._scalar(0.0 if overflow else float(np.float32(1.0) / np.float32(scale)))
+        local = torch.stack([(g.float() * inv).square().sum() for g in grads.values()]).sum()
+        gnorm = torch.sqrt(dist.all_reduce(local, dist.ReduceOp.AVG))
+        if not overflow:
+            def write_back(path, master):
+                for jl, n in self._onebit_leaves[path]:
+                    self.params[n].data.copy_(
+                        jl.swap_layout(master[jl.layer] if jl.layer is not None else master))
+
+            with torch.no_grad():
+                self.optimizer.update(_JaxGrads(self._onebit_leaves, grads, inv), self.opt_state,
+                                      lr, write_back=write_back)
+        self._update_loss_scale(overflow)
+        return overflow, gnorm
+
+    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return DeepSpeedEngine.forward(self, batch)
+
+    @torch.no_grad()
+    def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+        set_topology(self.topology)
+        return self._global_loss(self.model.loss(self._prepare_batch(batch)))
+
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        return {n: p.detach() for n, p in self.params.items()}
+
+    def _tag_leaves(self) -> Dict[str, _TagLeaf]:
+        """The tag of JAX's ``_onebit_state_shardings``: the params, the
+        optimizer's master, moments and ``lamb_coeff`` whole (rank 0 writes
+        them), and per rank, as rows of a leading axis of the data ranks,
+        the local gradient accumulators (zeros between steps at one micro
+        step a step, where the port keeps none) and the worker and server
+        errors."""
+        _, n = self._rank_and_world()
+        out: Dict[str, _TagLeaf] = {}
+        for path, members in self._onebit_leaves.items():
+            leaves = [jl for jl, _ in members]
+            shape = tuple(self.params[members[0][1]].shape)
+            out[f"params/{path}"] = _TagLeaf(
+                leaves, [self.params[k].detach() for _, k in members], None, shape)
+            acc = [self.grad_acc[k] if self.grad_acc else
+                   torch.zeros(shape, dtype=self.grad_dtype, device=self.device)
+                   for _, k in members]
+            out[f"grad_acc/{path}"] = _TagLeaf(leaves, acc, None, shape, ranks=n)
+        for slot, leaves in self.opt_state.items():
+            if not isinstance(leaves, dict):
+                continue
+            for path, t in leaves.items():
+                out[f"opt/{slot}/{path}"] = _TagLeaf(
+                    [JaxLeaf(path, None, False)], [t], None, tuple(t.shape),
+                    ranks=n if slot in ("worker_error", "server_error") else 0)
+        return out
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True
+                        ) -> Tuple[Optional[str], Dict[str, Any]]:
+        tag, client_state = super().load_checkpoint(load_dir, tag, load_optimizer_states)
+        if tag is not None and not load_optimizer_states:
+            self._init_opt_state()   # afresh from the loaded params
+        return tag, client_state
+
+
+class OnebitEngine(_OnebitStep, DeepSpeedEngine):
+    """A 1-bit optimizer's engine on one rank (``_OnebitStep``)."""
+
+
+class OnebitDataParallelEngine(_OnebitStep, DataParallelEngine):
+    """A 1-bit optimizer's engine on a data-parallel world (``_OnebitStep``)."""

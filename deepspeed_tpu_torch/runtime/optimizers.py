@@ -19,7 +19,9 @@ with no copy; only a fused bucket's gradients are gathered, and its param
 casts scattered, per step. sgd and adagrad are plain tensor code, as in
 JAX. ``muadam`` / ``muadamw`` step as adam / adamw on the fused Adam
 kernel, as in JAX (whose mu variants keep adam's moments and its update;
-``musgd`` is sgd). The 1-bit variants raise, naming their ROADMAP item.
+``musgd`` is sgd). ``onebit_adam``, ``onebit_lamb`` and ``zero_one_adam``
+build the 1-bit optimizers of ``runtime/fp16/onebit/`` (``build_onebit``),
+which ``OnebitEngine`` steps on the JAX tree's leaves.
 """
 
 from __future__ import annotations
@@ -42,11 +44,7 @@ _FUSED = ("adam", "adamw", "muadam", "muadamw", "lamb", "lion")
 # the fused Adam kernel's mode of each Adam-family optimizer
 _ADAM_MODE = {"adam": "adam", "muadam": "adam", "adamw": "adamw", "muadamw": "adamw",
               "lamb": "lamb"}
-_NOT_PORTED = {
-    "onebit_adam": "ROADMAP A6.3 (1-bit optimizers need the distributed step)",
-    "onebit_lamb": "ROADMAP A6.3 (1-bit optimizers need the distributed step)",
-    "zero_one_adam": "ROADMAP A6.3 (1-bit optimizers need the distributed step)",
-}
+ONEBIT = ("onebit_adam", "onebit_lamb", "zero_one_adam")
 
 
 def _plan_opt_buckets(sizes: List[int], keys: List[str],
@@ -108,9 +106,6 @@ class Optimizer:
     moment_sq_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
-        if self.name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {self.name!r} is not ported: {_NOT_PORTED[self.name]}")
         if self.name not in _FUSED + ("sgd", "adagrad"):
             raise ValueError(f"Unknown optimizer '{self.name}'")
 
@@ -278,15 +273,40 @@ _ALIASES = {
 _PARAM_KEYS = ("lr", "eps", "weight_decay", "momentum", "max_coeff", "min_coeff")
 
 
-def build_optimizer(opt_config) -> Optimizer:
+def is_onebit(opt_config) -> bool:
+    """Whether a config ``optimizer`` block names a 1-bit optimizer."""
+    return opt_config is not None and \
+        _ALIASES.get(opt_config.type.lower().replace("-", "_")) in ONEBIT
+
+
+def build_onebit(name: str, p: Dict[str, Any]):
+    """A 1-bit optimizer from its config params, with the JAX engine's
+    defaults (``_build_onebit_optimizer``)."""
+    from .fp16.onebit import OnebitAdam, OnebitLamb, ZeroOneAdam
+    common = dict(lr=p.get("lr", 1e-3), betas=tuple(p.get("betas", (0.9, 0.999))),
+                  eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0))
+    if name == "onebit_adam":
+        return OnebitAdam(freeze_step=p.get("freeze_step", 100), **common)
+    if name == "onebit_lamb":
+        return OnebitLamb(freeze_step=p.get("freeze_step", 100),
+                          max_coeff=p.get("max_coeff", 10.0), min_coeff=p.get("min_coeff", 0.01),
+                          **common)
+    return ZeroOneAdam(var_freeze_step=p.get("var_freeze_step", 100),
+                       var_update_scaler=p.get("var_update_scaler", 16),
+                       local_step_scaler=p.get("local_step_scaler", 4), **common)
+
+
+def build_optimizer(opt_config):
     """Map a config ``optimizer`` block (``type``, ``params``) to an
-    ``Optimizer`` (the JAX ``build_optimizer``)."""
+    ``Optimizer`` (the JAX ``build_optimizer``), or to a 1-bit optimizer."""
     if opt_config is None:
         return Optimizer(name="adamw")
     name = _ALIASES.get(opt_config.type.lower().replace("-", "_"))
     if name is None:
         raise ValueError(f"Unknown optimizer type '{opt_config.type}'")
     p = dict(opt_config.params)
+    if name in ONEBIT:
+        return build_onebit(name, p)
     kwargs: Dict[str, Any] = {k: p[k] for k in _PARAM_KEYS if k in p}
     if "betas" in p:
         kwargs["betas"] = tuple(p["betas"])

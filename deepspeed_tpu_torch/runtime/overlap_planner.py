@@ -37,8 +37,10 @@ class OverlapPlan:
     (None: the config's), ``split_edge_leaves`` (head-side leaves gathered
     before the forward blocks and scattered before the backward blocks) and
     ``defer_replicated`` (replicated block leaves reduced once, fused, at the
-    micro-step boundary). ``carry_error_feedback`` is the JAX plan's flag
-    for error feedback, which waits for ROADMAP A6.2."""
+    micro-step boundary). ``carry_error_feedback``: the error-feedback
+    residuals ride the micro-step carry where ``comm_transport.
+    error_feedback`` asks for them (``DataParallelEngine._build_overlap``);
+    the identity plan carries none."""
     entry: str
     placement: str = PLACEMENT_INLINE
     prefetch_depth: int = 0

@@ -23,6 +23,12 @@ layer *l* computes and reduce-scatters layer *l*'s gradients while layer
   schedule issues and computes on. ``flush_deferred`` reduces the
   replicated leaves that ``scatter`` left local, one fused all-reduce per
   dtype at the micro-step boundary (the planner's ``defer_replicated``).
+- Error feedback (``comm_transport.error_feedback``): ``err_struct`` gives
+  one residual slot a scatter launch (its shape, None where feedback does
+  not apply); ``scatter(gs, err=slots)`` quantizes each eligible bucket
+  with ``ef_quantized_reduce_scatter`` and its handle gives ``(shards,
+  new_slots)``. Feedback applies to the flat int8 wire of a bucket whose
+  leaves have a shard dim and that is not split into chunks.
 - Every launch is recorded with ``comm.record_collective`` (logical and
   wire bytes) under the tree's schedule class, overlapped or exposed;
   ``schedule_class`` overrides it for the schedule's edge launches (the
@@ -34,9 +40,8 @@ layer *l* computes and reduce-scatters layer *l*'s gradients while layer
 A leaf list here is one schedule step's leaves in flatten order, each a
 tensor ``[lps, *leaf shape]`` (the step's layers stacked, ``lps`` 1 or 2),
 described by its shard dim in that view (None: replicated over the data
-ranks). Not ported: error feedback (the JAX ``err`` argument and
-``err_struct``, ROADMAP A6.2) and the hierarchical scatter, which needs a
-second live data axis (hpZ / MiCS) and is never chosen on the port's one.
+ranks). Not ported: the hierarchical scatter, which needs a second live
+data axis (hpZ / MiCS) and is never chosen on the port's one.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ import numpy as np
 import torch
 
 from ...comm import comm as dist
-from ...ops.quantizer.quantizer import (fp8_all_gather_start, fp8_reduce_scatter_start,
+from ...ops.quantizer.quantizer import (ef_quantized_reduce_scatter_start,
+                                        fp8_all_gather_start, fp8_reduce_scatter_start,
                                         gather_in_row_chunks_start,
                                         quantized_all_gather_start,
                                         quantized_reduce_scatter_start,
@@ -268,8 +274,20 @@ class TreeComm:
         every other wire reduces in fp32."""
         return g if tp.width == dist.WIDTH_INT8 else g.float()
 
-    def _start_scatter(self, x: torch.Tensor, tp, chunks: int = 1):
+    def _ef_applies(self, tp) -> bool:
+        """Error feedback compensates the flat int8 wire (a hierarchical
+        plan keeps the plain quantizer, as in JAX; the port never plans
+        one)."""
+        return tp.error_feedback and tp.width == dist.WIDTH_INT8 \
+            and tp.algo != dist.ALGO_HIERARCHICAL
+
+    def _start_scatter(self, x: torch.Tensor, tp, chunks: int = 1, err=None):
+        """Launch one reduction; with ``err`` (an eligible bucket's
+        residual) the handle gives ``(shard, new_err)``."""
         g = self.group
+        if err is not None:
+            return ef_quantized_reduce_scatter_start(x, err, g, group_size=tp.group_size,
+                                                     out_dtype=torch.float32)
         if tp.width == dist.WIDTH_INT8:
             return quantized_reduce_scatter_start(x, g, group_size=tp.group_size,
                                                   n_chunks=chunks, out_dtype=torch.float32)
@@ -280,19 +298,35 @@ class TreeComm:
                                                x, self.n_dp, chunks)
         return dist.reduce_scatter_async(x, group=g)
 
-    def _scatter_one(self, g: torch.Tensor, lc: LeafComm, chunks: int, tp):
+    @staticmethod
+    def _split_err(r, err):
+        """A reduction's result and its new residual (None without one)."""
+        return r if err is not None else (r, None)
+
+    def _scatter_one(self, g: torch.Tensor, lc: LeafComm, chunks: int, tp, err=None):
+        """One leaf's reduction; the handle gives ``(shard, new_err)``
+        (``new_err`` None unless ``err`` was given to an eligible leaf)."""
         if lc.dim is None:
             if self.defer_replicated:
-                return dist.ready(g)
+                return dist.ready((g, None))
             self._rec("all_reduce", g.numel() * g.element_size())
             h = dist.all_reduce_async(g, group=self.group)
-            return dist.Pending([h], lambda r: r[0] / self.n_dp)
+            return dist.Pending([h], lambda r: (r[0] / self.n_dp, None))
         op = "all_to_all" if tp.quantized else "reduce_scatter"
         self._rec(op, g.numel() * 4, tp, g.numel())
-        h = self._start_scatter(self._wire_input(g, tp).movedim(lc.dim, 0), tp, chunks)
-        return dist.Pending([h], lambda r: r[0].movedim(0, lc.dim) / self.n_dp)
+        err = err if self._ef_applies(tp) and chunks <= 1 else None
+        h = self._start_scatter(self._wire_input(g, tp).movedim(lc.dim, 0), tp, chunks, err)
 
-    def _scatter_fused(self, gs, lcs, tp):
+        def finish(r):
+            out, new_err = self._split_err(r[0], err)
+            return out.movedim(0, lc.dim) / self.n_dp, new_err
+
+        return dist.Pending([h], finish)
+
+    def _scatter_fused(self, gs, lcs, tp, err=None):
+        """A fused bucket's reduction; the handle gives ``(shards,
+        new_err)``, the residual flat over the bucket's destination-major
+        buffer."""
         n = self.n_dp
         cols, meta = [], []
         for g, lc in zip(gs, lcs):
@@ -308,40 +342,74 @@ class TreeComm:
         buf = torch.cat(cols, dim=1).reshape(-1)
         op = "all_to_all" if tp.quantized else "reduce_scatter"
         self._rec(op, buf.numel() * 4, tp, buf.numel())
-        h = self._start_scatter(buf, tp)
+        err = err if self._ef_applies(tp) else None
+        h = self._start_scatter(buf, tp, err=err)
 
         def split(r):
+            red, new_err = self._split_err(r[0], err)
             outs, off = [], 0
             for lc, (rest_shape, k, kp) in zip(lcs, meta):
-                seg = r[0][off:off + k].reshape(rest_shape)
+                seg = red[off:off + k].reshape(rest_shape)
                 off += kp
                 outs.append(seg.movedim(0, lc.dim) / n)
-            return outs
+            return outs, new_err
 
         return dist.Pending([h], split)
 
-    def scatter(self, gs: Sequence[torch.Tensor]):
+    def err_struct(self) -> List[Optional[Tuple[int, ...]]]:
+        """The error-feedback residual of each scatter launch: its shape
+        (fp32), or None where feedback does not apply (a full-width, fp8,
+        replicated or chunked bucket). A lone leaf's residual is the leaf
+        with its shard dim first; a fused bucket's is flat, ``n`` times the
+        sum of its leaves' padded shard sizes. The caller owns the state:
+        zeros first, then what ``scatter(..., err=)`` gives back."""
+        out: List[Optional[Tuple[int, ...]]] = []
+        for entry, tp in zip(self.scatter_plan, self.scatter_tp):
+            lcs = [self.scomms[i] for i in entry.leaves]
+            if lcs[0].dim is None or not self._ef_applies(tp) or entry.chunks > 1:
+                out.append(None)
+            elif len(lcs) == 1:
+                lc = lcs[0]
+                out.append((lc.shape[lc.dim],) + tuple(s for d, s in enumerate(lc.shape)
+                                                         if d != lc.dim))
+            else:
+                n = self.n_dp
+                out.append((n * sum(_pad_rows(int(np.prod(lc.shape)) // n, tp.quantized)
+                                    for lc in lcs),))
+        return out
+
+    def scatter(self, gs: Sequence[torch.Tensor], err: Optional[Sequence] = None):
         """Launch the reductions of the gradient list ``gs`` (full leaves);
         the handle's ``wait()`` gives this rank's fp32 shards divided by the
         data-parallel size (a replicated leaf whole and reduced, or local
-        where deferred)."""
+        where deferred). With ``err`` (a residual a launch, as
+        ``err_struct`` shapes them) the eligible buckets are compensated and
+        ``wait()`` gives ``(shards, new_err)``; an eligible slot given None
+        comes back as zeros, an ineligible one as None."""
         parts, where = [], []
-        for entry, tp in zip(self.scatter_plan, self.scatter_tp):
+        for j, (entry, tp) in enumerate(zip(self.scatter_plan, self.scatter_tp)):
+            e_in = err[j] if err is not None else None
             if len(entry.leaves) == 1:
                 i = entry.leaves[0]
-                parts.append(self._scatter_one(gs[i], self.scomms[i], entry.chunks, tp))
+                parts.append(self._scatter_one(gs[i], self.scomms[i], entry.chunks, tp, e_in))
                 where.append((i,))
             else:
                 lcs = [self.scomms[i] for i in entry.leaves]
-                parts.append(self._scatter_fused([gs[i] for i in entry.leaves], lcs, tp))
+                parts.append(self._scatter_fused([gs[i] for i in entry.leaves], lcs, tp, e_in))
                 where.append(entry.leaves)
 
         def place(results):
-            outs = [None] * len(gs)
-            for leaves, r in zip(where, results):
+            outs, new_errs = [None] * len(gs), []
+            for leaves, (r, ne) in zip(where, results):
                 for i, o in zip(leaves, r if len(leaves) > 1 else [r]):
                     outs[i] = o
-            return outs
+                new_errs.append(ne)
+            if err is None:
+                return outs
+            dev = gs[0].device
+            return outs, [torch.zeros(s, dtype=torch.float32, device=dev)
+                          if ne is None and s is not None else ne
+                          for ne, s in zip(new_errs, self.err_struct())]
 
         return dist.Pending(parts, place)
 

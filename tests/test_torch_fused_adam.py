@@ -202,11 +202,12 @@ def test_optimizer_buckets_match_pallas(name, moments):
 
 def test_unported_optimizers_raise():
     """muadam / muadamw build (as adam / adamw on the fused kernel, and
-    musgd as sgd); unknown names and the 1-bit family still raise."""
+    musgd as sgd); unknown names still raise; the 1-bit family builds its
+    own optimizers (``runtime/fp16/onebit``) with the JAX defaults."""
     C = lambda t: type("C", (), {"type": t, "params": {"lr": 1e-3}})()
     assert [topt.build_optimizer(C(t)).name for t in ("MuAdam", "MuAdamW", "MuSGD")] == \
         ["muadam", "muadamw", "sgd"]
     with pytest.raises(ValueError, match="Unknown optimizer"):
         topt.Optimizer(name="lion8bit")
-    with pytest.raises(NotImplementedError, match="A6"):
-        topt.build_optimizer(type("C", (), {"type": "OneBitAdam", "params": {}})())
+    onebit = topt.build_optimizer(type("C", (), {"type": "OneBitAdam", "params": {}})())
+    assert (onebit.name, onebit.freeze_step, onebit.lr) == ("onebit_adam", 100, 1e-3)

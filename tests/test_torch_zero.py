@@ -122,7 +122,7 @@ def test_topology_rows_and_axes():
      "A6 \\(hpZ"),
     ("zero_optimization", {"stage": 3, "mics_shard_size": 2}, "A6 \\(MiCS"),
     ("zero_optimization", {"stage": 3, "offload_param": {"device": "cpu"}}, "A9"),
-    ("comm_transport", {"error_feedback": True}, "A6.2 \\(error feedback"),
+    ("zero_optimization", {"stage": 2, "offload_optimizer": {"device": "cpu"}}, "A9"),
     ("comm_transport", {"hierarchical": False}, "A6 \\(the algorithm"),
     ("topology", {"data": 2, "model": 2}, "A6 \\(tensor"),
     ("topology", {"expert": 2}, "A7"),
@@ -132,6 +132,31 @@ def test_topology_rows_and_axes():
 def test_configs_outside_the_slice_raise(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.DeepSpeedConfig({key: value})
+
+
+# keys that raised until the error-feedback and 1-bit slice
+@pytest.mark.parametrize("key,value", [
+    ("comm_transport", {"error_feedback": True}),
+    ("optimizer", {"type": "onebit_adam", "params": {"lr": 1e-3}}),
+    ("optimizer", {"type": "OneBitLamb", "params": {"lr": 1e-3}}),
+    ("optimizer", {"type": "zero_one_adam", "params": {"lr": 1e-3}}),
+])
+def test_error_feedback_and_the_onebit_optimizers_are_accepted(key, value):
+    """The config takes them and ``initialize`` builds an engine that
+    trains a step on one rank (the 1-bit optimizers as the JAX engine builds
+    them, on the JAX tree's leaves)."""
+    import torch
+    from deepspeed_tpu_torch.models import llama_model
+    config = {"train_micro_batch_size_per_gpu": 2, key: value}
+    deepspeed_tpu_torch.DeepSpeedConfig(config)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=llama_model("llama2-tiny", dtype=torch.float32, num_layers=1), config=config,
+        device="cpu")
+    loss = float(engine.train_batch({"input_ids": np.zeros((2, 8), dtype=np.int64)}))
+    assert np.isfinite(loss)
+    if key == "optimizer":
+        assert engine.optimizer.name in ("onebit_adam", "onebit_lamb", "zero_one_adam")
+        assert engine.opt_state["step"] == 1 and "worker_error" in engine.opt_state
 
 
 # keys that raised until the overlap schedule's slice, and what they do now
